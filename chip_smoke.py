@@ -10,15 +10,23 @@ toolkit. Phases, each fatal on failure:
    (one nvcc per source, all at once) and print the card's name and power
    limit;
 2. kernels - each kernel against its plain PyTorch version on the card at the
-   shapes the video-QA path gives it, with its time, the plain version's, one
-   PyTorch library call's (a yardstick the port never calls) and the bound;
+   shapes the video-QA paths give it, with its time, the plain version's, one
+   PyTorch library call's where one computes the same function (a yardstick
+   the port never calls) and the bound;
 3. slice  - the QA config (config/instructblipbase_stllm_qa.yaml: EVA-ViT-g +
    BTAdapter, InstructBLIP Q-Former, Vicuna-7B, bf16, 16 frames, video_input
    all) at full width with random weights from a seed, served by
    VideoQAServer(slots=4, max_len=1024) for 6 requests; every request must
    get tokens and the kernel counters must show the kernels ran (45
    packed-qkv launches per video); a tiny bf16 model must encode the same
-   video on the card and on the CPU to within the bf16 tolerance.
+   video on the card and on the CPU to within the bf16 tolerance;
+4. int8   - the same config with quant_int8 (dynamic W8A8) serves the same
+   6 requests (per video: 78 LayerNorm-quant, 39 GELU-quant, 39 quant-epilogue
+   attention and 6 bf16 attention launches), calibrate_btadapter_scales runs
+   on one 16-frame clip (78, 39, 39 and 39 static-int8 attention launches),
+   and the static-int8 model serves them again (42 static-int8 attention
+   launches per video, nothing else); a tiny bf16 int8 model, dynamic and
+   static, must encode one video on the card and on the CPU alike.
 
 Then it prints a ``{"kernels": [...]}`` line, the nvidia-smi line and, last,
 ``{"ok": true, "device": {...}}``. Without a CUDA card it exits non-zero and
@@ -27,6 +35,7 @@ prints no result.
 
 from __future__ import annotations
 
+import gc
 import json
 import subprocess
 import sys
@@ -38,14 +47,60 @@ import torch
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM, published
 BF16_FLOP_PER_S = 989e12       # H100 SXM dense bf16, published
+INT8_OP_PER_S = 1979e12        # H100 SXM dense int8, published
+FP32_FLOP_PER_S = 67e12        # H100 SXM fp32 outside the tensor cores, published
 BF16_ATOL = BF16_RTOL = 3e-2   # bf16 attention tolerance of tests/test_ops.py
+INT8_ATOL = INT8_RTOL = 3e-2   # dequantized int8 outputs; codes at most 1 step apart
+INT8_TINY_REL = 5e-2           # tiny int8 encode, card vs CPU, relative L2
+# estimated fp32 operations per element of the row kernels (mean, variance,
+# normalize, affine, amax, divide, round; GELU adds its erf or tanh)
+LN_OPS_PER_ELEM, GELU_OPS_PER_ELEM = 10, 25
 NUM_REQUESTS, FRAMES, PREFIX_LEN, SUFFIX_LEN, Q_LEN, MAX_NEW = 6, 16, 40, 20, 12, 32
+ROOT = Path(__file__).resolve().parent
+TRUNK = (16, 257, 16, 88)      # the ViT-g trunk and BTAdapter spatial shape
+
+# per-video launches of each int8 path (39 trunk blocks, 3 branch layers)
+DYNAMIC_PER_VIDEO = {"layer_norm_quant": 78, "gelu_quant": 39,
+                     "packed_qkv_attention_quant": 39, "packed_qkv_attention": 6,
+                     "packed_qkv_attention_s8": 0}
+CALIBRATION = {"layer_norm_quant": 78, "gelu_quant": 39, "packed_qkv_attention_quant": 39,
+               "packed_qkv_attention_s8": 39, "packed_qkv_attention": 0}
+STATIC_PER_VIDEO = {"layer_norm_quant": 0, "gelu_quant": 0, "packed_qkv_attention_quant": 0,
+                    "packed_qkv_attention": 0, "packed_qkv_attention_s8": 42}
 
 
 def smi_line() -> str:
     return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60).stdout.strip().splitlines()[0]
+
+
+def graph_ms(fn, iters: int, replays: int = 5) -> float:
+    """Mean device time of fn() over ``iters`` calls captured in one CUDA
+    graph, replayed ``replays`` times and timed by CUDA events: the host's
+    per-call cost (argument checks, allocation, the launch) stays out, so a
+    short kernel is timed and not the Python that launches it."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end) / (replays * iters)
+    del graph
+    return ms
 
 
 def cuda_ms(fn, iters: int, warmup: int = 3) -> float:
@@ -73,69 +128,183 @@ def phase_build(kernels) -> None:
     print(f"[build] card: {smi_line()}")
 
 
-def phase_kernels(kernels) -> dict:
-    """packed_qkv_attention against its plain version at the ViT trunk and
-    spatial shape, the BTAdapter temporal shape and a ragged one."""
-    import torch.nn.functional as F
+# ---------------------------------------------------------------------------
+# kernels phase
+# ---------------------------------------------------------------------------
 
-    shapes = [(16, 257, 16, 88), (256, 16, 16, 88), (3, 37, 4, 88)]
-    gen = torch.Generator(device="cuda").manual_seed(0)
-    per_shape = []
-    for b, s, h, d in shapes:
-        width = h * d
-        # LN-normalized activations times 0.02-std weights, as the qkv
-        # projection makes them; four copies cycle so each timed launch
-        # reads an input the 50 MB L2 does not hold
-        bufs = []
-        for _ in range(4):
-            x = torch.randn(b, s, width, generator=gen, device="cuda")
-            w = torch.randn(width, 3 * width, generator=gen, device="cuda") * 0.02
-            bufs.append((x @ w).to(torch.bfloat16).contiguous())
-        qkv = bufs[0]
-        scale = d ** -0.5
-        got = kernels.packed_qkv_attention(qkv, h, d, scale)
+def _bound(nbytes: float, ops_s: float) -> dict:
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops_s * 1e3
+    return {"bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def _bf16_err(got, want) -> float:
+    err = (got.float() - want.float()).abs()
+    ok = bool((err <= BF16_ATOL + BF16_RTOL * want.float().abs()).all())
+    if not ok or not bool(torch.isfinite(got.float()).all()):
+        raise AssertionError(f"max abs err {float(err.max())} outside atol=rtol={BF16_ATOL}")
+    return float(err.max())
+
+
+def _int8_err(got, want) -> float:
+    """Codes at most one step apart, dequantized values within the int8
+    tolerance; returns the max abs error of the dequantized outputs."""
+    (gq, gs), (wq, ws) = got, want
+    if gq.dtype != torch.int8 or gq.shape != wq.shape or gs.shape != ws.shape:
+        raise AssertionError(f"int8 output {gq.dtype} {tuple(gq.shape)} {tuple(gs.shape)}")
+    steps = int((gq.int() - wq.int()).abs().max())
+    g, w = gq.float() * gs, wq.float() * ws
+    err = (g - w).abs()
+    ok = bool((err <= INT8_ATOL + INT8_RTOL * w.abs()).all()) and bool(torch.isfinite(gs).all())
+    if steps > 1 or not ok:
+        raise AssertionError(f"codes {steps} steps apart, max abs err {float(err.max())} "
+                             f"outside atol=rtol={INT8_ATOL}")
+    return float(err.max())
+
+
+def _check_kernel(name: str, cases, kernel, plain, err_fn, library=None) -> list:
+    """Each case: (label, [4 input tuples], bytes, ops time in s). The kernel
+    is held to its plain version on the first inputs, then timed cycling the
+    four copies so that each launch reads inputs the 50 MB L2 does not hold:
+    ``ms`` by CUDA-graph replay, ``ms_stream`` launched one by one from
+    Python (where short kernels measure the host)."""
+    rows = []
+    for label, bufs, nbytes, ops_s in cases:
+        got = kernel(*bufs[0])
         torch.cuda.synchronize()
-        want = kernels.packed_qkv_attention_plain(qkv, h, d, scale)
-        err = (got.float() - want.float()).abs()
-        max_err = float(err.max())
-        ok = bool((err <= BF16_ATOL + BF16_RTOL * want.float().abs()).all())
-        if not ok or not bool(torch.isfinite(got).all()):
-            raise AssertionError(f"packed_qkv_attention {(b, s, h, d)}: max abs err "
-                                 f"{max_err} outside atol=rtol={BF16_ATOL}")
+        max_err = err_fn(got, plain(*bufs[0]))
         it = iter(range(1 << 30))
 
         def nxt():
             return bufs[next(it) % len(bufs)]
 
-        ms = cuda_ms(lambda: kernels.packed_qkv_attention(nxt(), h, d, scale), 40)
-        plain_ms = cuda_ms(lambda: kernels.packed_qkv_attention_plain(nxt(), h, d, scale), 5)
+        row = {"shape": label, "max_abs_err": max_err,
+               "ms": graph_ms(lambda: kernel(*nxt()), 40),
+               "plain_ms": graph_ms(lambda: plain(*nxt()), 8),
+               "library_ms": graph_ms(lambda: library(*nxt()), 40) if library else None,
+               "ms_stream": cuda_ms(lambda: kernel(*nxt()), 40),
+               **_bound(nbytes, ops_s)}
+        rows.append(row)
+        print(f"[kernels] {name} {row}")
+    return rows
 
-        def sdpa():
-            q, k, v = nxt().view(b, s, 3, h, d).unbind(2)
-            return F.scaled_dot_product_attention(
-                q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2))
 
-        library_ms = cuda_ms(sdpa, 40)
-        nbytes = b * s * 3 * width * 2 + b * s * width * 2
+def _entry(name, source, replaces, rows, atol, rtol) -> dict:
+    head = rows[0]
+    return {"name": name, "route": "cuda", "source": f"stllm_tpu_torch/csrc/{source}",
+            "replaces": replaces, "launches": None,
+            "max_abs_err": max(r["max_abs_err"] for r in rows),
+            **{k: head[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+            "shape": head["shape"], "atol": atol, "rtol": rtol, "per_shape": rows}
+
+
+def _qkv_bufs(gen, b, s, h, d):
+    """LN-normalized activations times 0.02-std weights, as the qkv
+    projection makes them; four copies."""
+    width = h * d
+    out = []
+    for _ in range(4):
+        x = torch.randn(b, s, width, generator=gen, device="cuda")
+        w = torch.randn(width, 3 * width, generator=gen, device="cuda") * 0.02
+        out.append((x @ w).to(torch.bfloat16).contiguous())
+    return out
+
+
+def _static_int8(qkv: torch.Tensor):
+    """qkv quantized to static int8 with per-third scales, as the
+    calibrated block does."""
+    b, s, f = qkv.shape
+    thirds = qkv.float().reshape(b, s, 3, f // 3)
+    scales = (thirds.abs().amax(dim=(0, 1, 3)) / 127.0).contiguous()
+    q = torch.clamp(torch.round(thirds / scales[:, None]), -127, 127).to(torch.int8)
+    return q.reshape(b, s, f), scales
+
+
+def phase_kernels(kernels) -> dict:
+    """Every kernel against its plain version at the main-path shapes (the
+    ViT trunk and spatial shape, the BTAdapter temporal shape for the bf16
+    kernel), a ragged shape, and head_dim 24 and 64."""
+    import torch.nn.functional as F
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    attn_shapes = [TRUNK, (3, 37, 4, 88), (2, 37, 4, 24), (2, 130, 3, 64)]
+    out = {}
+
+    # #1 bf16 packed attention, with SDPA as the library yardstick
+    cases = []
+    for b, s, h, d in [TRUNK, (256, 16, 16, 88), (3, 37, 4, 88)]:
+        bufs = [(q, h, d, d ** -0.5) for q in _qkv_bufs(gen, b, s, h, d)]
+        cases.append(([b, s, 3 * h * d], bufs, b * s * 3 * h * d * 2 + b * s * h * d * 2,
+                      4 * b * h * s * s * d / BF16_FLOP_PER_S))
+
+    def sdpa(qkv, h, d, scale):
+        b, s, _ = qkv.shape
+        q, k, v = qkv.view(b, s, 3, h, d).unbind(2)
+        return F.scaled_dot_product_attention(q.transpose(1, 2), k.transpose(1, 2),
+                                              v.transpose(1, 2))
+
+    rows = _check_kernel("packed_qkv_attention", cases, kernels.packed_qkv_attention,
+                         kernels.packed_qkv_attention_plain, _bf16_err, library=sdpa)
+    out["packed_qkv_attention"] = _entry(
+        "packed_qkv_attention", "packed_qkv_attention.cu", "stllm_tpu/ops/attention.py:658",
+        rows, BF16_ATOL, BF16_RTOL)
+
+    # #2 packed attention with the int8 epilogue; #3 on static-int8 qkv.
+    # No single PyTorch call computes either function: library_ms is null.
+    cases2, cases3 = [], []
+    for b, s, h, d in attn_shapes:
+        qkvs = _qkv_bufs(gen, b, s, h, d)
+        out_bytes = b * s * h * d + b * s * 4
         flops = 4 * b * h * s * s * d
-        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / BF16_FLOP_PER_S * 1e3
-        row = {"shape": [b, s, 3 * width], "max_abs_err": max_err, "ms": ms,
-               "plain_ms": plain_ms, "library_ms": library_ms,
-               "bound_ms": max(t_bytes, t_ops),
-               "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
-        per_shape.append(row)
-        print(f"[kernels] packed_qkv_attention {row}")
-    head = per_shape[0]
-    return {"name": "packed_qkv_attention", "route": "cuda",
-            "source": "stllm_tpu_torch/csrc/packed_qkv_attention.cu",
-            "replaces": "stllm_tpu/ops/attention.py:658",
-            "launches": None,
-            "max_abs_err": max(r["max_abs_err"] for r in per_shape),
-            "ms": head["ms"], "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
-            "bound_by": head["bound_by"], "library_ms": head["library_ms"],
-            "shape": head["shape"], "atol": BF16_ATOL, "rtol": BF16_RTOL,
-            "per_shape": per_shape}
+        cases2.append(([b, s, 3 * h * d], [(q, h, d, d ** -0.5) for q in qkvs],
+                       b * s * 3 * h * d * 2 + out_bytes, flops / BF16_FLOP_PER_S))
+        cases3.append(([b, s, 3 * h * d], [(*_static_int8(q), h, d, d ** -0.5) for q in qkvs],
+                       b * s * 3 * h * d + 12 + out_bytes,
+                       flops / 2 / INT8_OP_PER_S + flops / 2 / BF16_FLOP_PER_S))
+    rows = _check_kernel("packed_qkv_attention_quant", cases2,
+                         kernels.packed_qkv_attention_quant,
+                         kernels.packed_qkv_attention_quant_plain, _int8_err)
+    out["packed_qkv_attention_quant"] = _entry(
+        "packed_qkv_attention_quant", "packed_qkv_attention_quant.cu",
+        "stllm_tpu/ops/attention.py:678", rows, INT8_ATOL, INT8_RTOL)
+    rows = _check_kernel("packed_qkv_attention_s8", cases3, kernels.packed_qkv_attention_s8,
+                         kernels.packed_qkv_attention_s8_plain, _int8_err)
+    out["packed_qkv_attention_s8"] = _entry(
+        "packed_qkv_attention_s8", "packed_qkv_attention_s8.cu",
+        "stllm_tpu/ops/attention.py:830", rows, INT8_ATOL, INT8_RTOL)
 
+    # #9 LayerNorm -> int8 and #10 GELU -> int8 over the trunk's rows
+    cases9, cases10 = [], []
+    for b, s in [(16, 257), (3, 37)]:
+        n = b * s
+        bufs = []
+        for _ in range(4):
+            x = (torch.randn(b, s, 1408, generator=gen, device="cuda") * 2 + 0.5).bfloat16()
+            g = (1 + 0.1 * torch.randn(1408, generator=gen, device="cuda")).bfloat16()
+            be = (0.1 * torch.randn(1408, generator=gen, device="cuda")).bfloat16()
+            bufs.append((x, g, be, 1e-6))
+        cases9.append(([b, s, 1408], bufs, n * 1408 * 3 + 2 * 1408 * 2 + n * 4,
+                       n * 1408 * LN_OPS_PER_ELEM / FP32_FLOP_PER_S))
+        xs = [(torch.randn(b, s, 6144, generator=gen, device="cuda") * 2).bfloat16()
+              for _ in range(4)]
+        for approx in (False, True):
+            cases10.append(([b, s, 6144, f"approx={approx}"], [(x, approx) for x in xs],
+                            n * 6144 * 3 + n * 4, n * 6144 * GELU_OPS_PER_ELEM / FP32_FLOP_PER_S))
+    rows = _check_kernel("layer_norm_quant", cases9, kernels.layer_norm_quant,
+                         kernels.layer_norm_quant_plain, _int8_err)
+    out["layer_norm_quant"] = _entry("layer_norm_quant", "layer_norm_quant.cu",
+                                     "stllm_tpu/ops/quant.py:252", rows, INT8_ATOL, INT8_RTOL)
+    rows = _check_kernel("gelu_quant", cases10, kernels.gelu_quant, kernels.gelu_quant_plain,
+                         _int8_err)
+    out["gelu_quant"] = _entry("gelu_quant", "gelu_quant.cu", "stllm_tpu/ops/quant.py:261",
+                               rows, INT8_ATOL, INT8_RTOL)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# tiny card-vs-CPU checks
+# ---------------------------------------------------------------------------
 
 def _tree_to(tree, device):
     if isinstance(tree, dict):
@@ -145,69 +314,97 @@ def _tree_to(tree, device):
     return None if tree is None else tree.to(device)
 
 
-def check_small_reference() -> float:
-    """A tiny bf16 BTAdapter model encodes one video on the card (kernel)
-    and on the CPU (plain version); the two must agree to bf16 tolerance."""
-    from stllm_tpu_torch.models.llama import LlamaConfig
-    from stllm_tpu_torch.models.qformer import QFormerConfig
-    from stllm_tpu_torch.models.stllm import STLLMConfig, encode_img, init_stllm
-    from stllm_tpu_torch.models.vit import ViTConfig
+TINY_MODEL_CFG = {
+    "arch": "st_llm_hf", "model_type": "instructblip_vicuna0_btadapter", "dtype": "bf16",
+    "video_input": "all", "btadapter_depth": 2,
+    "vit": {"image_size": 56, "width": 176, "depth": 3, "heads": 2, "mlp_hidden": 352},
+    "qformer": {"hidden": 64, "num_layers": 2, "heads": 2, "intermediate": 128,
+                "encoder_width": 176, "num_query": 8, "vocab_size": 100},
+    "llama": {"vocab_size": 100, "hidden": 64, "num_layers": 1, "heads": 2,
+              "intermediate": 128},
+}
 
-    cfg = STLLMConfig(
-        vit=ViTConfig(image_size=56, width=176, depth=3, heads=2, mlp_hidden=352),
-        qformer=QFormerConfig(hidden=64, num_layers=2, heads=2, intermediate=128,
-                              encoder_width=176, num_query=8, vocab_size=100),
-        llama=LlamaConfig(vocab_size=100, hidden=64, num_layers=1, heads=2,
-                          intermediate=128),
-        video_input="all", vit_model="eva_btadapter_g", btadapter_depth=2)
-    params = init_stllm(torch.Generator().manual_seed(3), cfg)
+
+def _tiny_inputs():
     rng = np.random.default_rng(3)
     frames = torch.from_numpy(rng.integers(0, 256, (1, 4, 56, 56, 3), dtype=np.uint8))
-    q_ids = torch.from_numpy(rng.integers(0, 100, (1, 5)))
+    return frames, torch.from_numpy(rng.integers(0, 100, (1, 5)))
+
+
+def _card_vs_cpu(params, cfg, tol: float) -> float:
+    """Relative L2 gap between one encode on the card and on the CPU."""
+    from stllm_tpu_torch.models.stllm import encode_img
+
+    frames, q_ids = _tiny_inputs()
     want = encode_img(params, frames, cfg, q_ids).float()
     got = encode_img(_tree_to(params, "cuda"), frames.cuda(), cfg, q_ids.cuda()).float().cpu()
     rel = float((got - want).norm() / want.norm())
-    if not bool(torch.isfinite(got).all()) or rel > BF16_RTOL:
-        raise AssertionError(f"tiny bf16 encode: card vs CPU relative L2 error {rel}")
+    if not bool(torch.isfinite(got).all()) or rel > tol:
+        raise AssertionError(f"tiny encode: card vs CPU relative L2 error {rel} > {tol}")
     return rel
 
 
-def phase_slice(kernels) -> dict:
-    from stllm_tpu_torch.common.config import Config
-    from stllm_tpu_torch.models.generation import GenerationConfig, _pad_prompt, _prefill
-    from stllm_tpu_torch.models.generation import _decode_chunk_greedy
+def check_small_reference() -> float:
+    """A tiny bf16 BTAdapter model encodes one video on the card (kernel)
+    and on the CPU (plain version); the two must agree to bf16 tolerance."""
     from stllm_tpu_torch.models.zoo import STLLM
-    from stllm_tpu_torch.pipeline_serving import VideoQAServer, _encode_assemble
 
-    rel = check_small_reference()
-    print(f"[slice] tiny bf16 encode, card vs CPU: relative L2 error {rel:.3e}")
+    model = STLLM.from_config(TINY_MODEL_CFG, seed=3, device="cpu")
+    return _card_vs_cpu(model.params, model.cfg, BF16_RTOL)
 
-    cfg_path = Path(__file__).resolve().parent / "config" / "instructblipbase_stllm_qa.yaml"
-    t0 = time.perf_counter()
-    model = STLLM.from_config(Config(cfg_path).model_cfg, seed=0)
-    torch.cuda.synchronize()
-    cfg = model.cfg
-    print(f"[slice] model built in {time.perf_counter() - t0:.1f} s: vit {cfg.vit.width}x"
-          f"{cfg.vit.depth} ({cfg.vit_model}, branch {cfg.btadapter_depth}), qformer "
-          f"{cfg.qformer.hidden}x{cfg.qformer.num_layers}, llama {cfg.llama.hidden}x"
-          f"{cfg.llama.num_layers}, {cfg.llama.dtype}, video_input {cfg.video_input}")
 
+def check_small_int8_reference() -> dict:
+    """The tiny model with quant_int8, dynamic and then static: calibrated
+    once on the CPU, the same scales copied to the card."""
+    from stllm_tpu_torch.models.btadapter import calibrate_btadapter_scales
+    from stllm_tpu_torch.models.zoo import STLLM
+
+    model = STLLM.from_config({**TINY_MODEL_CFG, "quant_int8": True}, seed=3, device="cpu")
+    out = {"dynamic": _card_vs_cpu(model.params, model.cfg, INT8_TINY_REL)}
+    frames, _ = _tiny_inputs()
+    model.params["vit"] = calibrate_btadapter_scales(model.params["vit"], frames[0],
+                                                     model.cfg.vit, frames.shape[1])
+    out["static"] = _card_vs_cpu(model.params, model.cfg, INT8_TINY_REL)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# the served paths at full width
+# ---------------------------------------------------------------------------
+
+def qa_model_cfg() -> dict:
+    from stllm_tpu_torch.common.config import Config
+
+    return dict(Config(ROOT / "config" / "instructblipbase_stllm_qa.yaml").model_cfg)
+
+
+def make_requests(cfg):
     rng = np.random.default_rng(1)
     size = cfg.vit.image_size
-    reqs = [(f"q{i}",
+    return [(f"q{i}",
              rng.integers(0, 256, (1, FRAMES, size, size, 3), dtype=np.uint8),
              rng.integers(3, cfg.llama.vocab_size, (1, PREFIX_LEN)),
              rng.integers(3, cfg.llama.vocab_size, (1, SUFFIX_LEN)),
              rng.integers(0, cfg.qformer.vocab_size, (1, Q_LEN)))
             for i in range(NUM_REQUESTS)]
+
+
+def serve(kernels, params, cfg, reqs, label: str) -> dict:
+    """Serve ``reqs`` with VideoQAServer(slots=4, max_len=1024), counting
+    kernel launches over exactly that run, then time encode, prefill and
+    decode on the first request's inputs."""
+    from stllm_tpu_torch.models.generation import GenerationConfig, _pad_prompt, _prefill
+    from stllm_tpu_torch.models.generation import _decode_chunk_greedy
+    from stllm_tpu_torch.pipeline_serving import VideoQAServer, _encode_assemble
+
     gen = GenerationConfig(max_new_tokens=MAX_NEW)
-    srv = VideoQAServer(model.params, cfg, slots=4, max_len=1024)
+    srv = VideoQAServer(params, cfg, slots=4, max_len=1024)
     for rid, frames, pre, suf, q in reqs:
         srv.submit(rid, frames, pre, suf, gen, qformer_text_ids=q)
 
     torch.cuda.reset_peak_memory_stats()
-    kernels.reset_launches()
     torch.cuda.synchronize()
+    kernels.reset_launches()
     t0 = time.perf_counter()
     answers = srv.run()
     torch.cuda.synchronize()
@@ -215,50 +412,134 @@ def phase_slice(kernels) -> dict:
     launches = dict(kernels.LAUNCHES)
 
     if set(answers) != {r[0] for r in reqs}:
-        raise AssertionError(f"answers for {sorted(answers)}, not all {NUM_REQUESTS} requests")
+        raise AssertionError(f"[{label}] answers for {sorted(answers)}, not all "
+                             f"{NUM_REQUESTS} requests")
     for rid, toks in answers.items():
         if not toks or not all(0 <= t < cfg.llama.vocab_size for t in toks):
-            raise AssertionError(f"request {rid}: bad tokens {toks}")
-    want = 45 * NUM_REQUESTS
-    if launches["packed_qkv_attention"] != want:
-        raise AssertionError(f"packed_qkv_attention launched {launches['packed_qkv_attention']} "
-                             f"times, want 45 per video = {want}")
+            raise AssertionError(f"[{label}] request {rid}: bad tokens {toks}")
     n_tok = sum(len(t) for t in answers.values())
 
-    # per-phase device times, measured after the served run on its inputs
     rid, frames, pre, suf, q = reqs[0]
     dev = lambda a: torch.as_tensor(a, device="cuda")  # noqa: E731
     fr, pre_t, suf_t = dev(frames), dev(pre).int(), dev(suf).int()
     q_t = dev(q).int()
-    embeds = _encode_assemble(model.params, fr, pre_t, suf_t, q_t, torch.ones_like(q_t), cfg)
+    embeds = _encode_assemble(params, fr, pre_t, suf_t, q_t, torch.ones_like(q_t), cfg)
     want_shape = (1, PREFIX_LEN + cfg.num_video_tokens(FRAMES) + SUFFIX_LEN, cfg.llama.hidden)
     if tuple(embeds.shape) != want_shape or not bool(torch.isfinite(embeds).all()):
-        raise AssertionError(f"encode output {tuple(embeds.shape)} (want {want_shape}) not finite")
+        raise AssertionError(f"[{label}] encode output {tuple(embeds.shape)} "
+                             f"(want {want_shape}) not finite")
     encode_ms = cuda_ms(lambda: _encode_assemble(
-        model.params, fr, pre_t, suf_t, q_t, torch.ones_like(q_t), cfg), 3, warmup=1)
+        params, fr, pre_t, suf_t, q_t, torch.ones_like(q_t), cfg), 3, warmup=1)
     emb, mask = _pad_prompt(embeds, torch.ones(embeds.shape[:2], dtype=torch.int32,
                                                device="cuda"), gen.pad_to_multiple)
-    logits, _ = _prefill(model.params["llama"], emb, mask, cfg.llama, emb.shape[1])
+    logits, _ = _prefill(params["llama"], emb, mask, cfg.llama, emb.shape[1])
     if tuple(logits.shape) != (1, cfg.llama.vocab_size) or not bool(torch.isfinite(logits).all()):
-        raise AssertionError("prefill logits not finite")
-    prefill_ms = cuda_ms(lambda: _prefill(model.params["llama"], emb, mask, cfg.llama,
+        raise AssertionError(f"[{label}] prefill logits not finite")
+    prefill_ms = cuda_ms(lambda: _prefill(params["llama"], emb, mask, cfg.llama,
                                           emb.shape[1]), 3, warmup=1)
     b = srv.batcher
     chunk = 16
     decode_ms_step = cuda_ms(lambda: _decode_chunk_greedy(
         b.params, b.cur, b.cache, cfg.llama, chunk), 2, warmup=1) / chunk
-    out = {"requests": NUM_REQUESTS, "frames": FRAMES, "prompt_tokens": emb.shape[1],
-           "tokens": n_tok, "wall_s": wall, "tokens_per_s": n_tok / wall,
-           "encode_ms_per_video": encode_ms, "prefill_ms": prefill_ms,
-           "decode_ms_per_token": decode_ms_step, "decode_slots": b.slots,
+    out = {"mode": label, "requests": NUM_REQUESTS, "frames": FRAMES,
+           "prompt_tokens": emb.shape[1], "tokens": n_tok, "wall_s": wall,
+           "tokens_per_s": n_tok / wall, "encode_ms_per_video": encode_ms,
+           "prefill_ms": prefill_ms, "decode_ms_per_token": decode_ms_step,
+           "decode_slots": b.slots,
            "max_memory_allocated_gib": torch.cuda.max_memory_allocated() / 2**30,
            "launches": launches,
-           "packed_qkv_launches_per_video": launches["packed_qkv_attention"] / NUM_REQUESTS,
+           "launches_per_video": {k: v / NUM_REQUESTS for k, v in launches.items()},
            "tokens_per_request": {k: len(v) for k, v in sorted(answers.items())},
-           "tiny_encode_rel_err": rel,
            "answers": {k: v[:8] for k, v in sorted(answers.items())}}
-    print(f"[slice] {json.dumps(out)}")
+    print(f"[{label}] {json.dumps(out)}")
     return out
+
+
+def _expect(label: str, launches: dict, want: dict, per: int) -> None:
+    got = {k: launches[k] for k in want}
+    if got != {k: v * per for k, v in want.items()}:
+        raise AssertionError(f"[{label}] kernel launches {got}, want {want} x {per}")
+
+
+def phase_slice(kernels) -> dict:
+    from stllm_tpu_torch.models.zoo import STLLM
+
+    rel = check_small_reference()
+    print(f"[slice] tiny bf16 encode, card vs CPU: relative L2 error {rel:.3e}")
+
+    t0 = time.perf_counter()
+    model = STLLM.from_config(qa_model_cfg(), seed=0)
+    torch.cuda.synchronize()
+    cfg = model.cfg
+    print(f"[slice] model built in {time.perf_counter() - t0:.1f} s: vit {cfg.vit.width}x"
+          f"{cfg.vit.depth} ({cfg.vit_model}, branch {cfg.btadapter_depth}), qformer "
+          f"{cfg.qformer.hidden}x{cfg.qformer.num_layers}, llama {cfg.llama.hidden}x"
+          f"{cfg.llama.num_layers}, {cfg.llama.dtype}, video_input {cfg.video_input}")
+    out = serve(kernels, model.params, cfg, make_requests(cfg), "slice")
+    _expect("slice", out["launches"], {"packed_qkv_attention": 45, "layer_norm_quant": 0,
+                                       "gelu_quant": 0, "packed_qkv_attention_quant": 0,
+                                       "packed_qkv_attention_s8": 0}, NUM_REQUESTS)
+    out["tiny_encode_rel_err"] = rel
+    return out
+
+
+def _check_act_scales(vit_params) -> int:
+    layers = (vit_params["blocks"] + vit_params["btadapter"]["temp"]
+              + vit_params["btadapter"]["spatial"])
+    for i, layer in enumerate(layers):
+        sc = layer.get("act_scales")
+        if not sc or not all(bool(torch.isfinite(v).all() and (v > 0).all())
+                             for v in sc.values()):
+            raise AssertionError(f"layer {i}: act_scales missing, not finite or not positive")
+    return len(layers)
+
+
+def phase_int8(kernels) -> dict:
+    """quant_int8 at full width: dynamic serving, calibration, static serving."""
+    from stllm_tpu_torch.models.btadapter import calibrate_btadapter_scales
+    from stllm_tpu_torch.models.zoo import STLLM
+
+    rels = check_small_int8_reference()
+    print(f"[int8] tiny int8 encode, card vs CPU: relative L2 error {rels}")
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = STLLM.from_config({**qa_model_cfg(), "quant_int8": True}, seed=0)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    build_gib = torch.cuda.max_memory_allocated() / 2**30
+    print(f"[int8] W8A8 model built in {build_s:.1f} s, peak {build_gib:.2f} GiB, "
+          f"now {torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+    cfg, params = model.cfg, model.params
+    reqs = make_requests(cfg)
+    dynamic = serve(kernels, params, cfg, reqs, "int8-dynamic")
+    _expect("int8-dynamic", dynamic["launches"], DYNAMIC_PER_VIDEO, NUM_REQUESTS)
+
+    clip = torch.from_numpy(np.random.default_rng(2).integers(
+        0, 256, (FRAMES, cfg.vit.image_size, cfg.vit.image_size, 3), dtype=np.uint8)).cuda()
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    params["vit"] = calibrate_btadapter_scales(params["vit"], clip, cfg.vit, FRAMES)
+    torch.cuda.synchronize()
+    calib_s = time.perf_counter() - t0
+    calib_launches = dict(kernels.LAUNCHES)
+    _expect("int8-calibration", calib_launches, CALIBRATION, 1)
+    n_layers = _check_act_scales(params["vit"])
+    print(f"[int8] calibrated {n_layers} layers in {calib_s:.2f} s, launches {calib_launches}")
+
+    static = serve(kernels, params, cfg, reqs, "int8-static")
+    _expect("int8-static", static["launches"], STATIC_PER_VIDEO, NUM_REQUESTS)
+    for mode in (dynamic, static):
+        print(f"[int8] {mode['mode']}: encode {mode['encode_ms_per_video']:.2f} ms/video, "
+              f"prefill {mode['prefill_ms']:.2f} ms, decode {mode['decode_ms_per_token']:.2f} "
+              f"ms/step, {mode['tokens_per_s']:.2f} tokens/s, peak "
+              f"{mode['max_memory_allocated_gib']:.2f} GiB")
+    return {"dynamic": dynamic, "static": static, "calibration_launches": calib_launches,
+            "calibration_s": calib_s, "build_s": build_s, "build_peak_gib": build_gib,
+            "tiny_encode_rel_err": rels}
 
 
 def main() -> int:
@@ -268,10 +549,20 @@ def main() -> int:
     from stllm_tpu_torch.ops import kernels
 
     phase_build(kernels)
-    entry = phase_kernels(kernels)
-    sl = phase_slice(kernels)
-    entry["launches"] = sl["launches"]["packed_qkv_attention"]
-    print(json.dumps({"kernels": [entry]}))
+    entries = phase_kernels(kernels)
+    bf16 = phase_slice(kernels)
+    gc.collect()
+    int8 = phase_int8(kernels)
+    # each kernel's launches from the served path that runs it
+    path_of = {"packed_qkv_attention": bf16, "layer_norm_quant": int8["dynamic"],
+               "gelu_quant": int8["dynamic"], "packed_qkv_attention_quant": int8["dynamic"],
+               "packed_qkv_attention_s8": int8["static"]}
+    for name, entry in entries.items():
+        entry["launches"] = path_of[name]["launches"][name]
+        entry["launches_by_path"] = {p["mode"]: p["launches"][name]
+                                     for p in (bf16, int8["dynamic"], int8["static"])}
+        entry["launches_by_path"]["int8-calibration"] = int8["calibration_launches"][name]
+    print(json.dumps({"kernels": list(entries.values())}))
     print(smi_line())
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

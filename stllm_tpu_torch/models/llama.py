@@ -25,6 +25,7 @@ from stllm_tpu_torch.ops.attention import mha_reference
 from stllm_tpu_torch.ops.layers import (
     gather_rows, init_linear, init_rms_norm, linear, matmul_f32, normal, rms_norm,
     swiglu_mlp)
+from stllm_tpu_torch.ops.quant import W4A16_SLICE, quantize_linear_params
 from stllm_tpu_torch.ops.rope import rope_rows, rope_table, rotate
 
 
@@ -180,6 +181,24 @@ def llama_forward(
     valid = (attention_mask.sum(dim=-1).to(torch.int32) if attention_mask is not None
              else torch.full((b,), s, dtype=torch.int32, device=x.device))
     return x, KVCache(k=tuple(new_k), v=tuple(new_v), length=cache.length + valid)
+
+
+def quantize_llama_params(params: Dict, free_dense: bool = False,
+                          a16: bool = False) -> Dict:
+    """Inference-time W8A8 conversion of every decoder-layer matmul (q, k, v,
+    o, gate, up, down). Embeddings, lm_head and norms stay dense.
+    ``free_dense=True`` drops each dense weight as soon as it is quantized,
+    layer by layer, so peak memory stays near the dense tree plus one
+    layer; the input tree is unusable afterwards. The weight-only ``a16``
+    form comes with the W4A16 slice."""
+    if a16:
+        raise NotImplementedError(W4A16_SLICE)
+    out = dict(params)
+    out["layers"] = [
+        {**layer, **{n: quantize_linear_params(layer[n], free_dense)
+                     for n in ("q", "k", "v", "o", "gate", "up", "down")}}
+        for layer in params["layers"]]
+    return out
 
 
 def lm_head(params: Dict, hidden: torch.Tensor) -> torch.Tensor:

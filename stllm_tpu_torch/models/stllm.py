@@ -18,12 +18,9 @@ from stllm_tpu_torch.models.generation import UnsupportedRequest
 from stllm_tpu_torch.models.llama import VICUNA_7B, LlamaConfig, init_llama
 from stllm_tpu_torch.models.qformer import (
     INSTRUCT_BLIP_QFORMER, QFormerConfig, init_qformer, qformer_forward)
-from stllm_tpu_torch.models.vit import EVA_VIT_G, ViTConfig, init_vit, vit_forward
+from stllm_tpu_torch.models.vit import (
+    EVA_VIT_G, ViTConfig, init_vit, normalize_uint8, vit_forward)
 from stllm_tpu_torch.ops.layers import gather_rows, init_layer_norm, init_linear, layer_norm, linear
-
-# CLIP normalization constants (the reference's data/processors.py)
-CLIP_MEAN = (0.48145466, 0.4578275, 0.40821073)
-CLIP_STD = (0.26862954, 0.26130258, 0.27577711)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -111,9 +108,7 @@ def encode_img(
     repeated per frame) -> llama_proj. Returns (B, T, num_query, d_llm).
     uint8 frames are CLIP-normalized on the device."""
     if frames.dtype == torch.uint8:
-        mean = torch.tensor(CLIP_MEAN, dtype=torch.float32, device=frames.device) * 255.0
-        std = torch.tensor(CLIP_STD, dtype=torch.float32, device=frames.device) * 255.0
-        frames = ((frames.float() - mean) / std).to(cfg.vit.dtype)
+        frames = normalize_uint8(frames, cfg.vit.dtype)
     b, t = frames.shape[:2]
     flat = frames.reshape((b * t,) + tuple(frames.shape[2:]))
     if cfg.vit_model == "eva_btadapter_g":

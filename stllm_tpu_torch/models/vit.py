@@ -1,12 +1,22 @@
-"""EVA-ViT-g visual encoder (stllm_tpu/models/vit.py), bf16 path.
+"""EVA-ViT-g visual encoder (stllm_tpu/models/vit.py): bf16 and int8 blocks.
 
 Patch 14, width 1408, depth 39, 16 heads (head_dim 88), MLP hidden 6144, abs
 pos embed, pre-norm blocks with q/v-only qkv bias (k bias fixed at zero), LN
 eps 1e-6, all 257 tokens out. Images are NHWC; the patch embedding is a
-reshape plus matmul. The attention of every block is the packed-qkv CUDA
-kernel (``use_flash=None``). Token merging, frame folding and the int8
-blocks come with later slices; their config fields are kept so configs
-compare field by field with the reference.
+reshape plus matmul. The attention of every block is a packed-qkv CUDA
+kernel (``use_flash=None``).
+
+``vit_block`` runs one of three block forms, chosen by the params:
+  - dense (bf16);
+  - dynamic W8A8 (``quantize_vit_params``): LayerNorm and GELU emit int8
+    with per-row scales (kernels #9, #10), attention quantizes its output
+    in its epilogue (#2);
+  - static int8 (``calibrate_vit_scales`` adds ``act_scales``): calibrated
+    per-tensor scales, and attention on static-int8 qkv (#3).
+The static path is the reference's default (``STLLM_INT8_QKT=1``,
+``STLLM_FUSED_LN`` off); its other settings are not ported. Token merging
+and frame folding come with later slices; their config fields are kept so
+configs compare field by field with the reference.
 """
 
 from __future__ import annotations
@@ -17,9 +27,18 @@ from typing import Any, Dict, Optional
 import torch
 import torch.nn.functional as F
 
-from stllm_tpu_torch.ops.attention import fused_qkv_attention, mha_reference
+from stllm_tpu_torch.ops.attention import (
+    fused_qkv_attention, fused_qkv_attention_quant, fused_qkv_attention_quant_static,
+    mha_reference)
 from stllm_tpu_torch.ops.layers import (
     gelu, init_layer_norm, init_linear, layer_norm, linear, trunc_normal)
+from stllm_tpu_torch.ops.quant import (
+    gelu_quant, layer_norm_quant, layer_norm_quant_static, quant_matmul_pre,
+    quant_mlp_static, quantize_activations, quantize_linear_params, quantize_static)
+
+# CLIP normalization constants (the reference's data/processors.py)
+CLIP_MEAN = (0.48145466, 0.4578275, 0.40821073)
+CLIP_STD = (0.26862954, 0.26130258, 0.27577711)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -89,6 +108,89 @@ def init_vit(gen: torch.Generator, cfg: ViTConfig) -> Dict:
     return params
 
 
+def normalize_uint8(images: torch.Tensor, dtype) -> torch.Tensor:
+    """uint8 pixels -> CLIP-normalized ``dtype``, on the images' device."""
+    mean = torch.tensor(CLIP_MEAN, dtype=torch.float32, device=images.device) * 255.0
+    std = torch.tensor(CLIP_STD, dtype=torch.float32, device=images.device) * 255.0
+    return ((images.float() - mean) / std).to(dtype)
+
+
+def quantize_vit_params(params: Dict, free_dense: bool = False) -> Dict:
+    """Inference-time W8A8 conversion: every block matmul (qkv, proj, fc1,
+    fc2) and, with a BTAdapter, every branch matmul (temporal qkv, proj,
+    temporal_fc; spatial qkv, proj, fc1, fc2) becomes int8. Patch embed,
+    norms and embeddings stay dense. ``free_dense`` drops each dense weight
+    as soon as it is quantized (see ``quantize_linear_params``)."""
+    out = dict(params)
+    if "btadapter" in params:
+        bt = dict(params["btadapter"])
+        bt["temp"] = [
+            {**t, **{n: quantize_linear_params(t[n], free_dense)
+                     for n in ("qkv", "proj", "temporal_fc")}}
+            for t in bt["temp"]]
+        bt["spatial"] = [
+            {**sp, **{n: quantize_linear_params(sp[n], free_dense)
+                      for n in ("qkv", "proj", "fc1", "fc2")}}
+            for sp in bt["spatial"]]
+        out["btadapter"] = bt
+    out["blocks"] = [
+        {**blk, **{n: quantize_linear_params(blk[n], free_dense)
+                   for n in ("qkv", "proj", "fc1", "fc2")}}
+        for blk in params["blocks"]]
+    return out
+
+
+def _qkv_with_bias(block: Dict) -> Dict:
+    """The qkv linear with its q|0|v bias (k bias fixed at zero)."""
+    qkv_bias = torch.cat(
+        [block["q_bias"], torch.zeros_like(block["q_bias"]), block["v_bias"]])
+    return {**block["qkv"], "b": qkv_bias}
+
+
+def _act_scale(margin: float, amax: torch.Tensor) -> torch.Tensor:
+    """A calibrated scale from a recorded amax, in the reference's order."""
+    return torch.tensor(margin, dtype=torch.float32, device=amax.device) * amax.float() / 127.0
+
+
+def _block_stats(block: Dict, x: torch.Tensor, cfg: "ViTConfig"):
+    """One dynamic-int8 block forward that also records the per-tensor amax
+    of each quantized matmul input (from the per-row scales) and the
+    per-third (q, k, v) amax of the qkv output."""
+    hq, hs = layer_norm_quant(block["norm1"], x, cfg.ln_eps)
+    qkv = quant_matmul_pre(hq, hs, _qkv_with_bias(block), x.dtype)
+    oq, os_ = fused_qkv_attention_quant(qkv, cfg.heads, cfg.head_dim)
+    x = x + quant_matmul_pre(oq, os_, block["proj"], x.dtype)
+    hq2, hs2 = layer_norm_quant(block["norm2"], x, cfg.ln_eps)
+    h = quant_matmul_pre(hq2, hs2, block["fc1"], x.dtype)
+    gq, gs = gelu_quant(h, approx=cfg.gelu_approx)
+    h = quant_matmul_pre(gq, gs, block["fc2"], x.dtype)
+    b, n, _ = qkv.shape
+    attn_amax = qkv.float().abs().reshape(b, n, 3, -1).amax(dim=(0, 1, 3))
+    return x + h, {"qkv": 127.0 * hs.max(), "fc1": 127.0 * hs2.max(),
+                   "fc2": 127.0 * gs.max(), "attn": attn_amax}
+
+
+def calibrate_vit_scales(params_q: Dict, images: torch.Tensor, cfg: "ViTConfig",
+                         margin: float = 1.0) -> Dict:
+    """Static-W8A8 calibration: run the dynamic-int8 forward on a
+    calibration batch, record the per-tensor amax of each quantized matmul
+    input (qkv, fc1, fc2) and the per-third amax of the qkv output (attn),
+    and return a copy of ``params_q`` whose blocks carry ``act_scales`` =
+    margin * amax / 127 (fp32 device tensors: 0-d, and (3,) for attn).
+    Those switch ``vit_block`` to the static path. uint8 images are
+    CLIP-normalized first, as encode does."""
+    if images.dtype == torch.uint8:
+        images = normalize_uint8(images, cfg.dtype)
+    x = embed_patches(params_q, images, cfg)
+    out = dict(params_q)
+    out["blocks"] = []
+    for block in params_q["blocks"]:
+        x, st = _block_stats(block, x, cfg)
+        out["blocks"].append({**block, "act_scales": {
+            k: _act_scale(margin, st[k]) for k in ("qkv", "fc1", "fc2", "attn")}})
+    return out
+
+
 def patchify(images: torch.Tensor, patch: int) -> torch.Tensor:
     """(B, H, W, C) -> (B, h*w, patch*patch*C), row-major patches, features
     in (ph, pw, C) order."""
@@ -98,26 +200,88 @@ def patchify(images: torch.Tensor, patch: int) -> torch.Tensor:
     return x.reshape(b, nh * nw, patch * patch * c)
 
 
-def _attention(block: Dict, x: torch.Tensor, cfg: ViTConfig) -> torch.Tensor:
-    b, n, d = x.shape
-    qkv_bias = torch.cat(
-        [block["q_bias"], torch.zeros_like(block["q_bias"]), block["v_bias"]])
-    # k bias fixed at zero (the reference EVA block has q/v biases only)
-    qkv = linear({**block["qkv"], "b": qkv_bias}, x)
-    if cfg.use_flash is None:
-        out = fused_qkv_attention(qkv, cfg.heads, cfg.head_dim)
-        return linear(block["proj"], out)
+def _split_heads(qkv: torch.Tensor, cfg: ViTConfig):
+    b, n, _ = qkv.shape
+    return (t.reshape(b, n, cfg.heads, cfg.head_dim) for t in qkv.chunk(3, dim=-1))
+
+
+def _check_flash(cfg: ViTConfig) -> None:
     if cfg.use_flash:
         raise NotImplementedError("use_flash=True needs the flash-attention kernels, "
                                   "not ported yet; use None (packed kernel) or False")
-    q, k, v = (t.reshape(b, n, cfg.heads, cfg.head_dim) for t in qkv.chunk(3, dim=-1))
-    out = mha_reference(q, k, v)
+
+
+def _attention(block: Dict, x: torch.Tensor, cfg: ViTConfig) -> torch.Tensor:
+    b, n, d = x.shape
+    qkv = linear(_qkv_with_bias(block), x)
+    if cfg.use_flash is None:
+        out = fused_qkv_attention(qkv, cfg.heads, cfg.head_dim)
+        return linear(block["proj"], out)
+    _check_flash(cfg)
+    out = mha_reference(*_split_heads(qkv, cfg))
     return linear(block["proj"], out.reshape(b, n, d))
 
 
+def _vit_block_quant(block: Dict, x: torch.Tensor, cfg: ViTConfig) -> torch.Tensor:
+    """Dynamic W8A8 block: LayerNorm and GELU emit int8 with per-row scales
+    (kernels #9, #10), the packed attention quantizes its output rows in its
+    epilogue (#2), and every matmul runs s8 x s8 -> s32."""
+    b, n, d = x.shape
+    hq, hs = layer_norm_quant(block["norm1"], x, cfg.ln_eps)
+    qkv = quant_matmul_pre(hq, hs, _qkv_with_bias(block), x.dtype)
+    if cfg.use_flash is None:
+        oq, os_ = fused_qkv_attention_quant(qkv, cfg.heads, cfg.head_dim)
+    else:
+        _check_flash(cfg)
+        oq, os_ = quantize_activations(mha_reference(*_split_heads(qkv, cfg)).reshape(b, n, d))
+    x = x + quant_matmul_pre(oq, os_, block["proj"], x.dtype)
+    hq, hs = layer_norm_quant(block["norm2"], x, cfg.ln_eps)
+    h = quant_matmul_pre(hq, hs, block["fc1"], x.dtype)
+    gq, gs = gelu_quant(h, approx=cfg.gelu_approx)
+    return x + quant_matmul_pre(gq, gs, block["fc2"], x.dtype)
+
+
+def _attn_quant_static(block: Dict, qkv: torch.Tensor, cfg: ViTConfig):
+    """Attention of the static-int8 block: with calibrated per-third qkv
+    scales (act_scales["attn"]) the qkv is quantized to static int8 and runs
+    the s8 packed kernel (#3). Where that kernel declines the shape, or the
+    layer has no attn scales, the bf16 qkv takes the dynamic-epilogue kernel
+    (#2), as in the reference. Returns (oq int8, os fp32)."""
+    b, n, f = qkv.shape
+    sc = block["act_scales"]
+    if "attn" in sc and cfg.use_flash is None:
+        # per-third scales broadcast over each third of the packed row
+        qkv_q = quantize_static(qkv.reshape(b, n, 3, f // 3),
+                                sc["attn"].float()[:, None]).reshape(b, n, f)
+        res = fused_qkv_attention_quant_static(qkv_q, sc["attn"], cfg.heads, cfg.head_dim)
+        if res is not None:
+            return res
+    if cfg.use_flash is None:
+        return fused_qkv_attention_quant(qkv, cfg.heads, cfg.head_dim)
+    _check_flash(cfg)
+    return quantize_activations(mha_reference(*_split_heads(qkv, cfg)).reshape(b, n, f // 3))
+
+
+def _vit_block_quant_static(block: Dict, x: torch.Tensor, cfg: ViTConfig) -> torch.Tensor:
+    """int8 block with calibrated per-tensor activation scales
+    (block["act_scales"], see calibrate_vit_scales): LayerNorm, GELU and the
+    qkv output quantize elementwise; the attention output keeps its per-row
+    epilogue."""
+    sc = block["act_scales"]
+    hq = layer_norm_quant_static(block["norm1"], x, sc["qkv"], cfg.ln_eps)
+    qkv = quant_matmul_pre(hq, sc["qkv"], _qkv_with_bias(block), x.dtype)
+    oq, os_ = _attn_quant_static(block, qkv, cfg)
+    x = x + quant_matmul_pre(oq, os_, block["proj"], x.dtype)
+    hq = layer_norm_quant_static(block["norm2"], x, sc["fc1"], cfg.ln_eps)
+    return x + quant_mlp_static(hq, sc["fc1"], block["fc1"], sc["fc2"], block["fc2"],
+                                x.dtype, approx=cfg.gelu_approx)
+
+
 def vit_block(block: Dict, x: torch.Tensor, cfg: ViTConfig) -> torch.Tensor:
-    if "act_scales" in block or "w" not in block["fc1"]:
-        raise NotImplementedError("int8 ViT blocks are not ported yet")
+    if "act_scales" in block:  # static int8 (calibrate_vit_scales)
+        return _vit_block_quant_static(block, x, cfg)
+    if "w_q" in block["fc1"]:  # dynamic W8A8 (quantize_vit_params)
+        return _vit_block_quant(block, x, cfg)
     x = x + _attention(block, layer_norm(block["norm1"], x, cfg.ln_eps), cfg)
     h = layer_norm(block["norm2"], x, cfg.ln_eps)
     h = linear(block["fc1"], h)

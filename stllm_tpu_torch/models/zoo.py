@@ -2,9 +2,10 @@
 (stllm_tpu/models/zoo.py).
 
 ``STLLM.from_config`` builds the config from a YAML model section and
-initializes random weights from a seed on the chosen device. Loading
-checkpoints, LoRA and ``quant_int8`` come with later slices; a config that
-names an existing weight file raises rather than run on random weights.
+initializes random weights from a seed on the chosen device; ``quant_int8``
+converts the tree to W8A8 (dynamic int8, see ``ops/quant.py``). Loading
+checkpoints, LoRA and the int8 KV cache come with later slices; a config
+that names an existing weight file raises rather than run on random weights.
 """
 
 from __future__ import annotations
@@ -18,10 +19,11 @@ import torch
 
 from stllm_tpu_torch.common.device import resolve_device
 from stllm_tpu_torch.common.registry import Registry
-from stllm_tpu_torch.models.llama import VICUNA_7B
+from stllm_tpu_torch.models.llama import VICUNA_7B, quantize_llama_params
 from stllm_tpu_torch.models.qformer import INSTRUCT_BLIP_QFORMER
 from stllm_tpu_torch.models.stllm import STLLMConfig, init_stllm
-from stllm_tpu_torch.models.vit import EVA_VIT_G
+from stllm_tpu_torch.models.vit import EVA_VIT_G, quantize_vit_params
+from stllm_tpu_torch.ops.quant import quantize_tree_linears
 
 _DTYPES = {"bf16": torch.bfloat16, "bfloat16": torch.bfloat16,
            "fp16": torch.bfloat16,  # fp16 checkpoints run as bf16, as in the reference
@@ -99,18 +101,29 @@ class STLLM:
     @classmethod
     def from_config(cls, model_cfg: Mapping, seed: int = 0, device=None) -> "STLLM":
         """Random init from ``seed`` on ``device`` (default: the CUDA card;
-        raises without one)."""
+        raises without one). ``quant_int8: true`` converts the ViT with its
+        BTAdapter branch, the Q-Former and the LLaMA decoder layers to W8A8,
+        dropping each dense weight as it goes; ``llama_proj``, the patch
+        embedding, the embeddings, ``lm_head`` and the norms stay dense.
+        Static int8 follows from ``btadapter.calibrate_btadapter_scales`` on
+        ``params["vit"]``."""
         dev = resolve_device(device)
         for key in _WEIGHT_KEYS:
             path = model_cfg.get(key)
             if path and os.path.exists(str(path)):
                 raise NotImplementedError(
                     f"model.{key}={path!r} exists: loading checkpoints is not ported yet")
-        if int(model_cfg.get("lora_r", 0) or 0) > 0 or model_cfg.get("quant_int8", False):
-            raise NotImplementedError("LoRA and quant_int8 are not ported yet")
+        if int(model_cfg.get("lora_r", 0) or 0) > 0:
+            raise NotImplementedError("LoRA is not ported yet")
         cfg = build_stllm_config(model_cfg)
+        if cfg.llama.kv_int8:
+            raise NotImplementedError("the int8 KV cache (llama.kv_int8) is not ported yet")
         gen = torch.Generator(device=dev).manual_seed(seed)
         params = init_stllm(gen, cfg)
+        if model_cfg.get("quant_int8", False):
+            params["vit"] = quantize_vit_params(params["vit"], free_dense=True)
+            params["qformer"] = quantize_tree_linears(params["qformer"], free_dense=True)
+            params["llama"] = quantize_llama_params(params["llama"], free_dense=True)
         return cls(cfg, params, dev, model_cfg=model_cfg)
 
 

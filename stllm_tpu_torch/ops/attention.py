@@ -3,7 +3,10 @@
 ``mha_reference`` is the plain attention the reference leaves to XLA (Q-Former,
 LLaMA prefill-into-cache and decode); here it is plain torch.
 ``fused_qkv_attention`` is the packed-qkv attention of the ViT and BTAdapter
-blocks; it runs the hand-written CUDA kernel in ``ops/kernels.py``.
+blocks; ``fused_qkv_attention_quant`` adds the per-row int8 epilogue of the
+dynamic-int8 blocks and ``fused_qkv_attention_quant_static`` takes the
+static-int8 qkv of the calibrated blocks. Each runs its hand-written CUDA
+kernel in ``ops/kernels.py``.
 
 API convention: q/k/v are (batch, seq, heads, head_dim); ``kv_mask`` and
 ``q_mask`` are (batch, seq) validity masks (True = real token).
@@ -11,7 +14,7 @@ API convention: q/k/v are (batch, seq, heads, head_dim); ``kv_mask`` and
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -72,3 +75,53 @@ def fused_qkv_attention(qkv: torch.Tensor, heads: int, head_dim: int, *,
         raise ValueError(f"qkv width {qkv.shape[-1]} != 3 * {heads} * {head_dim}")
     scale = (head_dim ** -0.5) if scale is None else scale
     return kernels.packed_qkv_attention(qkv, heads, head_dim, scale)
+
+
+def fused_qkv_attention_quant(qkv: torch.Tensor, heads: int, head_dim: int, *,
+                              scale: Optional[float] = None
+                              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Packed-qkv attention with a W8A8 epilogue: returns (out_q int8
+    (B, S, H*D), out_scale fp32 (B, S, 1)), the per-row int8 of
+    ``fused_qkv_attention``'s fp32 rows. Inference only."""
+    if qkv.shape[-1] != 3 * heads * head_dim:
+        raise ValueError(f"qkv width {qkv.shape[-1]} != 3 * {heads} * {head_dim}")
+    scale = (head_dim ** -0.5) if scale is None else scale
+    return kernels.packed_qkv_attention_quant(qkv, heads, head_dim, scale)
+
+
+def packed_qkv_feasible(seq: int, heads: int, head_dim: int, itemsize: int) -> bool:
+    """The reference's rule for when its single-pass packed kernels run
+    (stllm_tpu/ops/attention.py:_packed_qkv_feasible): S < 1024 and the
+    block's working set within its on-chip budget."""
+    hd = heads * head_dim
+    vmem = seq * 3 * hd * itemsize * 2
+    vmem += seq * hd * 4
+    vmem += seq * seq * 4
+    return seq < 1024 and vmem <= 10 * 1024 * 1024
+
+
+def fused_qkv_attention_quant_static(qkv_q: torch.Tensor, qkv_scales: torch.Tensor,
+                                     heads: int, head_dim: int, *,
+                                     scale: Optional[float] = None,
+                                     int8_dot: bool = True
+                                     ) -> Optional[Tuple[torch.Tensor, torch.Tensor]]:
+    """Packed-qkv attention on STATIC-int8 qkv (B, S, 3*H*D) with its
+    calibrated per-third scales ``qkv_scales`` (fp32 (3,) = q, k, v; the
+    reference passes them as three arguments). Returns (out_q int8
+    (B, S, H*D), out_scale fp32 (B, S, 1)) like fused_qkv_attention_quant.
+
+    Returns None where the reference's kernel declines the shape
+    (``packed_qkv_feasible`` with 1-byte items fails, e.g. S >= 1024); the
+    caller then takes fused_qkv_attention_quant on the bf16 qkv, as the
+    reference's ``_attn_quant_static`` does. That is the reference path's
+    dispatch rule, not a fallback from a failure. ``int8_dot`` chooses the
+    reference's s8 or bf16 q.k^T; integer products are exact in fp32
+    (127^2 * D < 2^24), so both give the same numbers and the kernel always
+    runs the s8 product."""
+    b, s, f = qkv_q.shape
+    if f != 3 * heads * head_dim:
+        raise ValueError(f"qkv width {f} != 3 * {heads} * {head_dim}")
+    if not packed_qkv_feasible(s, heads, head_dim, 1):
+        return None
+    scale = (head_dim ** -0.5) if scale is None else scale
+    return kernels.packed_qkv_attention_s8(qkv_q, qkv_scales, heads, head_dim, scale)

@@ -1,15 +1,20 @@
 """Hand-written CUDA kernels of the port, their builds and their plain versions.
 
 Each kernel's source is one file under ``stllm_tpu_torch/csrc/`` with a plain
-C interface. At first use it is compiled with ``nvcc`` for ``sm_90a`` into a
-shared library under ``stllm_tpu_torch/_build/`` (named by a hash of the
-source, so an edited source rebuilds) and loaded with ``ctypes``. Every
+C interface, plus the ``csrc/*.cuh`` headers it includes. At first use it is
+compiled with ``nvcc`` for ``sm_90a`` into a shared library under
+``stllm_tpu_torch/_build/`` (named by a hash of the source and of every header
+it includes, so an edit to either rebuilds) and loaded with ``ctypes``. Every
 wrapper launches its kernel on a CUDA tensor, or raises; on a CPU tensor it
 runs the kernel's plain PyTorch version, which repeats the kernel's math.
-``LAUNCHES`` counts the launches of each kernel.
+``LAUNCHES`` counts the calls of each kernel's wrapper that launched it.
 
 Kernels (TPU kernel each replaces):
-  packed_qkv_attention   stllm_tpu/ops/attention.py:_packed_qkv_kernel
+  packed_qkv_attention        stllm_tpu/ops/attention.py:_packed_qkv_kernel
+  packed_qkv_attention_quant  stllm_tpu/ops/attention.py:_packed_qkv_quant_kernel
+  packed_qkv_attention_s8     stllm_tpu/ops/attention.py:_packed_qkv_s8_kernel
+  layer_norm_quant            stllm_tpu/ops/quant.py:_ln_quant_kernel
+  gelu_quant                  stllm_tpu/ops/quant.py:_gelu_quant_kernel
 """
 
 from __future__ import annotations
@@ -17,23 +22,37 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Dict, Iterable, Optional
+from typing import Dict, Iterable, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = {"packed_qkv_attention": "packed_qkv_attention.cu"}
+SOURCES = {
+    "packed_qkv_attention": "packed_qkv_attention.cu",
+    "packed_qkv_attention_quant": "packed_qkv_attention_quant.cu",
+    "packed_qkv_attention_s8": "packed_qkv_attention_s8.cu",
+    "layer_norm_quant": "layer_norm_quant.cu",
+    "gelu_quant": "gelu_quant.cu",
+}
+_P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 # C entry points: name -> (symbol, argtypes); every one returns a cudaError_t
 _ENTRY = {
     "packed_qkv_attention": (
-        "stllm_packed_qkv_attention_bf16",
-        [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-         ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_void_p]),
+        "stllm_packed_qkv_attention_bf16", [_P, _P, _I, _I, _I, _I, _F, _P]),
+    "packed_qkv_attention_quant": (
+        "stllm_packed_qkv_attention_quant_bf16", [_P, _P, _P, _P, _I, _I, _I, _I, _F, _P]),
+    "packed_qkv_attention_s8": (
+        "stllm_packed_qkv_attention_s8", [_P, _P, _F, _P, _P, _P, _I, _I, _I, _I, _P]),
+    "layer_norm_quant": (
+        "stllm_layer_norm_quant_bf16", [_P, _P, _P, _P, _P, _LL, _I, _F, _P]),
+    "gelu_quant": ("stllm_gelu_quant_bf16", [_P, _P, _P, _LL, _I, _I, _P]),
 }
 
 LAUNCHES: Dict[str, int] = {name: 0 for name in SOURCES}
@@ -42,6 +61,8 @@ _LIBS: Dict[str, ctypes.CDLL] = {}
 
 _EXP2_CLAMP = 50.0
 _LOG2E = 1.4426950408889634
+MAX_ROW = 12288          # widest row a row-quant block holds in shared memory
+_INCLUDE = re.compile(r'^\s*#\s*include\s+"([^"]+)"', re.M)
 
 
 def reset_launches() -> None:
@@ -49,9 +70,25 @@ def reset_launches() -> None:
         LAUNCHES[name] = 0
 
 
+def _source_files(name: str) -> Tuple[Path, ...]:
+    """The kernel's ``.cu`` file and every ``csrc`` header it includes,
+    directly or through another header."""
+    seen, todo = [], [CSRC / SOURCES[name]]
+    while todo:
+        path = todo.pop()
+        if path in seen:
+            continue
+        seen.append(path)
+        todo.extend(CSRC / inc for inc in _INCLUDE.findall(path.read_text())
+                    if (CSRC / inc).exists())
+    return tuple(seen)
+
+
 def _lib_path(name: str) -> Path:
-    digest = hashlib.sha256((CSRC / SOURCES[name]).read_bytes()).hexdigest()[:16]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+    h = hashlib.sha256()
+    for path in _source_files(name):
+        h.update(path.name.encode() + b"\0" + path.read_bytes())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
 def _nvcc() -> str:
@@ -114,15 +151,59 @@ def _entry(name: str):
     return getattr(lib, _ENTRY[name][0])
 
 
+def _launch(name: str, device: torch.device, *args) -> None:
+    """Launch kernel ``name`` on ``device``'s current stream (appended as the
+    last argument), raise on a refused launch, and count it."""
+    fn = _entry(name)
+    with torch.cuda.device(device):
+        err = fn(*args, torch.cuda.current_stream().cuda_stream)
+    if err:
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
+    LAUNCHES[name] += 1
+
+
+def _check_cuda(name: str, t: torch.Tensor, dtype: torch.dtype) -> None:
+    """The kernels take contiguous, 16-byte aligned CUDA tensors of one dtype."""
+    if t.device.type != "cuda":
+        raise ValueError(f"{name}: no kernel for {t.device}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name} kernel takes {dtype}, got {t.dtype}")
+    if not t.is_contiguous() or t.data_ptr() % 16:
+        raise ValueError(f"{name} kernel takes a contiguous, 16-byte aligned tensor")
+
+
+def rowwise_quant_plain(y: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-row symmetric int8 of fp32 rows (csrc/rowwise_quant.cuh):
+    s = amax|y| / 127 (1 where amax == 0), q = round-half-even(y / s).
+    Returns (int8 (..., K), fp32 (..., 1))."""
+    amax = y.abs().amax(dim=-1, keepdim=True)
+    s = torch.where(amax == 0.0, torch.ones_like(amax), amax / 127.0)
+    return torch.round(y / s).to(torch.int8), s
+
+
 # ---------------------------------------------------------------------------
-# packed-qkv attention
+# packed-qkv attention: bf16 (#1), with an int8 epilogue (#2), on static-int8
+# qkv (#3)
 # ---------------------------------------------------------------------------
 
-def packed_qkv_attention_plain(qkv: torch.Tensor, heads: int, head_dim: int,
-                               scale: float) -> torch.Tensor:
-    """The kernel's math in plain torch: s = q.k^T * scale * log2(e) in
-    fp32, p = exp2(min(s, 50) - 50) with no row max, P cast to the io dtype
-    for P.V (fp32 accumulation), divided by sum(p) with a zero guard."""
+def _check_packed(name: str, qkv: torch.Tensor, heads: int, head_dim: int,
+                  dtype: torch.dtype) -> None:
+    _check_cuda(name, qkv, dtype)
+    if qkv.dim() != 3:
+        raise ValueError(f"{name} kernel takes a (B, S, 3*H*D) tensor")
+    if qkv.shape[-1] != 3 * heads * head_dim:
+        raise ValueError(f"qkv width {qkv.shape[-1]} != 3 * {heads} * {head_dim}")
+    if head_dim % 8 or head_dim > 112 or heads * head_dim > MAX_ROW:
+        raise ValueError(f"{name} kernel: head_dim {head_dim} must be a multiple of 8 "
+                         f"and at most 112, and H*D at most {MAX_ROW}")
+
+
+def _packed_rows_plain(qkv: torch.Tensor, heads: int, head_dim: int,
+                       scale: float) -> torch.Tensor:
+    """The packed kernels' attention in fp32: s = q.k^T * scale * log2(e),
+    p = exp2(min(s, 50) - 50) with no row max, P cast to the io dtype for
+    P.V (fp32 accumulation), divided by sum(p) with a zero guard.
+    Returns fp32 (B, S, H*D)."""
     b, s, _ = qkv.shape
     q, k, v = (t.reshape(b, s, heads, head_dim).transpose(1, 2).float()
                for t in qkv.chunk(3, dim=-1))
@@ -131,7 +212,13 @@ def packed_qkv_attention_plain(qkv: torch.Tensor, heads: int, head_dim: int,
     l = p.sum(dim=-1, keepdim=True)
     o = torch.matmul(p.to(qkv.dtype).float(), v)
     o = o / torch.where(l == 0.0, torch.ones_like(l), l)
-    return o.transpose(1, 2).reshape(b, s, heads * head_dim).to(qkv.dtype)
+    return o.transpose(1, 2).reshape(b, s, heads * head_dim)
+
+
+def packed_qkv_attention_plain(qkv: torch.Tensor, heads: int, head_dim: int,
+                               scale: float) -> torch.Tensor:
+    """Kernel #1's math in plain torch, out in the io dtype."""
+    return _packed_rows_plain(qkv, heads, head_dim, scale).to(qkv.dtype)
 
 
 def packed_qkv_attention(qkv: torch.Tensor, heads: int, head_dim: int,
@@ -140,26 +227,147 @@ def packed_qkv_attention(qkv: torch.Tensor, heads: int, head_dim: int,
     CUDA: bf16, contiguous, head_dim a multiple of 8 and at most 112."""
     if qkv.device.type == "cpu":
         return packed_qkv_attention_plain(qkv, heads, head_dim, scale)
-    if qkv.device.type != "cuda":
-        raise ValueError(f"packed_qkv_attention: no kernel for {qkv.device}")
-    if qkv.dtype != torch.bfloat16:
-        raise TypeError(f"packed_qkv_attention kernel takes bf16, got {qkv.dtype}")
-    if qkv.dim() != 3 or not qkv.is_contiguous():
-        raise ValueError("packed_qkv_attention kernel takes a contiguous (B, S, 3*H*D) tensor")
-    b, s, f = qkv.shape
-    if f != 3 * heads * head_dim:
-        raise ValueError(f"qkv width {f} != 3 * {heads} * {head_dim}")
-    if head_dim % 8 or head_dim > 112 or qkv.data_ptr() % 16:
-        raise ValueError(f"packed_qkv_attention kernel: head_dim {head_dim} must be a "
-                         "multiple of 8 and at most 112, on a 16-byte aligned buffer")
+    _check_packed("packed_qkv_attention", qkv, heads, head_dim, torch.bfloat16)
+    b, s, _ = qkv.shape
     out = torch.empty((b, s, heads * head_dim), dtype=qkv.dtype, device=qkv.device)
-    if out.numel() == 0:
-        return out
-    fn = _entry("packed_qkv_attention")
-    with torch.cuda.device(qkv.device):
-        err = fn(qkv.data_ptr(), out.data_ptr(), b, s, heads, head_dim,
-                 scale * _LOG2E, torch.cuda.current_stream().cuda_stream)
-    if err:
-        raise RuntimeError(f"packed_qkv_attention kernel launch failed: CUDA error {err}")
-    LAUNCHES["packed_qkv_attention"] += 1
+    if out.numel():
+        _launch("packed_qkv_attention", qkv.device, qkv.data_ptr(), out.data_ptr(),
+                b, s, heads, head_dim, scale * _LOG2E)
     return out
+
+
+def packed_qkv_attention_quant_plain(qkv: torch.Tensor, heads: int, head_dim: int,
+                                     scale: float) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Kernel #2's math: the fp32 attention rows of #1, quantized per row
+    over all H*D columns."""
+    return rowwise_quant_plain(_packed_rows_plain(qkv, heads, head_dim, scale))
+
+
+def packed_qkv_attention_quant(qkv: torch.Tensor, heads: int, head_dim: int,
+                               scale: float) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Packed-qkv attention with a per-row int8 epilogue: (B, S, 3*H*D) ->
+    (int8 (B, S, H*D), fp32 (B, S, 1)). CUDA: as packed_qkv_attention; the
+    kernel writes fp32 rows to a scratch buffer and a second launch
+    quantizes them."""
+    if qkv.device.type == "cpu":
+        return packed_qkv_attention_quant_plain(qkv, heads, head_dim, scale)
+    _check_packed("packed_qkv_attention_quant", qkv, heads, head_dim, torch.bfloat16)
+    b, s, _ = qkv.shape
+    hd = heads * head_dim
+    out_q = torch.empty((b, s, hd), dtype=torch.int8, device=qkv.device)
+    out_s = torch.empty((b, s, 1), dtype=torch.float32, device=qkv.device)
+    if out_q.numel():
+        scratch = torch.empty((b, s, hd), dtype=torch.float32, device=qkv.device)
+        _launch("packed_qkv_attention_quant", qkv.device, qkv.data_ptr(),
+                scratch.data_ptr(), out_q.data_ptr(), out_s.data_ptr(), b, s, heads,
+                head_dim, scale * _LOG2E)
+    return out_q, out_s
+
+
+def packed_qkv_attention_s8_plain(qkv_q: torch.Tensor, scales: torch.Tensor, heads: int,
+                                  head_dim: int, scale: float
+                                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Kernel #3's math in plain torch: exact integer q.k^T times
+    ((sq * sk * scale) * log2(e)) in fp32, the clamped exp2 softmax, bf16 P
+    times the int8 V codes (fp32 accumulation), times sv / sum(p), then the
+    per-row int8 epilogue. ``scales``: fp32 (3,) = (sq, sk, sv)."""
+    b, s, _ = qkv_q.shape
+    q, k, v = (t.reshape(b, s, heads, head_dim).transpose(1, 2).float()
+               for t in qkv_q.chunk(3, dim=-1))
+    sc = scales.float()
+    qk = sc[0] * sc[1] * scale * _LOG2E
+    logits = torch.matmul(q, k.transpose(-1, -2)) * qk
+    p = torch.exp2(torch.clamp(logits, max=_EXP2_CLAMP) - _EXP2_CLAMP)
+    l = p.sum(dim=-1, keepdim=True)
+    o = torch.matmul(p.to(torch.bfloat16).float(), v)
+    o = o * (sc[2] / torch.where(l == 0.0, torch.ones_like(l), l))
+    return rowwise_quant_plain(o.transpose(1, 2).reshape(b, s, heads * head_dim))
+
+
+def packed_qkv_attention_s8(qkv_q: torch.Tensor, scales: torch.Tensor, heads: int,
+                            head_dim: int, scale: float
+                            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Packed-qkv attention on static-int8 (B, S, 3*H*D) qkv with per-third
+    scales ``scales`` (fp32 (3,), on the tensor's device) -> (int8
+    (B, S, H*D), fp32 (B, S, 1)). CUDA: int8, contiguous, head_dim a
+    multiple of 8 and at most 112; the scales stay on the device."""
+    if qkv_q.device.type == "cpu":
+        return packed_qkv_attention_s8_plain(qkv_q, scales, heads, head_dim, scale)
+    _check_packed("packed_qkv_attention_s8", qkv_q, heads, head_dim, torch.int8)
+    if (scales.device != qkv_q.device or scales.dtype != torch.float32
+            or scales.numel() != 3 or not scales.is_contiguous()):
+        raise ValueError("packed_qkv_attention_s8 kernel takes its 3 scales as a "
+                         "contiguous fp32 tensor on the same device")
+    b, s, _ = qkv_q.shape
+    hd = heads * head_dim
+    out_q = torch.empty((b, s, hd), dtype=torch.int8, device=qkv_q.device)
+    out_s = torch.empty((b, s, 1), dtype=torch.float32, device=qkv_q.device)
+    if out_q.numel():
+        scratch = torch.empty((b, s, hd), dtype=torch.float32, device=qkv_q.device)
+        _launch("packed_qkv_attention_s8", qkv_q.device, qkv_q.data_ptr(),
+                scales.data_ptr(), scale, scratch.data_ptr(), out_q.data_ptr(),
+                out_s.data_ptr(), b, s, heads, head_dim)
+    return out_q, out_s
+
+
+# ---------------------------------------------------------------------------
+# producer-fused row quantization: LayerNorm (#9) and GELU (#10)
+# ---------------------------------------------------------------------------
+
+def _check_rows(name: str, x: torch.Tensor) -> int:
+    _check_cuda(name, x, torch.bfloat16)
+    k = x.shape[-1] if x.dim() else 0
+    if k % 8 or not 0 < k <= MAX_ROW:
+        raise ValueError(f"{name} kernel: row width {k} must be a multiple of 8, "
+                         f"at most {MAX_ROW}")
+    return k
+
+
+def layer_norm_quant_plain(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
+                           eps: float) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Kernel #9's math: fp32 LayerNorm statistics in the TPU kernel's
+    order, then per-row int8 of the fp32 result."""
+    xf = x.float()
+    mean = xf.mean(dim=-1, keepdim=True)
+    var = (xf - mean).square().mean(dim=-1, keepdim=True)
+    y = (xf - mean) * torch.rsqrt(var + eps)
+    return rowwise_quant_plain(y * gamma.float() + beta.float())
+
+
+def layer_norm_quant(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
+                     eps: float = 1e-6) -> Tuple[torch.Tensor, torch.Tensor]:
+    """LayerNorm -> per-row int8: (..., K) -> (int8 (..., K), fp32 (..., 1)).
+    CUDA: bf16 x, gamma and beta; K a multiple of 8 and at most 12288."""
+    if x.device.type == "cpu":
+        return layer_norm_quant_plain(x, gamma, beta, eps)
+    k = _check_rows("layer_norm_quant", x)
+    for p in (gamma, beta):
+        _check_cuda("layer_norm_quant", p, torch.bfloat16)
+        if tuple(p.shape) != (k,):
+            raise ValueError(f"layer_norm_quant: norm params {tuple(p.shape)} != ({k},)")
+    q = torch.empty(x.shape, dtype=torch.int8, device=x.device)
+    s = torch.empty(x.shape[:-1] + (1,), dtype=torch.float32, device=x.device)
+    if q.numel():
+        _launch("layer_norm_quant", x.device, x.data_ptr(), gamma.data_ptr(),
+                beta.data_ptr(), q.data_ptr(), s.data_ptr(), x.numel() // k, k, eps)
+    return q, s
+
+
+def gelu_quant_plain(x: torch.Tensor, approx: bool) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Kernel #10's math: GELU in fp32 (erf, or tanh when ``approx``), then
+    per-row int8."""
+    return rowwise_quant_plain(F.gelu(x.float(), approximate="tanh" if approx else "none"))
+
+
+def gelu_quant(x: torch.Tensor, approx: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
+    """GELU -> per-row int8: (..., K) -> (int8 (..., K), fp32 (..., 1)).
+    CUDA: bf16; K a multiple of 8 and at most 12288."""
+    if x.device.type == "cpu":
+        return gelu_quant_plain(x, approx)
+    k = _check_rows("gelu_quant", x)
+    q = torch.empty(x.shape, dtype=torch.int8, device=x.device)
+    s = torch.empty(x.shape[:-1] + (1,), dtype=torch.float32, device=x.device)
+    if q.numel():
+        _launch("gelu_quant", x.device, x.data_ptr(), q.data_ptr(), s.data_ptr(),
+                x.numel() // k, k, int(approx))
+    return q, s

@@ -7,7 +7,8 @@ copy by key path:
   linear:     {"w": (in, out), "b": (out,)}   computes x @ w + b
   layer_norm: {"scale": (dim,), "bias": (dim,)}
   rms_norm:   {"scale": (dim,)}
-Dense forms only; the int8 and int4 linears come with the quantized slices.
+``linear`` also takes the W8A8 form {"w_q", "w_scale", "b"?} (ops/quant.py);
+the weight-only int8 and int4 forms come with the W4A16 slice.
 """
 
 from __future__ import annotations
@@ -17,12 +18,17 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from stllm_tpu_torch.ops.quant import quant_linear
+
 
 def linear(params, x: torch.Tensor) -> torch.Tensor:
+    if "w_q" in params:  # dynamic W8A8 (ops/quant.py)
+        return quant_linear(params, x)
     if "w" not in params:
         raise NotImplementedError(
-            f"linear params with keys {sorted(params)}: only the dense form "
-            "is ported")
+            f"linear params with keys {sorted(params)}: only the dense and W8A8 "
+            "forms are ported; the weight-only int8 and int4 forms come with "
+            "the W4A16 slice")
     y = torch.matmul(x, params["w"].to(x.dtype))
     b = params.get("b")
     if b is not None:

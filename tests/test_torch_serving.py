@@ -182,8 +182,10 @@ def test_from_config_on_cpu_serves_a_request():
                                   "draft", "overlong", "weights", "quant"])
 def test_unported_requests_raise(case, tmp_path):
     if case in ("weights", "quant"):
+        # quant_int8 runs; its int8 KV cache (llama.kv_int8) is not ported yet
         extra = ({"ckpt": str(tmp_path / "x.pth")} if case == "weights"
-                 else {"quant_int8": True})
+                 else {"quant_int8": True,
+                       "llama": {**_tiny_model_cfg()["llama"], "kv_int8": True}})
         (tmp_path / "x.pth").write_bytes(b"")
         with pytest.raises(NotImplementedError):
             tzoo.STLLM.from_config(_tiny_model_cfg(**extra), device="cpu")
