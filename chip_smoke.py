@@ -26,7 +26,15 @@ toolkit. Phases, each fatal on failure:
    on one 16-frame clip (78, 39, 39 and 39 static-int8 attention launches),
    and the static-int8 model serves them again (42 static-int8 attention
    launches per video, nothing else); a tiny bf16 int8 model, dynamic and
-   static, must encode one video on the card and on the CPU alike.
+   static, must encode one video on the card and on the CPU alike;
+5. w4a16  - the W4A16 serving stack: the same config with llama.kv_int8,
+   the ViT converted to int8 and calibrated on one clip (static int8), the
+   Q-Former bf16, and Vicuna-7B converted by quantize_llama_params_int4
+   (per-channel int4, q|k|v and gate|up fused, int8 lm_head), serves the
+   same 6 requests from an int8 KV cache: 42 static-int8 attention launches
+   per video and exactly 128 W4A16 launches per LLaMA forward; a tiny bf16
+   W4A16 + int8-KV LLaMA must give the same prefill logits on the card and
+   on the CPU.
 
 Then it prints a ``{"kernels": [...]}`` line, the nvidia-smi line and, last,
 ``{"ok": true, "device": {...}}``. Without a CUDA card it exits non-zero and
@@ -52,6 +60,14 @@ FP32_FLOP_PER_S = 67e12        # H100 SXM fp32 outside the tensor cores, publish
 BF16_ATOL = BF16_RTOL = 3e-2   # bf16 attention tolerance of tests/test_ops.py
 INT8_ATOL = INT8_RTOL = 3e-2   # dequantized int8 outputs; codes at most 1 step apart
 INT8_TINY_REL = 5e-2           # tiny int8 encode, card vs CPU, relative L2
+# weight-streaming matmuls (#12-#15), compared in fp32: the products are exact,
+# the fp32 sums run in another order and a bf16 output rounds once, so within
+# atol = 1e-2 times the plain output's largest magnitude and rtol = 1e-2
+WS_ATOL = WS_RTOL = 1e-2
+# tiny W4A16 + int8-KV prefill logits, card vs CPU, relative L2: a bf16 linear
+# output may round the other way after fp32 sums in another order, and an int8
+# KV code then moves by one step
+W4_TINY_REL = 5e-2
 # estimated fp32 operations per element of the row kernels (mean, variance,
 # normalize, affine, amax, divide, round; GELU adds its erf or tanh)
 LN_OPS_PER_ELEM, GELU_OPS_PER_ELEM = 10, 25
@@ -62,11 +78,21 @@ TRUNK = (16, 257, 16, 88)      # the ViT-g trunk and BTAdapter spatial shape
 # per-video launches of each int8 path (39 trunk blocks, 3 branch layers)
 DYNAMIC_PER_VIDEO = {"layer_norm_quant": 78, "gelu_quant": 39,
                      "packed_qkv_attention_quant": 39, "packed_qkv_attention": 6,
-                     "packed_qkv_attention_s8": 0}
+                     "packed_qkv_attention_s8": 0, "w4a16_matmul": 0}
 CALIBRATION = {"layer_norm_quant": 78, "gelu_quant": 39, "packed_qkv_attention_quant": 39,
-               "packed_qkv_attention_s8": 39, "packed_qkv_attention": 0}
+               "packed_qkv_attention_s8": 39, "packed_qkv_attention": 0, "w4a16_matmul": 0}
 STATIC_PER_VIDEO = {"layer_norm_quant": 0, "gelu_quant": 0, "packed_qkv_attention_quant": 0,
                     "packed_qkv_attention": 0, "packed_qkv_attention_s8": 42}
+PROBES = ("w4v3_matmul", "w8p_matmul", "w4_unpack_matmul")   # launched by their checks only
+W4A16_LAUNCHES_PER_FORWARD = 4 * 32   # fused qkv, o, fused gate|up, down in 32 layers
+# Vicuna-7B decoder shapes (K, N, packed rows of K-padding) of the W4A16 stack
+W4_SHAPES = {"qkv": (4096, 12288, 0), "o": (4096, 4096, 0), "gateup": (4096, 22016, 0),
+             "down": (11008, 4096, 128)}
+# the decode-budget probe's matmul skeleton (script/probe_decode_budget.py), K
+# padded as it pads it: to a multiple of 1024, else up to the next 512
+PROBE_SHAPES = [("q", 4096, 4096), ("k", 4096, 4096), ("v", 4096, 4096), ("o", 4096, 4096),
+                ("gate", 4096, 11008), ("up", 4096, 11008), ("down", 11264, 4096)]
+UNPACK_SHAPE = (16, 4096, 11008)      # script/probe_w4_unpack.py
 
 
 def smi_line() -> str:
@@ -75,12 +101,17 @@ def smi_line() -> str:
         capture_output=True, text=True, check=True, timeout=60).stdout.strip().splitlines()[0]
 
 
+_SIDE = []   # one side stream for every capture: cuBLAS keeps a workspace per stream
+
+
 def graph_ms(fn, iters: int, replays: int = 5) -> float:
     """Mean device time of fn() over ``iters`` calls captured in one CUDA
     graph, replayed ``replays`` times and timed by CUDA events: the host's
     per-call cost (argument checks, allocation, the launch) stays out, so a
     short kernel is timed and not the Python that launches it."""
-    side = torch.cuda.Stream()
+    if not _SIDE:
+        _SIDE.append(torch.cuda.Stream())
+    side = _SIDE[0]
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
         for _ in range(3):
@@ -160,6 +191,20 @@ def _int8_err(got, want) -> float:
     if steps > 1 or not ok:
         raise AssertionError(f"codes {steps} steps apart, max abs err {float(err.max())} "
                              f"outside atol=rtol={INT8_ATOL}")
+    return float(err.max())
+
+
+def _ws_err(got, want) -> float:
+    """Weight-streaming outputs in fp32 within WS_ATOL times the plain
+    output's largest magnitude plus WS_RTOL relative."""
+    g, w = got.float(), want.float()
+    err = (g - w).abs()
+    scale = float(w.abs().max())
+    ok = bool((err <= WS_ATOL * scale + WS_RTOL * w.abs()).all())
+    if got.dtype != want.dtype or got.shape != want.shape or not ok \
+            or not bool(torch.isfinite(g).all()):
+        raise AssertionError(f"{got.dtype} {tuple(got.shape)}: max abs err {float(err.max())} "
+                             f"outside atol={WS_ATOL} x {scale}, rtol={WS_RTOL}")
     return float(err.max())
 
 
@@ -299,6 +344,101 @@ def phase_kernels(kernels) -> dict:
                          _int8_err)
     out["gelu_quant"] = _entry("gelu_quant", "gelu_quant.cu", "stllm_tpu/ops/quant.py:261",
                                rows, INT8_ATOL, INT8_RTOL)
+    out.update(_weight_stream_kernels(kernels, gen))
+    return out
+
+
+def _ws_bound(m: int, k: int, n: int, w_bytes: int, out_bytes: int, scaled: bool = True) -> tuple:
+    """Bytes (x, weights, scale, out each moved once) and tensor-core time of
+    an (m, k) x (k, n) weight-streaming product."""
+    nbytes = m * k * 2 + w_bytes + (n * 4 if scaled else 0) + m * n * out_bytes
+    return nbytes, 2 * m * k * n / BF16_FLOP_PER_S
+
+
+def _weight_stream_kernels(kernels, gen) -> dict:
+    """W4A16 (#12) at the stack's decode (M = 4 slots) and prefill (M = 576)
+    shapes, and the probes #13-#15 at theirs. No single PyTorch call
+    computes these functions on this storage, so library_ms is null; #12's
+    rows add the time of torch.matmul on the dense bf16 weight of the same
+    shape, as context."""
+    out = {}
+
+    def codes(shape):
+        return torch.randint(-7, 8, shape, generator=gen, device="cuda", dtype=torch.int8)
+
+    def scale(n):
+        return ((0.02 * 3 / 7) * (0.5 + torch.rand(n, generator=gen, device="cuda"))).contiguous()
+
+    cases, dense = [], {}
+    for m in (4, 576):
+        for label, (k, n, pad) in W4_SHAPES.items():
+            bufs = []
+            for _ in range(4):
+                x = torch.randn(m, k, generator=gen, device="cuda").bfloat16()
+                packed = torch.cat([kernels.pack_int4_nibbles(codes((k // 2, n)), codes((k // 2, n))),
+                                    torch.zeros((pad, n), dtype=torch.int8, device="cuda")])
+                bufs.append((x, packed, scale(n)))
+            w = (torch.randn(k, n, generator=gen, device="cuda") * 0.02).bfloat16()
+            dense[(label, m)] = graph_ms(lambda: torch.matmul(bufs[0][0], w), 40)
+            del w
+            cases.append(([label, m, k, n, pad], bufs, *_ws_bound(m, k, n, k // 2 * n, 2)))
+    rows = _check_kernel("w4a16_matmul", cases, kernels.w4a16_matmul,
+                         kernels.w4a16_matmul_plain, _ws_err)
+    for row in rows:
+        row["dense_bf16_matmul_ms"] = dense[(row["shape"][0], row["shape"][1])]
+        row["splits"] = kernels.weight_stream_splits(row["shape"][1], row["shape"][3],
+                                                     row["shape"][2] // 2)
+    out["w4a16_matmul"] = _entry("w4a16_matmul", "w4a16_matmul.cu",
+                                 "stllm_tpu/ops/quant.py:639", rows, WS_ATOL, WS_RTOL)
+    for m in (4, 576):
+        dec = [r for r in rows if r["shape"][1] == m]
+        print(f"[kernels] w4a16_matmul M={m}: {sum(r['ms'] for r in dec):.4f} ms for the four "
+              f"shapes (bound {sum(r['bound_ms'] for r in dec):.4f} ms), x32 layers "
+              f"{32 * sum(r['ms'] for r in dec):.3f} ms; dense bf16 torch.matmul "
+              f"{sum(r['dense_bf16_matmul_ms'] for r in dec):.4f} ms")
+    del cases
+
+    # #13 arithmetic-packed W4A16 and #14 int8 streaming at the probe's M = 1
+    cases13, cases14 = [], []
+    for label, k, n in PROBE_SHAPES:
+        xs = [torch.randn(1, k, generator=gen, device="cuda").bfloat16() for _ in range(4)]
+        cases13.append(([label, 1, k, n], [(x, kernels.pack_int4_arith(codes((k // 2, n)),
+                                                                       codes((k // 2, n))),
+                                            scale(n)) for x in xs],
+                        *_ws_bound(1, k, n, k // 2 * n, 2)))
+        cases14.append(([label, 1, k, n],
+                        [(x, torch.randint(-127, 128, (k, n), generator=gen, device="cuda",
+                                           dtype=torch.int8), scale(n) * 7 / 127) for x in xs],
+                        *_ws_bound(1, k, n, k * n, 2)))
+    rows = _check_kernel("w4v3_matmul", cases13, kernels.w4v3_matmul,
+                         kernels.w4v3_matmul_plain, _ws_err)
+    out["w4v3_matmul"] = _entry("w4v3_matmul", "w4v3_matmul.cu",
+                                "script/probe_decode_budget.py:58", rows, WS_ATOL, WS_RTOL)
+    rows = _check_kernel("w8p_matmul", cases14, kernels.w8p_matmul, kernels.w8p_matmul_plain,
+                         _ws_err)
+    out["w8p_matmul"] = _entry("w8p_matmul", "w8p_matmul.cu",
+                               "script/probe_decode_budget.py:116", rows, WS_ATOL, WS_RTOL)
+    del cases13, cases14
+
+    # #15: the five unpack variants at the probe's shape, each on its layout
+    m, k, n = UNPACK_SHAPE
+    tops = [codes((k // 2, n)) for _ in range(4)]
+    bots = [codes((k // 2, n)) for _ in range(4)]
+    xs = [(torch.randn(m, k, generator=gen, device="cuda") * 0.1).bfloat16() for _ in range(4)]
+    cases15, products = [], []
+    for variant in kernels.W4_UNPACK_VARIANTS:
+        pack = (kernels.pack_int4_biased if variant in kernels.BIASED_VARIANTS
+                else kernels.pack_int4_nibbles)
+        cases15.append(([variant, m, k, n], [(x, pack(t, b), variant)
+                                             for x, t, b in zip(xs, tops, bots)],
+                        *_ws_bound(m, k, n, k // 2 * n, 4, scaled=False)))
+        products.append(kernels.w4_unpack_matmul(*cases15[-1][1][0]))
+    rows = _check_kernel("w4_unpack_matmul", cases15, kernels.w4_unpack_matmul,
+                         kernels.w4_unpack_matmul_plain, _ws_err)
+    for prod in products[1:]:
+        _ws_err(prod, products[0])       # every variant gives the same product
+    out["w4_unpack_matmul"] = _entry("w4_unpack_matmul", "w4_unpack_matmul.cu",
+                                     "script/probe_w4_unpack.py:93", rows, WS_ATOL, WS_RTOL)
     return out
 
 
@@ -353,6 +493,39 @@ def check_small_reference() -> float:
     return _card_vs_cpu(model.params, model.cfg, BF16_RTOL)
 
 
+def check_small_w4_reference(kernels) -> float:
+    """A tiny bf16 LLaMA converted to W4A16 (per-channel int4, fused, int8
+    head) with the int8 KV cache: prefill logits on the card (kernel #12)
+    and on the CPU (its plain version) within W4_TINY_REL."""
+    from stllm_tpu_torch.models.generation import _prefill
+    from stllm_tpu_torch.models.llama import quantize_llama_params_int4
+    from stllm_tpu_torch.models.zoo import STLLM
+
+    cfg = {**TINY_MODEL_CFG, "llama": {**TINY_MODEL_CFG["llama"], "kv_int8": True}}
+    model = STLLM.from_config(cfg, seed=3, device="cpu")
+    lcfg = model.cfg.llama
+    llama = quantize_llama_params_int4(model.params["llama"], group=None, fuse=True,
+                                       quant_head=True)
+    rng = np.random.default_rng(4)
+    emb = torch.from_numpy(rng.standard_normal((2, 24, lcfg.hidden)) * 0.5).bfloat16()
+    mask = torch.ones((2, 24), dtype=torch.int32)
+    mask[1, 17:] = 0
+    want, _ = _prefill(llama, emb, mask, lcfg, 32)
+    before = kernels.LAUNCHES["w4a16_matmul"]
+    got, cache = _prefill(_tree_to(llama, "cuda"), emb.cuda(), mask.cuda(), lcfg, 32)
+    torch.cuda.synchronize()
+    if kernels.LAUNCHES["w4a16_matmul"] - before != 4 * lcfg.num_layers:
+        raise AssertionError("tiny W4A16 prefill did not launch the kernel 4 times a layer")
+    if cache.k[0].dtype != torch.int8 or cache.k_scale is None:
+        raise AssertionError("tiny W4A16 prefill: the KV cache is not int8 with scales")
+    got = got.cpu()
+    rel = float((got - want).norm() / want.norm())
+    if not bool(torch.isfinite(got).all()) or rel > W4_TINY_REL:
+        raise AssertionError(f"tiny W4A16 prefill logits: card vs CPU relative L2 {rel} "
+                             f"> {W4_TINY_REL}")
+    return rel
+
+
 def check_small_int8_reference() -> dict:
     """The tiny model with quant_int8, dynamic and then static: calibrated
     once on the CPU, the same scales copied to the card."""
@@ -405,11 +578,13 @@ def serve(kernels, params, cfg, reqs, label: str) -> dict:
     torch.cuda.reset_peak_memory_stats()
     torch.cuda.synchronize()
     kernels.reset_launches()
+    FORWARD_CALLS[0] = 0
     t0 = time.perf_counter()
     answers = srv.run()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = dict(kernels.LAUNCHES)
+    forwards = FORWARD_CALLS[0]
 
     if set(answers) != {r[0] for r in reqs}:
         raise AssertionError(f"[{label}] answers for {sorted(answers)}, not all "
@@ -447,12 +622,31 @@ def serve(kernels, params, cfg, reqs, label: str) -> dict:
            "prefill_ms": prefill_ms, "decode_ms_per_token": decode_ms_step,
            "decode_slots": b.slots,
            "max_memory_allocated_gib": torch.cuda.max_memory_allocated() / 2**30,
-           "launches": launches,
+           "launches": launches, "llama_forwards": forwards,
            "launches_per_video": {k: v / NUM_REQUESTS for k, v in launches.items()},
+           "kv_cache": {"dtype": str(b.cache.k[0].dtype).replace("torch.", ""),
+                        "scales": b.cache.k_scale is not None},
            "tokens_per_request": {k: len(v) for k, v in sorted(answers.items())},
            "answers": {k: v[:8] for k, v in sorted(answers.items())}}
     print(f"[{label}] {json.dumps(out)}")
     return out
+
+
+FORWARD_CALLS = [0]   # llama_forward calls of the serving path, counted by count_forwards
+
+
+def count_forwards() -> None:
+    """Count the serving path's llama_forward calls (generation's prefill
+    and decode steps call it through the module's own name)."""
+    from stllm_tpu_torch.models import generation
+
+    real = generation.llama_forward
+
+    def counted(*args, **kw):
+        FORWARD_CALLS[0] += 1
+        return real(*args, **kw)
+
+    generation.llama_forward = counted
 
 
 def _expect(label: str, launches: dict, want: dict, per: int) -> None:
@@ -478,7 +672,8 @@ def phase_slice(kernels) -> dict:
     out = serve(kernels, model.params, cfg, make_requests(cfg), "slice")
     _expect("slice", out["launches"], {"packed_qkv_attention": 45, "layer_norm_quant": 0,
                                        "gelu_quant": 0, "packed_qkv_attention_quant": 0,
-                                       "packed_qkv_attention_s8": 0}, NUM_REQUESTS)
+                                       "packed_qkv_attention_s8": 0, "w4a16_matmul": 0},
+            NUM_REQUESTS)
     out["tiny_encode_rel_err"] = rel
     return out
 
@@ -531,7 +726,8 @@ def phase_int8(kernels) -> dict:
     print(f"[int8] calibrated {n_layers} layers in {calib_s:.2f} s, launches {calib_launches}")
 
     static = serve(kernels, params, cfg, reqs, "int8-static")
-    _expect("int8-static", static["launches"], STATIC_PER_VIDEO, NUM_REQUESTS)
+    _expect("int8-static", static["launches"], {**STATIC_PER_VIDEO, "w4a16_matmul": 0},
+            NUM_REQUESTS)
     for mode in (dynamic, static):
         print(f"[int8] {mode['mode']}: encode {mode['encode_ms_per_video']:.2f} ms/video, "
               f"prefill {mode['prefill_ms']:.2f} ms, decode {mode['decode_ms_per_token']:.2f} "
@@ -542,6 +738,80 @@ def phase_int8(kernels) -> dict:
             "tiny_encode_rel_err": rels}
 
 
+def _time_heads(llama_params, lcfg) -> dict:
+    """One decode step's head (4 slots) on the int8 w_q16 head, which
+    upcasts the 131 MB of codes to a bf16 copy on every call, and on a
+    dense bf16 head of the same shape."""
+    from stllm_tpu_torch.models.llama import lm_head
+
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    hidden = torch.randn(4, 1, lcfg.hidden, generator=gen, device="cuda").bfloat16()
+    dense = {"lm_head": {"w": (torch.randn(lcfg.hidden, lcfg.vocab_size, generator=gen,
+                                           device="cuda") * 0.02).bfloat16()}}
+    out = {"w_q16": cuda_ms(lambda: lm_head(llama_params, hidden), 20),
+           "dense_bf16": cuda_ms(lambda: lm_head(dense, hidden), 20)}
+    print(f"[w4a16] lm_head, 4 slots: w_q16 {out['w_q16']:.4f} ms, dense bf16 "
+          f"{out['dense_bf16']:.4f} ms")
+    return out
+
+
+def phase_w4a16(kernels) -> dict:
+    """The W4A16 serving stack at full width: static-int8 ViT, bf16
+    Q-Former, per-channel int4 Vicuna-7B with q|k|v and gate|up fused, the
+    int8 lm_head, and the int8 KV cache."""
+    from stllm_tpu_torch.models.btadapter import calibrate_btadapter_scales
+    from stllm_tpu_torch.models.llama import quantize_llama_params_int4
+    from stllm_tpu_torch.models.vit import quantize_vit_params
+    from stllm_tpu_torch.models.zoo import STLLM
+
+    rel = check_small_w4_reference(kernels)
+    print(f"[w4a16] tiny W4A16 + int8-KV prefill logits, card vs CPU: relative L2 {rel:.3e}")
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    base = qa_model_cfg()
+    model = STLLM.from_config({**base, "llama": {**(base.get("llama") or {}), "kv_int8": True}},
+                              seed=0)
+    cfg, params = model.cfg, model.params
+    dense_bytes = sum(t.numel() * t.element_size() for layer in params["llama"]["layers"]
+                      for p in layer.values() for t in p.values())
+    params["vit"] = quantize_vit_params(params["vit"], free_dense=True)
+    clip = torch.from_numpy(np.random.default_rng(2).integers(
+        0, 256, (FRAMES, cfg.vit.image_size, cfg.vit.image_size, 3), dtype=np.uint8)).cuda()
+    params["vit"] = calibrate_btadapter_scales(params["vit"], clip, cfg.vit, FRAMES)
+    params["llama"] = quantize_llama_params_int4(params["llama"], group=None, free_dense=True,
+                                                 quant_head=True, fuse=True)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    build_gib = torch.cuda.max_memory_allocated() / 2**30
+    w4_bytes = sum(t.numel() * t.element_size() for layer in params["llama"]["layers"]
+                   for p in layer.values() for t in p.values())
+    print(f"[w4a16] model built, calibrated and converted in {build_s:.1f} s, peak "
+          f"{build_gib:.2f} GiB, now {torch.cuda.memory_allocated() / 2**30:.2f} GiB; decoder "
+          f"weights {dense_bytes / 1e9:.2f} GB bf16 -> {w4_bytes / 1e9:.2f} GB W4A16; layer "
+          f"keys {sorted(params['llama']['layers'][0])}, head {sorted(params['llama']['lm_head'])}")
+    out = serve(kernels, params, cfg, make_requests(cfg), "w4a16")
+    out["lm_head_ms"] = _time_heads(params["llama"], cfg.llama)
+    _expect("w4a16", out["launches"], {**STATIC_PER_VIDEO, **{p: 0 for p in PROBES}},
+            NUM_REQUESTS)
+    forwards, w4 = out["llama_forwards"], out["launches"]["w4a16_matmul"]
+    if not forwards or w4 != W4A16_LAUNCHES_PER_FORWARD * forwards:
+        raise AssertionError(f"[w4a16] {w4} W4A16 launches over {forwards} LLaMA forwards, "
+                             f"want {W4A16_LAUNCHES_PER_FORWARD} each")
+    if out["kv_cache"] != {"dtype": "int8", "scales": True}:
+        raise AssertionError(f"[w4a16] KV cache {out['kv_cache']}, want int8 with scales")
+    print(f"[w4a16] encode {out['encode_ms_per_video']:.2f} ms/video, prefill "
+          f"{out['prefill_ms']:.2f} ms, decode {out['decode_ms_per_token']:.2f} ms/step, "
+          f"{out['tokens_per_s']:.2f} tokens/s, build peak {build_gib:.2f} GiB, serving peak "
+          f"{out['max_memory_allocated_gib']:.2f} GiB, {forwards} forwards x "
+          f"{W4A16_LAUNCHES_PER_FORWARD} W4A16 launches")
+    out.update({"build_s": build_s, "build_peak_gib": build_gib, "tiny_prefill_rel_err": rel,
+                "decoder_weight_bytes": {"bf16": dense_bytes, "w4a16": w4_bytes}})
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -550,17 +820,25 @@ def main() -> int:
 
     phase_build(kernels)
     entries = phase_kernels(kernels)
+    gc.collect()
+    print(f"[kernels] held after the phase: {torch.cuda.memory_allocated() / 2**30:.3f} GiB")
+    count_forwards()
     bf16 = phase_slice(kernels)
     gc.collect()
     int8 = phase_int8(kernels)
-    # each kernel's launches from the served path that runs it
+    gc.collect()
+    torch.cuda.empty_cache()
+    w4a16 = phase_w4a16(kernels)
+    # each kernel's launches from the served path that runs it; the probes
+    # run on no served path (0 launches on every one)
     path_of = {"packed_qkv_attention": bf16, "layer_norm_quant": int8["dynamic"],
                "gelu_quant": int8["dynamic"], "packed_qkv_attention_quant": int8["dynamic"],
-               "packed_qkv_attention_s8": int8["static"]}
+               "packed_qkv_attention_s8": int8["static"], "w4a16_matmul": w4a16,
+               **{p: w4a16 for p in PROBES}}
     for name, entry in entries.items():
         entry["launches"] = path_of[name]["launches"][name]
         entry["launches_by_path"] = {p["mode"]: p["launches"][name]
-                                     for p in (bf16, int8["dynamic"], int8["static"])}
+                                     for p in (bf16, int8["dynamic"], int8["static"], w4a16)}
         entry["launches_by_path"]["int8-calibration"] = int8["calibration_launches"][name]
     print(json.dumps({"kernels": list(entries.values())}))
     print(smi_line())

@@ -1,18 +1,22 @@
 #!/usr/bin/env python3
 """Where the time goes in one video-QA request of the PyTorch port.
 
-    python3 script/profile_torch_slice.py [--out profile.json]
+    python3 script/profile_torch_slice.py [--mode bf16|w4a16] [--out profile.json]
 
 Run from the repository root on a CUDA card. Builds the QA config
-(config/instructblipbase_stllm_qa.yaml) at full width with random weights.
-Three phases: the encode of one 16-frame video (ViT-g + BTAdapter,
-Q-Former, llama_proj, splice), the prefill of its 576-token prompt, and one
-16-step greedy decode chunk over 4 slots. Each is warmed up, then timed
-(host clock, synchronized; all phases before any profiler session), then
-profiled once (torch.profiler, CUDA activity). For each phase it prints the
-wall time, the device time summed over kernels, the device idle share
-(1 - device / wall), the time in the packed-qkv kernel, in GEMMs and in the
-rest, and the top kernels; with --out it also writes them as JSON.
+(config/instructblipbase_stllm_qa.yaml) at full width with random weights:
+in bf16 (the default), or as the W4A16 serving stack (``--mode w4a16``:
+the int8 KV cache, the ViT converted to int8 and calibrated on one clip,
+Vicuna-7B converted to per-channel int4 with q|k|v and gate|up fused and an
+int8 lm_head). Three phases: the encode of one 16-frame video (ViT-g +
+BTAdapter, Q-Former, llama_proj, splice), the prefill of its 576-token
+prompt, and one 16-step greedy decode chunk over 4 slots. Each is warmed
+up, then timed (host clock, synchronized; all phases before any profiler
+session), then profiled once (torch.profiler, CUDA activity). For each
+phase it prints the wall time, the device time summed over kernels, the
+device idle share (1 - device / wall), the time in the packed-qkv
+attention kernels, in the W4A16 kernel, in library GEMMs and in the rest,
+and the top kernels; with --out it also writes them as JSON.
 """
 
 from __future__ import annotations
@@ -32,6 +36,8 @@ REPO = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(REPO))
 
 GEMM_MARKS = ("gemm", "nvjet", "cutlass", "xmma", "matmul")
+ATTN_MARKS = ("packed_qkv_attention_kernel", "packed_qkv_s8_kernel")
+W4_MARKS = ("weight_stream_kernel", "splitk_reduce_kernel")
 
 
 def _device_us(e) -> float:
@@ -59,14 +65,17 @@ def profile_phase(name: str, fn, wall: float) -> dict:
     kernels = [e for e in prof.key_averages()
                if e.device_type == torch.autograd.DeviceType.CUDA and _device_us(e) > 0]
     dev_ms = sum(_device_us(e) for e in kernels) / 1e3
-    attn = sum(_device_us(e) for e in kernels if "packed_qkv_attention" in e.key) / 1e3
+    attn = sum(_device_us(e) for e in kernels if any(m in e.key for m in ATTN_MARKS)) / 1e3
+    w4 = sum(_device_us(e) for e in kernels if any(m in e.key for m in W4_MARKS)) / 1e3
     gemm = sum(_device_us(e) for e in kernels
-               if any(m in e.key.lower() for m in GEMM_MARKS)) / 1e3
+               if any(m in e.key.lower() for m in GEMM_MARKS)
+               and not any(m in e.key for m in W4_MARKS)) / 1e3
     top = sorted(kernels, key=_device_us, reverse=True)[:10]
     row = {"phase": name, "wall_ms": wall, "device_ms": dev_ms,
            "device_idle_share": max(0.0, 1.0 - dev_ms / wall),
            "kernel_launches": sum(e.count for e in kernels),
-           "packed_qkv_ms": attn, "gemm_ms": gemm, "other_ms": dev_ms - attn - gemm,
+           "packed_qkv_ms": attn, "w4a16_ms": w4, "gemm_ms": gemm,
+           "other_ms": dev_ms - attn - w4 - gemm,
            "top": [{"kernel": e.key[:90], "calls": e.count, "ms": _device_us(e) / 1e3}
                    for e in top]}
     print(json.dumps(row))
@@ -75,6 +84,8 @@ def profile_phase(name: str, fn, wall: float) -> dict:
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--mode", choices=("bf16", "w4a16"), default="bf16",
+                    help="the bf16 model, or the W4A16 serving stack")
     ap.add_argument("--out", help="also write the phases as JSON to this file")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -82,18 +93,29 @@ def main() -> int:
         return 1
 
     from stllm_tpu_torch.common.config import Config
+    from stllm_tpu_torch.models.btadapter import calibrate_btadapter_scales
     from stllm_tpu_torch.models.generation import _decode_chunk_greedy, _pad_prompt, _prefill
-    from stllm_tpu_torch.models.llama import init_kv_cache
+    from stllm_tpu_torch.models.llama import init_kv_cache, quantize_llama_params_int4
+    from stllm_tpu_torch.models.vit import quantize_vit_params
     from stllm_tpu_torch.models.zoo import STLLM
     from stllm_tpu_torch.ops import kernels
     from stllm_tpu_torch.pipeline_serving import _encode_assemble
 
     kernels.build()
-    model = STLLM.from_config(
-        Config(REPO / "config" / "instructblipbase_stllm_qa.yaml").model_cfg, seed=0)
+    model_cfg = dict(Config(REPO / "config" / "instructblipbase_stllm_qa.yaml").model_cfg)
+    if args.mode == "w4a16":
+        model_cfg["llama"] = {**(model_cfg.get("llama") or {}), "kv_int8": True}
+    model = STLLM.from_config(model_cfg, seed=0)
     cfg, params = model.cfg, model.params
     rng = np.random.default_rng(1)
     size = cfg.vit.image_size
+    if args.mode == "w4a16":
+        params["vit"] = quantize_vit_params(params["vit"], free_dense=True)
+        clip = torch.from_numpy(np.random.default_rng(2).integers(
+            0, 256, (16, size, size, 3), dtype=np.uint8)).cuda()
+        params["vit"] = calibrate_btadapter_scales(params["vit"], clip, cfg.vit, 16)
+        params["llama"] = quantize_llama_params_int4(params["llama"], group=None,
+                                                     free_dense=True, quant_head=True, fuse=True)
     frames = torch.from_numpy(rng.integers(0, 256, (1, 16, size, size, 3), dtype=np.uint8)).cuda()
     pre = torch.from_numpy(rng.integers(3, cfg.llama.vocab_size, (1, 40))).int().cuda()
     suf = torch.from_numpy(rng.integers(3, cfg.llama.vocab_size, (1, 20))).int().cuda()
@@ -123,8 +145,8 @@ def main() -> int:
     if args.out:
         out = Path(args.out)
         out.parent.mkdir(parents=True, exist_ok=True)
-        out.write_text(json.dumps({"card": smi, "torch": torch.__version__, "phases": rows},
-                                  indent=1))
+        out.write_text(json.dumps({"card": smi, "torch": torch.__version__, "mode": args.mode,
+                                   "phases": rows}, indent=1))
     return 0
 
 

@@ -1,0 +1,46 @@
+// W4A16 matmul for Hopper (sm_90a): bf16 x times int4 weights.
+//
+// Replaces stllm_tpu/ops/quant.py:_w4_pallas_kernel (through
+// w4_matmul_pallas), which runs every decoder matmul of the W4A16 Vicuna-7B
+// serving stack: four launches a layer (fused q|k|v, o, fused gate|up, down),
+// 128 per LLaMA forward. It computes what that kernel computes:
+//   x (M, K) cast to bf16; packed (>= K/2, N) int8 holding the codes of K
+//   rows [0, K/2) in the low nibble and of rows [K/2, K) in the high nibble,
+//   two's complement (top = (p << 28) >> 28, bottom = p >> 4)
+//   out = (x[:, :K/2] . top + x[:, K/2:] . bottom) * scale[n]
+//   with fp32 accumulation and an fp32 epilogue, cast to bf16 (or kept fp32
+//   for an fp32 x). Packed rows at K/2 and beyond are zero padding (the
+//   reference pads Vicuna's down projection from 5504 to 5632 rows at
+//   conversion) and are never read.
+//
+// Bound on the H100: at decode (M = 4) the call moves the packed weights and
+// little else, 8.4 MB (o) to 45.1 MB (gate|up): 2.5 to 13.5 us at 3.35 TB/s,
+// about 0.97 ms of weight streaming per decode step over 32 layers. At
+// prefill (M = 576) it does 19.3 to 103.9 GFLOP: 19.5 to 105 us at 989
+// TFLOP/s bf16, about 7.5 ms per prompt.
+//
+// Design (tile loop in weight_stream_matmul.cuh): the packed bytes cross
+// device memory once, through a ring of cp.async stages (4 at decode), and
+// are unpacked in shared memory into two bf16 tiles without an int-to-float
+// conversion (the nibble, xor 8, ORed into the mantissa of bf16 128, minus
+// 136); products on mma.sync m16n8k16 with fp32 accumulation. Decode pads its
+// 4 rows to the mma's 16 by zero-filling; when the 128-column output tiles
+// give fewer than 528 blocks (four per SM) the wrapper splits K, and a second
+// launch sums the fp32 partials. Decode still runs at about a third of the
+// HBM rate, and prefill, which unpacks each weight tile again for every
+// 64-row x tile, far from its compute bound; wgmma, TMA and a persistent
+// schedule are later work.
+
+#include "weight_stream_matmul.cuh"
+
+// Plain C entry point, loaded with ctypes. x: contiguous (M, 2 * k2t) bf16;
+// packed: contiguous (>= k2t, N) int8; scale: (N,) fp32; out: (M, N) bf16,
+// or fp32 when out_f32; partial: (splits, M, N) fp32 scratch when splits > 1.
+// N and k2t multiples of 8. Launches on ``stream`` and returns the CUDA error
+// of the launches (0 on success); never synchronises.
+extern "C" int stllm_w4a16_matmul(const void* x, const void* packed, const void* scale,
+                                  void* out, void* partial, int M, int N, int k2t,
+                                  int splits, int out_f32, void* stream) {
+  return stllm::wsm::run<stllm::wsm::kNibble>(x, packed, scale, out, partial, M, N, k2t,
+                                             splits, out_f32, stream);
+}

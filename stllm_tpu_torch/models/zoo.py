@@ -3,9 +3,10 @@
 
 ``STLLM.from_config`` builds the config from a YAML model section and
 initializes random weights from a seed on the chosen device; ``quant_int8``
-converts the tree to W8A8 (dynamic int8, see ``ops/quant.py``). Loading
-checkpoints, LoRA and the int8 KV cache come with later slices; a config
-that names an existing weight file raises rather than run on random weights.
+converts the tree to W8A8 (dynamic int8, see ``ops/quant.py``) and
+``llama: {kv_int8: true}`` gives the LLaMA an int8 KV cache. Loading
+checkpoints and LoRA come with later slices; a config that names an
+existing weight file raises rather than run on random weights.
 """
 
 from __future__ import annotations
@@ -116,8 +117,6 @@ class STLLM:
         if int(model_cfg.get("lora_r", 0) or 0) > 0:
             raise NotImplementedError("LoRA is not ported yet")
         cfg = build_stllm_config(model_cfg)
-        if cfg.llama.kv_int8:
-            raise NotImplementedError("the int8 KV cache (llama.kv_int8) is not ported yet")
         gen = torch.Generator(device=dev).manual_seed(seed)
         params = init_stllm(gen, cfg)
         if model_cfg.get("quant_int8", False):

@@ -15,6 +15,13 @@ Kernels (TPU kernel each replaces):
   packed_qkv_attention_s8     stllm_tpu/ops/attention.py:_packed_qkv_s8_kernel
   layer_norm_quant            stllm_tpu/ops/quant.py:_ln_quant_kernel
   gelu_quant                  stllm_tpu/ops/quant.py:_gelu_quant_kernel
+  w4a16_matmul                stllm_tpu/ops/quant.py:_w4_pallas_kernel
+  w4v3_matmul                 script/probe_decode_budget.py:_w4v3_kernel (probe)
+  w8p_matmul                  script/probe_decode_budget.py:_w8p_kernel (probe)
+  w4_unpack_matmul            script/probe_w4_unpack.py:kernel (probe)
+The last four share one weight-streaming tile loop
+(``csrc/weight_stream_matmul.cuh``); only the model path launches
+``w4a16_matmul``, the probes are launched by their checks and timings.
 """
 
 from __future__ import annotations
@@ -40,6 +47,10 @@ SOURCES = {
     "packed_qkv_attention_s8": "packed_qkv_attention_s8.cu",
     "layer_norm_quant": "layer_norm_quant.cu",
     "gelu_quant": "gelu_quant.cu",
+    "w4a16_matmul": "w4a16_matmul.cu",
+    "w4v3_matmul": "w4v3_matmul.cu",
+    "w8p_matmul": "w8p_matmul.cu",
+    "w4_unpack_matmul": "w4_unpack_matmul.cu",
 }
 _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 # C entry points: name -> (symbol, argtypes); every one returns a cudaError_t
@@ -53,6 +64,10 @@ _ENTRY = {
     "layer_norm_quant": (
         "stllm_layer_norm_quant_bf16", [_P, _P, _P, _P, _P, _LL, _I, _F, _P]),
     "gelu_quant": ("stllm_gelu_quant_bf16", [_P, _P, _P, _LL, _I, _I, _P]),
+    # the weight-streaming kernels: x, weights, scale, out, partial, M, N,
+    # weight rows in use, splits, out_f32 (#15: the unpack variant)
+    **{name: (f"stllm_{name}", [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P])
+       for name in ("w4a16_matmul", "w4v3_matmul", "w8p_matmul", "w4_unpack_matmul")},
 }
 
 LAUNCHES: Dict[str, int] = {name: 0 for name in SOURCES}
@@ -371,3 +386,175 @@ def gelu_quant(x: torch.Tensor, approx: bool = False) -> Tuple[torch.Tensor, tor
         _launch("gelu_quant", x.device, x.data_ptr(), q.data_ptr(), s.data_ptr(),
                 x.numel() // k, k, int(approx))
     return q, s
+
+
+# ---------------------------------------------------------------------------
+# weight-streaming matmuls: W4A16 (#12) and the probes #13-#15
+# ---------------------------------------------------------------------------
+
+W4_UNPACK_VARIANTS = ("int32", "int16", "f32", "bf16", "and8")
+BIASED_VARIANTS = ("f32", "bf16", "and8")   # on the p = 16 * b + (t + 8) layout
+_WS_BN, _WS_BK = 128, 32            # the tile loop's output columns and weight rows per step
+_WS_MIN_BLOCKS = 528                # four blocks on each of the H100's 132 SMs
+
+
+def weight_stream_splits(m: int, n: int, kw: int) -> int:
+    """Split-K factor of a weight-streaming launch: 1 when the (BM, 128)
+    output tiles (BM 16 for m <= 16, else 64) give at least 528 blocks,
+    else enough even shares of the ceil(kw / 32) weight-row steps to reach
+    that many blocks, every share non-empty."""
+    bm = 16 if m <= 16 else 64
+    blocks = -(-m // bm) * -(-n // _WS_BN)
+    steps = -(-kw // _WS_BK)
+    splits = max(1, min(steps, _WS_MIN_BLOCKS // blocks))
+    per = -(-steps // splits)
+    return -(-steps // per)
+
+
+def _weight_stream(name: str, x: torch.Tensor, w: torch.Tensor,
+                   scale: Optional[torch.Tensor], kw: int, flag: int,
+                   out_dtype: torch.dtype) -> torch.Tensor:
+    """Check and launch one weight-streaming kernel: x (..., K) cast to a
+    contiguous bf16 (M, K), w (>= kw, N) int8, scale (N,) fp32 or None, kw
+    the weight rows in use. Allocates the output and the split-K scratch."""
+    if x.device.type != "cuda":
+        raise ValueError(f"{name}: no kernel for {x.device}")
+    if x.dtype not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"{name} kernel takes a bf16 or fp32 x, got {x.dtype}")
+    _check_cuda(name, w, torch.int8)
+    if w.dim() != 2 or w.device != x.device:
+        raise ValueError(f"{name} kernel takes a 2-D weight on the device of x")
+    n = w.shape[1]
+    if scale is not None:
+        _check_cuda(name, scale, torch.float32)
+        if tuple(scale.shape) != (n,) or scale.device != x.device:
+            raise ValueError(f"{name}: scale {tuple(scale.shape)} != ({n},) on {x.device}")
+    if kw <= 0 or kw % 8 or n <= 0 or n % 8:
+        raise ValueError(f"{name} kernel: weight rows in use ({kw}) and N ({n}) must be "
+                         "positive multiples of 8")
+    if w.shape[0] < kw:
+        raise ValueError(f"{name}: the weight has {w.shape[0]} rows, x needs {kw}")
+    lead, k = x.shape[:-1], x.shape[-1]
+    x2 = x.reshape(-1, k).to(torch.bfloat16).contiguous()
+    _check_cuda(name, x2, torch.bfloat16)
+    m = x2.shape[0]
+    out = torch.empty((m, n), dtype=out_dtype, device=x.device)
+    if m:
+        splits = weight_stream_splits(m, n, kw)
+        partial = (torch.empty((splits, m, n), dtype=torch.float32, device=x.device)
+                   if splits > 1 else None)
+        _launch(name, x.device, x2.data_ptr(), w.data_ptr(),
+                None if scale is None else scale.data_ptr(), out.data_ptr(),
+                None if partial is None else partial.data_ptr(), m, n, kw, splits, flag)
+    return out.reshape(*lead, n)
+
+
+def _halves_f32(x: torch.Tensor, top: torch.Tensor, bottom: torch.Tensor) -> torch.Tensor:
+    """bf16(x)[:, :k2] . top + bf16(x)[:, k2:] . bottom in fp32, k2 = K / 2;
+    the bf16 products are exact in fp32."""
+    xb = x.to(torch.bfloat16).float()
+    k2 = x.shape[-1] // 2
+    return xb[..., :k2] @ top.float() + xb[..., k2:] @ bottom.float()
+
+
+def w4a16_matmul_plain(x: torch.Tensor, packed: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """Kernel #12's math: the first K/2 packed rows' two's-complement
+    nibbles (low: x columns [0, K/2), high: [K/2, K)), fp32 accumulation of
+    both halves, times the per-channel fp32 scale, out in x.dtype."""
+    p = packed[: x.shape[-1] // 2].to(torch.int32)
+    return (_halves_f32(x, (p << 28) >> 28, p >> 4) * scale.float()).to(x.dtype)
+
+
+def w4a16_matmul(x: torch.Tensor, packed: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """W4A16: x (..., K) @ int4-packed (>= K/2, N) with per-channel scales
+    -> (..., N) in x.dtype. CUDA: x bf16 or fp32 (multiplied as bf16); K/2
+    and N multiples of 8; packed rows at K/2 and beyond are never read."""
+    if x.device.type == "cpu":
+        return w4a16_matmul_plain(x, packed, scale)
+    if x.shape[-1] % 2:
+        raise ValueError(f"w4a16_matmul: K ({x.shape[-1]}) must be even")
+    return _weight_stream("w4a16_matmul", x, packed, scale, x.shape[-1] // 2,
+                          int(x.dtype == torch.float32), x.dtype)
+
+
+def pack_int4_arith(top: torch.Tensor, bottom: torch.Tensor) -> torch.Tensor:
+    """Codes in [-7, 7] to the arithmetic layout of #13: 16 * bottom + top."""
+    return (bottom.to(torch.int16) * 16 + top.to(torch.int16)).to(torch.int8)
+
+
+def pack_int4_nibbles(top: torch.Tensor, bottom: torch.Tensor) -> torch.Tensor:
+    """Codes in [-8, 7] to the nibble layout of #12 and #15's int32 and
+    int16 variants: top in the low nibble, bottom in the high one."""
+    return (top.to(torch.int8) & 0x0F) | (bottom.to(torch.int8) << 4)
+
+
+def pack_int4_biased(top: torch.Tensor, bottom: torch.Tensor) -> torch.Tensor:
+    """Codes in [-7, 7] to the biased layout of #15's f32, bf16 and and8
+    variants: 16 * bottom + top + 8."""
+    return (bottom.to(torch.int16) * 16 + top.to(torch.int16) + 8).to(torch.int8)
+
+
+def w4v3_matmul_plain(x: torch.Tensor, packed: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """Kernel #13's math: bottom = round(p / 16), top = p - 16 * bottom on
+    the arithmetic layout, then as kernel #12."""
+    p = packed[: x.shape[-1] // 2].float()
+    bottom = torch.round(p * 0.0625)
+    return (_halves_f32(x, p - 16.0 * bottom, bottom) * scale.float()).to(x.dtype)
+
+
+def w4v3_matmul(x: torch.Tensor, packed: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """Probe #13: W4A16 on arithmetic-packed (>= K/2, N) bytes, per-channel
+    scales -> (..., N) in x.dtype. CUDA: as w4a16_matmul."""
+    if x.device.type == "cpu":
+        return w4v3_matmul_plain(x, packed, scale)
+    if x.shape[-1] % 2:
+        raise ValueError(f"w4v3_matmul: K ({x.shape[-1]}) must be even")
+    return _weight_stream("w4v3_matmul", x, packed, scale, x.shape[-1] // 2,
+                          int(x.dtype == torch.float32), x.dtype)
+
+
+def w8p_matmul_plain(x: torch.Tensor, w_q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """Kernel #14's math: bf16 x times the int8 codes of the first K rows,
+    fp32 accumulation, times the per-channel scale, out in x.dtype."""
+    y = x.to(torch.bfloat16).float() @ w_q[: x.shape[-1]].float()
+    return (y * scale.float()).to(x.dtype)
+
+
+def w8p_matmul(x: torch.Tensor, w_q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """Probe #14: x (..., K) @ int8 (>= K, N) codes, convert only, times
+    the per-channel scale -> (..., N) in x.dtype. CUDA: K and N multiples
+    of 8."""
+    if x.device.type == "cpu":
+        return w8p_matmul_plain(x, w_q, scale)
+    return _weight_stream("w8p_matmul", x, w_q, scale, x.shape[-1],
+                          int(x.dtype == torch.float32), x.dtype)
+
+
+def w4_unpack_matmul_plain(x: torch.Tensor, packed: torch.Tensor, variant: str) -> torch.Tensor:
+    """Kernel #15's math for ``variant``, fp32 out, no scale: nibble layout
+    (int32, int16), or biased layout (f32, bf16, and8) where the low code
+    carries +8 and 8 * sum(bf16(x)[:, :K/2]) comes off every output."""
+    if variant not in W4_UNPACK_VARIANTS:
+        raise ValueError(f"unpack variant {variant!r} not in {W4_UNPACK_VARIANTS}")
+    k2 = x.shape[-1] // 2
+    p = packed[:k2].to(torch.int32)
+    if variant not in BIASED_VARIANTS:
+        return _halves_f32(x, (p << 28) >> 28, p >> 4)
+    v = p.float()
+    bottom = torch.floor(v * 0.0625)
+    xt = x[..., :k2].to(torch.bfloat16).float()
+    return _halves_f32(x, v - 16.0 * bottom, bottom) - 8.0 * xt.sum(dim=-1, keepdim=True)
+
+
+def w4_unpack_matmul(x: torch.Tensor, packed: torch.Tensor, variant: str) -> torch.Tensor:
+    """Probe #15: x (..., K) @ unpack(packed (>= K/2, N)) by ``variant``
+    (one of W4_UNPACK_VARIANTS) -> fp32 (..., N), no scale. CUDA: as
+    w4a16_matmul."""
+    if x.device.type == "cpu":
+        return w4_unpack_matmul_plain(x, packed, variant)
+    if variant not in W4_UNPACK_VARIANTS:
+        raise ValueError(f"unpack variant {variant!r} not in {W4_UNPACK_VARIANTS}")
+    if x.shape[-1] % 2:
+        raise ValueError(f"w4_unpack_matmul: K ({x.shape[-1]}) must be even")
+    return _weight_stream("w4_unpack_matmul", x, packed, None, x.shape[-1] // 2,
+                          W4_UNPACK_VARIANTS.index(variant), torch.float32)

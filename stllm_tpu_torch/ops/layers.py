@@ -7,8 +7,9 @@ copy by key path:
   linear:     {"w": (in, out), "b": (out,)}   computes x @ w + b
   layer_norm: {"scale": (dim,), "bias": (dim,)}
   rms_norm:   {"scale": (dim,)}
-``linear`` also takes the W8A8 form {"w_q", "w_scale", "b"?} (ops/quant.py);
-the weight-only int8 and int4 forms come with the W4A16 slice.
+``linear`` also takes the quantized forms of ops/quant.py: W8A8
+{"w_q", "w_scale", "b"?}, weight-only int8 {"w_q16", "w_scale", "b"?} and
+int4-packed W4A16 {"w4", "w4_scale", "b"?}.
 """
 
 from __future__ import annotations
@@ -18,34 +19,20 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
-from stllm_tpu_torch.ops.quant import quant_linear
+# matmul_f32 lives beside the quantized products that use it; models import it from here
+from stllm_tpu_torch.ops.quant import matmul_f32, quant_linear, w4_linear  # noqa: F401
 
 
 def linear(params, x: torch.Tensor) -> torch.Tensor:
-    if "w_q" in params:  # dynamic W8A8 (ops/quant.py)
+    if "w_q" in params or "w_q16" in params:  # int8 forms (ops/quant.py)
         return quant_linear(params, x)
-    if "w" not in params:
-        raise NotImplementedError(
-            f"linear params with keys {sorted(params)}: only the dense and W8A8 "
-            "forms are ported; the weight-only int8 and int4 forms come with "
-            "the W4A16 slice")
+    if "w4" in params:  # int4-packed weights (W4A16, ops/quant.py)
+        return w4_linear(params, x)
     y = torch.matmul(x, params["w"].to(x.dtype))
     b = params.get("b")
     if b is not None:
         y = y + b.to(y.dtype)
     return y
-
-
-def matmul_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """a (..., K) @ b (K, N) accumulated and returned in fp32 without
-    upcasting the operands on the card (JAX ``preferred_element_type``)."""
-    if a.dtype == torch.float32 and b.dtype == torch.float32:
-        return torch.matmul(a, b)
-    if a.is_cuda:
-        out = torch.mm(a.reshape(-1, a.shape[-1]), b, out_dtype=torch.float32)
-        return out.reshape(*a.shape[:-1], b.shape[-1])
-    # bf16 products are exact in fp32, so this is the same sum on the CPU
-    return torch.matmul(a.float(), b.float())
 
 
 def gather_rows(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
@@ -88,7 +75,11 @@ def mlp(params, x: torch.Tensor, act=gelu) -> torch.Tensor:
 
 
 def swiglu_mlp(params, x: torch.Tensor) -> torch.Tensor:
-    """LLaMA MLP: down(silu(gate(x)) * up(x))."""
+    """LLaMA MLP: down(silu(gate(x)) * up(x)). A ``gateup`` key holds the
+    two projections fused along N (see llama.quantize_llama_params_int4)."""
+    if "gateup" in params:
+        g, u = linear(params["gateup"], x).chunk(2, dim=-1)
+        return linear(params["down"], F.silu(g) * u)
     return linear(params["down"],
                   F.silu(linear(params["gate"], x)) * linear(params["up"], x))
 

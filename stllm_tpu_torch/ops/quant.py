@@ -1,4 +1,5 @@
-"""W8A8 int8 inference (stllm_tpu/ops/quant.py), dynamic and static.
+"""Quantized inference (stllm_tpu/ops/quant.py): W8A8 int8, dynamic and
+static, the weight-only int8 ``w_q16`` form, and W4A16 int4 storage.
 
 Weights are per-output-channel symmetric int8 (``w_q`` (K, N), ``w_scale``
 (N,) fp32). Activations are quantized per row at run time (dynamic) or with
@@ -9,24 +10,34 @@ leaves that dot to XLA, and here it is ``torch._int_mm`` on the card. The
 producer-fused quantizers ``layer_norm_quant`` and ``gelu_quant`` run the
 hand-written kernels in ``ops/kernels.py``.
 
+``w_q16`` (``w8a16_matmul``) keeps the activations in bf16 and upcasts the
+int8 codes into an fp32-accumulated product; the reference leaves it to XLA,
+and here it is plain torch.
+
+W4A16 (``w4``, ``w4_scale``): symmetric int4 codes in [-7, 7] packed two to
+a byte of one (K/2, N) int8 array, the codes of K rows [0, K/2) in the low
+nibble and those of rows [K/2, K) in the high nibble, with per-channel (N,)
+or per-group (K/group, N) fp32 scales. Per-channel packed weights are
+K-padded at conversion exactly as the reference pads them for its TPU
+kernel's tiling (``_w4_padded_k2``), so a tree converted from JAX and one
+quantized here are bit-identical; the true half-K always comes from x. On a
+CUDA tensor ``w4_linear`` runs the hand-written W4A16 kernel for every
+per-channel shape it takes; per-group scales stay plain torch on either
+device, as the reference leaves them to XLA.
+
 Each function follows the reference's order of operations: fp32 products do
 not associate, and a code flipped at a rounding boundary moves its element
 by one step.
-
-The weight-only ``w_q16`` form and the int4 ``w4`` form come with the W4A16
-slice.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from stllm_tpu_torch.ops import kernels
-
-W4A16_SLICE = "the weight-only w_q16 and int4 w4 forms come with the W4A16 slice"
 
 
 def quantize_weights(w: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -97,12 +108,33 @@ def quantize_linear_params(params: Dict, free_dense: bool = False) -> Dict:
     return out
 
 
+def matmul_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a (..., K) @ b (K, N) accumulated and returned in fp32 without
+    upcasting the operands on the card (JAX ``preferred_element_type``)."""
+    if a.dtype == torch.float32 and b.dtype == torch.float32:
+        return torch.matmul(a, b)
+    if a.is_cuda:
+        out = torch.mm(a.reshape(-1, a.shape[-1]), b, out_dtype=torch.float32)
+        return out.reshape(*a.shape[:-1], b.shape[-1])
+    # bf16 products are exact in fp32, so this is the same sum on the CPU
+    return torch.matmul(a.float(), b.float())
+
+
+def w8a16_matmul(x: torch.Tensor, w_q: torch.Tensor, w_scale: torch.Tensor) -> torch.Tensor:
+    """Weight-only int8 matmul: bf16 x times the int8 codes upcast to bf16,
+    fp32 accumulation, times the fp32 scale, out in x.dtype."""
+    y = matmul_f32(x.to(torch.bfloat16), w_q.to(torch.bfloat16))
+    return (y * w_scale.float()).to(x.dtype)
+
+
 def quant_linear(params_q: Dict, x: torch.Tensor) -> torch.Tensor:
     """Drop-in for ops.layers.linear on quantized params: the product is
-    cast to x.dtype first and the bias added in that dtype."""
-    if "w_q" not in params_q:
-        raise NotImplementedError(W4A16_SLICE)
-    out = quant_matmul(x, params_q["w_q"], params_q["w_scale"])
+    cast to x.dtype first and the bias added in that dtype. A ``w_q16`` key
+    (instead of ``w_q``) selects the weight-only form."""
+    if "w_q16" in params_q:
+        out = w8a16_matmul(x, params_q["w_q16"], params_q["w_scale"])
+    else:
+        out = quant_matmul(x, params_q["w_q"], params_q["w_scale"])
     if "b" in params_q:
         out = out + params_q["b"].to(out.dtype)
     return out
@@ -183,3 +215,124 @@ def quantize_tree_linears(tree, free_dense: bool = False):
     if isinstance(tree, list):
         return [quantize_tree_linears(v, free_dense) for v in tree]
     return tree
+
+
+# ---------------------------------------------------------------------------
+# W4A16: int4 weight storage with bf16 compute
+# ---------------------------------------------------------------------------
+
+def _pick_tile(dim: int, preferred: int) -> int:
+    """Largest 128-multiple divisor of ``dim`` that is <= preferred, or the
+    whole dim; 0 if neither exists."""
+    if dim <= preferred:
+        return dim
+    for cand in range(preferred, 127, -128):
+        if cand % 128 == 0 and dim % cand == 0:
+            return cand
+    return 0
+
+
+def _w4_tiles(k2: int, n: int) -> Optional[Tuple[int, int]]:
+    """The reference's TPU tiling rule (bk, bn) for a (k2, N) packed weight,
+    or None. Here it is a STORAGE rule only: it decides how far conversion
+    K-pads the packed array (``_w4_padded_k2``), never which kernel runs."""
+    bn = _pick_tile(n, 512)
+    if bn == 0:
+        return None
+    for bk in (2048, 1408, 1024, 512, 256):
+        if k2 % bk == 0 and 2 * bk * bn * 4 <= 9 * 1024 * 1024:
+            return bk, bn
+    return None
+
+
+def _w4_padded_k2(k2: int, n: int) -> int:
+    """Stored half-K of a per-channel packed weight: k2 when it tiles, else
+    the next 512-multiple when that tiles (Vicuna-7B down: 5504 -> 5632),
+    else k2 unpadded."""
+    if _w4_tiles(k2, n):
+        return k2
+    k2p = -(-k2 // 512) * 512
+    return k2p if _w4_tiles(k2p, n) else k2
+
+
+def quantize_weights_int4(w: torch.Tensor, group: Optional[int] = None
+                          ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """w (K, N) -> (packed int8 (K/2, N), scales fp32 (N,) or (K//group, N)).
+    Symmetric codes in [-7, 7] (-8 unused), round half to even."""
+    k, n = w.shape
+    if k % 2:
+        raise ValueError(f"int4 packing needs an even K, got {k}")
+    wf = w.float()
+    if group is None:
+        amax = wf.abs().amax(dim=0)
+        scale = torch.where(amax == 0.0, torch.ones_like(amax), amax / 7.0)
+        q = torch.clamp(torch.round(wf / scale), -7, 7).to(torch.int8)
+    else:
+        if k % group or (k // 2) % group:
+            raise ValueError(f"group {group} must divide K ({k}) and K/2")
+        gview = wf.reshape(k // group, group, n)
+        amax = gview.abs().amax(dim=1)
+        scale = torch.where(amax == 0.0, torch.ones_like(amax), amax / 7.0)
+        q = torch.clamp(torch.round(gview / scale[:, None]), -7, 7).to(torch.int8).reshape(k, n)
+    top, bottom = q[: k // 2], q[k // 2:]
+    return (top & 0x0F) | (bottom << 4), scale
+
+
+def _unpack_int4(packed: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(K/2, N) int8 -> (top codes, bottom codes), each (K/2, N) int8."""
+    return (packed << 4) >> 4, packed >> 4
+
+
+def w4_matmul(x: torch.Tensor, packed: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """x (..., K) @ int4-packed (K/2 or more, N) -> (..., N) in x.dtype, in
+    plain torch (the reference's XLA path). Per-channel scales fold into the
+    fp32 epilogue, which is kernel #12's plain version; per-group scales
+    multiply the dequantized bf16 weights."""
+    if scale.dim() == 1:
+        return kernels.w4a16_matmul_plain(x, packed, scale)
+    k2, n = packed.shape
+    if x.shape[-1] // 2 != k2:
+        raise ValueError("per-group scales cannot be K-padded")
+    top, bottom = _unpack_int4(packed)
+    xt = x[..., :k2].to(torch.bfloat16)
+    xb = x[..., k2:].to(torch.bfloat16)
+    g = 2 * k2 // scale.shape[0]
+    gt = scale[: k2 // g].to(torch.bfloat16)
+    gb = scale[k2 // g:].to(torch.bfloat16)
+    wt = (top.reshape(k2 // g, g, n).to(torch.bfloat16) * gt[:, None]).reshape(k2, n)
+    wb = (bottom.reshape(k2 // g, g, n).to(torch.bfloat16) * gb[:, None]).reshape(k2, n)
+    return (matmul_f32(xt, wt) + matmul_f32(xb, wb)).to(x.dtype)
+
+
+def quantize_linear_params_int4(params: Dict, group: Optional[int] = None,
+                                free_dense: bool = False) -> Dict:
+    """{'w': (K, N), 'b'?} -> {'w4', 'w4_scale', 'b'?} (see w4_linear).
+    Per-channel packed weights are K-padded with zero rows by
+    ``_w4_padded_k2``, as the reference pads them."""
+    packed, scale = quantize_weights_int4(params["w"], group)
+    if group is None:
+        k2, n = packed.shape
+        k2p = _w4_padded_k2(k2, n)
+        if k2p != k2:
+            packed = torch.cat([packed, packed.new_zeros((k2p - k2, n))])
+    out = {"w4": packed, "w4_scale": scale}
+    if params.get("b") is not None:
+        out["b"] = params["b"]
+    if free_dense:
+        del params["w"]
+    return out
+
+
+def w4_linear(params: Dict, x: torch.Tensor) -> torch.Tensor:
+    """Drop-in for ops.layers.linear on int4-packed params. Per-channel
+    scales run the W4A16 kernel (#12) on a CUDA tensor and its plain version
+    on a CPU one; per-group scales run ``w4_matmul``. The bias is added in
+    the output dtype."""
+    scale = params["w4_scale"]
+    if scale.dim() == 1:
+        out = kernels.w4a16_matmul(x, params["w4"], scale)
+    else:
+        out = w4_matmul(x, params["w4"], scale)
+    if "b" in params:
+        out = out + params["b"].to(out.dtype)
+    return out

@@ -23,11 +23,14 @@ from stllm_tpu_torch.models.llama import KVCache, LlamaConfig, init_kv_cache
 
 
 def _insert_slot(cache: KVCache, prefix: KVCache, slot: int) -> KVCache:
-    """Copy a (1, S, H, D)-per-layer prefill cache into row ``slot`` of the
-    batched cache (in place) and set that row's length. Stale tail entries
-    past the new length are overwritten by decode writes before they become
-    attendable."""
-    for c, p in zip(cache.k + cache.v, prefix.k + prefix.v):
+    """Copy a (1, S, H, D)-per-layer prefill cache, and the int8 cache's
+    (1, S, H) scales, into row ``slot`` of the batched cache (in place) and
+    set that row's length. Stale tail entries past the new length are
+    overwritten by decode writes before they become attendable."""
+    pairs = list(zip(cache.k + cache.v, prefix.k + prefix.v))
+    if cache.k_scale is not None:
+        pairs += zip(cache.k_scale + cache.v_scale, prefix.k_scale + prefix.v_scale)
+    for c, p in pairs:
         c[slot, :p.shape[1]] = p[0].to(c.dtype)
     cache.length[slot] = prefix.length[0]
     return cache

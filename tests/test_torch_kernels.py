@@ -8,7 +8,11 @@ Tolerances: bf16 attention outputs within the bf16 attention tolerance of
 tests/test_ops.py (atol = rtol = 3e-2); the kernel and its plain version
 differ only in summation order. The int8 kernels: codes at most one step
 apart (an fp32 value at a rounding boundary may round either way), and the
-dequantized outputs within the same atol = rtol = 3e-2."""
+dequantized outputs within the same atol = rtol = 3e-2. The
+weight-streaming matmuls (W4A16 and the probes): compared in fp32 within
+atol = 1e-2 times the plain output's largest magnitude and rtol = 1e-2; the
+products are exact, the fp32 sums run in another order (split-K adds its
+partials last) and a bf16 output rounds once."""
 
 import pytest
 import torch
@@ -178,3 +182,118 @@ def test_int8_dot_on_the_card_is_exact(card, mkn, layout):
     want = (x.cpu().long().reshape(-1, k) @ w.cpu().long()).reshape(2, m // 2, n)
     assert got.dtype == torch.float32 and got.shape == (2, m // 2, n)
     assert torch.equal(got.cpu(), want.float())
+
+
+# --------------------------------------------------------------------------
+# weight-streaming matmuls: W4A16 (#12) and the probes #13-#15
+# --------------------------------------------------------------------------
+
+WS_TOL = 1e-2
+
+
+def _assert_ws_close(got, want):
+    assert got.dtype == want.dtype and got.shape == want.shape
+    g, w = got.float(), want.float()
+    assert bool(torch.isfinite(g).all())
+    torch.testing.assert_close(g, w, atol=WS_TOL * float(w.abs().max()), rtol=WS_TOL)
+
+
+def _ws_inputs(card, m, k, n, seed, *, pad=0, dtype=torch.bfloat16):
+    """x (m, k); random bytes (k/2 + pad, n) whose padded rows are zero;
+    per-channel scales of a 0.02-std weight's int4 codes."""
+    gen = torch.Generator(device=card).manual_seed(seed)
+    x = torch.randn(m, k, generator=gen, device=card).to(dtype)
+    packed = torch.randint(-128, 128, (k // 2 + pad, n), generator=gen, device=card,
+                           dtype=torch.int8)
+    packed[k // 2:] = 0
+    scale = (0.02 * 3 / 7) * (0.5 + torch.rand(n, generator=gen, device=card))
+    return x, packed, scale
+
+
+# (m, K, N, padded packed rows, x dtype): the decode and prefill shapes of the
+# W4A16 stack, the K-padded down projection (5504 -> 5632 packed rows), a
+# ragged N tile with 8-byte weight rows, and an fp32 x
+W4_CASES = [(4, 4096, 12288, 0, torch.bfloat16), (4, 11008, 4096, 128, torch.bfloat16),
+            (1, 4096, 4096, 0, torch.bfloat16), (16, 4096, 22016, 0, torch.bfloat16),
+            (576, 4096, 4096, 0, torch.bfloat16), (576, 11008, 4096, 128, torch.bfloat16),
+            (20, 80, 200, 0, torch.bfloat16), (3, 96, 136, 5, torch.float32)]
+
+
+@pytest.mark.parametrize("case", W4_CASES, ids=lambda c: f"m{c[0]}-k{c[1]}-n{c[2]}-pad{c[3]}")
+def test_w4a16_kernel_matches_plain(card, case):
+    m, k, n, pad, dtype = case
+    x, packed, scale = _ws_inputs(card, m, k, n, 4, pad=pad, dtype=dtype)
+    got = _counted("w4a16_matmul", lambda: kernels.w4a16_matmul(x, packed, scale))
+    _assert_ws_close(got, kernels.w4a16_matmul_plain(x, packed, scale))
+
+
+# the probes' decoder shapes at M = 1 (down's K padded 11008 -> 11264 as the
+# probe pads it), and a small ragged one
+PROBE_SHAPES = [(1, 4096, 4096), (1, 4096, 11008), (1, 11264, 4096), (5, 48, 72)]
+
+
+def _codes(card, shape, seed):
+    gen = torch.Generator(device=card).manual_seed(seed)
+    return torch.randint(-7, 8, shape, generator=gen, device=card, dtype=torch.int8)
+
+
+@pytest.mark.parametrize("shape", PROBE_SHAPES)
+def test_w4v3_kernel_matches_plain(card, shape):
+    m, k, n = shape
+    x, _, scale = _ws_inputs(card, m, k, n, 5)
+    packed = kernels.pack_int4_arith(_codes(card, (k // 2, n), 6), _codes(card, (k // 2, n), 7))
+    got = _counted("w4v3_matmul", lambda: kernels.w4v3_matmul(x, packed, scale))
+    want = kernels.w4v3_matmul_plain(x, packed, scale)
+    _assert_ws_close(got, want)
+    # the same codes in the nibble layout give kernel #12's product
+    nib = kernels.pack_int4_nibbles(_codes(card, (k // 2, n), 6), _codes(card, (k // 2, n), 7))
+    _assert_ws_close(kernels.w4a16_matmul_plain(x, nib, scale), want)
+
+
+@pytest.mark.parametrize("shape", PROBE_SHAPES)
+def test_w8p_kernel_matches_plain(card, shape):
+    m, k, n = shape
+    x, _, scale = _ws_inputs(card, m, k, n, 8)
+    gen = torch.Generator(device=card).manual_seed(9)
+    w = torch.randint(-127, 128, (k, n), generator=gen, device=card, dtype=torch.int8)
+    got = _counted("w8p_matmul", lambda: kernels.w8p_matmul(x, w, scale * 7 / 127))
+    _assert_ws_close(got, kernels.w8p_matmul_plain(x, w, scale * 7 / 127))
+
+
+@pytest.mark.parametrize("variant", kernels.W4_UNPACK_VARIANTS)
+def test_w4_unpack_kernel_matches_plain(card, variant):
+    """The probe's shape, x (16, 4096) and packed (2048, 11008): each
+    variant on its layout gives the same product as its plain version and
+    as the nibble layout's plain product."""
+    m, k, n = 16, 4096, 11008
+    x = torch.randn(m, k, generator=torch.Generator(device=card).manual_seed(10),
+                    device=card).mul(0.1).bfloat16()
+    top, bot = _codes(card, (k // 2, n), 11), _codes(card, (k // 2, n), 12)
+    pack = kernels.pack_int4_biased if variant in kernels.BIASED_VARIANTS else \
+        kernels.pack_int4_nibbles
+    packed = pack(top, bot)
+    got = _counted("w4_unpack_matmul", lambda: kernels.w4_unpack_matmul(x, packed, variant))
+    assert got.dtype == torch.float32
+    _assert_ws_close(got, kernels.w4_unpack_matmul_plain(x, packed, variant))
+    _assert_ws_close(got, kernels.w4_unpack_matmul_plain(x, kernels.pack_int4_nibbles(top, bot),
+                                                         "int32"))
+
+
+def test_weight_stream_kernels_refuse_what_they_cannot_take(card):
+    x, packed, scale = _ws_inputs(card, 4, 64, 64, 13)
+    with pytest.raises(TypeError):
+        kernels.w4a16_matmul(x.half(), packed, scale)                     # fp16 x
+    with pytest.raises(TypeError):
+        kernels.w4a16_matmul(x, packed.int(), scale)                      # int32 weight
+    with pytest.raises(ValueError):
+        kernels.w4a16_matmul(x, packed[:, :60].contiguous(), scale[:60])  # N % 8
+    with pytest.raises(ValueError):
+        kernels.w4a16_matmul(x[:, :60], packed, scale)                    # K/2 % 8
+    with pytest.raises(ValueError):
+        kernels.w4a16_matmul(x, packed[:16].contiguous(), scale)          # rows < K/2
+    with pytest.raises(ValueError):
+        kernels.w4a16_matmul(x, packed[:, ::2], scale[::2].contiguous())  # strided
+    with pytest.raises(ValueError):
+        kernels.w4a16_matmul(x, packed, scale[:32].contiguous())          # scale shape
+    with pytest.raises(ValueError):
+        kernels.w4_unpack_matmul(x, packed, "int4")                       # no such variant

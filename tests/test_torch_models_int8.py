@@ -183,8 +183,10 @@ def test_quantize_llama_params_prefill_matches_jax(stllm_params):
     tq = tllama.quantize_llama_params(_t(stllm_params["llama"]))
     _trees_match(jq, tq)
     assert "w" in tq["lm_head"] and "w_q" in tq["layers"][1]["down"]
-    with pytest.raises(NotImplementedError, match="W4A16"):
-        tllama.quantize_llama_params(_t(stllm_params["llama"]), a16=True)
+    # the weight-only a16 form: w_q renamed w_q16, the same codes
+    ta = tllama.quantize_llama_params(_t(stllm_params["llama"]), a16=True)
+    assert "w_q16" in ta["layers"][1]["down"] and "w_q" not in ta["layers"][1]["down"]
+    _trees_match(jllama.quantize_llama_params(stllm_params["llama"], a16=True), ta)
     emb = np.random.default_rng(5).standard_normal((2, 8, 64)).astype(np.float32) * 0.3
     mask = np.ones((2, 8), np.int32)
     mask[1, 5:] = 0
@@ -210,9 +212,11 @@ def test_from_config_quant_int8_tree_matches_jax():
     _trees_match(want, got, values=False)
     assert "w" in got["llama_proj"] and "w" in got["vit"]["patch_embed"]
     assert "w_q" in got["qformer"]["layers"][0]["attention"]["q"]
-    with pytest.raises(NotImplementedError, match="kv_int8"):
-        tzoo.STLLM.from_config({**_model_cfg(), "llama": {**LL, "kv_int8": True}},
-                               device="cpu")
+    # llama.kv_int8 flows into the LLaMA config beside quant_int8, as in JAX
+    cfg = {**_model_cfg(), "llama": {**LL, "kv_int8": True}}
+    model = tzoo.STLLM.from_config(cfg, device="cpu")
+    assert model.cfg.llama.kv_int8 and jzoo.STLLM.from_config(cfg).cfg.llama.kv_int8
+    _trees_match(want, model.params, values=False)
 
 
 def _quantized_stllm(stllm_params, vit_q, mode):

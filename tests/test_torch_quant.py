@@ -118,13 +118,19 @@ def test_quantize_linear_params_free_dense_drops_the_weight():
     assert "w" not in p and sorted(q) == ["b", "w_q", "w_scale"]
 
 
-@pytest.mark.parametrize("form", [{"w_q16": np.zeros((8, 8), np.int8)},
-                                  {"w4": np.zeros((4, 8), np.int8)}])
-def test_weight_only_and_int4_linears_raise(form):
-    p = {k: _t(v) for k, v in form.items()}
-    p["w_scale"] = torch.ones(8)
-    with pytest.raises(NotImplementedError, match="W4A16"):
-        tlayers.linear(p, torch.zeros(2, 8))
+@pytest.mark.parametrize("form", ["w_q16", "w4"])
+def test_weight_only_and_int4_linears_match_jax(form):
+    """ops.layers.linear dispatches the weight-only int8 (``w_q16``) and
+    the int4 (``w4``) forms as the JAX linear does, bias included."""
+    p = {k: jnp.asarray(v) for k, v in _lin(24, 64, 48).items()}
+    if form == "w_q16":
+        jp = jquant.quantize_linear_params(p)
+        jp["w_q16"] = jp.pop("w_q")
+    else:
+        jp = jquant.quantize_linear_params_int4(p)
+    tp = load_jax_params(jax.tree_util.tree_map(np.asarray, jp), device="cpu")
+    x = _rand(25, 3, 64)
+    _float_close(tlayers.linear(tp, _t(x)), jlayers.linear(jp, jnp.asarray(x)))
 
 
 def test_quantize_tree_linears_matches_jax():

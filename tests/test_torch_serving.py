@@ -164,6 +164,22 @@ def test_from_config_without_device_raises_without_cuda(monkeypatch):
         load_jax_params({"w": np.zeros(2)})
 
 
+@pytest.mark.parametrize("quant_int8", [False, True])
+def test_from_config_kv_int8_serves_a_request(quant_int8):
+    """``llama: {kv_int8: true}`` builds, with and without quant_int8, and
+    the server runs on the int8 cache."""
+    cfg = _tiny_model_cfg(quant_int8=quant_int8,
+                          llama={**_tiny_model_cfg()["llama"], "kv_int8": True})
+    model = tzoo.STLLM.from_config(cfg, seed=3, device="cpu")
+    assert model.cfg.llama.kv_int8
+    srv = TServer(model.params, model.cfg, slots=2, max_len=64, chunk=4)
+    assert srv.batcher.cache.k[0].dtype == torch.int8 and srv.batcher.cache.k_scale is not None
+    frames = np.random.default_rng(4).integers(0, 256, (1, 2, 28, 28, 3)).astype(np.uint8)
+    srv.submit("a", frames, [[5, 6, 7]], [[8, 9]], _gen(TGen, 6), qformer_text_ids=[[1, 2, 3]])
+    out = srv.run()
+    assert len(out["a"]) == 6 and all(0 <= t < 97 for t in out["a"])
+
+
 def test_from_config_on_cpu_serves_a_request():
     model = tzoo.STLLM.from_config(_tiny_model_cfg(), seed=3, device="cpu")
     assert model.device.type == "cpu"
@@ -182,9 +198,9 @@ def test_from_config_on_cpu_serves_a_request():
                                   "draft", "overlong", "weights", "quant"])
 def test_unported_requests_raise(case, tmp_path):
     if case in ("weights", "quant"):
-        # quant_int8 runs; its int8 KV cache (llama.kv_int8) is not ported yet
+        # quant_int8 with the int8 KV cache runs; LoRA on it is not ported yet
         extra = ({"ckpt": str(tmp_path / "x.pth")} if case == "weights"
-                 else {"quant_int8": True,
+                 else {"quant_int8": True, "lora_r": 4,
                        "llama": {**_tiny_model_cfg()["llama"], "kv_int8": True}})
         (tmp_path / "x.pth").write_bytes(b"")
         with pytest.raises(NotImplementedError):
