@@ -34,7 +34,18 @@ toolkit. Phases, each fatal on failure:
    same 6 requests from an int8 KV cache: 42 static-int8 attention launches
    per video and exactly 128 W4A16 launches per LLaMA forward; a tiny bf16
    W4A16 + int8-KV LLaMA must give the same prefill logits on the card and
-   on the CPU.
+   on the CPU;
+6. train  - the training step. A tiny bf16 model takes four optimizer steps
+   on the card and on the CPU from the same weights and batches (losses and
+   the first gradient must agree within the stated tolerances, and the loss
+   on a fixed batch must fall). Then the QA config at full width and depth,
+   as the config sets it (freeze_LLM false: all of Vicuna-7B trains, with the
+   BTAdapter branch, llama_proj and the MVM decoder; use_mask, mvm_decode,
+   per-layer recompute), goes through Trainer.train on batches from
+   TrainCollator, micro-batch 1: three steps at a packed length of 768 (the
+   fused short attention) and two at 1024 (the flash forward and its two
+   backward kernels), with exact launch counts per step, finite losses, and
+   frozen leaves untouched while trainable ones move.
 
 Then it prints a ``{"kernels": [...]}`` line, the nvidia-smi line and, last,
 ``{"ok": true, "device": {...}}``. Without a CUDA card it exits non-zero and
@@ -45,8 +56,10 @@ from __future__ import annotations
 
 import gc
 import json
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -74,6 +87,31 @@ LN_OPS_PER_ELEM, GELU_OPS_PER_ELEM = 10, 25
 NUM_REQUESTS, FRAMES, PREFIX_LEN, SUFFIX_LEN, Q_LEN, MAX_NEW = 6, 16, 40, 20, 12, 32
 ROOT = Path(__file__).resolve().parent
 TRUNK = (16, 257, 16, 88)      # the ViT-g trunk and BTAdapter spatial shape
+# the training step: LLaMA attention (B, S, H, D) at the two sequence tiers
+TRAIN_SHORT, TRAIN_LONG = (1, 768, 32, 128), (1, 1024, 32, 128)
+TRAIN_STEPS = {"train-short": 3, "train-long": 2}
+# launches per optimizer step at depth 32: the student's forward, its
+# per-layer recompute in the backward, and the no-gradient teacher pass each
+# launch one forward kernel a layer; only the student has a backward. The
+# frozen ViT trunk (39 blocks) and the trainable branch (6 attentions) launch
+# the packed kernel once each: nothing upstream of the trunk needs a
+# gradient, so it is never recomputed, and the branch's backward recomputes
+# through the plain reference.
+TRAIN_LAUNCHES = {
+    "train-short": {"fused_short_attention": 96, "flash_attention_fwd": 0,
+                    "flash_attention_bwd_dq": 0, "flash_attention_bwd_dkv": 0,
+                    "packed_qkv_attention": 45},
+    "train-long": {"fused_short_attention": 0, "flash_attention_fwd": 96,
+                   "flash_attention_bwd_dq": 32, "flash_attention_bwd_dkv": 32,
+                   "packed_qkv_attention": 45},
+}
+# tiny bf16 training, card vs CPU: the two run the same bf16 model through
+# different kernels (tensor-core sums, bf16 P), so per-step losses agree to
+# TRAIN_TINY_LOSS_REL and the first step's gradient to TRAIN_TINY_GRAD_REL in
+# relative L2 (the bf16 kernel tolerance); later steps drift as Adam turns
+# small gradient differences into full-size updates
+TRAIN_TINY_LOSS_REL, TRAIN_TINY_GRAD_REL = 1e-2, 3e-2
+LSE_ATOL = 1e-3                # fp32 logsumexp of bf16 scores, summed in another order
 
 # per-video launches of each int8 path (39 trunk blocks, 3 branch layers)
 DYNAMIC_PER_VIDEO = {"layer_norm_quant": 78, "gelu_quant": 39,
@@ -208,12 +246,15 @@ def _ws_err(got, want) -> float:
     return float(err.max())
 
 
-def _check_kernel(name: str, cases, kernel, plain, err_fn, library=None) -> list:
+def _check_kernel(name: str, cases, kernel, plain, err_fn, library=None,
+                  library_graph: bool = True) -> list:
     """Each case: (label, [4 input tuples], bytes, ops time in s). The kernel
     is held to its plain version on the first inputs, then timed cycling the
     four copies so that each launch reads inputs the 50 MB L2 does not hold:
     ``ms`` by CUDA-graph replay, ``ms_stream`` launched one by one from
-    Python (where short kernels measure the host)."""
+    Python (where short kernels measure the host). ``library_graph=False``
+    times the library call launched one by one too (an autograd backward
+    cannot be captured in a graph)."""
     rows = []
     for label, bufs, nbytes, ops_s in cases:
         got = kernel(*bufs[0])
@@ -227,7 +268,8 @@ def _check_kernel(name: str, cases, kernel, plain, err_fn, library=None) -> list
         row = {"shape": label, "max_abs_err": max_err,
                "ms": graph_ms(lambda: kernel(*nxt()), 40),
                "plain_ms": graph_ms(lambda: plain(*nxt()), 8),
-               "library_ms": graph_ms(lambda: library(*nxt()), 40) if library else None,
+               "library_ms": ((graph_ms if library_graph else cuda_ms)(
+                   lambda: library(*nxt()), 40) if library else None),
                "ms_stream": cuda_ms(lambda: kernel(*nxt()), 40),
                **_bound(nbytes, ops_s)}
         rows.append(row)
@@ -345,6 +387,7 @@ def phase_kernels(kernels) -> dict:
     out["gelu_quant"] = _entry("gelu_quant", "gelu_quant.cu", "stllm_tpu/ops/quant.py:261",
                                rows, INT8_ATOL, INT8_RTOL)
     out.update(_weight_stream_kernels(kernels, gen))
+    out.update(_train_attention_kernels(kernels, gen, out["packed_qkv_attention"]))
     return out
 
 
@@ -439,6 +482,156 @@ def _weight_stream_kernels(kernels, gen) -> dict:
         _ws_err(prod, products[0])       # every variant gives the same product
     out["w4_unpack_matmul"] = _entry("w4_unpack_matmul", "w4_unpack_matmul.cu",
                                      "script/probe_w4_unpack.py:93", rows, WS_ATOL, WS_RTOL)
+    return out
+
+
+def _attn_case(gen, shape, causal: bool, masked: bool):
+    """Four copies of (q, k, v, kv_mask, causal, scale) at (B, S, H, D), the
+    last batch row right-padded by a fifth when ``masked``, and the visible
+    keys of each copy as the boolean mask SDPA takes."""
+    b, s, h, d = shape
+    bufs, sdpa_masks = [], {}
+    for _ in range(4):
+        q, k, v = (torch.randn(b, s, h, d, generator=gen, device="cuda").bfloat16()
+                   for _ in range(3))
+        kv_mask = None
+        if masked:
+            kv_mask = torch.ones(b, s, dtype=torch.int32, device="cuda")
+            kv_mask[-1, s - s // 5:] = 0
+        bufs.append((q, k, v, kv_mask, causal, d ** -0.5))
+        vis = None
+        if masked:
+            vis = (kv_mask > 0)[:, None, None, :].expand(b, 1, s, s)
+            if causal:
+                vis = vis & torch.ones(s, s, dtype=torch.bool, device="cuda").tril()
+        sdpa_masks[q.data_ptr()] = vis.contiguous() if vis is not None else None
+    return bufs, sdpa_masks
+
+
+def _attn_bound(shape, causal: bool, masked: bool, tensors: int, flop_factor: int,
+                rows_f32: int) -> tuple:
+    """Bytes (``tensors`` bf16 (B, S, H, D) tensors, ``rows_f32`` fp32
+    (B, H, S) rows, the int32 mask) and tensor-core time of flop_factor *
+    B * H * S^2 * D products, halved when causal."""
+    b, s, h, d = shape
+    nbytes = tensors * b * s * h * d * 2 + rows_f32 * b * h * s * 4 + (b * s * 4 if masked else 0)
+    flops = flop_factor * b * h * s * s * d / (2 if causal else 1)
+    return nbytes, flops / BF16_FLOP_PER_S
+
+
+def _train_attention_kernels(kernels, gen, packed_entry) -> dict:
+    """The training path's attention: #7 and #4 against their plain versions
+    at the LLaMA training shapes (causal, a padded kv_mask) and the ViT shape
+    (non-causal), #5 and #6 against the plain backward at S = 1024, and the
+    packed kernel's backward against autograd through the plain reference.
+    Library yardstick: SDPA on the same inputs (forward; for #5 and #6 its
+    backward through autograd, which computes dq, dk and dv together)."""
+    import torch.nn.functional as F
+
+    from stllm_tpu_torch.ops import attention
+
+    out = {}
+    masks = {}
+
+    def sdpa(q, k, v, kv_mask, causal, scale):
+        vis = masks[q.data_ptr()]
+        return F.scaled_dot_product_attention(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), attn_mask=vis,
+            is_causal=causal and vis is None, scale=scale)
+
+    def fwd_err(got, want):
+        lse_err = float((got[1] - want[1]).abs().max())
+        if lse_err > LSE_ATOL:
+            raise AssertionError(f"lse max abs err {lse_err} > {LSE_ATOL}")
+        return _bf16_err(got[0], want[0])
+
+    def fwd_cases(specs, rows_f32):
+        cases = []
+        for shape, causal, masked in specs:
+            bufs, m = _attn_case(gen, shape, causal, masked)
+            masks.update(m)
+            cases.append(([*shape, f"causal={causal}", f"kv_mask={masked}"], bufs,
+                          *_attn_bound(shape, causal, masked, 4, 4, rows_f32)))
+        return cases
+
+    rows = _check_kernel("fused_short_attention",
+                         fwd_cases([(TRAIN_SHORT, True, True), (TRUNK, False, False),
+                                    ((2, 130, 3, 64), True, True)], 0),
+                         kernels.fused_short_attention, kernels.fused_short_attention_plain,
+                         _bf16_err, library=sdpa)
+    out["fused_short_attention"] = _entry(
+        "fused_short_attention", "fused_short_attention.cu", "stllm_tpu/ops/attention.py:493",
+        rows, BF16_ATOL, BF16_RTOL)
+    long_specs = [(TRAIN_LONG, True, True), (TRUNK, False, False), ((2, 1100, 2, 88), False, True)]
+    rows = _check_kernel("flash_attention_fwd", fwd_cases(long_specs, 1),
+                         kernels.flash_attention_fwd, kernels.flash_attention_fwd_plain,
+                         fwd_err, library=sdpa)
+    out["flash_attention_fwd"] = _entry(
+        "flash_attention_fwd", "flash_attention_fwd.cu", "stllm_tpu/ops/attention.py:103",
+        rows, BF16_ATOL, BF16_RTOL)
+
+    # #5 dQ and #6 dK, dV from the forward kernel's out and lse
+    cases5, cases6, graphs = [], [], {}
+    for shape, causal, masked in long_specs[:2]:
+        bufs, m = _attn_case(gen, shape, causal, masked)
+        masks.update(m)
+        bwd = []
+        for q, k, v, kv_mask, _, scale in bufs:
+            o, lse = kernels.flash_attention_fwd(q, k, v, kv_mask, causal, scale)
+            g = torch.randn(q.shape, generator=gen, device="cuda").bfloat16()
+            delta = (g.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
+            bwd.append((q, k, v, kv_mask, g, lse, delta, causal, scale))
+            # an SDPA graph on the same inputs, for the library's backward
+            leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+            masks[leaves[0].data_ptr()] = masks[q.data_ptr()]
+            graphs[q.data_ptr()] = (sdpa(*leaves, kv_mask, causal, scale), leaves,
+                                    g.transpose(1, 2))
+        label = [*shape, f"causal={causal}", f"kv_mask={masked}"]
+        cases5.append((label, bwd, *_attn_bound(shape, causal, masked, 5, 6, 2)))
+        cases6.append((label, bwd, *_attn_bound(shape, causal, masked, 6, 8, 2)))
+
+    def sdpa_backward(q, *_):
+        ref, leaves, g = graphs[q.data_ptr()]
+        return torch.autograd.grad(ref, leaves, g, retain_graph=True)
+
+    def plain_dq(*a):
+        return kernels.flash_attention_bwd_plain(*a)[0]
+
+    def plain_dkv(*a):
+        return kernels.flash_attention_bwd_plain(*a)[1:]
+
+    def pair_err(got, want):
+        return max(_bf16_err(g, w) for g, w in zip(got, want))
+
+    rows = _check_kernel("flash_attention_bwd_dq", cases5, kernels.flash_attention_bwd_dq,
+                         plain_dq, _bf16_err, library=sdpa_backward, library_graph=False)
+    out["flash_attention_bwd_dq"] = _entry(
+        "flash_attention_bwd_dq", "flash_attention_bwd_dq.cu", "stllm_tpu/ops/attention.py:214",
+        rows, BF16_ATOL, BF16_RTOL)
+    rows = _check_kernel("flash_attention_bwd_dkv", cases6, kernels.flash_attention_bwd_dkv,
+                         plain_dkv, pair_err, library=sdpa_backward, library_graph=False)
+    out["flash_attention_bwd_dkv"] = _entry(
+        "flash_attention_bwd_dkv", "flash_attention_bwd_dkv.cu",
+        "stllm_tpu/ops/attention.py:257", rows, BF16_ATOL, BF16_RTOL)
+    for name in ("flash_attention_bwd_dq", "flash_attention_bwd_dkv"):
+        out[name]["library_is"] = ("SDPA backward through autograd: dq, dk and dv together, "
+                                   "launched one by one (host time included)")
+        out[name]["plain_is"] = "the whole plain backward: dq, dk and dv together"
+    del graphs
+
+    # the packed kernel's backward: the vjp of the plain-softmax reference
+    b, s, h, d = TRUNK
+    qkv = _qkv_bufs(gen, b, s, h, d)[0].requires_grad_()
+    g = torch.randn(b, s, h * d, generator=gen, device="cuda").bfloat16()
+    (got,) = torch.autograd.grad(attention.fused_qkv_attention(qkv, h, d), qkv, g)
+    ref_in = qkv.detach().clone().requires_grad_()
+    (want,) = torch.autograd.grad(attention._packed_reference(ref_in, h, d, d ** -0.5), ref_in, g)
+    packed_entry["backward_max_abs_err"] = _bf16_err(got, want)
+    packed_entry["backward_ms"] = cuda_ms(lambda: torch.autograd.grad(
+        attention.fused_qkv_attention(qkv, h, d), qkv, g), 10)
+    print(f"[kernels] packed_qkv_attention backward (recompute through the plain reference): "
+          f"max abs err {packed_entry['backward_max_abs_err']:.4f}, forward + backward "
+          f"{packed_entry['backward_ms']:.3f} ms")
     return out
 
 
@@ -812,6 +1005,213 @@ def phase_w4a16(kernels) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# the training step
+# ---------------------------------------------------------------------------
+
+def _words(rng, n: int) -> str:
+    return " ".join(f"w{int(i)}" for i in rng.integers(0, 5000, n))
+
+
+def _train_samples(rng, frames: int, size: int, prompt_words: int, answer_words: int, rows: int):
+    """Instruction-tuning samples as the datasets emit them: uint8 frames,
+    an instruction around the video placeholder, an answer."""
+    return [{"image": rng.integers(0, 256, (frames, size, size, 3), dtype=np.uint8),
+             "instruction_input": "###Human: <Video><ImageHere></Video> "
+                                  f"{_words(rng, prompt_words)} ###Assistant:",
+             "answer": _words(rng, answer_words)} for _ in range(rows)]
+
+
+def _collator(cfg, seed: int, **kw):
+    from stllm_tpu_torch.data.collate import TrainCollator
+    from stllm_tpu_torch.models.zoo import ToyHashTokenizer
+
+    return TrainCollator(cfg, ToyHashTokenizer(cfg.llama.vocab_size),
+                         ToyHashTokenizer(cfg.qformer.vocab_size, reserve=2), seed=seed, **kw)
+
+
+def check_small_train() -> dict:
+    """A tiny bf16 model (BTAdapter, use_mask, mvm_decode, per-layer
+    recompute, all of the LLaMA trainable) takes four AdamW steps on the
+    card, through the kernels, and on the CPU, through their plain
+    versions, from the same weights and batches."""
+    from stllm_tpu_torch.models.stllm import stllm_forward
+    from stllm_tpu_torch.models.zoo import STLLM
+    from stllm_tpu_torch.train.step import create_train_state, make_optimizer, make_train_step
+
+    model_cfg = {**TINY_MODEL_CFG, "use_mask": True, "mvm_decode": True, "max_txt_len": 16,
+                 "use_grad_checkpoint": True, "freeze_LLM": False,
+                 "llama": {**TINY_MODEL_CFG["llama"], "num_layers": 2}}
+    rng = np.random.default_rng(5)
+    states, cfg = {}, None
+    for dev in ("cpu", "cuda"):
+        model = STLLM.from_config(model_cfg, seed=3, device="cpu")
+        cfg = model.cfg
+        opt = make_optimizer(1e-3, weight_decay=0.0)
+        state = create_train_state(_tree_to(model.params, dev), opt, model.trainable_fn())
+        states[dev] = (state, make_train_step(cfg, opt))
+    col = _collator(cfg, seed=6, seq_multiple=32)
+    batches = [col(_train_samples(rng, 4, 56, 6, 8, 2)) for _ in range(4)]
+
+    def put(batch, dev):
+        return {k: torch.as_tensor(v).to(dev) for k, v in batch.items()}
+
+    # the first step's gradient, before any update
+    grads = {}
+    for dev, (state, _) in states.items():
+        loss = stllm_forward(state.tree, put(batches[0], dev), cfg)["loss"]
+        g = torch.autograd.grad(loss, list(state.params.values()), allow_unused=True)
+        grads[dev] = torch.cat([(torch.zeros_like(p) if x is None else x).float().flatten().cpu()
+                                for p, x in zip(state.params.values(), g)])
+    grad_rel = float((grads["cuda"] - grads["cpu"]).norm() / grads["cpu"].norm())
+
+    fixed = {}
+    for dev, (state, _) in states.items():
+        with torch.no_grad():
+            fixed[dev] = [float(stllm_forward(state.tree, put(batches[0], dev), cfg)["loss"])]
+    losses = {"cpu": [], "cuda": []}
+    for batch in batches:
+        for dev, (state, step) in states.items():
+            _, metrics = step(state, put(batch, dev))
+            losses[dev].append({k: float(v) for k, v in metrics.items()})
+    for dev, (state, _) in states.items():
+        with torch.no_grad():
+            fixed[dev].append(float(stllm_forward(state.tree, put(batches[0], dev), cfg)["loss"]))
+    loss_rel = max(abs(a["loss"] - b["loss"]) / abs(b["loss"])
+                   for a, b in zip(losses["cuda"], losses["cpu"]))
+    out = {"grad_rel_l2": grad_rel, "loss_rel_max": loss_rel, "losses": losses,
+           "fixed_batch_loss": fixed, "seq_len": int(batches[0]["token_ids"].shape[1])}
+    print(f"[train] tiny bf16 model, card vs CPU: {json.dumps(out)}")
+    finite = all(np.isfinite(v) for dev in losses for m in losses[dev] for v in m.values())
+    if not finite or grad_rel > TRAIN_TINY_GRAD_REL or loss_rel > TRAIN_TINY_LOSS_REL:
+        raise AssertionError(f"tiny training: gradient relative L2 {grad_rel} (limit "
+                             f"{TRAIN_TINY_GRAD_REL}), loss relative gap {loss_rel} (limit "
+                             f"{TRAIN_TINY_LOSS_REL}), finite {finite}")
+    for dev, (before, after) in fixed.items():
+        if not after < before:
+            raise AssertionError(f"tiny training on {dev}: the fixed batch's loss went "
+                                 f"{before} -> {after}")
+    return out
+
+
+def _leaf_sums(leaves: dict) -> dict:
+    return {path: float(p.detach().double().sum()) for path, p in leaves.items()}
+
+
+def phase_train(kernels) -> dict:
+    """The QA config's training step at full width and depth through
+    Trainer.train, at both sequence tiers."""
+    from stllm_tpu_torch.common.optim import linear_warmup_cosine_hf
+    from stllm_tpu_torch.models.zoo import STLLM
+    from stllm_tpu_torch.train.trainer import Trainer
+
+    tiny = check_small_train()
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model_cfg = qa_model_cfg()
+    model = STLLM.from_config(model_cfg, seed=0)
+    cfg = model.cfg
+    total_steps = sum(TRAIN_STEPS.values())
+    out_dir = tempfile.mkdtemp(prefix="stllm_train_smoke_")
+    # the QA config's run section: AdamW, lr 2e-5 on the HF cosine schedule with
+    # 3 % warmup (none within this few steps), no weight decay, bf16
+    trainer = Trainer(cfg, model.params, output_dir=out_dir,
+                      trainable_fn=model.trainable_fn(),
+                      learning_rate=linear_warmup_cosine_hf(2e-5, 0.03, total_steps),
+                      weight_decay=0.0, max_grad_norm=1.0, log_freq=1)
+    torch.cuda.synchronize()
+    state = trainer.state
+    n_train = sum(p.numel() for p in state.params.values())
+    n_frozen = sum(p.numel() for p in state.frozen.values())
+    build = {"build_s": time.perf_counter() - t0,
+             "trainable_params": n_train, "frozen_params": n_frozen,
+             "freeze_LLM": bool(model_cfg.get("freeze_LLM", True)),
+             "remat": {"vit": cfg.vit.remat, "llama": cfg.llama.remat},
+             "held_gib_before_steps": torch.cuda.memory_allocated() / 2**30}
+    print(f"[train] full-width trainer built: {json.dumps(build)}")
+    if not any(p.startswith("llama/layers/") for p in state.params) or not cfg.llama.remat \
+            or not cfg.use_mask or not cfg.mvm_decode:
+        raise AssertionError("[train] the QA config should train the LLaMA with masking, the "
+                             "MVM decoder and per-layer recompute")
+    before = {"train": _leaf_sums(state.params), "frozen": _leaf_sums(state.frozen)}
+
+    step_ms = []
+    real_step = trainer._step_fn
+
+    def timed_step(st, batch):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        res = real_step(st, batch)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t) * 1e3)
+        return res
+
+    trainer._step_fn = timed_step
+    rng = np.random.default_rng(7)
+    col = _collator(cfg, seed=8)
+    size = cfg.vit.image_size
+    # prompt and answer lengths that pack to 768 and to 1024 slots around the
+    # 512 video tokens (max_txt_len caps the answer at 256)
+    tier_words = {"train-short": (40, 100), "train-long": (200, 250)}
+    tiers = {}
+    done = 0
+    for label, steps in TRAIN_STEPS.items():
+        batches = [col(_train_samples(rng, FRAMES, size, *tier_words[label], 1))
+                   for _ in range(steps)]
+        seq = {int(b["token_ids"].shape[1]) for b in batches}
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        del step_ms[:]
+        t1 = time.perf_counter()
+        trainer.train(iter(batches), done + steps)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t1
+        launches = dict(kernels.LAUNCHES)
+        done += steps
+        tiers[label] = {
+            "mode": label, "steps": steps, "seq_len": sorted(seq), "micro_batch": 1,
+            "kept_video_tokens": [int(b["mvm_weight"].sum()) for b in batches],
+            "wall_s": wall, "step_ms": list(step_ms),
+            "ms_per_step": float(np.mean(step_ms[1:])) if steps > 1 else step_ms[0],
+            "samples_per_s": (steps - 1) / (sum(step_ms[1:]) / 1e3) if steps > 1 else None,
+            "max_memory_allocated_gib": torch.cuda.max_memory_allocated() / 2**30,
+            "launches": launches,
+            "launches_per_step": {k: v / steps for k, v in launches.items() if v}}
+        print(f"[{label}] {json.dumps(tiers[label])}")
+        want_len = TRAIN_SHORT[1] if label == "train-short" else TRAIN_LONG[1]
+        if seq != {want_len}:
+            raise AssertionError(f"[{label}] packed lengths {sorted(seq)}, want {want_len}")
+        _expect(label, launches, TRAIN_LAUNCHES[label], steps)
+        others = {k: v for k, v in launches.items() if k not in TRAIN_LAUNCHES[label] and v}
+        if others:
+            raise AssertionError(f"[{label}] unexpected kernel launches {others}")
+
+    log = [json.loads(line) for line in (Path(out_dir) / "log.txt").read_text().splitlines()]
+    shutil.rmtree(out_dir, ignore_errors=True)
+    keys = ("loss", "loss_ce", "loss_mvm", "grad_norm")
+    if [r["step"] for r in log] != list(range(1, total_steps + 1)) or not all(
+            np.isfinite(r[k]) and r[k] > 0 for r in log for k in keys):
+        raise AssertionError(f"[train] log.txt: {log}")
+    after = {"train": _leaf_sums(state.params), "frozen": _leaf_sums(state.frozen)}
+    moved = [p for p in before["frozen"] if after["frozen"][p] != before["frozen"][p]]
+    # a bf16 norm scale of 1.0 cannot take a 2e-5 step; every other leaf moves
+    stuck = [p for p in before["train"] if after["train"][p] == before["train"][p]
+             and not p.endswith("scale")]
+    if moved or stuck:
+        raise AssertionError(f"[train] frozen leaves that changed: {moved[:5]}; trainable "
+                             f"leaves that did not: {stuck[:5]}")
+    print(f"[train] {len(before['train'])} trainable leaves, {len(before['frozen'])} frozen "
+          f"leaves unchanged; log {json.dumps(log)}")
+    for t in tiers.values():
+        print(f"[train] {t['mode']}: S = {t['seq_len'][0]}, {t['ms_per_step']:.1f} ms/step after "
+              f"the first ({t['step_ms'][0]:.1f} ms), {t['samples_per_s']:.3f} samples/s, peak "
+              f"{t['max_memory_allocated_gib']:.2f} GiB")
+    return {"tiny": tiny, "build": build, "log": log, **tiers}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -829,17 +1229,26 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     w4a16 = phase_w4a16(kernels)
-    # each kernel's launches from the served path that runs it; the probes
-    # run on no served path (0 launches on every one)
+    gc.collect()
+    torch.cuda.empty_cache()
+    train = phase_train(kernels)
+    short, long_ = train["train-short"], train["train-long"]
+    # each kernel's launches from the path that runs it; the probes run on no
+    # path (0 launches on every one)
     path_of = {"packed_qkv_attention": bf16, "layer_norm_quant": int8["dynamic"],
                "gelu_quant": int8["dynamic"], "packed_qkv_attention_quant": int8["dynamic"],
                "packed_qkv_attention_s8": int8["static"], "w4a16_matmul": w4a16,
-               **{p: w4a16 for p in PROBES}}
+               **{p: w4a16 for p in PROBES}, "fused_short_attention": short,
+               "flash_attention_fwd": long_, "flash_attention_bwd_dq": long_,
+               "flash_attention_bwd_dkv": long_}
     for name, entry in entries.items():
         entry["launches"] = path_of[name]["launches"][name]
         entry["launches_by_path"] = {p["mode"]: p["launches"][name]
-                                     for p in (bf16, int8["dynamic"], int8["static"], w4a16)}
+                                     for p in (bf16, int8["dynamic"], int8["static"], w4a16,
+                                               short, long_)}
         entry["launches_by_path"]["int8-calibration"] = int8["calibration_launches"][name]
+        entry["launches_per_train_step"] = {t["mode"]: t["launches"][name] / t["steps"]
+                                            for t in (short, long_)}
     print(json.dumps({"kernels": list(entries.values())}))
     print(smi_line())
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
-"""Where the time goes in one video-QA request of the PyTorch port.
+"""Where the time goes in one video-QA request, or one training step, of the
+PyTorch port.
 
-    python3 script/profile_torch_slice.py [--mode bf16|w4a16] [--out profile.json]
+    python3 script/profile_torch_slice.py [--mode bf16|w4a16|train] [--out profile.json]
 
 Run from the repository root on a CUDA card. Builds the QA config
 (config/instructblipbase_stllm_qa.yaml) at full width with random weights:
@@ -17,6 +18,16 @@ phase it prints the wall time, the device time summed over kernels, the
 device idle share (1 - device / wall), the time in the packed-qkv
 attention kernels, in the W4A16 kernel, in library GEMMs and in the rest,
 and the top kernels; with --out it also writes them as JSON.
+
+``--mode train`` profiles the training step of the same config as the config
+sets it (all of Vicuna-7B trainable, use_mask, mvm_decode, per-layer
+recompute; AdamW at 2e-5, micro-batch 1) on one collated batch at each
+sequence tier: 768 packed slots (the fused short attention) and 1024 (the
+flash forward and its two backward kernels). Per tier it prints the step's
+wall time split into forward (student and teacher), backward and optimizer,
+then the whole step's device time, idle share, launches, and the time in the
+forward attention kernel, the two flash backward kernels, the packed-qkv
+kernel, library GEMMs and the rest, and the peak memory.
 """
 
 from __future__ import annotations
@@ -38,6 +49,9 @@ sys.path.insert(0, str(REPO))
 GEMM_MARKS = ("gemm", "nvjet", "cutlass", "xmma", "matmul")
 ATTN_MARKS = ("packed_qkv_attention_kernel", "packed_qkv_s8_kernel")
 W4_MARKS = ("weight_stream_kernel", "splitk_reduce_kernel")
+# the training attention: the forward kernel is #7 at the short tier, #4 at the long
+TRAIN_MARKS = {"attention_fwd_ms": "flash_fwd_kernel", "flash_bwd_dq_ms": "flash_bwd_dq_kernel",
+               "flash_bwd_dkv_ms": "flash_bwd_dkv_kernel"}
 
 
 def _device_us(e) -> float:
@@ -71,26 +85,119 @@ def profile_phase(name: str, fn, wall: float) -> dict:
                if any(m in e.key.lower() for m in GEMM_MARKS)
                and not any(m in e.key for m in W4_MARKS)) / 1e3
     top = sorted(kernels, key=_device_us, reverse=True)[:10]
+    train = {k: sum(_device_us(e) for e in kernels if m in e.key) / 1e3
+             for k, m in TRAIN_MARKS.items()}
     row = {"phase": name, "wall_ms": wall, "device_ms": dev_ms,
            "device_idle_share": max(0.0, 1.0 - dev_ms / wall),
            "kernel_launches": sum(e.count for e in kernels),
-           "packed_qkv_ms": attn, "w4a16_ms": w4, "gemm_ms": gemm,
-           "other_ms": dev_ms - attn - w4 - gemm,
+           "packed_qkv_ms": attn, "w4a16_ms": w4, "gemm_ms": gemm, **train,
+           "other_ms": dev_ms - attn - w4 - gemm - sum(train.values()),
            "top": [{"kernel": e.key[:90], "calls": e.count, "ms": _device_us(e) / 1e3}
                    for e in top]}
     print(json.dumps(row))
     return row
 
 
+def _smi() -> str:
+    return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          capture_output=True, text=True, timeout=60).stdout.strip()
+
+
+def _write(path, smi: str, mode: str, rows: list) -> None:
+    if path:
+        out = Path(path)
+        out.parent.mkdir(parents=True, exist_ok=True)
+        out.write_text(json.dumps({"card": smi, "torch": torch.__version__, "mode": mode,
+                                   "phases": rows}, indent=1))
+
+
+def profile_train(out_path) -> int:
+    """One training step of the QA config at each sequence tier."""
+    from stllm_tpu_torch.common.config import Config
+    from stllm_tpu_torch.data.collate import TrainCollator
+    from stllm_tpu_torch.models.stllm import stllm_forward
+    from stllm_tpu_torch.models.zoo import STLLM, ToyHashTokenizer
+    from stllm_tpu_torch.ops import kernels
+    from stllm_tpu_torch.train.step import (
+        create_train_state, global_norm, make_optimizer, make_train_step)
+
+    kernels.build()
+    model_cfg = dict(Config(REPO / "config" / "instructblipbase_stllm_qa.yaml").model_cfg)
+    model = STLLM.from_config(model_cfg, seed=0)
+    cfg = model.cfg
+    opt = make_optimizer(2e-5, weight_decay=0.0)
+    state = create_train_state(model.params, opt, model.trainable_fn())
+    step = make_train_step(cfg, opt)
+    col = TrainCollator(cfg, ToyHashTokenizer(cfg.llama.vocab_size),
+                        ToyHashTokenizer(cfg.qformer.vocab_size, reserve=2), seed=8)
+    rng = np.random.default_rng(7)
+    size = cfg.vit.image_size
+
+    def words(n):
+        return " ".join(f"w{int(i)}" for i in rng.integers(0, 5000, n))
+
+    rows = []
+    for prompt_words, answer_words in ((40, 100), (200, 250)):
+        sample = {"image": rng.integers(0, 256, (16, size, size, 3), dtype=np.uint8),
+                  "instruction_input": f"###Human: <Video><ImageHere></Video> "
+                                       f"{words(prompt_words)} ###Assistant:",
+                  "answer": words(answer_words)}
+        batch = {k: torch.as_tensor(v).cuda() for k, v in col([sample]).items()}
+        seq = int(batch["token_ids"].shape[1])
+
+        def run_step():
+            step(state, batch)
+
+        def split_step():
+            """forward, backward and optimizer of one step, each synchronized."""
+            marks = []
+
+            def mark():
+                torch.cuda.synchronize()
+                marks.append(time.perf_counter())
+
+            mark()
+            loss = stllm_forward(state.tree, batch, cfg)["loss"]
+            mark()
+            loss.backward()
+            mark()
+            grads = {path: p.grad for path, p in state.params.items()}
+            for p in state.params.values():
+                p.grad = None
+            opt.update(grads, state.opt_state, state.params,
+                       grad_norm=global_norm(list(grads.values())))
+            mark()
+            return [(b - a) * 1e3 for a, b in zip(marks, marks[1:])]
+
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launches()
+        wall = wall_ms(run_step)
+        launches = {k: v // 4 for k, v in kernels.LAUNCHES.items() if v}   # warm-up + 3 runs
+        parts = np.mean([split_step() for _ in range(3)], axis=0)
+        row = profile_phase(f"train_step_S{seq}", run_step, wall)
+        row.update({"seq_len": seq, "forward_ms": float(parts[0]), "backward_ms": float(parts[1]),
+                    "optimizer_ms": float(parts[2]), "samples_per_s": 1e3 / wall,
+                    "launches_per_step": launches,
+                    "max_memory_allocated_gib": torch.cuda.max_memory_allocated() / 2**30})
+        print(json.dumps({k: v for k, v in row.items() if k != "top"}))
+        rows.append(row)
+    smi = _smi()
+    print(smi)
+    _write(out_path, smi, "train", rows)
+    return 0
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--mode", choices=("bf16", "w4a16"), default="bf16",
-                    help="the bf16 model, or the W4A16 serving stack")
+    ap.add_argument("--mode", choices=("bf16", "w4a16", "train"), default="bf16",
+                    help="the bf16 model, the W4A16 serving stack, or the training step")
     ap.add_argument("--out", help="also write the phases as JSON to this file")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("profile_torch_slice: no CUDA device", file=sys.stderr)
         return 1
+    if args.mode == "train":
+        return profile_train(args.out)
 
     from stllm_tpu_torch.common.config import Config
     from stllm_tpu_torch.models.btadapter import calibrate_btadapter_scales
@@ -139,14 +246,9 @@ def main() -> int:
     # leave tracing hooks that slow later kernel launches
     walls = [wall_ms(fn) for _, fn in phases]
     rows = [profile_phase(name, fn, w) for (name, fn), w in zip(phases, walls)]
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                         capture_output=True, text=True, timeout=60).stdout.strip()
+    smi = _smi()
     print(smi)
-    if args.out:
-        out = Path(args.out)
-        out.parent.mkdir(parents=True, exist_ok=True)
-        out.write_text(json.dumps({"card": smi, "torch": torch.__version__, "mode": args.mode,
-                                   "phases": rows}, indent=1))
+    _write(args.out, smi, args.mode, rows)
     return 0
 
 

@@ -3,7 +3,7 @@
 An experiment YAML (``model:`` / ``datasets:`` / ``run:``) is deep-merged over
 the per-model-type default YAML named by the model class'
 ``PRETRAINED_MODEL_CONFIG_DICT``. Dotlist overrides and the runner-flag
-validator come with the training slice.
+validator come with the corpus-driven training CLI (``train/train.py``).
 """
 
 from __future__ import annotations

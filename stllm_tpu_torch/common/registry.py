@@ -1,7 +1,7 @@
 """Registry mapping string names to classes, as in stllm_tpu/common/registry.py.
 
-This slice registers models only; the task, processor, dataset_builder,
-lr_scheduler and runner namespaces come with the slices that port those
+Models and learning-rate schedulers register here; the namespaces for tasks,
+processors, datasets and runners come with the slices that port those
 components.
 """
 
@@ -13,7 +13,7 @@ from typing import Any, Callable, Dict
 class Registry:
     """String -> object maps, one namespace per component kind."""
 
-    _maps: Dict[str, Dict[str, Any]] = {"model": {}}
+    _maps: Dict[str, Dict[str, Any]] = {"model": {}, "lr_scheduler": {}}
 
     @classmethod
     def _register(cls, kind: str, name: str, obj: Any) -> None:
@@ -29,6 +29,18 @@ class Registry:
             return obj
 
         return wrap
+
+    @classmethod
+    def register_lr_scheduler(cls, name: str) -> Callable:
+        def wrap(obj):
+            cls._register("lr_scheduler", name, obj)
+            return obj
+
+        return wrap
+
+    @classmethod
+    def get_lr_scheduler_class(cls, name: str):
+        return cls._maps["lr_scheduler"][name]
 
     @classmethod
     def get_model_class(cls, name: str):

@@ -1,7 +1,10 @@
 """JAX parameter pytree -> the port's tensors under the same key paths.
 
 The port keeps the reference's tree layout (linear ``w`` is (in, out), the
-same dict and list nesting), so conversion is a copy by key path.
+same dict and list nesting), so conversion is a copy by key path. The same
+rule carries a gradient tree or a ``TrainState``'s two partitions across:
+the reference marks a leaf that lives in the other partition with a sentinel
+object, which converts to None here.
 """
 
 from __future__ import annotations
@@ -27,12 +30,14 @@ def _to_tensor(leaf, device: torch.device) -> torch.Tensor:
 def load_jax_params(tree: Any, device=None) -> Any:
     """``tree``: the JAX parameter pytree as nested dicts, lists and numpy
     arrays (pulled off the device with ``np.asarray``); ``None`` leaves stay
-    None. bf16 leaves copy bit-exactly. Default device: the CUDA card."""
+    None, and so does any leaf that is not an array (the partition
+    sentinel of a gradient or trainable tree). bf16 leaves copy bit-exactly.
+    Default device: the CUDA card."""
     dev = resolve_device(device)
 
     def conv(x):
-        if x is None:
-            return None
+        if x is None or not (isinstance(x, (dict, list, tuple)) or hasattr(x, "shape")):
+            return None   # None, or the reference's "absent from this partition" sentinel
         if isinstance(x, dict):
             return {k: conv(v) for k, v in x.items()}
         if isinstance(x, (list, tuple)):
@@ -40,3 +45,17 @@ def load_jax_params(tree: Any, device=None) -> Any:
         return _to_tensor(x, dev)
 
     return conv(tree)
+
+
+def load_jax_partition(trainable: Any, frozen: Any, device=None) -> Any:
+    """The whole parameter tree from a reference ``TrainState``'s two
+    partitions (``state.params`` and ``state.frozen``): each leaf comes from
+    the tree that holds it."""
+    def merge(a, b):
+        if isinstance(a, dict):
+            return {k: merge(a[k], b[k]) for k in a}
+        if isinstance(a, (list, tuple)):
+            return type(a)(merge(x, y) for x, y in zip(a, b))
+        return b if a is None else a
+
+    return merge(load_jax_params(trainable, device), load_jax_params(frozen, device))

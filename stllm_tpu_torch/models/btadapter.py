@@ -7,7 +7,9 @@ frames, zero-init ``temporal_fc``) followed by a spatial EVA block. The branch
 keeps one cls token (the mean of the per-frame trunk cls) and patch tokens in
 patch-major, time-minor ``(p t)`` order. Output = (trunk + branch broadcast
 per frame) / 2. Both branch attentions, like the trunk's, run the packed-qkv
-CUDA kernel.
+CUDA kernel. The whole forward is differentiable (the branch trains over a
+frozen trunk); with ``cfg.remat`` the trunk blocks are recomputed in the
+backward, the branch layers are not, as in the reference.
 
 With W8A8 params (``vit.quantize_vit_params``) the branch matmuls run
 dynamic int8 through ``linear`` around the bf16 attention kernel (#1).
@@ -28,7 +30,7 @@ import torch.nn.functional as F
 from stllm_tpu_torch.models.vit import (
     ViTConfig, _act_scale, _attention, _attn_quant_static, _check_supported,
     _qkv_with_bias, calibrate_vit_scales, embed_patches, init_vit, normalize_uint8,
-    vit_block)
+    trunk_block, vit_block)
 from stllm_tpu_torch.ops.attention import fused_qkv_attention_quant, mha_reference
 from stllm_tpu_torch.ops.layers import (
     gelu, init_layer_norm, init_linear, layer_norm, linear, normal)
@@ -196,6 +198,7 @@ def _spatial_stats(layer: Dict, x: torch.Tensor, b: int, t: int, cfg: ViTConfig)
                  "fc2": _amax(g), "attn": attn_amax}
 
 
+@torch.no_grad()
 def calibrate_btadapter_scales(params_q: Dict, images: torch.Tensor, cfg: ViTConfig,
                                num_frames: int, margin: float = 1.0) -> Dict:
     """Static-W8A8 calibration of the trunk and the branch.
@@ -285,7 +288,7 @@ def btadapter_forward(params: Dict, images: torch.Tensor, cfg: ViTConfig,
     start = cfg.depth - len(layers["temp"])
     branch: Optional[torch.Tensor] = None
     for idx, block in enumerate(params["blocks"]):
-        x = vit_block(block, x, cfg)
+        x = trunk_block(block, x, cfg)
         if idx >= start:
             i = idx - start
             temp_l, spat_l = layers["temp"][i], layers["spatial"][i]

@@ -58,6 +58,7 @@ def _pad_prompt(embeds: torch.Tensor, mask: torch.Tensor, multiple: int):
     return embeds, mask
 
 
+@torch.no_grad()
 def _prefill(params, embeds: torch.Tensor, mask: torch.Tensor, cfg: LlamaConfig,
              max_len: int):
     """Prefill a fresh cache of ``max_len``; returns (logits at each row's
@@ -70,12 +71,14 @@ def _prefill(params, embeds: torch.Tensor, mask: torch.Tensor, cfg: LlamaConfig,
     return lm_head(params, last_hidden[:, None])[:, 0], cache
 
 
+@torch.no_grad()
 def _decode_step_impl(params, token_ids: torch.Tensor, cache: KVCache, cfg: LlamaConfig):
     embeds = gather_rows(params["embed_tokens"], token_ids)[:, None].to(cfg.dtype)
     hidden, cache = llama_forward(params, inputs_embeds=embeds, cache=cache, cfg=cfg)
     return lm_head(params, hidden)[:, 0], cache
 
 
+@torch.no_grad()
 def _decode_chunk_greedy(params, token_ids: torch.Tensor, cache: KVCache,
                          cfg: LlamaConfig, n: int):
     """Decode ``n`` greedy tokens on the device with no host round trip.
@@ -94,6 +97,7 @@ def _ends_with(ids: List[int], suffix: Sequence[int]) -> bool:
     return len(ids) >= n and ids[-n:] == list(suffix)
 
 
+@torch.no_grad()
 def generate(
     params,
     inputs_embeds: torch.Tensor,

@@ -1,4 +1,4 @@
-"""LLaMA decoder, Vicuna-7B (stllm_tpu/models/llama.py), KV-cache path.
+"""LLaMA decoder, Vicuna-7B (stllm_tpu/models/llama.py).
 
 LLaMA-1 / Vicuna-7B v1.1: RMSNorm (eps 1e-6), RoPE theta 10000, SwiGLU MLP
 (intermediate 11008), 32 layers x 32 heads x 128 head_dim, vocab 32000,
@@ -8,8 +8,10 @@ untied lm_head; bf16 params, fp32 norm statistics and fp32 logits.
 row's cache offset and attention is causal against absolute positions
 (kv_pos <= cache_len + i), through ``mha_reference``. With ``cfg.kv_int8``
 the cache holds per-(token, head) int8 k/v with fp32 scales, dequantized
-whole before attention, as the reference does. The cache-less forward
-(training, the reference's flash kernels) comes later.
+whole before attention, as the reference does. Without a cache (training)
+it runs causal ``flash_attention`` with the padding mask over positions
+0..S-1, returns no cache, and with ``cfg.remat`` recomputes each layer in the
+backward (``torch.utils.checkpoint``).
 
 Quantized decoder trees: ``quantize_llama_params`` (W8A8, or weight-only
 ``a16``) and ``quantize_llama_params_int4`` (W4A16, optionally with q|k|v
@@ -26,8 +28,9 @@ import dataclasses
 from typing import Any, Dict, NamedTuple, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
-from stllm_tpu_torch.ops.attention import mha_reference
+from stllm_tpu_torch.ops.attention import flash_attention, mha_reference
 from stllm_tpu_torch.ops.layers import (
     gather_rows, init_linear, init_rms_norm, linear, matmul_f32, normal, rms_norm,
     swiglu_mlp)
@@ -46,8 +49,8 @@ class LlamaConfig:
     rms_eps: float = 1e-6
     rope_theta: float = 10000.0
     dtype: Any = torch.bfloat16
-    remat: bool = False               # a training option; inference ignores it
-    use_flash: Optional[bool] = None  # the cache-less forward's kernel choice
+    remat: bool = False               # recompute each layer in the backward (cache-less forward)
+    use_flash: Optional[bool] = None  # the cache-less forward's flash_attention(use_pallas=)
     kv_int8: bool = False             # int8 KV cache (see KVCache)
 
     @property
@@ -159,14 +162,18 @@ def _layer(
     layer: Dict,
     x: torch.Tensor,
     rope: Tuple[torch.Tensor, torch.Tensor],
-    mask: torch.Tensor,
+    mask: Optional[torch.Tensor],
     cfg: LlamaConfig,
-    cache_kv: Tuple[torch.Tensor, ...],
-    cache_len: torch.Tensor,
+    cache_kv: Optional[Tuple[torch.Tensor, ...]],
+    cache_len: Optional[torch.Tensor],
 ) -> torch.Tensor:
-    """One decoder layer on the cache path; updates the cache buffers
-    ``cache_kv`` ((k, v), or (k, v, k_scale, v_scale) for the int8 cache) in
-    place. ``rope``: the positions' cos and sin rows; ``mask``:
+    """One decoder layer. ``rope``: the positions' cos and sin rows.
+
+    Without a cache (``cache_kv`` None): causal ``flash_attention`` with
+    ``mask`` the (B, S) validity of the keys, or None.
+
+    On the cache path it updates the buffers ``cache_kv`` ((k, v), or
+    (k, v, k_scale, v_scale) for the int8 cache) in place; ``mask``:
     (B, S, max_len), True where kv_pos <= cache_len + i."""
     b, s, d = x.shape
     h = rms_norm(layer["input_norm"], x, cfg.rms_eps)
@@ -174,19 +181,22 @@ def _layer(
     q = rotate(q, *rope)
     k = rotate(k, *rope)
 
-    if len(cache_kv) == 4:
+    if cache_kv is None:
+        out = flash_attention(q, k, v, causal=True, kv_mask=mask, use_pallas=cfg.use_flash)
+    elif len(cache_kv) == 4:
         # int8 cache: quantize the new k/v, write codes and scales at each
         # row's offset, then attend over the whole cache dequantized
         ck, cv, cks, cvs = cache_kv
         (kq, ks), (vq, vs) = _quant_kv(k), _quant_kv(v)
         for c, new in ((ck, kq), (cv, vq), (cks, ks), (cvs, vs)):
             _write_at(c, new, cache_len)
-        ak, av = _dequant_kv(ck, cks, x.dtype), _dequant_kv(cv, cvs, x.dtype)
+        out = mha_reference(q, _dequant_kv(ck, cks, x.dtype), _dequant_kv(cv, cvs, x.dtype),
+                            mask=mask)
     else:
         ak, av = cache_kv
         _write_at(ak, k, cache_len)
         _write_at(av, v, cache_len)
-    out = mha_reference(q, ak, av, mask=mask)
+        out = mha_reference(q, ak, av, mask=mask)
 
     x = x + linear(layer["o"], out.reshape(b, s, d))
     h2 = rms_norm(layer["post_norm"], x, cfg.rms_eps)
@@ -202,22 +212,31 @@ def llama_forward(
     positions: Optional[torch.Tensor] = None,        # (B, S) absolute positions
     cache: Optional[KVCache] = None,
     cfg: LlamaConfig = VICUNA_7B,
-) -> Tuple[torch.Tensor, KVCache]:
-    """Returns (hidden_states (B, S, d), cache with the new lengths).
+) -> Tuple[torch.Tensor, Optional[KVCache]]:
+    """Returns (hidden_states (B, S, d), cache with the new lengths or None).
 
-    Prefill: pass a fresh ``init_kv_cache``; the k/v land at 0..S. Decode:
-    pass the running cache; positions default to cache.length."""
-    if cache is None:
-        raise NotImplementedError("the cache-less forward (training) is not ported yet")
+    Without a cache (training): causal attention over positions 0..S-1 with
+    ``attention_mask`` as the key padding mask; differentiable; nothing is
+    kept. Prefill: pass a fresh ``init_kv_cache``; the k/v land at 0..S.
+    Decode: pass the running cache; positions default to cache.length."""
     if inputs_embeds is None:
         inputs_embeds = gather_rows(params["embed_tokens"], input_ids)
     x = inputs_embeds.to(cfg.dtype)
     b, s, _ = x.shape
     cos, sin = rope_table(cfg.head_dim, cfg.max_positions, cfg.rope_theta, device=x.device)
     if positions is None:
-        positions = cache.length.long()[:, None] + torch.arange(s, device=x.device)[None, :]
+        start = 0 if cache is None else cache.length.long()[:, None]
+        positions = (start + torch.arange(s, device=x.device)[None, :]).expand(b, s)
     # position-dependent tensors shared by every layer
     rope = rope_rows(cos, sin, positions)
+    if cache is None:
+        for layer in params["layers"]:
+            if cfg.remat and torch.is_grad_enabled():
+                x = checkpoint(_layer, layer, x, rope, attention_mask, cfg, None, None,
+                               use_reentrant=False, preserve_rng_state=False)
+            else:
+                x = _layer(layer, x, rope, attention_mask, cfg, None, None)
+        return rms_norm(params["norm"], x, cfg.rms_eps), None
     kv_pos = torch.arange(cache.k[0].shape[1], device=x.device)[None, None, :]
     q_abs = cache.length.long()[:, None, None] + torch.arange(s, device=x.device)[None, :, None]
     mask = kv_pos <= q_abs

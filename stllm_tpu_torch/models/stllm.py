@@ -1,9 +1,12 @@
-"""ST-LLM fusion model, inference half (stllm_tpu/models/stllm.py):
+"""ST-LLM fusion model (stllm_tpu/models/stllm.py):
 ViT (+ BTAdapter) -> fp32 ln_vision -> Q-Former -> llama_proj -> LLaMA.
 
-The training forward (masked student + teacher passes, MVM loss) comes with
-the training slice; ``init_stllm`` already builds the full parameter tree so
-the converter and the trees match the reference key for key.
+``stllm_forward`` is the training forward on a host-packed batch
+(``data/packing.py``): the masked student pass through the cache-less LLaMA,
+the shifted cross entropy, and, with dynamic video-token masking, a
+no-gradient teacher pass over the unmasked pack and the masked-video-modeling
+loss (mean over kept video tokens of 2 - 2 * cosine between student and
+teacher hidden states). The encode functions serve generation.
 """
 
 from __future__ import annotations
@@ -15,7 +18,8 @@ import torch
 
 from stllm_tpu_torch.models.btadapter import btadapter_forward, init_btadapter
 from stllm_tpu_torch.models.generation import UnsupportedRequest
-from stllm_tpu_torch.models.llama import VICUNA_7B, LlamaConfig, init_llama
+from stllm_tpu_torch.models.llama import (
+    VICUNA_7B, LlamaConfig, init_llama, llama_forward, lm_head)
 from stllm_tpu_torch.models.qformer import (
     INSTRUCT_BLIP_QFORMER, QFormerConfig, init_qformer, qformer_forward)
 from stllm_tpu_torch.models.vit import (
@@ -160,6 +164,87 @@ def assemble_embeddings(
     gathered = torch.gather(
         video_embeds, 1, idx[..., None].expand(-1, -1, video_embeds.shape[-1]))
     return torch.where((video_slot >= 0)[..., None], gathered, text)
+
+
+def _mvm_project(params: Dict, x: torch.Tensor, cfg: STLLMConfig) -> torch.Tensor:
+    """The optional linear decoder head on the student states."""
+    if cfg.mvm_decode and params.get("mvm_decoder") is not None:
+        dec = params["mvm_decoder"]
+        return layer_norm(dec["norm"], linear(dec["head"], x), 1e-5)
+    return x
+
+
+def cross_entropy_shifted(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Shifted cross entropy with -100 ignored, mean over the real targets
+    (1 where there is none), in fp32."""
+    shift_logits = logits[:, :-1].float()
+    shift_labels = labels[:, 1:].long()
+    valid = shift_labels != -100
+    safe = shift_labels.clamp(min=0)
+    logz = torch.logsumexp(shift_logits, dim=-1)
+    tok = torch.gather(shift_logits, -1, safe[..., None])[..., 0]
+    nll = (logz - tok) * valid
+    return nll.sum() / valid.sum().clamp(min=1)
+
+
+def _gather_slots(hidden: torch.Tensor, slots: torch.Tensor) -> torch.Tensor:
+    """hidden (B, S, D) at slots (B, V) -> (B, V, D)."""
+    idx = slots.long()[..., None].expand(-1, -1, hidden.shape[-1])
+    return torch.gather(hidden, 1, idx)
+
+
+def stllm_forward(params: Dict, batch: Dict[str, torch.Tensor],
+                  cfg: STLLMConfig) -> Dict[str, torch.Tensor]:
+    """Full training forward: encode, assemble the packed sequence, masked
+    LLaMA pass, CE; with ``mvm_weight`` in the batch also the teacher pass
+    and the MVM loss. ``batch`` comes from ``data.packing`` (tensors on the
+    params' device):
+
+      frames             (B, T, H, W, C)
+      qformer_input_ids  (B, Lq)  [optional]   qformer_attention_mask (B, Lq)
+      token_ids          (B, S)   student slot text ids
+      video_slot         (B, S)   student slot video index or -1
+      attn_mask          (B, S)   1 = real slot
+      labels             (B, S)   -100 except answer tokens
+      [with masking]
+      t_token_ids / t_video_slot / t_attn_mask    teacher (unmasked) pack
+      mvm_student_slots  (B, V)   slot of video token v in the student pack (0 if dropped)
+      mvm_teacher_slots  (B, V)   slot of video token v in the teacher pack
+      mvm_weight         (B, V)   1.0 where kept
+
+    Returns loss_ce, loss, logits and, with masking, loss_mvm. The teacher
+    runs under ``torch.no_grad()`` on detached embeddings: it records no
+    graph."""
+    img = encode_img(params, batch["frames"], cfg, batch.get("qformer_input_ids"),
+                     batch.get("qformer_attention_mask"))
+    video = apply_video_input(params, img, cfg)   # (B, V, D)
+    llama = params["llama"]
+
+    embeds = assemble_embeddings(llama["embed_tokens"], batch["token_ids"],
+                                 batch["video_slot"], video)
+    hidden, _ = llama_forward(llama, inputs_embeds=embeds, attention_mask=batch["attn_mask"],
+                              cfg=cfg.llama)
+    logits = lm_head(llama, hidden)
+    loss_ce = cross_entropy_shifted(logits, batch["labels"])
+    out = {"loss_ce": loss_ce, "loss": loss_ce, "logits": logits}
+
+    if "mvm_weight" in batch:
+        with torch.no_grad():
+            t_embeds = assemble_embeddings(llama["embed_tokens"], batch["t_token_ids"],
+                                           batch["t_video_slot"], video.detach())
+            t_hidden, _ = llama_forward(llama, inputs_embeds=t_embeds,
+                                        attention_mask=batch["t_attn_mask"], cfg=cfg.llama)
+            tf = _gather_slots(t_hidden, batch["mvm_teacher_slots"]).float()
+            tf = tf / torch.linalg.vector_norm(tf, dim=-1, keepdim=True).clamp(min=1e-6)
+        s_vid = _mvm_project(params, _gather_slots(hidden, batch["mvm_student_slots"]), cfg)
+        sf = s_vid.float()
+        sf = sf / torch.linalg.vector_norm(sf, dim=-1, keepdim=True).clamp(min=1e-6)
+        per_tok = 2.0 - 2.0 * (sf * tf).sum(dim=-1)                   # (B, V)
+        w = batch["mvm_weight"].float()
+        loss_mvm = (per_tok * w).sum() / w.sum().clamp(min=1.0)
+        out["loss_mvm"] = loss_mvm
+        out["loss"] = loss_ce + loss_mvm
+    return out
 
 
 def resolve_auto_merge(cfg: STLLMConfig, frames) -> STLLMConfig:

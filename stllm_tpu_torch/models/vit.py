@@ -4,7 +4,9 @@ Patch 14, width 1408, depth 39, 16 heads (head_dim 88), MLP hidden 6144, abs
 pos embed, pre-norm blocks with q/v-only qkv bias (k bias fixed at zero), LN
 eps 1e-6, all 257 tokens out. Images are NHWC; the patch embedding is a
 reshape plus matmul. The attention of every block is a packed-qkv CUDA
-kernel (``use_flash=None``).
+kernel (``use_flash=None``), or ``flash_attention`` on the split heads
+(``use_flash`` True or False). With ``remat`` each trunk block is recomputed
+in the backward.
 
 ``vit_block`` runs one of three block forms, chosen by the params:
   - dense (bf16);
@@ -26,10 +28,11 @@ from typing import Any, Dict, Optional
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from stllm_tpu_torch.ops.attention import (
-    fused_qkv_attention, fused_qkv_attention_quant, fused_qkv_attention_quant_static,
-    mha_reference)
+    flash_attention, fused_qkv_attention, fused_qkv_attention_quant,
+    fused_qkv_attention_quant_static)
 from stllm_tpu_torch.ops.layers import (
     gelu, init_layer_norm, init_linear, layer_norm, linear, trunc_normal)
 from stllm_tpu_torch.ops.quant import (
@@ -51,10 +54,10 @@ class ViTConfig:
     mlp_hidden: int = 6144  # int(1408 * 4.3637)
     ln_eps: float = 1e-6
     dtype: Any = torch.bfloat16
-    remat: bool = False            # a training option; inference ignores it
-    # attention backend: None = the packed-qkv kernel; False = split q/k/v
-    # through mha_reference; True (the reference's flash kernels) is not
-    # ported yet
+    remat: bool = False            # recompute each trunk block in the backward
+    # attention backend: None = the packed-qkv kernel; otherwise split q/k/v
+    # through flash_attention(use_pallas=use_flash): True the flash kernels,
+    # False plain mha_reference
     use_flash: Optional[bool] = None
     gelu_approx: bool = False
     merge_schedule: tuple = ()
@@ -170,6 +173,7 @@ def _block_stats(block: Dict, x: torch.Tensor, cfg: "ViTConfig"):
                    "fc2": 127.0 * gs.max(), "attn": attn_amax}
 
 
+@torch.no_grad()
 def calibrate_vit_scales(params_q: Dict, images: torch.Tensor, cfg: "ViTConfig",
                          margin: float = 1.0) -> Dict:
     """Static-W8A8 calibration: run the dynamic-int8 forward on a
@@ -205,35 +209,32 @@ def _split_heads(qkv: torch.Tensor, cfg: ViTConfig):
     return (t.reshape(b, n, cfg.heads, cfg.head_dim) for t in qkv.chunk(3, dim=-1))
 
 
-def _check_flash(cfg: ViTConfig) -> None:
-    if cfg.use_flash:
-        raise NotImplementedError("use_flash=True needs the flash-attention kernels, "
-                                  "not ported yet; use None (packed kernel) or False")
+def _split_attention(qkv: torch.Tensor, cfg: ViTConfig) -> torch.Tensor:
+    """Non-causal flash_attention on the heads of a packed qkv (read in
+    place, no split copies): (B, N, 3 * width) -> (B, N, width)."""
+    b, n, _ = qkv.shape
+    out = flash_attention(*_split_heads(qkv, cfg), use_pallas=cfg.use_flash)
+    return out.reshape(b, n, cfg.width)
 
 
 def _attention(block: Dict, x: torch.Tensor, cfg: ViTConfig) -> torch.Tensor:
-    b, n, d = x.shape
     qkv = linear(_qkv_with_bias(block), x)
     if cfg.use_flash is None:
         out = fused_qkv_attention(qkv, cfg.heads, cfg.head_dim)
         return linear(block["proj"], out)
-    _check_flash(cfg)
-    out = mha_reference(*_split_heads(qkv, cfg))
-    return linear(block["proj"], out.reshape(b, n, d))
+    return linear(block["proj"], _split_attention(qkv, cfg))
 
 
 def _vit_block_quant(block: Dict, x: torch.Tensor, cfg: ViTConfig) -> torch.Tensor:
     """Dynamic W8A8 block: LayerNorm and GELU emit int8 with per-row scales
     (kernels #9, #10), the packed attention quantizes its output rows in its
     epilogue (#2), and every matmul runs s8 x s8 -> s32."""
-    b, n, d = x.shape
     hq, hs = layer_norm_quant(block["norm1"], x, cfg.ln_eps)
     qkv = quant_matmul_pre(hq, hs, _qkv_with_bias(block), x.dtype)
     if cfg.use_flash is None:
         oq, os_ = fused_qkv_attention_quant(qkv, cfg.heads, cfg.head_dim)
     else:
-        _check_flash(cfg)
-        oq, os_ = quantize_activations(mha_reference(*_split_heads(qkv, cfg)).reshape(b, n, d))
+        oq, os_ = quantize_activations(_split_attention(qkv, cfg))
     x = x + quant_matmul_pre(oq, os_, block["proj"], x.dtype)
     hq, hs = layer_norm_quant(block["norm2"], x, cfg.ln_eps)
     h = quant_matmul_pre(hq, hs, block["fc1"], x.dtype)
@@ -258,8 +259,7 @@ def _attn_quant_static(block: Dict, qkv: torch.Tensor, cfg: ViTConfig):
             return res
     if cfg.use_flash is None:
         return fused_qkv_attention_quant(qkv, cfg.heads, cfg.head_dim)
-    _check_flash(cfg)
-    return quantize_activations(mha_reference(*_split_heads(qkv, cfg)).reshape(b, n, f // 3))
+    return quantize_activations(_split_attention(qkv, cfg))
 
 
 def _vit_block_quant_static(block: Dict, x: torch.Tensor, cfg: ViTConfig) -> torch.Tensor:
@@ -297,10 +297,19 @@ def embed_patches(params: Dict, images: torch.Tensor, cfg: ViTConfig) -> torch.T
     return x + params["pos_embed"].to(x.dtype)
 
 
+def trunk_block(block: Dict, x: torch.Tensor, cfg: ViTConfig) -> torch.Tensor:
+    """``vit_block``, recomputed in the backward when ``cfg.remat`` (and a
+    gradient is being recorded)."""
+    if cfg.remat and torch.is_grad_enabled():
+        return checkpoint(vit_block, block, x, cfg, use_reentrant=False,
+                          preserve_rng_state=False)
+    return vit_block(block, x, cfg)
+
+
 def vit_forward(params: Dict, images: torch.Tensor, cfg: ViTConfig) -> torch.Tensor:
     """images: (B, H, W, C) normalized. Returns (B, 257, width) tokens."""
     _check_supported(cfg)
     x = embed_patches(params, images, cfg)
     for block in params["blocks"]:
-        x = vit_block(block, x, cfg)
+        x = trunk_block(block, x, cfg)
     return x

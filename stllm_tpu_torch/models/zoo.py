@@ -4,9 +4,11 @@
 ``STLLM.from_config`` builds the config from a YAML model section and
 initializes random weights from a seed on the chosen device; ``quant_int8``
 converts the tree to W8A8 (dynamic int8, see ``ops/quant.py``) and
-``llama: {kv_int8: true}`` gives the LLaMA an int8 KV cache. Loading
-checkpoints and LoRA come with later slices; a config that names an
-existing weight file raises rather than run on random weights.
+``llama: {kv_int8: true}`` gives the LLaMA an int8 KV cache.
+``STLLM.trainable_fn`` reads the config's freezing keys for the trainer;
+``dtype`` (fp32 or bf16) is the parameters' dtype. Loading checkpoints and
+LoRA come with later slices; a config that names an existing weight file
+raises rather than run on random weights.
 """
 
 from __future__ import annotations
@@ -14,7 +16,7 @@ from __future__ import annotations
 import dataclasses
 import os
 import zlib
-from typing import Any, Dict, Mapping, Optional
+from typing import Any, Callable, Dict, Mapping, Optional
 
 import torch
 
@@ -124,6 +126,17 @@ class STLLM:
             params["qformer"] = quantize_tree_linears(params["qformer"], free_dense=True)
             params["llama"] = quantize_llama_params(params["llama"], free_dense=True)
         return cls(cfg, params, dev, model_cfg=model_cfg)
+
+    def trainable_fn(self) -> Callable[[str], bool]:
+        """The config's freezing policy (freeze_vit, freeze_qformer,
+        freeze_LLM; each defaults to frozen) as a predicate on leaf paths."""
+        from stllm_tpu_torch.train.step import default_trainable
+
+        return default_trainable(
+            freeze_vit=self.model_cfg.get("freeze_vit", True),
+            freeze_qformer=self.model_cfg.get("freeze_qformer", True),
+            freeze_llm=self.model_cfg.get("freeze_LLM", True),
+        )
 
 
 class ToyHashTokenizer:

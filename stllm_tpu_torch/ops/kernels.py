@@ -19,9 +19,15 @@ Kernels (TPU kernel each replaces):
   w4v3_matmul                 script/probe_decode_budget.py:_w4v3_kernel (probe)
   w8p_matmul                  script/probe_decode_budget.py:_w8p_kernel (probe)
   w4_unpack_matmul            script/probe_w4_unpack.py:kernel (probe)
-The last four share one weight-streaming tile loop
+  fused_short_attention       stllm_tpu/ops/attention.py:_fused_short_kernel
+  flash_attention_fwd         stllm_tpu/ops/attention.py:_flash_kernel
+  flash_attention_bwd_dq      stllm_tpu/ops/attention.py:_flash_bwd_dq_kernel
+  flash_attention_bwd_dkv     stllm_tpu/ops/attention.py:_flash_bwd_dkv_kernel
+The four weight-streaming kernels share one tile loop
 (``csrc/weight_stream_matmul.cuh``); only the model path launches
-``w4a16_matmul``, the probes are launched by their checks and timings.
+``w4a16_matmul``, the probes are launched by their checks and timings. The
+last four are the training path's attention (``csrc/flash_attention.cuh``),
+wired into autograd by ``ops/attention.py``.
 """
 
 from __future__ import annotations
@@ -51,8 +57,13 @@ SOURCES = {
     "w4v3_matmul": "w4v3_matmul.cu",
     "w8p_matmul": "w8p_matmul.cu",
     "w4_unpack_matmul": "w4_unpack_matmul.cu",
+    "fused_short_attention": "fused_short_attention.cu",
+    "flash_attention_fwd": "flash_attention_fwd.cu",
+    "flash_attention_bwd_dq": "flash_attention_bwd_dq.cu",
+    "flash_attention_bwd_dkv": "flash_attention_bwd_dkv.cu",
 }
 _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
+_STRIDES = ctypes.POINTER(ctypes.c_longlong)   # 12: batch, sequence, head of q, k, v, dO
 # C entry points: name -> (symbol, argtypes); every one returns a cudaError_t
 _ENTRY = {
     "packed_qkv_attention": (
@@ -68,6 +79,20 @@ _ENTRY = {
     # weight rows in use, splits, out_f32 (#15: the unpack variant)
     **{name: (f"stllm_{name}", [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P])
        for name in ("w4a16_matmul", "w4v3_matmul", "w8p_matmul", "w4_unpack_matmul")},
+    # the training attention: q, k, v, (dO,) strides, kv_mask, (lse, delta,)
+    # outputs, B, Sq, Sk, H, D, causal, scale
+    "fused_short_attention": (
+        "stllm_fused_short_attention_bf16",
+        [_P, _P, _P, _STRIDES, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P]),
+    "flash_attention_fwd": (
+        "stllm_flash_attention_fwd_bf16",
+        [_P, _P, _P, _STRIDES, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P]),
+    "flash_attention_bwd_dq": (
+        "stllm_flash_attention_bwd_dq_bf16",
+        [_P, _P, _P, _P, _STRIDES, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P]),
+    "flash_attention_bwd_dkv": (
+        "stllm_flash_attention_bwd_dkv_bf16",
+        [_P, _P, _P, _P, _STRIDES, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P]),
 }
 
 LAUNCHES: Dict[str, int] = {name: 0 for name in SOURCES}
@@ -558,3 +583,221 @@ def w4_unpack_matmul(x: torch.Tensor, packed: torch.Tensor, variant: str) -> tor
         raise ValueError(f"w4_unpack_matmul: K ({x.shape[-1]}) must be even")
     return _weight_stream("w4_unpack_matmul", x, packed, None, x.shape[-1] // 2,
                           W4_UNPACK_VARIANTS.index(variant), torch.float32)
+
+
+# ---------------------------------------------------------------------------
+# the training path's attention: fused short (#7), flash forward (#4) and
+# backward (#5 dQ, #6 dK and dV). q, k, v: (B, S, H, D); kv_mask: (B, Sk),
+# nonzero = a real token, or None.
+# ---------------------------------------------------------------------------
+
+NEG_INF = -1e30
+LSE_MASKED = 1e30        # logsumexp of a row with no visible key: exp(s - lse) == 0
+ATTN_MAX_HEAD_DIM = 128
+
+
+def _visible(q: torch.Tensor, k: torch.Tensor, kv_mask: Optional[torch.Tensor],
+             causal: bool, offset: int) -> Optional[torch.Tensor]:
+    """(B or 1, 1, Sq, Sk) bool, True where query row i sees the key
+    (unmasked and, if causal, key <= i + offset); None when every key is
+    visible."""
+    sq, sk = q.shape[1], k.shape[1]
+    vis = None
+    if kv_mask is not None:
+        vis = (kv_mask > 0)[:, None, None, :].expand(-1, 1, sq, sk)
+    if causal:
+        qi = torch.arange(sq, device=q.device)[:, None] + offset
+        tri = (torch.arange(sk, device=q.device)[None, :] <= qi)[None, None]
+        vis = tri if vis is None else vis & tri
+    return vis
+
+
+def _heads_first(*ts: torch.Tensor):
+    return tuple(t.transpose(1, 2).float() for t in ts)
+
+
+def fused_short_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                                kv_mask: Optional[torch.Tensor], causal: bool,
+                                scale: float) -> torch.Tensor:
+    """Kernel #7's math: s = (q . k^T) * scale in fp32, hidden scores at
+    -1e30 (causal with offset Sk - Sq), the max-subtracted softmax over the
+    full row with the zero-sum guard, P cast to v's dtype, P . V with fp32
+    accumulation, out in q's dtype."""
+    qt, kt, vt = _heads_first(q, k, v)
+    s = torch.matmul(qt, kt.transpose(-1, -2)) * scale
+    vis = _visible(q, k, kv_mask, causal, k.shape[1] - q.shape[1])
+    if vis is not None:
+        s = torch.where(vis, s, NEG_INF)
+    p = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    l = p.sum(dim=-1, keepdim=True)
+    p = p / torch.where(l == 0.0, torch.ones_like(l), l)
+    return torch.matmul(p.to(v.dtype).float(), vt).transpose(1, 2).to(q.dtype)
+
+
+def flash_attention_fwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                              kv_mask: Optional[torch.Tensor], causal: bool,
+                              scale: float) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Kernel #4's math: s = (q * scale) . k^T in fp32 over the visible keys
+    (causal is key <= query, no offset), P in fp32 for P . V. Returns (out in
+    q's dtype, lse fp32 (B, H, Sq)); a row with no visible key gives 0 and
+    LSE_MASKED."""
+    qt, kt, vt = _heads_first(q, k, v)
+    s = torch.matmul(qt * scale, kt.transpose(-1, -2))
+    vis = _visible(q, k, kv_mask, causal, 0)
+    if vis is not None:
+        s = torch.where(vis, s, NEG_INF)
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.exp(s - m)
+    if vis is not None:
+        p = torch.where(vis, p, 0.0)
+    l = p.sum(dim=-1, keepdim=True)
+    empty = l == 0.0
+    safe = torch.where(empty, torch.ones_like(l), l)
+    out = torch.matmul(p, vt) / safe
+    lse = torch.where(empty, LSE_MASKED, m + torch.log(safe))[..., 0]
+    return out.transpose(1, 2).to(q.dtype), lse
+
+
+def flash_attention_bwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                              kv_mask: Optional[torch.Tensor], d_out: torch.Tensor,
+                              lse: torch.Tensor, delta: torch.Tensor, causal: bool,
+                              scale: float
+                              ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Kernels #5 and #6's math from the forward's saved values: p = exp(s -
+    lse) on the visible keys, dv = p^T . dO, ds = p * (dO . v^T - delta) *
+    scale, dq = ds . k, dk = ds^T . q, all in fp32, each cast to its input's
+    dtype. lse and delta: fp32 (B, H, Sq)."""
+    qt, kt, vt, gt = _heads_first(q, k, v, d_out)
+    s = torch.matmul(qt, kt.transpose(-1, -2)) * scale
+    p = torch.exp(s - lse[..., None])
+    vis = _visible(q, k, kv_mask, causal, 0)
+    if vis is not None:
+        p = torch.where(vis, p, 0.0)
+    dv = torch.matmul(p.transpose(-1, -2), gt)
+    ds = p * (torch.matmul(gt, vt.transpose(-1, -2)) - delta[..., None]) * scale
+    dq = torch.matmul(ds, kt)
+    dk = torch.matmul(ds.transpose(-1, -2), qt)
+    return (dq.transpose(1, 2).to(q.dtype), dk.transpose(1, 2).to(k.dtype),
+            dv.transpose(1, 2).to(v.dtype))
+
+
+def _attn_args(name: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+               kv_mask: Optional[torch.Tensor], d_out: Optional[torch.Tensor] = None):
+    """Check the tensors of one training-attention launch and return
+    (tensors the kernel can read in place, strides array, int32 mask or
+    None, (B, Sq, Sk, H, D)). bf16 only; a tensor whose head dimension is
+    not contiguous, or whose strides or address break the 16-byte loads, is
+    copied to a contiguous one first."""
+    b, sq, h, d = q.shape
+    sk = k.shape[1]
+    if k.shape != v.shape or k.shape[0] != b or tuple(k.shape[2:]) != (h, d):
+        raise ValueError(f"{name}: q {tuple(q.shape)}, k {tuple(k.shape)}, v {tuple(v.shape)}")
+    if d_out is not None and d_out.shape != q.shape:
+        raise ValueError(f"{name}: dO {tuple(d_out.shape)} != q {tuple(q.shape)}")
+    if d % 8 or d > ATTN_MAX_HEAD_DIM:
+        raise ValueError(f"{name} kernel: head_dim {d} must be a multiple of 8 and at most "
+                         f"{ATTN_MAX_HEAD_DIM}")
+    if 0 in (b, sq, sk, h, d):
+        raise ValueError(f"{name} kernel takes no empty tensor: q {tuple(q.shape)}, "
+                         f"k {tuple(k.shape)}")
+    ts = []
+    for t in (q, k, v) + (() if d_out is None else (d_out,)):
+        if t.device != q.device or t.device.type != "cuda":
+            raise ValueError(f"{name}: no kernel for {t.device}")
+        if t.dtype != torch.bfloat16:
+            raise TypeError(f"{name} kernel takes torch.bfloat16, got {t.dtype}; run the "
+                            "model in bf16 on the card")
+        if t.stride(-1) != 1 or any(st % 8 for st in t.stride()[:3]) or t.data_ptr() % 16:
+            t = t.contiguous()
+        ts.append(t)
+    strides = [st for t in ts for st in (t.stride(0), t.stride(1), t.stride(2))]
+    strides += [0] * (12 - len(strides))
+    mask = None
+    if kv_mask is not None:
+        if tuple(kv_mask.shape) != (b, sk) or kv_mask.device != q.device:
+            raise ValueError(f"{name}: kv_mask {tuple(kv_mask.shape)} on {kv_mask.device}, "
+                             f"want ({b}, {sk}) on {q.device}")
+        mask = (kv_mask > 0).to(torch.int32).contiguous()
+    return ts, (ctypes.c_longlong * 12)(*strides), mask, (b, sq, sk, h, d)
+
+
+def _ptr(t: Optional[torch.Tensor]):
+    return None if t is None else t.data_ptr()
+
+
+def fused_short_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          kv_mask: Optional[torch.Tensor], causal: bool,
+                          scale: float) -> torch.Tensor:
+    """Single-pass attention for short sequences (#7): (B, Sq, H, D) out.
+    CUDA: bf16, head_dim a multiple of 8 up to 128, q, k, v read in place
+    through their strides."""
+    if q.device.type == "cpu":
+        return fused_short_attention_plain(q, k, v, kv_mask, causal, scale)
+    name = "fused_short_attention"
+    (q, k, v), strides, mask, (b, sq, sk, h, d) = _attn_args(name, q, k, v, kv_mask)
+    out = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
+    _launch(name, q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(), strides,
+            _ptr(mask), out.data_ptr(), b, sq, sk, h, d, int(causal), scale)
+    return out
+
+
+def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        kv_mask: Optional[torch.Tensor], causal: bool,
+                        scale: float) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Flash attention forward (#4): (out (B, Sq, H, D), lse fp32 (B, H, Sq)).
+    CUDA: as fused_short_attention."""
+    if q.device.type == "cpu":
+        return flash_attention_fwd_plain(q, k, v, kv_mask, causal, scale)
+    name = "flash_attention_fwd"
+    (q, k, v), strides, mask, (b, sq, sk, h, d) = _attn_args(name, q, k, v, kv_mask)
+    out = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
+    lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
+    _launch(name, q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(), strides,
+            _ptr(mask), out.data_ptr(), lse.data_ptr(), b, sq, sk, h, d, int(causal), scale)
+    return out, lse
+
+
+def _check_rows_f32(name: str, t: torch.Tensor, shape, device) -> torch.Tensor:
+    if tuple(t.shape) != tuple(shape) or t.device != device or t.dtype != torch.float32:
+        raise ValueError(f"{name}: lse and delta are fp32 {tuple(shape)} on {device}, got "
+                         f"{t.dtype} {tuple(t.shape)} on {t.device}")
+    return t.contiguous()
+
+
+def flash_attention_bwd_dq(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                           kv_mask: Optional[torch.Tensor], d_out: torch.Tensor,
+                           lse: torch.Tensor, delta: torch.Tensor, causal: bool,
+                           scale: float) -> torch.Tensor:
+    """Flash attention backward, dQ (#5), in q's dtype. lse, delta: fp32
+    (B, H, Sq). CUDA: as fused_short_attention."""
+    if q.device.type == "cpu":
+        return flash_attention_bwd_plain(q, k, v, kv_mask, d_out, lse, delta, causal, scale)[0]
+    name = "flash_attention_bwd_dq"
+    (q, k, v, d_out), strides, mask, (b, sq, sk, h, d) = _attn_args(name, q, k, v, kv_mask, d_out)
+    lse = _check_rows_f32(name, lse, (b, h, sq), q.device)
+    delta = _check_rows_f32(name, delta, (b, h, sq), q.device)
+    dq = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
+    _launch(name, q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(), d_out.data_ptr(),
+            strides, _ptr(mask), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+            b, sq, sk, h, d, int(causal), scale)
+    return dq
+
+
+def flash_attention_bwd_dkv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                            kv_mask: Optional[torch.Tensor], d_out: torch.Tensor,
+                            lse: torch.Tensor, delta: torch.Tensor, causal: bool,
+                            scale: float) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Flash attention backward, dK and dV (#6), in k's and v's dtype.
+    CUDA: as fused_short_attention."""
+    if q.device.type == "cpu":
+        return flash_attention_bwd_plain(q, k, v, kv_mask, d_out, lse, delta, causal, scale)[1:]
+    name = "flash_attention_bwd_dkv"
+    (q, k, v, d_out), strides, mask, (b, sq, sk, h, d) = _attn_args(name, q, k, v, kv_mask, d_out)
+    lse = _check_rows_f32(name, lse, (b, h, sq), q.device)
+    delta = _check_rows_f32(name, delta, (b, h, sq), q.device)
+    dk = torch.empty((b, sk, h, d), dtype=k.dtype, device=q.device)
+    dv = torch.empty((b, sk, h, d), dtype=v.dtype, device=q.device)
+    _launch(name, q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(), d_out.data_ptr(),
+            strides, _ptr(mask), lse.data_ptr(), delta.data_ptr(), dk.data_ptr(),
+            dv.data_ptr(), b, sq, sk, h, d, int(causal), scale)
+    return dk, dv

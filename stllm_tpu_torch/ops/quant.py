@@ -108,13 +108,32 @@ def quantize_linear_params(params: Dict, free_dense: bool = False) -> Dict:
     return out
 
 
+class _MmF32(torch.autograd.Function):
+    """a (M, K) @ b (K, N) with an fp32 result on the card (``torch.mm`` with
+    ``out_dtype`` has no derivative of its own). Backward: the fp32 cotangent
+    is rounded to the operands' dtype and both products run in that dtype
+    with fp32 accumulation, the usual mixed-precision rule."""
+
+    @staticmethod
+    def forward(ctx, a, b):
+        ctx.save_for_backward(a, b)
+        return torch.mm(a, b, out_dtype=torch.float32)
+
+    @staticmethod
+    def backward(ctx, g):
+        a, b = ctx.saved_tensors
+        g = g.to(a.dtype)
+        return (torch.mm(g, b.t()) if ctx.needs_input_grad[0] else None,
+                torch.mm(a.t(), g) if ctx.needs_input_grad[1] else None)
+
+
 def matmul_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """a (..., K) @ b (K, N) accumulated and returned in fp32 without
     upcasting the operands on the card (JAX ``preferred_element_type``)."""
     if a.dtype == torch.float32 and b.dtype == torch.float32:
         return torch.matmul(a, b)
     if a.is_cuda:
-        out = torch.mm(a.reshape(-1, a.shape[-1]), b, out_dtype=torch.float32)
+        out = _MmF32.apply(a.reshape(-1, a.shape[-1]), b)
         return out.reshape(*a.shape[:-1], b.shape[-1])
     # bf16 products are exact in fp32, so this is the same sum on the CPU
     return torch.matmul(a.float(), b.float())

@@ -7,7 +7,8 @@ burst of submissions does not queue N encodes in front of the streams in
 flight; the assembled embeddings stay on the device and flow straight into
 the batcher's prefill. Decode advances all active slots together. Greedy
 answers are token-identical to the offline path (encode_img ->
-generation.generate). Cross-request prefix sharing (``prefix_key``) comes
+generation.generate). Encode and decode run under ``torch.no_grad()``.
+Cross-request prefix sharing (``prefix_key``) comes
 with a later slice.
 """
 
@@ -25,6 +26,7 @@ from stllm_tpu_torch.ops.layers import gather_rows
 from stllm_tpu_torch.serving import ContinuousBatcher
 
 
+@torch.no_grad()
 def _encode_assemble(params, frames, prefix_ids, suffix_ids, q_ids, q_mask,
                      cfg: STLLMConfig) -> torch.Tensor:
     """Encode one video and splice its tokens between the text embeddings:
@@ -113,6 +115,7 @@ class VideoQAServer:
         req.frames = None
         self.batcher.submit(req.rid, embeds, req.gen)
 
+    @torch.no_grad()
     def step(self) -> List:
         """Encode as many queued videos as there are free decode slots, hand
         their embeddings to the batcher, advance one decode chunk. Returns

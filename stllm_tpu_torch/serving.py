@@ -6,7 +6,9 @@ valid lengths, so rows at different progress share one decode step. Requests
 are admitted into free slots as they arrive: a (1, S) prefill fills the row,
 the shared decode chunk advances all slots together, and finished slots are
 refilled without stopping the others. Greedy answers are token-identical to
-``generation.generate`` run alone. Sampled streams, shared prompt prefixes
+``generation.generate`` run alone. Every step runs under ``torch.no_grad()``:
+the parameters may be a trainer's, flagged for gradients, and the KV cache
+is written in place. Sampled streams, shared prompt prefixes
 and the speculative draft tower come with later slices.
 """
 
@@ -128,6 +130,7 @@ class ContinuousBatcher:
             # resets the length); this keeps the common case in the buffer.
             self.cache.length[slot] = 0
 
+    @torch.no_grad()
     def step(self) -> List[Request]:
         """Admit queued requests, run one decode chunk, return the requests
         that finished during this step."""

@@ -1,5 +1,6 @@
 """PyTorch port, CUDA kernels on the card (marker ``cuda``): each kernel
-against its plain PyTorch version at the shapes the video-QA paths give it.
+against its plain PyTorch version at the shapes the video-QA serving and
+training paths give it.
 Skipped without a CUDA card; on the card run
 
     python -m pytest --noconftest -m cuda tests/test_torch_kernels.py
@@ -297,3 +298,148 @@ def test_weight_stream_kernels_refuse_what_they_cannot_take(card):
         kernels.w4a16_matmul(x, packed, scale[:32].contiguous())          # scale shape
     with pytest.raises(ValueError):
         kernels.w4_unpack_matmul(x, packed, "int4")                       # no such variant
+
+
+# ---------------------------------------------------------------------------
+# the training path's attention: fused short (#7), flash forward (#4) and
+# backward (#5, #6), and the packed kernel's backward. Tolerance as #1:
+# atol = rtol = 3e-2 in bf16 (the kernels round P and dS to bf16 for their
+# second product; the plain versions keep them as the TPU kernels do).
+# ---------------------------------------------------------------------------
+
+def _attn_inputs(card, b, sq, sk, h, d, seed=0):
+    gen = torch.Generator(device=card).manual_seed(seed)
+    mk = lambda s: torch.randn(b, s, h, d, generator=gen, device=card).bfloat16()  # noqa: E731
+    kv_mask = torch.ones(b, sk, dtype=torch.int32, device=card)
+    kv_mask[-1, sk - sk // 5:] = 0
+    return mk(sq), mk(sk), mk(sk), kv_mask, mk(sq)
+
+
+def _close_bf16(got, want):
+    torch.testing.assert_close(got.float(), want.float(), atol=3e-2, rtol=3e-2)
+
+
+FUSED_SHAPES = [(1, 768, 768, 32, 128), (16, 257, 257, 16, 88), (2, 100, 100, 2, 32),
+                (2, 70, 130, 3, 64), (2, 130, 70, 3, 64), (1, 1000, 1000, 2, 24)]
+
+
+@pytest.mark.parametrize("causal,masked", [(False, False), (True, True), (False, True)])
+@pytest.mark.parametrize("shape", FUSED_SHAPES)
+def test_fused_short_kernel_matches_plain(card, shape, causal, masked):
+    b, sq, sk, h, d = shape
+    q, k, v, kv_mask, _ = _attn_inputs(card, b, sq, sk, h, d)
+    kv_mask = kv_mask if masked else None
+    got = _counted("fused_short_attention",
+                   lambda: kernels.fused_short_attention(q, k, v, kv_mask, causal, d ** -0.5))
+    _close_bf16(got, kernels.fused_short_attention_plain(q, k, v, kv_mask, causal, d ** -0.5))
+
+
+def test_fused_short_kernel_rows_without_a_visible_key(card):
+    """A batch row whose keys are all masked averages v over every key, as
+    the max-subtracted softmax over -1e30 scores does, also under the causal
+    tile skip; strided q, k, v (a packed projection viewed as heads) are
+    read in place."""
+    b, s, h, d = 2, 200, 4, 88
+    gen = torch.Generator(device=card).manual_seed(1)
+    qkv = torch.randn(b, s, 3 * h * d, generator=gen, device=card).bfloat16()
+    q, k, v = (t.reshape(b, s, h, d) for t in qkv.chunk(3, dim=-1))
+    kv_mask = torch.ones(b, s, dtype=torch.int32, device=card)
+    kv_mask[1] = 0
+    for causal in (False, True):
+        got = kernels.fused_short_attention(q, k, v, kv_mask, causal, 0.1)
+        _close_bf16(got, kernels.fused_short_attention_plain(q, k, v, kv_mask, causal, 0.1))
+        _close_bf16(got[1], v[1].float().mean(dim=0, keepdim=True).expand(s, h, d))
+
+
+FLASH_SHAPES = [(1, 1024, 32, 128), (2, 1100, 2, 88), (16, 257, 16, 88), (2, 100, 2, 32),
+                (1, 2048, 4, 128)]
+
+
+@pytest.mark.parametrize("causal,masked", [(False, False), (True, True), (True, False)])
+@pytest.mark.parametrize("shape", FLASH_SHAPES)
+def test_flash_kernels_match_plain(card, shape, causal, masked):
+    b, s, h, d = shape
+    q, k, v, kv_mask, g = _attn_inputs(card, b, s, s, h, d, seed=2)
+    kv_mask = kv_mask if masked else None
+    scale = d ** -0.5
+    out, lse = _counted("flash_attention_fwd",
+                        lambda: kernels.flash_attention_fwd(q, k, v, kv_mask, causal, scale))
+    want_out, want_lse = kernels.flash_attention_fwd_plain(q, k, v, kv_mask, causal, scale)
+    _close_bf16(out, want_out)
+    torch.testing.assert_close(lse, want_lse, atol=1e-3, rtol=1e-4)
+    delta = (g.float() * want_out.float()).sum(-1).transpose(1, 2).contiguous()
+    dq = _counted("flash_attention_bwd_dq", lambda: kernels.flash_attention_bwd_dq(
+        q, k, v, kv_mask, g, want_lse, delta, causal, scale))
+    dk, dv = _counted("flash_attention_bwd_dkv", lambda: kernels.flash_attention_bwd_dkv(
+        q, k, v, kv_mask, g, want_lse, delta, causal, scale))
+    for got, want in zip((dq, dk, dv), kernels.flash_attention_bwd_plain(
+            q, k, v, kv_mask, g, want_lse, delta, causal, scale)):
+        _close_bf16(got, want)
+
+
+def test_flash_kernel_rows_without_a_visible_key(card):
+    b, s, h, d = 2, 96, 2, 64
+    q, k, v, kv_mask, g = _attn_inputs(card, b, s, s, h, d, seed=3)
+    kv_mask[1] = 0
+    out, lse = kernels.flash_attention_fwd(q, k, v, kv_mask, True, 0.1)
+    assert bool((out[1] == 0).all()) and bool((lse[1] == kernels.LSE_MASKED).all())
+    delta = torch.zeros(b, h, s, device=card)
+    dq = kernels.flash_attention_bwd_dq(q, k, v, kv_mask, g, lse, delta, True, 0.1)
+    dk, dv = kernels.flash_attention_bwd_dkv(q, k, v, kv_mask, g, lse, delta, True, 0.1)
+    assert all(bool((t[1] == 0).all()) and bool(torch.isfinite(t).all()) for t in (dq, dk, dv))
+
+
+@pytest.mark.parametrize("tier,s", [("fused", 768), ("flash", 1024)])
+def test_flash_attention_autograd_on_the_card(card, tier, s):
+    """flash_attention end to end through autograd on the card against
+    autograd through mha_reference, at the LLaMA training shape."""
+    from stllm_tpu_torch.ops import attention
+
+    q, k, v, kv_mask, g = _attn_inputs(card, 1, s, s, 32, 128, seed=4)
+    kv_mask[0, s - 100:] = 0
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    before = dict(kernels.LAUNCHES)
+    out = attention.flash_attention(*leaves, causal=True, kv_mask=kv_mask, q_mask=kv_mask)
+    got = torch.autograd.grad(out, leaves, g)
+    torch.cuda.synchronize()
+    ran = {n: kernels.LAUNCHES[n] - before[n] for n in before if kernels.LAUNCHES[n] != before[n]}
+    assert ran == ({"fused_short_attention": 1} if tier == "fused" else
+                   {"flash_attention_fwd": 1, "flash_attention_bwd_dq": 1,
+                    "flash_attention_bwd_dkv": 1})
+    refs = [t.clone().requires_grad_() for t in (q, k, v)]
+    ref = attention.mha_reference(*refs, causal=True, kv_mask=kv_mask, q_mask=kv_mask)
+    _close_bf16(out, ref)
+    for a, w in zip(got, torch.autograd.grad(ref, refs, g)):
+        _close_bf16(a, w)
+
+
+def test_packed_qkv_backward_on_the_card(card):
+    from stllm_tpu_torch.ops import attention
+
+    qkv = _qkv(card, 16, 257, 16, 88).requires_grad_()
+    g = torch.randn(16, 257, 16 * 88, device=card).bfloat16()
+    out = _counted("packed_qkv_attention", lambda: attention.fused_qkv_attention(qkv, 16, 88))
+    (got,) = torch.autograd.grad(out, qkv, g)
+    ref_in = qkv.detach().clone().requires_grad_()
+    (want,) = torch.autograd.grad(attention._packed_reference(ref_in, 16, 88, 88 ** -0.5),
+                                  ref_in, g)
+    _close_bf16(got, want)
+
+
+def test_training_attention_kernels_refuse_what_they_cannot_take(card):
+    q, k, v, kv_mask, g = _attn_inputs(card, 1, 64, 64, 2, 32)
+    with pytest.raises(TypeError, match="bfloat16"):
+        kernels.fused_short_attention(q.float(), k.float(), v.float(), None, True, 0.1)
+    with pytest.raises(TypeError, match="bfloat16"):
+        kernels.flash_attention_fwd(q.half(), k.half(), v.half(), None, True, 0.1)
+    with pytest.raises(ValueError):
+        kernels.flash_attention_fwd(q, k[:, :32], v, None, True, 0.1)         # k != v
+    with pytest.raises(ValueError):
+        kernels.fused_short_attention(q, k, v, kv_mask[:, :32], True, 0.1)    # mask shape
+    with pytest.raises(ValueError):
+        kernels.fused_short_attention(q, k, v, kv_mask.cpu(), True, 0.1)      # mask device
+    lse = torch.zeros(1, 2, 64, device=card)
+    with pytest.raises(ValueError):
+        kernels.flash_attention_bwd_dq(q, k, v, None, g, lse[:, :1], lse, True, 0.1)
+    with pytest.raises(ValueError):
+        kernels.flash_attention_bwd_dkv(q, k, v, None, g, lse, lse.double(), True, 0.1)

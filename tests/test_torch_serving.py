@@ -139,8 +139,12 @@ def _imports(path):
 
 
 def test_port_imports_neither_jax_nor_stllm_tpu():
-    files = sorted((REPO / "stllm_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
+    files = sorted((REPO / "stllm_tpu_torch").rglob("*.py")) + [
+        REPO / "chip_smoke.py", REPO / "script" / "profile_torch_slice.py"]
     assert len(files) > 15
+    names = {str(f.relative_to(REPO / "stllm_tpu_torch")) for f in files[:-2]}
+    assert {"train/step.py", "train/trainer.py", "data/packing.py", "data/collate.py",
+            "common/optim.py", "common/logging.py"} <= names
     bad = [(str(f.relative_to(REPO)), m) for f in files for m in _imports(f)
            if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "stllm_tpu")]
     assert not bad, bad
@@ -192,6 +196,41 @@ def test_from_config_on_cpu_serves_a_request():
     tok = tzoo.ToyHashTokenizer(model.cfg.llama.vocab_size)
     ids = tok.encode("video question")
     assert all(10 <= t < 97 for t in ids) and tok.decode(ids) == "video question"
+
+
+@pytest.mark.parametrize("kv_int8", [False, True])
+def test_served_tokens_unchanged_when_params_require_grad(kv_int8):
+    """Serving runs under no_grad: with every float parameter flagged for
+    gradients (a trainer's tree) the server writes its KV cache in place,
+    records no graph and answers with the same tokens."""
+    cfg = _tiny_model_cfg(llama={**_tiny_model_cfg()["llama"], "kv_int8": kv_int8})
+    frames = np.random.default_rng(4).integers(0, 256, (1, 2, 28, 28, 3)).astype(np.uint8)
+    answers = []
+    for flagged in (False, True):
+        model = tzoo.STLLM.from_config(cfg, seed=3, device="cpu")
+        if flagged:
+            from stllm_tpu_torch.train.step import partition_params
+            train, _ = partition_params(model.params, lambda path: True)
+            assert train and all(p.requires_grad for p in train.values())
+        srv = TServer(model.params, model.cfg, slots=2, max_len=64, chunk=4)
+        for rid in ("a", "b", "c"):
+            srv.submit(rid, frames, [[5, 6, 7]], [[8, 9]], _gen(TGen, 6),
+                       qformer_text_ids=[[1, 2, 3]])
+        answers.append(srv.run())
+        assert not srv.batcher.cache.k[0].requires_grad
+    assert answers[0] == answers[1] and sorted(answers[0]) == ["a", "b", "c"]
+
+
+def test_calibration_runs_without_a_graph_on_flagged_params():
+    from stllm_tpu_torch.models.btadapter import calibrate_btadapter_scales
+    from stllm_tpu_torch.train.step import partition_params
+    model = tzoo.STLLM.from_config(_tiny_model_cfg(quant_int8=True), seed=3, device="cpu")
+    partition_params(model.params, lambda path: True)
+    frames = torch.from_numpy(
+        np.random.default_rng(4).integers(0, 256, (2, 28, 28, 3)).astype(np.uint8))
+    vit = calibrate_btadapter_scales(model.params["vit"], frames, model.cfg.vit, 2)
+    scales = [v for blk in vit["blocks"] for v in blk["act_scales"].values()]
+    assert scales and not any(v.requires_grad for v in scales)
 
 
 @pytest.mark.parametrize("case", ["sample", "beams", "prefix_key", "merge_auto",
