@@ -12,7 +12,10 @@ toolkit. Phases, each fatal on failure:
 2. kernels - each kernel against its plain PyTorch version on the card at the
    shapes the video-QA paths give it, with its time, the plain version's, one
    PyTorch library call's where one computes the same function (a yardstick
-   the port never calls) and the bound;
+   the port never calls) and the bound; for the two int8 GEMMs (#11 at the
+   ViT-g proj and fc2 sites, #8 at its fc1 and fc2 shapes) the time of the
+   port's own unfused chain that each replaces stands beside a null library
+   time;
 3. slice  - the QA config (config/instructblipbase_stllm_qa.yaml: EVA-ViT-g +
    BTAdapter, InstructBLIP Q-Former, Vicuna-7B, bf16, 16 frames, video_input
    all) at full width with random weights from a seed, served by
@@ -35,7 +38,21 @@ toolkit. Phases, each fatal on failure:
    per video and exactly 128 W4A16 launches per LLaMA forward; a tiny bf16
    W4A16 + int8-KV LLaMA must give the same prefill logits on the card and
    on the CPU;
-6. train  - the training step. A tiny bf16 model takes four optimizer steps
+6. pipeline - the stack of script/bench_pipeline_serving.py under
+   STLLM_FUSED_LN="both": a tiny fp32 plain-ViT static model must encode one
+   video on the card (5 launches of #11) and on the CPU alike; then the plain
+   EVA-ViT-g (no BTAdapter, tanh GELU) converted to int8 and calibrated by
+   calibrate_vit_scales on one clip (78 LayerNorm-quant, 39 GELU-quant, 39
+   quant-epilogue attention launches), with the W4A16 phase's Q-Former and
+   fused int4 Vicuna-7B, serves 6 requests (64 prefix, 32 suffix and 16
+   question ids, 16 greedy tokens, no stop; slots 4, chunk 8, max_len 768):
+   per video exactly 77 launches of #11 and 39 static-int8 attentions and
+   nothing dynamic, 128 W4A16 launches per LLaMA forward; then one clip's
+   trunk under STLLM_FUSED_LN off, "proj", "fc2" and "both" (0, 39, 38 and 77
+   launches of #11), each fused trunk no farther from the unfused one than
+   1.5 times the unfused trunk moves under a one-bf16-step change of its
+   input;
+7. train  - the training step. A tiny bf16 model takes four optimizer steps
    on the card and on the CPU from the same weights and batches (losses and
    the first gradient must agree within the stated tolerances, and the loss
    on a fixed batch must fall). Then the QA config at full width and depth,
@@ -84,6 +101,10 @@ W4_TINY_REL = 5e-2
 # estimated fp32 operations per element of the row kernels (mean, variance,
 # normalize, affine, amax, divide, round; GELU adds its erf or tanh)
 LN_OPS_PER_ELEM, GELU_OPS_PER_ELEM = 10, 25
+# and of #11's epilogue (scales, bias, residual, mean, variance, normalize,
+# affine, quantize) and #8's activation quantization (amax, divide, round)
+RES_LN_OPS_PER_ELEM, QUANT_OPS_PER_ELEM = 16, 3
+RES_LN_OUT_SCALE = 0.05        # #11's static output scale in the kernels phase
 NUM_REQUESTS, FRAMES, PREFIX_LEN, SUFFIX_LEN, Q_LEN, MAX_NEW = 6, 16, 40, 20, 12, 32
 ROOT = Path(__file__).resolve().parent
 TRUNK = (16, 257, 16, 88)      # the ViT-g trunk and BTAdapter spatial shape
@@ -131,6 +152,26 @@ W4_SHAPES = {"qkv": (4096, 12288, 0), "o": (4096, 4096, 0), "gateup": (4096, 220
 PROBE_SHAPES = [("q", 4096, 4096), ("k", 4096, 4096), ("v", 4096, 4096), ("o", 4096, 4096),
                 ("gate", 4096, 11008), ("up", 4096, 11008), ("down", 11264, 4096)]
 UNPACK_SHAPE = (16, 4096, 11008)      # script/probe_w4_unpack.py
+# the pipeline-serving stack (script/bench_pipeline_serving.py): prefix,
+# suffix and question ids per request, answer tokens
+PIPE_PROMPT, PIPE_ANSWER = (64, 32, 16), 16
+# per video under FUSED_LN="both": 39 proj and 38 fc2 sites (the last block's
+# fc2 has no LayerNorm after it), 39 static-int8 attentions, nothing dynamic
+PIPELINE_PER_VIDEO = {"qmm_res_ln": 77, "packed_qkv_attention_s8": 39, "layer_norm_quant": 0,
+                      "gelu_quant": 0, "packed_qkv_attention_quant": 0,
+                      "packed_qkv_attention": 0, "quant_matmul_blockwise": 0}
+# calibrate_vit_scales runs the dynamic block only
+PIPE_CALIBRATION = {"layer_norm_quant": 78, "gelu_quant": 39, "packed_qkv_attention_quant": 39,
+                    "packed_qkv_attention_s8": 0, "qmm_res_ln": 0}
+FUSED_SITES = {False: 0, "proj": 39, "fc2": 38, "both": 77}
+# a fused trunk may land no farther from the unfused one than FUSED_GAP_FACTOR
+# times the unfused trunk moves when its input moves by one bf16 step. The
+# full-width trunk with random weights moves by 1.8% at one block and 5% at 39
+# under such a step (script/profile_torch_slice.py --mode encode-static), so
+# tests/test_ops.py's 1e-2 between fused and unfused holds on its tiny trunk
+# (tests/test_torch_fused_ln.py), not here; the factor leaves room for the
+# spread between clips
+FUSED_GAP_FACTOR = 1.5
 
 
 def smi_line() -> str:
@@ -387,6 +428,7 @@ def phase_kernels(kernels) -> dict:
     out["gelu_quant"] = _entry("gelu_quant", "gelu_quant.cu", "stllm_tpu/ops/quant.py:261",
                                rows, INT8_ATOL, INT8_RTOL)
     out.update(_weight_stream_kernels(kernels, gen))
+    out.update(_int8_gemm_kernels(kernels, gen))
     out.update(_train_attention_kernels(kernels, gen, out["packed_qkv_attention"]))
     return out
 
@@ -482,6 +524,95 @@ def _weight_stream_kernels(kernels, gen) -> dict:
         _ws_err(prod, products[0])       # every variant gives the same product
     out["w4_unpack_matmul"] = _entry("w4_unpack_matmul", "w4_unpack_matmul.cu",
                                      "script/probe_w4_unpack.py:93", rows, WS_ATOL, WS_RTOL)
+    return out
+
+
+def _res_ln_err(got, want) -> float:
+    """#11: x_new to the bf16 tolerance, codes at most one step apart;
+    returns the larger of x_new's max abs error and the code steps times the
+    output scale (the largest dequantized difference)."""
+    (gx, gq), (wx, wq) = got, want
+    if gq.dtype != torch.int8 or gq.shape != wq.shape or gx.dtype != wx.dtype:
+        raise AssertionError(f"#11 outputs {gx.dtype} {gq.dtype} {tuple(gq.shape)}")
+    steps = int((gq.int() - wq.int()).abs().max())
+    if steps > 1:
+        raise AssertionError(f"#11 codes {steps} steps apart")
+    return max(_bf16_err(gx, wx), steps * RES_LN_OUT_SCALE)
+
+
+def _int8_gemm_kernels(kernels, gen) -> dict:
+    """#11 at the ViT-g's two fused sites (proj with the attention's per-row
+    scales, fc2 with the calibrated scalar) and #8 at the fc1 shape (one
+    k-block) and the fc2 shape (three). No single PyTorch call computes
+    either function, so library_ms is null; beside it stands the time of the
+    port's own unfused chain that the kernel replaces (#11: quant_matmul_pre,
+    the residual add and layer_norm_quant_static; #8: the per-row dynamic
+    quant_matmul)."""
+    from stllm_tpu_torch.ops import quant
+
+    out = {}
+    m = 16 * 257
+
+    def vec(n, scale, shift=0.0):
+        return (torch.randn(n, generator=gen, device="cuda") * scale + shift).contiguous()
+
+    def codes(*shape):
+        return torch.randint(-127, 128, shape, generator=gen, device="cuda", dtype=torch.int8)
+
+    cases, chains = [], {}
+    for label, k, per_row in (("proj", 1408, True), ("fc2", 6144, False)):
+        bufs = []
+        for _ in range(4):
+            hs = (torch.rand(16, 257, 1, generator=gen, device="cuda") * 0.01 + 1e-3
+                  if per_row else torch.tensor(0.004, device="cuda"))
+            w = codes(1408, k).t()                       # (K, N) column-major
+            bufs.append((codes(16, 257, k), hs, w, vec(1408, 0.0005, 0.001) * (384 / k) ** 0.5,
+                         vec(1408, 0.02), torch.randn(16, 257, 1408, generator=gen,
+                                                      device="cuda").bfloat16(),
+                         vec(1408, 0.1, 1.0), vec(1408, 0.1),
+                         torch.tensor(RES_LN_OUT_SCALE, device="cuda"), 1e-6))
+        nbytes = (m * k + (m * 4 if per_row else 4) + k * 1408 + 4 * 1408 * 4 + 4
+                  + m * 1408 * (2 + 2 + 1))
+        cases.append(([label, 16, 257, k, 1408, "per-row hs" if per_row else "scalar hs"], bufs,
+                      nbytes, 2 * m * k * 1408 / INT8_OP_PER_S
+                      + m * 1408 * RES_LN_OPS_PER_ELEM / FP32_FLOP_PER_S))
+
+        def chain(hq, hs, w, ws, b, x, g, be, os_, eps):
+            x_new = x + quant.quant_matmul_pre(hq, hs, {"w_q": w, "w_scale": ws, "b": b}, x.dtype)
+            return x_new, quant.layer_norm_quant_static({"scale": g, "bias": be}, x_new, os_, eps)
+
+        chains[label] = graph_ms(lambda: chain(*bufs[0]), 20)
+    rows = _check_kernel("qmm_res_ln", cases, kernels.qmm_res_ln, kernels.qmm_res_ln_plain,
+                         _res_ln_err)
+    for row in rows:
+        row["unfused_chain_ms"] = chains[row["shape"][0]]
+    out["qmm_res_ln"] = _entry("qmm_res_ln", "qmm_res_ln.cu", "stllm_tpu/ops/quant.py:423",
+                               rows, BF16_ATOL, BF16_RTOL)
+    out["qmm_res_ln"]["unfused_chain_ms"] = rows[0]["unfused_chain_ms"]
+    del cases
+
+    cases, chains = [], {}
+    for label, k, n in (("fc1", 1408, 6144), ("fc2", 6144, 1408)):
+        bk = quant._pick_tile(k, 2048)
+        bufs = [(torch.randn(16, 257, k, generator=gen, device="cuda").bfloat16(),
+                 codes(n, k).t(), torch.rand(n, generator=gen, device="cuda") * 0.002, bk)
+                for _ in range(4)]
+        cases.append(([label, 16, 257, k, n, f"k-blocks={k // bk}"], bufs,
+                      m * k * 2 + k * n + n * 4 + m * n * 2,
+                      2 * m * k * n / INT8_OP_PER_S + m * k * QUANT_OPS_PER_ELEM / FP32_FLOP_PER_S))
+        chains[label] = graph_ms(lambda: quant.quant_matmul(*bufs[0][:3]), 20)
+    rows = _check_kernel("quant_matmul_blockwise", cases, kernels.quant_matmul_blockwise,
+                         kernels.quant_matmul_blockwise_plain, _ws_err)
+    for row in rows:
+        row["unfused_chain_ms"] = chains[row["shape"][0]]
+    out["quant_matmul_blockwise"] = _entry(
+        "quant_matmul_blockwise", "quant_matmul.cu", "stllm_tpu/ops/quant.py:145", rows,
+        WS_ATOL, WS_RTOL)
+    out["quant_matmul_blockwise"]["unfused_chain_ms"] = rows[0]["unfused_chain_ms"]
+    for name, chain in (("qmm_res_ln", "quant_matmul_pre + residual add + "
+                                       "layer_norm_quant_static"),
+                        ("quant_matmul_blockwise", "quant_matmul (per-row dynamic W8A8)")):
+        out[name]["unfused_chain_is"] = chain
     return out
 
 
@@ -744,27 +875,28 @@ def qa_model_cfg() -> dict:
     return dict(Config(ROOT / "config" / "instructblipbase_stllm_qa.yaml").model_cfg)
 
 
-def make_requests(cfg):
+def make_requests(cfg, prefix_len: int = PREFIX_LEN, suffix_len: int = SUFFIX_LEN,
+                  q_len: int = Q_LEN):
     rng = np.random.default_rng(1)
     size = cfg.vit.image_size
     return [(f"q{i}",
              rng.integers(0, 256, (1, FRAMES, size, size, 3), dtype=np.uint8),
-             rng.integers(3, cfg.llama.vocab_size, (1, PREFIX_LEN)),
-             rng.integers(3, cfg.llama.vocab_size, (1, SUFFIX_LEN)),
-             rng.integers(0, cfg.qformer.vocab_size, (1, Q_LEN)))
+             rng.integers(3, cfg.llama.vocab_size, (1, prefix_len)),
+             rng.integers(3, cfg.llama.vocab_size, (1, suffix_len)),
+             rng.integers(0, cfg.qformer.vocab_size, (1, q_len)))
             for i in range(NUM_REQUESTS)]
 
 
-def serve(kernels, params, cfg, reqs, label: str) -> dict:
-    """Serve ``reqs`` with VideoQAServer(slots=4, max_len=1024), counting
-    kernel launches over exactly that run, then time encode, prefill and
-    decode on the first request's inputs."""
+def serve(kernels, params, cfg, reqs, label: str, gen=None, **server) -> dict:
+    """Serve ``reqs`` with VideoQAServer(slots=4, max_len=1024, or as
+    ``server`` sets it), counting kernel launches over exactly that run, then
+    time encode, prefill and decode on the first request's inputs."""
     from stllm_tpu_torch.models.generation import GenerationConfig, _pad_prompt, _prefill
     from stllm_tpu_torch.models.generation import _decode_chunk_greedy
     from stllm_tpu_torch.pipeline_serving import VideoQAServer, _encode_assemble
 
-    gen = GenerationConfig(max_new_tokens=MAX_NEW)
-    srv = VideoQAServer(params, cfg, slots=4, max_len=1024)
+    gen = gen or GenerationConfig(max_new_tokens=MAX_NEW)
+    srv = VideoQAServer(params, cfg, **{"slots": 4, "max_len": 1024, **server})
     for rid, frames, pre, suf, q in reqs:
         srv.submit(rid, frames, pre, suf, gen, qformer_text_ids=q)
 
@@ -792,7 +924,7 @@ def serve(kernels, params, cfg, reqs, label: str) -> dict:
     fr, pre_t, suf_t = dev(frames), dev(pre).int(), dev(suf).int()
     q_t = dev(q).int()
     embeds = _encode_assemble(params, fr, pre_t, suf_t, q_t, torch.ones_like(q_t), cfg)
-    want_shape = (1, PREFIX_LEN + cfg.num_video_tokens(FRAMES) + SUFFIX_LEN, cfg.llama.hidden)
+    want_shape = (1, pre.shape[1] + cfg.num_video_tokens(FRAMES) + suf.shape[1], cfg.llama.hidden)
     if tuple(embeds.shape) != want_shape or not bool(torch.isfinite(embeds).all()):
         raise AssertionError(f"[{label}] encode output {tuple(embeds.shape)} "
                              f"(want {want_shape}) not finite")
@@ -1002,6 +1134,160 @@ def phase_w4a16(kernels) -> dict:
           f"{W4A16_LAUNCHES_PER_FORWARD} W4A16 launches")
     out.update({"build_s": build_s, "build_peak_gib": build_gib, "tiny_prefill_rel_err": rel,
                 "decoder_weight_bytes": {"bf16": dense_bytes, "w4a16": w4_bytes}})
+    return out, params, cfg
+
+
+# ---------------------------------------------------------------------------
+# the pipeline-serving stack: plain static-int8 ViT-g with the fused LayerNorm
+# ---------------------------------------------------------------------------
+
+TINY_PIPELINE_CFG = {
+    "arch": "st_llm_hf", "model_type": "instructblip_vicuna0", "dtype": "fp32",
+    "video_input": "all", "quant_int8": True,
+    "vit": {"image_size": 56, "width": 256, "depth": 3, "heads": 4, "mlp_hidden": 512,
+            "gelu_approx": True},
+    "qformer": {**TINY_MODEL_CFG["qformer"], "encoder_width": 256},
+    "llama": TINY_MODEL_CFG["llama"],
+}
+
+
+def check_small_pipeline_reference(kernels) -> float:
+    """A tiny fp32 plain-ViT model with quant_int8, calibrated on the CPU,
+    encodes one video under FUSED_LN="both" on the card (5 launches of #11
+    for 3 blocks) and on the CPU (its plain version) within INT8_TINY_REL."""
+    from stllm_tpu_torch.models.vit import calibrate_vit_scales
+    from stllm_tpu_torch.models.zoo import STLLM
+
+    model = STLLM.from_config(TINY_PIPELINE_CFG, seed=3, device="cpu")
+    frames, _ = _tiny_inputs()
+    model.params["vit"] = calibrate_vit_scales(model.params["vit"], frames[0], model.cfg.vit)
+    before = kernels.LAUNCHES["qmm_res_ln"]
+    rel = _card_vs_cpu(model.params, model.cfg, INT8_TINY_REL)
+    torch.cuda.synchronize()
+    if kernels.LAUNCHES["qmm_res_ln"] - before != 2 * model.cfg.vit.depth - 1:
+        raise AssertionError(f"tiny fused-LN encode launched #11 "
+                             f"{kernels.LAUNCHES['qmm_res_ln'] - before} times, want "
+                             f"{2 * model.cfg.vit.depth - 1}")
+    return rel
+
+
+def _pipeline_cfg(w4_cfg):
+    """script/bench_pipeline_serving.py's build(): EVA-ViT-g (no BTAdapter)
+    with tanh GELU, video_input all, the InstructBLIP Q-Former and Vicuna-7B
+    as STLLMConfig's defaults set them. The W4A16 phase's Q-Former and
+    decoder are the same modules, so their weights are reused."""
+    import dataclasses
+
+    from stllm_tpu_torch.models.stllm import STLLMConfig
+    from stllm_tpu_torch.models.vit import EVA_VIT_G
+
+    cfg = STLLMConfig(vit=dataclasses.replace(EVA_VIT_G, gelu_approx=True), video_input="all")
+    if cfg.qformer != w4_cfg.qformer or dataclasses.replace(
+            w4_cfg.llama, kv_int8=False, remat=False) != cfg.llama:
+        raise AssertionError("[pipeline] the W4A16 phase's Q-Former or LLaMA differs from the "
+                             "pipeline stack's")
+    return cfg
+
+
+def phase_pipeline(kernels, w4_params, w4_cfg) -> dict:
+    """The stack of script/bench_pipeline_serving.py at full width and depth
+    under FUSED_LN="both": the plain EVA-ViT-g converted to int8 and
+    calibrated on one clip (calibrate_vit_scales), the dense Q-Former, the
+    fused int4 Vicuna-7B with the int8 head; VideoQAServer(slots=4, chunk=8,
+    max_len=768), 64 prefix and 32 suffix ids, 16 question ids, 16 greedy
+    tokens with no stop. Then one clip's trunk under each FUSED_LN setting."""
+    from stllm_tpu_torch.models import vit as vit_mod
+    from stllm_tpu_torch.models.generation import GenerationConfig
+    from stllm_tpu_torch.models.vit import (
+        calibrate_vit_scales, init_vit, normalize_uint8, quantize_vit_params, vit_forward)
+
+    fused_before = vit_mod.FUSED_LN
+    vit_mod.FUSED_LN = "both"
+    try:
+        rel = check_small_pipeline_reference(kernels)
+        print(f"[pipeline] tiny fp32 fused-LN encode, card vs CPU: relative L2 {rel:.3e}")
+        cfg = _pipeline_cfg(w4_cfg)
+        t0 = time.perf_counter()
+        params = {k: w4_params[k] for k in ("ln_vision", "qformer", "llama_proj", "llama")}
+        w4_params.clear()
+        gc.collect()
+        torch.cuda.empty_cache()
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        params["vit"] = quantize_vit_params(init_vit(gen, cfg.vit), free_dense=True)
+        clip = torch.from_numpy(np.random.default_rng(2).integers(
+            0, 256, (FRAMES, cfg.vit.image_size, cfg.vit.image_size, 3), dtype=np.uint8)).cuda()
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        t1 = time.perf_counter()
+        params["vit"] = calibrate_vit_scales(params["vit"], clip, cfg.vit)
+        torch.cuda.synchronize()
+        calib_s = time.perf_counter() - t1
+        calib = dict(kernels.LAUNCHES)
+        _expect("pipeline-calibration", calib, PIPE_CALIBRATION, 1)
+        build_s = time.perf_counter() - t0
+        print(f"[pipeline] plain ViT-g built, converted and calibrated in {build_s:.1f} s "
+              f"(calibration {calib_s:.2f} s, launches {calib}), held "
+              f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+
+        answer = GenerationConfig(max_new_tokens=PIPE_ANSWER, stop_sequences=(),
+                                  eos_token_id=-1, pad_to_multiple=64)
+        out = serve(kernels, params, cfg, make_requests(cfg, *PIPE_PROMPT), "pipeline",
+                    gen=answer, slots=4, max_len=768, chunk=8)
+        _expect("pipeline", out["launches"], {**PIPELINE_PER_VIDEO, **{p: 0 for p in PROBES}},
+                NUM_REQUESTS)
+        forwards, w4 = out["llama_forwards"], out["launches"]["w4a16_matmul"]
+        if not forwards or w4 != W4A16_LAUNCHES_PER_FORWARD * forwards:
+            raise AssertionError(f"[pipeline] {w4} W4A16 launches over {forwards} LLaMA "
+                                 f"forwards, want {W4A16_LAUNCHES_PER_FORWARD} each")
+        if set(out["tokens_per_request"].values()) != {PIPE_ANSWER}:
+            raise AssertionError(f"[pipeline] tokens per request {out['tokens_per_request']}, "
+                                 f"want {PIPE_ANSWER} each")
+
+        # one clip's trunk under each setting: the #11 launches, the time, and
+        # the gap to the unfused trunk, against the unfused trunk's own gap
+        # under an input moved by one bf16 step
+        images = normalize_uint8(clip, cfg.vit.dtype)
+        vit_mod.FUSED_LN = False
+        with torch.no_grad():
+            nudged = vit_forward(params["vit"], (images.float() * (1 + 2.0 ** -8)).to(images.dtype),
+                                 cfg.vit).float()
+        trunk = {}
+        for setting in (False, "proj", "fc2", "both"):
+            vit_mod.FUSED_LN = setting
+            torch.cuda.synchronize()
+            kernels.reset_launches()
+            with torch.no_grad():
+                y = vit_forward(params["vit"], images, cfg.vit)
+            torch.cuda.synchronize()
+            n11 = kernels.LAUNCHES["qmm_res_ln"]
+            with torch.no_grad():
+                ms = cuda_ms(lambda: vit_forward(params["vit"], images, cfg.vit), 3, warmup=1)
+            trunk[str(setting)] = {"qmm_res_ln_launches": n11, "trunk_ms": ms,
+                                   "frames_per_s": FRAMES / ms * 1e3, "out": y.float()}
+            if n11 != FUSED_SITES[setting] or not bool(torch.isfinite(y).all()):
+                raise AssertionError(f"[pipeline] FUSED_LN={setting!r}: {n11} #11 launches "
+                                     f"(want {FUSED_SITES[setting]}), finite "
+                                     f"{bool(torch.isfinite(y).all())}")
+        base = trunk["False"]["out"]
+        for row in trunk.values():
+            row["mean_rel_vs_unfused"] = float((row.pop("out") - base).abs().mean()
+                                               / base.abs().mean())
+        floor = float((nudged - base).abs().mean() / base.abs().mean())
+        worst = max(r["mean_rel_vs_unfused"] for r in trunk.values())
+        print(f"[pipeline] 16-frame trunk by FUSED_LN: {json.dumps(trunk)}; the unfused trunk "
+              f"under a one-bf16-step input: {floor:.4e}")
+        if worst > FUSED_GAP_FACTOR * floor:
+            raise AssertionError(f"[pipeline] a fused trunk is {worst} from the unfused one, "
+                                 f"more than {FUSED_GAP_FACTOR} x {floor}")
+    finally:
+        vit_mod.FUSED_LN = fused_before
+    print(f"[pipeline] encode {out['encode_ms_per_video']:.2f} ms/video, prefill "
+          f"{out['prefill_ms']:.2f} ms, decode {out['decode_ms_per_token']:.2f} ms/step, "
+          f"{out['tokens_per_s']:.2f} tokens/s, {NUM_REQUESTS / out['wall_s']:.3f} QA/s, serving "
+          f"peak {out['max_memory_allocated_gib']:.2f} GiB")
+    out.update({"qa_per_s": NUM_REQUESTS / out["wall_s"], "calibration_launches": calib,
+                "calibration_s": calib_s, "build_s": build_s, "tiny_encode_rel_err": rel,
+                "trunk_by_fused_ln": trunk, "trunk_one_bf16_step_gap": floor})
     return out
 
 
@@ -1228,7 +1514,9 @@ def main() -> int:
     int8 = phase_int8(kernels)
     gc.collect()
     torch.cuda.empty_cache()
-    w4a16 = phase_w4a16(kernels)
+    w4a16, w4_params, w4_cfg = phase_w4a16(kernels)
+    pipeline = phase_pipeline(kernels, w4_params, w4_cfg)
+    del w4_params
     gc.collect()
     torch.cuda.empty_cache()
     train = phase_train(kernels)
@@ -1240,13 +1528,15 @@ def main() -> int:
                "packed_qkv_attention_s8": int8["static"], "w4a16_matmul": w4a16,
                **{p: w4a16 for p in PROBES}, "fused_short_attention": short,
                "flash_attention_fwd": long_, "flash_attention_bwd_dq": long_,
-               "flash_attention_bwd_dkv": long_}
+               "flash_attention_bwd_dkv": long_, "qmm_res_ln": pipeline,
+               "quant_matmul_blockwise": pipeline}
     for name, entry in entries.items():
         entry["launches"] = path_of[name]["launches"][name]
         entry["launches_by_path"] = {p["mode"]: p["launches"][name]
                                      for p in (bf16, int8["dynamic"], int8["static"], w4a16,
-                                               short, long_)}
+                                               pipeline, short, long_)}
         entry["launches_by_path"]["int8-calibration"] = int8["calibration_launches"][name]
+        entry["launches_by_path"]["pipeline-calibration"] = pipeline["calibration_launches"][name]
         entry["launches_per_train_step"] = {t["mode"]: t["launches"][name] / t["steps"]
                                             for t in (short, long_)}
     print(json.dumps({"kernels": list(entries.values())}))

@@ -2,7 +2,8 @@
 """Where the time goes in one video-QA request, or one training step, of the
 PyTorch port.
 
-    python3 script/profile_torch_slice.py [--mode bf16|w4a16|train] [--out profile.json]
+    python3 script/profile_torch_slice.py [--mode bf16|w4a16|train|encode-static]
+                                          [--out profile.json]
 
 Run from the repository root on a CUDA card. Builds the QA config
 (config/instructblipbase_stllm_qa.yaml) at full width with random weights:
@@ -28,6 +29,14 @@ wall time split into forward (student and teacher), backward and optimizer,
 then the whole step's device time, idle share, launches, and the time in the
 forward attention kernel, the two flash backward kernels, the packed-qkv
 kernel, library GEMMs and the rest, and the peak memory.
+
+``--mode encode-static`` times the 64-frame static-int8 encode of
+script/bench_encode_static.py (plain EVA-ViT-g, tanh GELU, 16 question ids)
+under each STLLM_FUSED_LN setting (off, "proj", "fc2", "both"): frames per
+second, device time by kernel (#11 on its own), the idle share and the
+launches; then, on 16 frames, how far each fused trunk lands from the
+unfused one at depths 1 to 39, beside the unfused trunk's own gaps under
+INT8_QKT "0" and under an input moved by one bf16 step.
 """
 
 from __future__ import annotations
@@ -49,9 +58,12 @@ sys.path.insert(0, str(REPO))
 GEMM_MARKS = ("gemm", "nvjet", "cutlass", "xmma", "matmul")
 ATTN_MARKS = ("packed_qkv_attention_kernel", "packed_qkv_s8_kernel")
 W4_MARKS = ("weight_stream_kernel", "splitk_reduce_kernel")
-# the training attention: the forward kernel is #7 at the short tier, #4 at the long
-TRAIN_MARKS = {"attention_fwd_ms": "flash_fwd_kernel", "flash_bwd_dq_ms": "flash_bwd_dq_kernel",
-               "flash_bwd_dkv_ms": "flash_bwd_dkv_kernel"}
+# kernels reported on their own: the training attention (the forward kernel is
+# #7 at the short tier, #4 at the long) and #11, the int8 matmul with the
+# epilogue-carried LayerNorm
+KERNEL_MARKS = {"attention_fwd_ms": "flash_fwd_kernel", "flash_bwd_dq_ms": "flash_bwd_dq_kernel",
+                "flash_bwd_dkv_ms": "flash_bwd_dkv_kernel", "qmm_res_ln_ms": "qmm_res_ln_kernel"}
+SETTINGS = (False, "proj", "fc2", "both")     # STLLM_FUSED_LN off, and its three sites
 
 
 def _device_us(e) -> float:
@@ -85,13 +97,13 @@ def profile_phase(name: str, fn, wall: float) -> dict:
                if any(m in e.key.lower() for m in GEMM_MARKS)
                and not any(m in e.key for m in W4_MARKS)) / 1e3
     top = sorted(kernels, key=_device_us, reverse=True)[:10]
-    train = {k: sum(_device_us(e) for e in kernels if m in e.key) / 1e3
-             for k, m in TRAIN_MARKS.items()}
+    own = {k: sum(_device_us(e) for e in kernels if m in e.key) / 1e3
+           for k, m in KERNEL_MARKS.items()}
     row = {"phase": name, "wall_ms": wall, "device_ms": dev_ms,
            "device_idle_share": max(0.0, 1.0 - dev_ms / wall),
            "kernel_launches": sum(e.count for e in kernels),
-           "packed_qkv_ms": attn, "w4a16_ms": w4, "gemm_ms": gemm, **train,
-           "other_ms": dev_ms - attn - w4 - gemm - sum(train.values()),
+           "packed_qkv_ms": attn, "w4a16_ms": w4, "gemm_ms": gemm, **own,
+           "other_ms": dev_ms - attn - w4 - gemm - sum(own.values()),
            "top": [{"kernel": e.key[:90], "calls": e.count, "ms": _device_us(e) / 1e3}
                    for e in top]}
     print(json.dumps(row))
@@ -187,10 +199,94 @@ def profile_train(out_path) -> int:
     return 0
 
 
+def _mean_rel(a: torch.Tensor, b: torch.Tensor) -> float:
+    return float((a.float() - b.float()).abs().mean() / b.float().abs().mean())
+
+
+@torch.no_grad()
+def profile_encode_static(out_path) -> int:
+    """The 64-frame static-int8 encode of script/bench_encode_static.py
+    (plain EVA-ViT-g with tanh GELU, converted to int8 and calibrated on the
+    first 16 frames, then ln_vision, the Q-Former with 16 question ids and
+    llama_proj) under each STLLM_FUSED_LN setting: frames per second, device
+    time by kernel and the idle share. Then how far each fused trunk lands
+    from the unfused one on 16 of the frames, by depth, beside two other
+    gaps of the unfused trunk: INT8_QKT "0" against "1", and an input moved
+    by one bf16 step."""
+    import dataclasses
+
+    from stllm_tpu_torch.models import vit as vit_mod
+    from stllm_tpu_torch.models.stllm import STLLMConfig, encode_img, init_stllm
+    from stllm_tpu_torch.models.vit import (
+        EVA_VIT_G, calibrate_vit_scales, quantize_vit_params, vit_forward)
+    from stllm_tpu_torch.ops import kernels
+
+    kernels.build()
+    frames_n = 64
+    cfg = STLLMConfig(vit=dataclasses.replace(EVA_VIT_G, gelu_approx=True))
+    params = init_stllm(torch.Generator(device="cuda").manual_seed(0), cfg,
+                        init_llama_params=False)
+    params.pop("llama")
+    rng = np.random.default_rng(0)
+    size = cfg.vit.image_size
+    frames = torch.from_numpy(rng.standard_normal((1, frames_n, size, size, 3),
+                                                  dtype=np.float32)).to("cuda", torch.bfloat16)
+    q_ids = torch.from_numpy(rng.integers(0, cfg.qformer.vocab_size, (1, 16))).int().cuda()
+    q_mask = torch.ones_like(q_ids)
+    params["vit"] = quantize_vit_params(params["vit"], free_dense=True)
+    params["vit"] = calibrate_vit_scales(params["vit"], frames[0, :16], cfg.vit)
+
+    def encode():
+        return encode_img(params, frames, cfg, q_ids, q_mask)
+
+    walls, launches = {}, {}
+    for setting in SETTINGS:
+        vit_mod.FUSED_LN = setting
+        walls[setting] = wall_ms(encode)
+        kernels.reset_launches()
+        encode()
+        torch.cuda.synchronize()
+        launches[setting] = {k: v for k, v in kernels.LAUNCHES.items() if v}
+    rows = []
+    for setting in SETTINGS:
+        vit_mod.FUSED_LN = setting
+        row = profile_phase(f"encode_{frames_n}_frames_fused_ln_{setting}", encode, walls[setting])
+        row.update({"fused_ln": str(setting), "frames_per_s": frames_n / walls[setting] * 1e3,
+                    "launches": launches[setting]})
+        print(json.dumps({k: v for k, v in row.items() if k != "top"}))
+        rows.append(row)
+
+    clip = frames[0, :16]
+    nudged = (clip.float() * (1 + 2.0 ** -8)).bfloat16()
+    blocks = params["vit"]["blocks"]
+
+    def trunk(setting, depth, qkt="1", x=clip):
+        vit_mod.FUSED_LN, vit_mod.INT8_QKT = setting, qkt
+        return vit_forward({**params["vit"], "blocks": blocks[:depth]}, x, cfg.vit)
+
+    gaps = []
+    for depth in (1, 2, 3, 4, 8, 16, len(blocks)):
+        base = trunk(False, depth)
+        gap = {"depth": depth, **{f"fused_{s}": _mean_rel(trunk(s, depth), base)
+                                  for s in SETTINGS[1:]},
+               "int8_qkt_0": _mean_rel(trunk(False, depth, "0"), base),
+               "input_one_bf16_step": _mean_rel(trunk(False, depth, x=nudged), base)}
+        print(json.dumps(gap))
+        gaps.append(gap)
+    vit_mod.FUSED_LN, vit_mod.INT8_QKT = False, "1"
+    rows.append({"phase": "trunk_mean_rel_vs_unfused_16_frames", "by_depth": gaps})
+    smi = _smi()
+    print(smi)
+    _write(out_path, smi, "encode-static", rows)
+    return 0
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--mode", choices=("bf16", "w4a16", "train"), default="bf16",
-                    help="the bf16 model, the W4A16 serving stack, or the training step")
+    ap.add_argument("--mode", choices=("bf16", "w4a16", "train", "encode-static"),
+                    default="bf16",
+                    help="the bf16 model, the W4A16 serving stack, the training step, or the "
+                         "64-frame static-int8 encode under each STLLM_FUSED_LN setting")
     ap.add_argument("--out", help="also write the phases as JSON to this file")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -198,6 +294,8 @@ def main() -> int:
         return 1
     if args.mode == "train":
         return profile_train(args.out)
+    if args.mode == "encode-static":
+        return profile_encode_static(args.out)
 
     from stllm_tpu_torch.common.config import Config
     from stllm_tpu_torch.models.btadapter import calibrate_btadapter_scales

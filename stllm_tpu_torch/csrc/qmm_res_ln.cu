@@ -1,0 +1,293 @@
+// s8 matmul with the residual add, LayerNorm and static int8 carried in its
+// epilogue, for Hopper (sm_90a).
+//
+// Replaces stllm_tpu/ops/quant.py:_qmm_res_ln_kernel, the proj and fc2
+// matmuls of the static-int8 EVA-ViT-g under STLLM_FUSED_LN (proj -> norm2,
+// fc2 -> the next block's norm1). It computes what that kernel computes, in
+// its order, all in fp32 after the exact s32 product:
+//   y   = (acc * hs) * ws + b            acc = hq . w_q over K (s32)
+//   xn  = x_prev + y;  x_new = xn in the io dtype
+//   mean = sum(xn) / N;  var = sum((xn - mean)^2) / N      (two passes)
+//   z   = ((xn - mean) * (1 / sqrt(var + eps))) * gamma + beta
+//   yq  = clip(rint(z * (1 / out_scale)), -127, 127)
+// hs is per row or one scalar (stride 0). 1 / out_scale is one IEEE divide
+// of the device scalar, so no launch waits for the host. Products and sums
+// are rounded one by one (__fmul_rn, __fadd_rn): no fused multiply-add
+// changes them.
+//
+// Bound on the H100 at the ViT-g proj site ((16 x 257) x 1408 . 1408 x 1408):
+// 16.3 G int8 operations (8.2 us at 1,979 TOP/s) against 36.7 MB moved (hq
+// 5.8 MB, the weight 2 MB, x_prev and x_new 11.6 MB each, yq 5.8 MB: 11 us at
+// 3.35 TB/s), so bound by memory; at the fc2 site (K = 6144) 71.1 G
+// operations (36 us) against 63 MB (19 us), bound by the tensor cores.
+//
+// Design. The LayerNorm needs whole output rows, so a block of 8 warps owns
+// 16 rows and all N columns: warp w holds columns [w N/8, (w + 1) N/8) as
+// N/64 n8-tiles of s32 accumulators in registers (22 tiles, 88 registers, at
+// N = 1408), and 4,112 rows make 257 blocks. Each lane feeds its products
+// with its own 16 bytes of A rows g, g + 8 and of each tile's weight column
+// per 64 bytes of K (s8_matmul.cuh). Those bytes come in by cp.async into a
+// two-stage ring in shared memory that is private to the lane (it reads back
+// only what it copied, so no barrier guards the ring): the next step's
+// 24 chunks a lane, 196 KB a block at N = 1408, are in flight while the
+// current step multiplies. (The first design loaded them into registers: 22
+// loads in flight a lane, 2.16 ms at the fc2 site.) The weight is read
+// column-major, (N, K) in memory, as quantize_weights stores it; every block
+// reads all of it, from L2 after the first. At the k-exit each thread turns
+// its accumulators into xn, writes x_new, and the row statistics reduce over
+// the quad, then over the 8 warps through shared memory, the mean first and
+// then the centred sum of squares. No wgmma or TMA yet: that is later work.
+
+#include <cuda_bf16.h>
+
+#include "s8_matmul.cuh"
+
+namespace {
+
+using namespace stllm::s8mm;
+
+constexpr int kWarps = 8;
+constexpr int kThreads = kWarps * 32;
+constexpr int kRows = 16;             // rows a block owns
+constexpr int kStages = 2;            // steps of the cp.async ring
+
+// Bytes of dynamic shared memory for a launch with nt n8-tiles a warp: per
+// stage, per warp, nt weight chunks and 2 activation chunks of 32 lanes x 16.
+inline size_t ring_bytes(int nt) {
+  return static_cast<size_t>(kStages) * kWarps * (nt + 2) * 32 * sizeof(uint4);
+}
+
+__device__ __forceinline__ float2 load_pair(const void* base, long long i, int f32) {
+  if (f32) return *reinterpret_cast<const float2*>(static_cast<const float*>(base) + i);
+  return __bfloat1622float2(
+      *reinterpret_cast<const __nv_bfloat162*>(static_cast<const __nv_bfloat16*>(base) + i));
+}
+
+__device__ __forceinline__ void store_pair(void* base, long long i, float a, float b,
+                                           int f32) {
+  if (f32) {
+    *reinterpret_cast<float2*>(static_cast<float*>(base) + i) = make_float2(a, b);
+  } else {
+    *reinterpret_cast<__nv_bfloat162*>(static_cast<__nv_bfloat16*>(base) + i) =
+        __floats2bfloat162_rn(a, b);
+  }
+}
+
+// The 16-row sum of a per-thread partial (rows g and g + 8), over the quad's
+// 4 lanes and then the 8 warps; every thread gets its two rows' totals, summed
+// in one order.
+__device__ __forceinline__ void row_sums(float& a, float& b, float (*red)[kRows], int warp,
+                                         int g, int t) {
+  a += __shfl_xor_sync(0xffffffffu, a, 1);
+  a += __shfl_xor_sync(0xffffffffu, a, 2);
+  b += __shfl_xor_sync(0xffffffffu, b, 1);
+  b += __shfl_xor_sync(0xffffffffu, b, 2);
+  if (t == 0) {
+    red[warp][g] = a;
+    red[warp][g + 8] = b;
+  }
+  __syncthreads();
+  a = 0.0f;
+  b = 0.0f;
+#pragma unroll
+  for (int w = 0; w < kWarps; ++w) {
+    a += red[w][g];
+    b += red[w][g + 8];
+  }
+}
+
+// NT: the most n8-tiles a warp holds; the launch's N / 64 <= NT.
+template <int NT>
+__global__ void __launch_bounds__(kThreads, 1)
+qmm_res_ln_kernel(const int8_t* __restrict__ hq, const float* __restrict__ hs, int hs_step,
+                  const int8_t* __restrict__ w, const float* __restrict__ ws,
+                  const float* __restrict__ bias, const void* __restrict__ x_prev,
+                  const float* __restrict__ gamma, const float* __restrict__ beta,
+                  const float* __restrict__ out_scale, void* __restrict__ x_new,
+                  int8_t* __restrict__ yq, int M, int K, int N, float eps, int io_f32) {
+  extern __shared__ uint4 ring[];
+  __shared__ float red[2][kWarps][kRows];
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  const int nt = N / (8 * kWarps);
+  const int col0 = warp * nt * 8;
+  const int ra = blockIdx.x * kRows + g;
+  const int rb = ra + 8;
+  const bool va = ra < M;
+  const bool vb = rb < M;
+  const int8_t* pa = hq + (long long)(va ? ra : 0) * K + 16 * t;
+  const int8_t* pb = hq + (long long)(vb ? rb : 0) * K + 16 * t;
+  const int8_t* pw = w + (long long)(col0 + g) * K + 16 * t;
+  const long long tile = 8LL * K;      // from one n8-tile's column g to the next's
+
+  // the lane's slots of the ring: chunk c of stage s at mine[s * stage + c * 32]
+  const int stage = kWarps * (nt + 2) * 32;
+  uint4* mine = ring + warp * (nt + 2) * 32 + lane;
+
+  // start the copies of the step at k0 into stage s; chunks past K or of rows
+  // past M are zero-filled (K % 16 == 0: a 16-byte chunk is all in or out)
+  auto fetch = [&](int k0, int s) {
+    uint4* dst = mine + s * stage;
+    const bool in = k0 + 16 * t < K;
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      if (j < nt) cp_async16(dst + j * 32, in ? pw + j * tile + k0 : pw, in);
+    }
+    cp_async16(dst + nt * 32, va && in ? pa + k0 : pa, va && in);
+    cp_async16(dst + (nt + 1) * 32, vb && in ? pb + k0 : pb, vb && in);
+    cp_async_commit();
+  };
+
+  int acc[NT][4];
+#pragma unroll
+  for (int j = 0; j < NT; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0;
+
+  const int steps = (K + 63) / 64;
+  fetch(0, 0);
+  for (int i = 0; i < steps; ++i) {
+    if (i + 1 < steps) {
+      __syncwarp();                    // the stage refilled now was read in step i - 1
+      fetch((i + 1) * 64, (i + 1) & 1);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    const uint4* src = mine + (i & 1) * stage;
+    const uint4 lo = src[nt * 32];
+    const uint4 hi = src[(nt + 1) * 32];
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      if (j < nt) mma_step64(acc[j], lo, hi, src[j * 32]);
+    }
+  }
+
+  // k-exit: y, the residual add and x_new; the first pass of the statistics
+  const float ha = va ? hs[(long long)ra * hs_step] : 0.0f;
+  const float hb = vb ? hs[(long long)rb * hs_step] : 0.0f;
+  const long long oa = (long long)ra * N;
+  const long long ob = (long long)rb * N;
+  float v[NT][4];
+  float sa = 0.0f, sb = 0.0f;
+#pragma unroll
+  for (int j = 0; j < NT; ++j) {
+    if (j < nt) {
+      const int c = col0 + j * 8 + 2 * t;
+      const float w0 = ws[c], w1 = ws[c + 1];
+      const float b0 = bias ? bias[c] : 0.0f;
+      const float b1 = bias ? bias[c + 1] : 0.0f;
+      const float2 xa = va ? load_pair(x_prev, oa + c, io_f32) : make_float2(0.0f, 0.0f);
+      const float2 xb = vb ? load_pair(x_prev, ob + c, io_f32) : make_float2(0.0f, 0.0f);
+      v[j][0] = __fadd_rn(xa.x, __fadd_rn(__fmul_rn(__fmul_rn(__int2float_rn(acc[j][0]), ha), w0), b0));
+      v[j][1] = __fadd_rn(xa.y, __fadd_rn(__fmul_rn(__fmul_rn(__int2float_rn(acc[j][1]), ha), w1), b1));
+      v[j][2] = __fadd_rn(xb.x, __fadd_rn(__fmul_rn(__fmul_rn(__int2float_rn(acc[j][2]), hb), w0), b0));
+      v[j][3] = __fadd_rn(xb.y, __fadd_rn(__fmul_rn(__fmul_rn(__int2float_rn(acc[j][3]), hb), w1), b1));
+      if (va) store_pair(x_new, oa + c, v[j][0], v[j][1], io_f32);
+      if (vb) store_pair(x_new, ob + c, v[j][2], v[j][3], io_f32);
+      sa += v[j][0] + v[j][1];
+      sb += v[j][2] + v[j][3];
+    }
+  }
+  row_sums(sa, sb, red[0], warp, g, t);
+  const float fn = static_cast<float>(N);
+  const float mean_a = __fdiv_rn(sa, fn);
+  const float mean_b = __fdiv_rn(sb, fn);
+
+  // the second pass: the centred sum of squares
+  float qa = 0.0f, qb = 0.0f;
+#pragma unroll
+  for (int j = 0; j < NT; ++j) {
+    if (j < nt) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const float da = __fsub_rn(v[j][e], mean_a);
+        const float db = __fsub_rn(v[j][2 + e], mean_b);
+        qa = __fadd_rn(qa, __fmul_rn(da, da));
+        qb = __fadd_rn(qb, __fmul_rn(db, db));
+      }
+    }
+  }
+  row_sums(qa, qb, red[1], warp, g, t);
+  const float inv_a = __fdiv_rn(1.0f, __fsqrt_rn(__fadd_rn(__fdiv_rn(qa, fn), eps)));
+  const float inv_b = __fdiv_rn(1.0f, __fsqrt_rn(__fadd_rn(__fdiv_rn(qb, fn), eps)));
+  const float inv_os = __fdiv_rn(1.0f, out_scale[0]);
+
+  // normalize, affine, static int8
+#pragma unroll
+  for (int j = 0; j < NT; ++j) {
+    if (j < nt) {
+      const int c = col0 + j * 8 + 2 * t;
+      int8_t code[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float mean = e < 2 ? mean_a : mean_b;
+        const float inv = e < 2 ? inv_a : inv_b;
+        const int cc = c + (e & 1);
+        const float z = __fadd_rn(__fmul_rn(__fmul_rn(__fsub_rn(v[j][e], mean), inv), gamma[cc]),
+                                  beta[cc]);
+        code[e] = clip_code(__fmul_rn(z, inv_os));
+      }
+      if (va) *reinterpret_cast<char2*>(yq + oa + c) = make_char2(code[0], code[1]);
+      if (vb) *reinterpret_cast<char2*>(yq + ob + c) = make_char2(code[2], code[3]);
+    }
+  }
+}
+
+template <int NT>
+cudaError_t launch(const void* hq, const float* hs, int hs_step, const void* w, const float* ws,
+                   const float* bias, const void* x_prev, const float* gamma, const float* beta,
+                   const float* out_scale, void* x_new, void* yq, int M, int K, int N, float eps,
+                   int io_f32, cudaStream_t stream) {
+  const size_t smem = ring_bytes(N / 64);
+  cudaError_t err = cudaFuncSetAttribute(
+      qmm_res_ln_kernel<NT>, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  qmm_res_ln_kernel<NT><<<(M + kRows - 1) / kRows, kThreads, smem, stream>>>(
+      static_cast<const int8_t*>(hq), hs, hs_step, static_cast<const int8_t*>(w), ws, bias,
+      x_prev, gamma, beta, out_scale, x_new, static_cast<int8_t*>(yq), M, K, N, eps, io_f32);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+// Plain C entry point, loaded with ctypes. hq: int8 (M, K) row-major; hs: fp32,
+// one per row (hs_step 1) or one scalar (hs_step 0); w: int8 (N, K) row-major,
+// i.e. the (K, N) weight column-major; ws: fp32 (N,); bias: fp32 (N,) or null;
+// x_prev and x_new: (M, N), bf16 or, with io_f32, fp32; gamma, beta: fp32
+// (N,); out_scale: one fp32 on the device; yq: int8 (M, N). Every tensor
+// contiguous and 16-byte aligned; K a multiple of 16, N a multiple of 128 and
+// at most 1536 (the ring of a wider row does not fit shared memory). Launches
+// on ``stream`` and returns the CUDA error of the launch (0 on success);
+// never synchronises.
+extern "C" int stllm_qmm_res_ln(const void* hq, const void* hs, int hs_step, const void* w,
+                                const void* ws, const void* bias, const void* x_prev,
+                                const void* gamma, const void* beta, const void* out_scale,
+                                void* x_new, void* yq, int M, int K, int N, float eps,
+                                int io_f32, void* stream) {
+  if (M < 0 || K <= 0 || K % 16 != 0 || N <= 0 || N % 128 != 0 || N > 1536 ||
+      (hs_step != 0 && hs_step != 1)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (M == 0) return 0;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const float* f_hs = static_cast<const float*>(hs);
+  const float* f_ws = static_cast<const float*>(ws);
+  const float* f_b = static_cast<const float*>(bias);
+  const float* f_g = static_cast<const float*>(gamma);
+  const float* f_be = static_cast<const float*>(beta);
+  const float* f_os = static_cast<const float*>(out_scale);
+  const int nt = N / 64;
+  cudaError_t err;
+  if (nt <= 8) {
+    err = launch<8>(hq, f_hs, hs_step, w, f_ws, f_b, x_prev, f_g, f_be, f_os, x_new, yq, M, K,
+                    N, eps, io_f32, st);
+  } else if (nt <= 16) {
+    err = launch<16>(hq, f_hs, hs_step, w, f_ws, f_b, x_prev, f_g, f_be, f_os, x_new, yq, M, K,
+                     N, eps, io_f32, st);
+  } else {
+    err = launch<24>(hq, f_hs, hs_step, w, f_ws, f_b, x_prev, f_g, f_be, f_os, x_new, yq, M, K,
+                     N, eps, io_f32, st);
+  }
+  return static_cast<int>(err);
+}

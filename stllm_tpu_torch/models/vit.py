@@ -15,15 +15,23 @@ in the backward.
     in its epilogue (#2);
   - static int8 (``calibrate_vit_scales`` adds ``act_scales``): calibrated
     per-tensor scales, and attention on static-int8 qkv (#3).
-The static path is the reference's default (``STLLM_INT8_QKT=1``,
-``STLLM_FUSED_LN`` off); its other settings are not ported. Token merging
-and frame folding come with later slices; their config fields are kept so
-configs compare field by field with the reference.
+Two settings of the reference choose among static forms, read from the
+environment at import and kept as module attributes of the same names:
+  - ``FUSED_LN`` (``STLLM_FUSED_LN``: "0" off, the default; "1" = "both",
+    "proj", "fc2"): ``vit_forward`` runs the trunk as one pipeline whose
+    LayerNorms ride in the epilogue of the int8 matmul before them (#11:
+    proj -> norm2, fc2 -> the next block's norm1);
+  - ``INT8_QKT`` (``STLLM_INT8_QKT``: "1", the default, static-int8 qkv into
+    #3; "bf16", the same with the reference's bf16 q.k^T, which here is the
+    same kernel; "0", the bf16 qkv into #2).
+Token merging and frame folding come with later slices; their config fields
+are kept so configs compare field by field with the reference.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
 from typing import Any, Dict, Optional
 
 import torch
@@ -36,8 +44,20 @@ from stllm_tpu_torch.ops.attention import (
 from stllm_tpu_torch.ops.layers import (
     gelu, init_layer_norm, init_linear, layer_norm, linear, trunc_normal)
 from stllm_tpu_torch.ops.quant import (
-    gelu_quant, layer_norm_quant, layer_norm_quant_static, quant_matmul_pre,
-    quant_mlp_static, quantize_activations, quantize_linear_params, quantize_static)
+    gelu_quant, layer_norm_quant, layer_norm_quant_static, quant_fc1_gelu_static,
+    quant_matmul_pre, quant_matmul_res_ln_static, quant_mlp_static, quantize_activations,
+    quantize_linear_params, quantize_static)
+
+# epilogue-carried LayerNorm in the static-int8 trunk (_vit_blocks_fused_static):
+# "1" fuses both sites, "proj" or "fc2" one of them; off by default, as in the
+# reference
+FUSED_LN = os.environ.get("STLLM_FUSED_LN", "0")
+FUSED_LN = {"0": False, "1": "both"}.get(FUSED_LN, FUSED_LN)
+
+# static-int8 qkv into the attention: "1" s8 q.k^T, "bf16" the reference's
+# upcast q.k^T (the same numbers, so the same kernel here), "0" off (bf16 qkv
+# into the dynamic-epilogue kernel)
+INT8_QKT = os.environ.get("STLLM_INT8_QKT", "1")
 
 # CLIP normalization constants (the reference's data/processors.py)
 CLIP_MEAN = (0.48145466, 0.4578275, 0.40821073)
@@ -244,17 +264,19 @@ def _vit_block_quant(block: Dict, x: torch.Tensor, cfg: ViTConfig) -> torch.Tens
 
 def _attn_quant_static(block: Dict, qkv: torch.Tensor, cfg: ViTConfig):
     """Attention of the static-int8 block: with calibrated per-third qkv
-    scales (act_scales["attn"]) the qkv is quantized to static int8 and runs
-    the s8 packed kernel (#3). Where that kernel declines the shape, or the
-    layer has no attn scales, the bf16 qkv takes the dynamic-epilogue kernel
-    (#2), as in the reference. Returns (oq int8, os fp32)."""
+    scales (act_scales["attn"]) and INT8_QKT on, the qkv is quantized to
+    static int8 and runs the s8 packed kernel (#3). Where that kernel
+    declines the shape, INT8_QKT is "0", or the layer has no attn scales,
+    the bf16 qkv takes the dynamic-epilogue kernel (#2), as in the
+    reference. Returns (oq int8, os fp32)."""
     b, n, f = qkv.shape
     sc = block["act_scales"]
-    if "attn" in sc and cfg.use_flash is None:
+    if INT8_QKT != "0" and "attn" in sc and cfg.use_flash is None:
         # per-third scales broadcast over each third of the packed row
         qkv_q = quantize_static(qkv.reshape(b, n, 3, f // 3),
                                 sc["attn"].float()[:, None]).reshape(b, n, f)
-        res = fused_qkv_attention_quant_static(qkv_q, sc["attn"], cfg.heads, cfg.head_dim)
+        res = fused_qkv_attention_quant_static(qkv_q, sc["attn"], cfg.heads, cfg.head_dim,
+                                               int8_dot=INT8_QKT != "bf16")
         if res is not None:
             return res
     if cfg.use_flash is None:
@@ -275,6 +297,47 @@ def _vit_block_quant_static(block: Dict, x: torch.Tensor, cfg: ViTConfig) -> tor
     hq = layer_norm_quant_static(block["norm2"], x, sc["fc1"], cfg.ln_eps)
     return x + quant_mlp_static(hq, sc["fc1"], block["fc1"], sc["fc2"], block["fc2"],
                                 x.dtype, approx=cfg.gelu_approx)
+
+
+def _vit_blocks_fused_static(blocks, x: torch.Tensor, cfg: ViTConfig
+                             ) -> Optional[torch.Tensor]:
+    """The static-int8 trunk with epilogue-carried LayerNorm: each LayerNorm
+    runs in the k-exit of the int8 matmul that produces its input (proj ->
+    norm2 and fc2 -> the next block's norm1 at the sites FUSED_LN names), so
+    the loop carries (x, hq), hq being the normalized int8 input of the next
+    qkv matmul. The last block's fc2 has no LayerNorm after it and ends in
+    the plain residual add. Returns None when a shape declines the fused
+    kernel (the caller then runs the per-block loop)."""
+    hq = layer_norm_quant_static(blocks[0]["norm1"], x, blocks[0]["act_scales"]["qkv"],
+                                 cfg.ln_eps)
+    for i, block in enumerate(blocks):
+        sc = block["act_scales"]
+        qkv = quant_matmul_pre(hq, sc["qkv"], _qkv_with_bias(block), x.dtype)
+        oq, os_ = _attn_quant_static(block, qkv, cfg)
+        if FUSED_LN in ("both", "proj"):
+            fused = quant_matmul_res_ln_static(oq, os_, block["proj"], x, block["norm2"],
+                                               sc["fc1"], cfg.ln_eps)
+            if fused is None:
+                return None
+            x, hq = fused
+        else:
+            x = x + quant_matmul_pre(oq, os_, block["proj"], x.dtype)
+            hq = layer_norm_quant_static(block["norm2"], x, sc["fc1"], cfg.ln_eps)
+        gq = quant_fc1_gelu_static(hq, sc["fc1"], block["fc1"], sc["fc2"],
+                                   approx=cfg.gelu_approx)
+        if i + 1 == len(blocks):
+            return x + quant_matmul_pre(gq, sc["fc2"], block["fc2"], x.dtype)
+        nxt = blocks[i + 1]
+        if FUSED_LN in ("both", "fc2"):
+            fused = quant_matmul_res_ln_static(gq, sc["fc2"], block["fc2"], x, nxt["norm1"],
+                                               nxt["act_scales"]["qkv"], cfg.ln_eps)
+            if fused is None:
+                return None
+            x, hq = fused
+        else:
+            x = x + quant_matmul_pre(gq, sc["fc2"], block["fc2"], x.dtype)
+            hq = layer_norm_quant_static(nxt["norm1"], x, nxt["act_scales"]["qkv"], cfg.ln_eps)
+    return x
 
 
 def vit_block(block: Dict, x: torch.Tensor, cfg: ViTConfig) -> torch.Tensor:
@@ -307,9 +370,17 @@ def trunk_block(block: Dict, x: torch.Tensor, cfg: ViTConfig) -> torch.Tensor:
 
 
 def vit_forward(params: Dict, images: torch.Tensor, cfg: ViTConfig) -> torch.Tensor:
-    """images: (B, H, W, C) normalized. Returns (B, 257, width) tokens."""
+    """images: (B, H, W, C) normalized. Returns (B, 257, width) tokens.
+    Under FUSED_LN a calibrated trunk without remat runs the fused pipeline
+    (_vit_blocks_fused_static), as in the reference."""
     _check_supported(cfg)
     x = embed_patches(params, images, cfg)
-    for block in params["blocks"]:
+    blocks = params["blocks"]
+    if (FUSED_LN and not cfg.remat and blocks
+            and all("act_scales" in bl for bl in blocks)):
+        fused = _vit_blocks_fused_static(blocks, x, cfg)
+        if fused is not None:
+            return fused
+    for block in blocks:
         x = trunk_block(block, x, cfg)
     return x

@@ -23,11 +23,16 @@ Kernels (TPU kernel each replaces):
   flash_attention_fwd         stllm_tpu/ops/attention.py:_flash_kernel
   flash_attention_bwd_dq      stllm_tpu/ops/attention.py:_flash_bwd_dq_kernel
   flash_attention_bwd_dkv     stllm_tpu/ops/attention.py:_flash_bwd_dkv_kernel
+  qmm_res_ln                  stllm_tpu/ops/quant.py:_qmm_res_ln_kernel
+  quant_matmul_blockwise      stllm_tpu/ops/quant.py:_quant_matmul_kernel
 The four weight-streaming kernels share one tile loop
 (``csrc/weight_stream_matmul.cuh``); only the model path launches
 ``w4a16_matmul``, the probes are launched by their checks and timings. The
-last four are the training path's attention (``csrc/flash_attention.cuh``),
-wired into autograd by ``ops/attention.py``.
+four training attention kernels (``csrc/flash_attention.cuh``) are wired
+into autograd by ``ops/attention.py``. The two int8 GEMMs share the s8
+tensor-core step of ``csrc/s8_matmul.cuh``: ``qmm_res_ln`` runs in the
+static-int8 ViT under ``STLLM_FUSED_LN``; ``quant_matmul_blockwise`` is an
+op of the surface that no model calls, as in the reference.
 """
 
 from __future__ import annotations
@@ -61,6 +66,8 @@ SOURCES = {
     "flash_attention_fwd": "flash_attention_fwd.cu",
     "flash_attention_bwd_dq": "flash_attention_bwd_dq.cu",
     "flash_attention_bwd_dkv": "flash_attention_bwd_dkv.cu",
+    "qmm_res_ln": "qmm_res_ln.cu",
+    "quant_matmul_blockwise": "quant_matmul.cu",
 }
 _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 _STRIDES = ctypes.POINTER(ctypes.c_longlong)   # 12: batch, sequence, head of q, k, v, dO
@@ -93,6 +100,14 @@ _ENTRY = {
     "flash_attention_bwd_dkv": (
         "stllm_flash_attention_bwd_dkv_bf16",
         [_P, _P, _P, _P, _STRIDES, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P]),
+    # hq, hs, hs_step, w, ws, bias, x_prev, gamma, beta, out_scale, x_new, yq,
+    # M, K, N, eps, io_f32
+    "qmm_res_ln": (
+        "stllm_qmm_res_ln",
+        [_P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _P]),
+    # x, x_f32, w, ws, scales scratch, out, M, K, N, bk
+    "quant_matmul_blockwise": (
+        "stllm_quant_matmul", [_P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _P]),
 }
 
 LAUNCHES: Dict[str, int] = {name: 0 for name in SOURCES}
@@ -801,3 +816,143 @@ def flash_attention_bwd_dkv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             strides, _ptr(mask), lse.data_ptr(), delta.data_ptr(), dk.data_ptr(),
             dv.data_ptr(), b, sq, sk, h, d, int(causal), scale)
     return dk, dv
+
+
+# ---------------------------------------------------------------------------
+# int8 GEMMs: the s8 matmul with the epilogue-carried LayerNorm (#11) and the
+# blockwise dynamic-quant matmul (#8). Both kernels read the (K, N) weight
+# column-major, the layout quantize_weights stores; a row-major weight (a tree
+# converted from JAX) is copied to that layout per call, as _int8_dot does.
+# ---------------------------------------------------------------------------
+
+QMM_MAX_N = 1536         # widest output row #11 takes (its cp.async ring fills shared memory)
+
+
+def _column_major(name: str, w_q: torch.Tensor, k: int, device) -> torch.Tensor:
+    """The (K, N) int8 weight as the kernels read it: its transpose, (N, K)
+    contiguous."""
+    if w_q.dim() != 2 or w_q.shape[0] != k or w_q.device != device:
+        raise ValueError(f"{name}: weight {tuple(w_q.shape)} on {w_q.device}, want ({k}, N) "
+                         f"on {device}")
+    wt = w_q.t()
+    if not wt.is_contiguous():
+        wt = wt.contiguous()
+    _check_cuda(name, wt, torch.int8)
+    return wt
+
+
+def _f32_vector(name: str, t: torch.Tensor, n: int, device) -> torch.Tensor:
+    t = t.to(torch.float32).contiguous()
+    if t.numel() != n or t.device != device:
+        raise ValueError(f"{name}: a vector of {tuple(t.shape)} on {t.device}, want {n} on {device}")
+    return t
+
+
+def qmm_res_ln_plain(hq: torch.Tensor, hs: torch.Tensor, w_q: torch.Tensor,
+                     w_scale: torch.Tensor, bias: Optional[torch.Tensor], x_prev: torch.Tensor,
+                     gamma: torch.Tensor, beta: torch.Tensor, out_scale: torch.Tensor,
+                     eps: float) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Kernel #11's math in its order: y = (acc * hs) * w_scale + bias on the
+    exact int32 product, xn = x_prev + y in fp32, x_new = xn in x_prev's
+    dtype, LayerNorm of xn (two-pass variance, rsqrt, affine), then
+    clip(round(z * (1 / out_scale)), -127, 127). (The exact int8 product is
+    ops/quant.py's, imported here: that module imports this one.)"""
+    from stllm_tpu_torch.ops.quant import _int8_dot
+
+    y = _int8_dot(hq, w_q) * hs.float() * w_scale.float()
+    if bias is not None:
+        y = y + bias.float()
+    xn = x_prev.float() + y
+    mean = xn.mean(dim=-1, keepdim=True)
+    var = (xn - mean).square().mean(dim=-1, keepdim=True)
+    z = (xn - mean) * torch.rsqrt(var + eps)
+    z = z * gamma.float() + beta.float()
+    inv_os = 1.0 / out_scale.float()
+    return xn.to(x_prev.dtype), torch.clamp(torch.round(z * inv_os), -127, 127).to(torch.int8)
+
+
+def qmm_res_ln(hq: torch.Tensor, hs: torch.Tensor, w_q: torch.Tensor, w_scale: torch.Tensor,
+               bias: Optional[torch.Tensor], x_prev: torch.Tensor, gamma: torch.Tensor,
+               beta: torch.Tensor, out_scale: torch.Tensor, eps: float = 1e-6
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """s8 matmul, bias, residual add, LayerNorm and static int8 in one
+    kernel: hq int8 (..., K), hs fp32 per row (..., 1) or one scalar, w_q
+    int8 (K, N), w_scale and bias (N,), x_prev (..., N), gamma and beta (N,),
+    out_scale one fp32 -> (x_new (..., N) in x_prev's dtype, yq int8
+    (..., N)). CUDA: K a multiple of 16, N a multiple of 128 and at most
+    1536, x_prev bf16 or fp32; the scales stay on the device."""
+    if hq.device.type == "cpu":
+        return qmm_res_ln_plain(hq, hs, w_q, w_scale, bias, x_prev, gamma, beta, out_scale, eps)
+    name = "qmm_res_ln"
+    dev = hq.device
+    _check_cuda(name, hq, torch.int8)
+    k, n = hq.shape[-1], w_q.shape[-1]
+    if k % 16 or n % 128 or n > QMM_MAX_N:
+        raise ValueError(f"{name} kernel: K ({k}) must be a multiple of 16, N ({n}) a multiple "
+                         f"of 128 and at most {QMM_MAX_N}")
+    if tuple(x_prev.shape) != tuple(hq.shape[:-1]) + (n,):
+        raise ValueError(f"{name}: x_prev {tuple(x_prev.shape)} for hq {tuple(hq.shape)}, N {n}")
+    if x_prev.dtype not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"{name} kernel takes a bf16 or fp32 x_prev, got {x_prev.dtype}")
+    _check_cuda(name, x_prev, x_prev.dtype)
+    wt = _column_major(name, w_q, k, dev)
+    m = hq.numel() // k
+    hs32 = hs.to(torch.float32).contiguous()
+    if hs32.device != dev or hs32.numel() not in (1, m):
+        raise ValueError(f"{name}: hs has {hs32.numel()} values on {hs32.device} for {m} "
+                         f"rows on {dev}")
+    os32 = _f32_vector(name, out_scale, 1, dev)
+    ws, g, b = (_f32_vector(name, t, n, dev) for t in (w_scale, gamma, beta))
+    bias = None if bias is None else _f32_vector(name, bias, n, dev)
+    x_new = torch.empty_like(x_prev)
+    yq = torch.empty(x_prev.shape, dtype=torch.int8, device=dev)
+    if m:
+        _launch(name, dev, hq.data_ptr(), hs32.data_ptr(), int(hs32.numel() > 1),
+                wt.data_ptr(), ws.data_ptr(), _ptr(bias), x_prev.data_ptr(), g.data_ptr(),
+                b.data_ptr(), os32.data_ptr(), x_new.data_ptr(), yq.data_ptr(), m, k, n, eps,
+                int(x_prev.dtype == torch.float32))
+    return x_new, yq
+
+
+def quant_matmul_blockwise_plain(x: torch.Tensor, w_q: torch.Tensor, w_scale: torch.Tensor,
+                                 bk: int) -> torch.Tensor:
+    """Kernel #8's math: each k-block of bk columns quantized per row
+    (rowwise_quant_plain), its exact int32 product cast to fp32 and times
+    that block's row scales, added into the fp32 accumulator block by block;
+    then times w_scale, out in x's dtype."""
+    from stllm_tpu_torch.ops.quant import _int8_dot
+
+    xf = x.float()
+    acc = None
+    for k0 in range(0, x.shape[-1], bk):
+        q, s = rowwise_quant_plain(xf[..., k0:k0 + bk])
+        part = _int8_dot(q, w_q[k0:k0 + bk]) * s
+        acc = part if acc is None else acc + part
+    return (acc * w_scale.float()).to(x.dtype)
+
+
+def quant_matmul_blockwise(x: torch.Tensor, w_q: torch.Tensor, w_scale: torch.Tensor,
+                           bk: int) -> torch.Tensor:
+    """Dynamic W8A8 with the activations quantized per (row, k-block of bk):
+    x (..., K) @ w_q (K, N) int8 with w_scale (N,) -> (..., N) in x's dtype.
+    CUDA: x bf16 or fp32, K a multiple of 16, N of 8; bk divides K and,
+    below K, is a multiple of 64."""
+    if x.device.type == "cpu":
+        return quant_matmul_blockwise_plain(x, w_q, w_scale, bk)
+    name = "quant_matmul_blockwise"
+    if x.dtype not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"{name} kernel takes a bf16 or fp32 x, got {x.dtype}")
+    _check_cuda(name, x, x.dtype)
+    k, n = x.shape[-1], w_q.shape[-1]
+    if k % 16 or n % 8 or bk <= 0 or k % bk or (bk != k and bk % 64):
+        raise ValueError(f"{name} kernel: K ({k}) must be a multiple of 16 and N ({n}) of 8; "
+                         f"the k-block ({bk}) must divide K and, below K, be a multiple of 64")
+    wt = _column_major(name, w_q, k, x.device)
+    ws = _f32_vector(name, w_scale, n, x.device)
+    m = x.numel() // k
+    out = torch.empty(x.shape[:-1] + (n,), dtype=x.dtype, device=x.device)
+    if m:
+        scales = torch.empty((m, k // bk), dtype=torch.float32, device=x.device)
+        _launch(name, x.device, x.data_ptr(), int(x.dtype == torch.float32), wt.data_ptr(),
+                ws.data_ptr(), scales.data_ptr(), out.data_ptr(), m, k, n, bk)
+    return out

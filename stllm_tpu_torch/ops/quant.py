@@ -7,7 +7,9 @@ a calibrated per-tensor scale (static, ``act_scales`` from
 ``models/vit.calibrate_vit_scales``). The int8 product accumulates in int32,
 as the reference's ``preferred_element_type=int32`` dot does; the reference
 leaves that dot to XLA, and here it is ``torch._int_mm`` on the card. The
-producer-fused quantizers ``layer_norm_quant`` and ``gelu_quant`` run the
+producer-fused quantizers ``layer_norm_quant`` and ``gelu_quant``, the
+static block's epilogue-carried LayerNorm ``quant_matmul_res_ln_static``, and
+the reference's blockwise dynamic-quant matmul ``quant_matmul_pallas`` run the
 hand-written kernels in ``ops/kernels.py``.
 
 ``w_q16`` (``w8a16_matmul``) keeps the activations in bf16 and upcasts the
@@ -221,6 +223,88 @@ def quant_mlp_static(hq: torch.Tensor, in_scale, fc1_q: Dict, gelu_scale, fc2_q:
     """fc1 -> GELU -> static int8 -> fc2 with calibrated scales."""
     gq = quant_fc1_gelu_static(hq, in_scale, fc1_q, gelu_scale, approx=approx)
     return quant_matmul_pre(gq, gelu_scale, fc2_q, out_dtype)
+
+
+# ---------------------------------------------------------------------------
+# epilogue-carried LayerNorm (kernel #11): in the static-int8 block every
+# LayerNorm directly follows a residual add whose delta comes from an int8
+# matmul (proj -> norm2, fc2 -> the next block's norm1), so the chain
+#   s8 dot -> scales -> + bias -> + residual -> LayerNorm -> static int8
+# is one kernel with two outputs: the new residual stream and the int8 input
+# of the next matmul
+# ---------------------------------------------------------------------------
+
+def quant_matmul_res_ln_static(hq: torch.Tensor, hs, params_q: Dict, x_prev: torch.Tensor,
+                               ln_params: Dict, out_scale, eps: float = 1e-6
+                               ) -> Optional[Tuple[torch.Tensor, torch.Tensor]]:
+    """x_new = x_prev + linear(hq * hs) and yq = static int8 of
+    LayerNorm(x_new) with scale ``out_scale``, in one kernel. hq: (B, S, K)
+    int8; hs: per-row (B, S, 1) fp32 or a scalar; params_q: {'w_q', 'w_scale',
+    'b'?}; x_prev: (B, S, N). Returns (x_new in x_prev's dtype, yq int8), or
+    None where the reference's kernel declines the shape (no k-tile of K,
+    N % 128, or S * N * 4 above 4 MiB). That is the reference's dispatch
+    rule, kept so that a shape goes the same way in both packages; its other
+    clause, a multi-device shard, never holds on one device. The scales stay
+    device tensors: nothing here waits for the card."""
+    b, s, k = hq.shape
+    n = params_q["w_q"].shape[1]
+    if _pick_tile(k, 2048) == 0 or n % 128 or s * n * 4 > 4 * 1024 * 1024:
+        return None
+    hs = torch.as_tensor(hs, dtype=torch.float32, device=hq.device)
+    out_scale = torch.as_tensor(out_scale, dtype=torch.float32, device=hq.device)
+    return kernels.qmm_res_ln(hq, hs, params_q["w_q"], params_q["w_scale"], params_q.get("b"),
+                              x_prev, ln_params["scale"], ln_params["bias"], out_scale, eps)
+
+
+def quant_matmul_res_ln_static_reference(hq: torch.Tensor, hs, params_q: Dict,
+                                         x_prev: torch.Tensor, ln_params: Dict, out_scale,
+                                         eps: float = 1e-6) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The reference's XLA ground truth for the fused kernel: its math with
+    the fp32 residual add, but dividing by ``out_scale`` where the kernel
+    multiplies by its reciprocal, so codes may sit one step apart."""
+    y = _int8_dot(hq, params_q["w_q"])
+    y = y * torch.as_tensor(hs, dtype=torch.float32, device=hq.device) * params_q["w_scale"].float()
+    if "b" in params_q:
+        y = y + params_q["b"].float()
+    xn = x_prev.float() + y
+    mean = xn.mean(dim=-1, keepdim=True)
+    var = (xn - mean).square().mean(dim=-1, keepdim=True)
+    z = (xn - mean) * torch.rsqrt(var + eps)
+    z = z * ln_params["scale"].float() + ln_params["bias"].float()
+    yq = torch.clamp(torch.round(z / torch.as_tensor(out_scale, dtype=torch.float32,
+                                                    device=hq.device)), -127, 127)
+    return xn.to(x_prev.dtype), yq.to(torch.int8)
+
+
+# ---------------------------------------------------------------------------
+# the reference's fused dynamic-quant matmul (kernel #8): activations
+# quantized per (row, k-block); no model calls it, in either package
+# ---------------------------------------------------------------------------
+
+# per-row symmetric int8 of one k-block of fp32 rows: (S, bk) -> (int8, (S, 1))
+_quant_block = quantize_activations
+
+
+def quant_matmul_pallas(x: torch.Tensor, w_q: torch.Tensor, w_scale: torch.Tensor
+                        ) -> Optional[torch.Tensor]:
+    """Dynamic W8A8 with per-(row, k-block) activation quantization (kernel
+    #8; the reference's name): x (B, S, K) bf16 or fp32, w_q (K, N) int8,
+    w_scale (N,) -> (B, S, N) in x's dtype, or None where the reference's
+    tiling declines the shape (no k-tile of K up to 2048, or no n-tile of N
+    up to 1536)."""
+    k, n = x.shape[-1], w_q.shape[1]
+    bk = _pick_tile(k, 2048)
+    if bk == 0 or _pick_tile(n, 1536) == 0:
+        return None
+    return kernels.quant_matmul_blockwise(x, w_q, w_scale, bk)
+
+
+def quant_matmul_pallas_reference(x: torch.Tensor, w_q: torch.Tensor, w_scale: torch.Tensor,
+                                  bk: Optional[int] = None) -> torch.Tensor:
+    """The kernel's exact math (same blockwise quantization, same
+    accumulation order) in plain torch: the ground truth of the tests."""
+    bk = bk or _pick_tile(x.shape[-1], 2048) or x.shape[-1]
+    return kernels.quant_matmul_blockwise_plain(x, w_q, w_scale, bk)
 
 
 def quantize_tree_linears(tree, free_dense: bool = False):

@@ -14,7 +14,7 @@ with a later slice.
 
 from __future__ import annotations
 
-from typing import Dict, List
+from typing import Dict, List, Optional
 
 import torch
 
@@ -63,13 +63,16 @@ class VideoQAServer:
 
     ``params`` is the full ST-LLM tree on the device the server runs on;
     ``frames`` is (1, T, H, W, 3) uint8 (tensor or array); prefix and suffix
-    are token-id rows embedded around the video tokens."""
+    are token-id rows embedded around the video tokens. ``batcher`` serves
+    the decode from a given ContinuousBatcher instead of a new one (its own
+    slots, max_len and chunk then hold)."""
 
     def __init__(self, params: Dict, cfg: STLLMConfig, *, slots: int = 4,
-                 max_len: int = 1024, chunk: int = 16):
+                 max_len: int = 1024, chunk: int = 16,
+                 batcher: Optional[ContinuousBatcher] = None):
         self.params = params
         self.cfg = cfg
-        self.batcher = ContinuousBatcher(
+        self.batcher = batcher or ContinuousBatcher(
             params["llama"], cfg.llama, slots=slots, max_len=max_len, chunk=chunk)
         self.device = self.batcher.device
         self.encode_queue: List[QARequest] = []

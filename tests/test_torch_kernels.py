@@ -443,3 +443,101 @@ def test_training_attention_kernels_refuse_what_they_cannot_take(card):
         kernels.flash_attention_bwd_dq(q, k, v, None, g, lse[:, :1], lse, True, 0.1)
     with pytest.raises(ValueError):
         kernels.flash_attention_bwd_dkv(q, k, v, None, g, lse, lse.double(), True, 0.1)
+
+
+# ---------------------------------------------------------------------------
+# the int8 GEMMs: #11, the s8 matmul with the residual add, LayerNorm and
+# static int8 in its epilogue, and #8, the blockwise dynamic-quant matmul.
+# #11: codes at most one step apart (the kernel sums the LayerNorm statistics
+# in another order), x_new within atol = rtol = 1e-2 (it rounds the same fp32
+# sum). #8: within atol = 1e-2 times the plain output's largest magnitude and
+# rtol = 1e-2, as the weight-streaming matmuls (its products and scale steps
+# are the plain version's own, one by one).
+# ---------------------------------------------------------------------------
+
+def _weight(card, gen, k, n, layout):
+    w = torch.randint(-127, 128, (k, n), generator=gen, device=card, dtype=torch.int8)
+    return w.t().contiguous().t() if layout == "column" else w
+
+
+def _res_ln_inputs(card, b, s, k, n, *, per_row, dtype=torch.bfloat16, layout="column",
+                   seed=20):
+    """int8 codes and scales that give O(1) outputs, as the ViT's proj and
+    fc2 sites do."""
+    gen = torch.Generator(device=card).manual_seed(seed)
+    hq = torch.randint(-127, 128, (b, s, k), generator=gen, device=card, dtype=torch.int8)
+    hs = (torch.rand(b, s, 1, generator=gen, device=card) * 0.01 + 1e-3 if per_row
+          else torch.tensor(0.004, device=card))
+    ws = torch.rand(n, generator=gen, device=card) * 0.002 * (384 / k) ** 0.5
+    bias = torch.randn(n, generator=gen, device=card) * 0.02
+    x = torch.randn(b, s, n, generator=gen, device=card).to(dtype)
+    gamma = torch.randn(n, generator=gen, device=card)
+    beta = torch.randn(n, generator=gen, device=card) * 0.1
+    return (hq, hs, _weight(card, gen, k, n, layout), ws, bias, x, gamma, beta,
+            torch.tensor(0.05, device=card))
+
+
+# (B, S, K, N, per-row hs, x dtype, weight layout): the ViT-g proj and fc2
+# sites, the tiny model's shape in fp32, a row-major (converted) weight, a
+# short ragged K, and one N for each row width the kernel is built for
+RES_LN_CASES = [(16, 257, 1408, 1408, True, torch.bfloat16, "column"),
+                (16, 257, 6144, 1408, False, torch.bfloat16, "column"),
+                (2, 17, 384, 256, True, torch.float32, "column"),
+                (3, 37, 1408, 1408, True, torch.bfloat16, "row"),
+                (1, 5, 80, 128, False, torch.bfloat16, "column"),
+                (2, 9, 256, 640, True, torch.float32, "column"),
+                (1, 20, 256, 1536, False, torch.bfloat16, "column")]
+
+
+@pytest.mark.parametrize("case", RES_LN_CASES,
+                         ids=lambda c: f"{c[0]}x{c[1]}-k{c[2]}-n{c[3]}-{c[5]}-{c[6]}")
+def test_qmm_res_ln_kernel_matches_plain(card, case):
+    b, s, k, n, per_row, dtype, layout = case
+    args = _res_ln_inputs(card, b, s, k, n, per_row=per_row, dtype=dtype, layout=layout)
+    x_new, yq = _counted("qmm_res_ln", lambda: kernels.qmm_res_ln(*args, 1e-6))
+    want_x, want_q = kernels.qmm_res_ln_plain(*args, 1e-6)
+    assert x_new.dtype == dtype and yq.dtype == torch.int8 and yq.shape == want_q.shape
+    torch.testing.assert_close(x_new.float(), want_x.float(), atol=1e-2, rtol=1e-2)
+    assert int((yq.int() - want_q.int()).abs().max()) <= 1
+
+
+WS_CASES_8 = [(16, 257, 1408, 6144, torch.bfloat16, "column"),
+              (16, 257, 6144, 1408, torch.bfloat16, "column"),
+              (2, 64, 256, 384, torch.float32, "column"),
+              (1, 8, 4096, 256, torch.float32, "row"),
+              (3, 37, 80, 136, torch.bfloat16, "column")]
+
+
+@pytest.mark.parametrize("case", WS_CASES_8, ids=lambda c: f"{c[0]}x{c[1]}-k{c[2]}-n{c[3]}-{c[4]}")
+def test_quant_matmul_blockwise_kernel_matches_plain(card, case):
+    from stllm_tpu_torch.ops.quant import _pick_tile
+
+    b, s, k, n, dtype, layout = case
+    gen = torch.Generator(device=card).manual_seed(21)
+    x = torch.randn(b, s, k, generator=gen, device=card).to(dtype)
+    w = _weight(card, gen, k, n, layout)
+    ws = torch.rand(n, generator=gen, device=card) * 0.002
+    bk = _pick_tile(k, 2048)
+    got = _counted("quant_matmul_blockwise", lambda: kernels.quant_matmul_blockwise(x, w, ws, bk))
+    _assert_ws_close(got, kernels.quant_matmul_blockwise_plain(x, w, ws, bk))
+
+
+def test_int8_gemm_kernels_refuse_what_they_cannot_take(card):
+    args = list(_res_ln_inputs(card, 1, 4, 64, 128, per_row=True))
+    with pytest.raises(TypeError):
+        kernels.qmm_res_ln(*args[:5], args[5].half(), *args[6:])            # fp16 x_prev
+    with pytest.raises(ValueError):
+        kernels.qmm_res_ln(*_res_ln_inputs(card, 1, 4, 40, 128, per_row=True))    # K % 16
+    with pytest.raises(ValueError):
+        kernels.qmm_res_ln(*_res_ln_inputs(card, 1, 4, 64, 200, per_row=True))    # N % 128
+    with pytest.raises(ValueError):
+        kernels.qmm_res_ln(*_res_ln_inputs(card, 1, 4, 64, 1664, per_row=True))   # N > 1536
+    x = torch.randn(2, 4, 64, device=card)
+    w = torch.zeros((64, 16), device=card, dtype=torch.int8)
+    ws = torch.ones(16, device=card)
+    with pytest.raises(TypeError):
+        kernels.quant_matmul_blockwise(x.half(), w, ws, 64)                # fp16 x
+    with pytest.raises(ValueError):
+        kernels.quant_matmul_blockwise(x[..., :40].contiguous(), w[:40], ws, 40)   # K % 16
+    with pytest.raises(ValueError):
+        kernels.quant_matmul_blockwise(x, w, ws, 48)                       # bk does not divide K
