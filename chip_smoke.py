@@ -133,6 +133,12 @@ TRAIN_LAUNCHES = {
 # small gradient differences into full-size updates
 TRAIN_TINY_LOSS_REL, TRAIN_TINY_GRAD_REL = 1e-2, 3e-2
 LSE_ATOL = 1e-3                # fp32 logsumexp of bf16 scores, summed in another order
+# the fp32 instantiations of #1, #2 and #4-#7 against their fp32 plain
+# versions: the same fp32 products summed in another order
+F32_ATOL, F32_RTOL = 1e-5, 1e-4
+# the tiny fp32 model, card (fp32 kernels) vs CPU (plain versions), relative L2
+FP32_TINY_REL = 1e-4
+TEMPORAL = (256, 16, 16, 88)   # the BTAdapter temporal shape: 16 frames, 16 x 16 patches
 
 # per-video launches of each int8 path (39 trunk blocks, 3 branch layers)
 DYNAMIC_PER_VIDEO = {"layer_norm_quant": 78, "gelu_quant": 39,
@@ -257,6 +263,23 @@ def _bf16_err(got, want) -> float:
     return float(err.max())
 
 
+def _f32_err(got, want) -> float:
+    if got.dtype != torch.float32 or got.shape != want.shape:
+        raise AssertionError(f"fp32 output {got.dtype} {tuple(got.shape)}")
+    err = (got - want).abs()
+    if not bool((err <= F32_ATOL + F32_RTOL * want.abs()).all()) \
+            or not bool(torch.isfinite(got).all()):
+        raise AssertionError(f"max abs err {float(err.max())} outside atol={F32_ATOL}, "
+                             f"rtol={F32_RTOL}")
+    return float(err.max())
+
+
+def _attn_err(got, want) -> float:
+    """An attention output against its plain version: fp32 to the fp32
+    tolerance, bf16 to the bf16 one."""
+    return (_f32_err if got.dtype == torch.float32 else _bf16_err)(got, want)
+
+
 def _int8_err(got, want) -> float:
     """Codes at most one step apart, dequantized values within the int8
     tolerance; returns the max abs error of the dequantized outputs."""
@@ -327,7 +350,7 @@ def _entry(name, source, replaces, rows, atol, rtol) -> dict:
             "shape": head["shape"], "atol": atol, "rtol": rtol, "per_shape": rows}
 
 
-def _qkv_bufs(gen, b, s, h, d):
+def _qkv_bufs(gen, b, s, h, d, dtype=torch.bfloat16):
     """LN-normalized activations times 0.02-std weights, as the qkv
     projection makes them; four copies."""
     width = h * d
@@ -335,8 +358,21 @@ def _qkv_bufs(gen, b, s, h, d):
     for _ in range(4):
         x = torch.randn(b, s, width, generator=gen, device="cuda")
         w = torch.randn(width, 3 * width, generator=gen, device="cuda") * 0.02
-        out.append((x @ w).to(torch.bfloat16).contiguous())
+        out.append((x @ w).to(dtype).contiguous())
     return out
+
+
+def _packed_case(gen, shape, dtype, out_bytes_per_row_elem: int, extra_out: int = 0):
+    """One packed-attention timing case: (label, four input tuples, bytes,
+    operations time), the products on the tensor cores in bf16 and on the
+    CUDA cores in fp32."""
+    b, s, h, d = shape
+    size = torch.finfo(dtype).bits // 8
+    bufs = [(q, h, d, d ** -0.5) for q in _qkv_bufs(gen, b, s, h, d, dtype)]
+    rate = FP32_FLOP_PER_S if dtype == torch.float32 else BF16_FLOP_PER_S
+    label = [b, s, 3 * h * d] + (["fp32"] if dtype == torch.float32 else [])
+    return (label, bufs, b * s * 3 * h * d * size + b * s * h * d * out_bytes_per_row_elem
+            + extra_out * b * s, 4 * b * h * s * s * d / rate)
 
 
 def _static_int8(qkv: torch.Tensor):
@@ -359,12 +395,11 @@ def phase_kernels(kernels) -> dict:
     attn_shapes = [TRUNK, (3, 37, 4, 88), (2, 37, 4, 24), (2, 130, 3, 64)]
     out = {}
 
-    # #1 bf16 packed attention, with SDPA as the library yardstick
-    cases = []
-    for b, s, h, d in [TRUNK, (256, 16, 16, 88), (3, 37, 4, 88)]:
-        bufs = [(q, h, d, d ** -0.5) for q in _qkv_bufs(gen, b, s, h, d)]
-        cases.append(([b, s, 3 * h * d], bufs, b * s * 3 * h * d * 2 + b * s * h * d * 2,
-                      4 * b * h * s * s * d / BF16_FLOP_PER_S))
+    # #1 packed attention, with SDPA as the library yardstick: bf16 at the
+    # trunk, the temporal and a ragged shape, then the fp32 instantiation
+    cases = [_packed_case(gen, shape, torch.bfloat16, 2)
+             for shape in (TRUNK, TEMPORAL, (3, 37, 4, 88))]
+    cases.append(_packed_case(gen, (2, 257, 16, 88), torch.float32, 4))
 
     def sdpa(qkv, h, d, scale):
         b, s, _ = qkv.shape
@@ -373,10 +408,16 @@ def phase_kernels(kernels) -> dict:
                                               v.transpose(1, 2))
 
     rows = _check_kernel("packed_qkv_attention", cases, kernels.packed_qkv_attention,
-                         kernels.packed_qkv_attention_plain, _bf16_err, library=sdpa)
+                         kernels.packed_qkv_attention_plain, _attn_err, library=sdpa)
     out["packed_qkv_attention"] = _entry(
         "packed_qkv_attention", "packed_qkv_attention.cu", "stllm_tpu/ops/attention.py:658",
         rows, BF16_ATOL, BF16_RTOL)
+    blocks = {f"S={s}": kernels.occupancy("packed_qkv_attention", s, 88)
+              for s in (TRUNK[1], TEMPORAL[1])}
+    out["packed_qkv_attention"]["blocks_per_sm"] = blocks
+    temporal = rows[1]
+    print(f"[kernels] packed_qkv_attention: blocks per SM {blocks}; temporal shape "
+          f"{TEMPORAL}: {temporal['ms']:.4f} ms against SDPA {temporal['library_ms']:.4f} ms")
 
     # #2 packed attention with the int8 epilogue; #3 on static-int8 qkv.
     # No single PyTorch call computes either function: library_ms is null.
@@ -390,6 +431,7 @@ def phase_kernels(kernels) -> dict:
         cases3.append(([b, s, 3 * h * d], [(*_static_int8(q), h, d, d ** -0.5) for q in qkvs],
                        b * s * 3 * h * d + 12 + out_bytes,
                        flops / 2 / INT8_OP_PER_S + flops / 2 / BF16_FLOP_PER_S))
+    cases2.append(_packed_case(gen, (2, 257, 16, 88), torch.float32, 1, extra_out=4))
     rows = _check_kernel("packed_qkv_attention_quant", cases2,
                          kernels.packed_qkv_attention_quant,
                          kernels.packed_qkv_attention_quant_plain, _int8_err)
@@ -559,33 +601,42 @@ def _int8_gemm_kernels(kernels, gen) -> dict:
     def codes(*shape):
         return torch.randint(-127, 128, shape, generator=gen, device="cuda", dtype=torch.int8)
 
+    def chain(hq, hs, w, ws, b, x, g, be, os_, eps):
+        x_new = x + quant.quant_matmul_pre(hq, hs, {"w_q": w, "w_scale": ws, "b": b}, x.dtype)
+        return x_new, quant.layer_norm_quant_static({"scale": g, "bias": be}, x_new, os_, eps)
+
+    # the ViT-g sites, then the rows the dispatch rule passes beyond one pass
+    # (N > 1536, staged in chunks) and a K that is not a multiple of 16; the
+    # unfused chain is timed at the two sites
     cases, chains = [], {}
-    for label, k, per_row in (("proj", 1408, True), ("fc2", 6144, False)):
+    for label, b, s, k, n, per_row in (("proj", 16, 257, 1408, 1408, True),
+                                       ("fc2", 16, 257, 6144, 1408, False),
+                                       ("wide", 16, 257, 1408, 2048, True),
+                                       ("wide", 2, 257, 1408, 3968, False),
+                                       ("wide", 2, 16, 1408, 8192, True),
+                                       ("ragged-k", 3, 37, 1000, 1408, True)):
+        rows_ = b * s
         bufs = []
         for _ in range(4):
-            hs = (torch.rand(16, 257, 1, generator=gen, device="cuda") * 0.01 + 1e-3
+            hs = (torch.rand(b, s, 1, generator=gen, device="cuda") * 0.01 + 1e-3
                   if per_row else torch.tensor(0.004, device="cuda"))
-            w = codes(1408, k).t()                       # (K, N) column-major
-            bufs.append((codes(16, 257, k), hs, w, vec(1408, 0.0005, 0.001) * (384 / k) ** 0.5,
-                         vec(1408, 0.02), torch.randn(16, 257, 1408, generator=gen,
-                                                      device="cuda").bfloat16(),
-                         vec(1408, 0.1, 1.0), vec(1408, 0.1),
+            w = codes(n, k).t()                          # (K, N) column-major
+            bufs.append((codes(b, s, k), hs, w, vec(n, 0.0005, 0.001) * (384 / k) ** 0.5,
+                         vec(n, 0.02), torch.randn(b, s, n, generator=gen,
+                                                   device="cuda").bfloat16(),
+                         vec(n, 0.1, 1.0), vec(n, 0.1),
                          torch.tensor(RES_LN_OUT_SCALE, device="cuda"), 1e-6))
-        nbytes = (m * k + (m * 4 if per_row else 4) + k * 1408 + 4 * 1408 * 4 + 4
-                  + m * 1408 * (2 + 2 + 1))
-        cases.append(([label, 16, 257, k, 1408, "per-row hs" if per_row else "scalar hs"], bufs,
-                      nbytes, 2 * m * k * 1408 / INT8_OP_PER_S
-                      + m * 1408 * RES_LN_OPS_PER_ELEM / FP32_FLOP_PER_S))
-
-        def chain(hq, hs, w, ws, b, x, g, be, os_, eps):
-            x_new = x + quant.quant_matmul_pre(hq, hs, {"w_q": w, "w_scale": ws, "b": b}, x.dtype)
-            return x_new, quant.layer_norm_quant_static({"scale": g, "bias": be}, x_new, os_, eps)
-
-        chains[label] = graph_ms(lambda: chain(*bufs[0]), 20)
+        nbytes = (rows_ * k + (rows_ * 4 if per_row else 4) + k * n + 4 * n * 4 + 4
+                  + rows_ * n * (2 + 2 + 1))
+        cases.append(([label, b, s, k, n, "per-row hs" if per_row else "scalar hs"], bufs,
+                      nbytes, 2 * rows_ * k * n / INT8_OP_PER_S
+                      + rows_ * n * RES_LN_OPS_PER_ELEM / FP32_FLOP_PER_S))
+        if label in ("proj", "fc2"):
+            chains[label] = graph_ms(lambda: chain(*bufs[0]), 20)
     rows = _check_kernel("qmm_res_ln", cases, kernels.qmm_res_ln, kernels.qmm_res_ln_plain,
                          _res_ln_err)
     for row in rows:
-        row["unfused_chain_ms"] = chains[row["shape"][0]]
+        row["unfused_chain_ms"] = chains.get(row["shape"][0])
     out["qmm_res_ln"] = _entry("qmm_res_ln", "qmm_res_ln.cu", "stllm_tpu/ops/quant.py:423",
                                rows, BF16_ATOL, BF16_RTOL)
     out["qmm_res_ln"]["unfused_chain_ms"] = rows[0]["unfused_chain_ms"]
@@ -616,14 +667,14 @@ def _int8_gemm_kernels(kernels, gen) -> dict:
     return out
 
 
-def _attn_case(gen, shape, causal: bool, masked: bool):
+def _attn_case(gen, shape, causal: bool, masked: bool, dtype=torch.bfloat16):
     """Four copies of (q, k, v, kv_mask, causal, scale) at (B, S, H, D), the
     last batch row right-padded by a fifth when ``masked``, and the visible
     keys of each copy as the boolean mask SDPA takes."""
     b, s, h, d = shape
     bufs, sdpa_masks = [], {}
     for _ in range(4):
-        q, k, v = (torch.randn(b, s, h, d, generator=gen, device="cuda").bfloat16()
+        q, k, v = (torch.randn(b, s, h, d, generator=gen, device="cuda").to(dtype)
                    for _ in range(3))
         kv_mask = None
         if masked:
@@ -640,14 +691,22 @@ def _attn_case(gen, shape, causal: bool, masked: bool):
 
 
 def _attn_bound(shape, causal: bool, masked: bool, tensors: int, flop_factor: int,
-                rows_f32: int) -> tuple:
-    """Bytes (``tensors`` bf16 (B, S, H, D) tensors, ``rows_f32`` fp32
-    (B, H, S) rows, the int32 mask) and tensor-core time of flop_factor *
-    B * H * S^2 * D products, halved when causal."""
+                rows_f32: int, dtype=torch.bfloat16) -> tuple:
+    """Bytes (``tensors`` (B, S, H, D) tensors of ``dtype``, ``rows_f32``
+    fp32 (B, H, S) rows, the int32 mask) and the time of flop_factor *
+    B * H * S^2 * D products, halved when causal: on the tensor cores in
+    bf16, on the CUDA cores in fp32."""
     b, s, h, d = shape
-    nbytes = tensors * b * s * h * d * 2 + rows_f32 * b * h * s * 4 + (b * s * 4 if masked else 0)
+    size = torch.finfo(dtype).bits // 8
+    nbytes = (tensors * b * s * h * d * size + rows_f32 * b * h * s * 4
+              + (b * s * 4 if masked else 0))
     flops = flop_factor * b * h * s * s * d / (2 if causal else 1)
-    return nbytes, flops / BF16_FLOP_PER_S
+    return nbytes, flops / (FP32_FLOP_PER_S if dtype == torch.float32 else BF16_FLOP_PER_S)
+
+
+def _attn_label(shape, causal, masked, dtype):
+    return [*shape, f"causal={causal}", f"kv_mask={masked}"] + (
+        ["fp32"] if dtype == torch.float32 else [])
 
 
 def _train_attention_kernels(kernels, gen, packed_entry) -> dict:
@@ -674,42 +733,48 @@ def _train_attention_kernels(kernels, gen, packed_entry) -> dict:
         lse_err = float((got[1] - want[1]).abs().max())
         if lse_err > LSE_ATOL:
             raise AssertionError(f"lse max abs err {lse_err} > {LSE_ATOL}")
-        return _bf16_err(got[0], want[0])
+        return _attn_err(got[0], want[0])
 
     def fwd_cases(specs, rows_f32):
         cases = []
-        for shape, causal, masked in specs:
-            bufs, m = _attn_case(gen, shape, causal, masked)
+        for shape, causal, masked, dtype in specs:
+            bufs, m = _attn_case(gen, shape, causal, masked, dtype)
             masks.update(m)
-            cases.append(([*shape, f"causal={causal}", f"kv_mask={masked}"], bufs,
-                          *_attn_bound(shape, causal, masked, 4, 4, rows_f32)))
+            cases.append((_attn_label(shape, causal, masked, dtype), bufs,
+                          *_attn_bound(shape, causal, masked, 4, 4, rows_f32, dtype)))
         return cases
 
+    bf16, f32 = torch.bfloat16, torch.float32
     rows = _check_kernel("fused_short_attention",
-                         fwd_cases([(TRAIN_SHORT, True, True), (TRUNK, False, False),
-                                    ((2, 130, 3, 64), True, True)], 0),
+                         fwd_cases([(TRAIN_SHORT, True, True, bf16), (TRUNK, False, False, bf16),
+                                    ((2, 130, 3, 64), True, True, bf16),
+                                    ((1, 768, 8, 128), True, True, f32)], 0),
                          kernels.fused_short_attention, kernels.fused_short_attention_plain,
-                         _bf16_err, library=sdpa)
+                         _attn_err, library=sdpa)
     out["fused_short_attention"] = _entry(
         "fused_short_attention", "fused_short_attention.cu", "stllm_tpu/ops/attention.py:493",
         rows, BF16_ATOL, BF16_RTOL)
-    long_specs = [(TRAIN_LONG, True, True), (TRUNK, False, False), ((2, 1100, 2, 88), False, True)]
+    long_specs = [(TRAIN_LONG, True, True, bf16), (TRUNK, False, False, bf16),
+                  ((1, 1024, 8, 128), True, True, f32), ((2, 1100, 2, 88), False, True, bf16)]
     rows = _check_kernel("flash_attention_fwd", fwd_cases(long_specs, 1),
                          kernels.flash_attention_fwd, kernels.flash_attention_fwd_plain,
                          fwd_err, library=sdpa)
     out["flash_attention_fwd"] = _entry(
         "flash_attention_fwd", "flash_attention_fwd.cu", "stllm_tpu/ops/attention.py:103",
         rows, BF16_ATOL, BF16_RTOL)
+    blocks = kernels.occupancy("flash_attention_fwd", TRAIN_LONG[3])
+    out["flash_attention_fwd"]["blocks_per_sm"] = blocks
+    print(f"[kernels] flash_attention_fwd: {blocks} blocks per SM at head_dim {TRAIN_LONG[3]}")
 
     # #5 dQ and #6 dK, dV from the forward kernel's out and lse
     cases5, cases6, graphs = [], [], {}
-    for shape, causal, masked in long_specs[:2]:
-        bufs, m = _attn_case(gen, shape, causal, masked)
+    for shape, causal, masked, dtype in long_specs[:3]:
+        bufs, m = _attn_case(gen, shape, causal, masked, dtype)
         masks.update(m)
         bwd = []
         for q, k, v, kv_mask, _, scale in bufs:
             o, lse = kernels.flash_attention_fwd(q, k, v, kv_mask, causal, scale)
-            g = torch.randn(q.shape, generator=gen, device="cuda").bfloat16()
+            g = torch.randn(q.shape, generator=gen, device="cuda").to(dtype)
             delta = (g.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
             bwd.append((q, k, v, kv_mask, g, lse, delta, causal, scale))
             # an SDPA graph on the same inputs, for the library's backward
@@ -717,9 +782,9 @@ def _train_attention_kernels(kernels, gen, packed_entry) -> dict:
             masks[leaves[0].data_ptr()] = masks[q.data_ptr()]
             graphs[q.data_ptr()] = (sdpa(*leaves, kv_mask, causal, scale), leaves,
                                     g.transpose(1, 2))
-        label = [*shape, f"causal={causal}", f"kv_mask={masked}"]
-        cases5.append((label, bwd, *_attn_bound(shape, causal, masked, 5, 6, 2)))
-        cases6.append((label, bwd, *_attn_bound(shape, causal, masked, 6, 8, 2)))
+        label = _attn_label(shape, causal, masked, dtype)
+        cases5.append((label, bwd, *_attn_bound(shape, causal, masked, 5, 6, 2, dtype)))
+        cases6.append((label, bwd, *_attn_bound(shape, causal, masked, 6, 8, 2, dtype)))
 
     def sdpa_backward(q, *_):
         ref, leaves, g = graphs[q.data_ptr()]
@@ -732,10 +797,10 @@ def _train_attention_kernels(kernels, gen, packed_entry) -> dict:
         return kernels.flash_attention_bwd_plain(*a)[1:]
 
     def pair_err(got, want):
-        return max(_bf16_err(g, w) for g, w in zip(got, want))
+        return max(_attn_err(g, w) for g, w in zip(got, want))
 
     rows = _check_kernel("flash_attention_bwd_dq", cases5, kernels.flash_attention_bwd_dq,
-                         plain_dq, _bf16_err, library=sdpa_backward, library_graph=False)
+                         plain_dq, _attn_err, library=sdpa_backward, library_graph=False)
     out["flash_attention_bwd_dq"] = _entry(
         "flash_attention_bwd_dq", "flash_attention_bwd_dq.cu", "stllm_tpu/ops/attention.py:214",
         rows, BF16_ATOL, BF16_RTOL)
@@ -865,6 +930,108 @@ def check_small_int8_reference() -> dict:
     return out
 
 
+def _fp32_tiny_cfg(**llama) -> dict:
+    """The tiny QA model in fp32, the ViT on its packed kernel
+    (vit.use_flash None)."""
+    return {**TINY_MODEL_CFG, "dtype": "fp32",
+            "vit": {**TINY_MODEL_CFG["vit"], "use_flash": None},
+            "llama": {**TINY_MODEL_CFG["llama"], **llama}}
+
+
+def _rel(got, want, what: str) -> float:
+    got, want = got.detach().float().cpu(), want.detach().float()
+    rel = float((got - want).norm() / want.norm())
+    if not bool(torch.isfinite(got).all()) or rel > FP32_TINY_REL:
+        raise AssertionError(f"tiny fp32 {what}: card vs CPU relative L2 {rel} > {FP32_TINY_REL}")
+    return rel
+
+
+def _ran(kernels, before: dict, names) -> dict:
+    ran = {n: kernels.LAUNCHES[n] - before[n] for n in names}
+    if not all(ran.values()):
+        raise AssertionError(f"tiny fp32 model: a kernel did not launch: {ran}")
+    return ran
+
+
+def check_small_fp32_serving(kernels) -> dict:
+    """The tiny fp32 model serves on the card through the fp32 packed
+    kernel (#1): the encode and the LLaMA prefill logits of one video, card
+    against CPU within FP32_TINY_REL. TF32 is off: the reference keeps fp32
+    products."""
+    from stllm_tpu_torch.models.generation import _prefill
+    from stllm_tpu_torch.models.stllm import encode_img
+    from stllm_tpu_torch.models.zoo import STLLM
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    model = STLLM.from_config(_fp32_tiny_cfg(), seed=3, device="cpu")
+    cfg, params = model.cfg, model.params
+    frames, q_ids = _tiny_inputs()
+    card = _tree_to(params, "cuda")
+    before = dict(kernels.LAUNCHES)
+    want = encode_img(params, frames, cfg, q_ids)
+    got = encode_img(card, frames.cuda(), cfg, q_ids.cuda())
+    torch.cuda.synchronize()
+    out = {"encode_rel_l2": _rel(got, want, "encode"),
+           "launches": _ran(kernels, before, ["packed_qkv_attention"])}
+    rng = np.random.default_rng(4)
+    emb = torch.from_numpy(rng.standard_normal((2, 24, cfg.llama.hidden)) * 0.5).float()
+    mask = torch.ones((2, 24), dtype=torch.int32)
+    mask[1, 17:] = 0
+    want, _ = _prefill(params["llama"], emb, mask, cfg.llama, 32)
+    got, _ = _prefill(card["llama"], emb.cuda(), mask.cuda(), cfg.llama, 32)
+    out["prefill_rel_l2"] = _rel(got, want, "prefill logits")
+    return out
+
+
+def check_small_fp32_train(kernels) -> dict:
+    """One train step of the tiny fp32 model (BTAdapter, use_mask,
+    mvm_decode, all of the LLaMA trainable) on the card and on the CPU: the
+    step's loss and its gradient within FP32_TINY_REL, once at the fused
+    short tier (#1 and #7) and once with llama.use_flash True (#1, #4 and its
+    backward #5, #6)."""
+    from stllm_tpu_torch.models.stllm import stllm_forward
+    from stllm_tpu_torch.models.zoo import STLLM
+    from stllm_tpu_torch.train.step import create_train_state, make_optimizer, make_train_step
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    out = {}
+    for tier, llama, names in (
+            ("fused", {"num_layers": 2}, ["packed_qkv_attention", "fused_short_attention"]),
+            ("flash", {"num_layers": 2, "use_flash": True},
+             ["packed_qkv_attention", "flash_attention_fwd", "flash_attention_bwd_dq",
+              "flash_attention_bwd_dkv"])):
+        model_cfg = {**_fp32_tiny_cfg(**llama), "use_mask": True, "mvm_decode": True,
+                     "max_txt_len": 16, "use_grad_checkpoint": True, "freeze_LLM": False}
+        res, cfg = {}, None
+        for dev in ("cpu", "cuda"):
+            model = STLLM.from_config(model_cfg, seed=3, device="cpu")
+            cfg = model.cfg
+            opt = make_optimizer(1e-3, weight_decay=0.0)
+            state = create_train_state(_tree_to(model.params, dev), opt, model.trainable_fn())
+            res[dev] = (state, make_train_step(cfg, opt))
+        col = _collator(cfg, seed=6, seq_multiple=32)
+        batch = col(_train_samples(np.random.default_rng(5), 4, 56, 6, 8, 2))
+        grads, losses = {}, {}
+        before = dict(kernels.LAUNCHES)
+        for dev, (state, step) in res.items():
+            put = {k: torch.as_tensor(v).to(dev) for k, v in batch.items()}
+            loss = stllm_forward(state.tree, put, cfg)["loss"]
+            g = torch.autograd.grad(loss, list(state.params.values()), allow_unused=True)
+            grads[dev] = torch.cat([(torch.zeros_like(p) if x is None else x).flatten().cpu()
+                                    for p, x in zip(state.params.values(), g)])
+            _, metrics = step(state, put)
+            losses[dev] = metrics["loss"].reshape(1)
+        torch.cuda.synchronize()
+        out[tier] = {"loss": float(losses["cpu"]),
+                     "loss_rel": _rel(losses["cuda"], losses["cpu"], f"{tier} step loss"),
+                     "grad_rel_l2": _rel(grads["cuda"], grads["cpu"], f"{tier} gradient"),
+                     "seq_len": int(batch["token_ids"].shape[1]),
+                     "launches": _ran(kernels, before, names)}
+    return out
+
+
 # ---------------------------------------------------------------------------
 # the served paths at full width
 # ---------------------------------------------------------------------------
@@ -985,6 +1152,8 @@ def phase_slice(kernels) -> dict:
 
     rel = check_small_reference()
     print(f"[slice] tiny bf16 encode, card vs CPU: relative L2 error {rel:.3e}")
+    fp32 = check_small_fp32_serving(kernels)
+    print(f"[slice] tiny fp32 model on the fp32 kernels, card vs CPU: {json.dumps(fp32)}")
 
     t0 = time.perf_counter()
     model = STLLM.from_config(qa_model_cfg(), seed=0)
@@ -1000,6 +1169,7 @@ def phase_slice(kernels) -> dict:
                                        "packed_qkv_attention_s8": 0, "w4a16_matmul": 0},
             NUM_REQUESTS)
     out["tiny_encode_rel_err"] = rel
+    out["tiny_fp32"] = fp32
     return out
 
 
@@ -1392,6 +1562,9 @@ def phase_train(kernels) -> dict:
     from stllm_tpu_torch.train.trainer import Trainer
 
     tiny = check_small_train()
+    fp32 = check_small_fp32_train(kernels)
+    print(f"[train] tiny fp32 model, one step on the fp32 kernels, card vs CPU: "
+          f"{json.dumps(fp32)}")
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -1495,7 +1668,7 @@ def phase_train(kernels) -> dict:
         print(f"[train] {t['mode']}: S = {t['seq_len'][0]}, {t['ms_per_step']:.1f} ms/step after "
               f"the first ({t['step_ms'][0]:.1f} ms), {t['samples_per_s']:.3f} samples/s, peak "
               f"{t['max_memory_allocated_gib']:.2f} GiB")
-    return {"tiny": tiny, "build": build, "log": log, **tiers}
+    return {"tiny": tiny, "tiny_fp32": fp32, "build": build, "log": log, **tiers}
 
 
 def main() -> int:

@@ -22,13 +22,14 @@
 // once, as [row][dim]; ldmatrix reads the operand fragments from it, with
 // .trans where a product contracts over the tile's rows (P . V, dS . K,
 // P^T . dO, dS^T . Q), so no transposed copy is ever stored. Tiles come in by
-// cp.async, all of a tile's 16-byte copies in flight together; the loop waits
-// for a tile before it computes on it (no double buffering yet). Shared
-// memory is dynamic (the backward tiles pass 48 KB at D = 128).
+// cp.async (the copy and fragment helpers are mma_tiles.cuh's): the forward
+// keeps the next key tile's copies in flight in a two-stage ring; the
+// backward loops wait for a tile before they compute on it. Shared memory is
+// dynamic (the forward ring and the backward tiles pass 48 KB at D = 128).
 
 #pragma once
 
-#include "packed_qkv_attention.cuh"
+#include "mma_tiles.cuh"
 
 namespace stllm {
 namespace flash {
@@ -36,7 +37,7 @@ namespace flash {
 constexpr int kRows = 64;               // rows a block owns
 constexpr int kFwdTile = 64;            // keys per forward tile
 constexpr int kBwdTile = 32;            // keys (dQ) or queries (dK, dV) per backward tile
-constexpr int kPad = 8;                 // bf16 row padding: fragment reads miss bank conflicts
+constexpr int kThreads = 128;           // 4 warps of 16 rows
 constexpr float kNeg = -1e30f;          // a masked score
 constexpr float kLseMasked = 1e30f;     // lse of a row with no visible key
 constexpr float kLn2 = 0.6931471805599453f;
@@ -64,97 +65,6 @@ struct Params {
   float scale;                          // softmax scale
 };
 
-__device__ __forceinline__ uint32_t shared_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16 bytes from global to shared memory without passing through registers;
-// with ``pred`` false nothing is read and the 16 bytes are zero-filled.
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool pred) {
-  const int bytes = pred ? 16 : 0;
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(shared_addr(dst)),
-               "l"(src), "r"(bytes));
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_all;\n" ::: "memory");
-}
-
-// Start the copy of rows [r0, r0 + ROWS) of a strided (S, D) slab into
-// dst[ROWS][DP + kPad]; rows at or past ``limit`` and dims at or past D are
-// zero-filled. All of a thread's copies are in flight together; the tile is
-// ready after cp_async_wait_all() and a __syncthreads().
-template <int ROWS, int DP>
-__device__ __forceinline__ void load_rows(__nv_bfloat16* dst, const __nv_bfloat16* base,
-                                          long long row_stride, int r0, int limit, int D,
-                                          int tid) {
-  constexpr int LD = DP + kPad;
-  constexpr int VECS = DP / 8;
-#pragma unroll
-  for (int i = tid; i < ROWS * VECS; i += kThreads) {
-    const int r = i / VECS;
-    const int c = i - r * VECS;
-    const bool ok = r0 + r < limit && c * 8 < D;
-    const __nv_bfloat16* src = ok ? base + (long long)(r0 + r) * row_stride + c * 8 : base;
-    cp_async16(&dst[r * LD + c * 8], src, ok);
-  }
-}
-
-// Four 8x8 bf16 matrices from shared memory: lane l gives the address of
-// one 16-byte row (lanes 0-7 the first matrix, 8-15 the second, ...), and
-// receives from matrix i, in r[i], the pair at (row l / 4, columns 2 * (l % 4)
-// and + 1); with .trans the pair at (rows 2 * (l % 4) and + 1, column l / 4).
-__device__ __forceinline__ void ldmatrix_x4(uint32_t r[4], const __nv_bfloat16* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(shared_addr(p)));
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t r[4], const __nv_bfloat16* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(shared_addr(p)));
-}
-
-// Fragments of a [row][dim] tile with leading dimension LD, for one warp.
-//
-// frag_rows: the 16 x 16 block at (r0, c0) as the A operand (rows x depth):
-//   a[0..3] of mma_bf16.
-// frag_cols: the same lane addresses with .trans: the block's 16 rows are the
-//   depth and its 16 columns two 8-wide output tiles: b[0], b[1] the B
-//   operand of columns c0..c0+7, b[2], b[3] of columns c0+8..c0+15.
-// frag_depth: the block at (r0, c0) as the B operand of a product that
-//   contracts over the columns: rows r0..r0+7 are one 8-wide output tile
-//   (b[0], b[1]), rows r0+8..r0+15 the next (b[2], b[3]).
-template <int LD>
-__device__ __forceinline__ void frag_rows(uint32_t a[4], const __nv_bfloat16* tile, int r0,
-                                          int c0, int lane) {
-  ldmatrix_x4(a, &tile[(r0 + (lane & 7) + ((lane >> 3) & 1) * 8) * LD + c0 + (lane >> 4) * 8]);
-}
-
-template <int LD>
-__device__ __forceinline__ void frag_cols(uint32_t b[4], const __nv_bfloat16* tile, int r0,
-                                          int c0, int lane) {
-  ldmatrix_x4_trans(
-      b, &tile[(r0 + (lane & 7) + ((lane >> 3) & 1) * 8) * LD + c0 + (lane >> 4) * 8]);
-}
-
-template <int LD>
-__device__ __forceinline__ void frag_depth(uint32_t b[4], const __nv_bfloat16* tile, int r0,
-                                           int c0, int lane) {
-  ldmatrix_x4(b, &tile[(r0 + (lane & 7) + (lane >> 4) * 8) * LD + c0 + ((lane >> 3) & 1) * 8]);
-}
-
-__device__ __forceinline__ float quad_max(float x) {
-  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
-  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
-}
-
-__device__ __forceinline__ float quad_sum(float x) {
-  x += __shfl_xor_sync(0xffffffffu, x, 1);
-  return x + __shfl_xor_sync(0xffffffffu, x, 2);
-}
-
 // ---------------------------------------------------------------------------
 // Forward: out = softmax(q . k^T * scale, over the visible keys) . v by the
 // online-softmax recurrence over key tiles, and optionally the per-row
@@ -166,23 +76,41 @@ __device__ __forceinline__ float quad_sum(float x) {
 // exactly as a max-subtracted softmax over the full score row treats them, so
 // such a row averages v over every key; the loop then goes on past the causal
 // range while any row of the block has seen no visible key.
+//
+// Design. A block of 4 warps owns 64 query rows of one (batch, head); each
+// warp keeps its 16 rows' q fragments in registers. K, V and the tile's
+// kv_mask words come through a two-stage cp.async ring: the copies of key
+// tile i + 1 are issued before the products of tile i, right after the one
+// barrier a tile (which both publishes tile i and frees tile i - 1's stage).
+// Q lands in stage 1's K slot before the loop and is read into registers
+// before that stage's first tile is issued, so the ring holds the block's
+// only tiles (70 KB at D = 128), and the registers are held to 168 a
+// thread: three blocks an SM at D = 128 (two before). Each thread turns the
+// mask words of its 16 keys into bits once per tile; the causal test runs
+// only on the tiles that cross its warp's diagonal. Causal blocks run heaviest first: the linear
+// block index walks the query tiles from the last one down.
 // ---------------------------------------------------------------------------
 template <int DP>
 constexpr int fwd_smem_bytes() {
-  return (kRows + kFwdTile) * (DP + kPad) * 2 + kFwdTile * 4;
+  return 2 * 2 * kFwdTile * (DP + kPad) * 2 + 2 * kFwdTile * 4;
 }
 
 template <int DP, bool UNIFORM>
-__global__ void __launch_bounds__(kThreads) flash_fwd_kernel(const Params p) {
+__global__ void __launch_bounds__(kThreads, 3) flash_fwd_kernel(const Params p) {
   constexpr int LD = DP + kPad;
+  constexpr int TILE = kFwdTile * LD;
   extern __shared__ __align__(16) unsigned char smem[];
-  __nv_bfloat16* sQK = reinterpret_cast<__nv_bfloat16*>(smem);     // Q, then each K tile
-  __nv_bfloat16* sV = sQK + kRows * LD;                             // [key][dim]
-  int* sMask = reinterpret_cast<int*>(sV + kFwdTile * LD);          // [key]: in range and unmasked
+  // [stage][K, V][key][dim]; Q first sits in stage 1's K slot
+  __nv_bfloat16* sKV = reinterpret_cast<__nv_bfloat16*>(smem);
+  int* sMask = reinterpret_cast<int*>(sKV + 4 * TILE);              // [stage][key]
 
-  const int q0 = blockIdx.x * kRows;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
+  // the query tile, heaviest first when causal, then the (head, batch) pair
+  const int n_q = (p.Sq + kRows - 1) / kRows;
+  const int bh_count = p.H * p.B;
+  const int qt = blockIdx.x / bh_count;
+  const int q0 = (p.causal ? n_q - 1 - qt : qt) * kRows;
+  const int h = blockIdx.x % bh_count % p.H;
+  const int b = blockIdx.x % bh_count / p.H;
   const int tid = threadIdx.x;
   const int warp = tid >> 5;
   const int lane = tid & 31;
@@ -195,13 +123,39 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(const Params p) {
   const __nv_bfloat16* kb = p.k + (long long)b * p.ks.b + (long long)h * p.ks.h;
   const __nv_bfloat16* vb = p.v + (long long)b * p.vs.b + (long long)h * p.vs.h;
   const int* maskb = p.kv_mask ? p.kv_mask + (long long)b * p.Sk : nullptr;
+  // keys at or past k_end are hidden from every row of the block
+  int k_end = p.Sk;
+  if (p.causal) k_end = max(0, min(p.Sk, q0 + kRows + p.offset));
 
-  load_rows<kRows, DP>(sQK, qb, p.qs.s, q0, p.Sq, p.D, tid);
-  cp_async_wait_all();
+  // copies of key tile i into stage i & 1: K, V, and the mask words (1 where
+  // there is no mask; keys past Sk read as 0, and the in-range test is kept
+  // apart below)
+  auto issue_tile = [&](int i) {
+    const int k0 = i * kFwdTile;
+    __nv_bfloat16* sk = sKV + (i & 1) * 2 * TILE;
+    load_rows<kFwdTile, DP, kThreads>(sk, kb, p.ks.s, k0, p.Sk, p.D, tid);
+    load_rows<kFwdTile, DP, kThreads>(sk + TILE, vb, p.vs.s, k0, p.Sk, p.D, tid);
+    if (tid < kFwdTile) {
+      int* dst = sMask + (i & 1) * kFwdTile + tid;
+      if (maskb) {
+        const bool ok = k0 + tid < p.Sk;
+        cp_async4(dst, ok ? maskb + k0 + tid : maskb, ok);
+      } else {
+        *dst = 1;
+      }
+    }
+  };
+
+  __nv_bfloat16* sQ = sKV + 2 * TILE + 0;  // stage 1's K slot
+  load_rows<kRows, DP, kThreads>(sQ, qb, p.qs.s, q0, p.Sq, p.D, tid);
+  cp_async_commit();
+  issue_tile(0);
+  cp_async_commit();
+  cp_async_wait<1>();                      // Q has landed
   __syncthreads();
   uint32_t qf[DP / 16][4];
 #pragma unroll
-  for (int kk = 0; kk < DP / 16; ++kk) frag_rows<LD>(qf[kk], sQK, wr, kk * 16, lane);
+  for (int kk = 0; kk < DP / 16; ++kk) frag_rows<LD>(qf[kk], sQ, wr, kk * 16, lane);
 
   float o[DP / 8][4];
 #pragma unroll
@@ -211,98 +165,128 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(const Params p) {
   const int qa = q0 + wr + g;
   const int qb_row = qa + 8;
   const float c = p.scale * kLog2e;
-  // keys at or past k_end are hidden from every row of the block
-  int k_end = p.Sk;
-  if (p.causal) k_end = max(0, min(p.Sk, q0 + kRows + p.offset));
 
-  for (int k0 = 0; k0 < p.Sk; k0 += kFwdTile) {
+  for (int i = 0; i * kFwdTile < p.Sk; ++i) {
+    const int k0 = i * kFwdTile;
     if (k0 >= k_end) {
       if (!UNIFORM) break;
       const bool unseen = active && ((qa < p.Sq && m0 == kNeg) || (qb_row < p.Sq && m1 == kNeg));
       if (!__syncthreads_or(unseen)) break;
+      if (i > 0) {                         // past the causal range: not prefetched
+        issue_tile(i);
+        cp_async_commit();
+      }
     }
-    __syncthreads();                       // the previous tile (or Q) is consumed
-    load_rows<kFwdTile, DP>(sQK, kb, p.ks.s, k0, p.Sk, p.D, tid);
-    load_rows<kFwdTile, DP>(sV, vb, p.vs.s, k0, p.Sk, p.D, tid);
-    if (tid < kFwdTile) {
-      const int key = k0 + tid;
-      sMask[tid] = key < p.Sk ? (maskb ? (maskb[key] > 0 ? 1 : 0) : 1) : -1;
-    }
-    cp_async_wait_all();
+    // tile i has landed (this thread's copies, then every thread's), and
+    // every warp is done with tile i - 1 (or with Q, at i = 0), whose stage
+    // the next issue refills
+    cp_async_wait<0>();
     __syncthreads();
-    if (!active) continue;
+    if ((i + 1) * kFwdTile < k_end) issue_tile(i + 1);
+    cp_async_commit();
+    if (active) {
+      const __nv_bfloat16* sK = sKV + (i & 1) * 2 * TILE;
+      const __nv_bfloat16* sV = sK + TILE;
+      const int* mk = sMask + (i & 1) * kFwdTile;
+      // this thread's 16 keys: bit 2n + e is key n * 8 + 2t + e of the tile
+      uint32_t in_range = 0, visible = 0;
+#pragma unroll
+      for (int n = 0; n < kFwdTile / 8; ++n) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int kl = n * 8 + 2 * t + e;
+          if (k0 + kl < p.Sk) {
+            in_range |= 1u << (2 * n + e);
+            if (mk[kl] > 0) visible |= 1u << (2 * n + e);
+          }
+        }
+      }
+      // the causal test only where the tile crosses this warp's diagonal
+      const bool diagonal = p.causal && k0 + kFwdTile - 1 > q0 + wr + p.offset;
 
-    float s[kFwdTile / 8][4];
+      float s[kFwdTile / 8][4];
 #pragma unroll
-    for (int n = 0; n < kFwdTile / 8; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.0f;
+      for (int n = 0; n < kFwdTile / 8; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.0f;
 #pragma unroll
-    for (int n2 = 0; n2 < kFwdTile / 16; ++n2) {
+      for (int n2 = 0; n2 < kFwdTile / 16; ++n2) {
 #pragma unroll
-      for (int kk = 0; kk < DP / 16; ++kk) {
-        uint32_t kf[4];
-        frag_depth<LD>(kf, sQK, n2 * 16, kk * 16, lane);
-        mma_bf16(s[2 * n2], qf[kk], kf[0], kf[1]);
-        mma_bf16(s[2 * n2 + 1], qf[kk], kf[2], kf[3]);
+        for (int kk = 0; kk < DP / 16; ++kk) {
+          uint32_t kf[4];
+          frag_depth<LD>(kf, sK, n2 * 16, kk * 16, lane);
+          mma_bf16(s[2 * n2], qf[kk], kf[0], kf[1]);
+          mma_bf16(s[2 * n2 + 1], qf[kk], kf[2], kf[3]);
+        }
       }
-    }
-    // base-2 scores with hidden keys at kNeg, and the tile's row maxima
-    float mx0 = kNeg, mx1 = kNeg;
-    bool vis[kFwdTile / 8][4];
+      // base-2 scores with hidden keys at kNeg, and the tile's row maxima
+      float mx0 = kNeg, mx1 = kNeg;
+      uint32_t vis0 = visible, vis1 = visible;   // rows g and g + 8
+      if (diagonal) {
 #pragma unroll
-    for (int n = 0; n < kFwdTile / 8; ++n) {
+        for (int n = 0; n < kFwdTile / 8; ++n) {
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int kl = n * 8 + 2 * t + (j & 1);
-        const int row = j < 2 ? qa : qb_row;
-        const bool v = sMask[kl] > 0 && (!p.causal || k0 + kl <= row + p.offset);
-        vis[n][j] = v;
-        s[n][j] = v ? s[n][j] * c : kNeg;
+          for (int e = 0; e < 2; ++e) {
+            const int key = k0 + n * 8 + 2 * t + e;
+            if (key > qa + p.offset) vis0 &= ~(1u << (2 * n + e));
+            if (key > qb_row + p.offset) vis1 &= ~(1u << (2 * n + e));
+          }
+        }
       }
-      mx0 = fmaxf(mx0, fmaxf(s[n][0], s[n][1]));
-      mx1 = fmaxf(mx1, fmaxf(s[n][2], s[n][3]));
-    }
-    const float mn0 = fmaxf(m0, quad_max(mx0));
-    const float mn1 = fmaxf(m1, quad_max(mx1));
-    const float a0 = exp2f(m0 - mn0);
-    const float a1 = exp2f(m1 - mn1);
-    m0 = mn0;
-    m1 = mn1;
-    l0 *= a0;
-    l1 *= a1;
 #pragma unroll
-    for (int nd = 0; nd < DP / 8; ++nd) {
-      o[nd][0] *= a0;
-      o[nd][1] *= a0;
-      o[nd][2] *= a1;
-      o[nd][3] *= a1;
-    }
-    uint32_t pf[kFwdTile / 16][4];
+      for (int n = 0; n < kFwdTile / 8; ++n) {
 #pragma unroll
-    for (int n = 0; n < kFwdTile / 8; ++n) {
-      float pv[4];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int kl = n * 8 + 2 * t + (j & 1);
-        float e = exp2f(s[n][j] - (j < 2 ? m0 : m1));
-        if (sMask[kl] < 0 || (!UNIFORM && !vis[n][j])) e = 0.0f;   // past Sk: never a key
-        pv[j] = e;
+        for (int j = 0; j < 4; ++j) {
+          const uint32_t bit = 1u << (2 * n + (j & 1));
+          s[n][j] = ((j < 2 ? vis0 : vis1) & bit) ? s[n][j] * c : kNeg;
+        }
+        mx0 = fmaxf(mx0, fmaxf(s[n][0], s[n][1]));
+        mx1 = fmaxf(mx1, fmaxf(s[n][2], s[n][3]));
       }
-      l0 += pv[0] + pv[1];
-      l1 += pv[2] + pv[3];
-      pf[n / 2][(n % 2) * 2 + 0] = pack_bf16(pv[0], pv[1]);
-      pf[n / 2][(n % 2) * 2 + 1] = pack_bf16(pv[2], pv[3]);
-    }
+      const float mn0 = fmaxf(m0, quad_max(mx0));
+      const float mn1 = fmaxf(m1, quad_max(mx1));
+      const float a0 = exp2f(m0 - mn0);
+      const float a1 = exp2f(m1 - mn1);
+      m0 = mn0;
+      m1 = mn1;
+      l0 *= a0;
+      l1 *= a1;
 #pragma unroll
-    for (int j = 0; j < kFwdTile / 16; ++j) {
+      for (int nd = 0; nd < DP / 8; ++nd) {
+        o[nd][0] *= a0;
+        o[nd][1] *= a0;
+        o[nd][2] *= a1;
+        o[nd][3] *= a1;
+      }
+      // keys past Sk never count; under !UNIFORM neither do hidden ones
+      const uint32_t keep0 = UNIFORM ? in_range : vis0;
+      const uint32_t keep1 = UNIFORM ? in_range : vis1;
+      uint32_t pf[kFwdTile / 16][4];
 #pragma unroll
-      for (int nd2 = 0; nd2 < DP / 16; ++nd2) {
-        uint32_t vf[4];
-        frag_cols<LD>(vf, sV, j * 16, nd2 * 16, lane);
-        mma_bf16(o[2 * nd2], pf[j], vf[0], vf[1]);
-        mma_bf16(o[2 * nd2 + 1], pf[j], vf[2], vf[3]);
+      for (int n = 0; n < kFwdTile / 8; ++n) {
+        float pv[4];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const uint32_t bit = 1u << (2 * n + (j & 1));
+          const float e = exp2f(s[n][j] - (j < 2 ? m0 : m1));
+          pv[j] = ((j < 2 ? keep0 : keep1) & bit) ? e : 0.0f;
+        }
+        l0 += pv[0] + pv[1];
+        l1 += pv[2] + pv[3];
+        pf[n / 2][(n % 2) * 2 + 0] = pack_bf16(pv[0], pv[1]);
+        pf[n / 2][(n % 2) * 2 + 1] = pack_bf16(pv[2], pv[3]);
+      }
+#pragma unroll
+      for (int j = 0; j < kFwdTile / 16; ++j) {
+#pragma unroll
+        for (int nd2 = 0; nd2 < DP / 16; ++nd2) {
+          uint32_t vf[4];
+          frag_cols<LD>(vf, sV, j * 16, nd2 * 16, lane);
+          mma_bf16(o[2 * nd2], pf[j], vf[0], vf[1]);
+          mma_bf16(o[2 * nd2 + 1], pf[j], vf[2], vf[3]);
+        }
       }
     }
   }
+  cp_async_wait_all();
   if (!active) return;
 
   l0 = quad_sum(l0);
@@ -364,8 +348,8 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(const Params p) 
   const int* maskb = p.kv_mask ? p.kv_mask + (long long)b * p.Sk : nullptr;
   const long long row0 = ((long long)b * p.H + h) * p.Sq;
 
-  load_rows<kRows, DP>(sQ, qb, p.qs.s, q0, p.Sq, p.D, tid);
-  load_rows<kRows, DP>(sG, gb, p.gs.s, q0, p.Sq, p.D, tid);
+  load_rows<kRows, DP, kThreads>(sQ, qb, p.qs.s, q0, p.Sq, p.D, tid);
+  load_rows<kRows, DP, kThreads>(sG, gb, p.gs.s, q0, p.Sq, p.D, tid);
 
   const int qa = q0 + wr + g;
   const int qb_row = qa + 8;
@@ -384,8 +368,8 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(const Params p) 
 
   for (int k0 = 0; k0 < k_end; k0 += kBwdTile) {
     __syncthreads();
-    load_rows<kBwdTile, DP>(sK, kb, p.ks.s, k0, p.Sk, p.D, tid);
-    load_rows<kBwdTile, DP>(sV, vb, p.vs.s, k0, p.Sk, p.D, tid);
+    load_rows<kBwdTile, DP, kThreads>(sK, kb, p.ks.s, k0, p.Sk, p.D, tid);
+    load_rows<kBwdTile, DP, kThreads>(sV, vb, p.vs.s, k0, p.Sk, p.D, tid);
     if (tid < kBwdTile) {
       const int key = k0 + tid;
       sMask[tid] = key < p.Sk && (!maskb || maskb[key] > 0) ? 1 : 0;
@@ -484,8 +468,8 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_kernel(const Params p)
   const int* maskb = p.kv_mask ? p.kv_mask + (long long)b * p.Sk : nullptr;
   const long long row0 = ((long long)b * p.H + h) * p.Sq;
 
-  load_rows<kRows, DP>(sK, kb, p.ks.s, kbase, p.Sk, p.D, tid);
-  load_rows<kRows, DP>(sV, vb, p.vs.s, kbase, p.Sk, p.D, tid);
+  load_rows<kRows, DP, kThreads>(sK, kb, p.ks.s, kbase, p.Sk, p.D, tid);
+  load_rows<kRows, DP, kThreads>(sV, vb, p.vs.s, kbase, p.Sk, p.D, tid);
 
   const int ka = kbase + wr + g;
   const int kb_row = ka + 8;
@@ -505,8 +489,8 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_kernel(const Params p)
 
   for (int q0 = q_begin; q0 < p.Sq; q0 += kBwdTile) {
     __syncthreads();
-    load_rows<kBwdTile, DP>(sQ, qb, p.qs.s, q0, p.Sq, p.D, tid);
-    load_rows<kBwdTile, DP>(sG, gb, p.gs.s, q0, p.Sq, p.D, tid);
+    load_rows<kBwdTile, DP, kThreads>(sQ, qb, p.qs.s, q0, p.Sq, p.D, tid);
+    load_rows<kBwdTile, DP, kThreads>(sG, gb, p.gs.s, q0, p.Sq, p.D, tid);
     if (tid < kBwdTile) {
       const int q = q0 + tid;
       sLse[tid] = (q < p.Sq ? p.lse_in[row0 + q] : kLseMasked) * kLog2e;
@@ -592,25 +576,59 @@ inline bool shape_ok(const Params& p) {
          p.D <= 128 && p.H <= 65535 && p.B <= 65535;
 }
 
+// grid: (query or key tiles, H, B), or for the forward one linear index over
+// (query tile, head, batch), query tile slowest
 template <typename Kernel>
-cudaError_t launch(Kernel kernel, int smem_bytes, int rows, const Params& p,
+cudaError_t launch(Kernel kernel, int smem_bytes, dim3 grid, const Params& p,
                    cudaStream_t stream) {
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          smem_bytes);
   if (err != cudaSuccess) return err;
-  const dim3 grid((rows + kRows - 1) / kRows, p.H, p.B);
   kernel<<<grid, kThreads, smem_bytes, stream>>>(p);
   return cudaGetLastError();
+}
+
+inline dim3 tile_grid(int rows, const Params& p) {
+  return dim3((rows + kRows - 1) / kRows, p.H, p.B);
+}
+
+inline dim3 fwd_grid(const Params& p) {
+  return dim3(static_cast<unsigned>((long long)(p.Sq + kRows - 1) / kRows * p.H * p.B));
 }
 
 template <bool UNIFORM>
 cudaError_t launch_fwd(const Params& p, cudaStream_t st) {
   if (!shape_ok(p)) return cudaErrorInvalidValue;
+  const dim3 grid = fwd_grid(p);
   switch ((p.D + 31) / 32 * 32) {
-    case 32: return launch(flash_fwd_kernel<32, UNIFORM>, fwd_smem_bytes<32>(), p.Sq, p, st);
-    case 64: return launch(flash_fwd_kernel<64, UNIFORM>, fwd_smem_bytes<64>(), p.Sq, p, st);
-    case 96: return launch(flash_fwd_kernel<96, UNIFORM>, fwd_smem_bytes<96>(), p.Sq, p, st);
-    default: return launch(flash_fwd_kernel<128, UNIFORM>, fwd_smem_bytes<128>(), p.Sq, p, st);
+    case 32: return launch(flash_fwd_kernel<32, UNIFORM>, fwd_smem_bytes<32>(), grid, p, st);
+    case 64: return launch(flash_fwd_kernel<64, UNIFORM>, fwd_smem_bytes<64>(), grid, p, st);
+    case 96: return launch(flash_fwd_kernel<96, UNIFORM>, fwd_smem_bytes<96>(), grid, p, st);
+    default: return launch(flash_fwd_kernel<128, UNIFORM>, fwd_smem_bytes<128>(), grid, p, st);
+  }
+}
+
+// Resident blocks of the forward kernel a streaming multiprocessor holds at
+// head_dim D, or -1.
+template <typename Kernel>
+int occupancy(Kernel kernel, int smem_bytes) {
+  int blocks = 0;
+  if (cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes) !=
+          cudaSuccess ||
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, kThreads, smem_bytes) !=
+          cudaSuccess) {
+    return -1;
+  }
+  return blocks;
+}
+
+template <bool UNIFORM>
+int fwd_occupancy(int D) {
+  switch ((D + 31) / 32 * 32) {
+    case 32: return occupancy(flash_fwd_kernel<32, UNIFORM>, fwd_smem_bytes<32>());
+    case 64: return occupancy(flash_fwd_kernel<64, UNIFORM>, fwd_smem_bytes<64>());
+    case 96: return occupancy(flash_fwd_kernel<96, UNIFORM>, fwd_smem_bytes<96>());
+    default: return occupancy(flash_fwd_kernel<128, UNIFORM>, fwd_smem_bytes<128>());
   }
 }
 
@@ -619,10 +637,10 @@ template <typename = void>
 cudaError_t launch_dq(const Params& p, cudaStream_t st) {
   if (!shape_ok(p)) return cudaErrorInvalidValue;
   switch ((p.D + 31) / 32 * 32) {
-    case 32: return launch(flash_bwd_dq_kernel<32>, dq_smem_bytes<32>(), p.Sq, p, st);
-    case 64: return launch(flash_bwd_dq_kernel<64>, dq_smem_bytes<64>(), p.Sq, p, st);
-    case 96: return launch(flash_bwd_dq_kernel<96>, dq_smem_bytes<96>(), p.Sq, p, st);
-    default: return launch(flash_bwd_dq_kernel<128>, dq_smem_bytes<128>(), p.Sq, p, st);
+    case 32: return launch(flash_bwd_dq_kernel<32>, dq_smem_bytes<32>(), tile_grid(p.Sq, p), p, st);
+    case 64: return launch(flash_bwd_dq_kernel<64>, dq_smem_bytes<64>(), tile_grid(p.Sq, p), p, st);
+    case 96: return launch(flash_bwd_dq_kernel<96>, dq_smem_bytes<96>(), tile_grid(p.Sq, p), p, st);
+    default: return launch(flash_bwd_dq_kernel<128>, dq_smem_bytes<128>(), tile_grid(p.Sq, p), p, st);
   }
 }
 
@@ -630,10 +648,10 @@ template <typename = void>
 cudaError_t launch_dkv(const Params& p, cudaStream_t st) {
   if (!shape_ok(p)) return cudaErrorInvalidValue;
   switch ((p.D + 31) / 32 * 32) {
-    case 32: return launch(flash_bwd_dkv_kernel<32>, dkv_smem_bytes<32>(), p.Sk, p, st);
-    case 64: return launch(flash_bwd_dkv_kernel<64>, dkv_smem_bytes<64>(), p.Sk, p, st);
-    case 96: return launch(flash_bwd_dkv_kernel<96>, dkv_smem_bytes<96>(), p.Sk, p, st);
-    default: return launch(flash_bwd_dkv_kernel<128>, dkv_smem_bytes<128>(), p.Sk, p, st);
+    case 32: return launch(flash_bwd_dkv_kernel<32>, dkv_smem_bytes<32>(), tile_grid(p.Sk, p), p, st);
+    case 64: return launch(flash_bwd_dkv_kernel<64>, dkv_smem_bytes<64>(), tile_grid(p.Sk, p), p, st);
+    case 96: return launch(flash_bwd_dkv_kernel<96>, dkv_smem_bytes<96>(), tile_grid(p.Sk, p), p, st);
+    default: return launch(flash_bwd_dkv_kernel<128>, dkv_smem_bytes<128>(), tile_grid(p.Sk, p), p, st);
   }
 }
 

@@ -9,8 +9,10 @@
 //
 // Bound on the H100 at (1, 1024, 32, 128) causal: 8 * B * H * S^2 * D / 2 =
 // 17.2 GFLOP (17.4 us at 989 TFLOP/s) against 50 MB moved (15 us): bound by
-// operations. The tile loop is in flash_attention.cuh.
+// operations. The tile loop is in flash_attention.cuh; an fp32 q, k, v, dO
+// takes the fp32 instantiation of attention_f32.cuh.
 
+#include "attention_f32.cuh"
 #include "flash_attention.cuh"
 
 // As stllm_flash_attention_bwd_dq_bf16; dk and dv bf16 (B, Sk, H, D)
@@ -28,4 +30,20 @@ extern "C" int stllm_flash_attention_bwd_dkv_bf16(const void* q, const void* k, 
   p.out2 = static_cast<__nv_bfloat16*>(dk);
   p.out3 = static_cast<__nv_bfloat16*>(dv);
   return static_cast<int>(stllm::flash::launch_dkv(p, static_cast<cudaStream_t>(stream)));
+}
+
+// The same with fp32 q, k, v, dO, dk and dv (attention_f32.cuh).
+extern "C" int stllm_flash_attention_bwd_dkv_f32(const void* q, const void* k, const void* v,
+                                                 const void* d_out, const long long* strides,
+                                                 const void* kv_mask, const void* lse,
+                                                 const void* delta, void* dk, void* dv, int B,
+                                                 int Sq, int Sk, int H, int D, int causal,
+                                                 float scale, void* stream) {
+  stllm::f32attn::Params p = stllm::f32attn::make_params(q, k, v, d_out, strides, kv_mask, B,
+                                                         Sq, Sk, H, D, causal, 0, scale);
+  p.lse_in = static_cast<const float*>(lse);
+  p.delta = static_cast<const float*>(delta);
+  p.out2 = static_cast<float*>(dk);
+  p.out3 = static_cast<float*>(dv);
+  return static_cast<int>(stllm::f32attn::launch_dkv(p, static_cast<cudaStream_t>(stream)));
 }

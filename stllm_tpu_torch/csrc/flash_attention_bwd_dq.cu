@@ -10,8 +10,10 @@
 //
 // Bound on the H100 at (1, 1024, 32, 128) causal: 6 * B * H * S^2 * D / 2 =
 // 12.9 GFLOP (13.0 us at 989 TFLOP/s) against 42 MB moved (12.6 us): bound by
-// operations, narrowly. The tile loop is in flash_attention.cuh.
+// operations, narrowly. The tile loop is in flash_attention.cuh; an fp32 q,
+// k, v, dO takes the fp32 instantiation of attention_f32.cuh.
 
+#include "attention_f32.cuh"
 #include "flash_attention.cuh"
 
 // strides: 12 long longs (batch, sequence, head for q, k, v, dO); lse and
@@ -28,4 +30,19 @@ extern "C" int stllm_flash_attention_bwd_dq_bf16(const void* q, const void* k, c
   p.delta = static_cast<const float*>(delta);
   p.out = static_cast<__nv_bfloat16*>(dq);
   return static_cast<int>(stllm::flash::launch_dq(p, static_cast<cudaStream_t>(stream)));
+}
+
+// The same with fp32 q, k, v, dO and dq (attention_f32.cuh).
+extern "C" int stllm_flash_attention_bwd_dq_f32(const void* q, const void* k, const void* v,
+                                                const void* d_out, const long long* strides,
+                                                const void* kv_mask, const void* lse,
+                                                const void* delta, void* dq, int B, int Sq,
+                                                int Sk, int H, int D, int causal, float scale,
+                                                void* stream) {
+  stllm::f32attn::Params p = stllm::f32attn::make_params(q, k, v, d_out, strides, kv_mask, B,
+                                                         Sq, Sk, H, D, causal, 0, scale);
+  p.lse_in = static_cast<const float*>(lse);
+  p.delta = static_cast<const float*>(delta);
+  p.out = static_cast<float*>(dq);
+  return static_cast<int>(stllm::f32attn::launch_dq(p, static_cast<cudaStream_t>(stream)));
 }

@@ -1,4 +1,4 @@
-// Flash attention forward for Hopper (sm_90a), bf16 in and out, fp32 lse.
+// Flash attention forward for Hopper (sm_90a), bf16 (or fp32) in and out, fp32 lse.
 //
 // Replaces stllm_tpu/ops/attention.py:_flash_kernel, the attention of the
 // cache-less LLaMA forward at 1024 keys and over. It computes what that
@@ -19,8 +19,11 @@
 // Bound on the H100 at (1, 1024, 32, 128) causal: 33.7 MB moved (10 us at
 // 3.35 TB/s) against 8.6 GFLOP of visible products (8.7 us at 989 TFLOP/s):
 // bound by bytes, with the operations close behind. The tile loop is in
-// flash_attention.cuh.
+// flash_attention.cuh: K, V and the mask words through a two-stage cp.async
+// ring, q in registers, heaviest causal tiles first, three blocks an SM at
+// D = 128. An fp32 q, k, v takes the fp32 instantiation of attention_f32.cuh.
 
+#include "attention_f32.cuh"
 #include "flash_attention.cuh"
 
 // As stllm_fused_short_attention_bf16, plus lse fp32 (B, H, Sq); causal is
@@ -36,4 +39,23 @@ extern "C" int stllm_flash_attention_fwd_bf16(const void* q, const void* k, cons
   p.lse_out = static_cast<float*>(lse);
   return static_cast<int>(
       stllm::flash::launch_fwd<false>(p, static_cast<cudaStream_t>(stream)));
+}
+
+// The same with fp32 q, k, v and out (attention_f32.cuh).
+extern "C" int stllm_flash_attention_fwd_f32(const void* q, const void* k, const void* v,
+                                             const long long* strides, const void* kv_mask,
+                                             void* out, void* lse, int B, int Sq, int Sk, int H,
+                                             int D, int causal, float scale, void* stream) {
+  stllm::f32attn::Params p = stllm::f32attn::make_params(q, k, v, nullptr, strides, kv_mask, B,
+                                                         Sq, Sk, H, D, causal, 0, scale);
+  p.out = static_cast<float*>(out);
+  p.lse_out = static_cast<float*>(lse);
+  return static_cast<int>(stllm::f32attn::launch_fwd<stllm::f32attn::kFlash>(
+      p, static_cast<cudaStream_t>(stream)));
+}
+
+// Resident blocks of the bf16 kernel a streaming multiprocessor holds at
+// head_dim D (-1 on an error).
+extern "C" int stllm_flash_attention_fwd_occupancy(int D) {
+  return stllm::flash::fwd_occupancy<false>(D);
 }

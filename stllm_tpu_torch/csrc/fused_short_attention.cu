@@ -1,4 +1,4 @@
-// Fused short-sequence attention for Hopper (sm_90a), bf16 in and out.
+// Fused short-sequence attention for Hopper (sm_90a), bf16 (or fp32) in and out.
 //
 // Replaces stllm_tpu/ops/attention.py:_fused_short_kernel, the attention of
 // the cache-less LLaMA forward below 1024 keys (training batches of 640 to
@@ -19,10 +19,12 @@
 // Bound on the H100 at the LLaMA shape (1, 768, 32, 128) causal: 25 MB moved
 // (7.5 us at 3.35 TB/s) against 4.8 GFLOP of visible products (4.9 us at
 // 989 TFLOP/s): bound by bytes, with the operations close behind. The tile
-// loop is in flash_attention.cuh (mma.sync fed by ldmatrix, cp.async tile
-// loads without double buffering, K and V re-read once per 64 query rows);
-// wgmma and TMA are later work.
+// loop is flash_attention.cuh's forward (mma.sync fed by ldmatrix, K and V
+// through a two-stage cp.async ring, causal query tiles heaviest first, K
+// and V re-read once per 64 query rows); wgmma and TMA are later work. An
+// fp32 q, k, v takes the fp32 instantiation of attention_f32.cuh.
 
+#include "attention_f32.cuh"
 #include "flash_attention.cuh"
 
 // q (B, Sq, H, D), k and v (B, Sk, H, D) bf16 through ``strides`` (12 long
@@ -38,4 +40,16 @@ extern "C" int stllm_fused_short_attention_bf16(const void* q, const void* k, co
   p.out = static_cast<__nv_bfloat16*>(out);
   return static_cast<int>(
       stllm::flash::launch_fwd<true>(p, static_cast<cudaStream_t>(stream)));
+}
+
+// The same with fp32 q, k, v and out (attention_f32.cuh).
+extern "C" int stllm_fused_short_attention_f32(const void* q, const void* k, const void* v,
+                                               const long long* strides, const void* kv_mask,
+                                               void* out, int B, int Sq, int Sk, int H, int D,
+                                               int causal, float scale, void* stream) {
+  stllm::f32attn::Params p = stllm::f32attn::make_params(q, k, v, nullptr, strides, kv_mask, B,
+                                                         Sq, Sk, H, D, causal, Sk - Sq, scale);
+  p.out = static_cast<float*>(out);
+  return static_cast<int>(stllm::f32attn::launch_fwd<stllm::f32attn::kUniform>(
+      p, static_cast<cudaStream_t>(stream)));
 }

@@ -1,5 +1,5 @@
 // Packed-qkv attention with a per-row int8 epilogue, for Hopper (sm_90a):
-// bf16 qkv in, int8 out plus an fp32 scale per row.
+// bf16 (or fp32) qkv in, int8 out plus an fp32 scale per row.
 //
 // Replaces stllm_tpu/ops/attention.py:_packed_qkv_quant_kernel, the attention
 // of every trunk block of the dynamic-int8 EVA-ViT-g and of its calibration.
@@ -14,34 +14,58 @@
 //
 // The trouble is the epilogue's amax: it spans all H heads of a row, and a
 // block of the attention kernel owns one head. The design runs in two
-// launches: the per-head blocks of the bf16 kernel write the fp32 rows
-// o / sum(p) to a scratch buffer the wrapper allocates, and a row-quant pass
-// (one block per row) quantizes them. It keeps the attention kernel's
-// 1,280 blocks at the trunk shape, where a block per query tile that loops
-// over the heads would hold a 180 KB fp32 row tile in shared memory and run
-// one block of few warps per SM. The price is the scratch round trip:
+// launches: the per-head blocks of the bf16 kernel (the tile loop of
+// packed_qkv_attention.cuh; for an fp32 qkv the fp32 instantiation of
+// attention_f32.cuh) write the fp32 rows o / sum(p) to a scratch buffer the
+// wrapper allocates, and a row-quant pass (one block per row) quantizes
+// them. It keeps the attention kernel's 512 blocks of 9 warps at the trunk
+// shape, where a block per query tile that loops over the heads would hold
+// a 180 KB fp32 row tile in shared memory and run one block of few warps
+// per SM. The price is the scratch round trip:
 // 23.1 MB written and read again, much of it from the 50 MB L2.
 
+#include "attention_f32.cuh"
 #include "packed_qkv_attention.cuh"
 #include "rowwise_quant.cuh"
 
-// Plain C entry point, loaded with ctypes. qkv: contiguous bf16 (B, S, 3*H*D),
-// 16-byte aligned; scratch: fp32 (B, S, H*D); out_q: int8 (B, S, H*D);
-// out_scale: fp32 (B, S). D is a multiple of 8 and at most 112. Launches on
-// ``stream`` and returns the CUDA error of the launches (0 on success).
+namespace {
+
+cudaError_t quantize(float* rows, void* out_q, void* out_scale, int B, int S, int H, int D,
+                     cudaStream_t st) {
+  return stllm::launch_rowwise_quant(rows, static_cast<int8_t*>(out_q),
+                                     static_cast<float*>(out_scale),
+                                     static_cast<long long>(B) * S, H * D, st);
+}
+
+}  // namespace
+
+// Plain C entry points, loaded with ctypes. qkv: contiguous (B, S, 3*H*D),
+// 16-byte aligned, bf16 or (the _f32 entry) fp32; scratch: fp32 (B, S, H*D);
+// out_q: int8 (B, S, H*D); out_scale: fp32 (B, S). D is a multiple of 8 and
+// at most 128, H*D at most 12288. Each launches on ``stream`` and returns the
+// CUDA error of the launches (0 on success).
 extern "C" int stllm_packed_qkv_attention_quant_bf16(const void* qkv, void* scratch,
                                                      void* out_q, void* out_scale,
                                                      int B, int S, int H, int D,
                                                      float scale_log2e, void* stream) {
-  if (!stllm::packed_shape_ok(B, S, H, D) || H * D > stllm::kMaxRowK) {
+  if (H * D > stllm::kMaxRowK) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  float* rows = static_cast<float*>(scratch);
+  cudaError_t err = stllm::packed::launch(qkv, rows, B, S, H, D, scale_log2e, st);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(quantize(rows, out_q, out_scale, B, S, H, D, st));
+}
+
+extern "C" int stllm_packed_qkv_attention_quant_f32(const void* qkv, void* scratch,
+                                                    void* out_q, void* out_scale, int B, int S,
+                                                    int H, int D, float scale_log2e,
+                                                    void* stream) {
+  if (D % 8 || D > stllm::packed::kMaxHeadDim || H * D > stllm::kMaxRowK) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   float* rows = static_cast<float*>(scratch);
-  stllm::launch_packed_any(qkv, rows, B, S, H, D, scale_log2e, st);
-  cudaError_t err = cudaGetLastError();
+  cudaError_t err = stllm::f32attn::launch_packed(qkv, rows, B, S, H, D, scale_log2e, st);
   if (err != cudaSuccess) return static_cast<int>(err);
-  return static_cast<int>(stllm::launch_rowwise_quant(
-      rows, static_cast<int8_t*>(out_q), static_cast<float*>(out_scale),
-      static_cast<long long>(B) * S, H * D, st));
+  return static_cast<int>(quantize(rows, out_q, out_scale, B, S, H, D, st));
 }

@@ -37,6 +37,13 @@
 // its accumulators into xn, writes x_new, and the row statistics reduce over
 // the quad, then over the 8 warps through shared memory, the mean first and
 // then the centred sum of squares. No wgmma or TMA yet: that is later work.
+//
+// Rows wider than 1536 columns (the registers and the ring of one pass) take
+// qmm_res_ln_wide_kernel, still one launch: the block walks N in equal
+// chunks of at most 1536 columns, stages xn in an fp32 scratch row the
+// wrapper allocates (M x N, at most 4 MiB a sample by the dispatch rule),
+// and takes the mean, the centred variance and the codes from it afterwards.
+// The 1408-wide ViT-g sites never take it.
 
 #include <cuda_bf16.h>
 
@@ -50,6 +57,14 @@ constexpr int kWarps = 8;
 constexpr int kThreads = kWarps * 32;
 constexpr int kRows = 16;             // rows a block owns
 constexpr int kStages = 2;            // steps of the cp.async ring
+constexpr int kChunk = 1536;          // widest row one pass holds (24 n8-tiles a warp)
+
+// Columns of each chunk of a wide row: the fewest chunks of at most kChunk
+// columns, equal widths in multiples of 128 (the last may be narrower).
+__host__ __device__ inline int chunk_width(int N) {
+  const int chunks = (N + kChunk - 1) / kChunk;
+  return (N / 128 + chunks - 1) / chunks * 128;
+}
 
 // Bytes of dynamic shared memory for a launch with nt n8-tiles a warp: per
 // stage, per warp, nt weight chunks and 2 activation chunks of 32 lanes x 16.
@@ -96,6 +111,80 @@ __device__ __forceinline__ void row_sums(float& a, float& b, float (*red)[kRows]
   }
 }
 
+// xn = x_prev + ((acc * hs) * ws + bias) of rows a, b (elements oa, ob on)
+// at columns c and c + 1, each product and sum rounded on its own.
+__device__ __forceinline__ void residual(float (&v)[4], const int (&acc)[4], float ha, float hb,
+                                         int c, const float* ws, const float* bias,
+                                         const void* x_prev, long long oa, long long ob, bool va,
+                                         bool vb, int io_f32) {
+  const float w0 = ws[c], w1 = ws[c + 1];
+  const float b0 = bias ? bias[c] : 0.0f;
+  const float b1 = bias ? bias[c + 1] : 0.0f;
+  const float2 xa = va ? load_pair(x_prev, oa + c, io_f32) : make_float2(0.0f, 0.0f);
+  const float2 xb = vb ? load_pair(x_prev, ob + c, io_f32) : make_float2(0.0f, 0.0f);
+  v[0] = __fadd_rn(xa.x, __fadd_rn(__fmul_rn(__fmul_rn(__int2float_rn(acc[0]), ha), w0), b0));
+  v[1] = __fadd_rn(xa.y, __fadd_rn(__fmul_rn(__fmul_rn(__int2float_rn(acc[1]), ha), w1), b1));
+  v[2] = __fadd_rn(xb.x, __fadd_rn(__fmul_rn(__fmul_rn(__int2float_rn(acc[2]), hb), w0), b0));
+  v[3] = __fadd_rn(xb.y, __fadd_rn(__fmul_rn(__fmul_rn(__int2float_rn(acc[3]), hb), w1), b1));
+}
+
+// The row's code of z = ((xn - mean) * inv) * gamma + beta, times 1 / out_scale.
+__device__ __forceinline__ int8_t ln_code(float xn, float mean, float inv, float gamma,
+                                          float beta, float inv_os) {
+  return clip_code(__fmul_rn(__fadd_rn(__fmul_rn(__fmul_rn(__fsub_rn(xn, mean), inv), gamma),
+                                       beta), inv_os));
+}
+
+// The K loop of one block: acc (this lane's NT n8-tiles, nt in use) += the
+// product of A rows ra, rb (pa, pb: their bytes 16t on) and the weight
+// columns of the warp's tiles (pw: column col0 + g, byte 16t), through the
+// lane's two-stage cp.async ring.
+template <int NT>
+__device__ __forceinline__ void k_loop(int (&acc)[NT][4], uint4* ring, const int8_t* pa,
+                                       const int8_t* pb, const int8_t* pw, bool va, bool vb,
+                                       int K, int nt, int warp, int lane, int t) {
+  const long long tile = 8LL * K;      // from one n8-tile's column g to the next's
+  // the lane's slots of the ring: chunk c of stage s at mine[s * stage + c * 32]
+  const int stage = kWarps * (nt + 2) * 32;
+  uint4* mine = ring + warp * (nt + 2) * 32 + lane;
+
+  // start the copies of the step at k0 into stage s; chunks past K or of rows
+  // past M are zero-filled (K % 16 == 0: a 16-byte chunk is all in or out)
+  auto fetch = [&](int k0, int s) {
+    uint4* dst = mine + s * stage;
+    const bool in = k0 + 16 * t < K;
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      if (j < nt) cp_async16(dst + j * 32, in ? pw + j * tile + k0 : pw, in);
+    }
+    cp_async16(dst + nt * 32, va && in ? pa + k0 : pa, va && in);
+    cp_async16(dst + (nt + 1) * 32, vb && in ? pb + k0 : pb, vb && in);
+    cp_async_commit();
+  };
+
+#pragma unroll
+  for (int j = 0; j < NT; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0;
+
+  const int steps = (K + 63) / 64;
+  fetch(0, 0);
+  for (int i = 0; i < steps; ++i) {
+    if (i + 1 < steps) {
+      __syncwarp();                    // the stage refilled now was read in step i - 1
+      fetch((i + 1) * 64, (i + 1) & 1);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    const uint4* src = mine + (i & 1) * stage;
+    const uint4 lo = src[nt * 32];
+    const uint4 hi = src[(nt + 1) * 32];
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      if (j < nt) mma_step64(acc[j], lo, hi, src[j * 32]);
+    }
+  }
+}
+
 // NT: the most n8-tiles a warp holds; the launch's N / 64 <= NT.
 template <int NT>
 __global__ void __launch_bounds__(kThreads, 1)
@@ -120,48 +209,9 @@ qmm_res_ln_kernel(const int8_t* __restrict__ hq, const float* __restrict__ hs, i
   const int8_t* pa = hq + (long long)(va ? ra : 0) * K + 16 * t;
   const int8_t* pb = hq + (long long)(vb ? rb : 0) * K + 16 * t;
   const int8_t* pw = w + (long long)(col0 + g) * K + 16 * t;
-  const long long tile = 8LL * K;      // from one n8-tile's column g to the next's
-
-  // the lane's slots of the ring: chunk c of stage s at mine[s * stage + c * 32]
-  const int stage = kWarps * (nt + 2) * 32;
-  uint4* mine = ring + warp * (nt + 2) * 32 + lane;
-
-  // start the copies of the step at k0 into stage s; chunks past K or of rows
-  // past M are zero-filled (K % 16 == 0: a 16-byte chunk is all in or out)
-  auto fetch = [&](int k0, int s) {
-    uint4* dst = mine + s * stage;
-    const bool in = k0 + 16 * t < K;
-#pragma unroll
-    for (int j = 0; j < NT; ++j) {
-      if (j < nt) cp_async16(dst + j * 32, in ? pw + j * tile + k0 : pw, in);
-    }
-    cp_async16(dst + nt * 32, va && in ? pa + k0 : pa, va && in);
-    cp_async16(dst + (nt + 1) * 32, vb && in ? pb + k0 : pb, vb && in);
-    cp_async_commit();
-  };
 
   int acc[NT][4];
-#pragma unroll
-  for (int j = 0; j < NT; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0;
-
-  const int steps = (K + 63) / 64;
-  fetch(0, 0);
-  for (int i = 0; i < steps; ++i) {
-    if (i + 1 < steps) {
-      __syncwarp();                    // the stage refilled now was read in step i - 1
-      fetch((i + 1) * 64, (i + 1) & 1);
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    const uint4* src = mine + (i & 1) * stage;
-    const uint4 lo = src[nt * 32];
-    const uint4 hi = src[(nt + 1) * 32];
-#pragma unroll
-    for (int j = 0; j < NT; ++j) {
-      if (j < nt) mma_step64(acc[j], lo, hi, src[j * 32]);
-    }
-  }
+  k_loop<NT>(acc, ring, pa, pb, pw, va, vb, K, nt, warp, lane, t);
 
   // k-exit: y, the residual add and x_new; the first pass of the statistics
   const float ha = va ? hs[(long long)ra * hs_step] : 0.0f;
@@ -174,15 +224,7 @@ qmm_res_ln_kernel(const int8_t* __restrict__ hq, const float* __restrict__ hs, i
   for (int j = 0; j < NT; ++j) {
     if (j < nt) {
       const int c = col0 + j * 8 + 2 * t;
-      const float w0 = ws[c], w1 = ws[c + 1];
-      const float b0 = bias ? bias[c] : 0.0f;
-      const float b1 = bias ? bias[c + 1] : 0.0f;
-      const float2 xa = va ? load_pair(x_prev, oa + c, io_f32) : make_float2(0.0f, 0.0f);
-      const float2 xb = vb ? load_pair(x_prev, ob + c, io_f32) : make_float2(0.0f, 0.0f);
-      v[j][0] = __fadd_rn(xa.x, __fadd_rn(__fmul_rn(__fmul_rn(__int2float_rn(acc[j][0]), ha), w0), b0));
-      v[j][1] = __fadd_rn(xa.y, __fadd_rn(__fmul_rn(__fmul_rn(__int2float_rn(acc[j][1]), ha), w1), b1));
-      v[j][2] = __fadd_rn(xb.x, __fadd_rn(__fmul_rn(__fmul_rn(__int2float_rn(acc[j][2]), hb), w0), b0));
-      v[j][3] = __fadd_rn(xb.y, __fadd_rn(__fmul_rn(__fmul_rn(__int2float_rn(acc[j][3]), hb), w1), b1));
+      residual(v[j], acc[j], ha, hb, c, ws, bias, x_prev, oa, ob, va, vb, io_f32);
       if (va) store_pair(x_new, oa + c, v[j][0], v[j][1], io_f32);
       if (vb) store_pair(x_new, ob + c, v[j][2], v[j][3], io_f32);
       sa += v[j][0] + v[j][1];
@@ -224,9 +266,123 @@ qmm_res_ln_kernel(const int8_t* __restrict__ hq, const float* __restrict__ hs, i
         const float mean = e < 2 ? mean_a : mean_b;
         const float inv = e < 2 ? inv_a : inv_b;
         const int cc = c + (e & 1);
-        const float z = __fadd_rn(__fmul_rn(__fmul_rn(__fsub_rn(v[j][e], mean), inv), gamma[cc]),
-                                  beta[cc]);
-        code[e] = clip_code(__fmul_rn(z, inv_os));
+        code[e] = ln_code(v[j][e], mean, inv, gamma[cc], beta[cc], inv_os);
+      }
+      if (va) *reinterpret_cast<char2*>(yq + oa + c) = make_char2(code[0], code[1]);
+      if (vb) *reinterpret_cast<char2*>(yq + ob + c) = make_char2(code[2], code[3]);
+    }
+  }
+}
+
+// N > kChunk: the block walks N in chunks of at most kChunk columns (equal
+// widths, multiples of 128). Per chunk it runs the K loop for the chunk's
+// columns, writes x_new and stages xn in fp32 in ``staged`` (M, N), and adds
+// to its row sums; then the centred sum of squares and the codes come from
+// the staged rows. Each thread reads back only what it wrote, so no barrier
+// guards the staging; one guards the ring between chunks, whose lane slots
+// move when the chunk width does.
+template <int NT>
+__global__ void __launch_bounds__(kThreads, 1)
+qmm_res_ln_wide_kernel(const int8_t* __restrict__ hq, const float* __restrict__ hs,
+                       int hs_step, const int8_t* __restrict__ w, const float* __restrict__ ws,
+                       const float* __restrict__ bias, const void* __restrict__ x_prev,
+                       const float* __restrict__ gamma, const float* __restrict__ beta,
+                       const float* __restrict__ out_scale, void* __restrict__ x_new,
+                       int8_t* __restrict__ yq, float* __restrict__ staged, int M, int K, int N,
+                       float eps, int io_f32) {
+  extern __shared__ uint4 ring[];
+  __shared__ float red[2][kWarps][kRows];
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  const int ra = blockIdx.x * kRows + g;
+  const int rb = ra + 8;
+  const bool va = ra < M;
+  const bool vb = rb < M;
+  const int8_t* pa = hq + (long long)(va ? ra : 0) * K + 16 * t;
+  const int8_t* pb = hq + (long long)(vb ? rb : 0) * K + 16 * t;
+  const float ha = va ? hs[(long long)ra * hs_step] : 0.0f;
+  const float hb = vb ? hs[(long long)rb * hs_step] : 0.0f;
+  const long long oa = (long long)ra * N;
+  const long long ob = (long long)rb * N;
+  const int width = chunk_width(N);
+  // the n8-tiles of this warp in the chunk at c0, and the first one's column
+  auto tiles = [&](int c0) { return min(width, N - c0) / (8 * kWarps); };
+
+  float sa = 0.0f, sb = 0.0f;
+  for (int c0 = 0; c0 < N; c0 += width) {
+    const int nt = tiles(c0);
+    const int col0 = c0 + warp * nt * 8;
+    int acc[NT][4];
+    __syncthreads();                   // every lane is done with the previous chunk's ring
+    k_loop<NT>(acc, ring, pa, pb, w + (long long)(col0 + g) * K + 16 * t, va, vb, K, nt, warp,
+               lane, t);
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      if (j < nt) {
+        const int c = col0 + j * 8 + 2 * t;
+        float v[4];
+        residual(v, acc[j], ha, hb, c, ws, bias, x_prev, oa, ob, va, vb, io_f32);
+        if (va) {
+          store_pair(x_new, oa + c, v[0], v[1], io_f32);
+          *reinterpret_cast<float2*>(staged + oa + c) = make_float2(v[0], v[1]);
+        }
+        if (vb) {
+          store_pair(x_new, ob + c, v[2], v[3], io_f32);
+          *reinterpret_cast<float2*>(staged + ob + c) = make_float2(v[2], v[3]);
+        }
+        sa += v[0] + v[1];
+        sb += v[2] + v[3];
+      }
+    }
+  }
+  row_sums(sa, sb, red[0], warp, g, t);
+  const float fn = static_cast<float>(N);
+  const float mean_a = __fdiv_rn(sa, fn);
+  const float mean_b = __fdiv_rn(sb, fn);
+
+  // this thread's staged values: xn of rows a, b at columns c, c + 1
+  auto staged_at = [&](int c, float (&v)[4]) {
+    const float2 a = va ? *reinterpret_cast<const float2*>(staged + oa + c) : make_float2(0.f, 0.f);
+    const float2 b = vb ? *reinterpret_cast<const float2*>(staged + ob + c) : make_float2(0.f, 0.f);
+    v[0] = a.x;
+    v[1] = a.y;
+    v[2] = b.x;
+    v[3] = b.y;
+  };
+  float qa = 0.0f, qb = 0.0f;
+  for (int c0 = 0; c0 < N; c0 += width) {
+    const int nt = tiles(c0);
+    for (int j = 0; j < nt; ++j) {
+      float v[4];
+      staged_at(c0 + (warp * nt + j) * 8 + 2 * t, v);
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const float da = __fsub_rn(v[e], mean_a);
+        const float db = __fsub_rn(v[2 + e], mean_b);
+        qa = __fadd_rn(qa, __fmul_rn(da, da));
+        qb = __fadd_rn(qb, __fmul_rn(db, db));
+      }
+    }
+  }
+  row_sums(qa, qb, red[1], warp, g, t);
+  const float inv_a = __fdiv_rn(1.0f, __fsqrt_rn(__fadd_rn(__fdiv_rn(qa, fn), eps)));
+  const float inv_b = __fdiv_rn(1.0f, __fsqrt_rn(__fadd_rn(__fdiv_rn(qb, fn), eps)));
+  const float inv_os = __fdiv_rn(1.0f, out_scale[0]);
+
+  for (int c0 = 0; c0 < N; c0 += width) {
+    const int nt = tiles(c0);
+    for (int j = 0; j < nt; ++j) {
+      const int c = c0 + (warp * nt + j) * 8 + 2 * t;
+      float v[4];
+      staged_at(c, v);
+      int8_t code[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int cc = c + (e & 1);
+        code[e] = e < 2 ? ln_code(v[e], mean_a, inv_a, gamma[cc], beta[cc], inv_os)
+                        : ln_code(v[e], mean_b, inv_b, gamma[cc], beta[cc], inv_os);
       }
       if (va) *reinterpret_cast<char2*>(yq + oa + c) = make_char2(code[0], code[1]);
       if (vb) *reinterpret_cast<char2*>(yq + ob + c) = make_char2(code[2], code[3]);
@@ -237,13 +393,26 @@ qmm_res_ln_kernel(const int8_t* __restrict__ hq, const float* __restrict__ hs, i
 template <int NT>
 cudaError_t launch(const void* hq, const float* hs, int hs_step, const void* w, const float* ws,
                    const float* bias, const void* x_prev, const float* gamma, const float* beta,
-                   const float* out_scale, void* x_new, void* yq, int M, int K, int N, float eps,
-                   int io_f32, cudaStream_t stream) {
-  const size_t smem = ring_bytes(N / 64);
+                   const float* out_scale, void* x_new, void* yq, float* staged, int M, int K,
+                   int N, float eps, int io_f32, cudaStream_t stream) {
+  const bool wide = N > kChunk;
+  const size_t smem = ring_bytes((wide ? chunk_width(N) : N) / 64);
+  const dim3 grid((M + kRows - 1) / kRows);
+  if (wide) {
+    cudaError_t err = cudaFuncSetAttribute(qmm_res_ln_wide_kernel<NT>,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           static_cast<int>(smem));
+    if (err != cudaSuccess) return err;
+    qmm_res_ln_wide_kernel<NT><<<grid, kThreads, smem, stream>>>(
+        static_cast<const int8_t*>(hq), hs, hs_step, static_cast<const int8_t*>(w), ws, bias,
+        x_prev, gamma, beta, out_scale, x_new, static_cast<int8_t*>(yq), staged, M, K, N, eps,
+        io_f32);
+    return cudaGetLastError();
+  }
   cudaError_t err = cudaFuncSetAttribute(
       qmm_res_ln_kernel<NT>, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  qmm_res_ln_kernel<NT><<<(M + kRows - 1) / kRows, kThreads, smem, stream>>>(
+  qmm_res_ln_kernel<NT><<<grid, kThreads, smem, stream>>>(
       static_cast<const int8_t*>(hq), hs, hs_step, static_cast<const int8_t*>(w), ws, bias,
       x_prev, gamma, beta, out_scale, x_new, static_cast<int8_t*>(yq), M, K, N, eps, io_f32);
   return cudaGetLastError();
@@ -255,18 +424,19 @@ cudaError_t launch(const void* hq, const float* hs, int hs_step, const void* w, 
 // one per row (hs_step 1) or one scalar (hs_step 0); w: int8 (N, K) row-major,
 // i.e. the (K, N) weight column-major; ws: fp32 (N,); bias: fp32 (N,) or null;
 // x_prev and x_new: (M, N), bf16 or, with io_f32, fp32; gamma, beta: fp32
-// (N,); out_scale: one fp32 on the device; yq: int8 (M, N). Every tensor
-// contiguous and 16-byte aligned; K a multiple of 16, N a multiple of 128 and
-// at most 1536 (the ring of a wider row does not fit shared memory). Launches
-// on ``stream`` and returns the CUDA error of the launch (0 on success);
+// (N,); out_scale: one fp32 on the device; yq: int8 (M, N); staged: fp32
+// (M, N) scratch for N > 1536, else unused (may be null). Every tensor
+// contiguous and 16-byte aligned; K a multiple of 16 (the wrapper pads a
+// shorter one with zero codes), N a multiple of 128. One launch in either
+// case, on ``stream``; returns the CUDA error of the launch (0 on success);
 // never synchronises.
 extern "C" int stllm_qmm_res_ln(const void* hq, const void* hs, int hs_step, const void* w,
                                 const void* ws, const void* bias, const void* x_prev,
                                 const void* gamma, const void* beta, const void* out_scale,
-                                void* x_new, void* yq, int M, int K, int N, float eps,
-                                int io_f32, void* stream) {
-  if (M < 0 || K <= 0 || K % 16 != 0 || N <= 0 || N % 128 != 0 || N > 1536 ||
-      (hs_step != 0 && hs_step != 1)) {
+                                void* x_new, void* yq, void* staged, int M, int K, int N,
+                                float eps, int io_f32, void* stream) {
+  if (M < 0 || K <= 0 || K % 16 != 0 || N <= 0 || N % 128 != 0 ||
+      (hs_step != 0 && hs_step != 1) || (N > kChunk && !staged)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (M == 0) return 0;
@@ -277,17 +447,18 @@ extern "C" int stllm_qmm_res_ln(const void* hq, const void* hs, int hs_step, con
   const float* f_g = static_cast<const float*>(gamma);
   const float* f_be = static_cast<const float*>(beta);
   const float* f_os = static_cast<const float*>(out_scale);
-  const int nt = N / 64;
+  float* f_st = static_cast<float*>(staged);
+  const int nt = (N > kChunk ? chunk_width(N) : N) / 64;
   cudaError_t err;
   if (nt <= 8) {
-    err = launch<8>(hq, f_hs, hs_step, w, f_ws, f_b, x_prev, f_g, f_be, f_os, x_new, yq, M, K,
-                    N, eps, io_f32, st);
+    err = launch<8>(hq, f_hs, hs_step, w, f_ws, f_b, x_prev, f_g, f_be, f_os, x_new, yq, f_st, M,
+                    K, N, eps, io_f32, st);
   } else if (nt <= 16) {
-    err = launch<16>(hq, f_hs, hs_step, w, f_ws, f_b, x_prev, f_g, f_be, f_os, x_new, yq, M, K,
-                     N, eps, io_f32, st);
+    err = launch<16>(hq, f_hs, hs_step, w, f_ws, f_b, x_prev, f_g, f_be, f_os, x_new, yq, f_st,
+                     M, K, N, eps, io_f32, st);
   } else {
-    err = launch<24>(hq, f_hs, hs_step, w, f_ws, f_b, x_prev, f_g, f_be, f_os, x_new, yq, M, K,
-                     N, eps, io_f32, st);
+    err = launch<24>(hq, f_hs, hs_step, w, f_ws, f_b, x_prev, f_g, f_be, f_os, x_new, yq, f_st,
+                     M, K, N, eps, io_f32, st);
   }
   return static_cast<int>(err);
 }

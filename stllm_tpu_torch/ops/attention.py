@@ -9,8 +9,10 @@ static-int8 qkv of the calibrated blocks. ``flash_attention`` is the
 attention of the cache-less LLaMA forward (training) and of a ViT with
 ``use_flash`` set: the fused single-pass kernel below 1024 keys, the flash
 forward and its two backward kernels from 1024 keys on. Each runs its
-hand-written CUDA kernel in ``ops/kernels.py``; the three differentiable ones
-are ``torch.autograd.Function``s here.
+hand-written CUDA kernel in ``ops/kernels.py`` (bf16 or fp32); the three
+differentiable ones are ``torch.autograd.Function``s here. The packed pair
+keeps the reference's dispatch rule (``_packed_kernel_runs``): past it they
+run ``_packed_reference`` in plain torch, as the reference leaves it to XLA.
 
 API convention: q/k/v are (batch, seq, heads, head_dim); ``kv_mask`` and
 ``q_mask`` are (batch, seq) validity masks (True = real token).
@@ -105,16 +107,31 @@ class _PackedQKVAttention(torch.autograd.Function):
         return d_qkv, None, None, None
 
 
+def _packed_kernel_runs(qkv: torch.Tensor, heads: int, head_dim: int) -> bool:
+    """Whether the packed kernel (#1, #2) takes this call: the reference's
+    feasibility rule, and a head_dim the kernel is built for (a multiple of
+    8, at most kernels.PACKED_MAX_HEAD_DIM). Where it fails,
+    the reference runs ``_packed_reference`` (the max-subtracted softmax, left
+    to XLA) and so does the port, in plain torch on either device; no kernel
+    launches for such a call."""
+    return (head_dim % 8 == 0 and head_dim <= kernels.PACKED_MAX_HEAD_DIM
+            and packed_qkv_feasible(qkv.shape[1], heads, head_dim, qkv.element_size()))
+
+
 def fused_qkv_attention(qkv: torch.Tensor, heads: int, head_dim: int, *,
                         scale: Optional[float] = None) -> torch.Tensor:
     """Non-causal attention on a PACKED (B, S, 3*H*D) qkv tensor (q|k|v on
     the feature axis, heads contiguous within each third). Returns
-    (B, S, H*D). On a CUDA tensor this launches the packed-qkv kernel; on a
-    CPU tensor it runs the kernel's plain version. Differentiable: the
-    backward recomputes through the plain-softmax reference."""
+    (B, S, H*D). Where ``_packed_kernel_runs`` holds, a CUDA tensor launches
+    the packed-qkv kernel and a CPU tensor runs the kernel's plain version;
+    elsewhere both run ``_packed_reference``, as the reference does.
+    Differentiable: the backward recomputes through the plain-softmax
+    reference."""
     if qkv.shape[-1] != 3 * heads * head_dim:
         raise ValueError(f"qkv width {qkv.shape[-1]} != 3 * {heads} * {head_dim}")
     scale = (head_dim ** -0.5) if scale is None else scale
+    if not _packed_kernel_runs(qkv, heads, head_dim):
+        return _packed_reference(qkv, heads, head_dim, scale)
     return _PackedQKVAttention.apply(qkv, heads, head_dim, scale)
 
 
@@ -123,10 +140,14 @@ def fused_qkv_attention_quant(qkv: torch.Tensor, heads: int, head_dim: int, *,
                               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Packed-qkv attention with a W8A8 epilogue: returns (out_q int8
     (B, S, H*D), out_scale fp32 (B, S, 1)), the per-row int8 of
-    ``fused_qkv_attention``'s fp32 rows. Inference only."""
+    ``fused_qkv_attention``'s fp32 rows. Where ``_packed_kernel_runs``
+    fails, the per-row int8 of ``_packed_reference``'s rows (in the io
+    dtype), as the reference quantizes them. Inference only."""
     if qkv.shape[-1] != 3 * heads * head_dim:
         raise ValueError(f"qkv width {qkv.shape[-1]} != 3 * {heads} * {head_dim}")
     scale = (head_dim ** -0.5) if scale is None else scale
+    if not _packed_kernel_runs(qkv, heads, head_dim):
+        return kernels.rowwise_quant_plain(_packed_reference(qkv, heads, head_dim, scale).float())
     return kernels.packed_qkv_attention_quant(qkv, heads, head_dim, scale)
 
 
@@ -250,8 +271,9 @@ def flash_attention(
     also sends a fused-tier shape to ``mha_reference`` when no head chunk of
     it fits the TPU's on-chip memory; that is a storage rule of the TPU
     kernel, and ``mha_reference`` is the same function, so it is dropped.
-    On a CUDA tensor each tier launches its kernel (bf16 only; other dtypes
-    raise); on a CPU tensor it runs the plain version of that same kernel.
+    On a CUDA tensor each tier launches its kernel (bf16 or fp32; other
+    dtypes raise); on a CPU tensor it runs the plain version of that same
+    kernel.
     The flash tier's causal mask is key <= query (the reference's, no
     Sk - Sq offset)."""
     scale = (q.shape[-1] ** -0.5) if scale is None else scale

@@ -29,7 +29,11 @@ The four weight-streaming kernels share one tile loop
 (``csrc/weight_stream_matmul.cuh``); only the model path launches
 ``w4a16_matmul``, the probes are launched by their checks and timings. The
 four training attention kernels (``csrc/flash_attention.cuh``) are wired
-into autograd by ``ops/attention.py``. The two int8 GEMMs share the s8
+into autograd by ``ops/attention.py``. The packed-qkv loop and the flash
+loops share the copy and fragment helpers of ``csrc/mma_tiles.cuh``. #1, #2
+and #4-#7 take bf16 or fp32: an fp32 tensor launches the fp32 entry point of
+the same library (``csrc/attention_f32.cuh``, CUDA-core fp32 products) and
+counts as a launch of that kernel. The two int8 GEMMs share the s8
 tensor-core step of ``csrc/s8_matmul.cuh``: ``qmm_res_ln`` runs in the
 static-int8 ViT under ``STLLM_FUSED_LN``; ``quant_matmul_blockwise`` is an
 op of the surface that no model calls, as in the reference.
@@ -101,18 +105,35 @@ _ENTRY = {
         "stllm_flash_attention_bwd_dkv_bf16",
         [_P, _P, _P, _P, _STRIDES, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P]),
     # hq, hs, hs_step, w, ws, bias, x_prev, gamma, beta, out_scale, x_new, yq,
-    # M, K, N, eps, io_f32
+    # staged (N > 1536), M, K, N, eps, io_f32
     "qmm_res_ln": (
         "stllm_qmm_res_ln",
-        [_P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _P]),
+        [_P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _P]),
     # x, x_f32, w, ws, scales scratch, out, M, K, N, bk
     "quant_matmul_blockwise": (
         "stllm_quant_matmul", [_P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _P]),
 }
 
+# the fp32-io entry points of the attention kernels (csrc/attention_f32.cuh),
+# in the same libraries and with the same arguments as the bf16 ones
+_F32_SYMBOLS = {
+    "packed_qkv_attention": "stllm_packed_qkv_attention_f32",
+    "packed_qkv_attention_quant": "stllm_packed_qkv_attention_quant_f32",
+    "fused_short_attention": "stllm_fused_short_attention_f32",
+    "flash_attention_fwd": "stllm_flash_attention_fwd_f32",
+    "flash_attention_bwd_dq": "stllm_flash_attention_bwd_dq_f32",
+    "flash_attention_bwd_dkv": "stllm_flash_attention_bwd_dkv_f32",
+}
+# resident blocks an SM holds (cudaOccupancyMaxActiveBlocksPerMultiprocessor)
+_OCCUPANCY = {
+    "packed_qkv_attention": ("stllm_packed_qkv_attention_occupancy", [_I, _I]),
+    "flash_attention_fwd": ("stllm_flash_attention_fwd_occupancy", [_I]),
+}
+
 LAUNCHES: Dict[str, int] = {name: 0 for name in SOURCES}
 BUILD_LOG: Dict[str, str] = {}   # nvcc output (ptxas register/spill report)
 _LIBS: Dict[str, ctypes.CDLL] = {}
+_FNS: Dict[str, object] = {}
 
 _EXP2_CLAMP = 50.0
 _LOG2E = 1.4426950408889634
@@ -192,24 +213,28 @@ def build(names: Optional[Iterable[str]] = None) -> None:
         raise RuntimeError("kernel build failed: " + "\n".join(failed))
 
 
-def _entry(name: str):
-    """The kernel's C entry point, building and loading its library first."""
-    lib = _LIBS.get(name)
-    if lib is None:
-        build([name])
-        lib = ctypes.CDLL(str(_lib_path(name)))
-        symbol, argtypes = _ENTRY[name]
+def _symbol(name: str, symbol: str, argtypes):
+    """C function ``symbol`` of kernel ``name``'s library, building and
+    loading the library first."""
+    fn = _FNS.get(symbol)
+    if fn is None:
+        lib = _LIBS.get(name)
+        if lib is None:
+            build([name])
+            lib = _LIBS[name] = ctypes.CDLL(str(_lib_path(name)))
         fn = getattr(lib, symbol)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
-        _LIBS[name] = lib
-    return getattr(lib, _ENTRY[name][0])
+        _FNS[symbol] = fn
+    return fn
 
 
-def _launch(name: str, device: torch.device, *args) -> None:
-    """Launch kernel ``name`` on ``device``'s current stream (appended as the
-    last argument), raise on a refused launch, and count it."""
-    fn = _entry(name)
+def _launch(name: str, device: torch.device, *args, f32: bool = False) -> None:
+    """Launch kernel ``name`` (its fp32-io entry point with ``f32``) on
+    ``device``'s current stream (appended as the last argument), raise on a
+    refused launch, and count it."""
+    symbol, argtypes = _ENTRY[name]
+    fn = _symbol(name, _F32_SYMBOLS[name] if f32 else symbol, argtypes)
     with torch.cuda.device(device):
         err = fn(*args, torch.cuda.current_stream().cuda_stream)
     if err:
@@ -217,12 +242,21 @@ def _launch(name: str, device: torch.device, *args) -> None:
     LAUNCHES[name] += 1
 
 
-def _check_cuda(name: str, t: torch.Tensor, dtype: torch.dtype) -> None:
-    """The kernels take contiguous, 16-byte aligned CUDA tensors of one dtype."""
+def occupancy(name: str, *shape: int) -> int:
+    """Blocks of kernel ``name``'s bf16 instantiation one SM holds at once
+    at ``shape`` (packed_qkv_attention: S, D; flash_attention_fwd: D), by
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor on the current device."""
+    fn = _symbol(name, *_OCCUPANCY[name])
+    return int(fn(*shape))
+
+
+def _check_cuda(name: str, t: torch.Tensor, *dtypes: torch.dtype) -> None:
+    """The kernels take contiguous, 16-byte aligned CUDA tensors of one of
+    ``dtypes``."""
     if t.device.type != "cuda":
         raise ValueError(f"{name}: no kernel for {t.device}")
-    if t.dtype != dtype:
-        raise TypeError(f"{name} kernel takes {dtype}, got {t.dtype}")
+    if t.dtype not in dtypes:
+        raise TypeError(f"{name} kernel takes {' or '.join(map(str, dtypes))}, got {t.dtype}")
     if not t.is_contiguous() or t.data_ptr() % 16:
         raise ValueError(f"{name} kernel takes a contiguous, 16-byte aligned tensor")
 
@@ -241,16 +275,20 @@ def rowwise_quant_plain(y: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
 # qkv (#3)
 # ---------------------------------------------------------------------------
 
+PACKED_MAX_HEAD_DIM = 128   # widest head of #1 and #2 (csrc/packed_qkv_attention.cuh)
+S8_MAX_HEAD_DIM = 112       # widest head of #3 (its static shared-memory tiles)
+
+
 def _check_packed(name: str, qkv: torch.Tensor, heads: int, head_dim: int,
-                  dtype: torch.dtype) -> None:
-    _check_cuda(name, qkv, dtype)
+                  max_head_dim: int, *dtypes: torch.dtype) -> None:
+    _check_cuda(name, qkv, *dtypes)
     if qkv.dim() != 3:
         raise ValueError(f"{name} kernel takes a (B, S, 3*H*D) tensor")
     if qkv.shape[-1] != 3 * heads * head_dim:
         raise ValueError(f"qkv width {qkv.shape[-1]} != 3 * {heads} * {head_dim}")
-    if head_dim % 8 or head_dim > 112 or heads * head_dim > MAX_ROW:
+    if head_dim % 8 or head_dim > max_head_dim or heads * head_dim > MAX_ROW:
         raise ValueError(f"{name} kernel: head_dim {head_dim} must be a multiple of 8 "
-                         f"and at most 112, and H*D at most {MAX_ROW}")
+                         f"and at most {max_head_dim}, and H*D at most {MAX_ROW}")
 
 
 def _packed_rows_plain(qkv: torch.Tensor, heads: int, head_dim: int,
@@ -279,15 +317,17 @@ def packed_qkv_attention_plain(qkv: torch.Tensor, heads: int, head_dim: int,
 def packed_qkv_attention(qkv: torch.Tensor, heads: int, head_dim: int,
                          scale: float) -> torch.Tensor:
     """Non-causal attention on packed (B, S, 3*H*D) qkv -> (B, S, H*D).
-    CUDA: bf16, contiguous, head_dim a multiple of 8 and at most 112."""
+    CUDA: bf16 or fp32 (the fp32 instantiation), contiguous, head_dim a
+    multiple of 8 and at most 128."""
     if qkv.device.type == "cpu":
         return packed_qkv_attention_plain(qkv, heads, head_dim, scale)
-    _check_packed("packed_qkv_attention", qkv, heads, head_dim, torch.bfloat16)
+    _check_packed("packed_qkv_attention", qkv, heads, head_dim, PACKED_MAX_HEAD_DIM,
+                  torch.bfloat16, torch.float32)
     b, s, _ = qkv.shape
     out = torch.empty((b, s, heads * head_dim), dtype=qkv.dtype, device=qkv.device)
     if out.numel():
         _launch("packed_qkv_attention", qkv.device, qkv.data_ptr(), out.data_ptr(),
-                b, s, heads, head_dim, scale * _LOG2E)
+                b, s, heads, head_dim, scale * _LOG2E, f32=qkv.dtype == torch.float32)
     return out
 
 
@@ -306,7 +346,8 @@ def packed_qkv_attention_quant(qkv: torch.Tensor, heads: int, head_dim: int,
     quantizes them."""
     if qkv.device.type == "cpu":
         return packed_qkv_attention_quant_plain(qkv, heads, head_dim, scale)
-    _check_packed("packed_qkv_attention_quant", qkv, heads, head_dim, torch.bfloat16)
+    _check_packed("packed_qkv_attention_quant", qkv, heads, head_dim, PACKED_MAX_HEAD_DIM,
+                  torch.bfloat16, torch.float32)
     b, s, _ = qkv.shape
     hd = heads * head_dim
     out_q = torch.empty((b, s, hd), dtype=torch.int8, device=qkv.device)
@@ -315,7 +356,7 @@ def packed_qkv_attention_quant(qkv: torch.Tensor, heads: int, head_dim: int,
         scratch = torch.empty((b, s, hd), dtype=torch.float32, device=qkv.device)
         _launch("packed_qkv_attention_quant", qkv.device, qkv.data_ptr(),
                 scratch.data_ptr(), out_q.data_ptr(), out_s.data_ptr(), b, s, heads,
-                head_dim, scale * _LOG2E)
+                head_dim, scale * _LOG2E, f32=qkv.dtype == torch.float32)
     return out_q, out_s
 
 
@@ -348,7 +389,8 @@ def packed_qkv_attention_s8(qkv_q: torch.Tensor, scales: torch.Tensor, heads: in
     multiple of 8 and at most 112; the scales stay on the device."""
     if qkv_q.device.type == "cpu":
         return packed_qkv_attention_s8_plain(qkv_q, scales, heads, head_dim, scale)
-    _check_packed("packed_qkv_attention_s8", qkv_q, heads, head_dim, torch.int8)
+    _check_packed("packed_qkv_attention_s8", qkv_q, heads, head_dim, S8_MAX_HEAD_DIM,
+                  torch.int8)
     if (scales.device != qkv_q.device or scales.dtype != torch.float32
             or scales.numel() != 3 or not scales.is_contiguous()):
         raise ValueError("packed_qkv_attention_s8 kernel takes its 3 scales as a "
@@ -700,7 +742,8 @@ def _attn_args(name: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                kv_mask: Optional[torch.Tensor], d_out: Optional[torch.Tensor] = None):
     """Check the tensors of one training-attention launch and return
     (tensors the kernel can read in place, strides array, int32 mask or
-    None, (B, Sq, Sk, H, D)). bf16 only; a tensor whose head dimension is
+    None, (B, Sq, Sk, H, D)). bf16 (the tensor-core kernels) or fp32 (their
+    fp32 instantiations), one dtype for all; a tensor whose head dimension is
     not contiguous, or whose strides or address break the 16-byte loads, is
     copied to a contiguous one first."""
     b, sq, h, d = q.shape
@@ -719,9 +762,9 @@ def _attn_args(name: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     for t in (q, k, v) + (() if d_out is None else (d_out,)):
         if t.device != q.device or t.device.type != "cuda":
             raise ValueError(f"{name}: no kernel for {t.device}")
-        if t.dtype != torch.bfloat16:
-            raise TypeError(f"{name} kernel takes torch.bfloat16, got {t.dtype}; run the "
-                            "model in bf16 on the card")
+        if t.dtype not in (torch.bfloat16, torch.float32) or t.dtype != q.dtype:
+            raise TypeError(f"{name} kernel takes torch.bfloat16 or torch.float32, one "
+                            f"dtype for q, k, v and dO; got {t.dtype} beside q's {q.dtype}")
         if t.stride(-1) != 1 or any(st % 8 for st in t.stride()[:3]) or t.data_ptr() % 16:
             t = t.contiguous()
         ts.append(t)
@@ -744,15 +787,16 @@ def fused_short_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           kv_mask: Optional[torch.Tensor], causal: bool,
                           scale: float) -> torch.Tensor:
     """Single-pass attention for short sequences (#7): (B, Sq, H, D) out.
-    CUDA: bf16, head_dim a multiple of 8 up to 128, q, k, v read in place
-    through their strides."""
+    CUDA: bf16 or fp32, head_dim a multiple of 8 up to 128, q, k, v read in
+    place through their strides."""
     if q.device.type == "cpu":
         return fused_short_attention_plain(q, k, v, kv_mask, causal, scale)
     name = "fused_short_attention"
     (q, k, v), strides, mask, (b, sq, sk, h, d) = _attn_args(name, q, k, v, kv_mask)
     out = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
     _launch(name, q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(), strides,
-            _ptr(mask), out.data_ptr(), b, sq, sk, h, d, int(causal), scale)
+            _ptr(mask), out.data_ptr(), b, sq, sk, h, d, int(causal), scale,
+            f32=q.dtype == torch.float32)
     return out
 
 
@@ -768,7 +812,8 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     out = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
     _launch(name, q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(), strides,
-            _ptr(mask), out.data_ptr(), lse.data_ptr(), b, sq, sk, h, d, int(causal), scale)
+            _ptr(mask), out.data_ptr(), lse.data_ptr(), b, sq, sk, h, d, int(causal), scale,
+            f32=q.dtype == torch.float32)
     return out, lse
 
 
@@ -794,7 +839,7 @@ def flash_attention_bwd_dq(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     dq = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
     _launch(name, q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(), d_out.data_ptr(),
             strides, _ptr(mask), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
-            b, sq, sk, h, d, int(causal), scale)
+            b, sq, sk, h, d, int(causal), scale, f32=q.dtype == torch.float32)
     return dq
 
 
@@ -814,7 +859,7 @@ def flash_attention_bwd_dkv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     dv = torch.empty((b, sk, h, d), dtype=v.dtype, device=q.device)
     _launch(name, q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(), d_out.data_ptr(),
             strides, _ptr(mask), lse.data_ptr(), delta.data_ptr(), dk.data_ptr(),
-            dv.data_ptr(), b, sq, sk, h, d, int(causal), scale)
+            dv.data_ptr(), b, sq, sk, h, d, int(causal), scale, f32=q.dtype == torch.float32)
     return dk, dv
 
 
@@ -825,7 +870,7 @@ def flash_attention_bwd_dkv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 # converted from JAX) is copied to that layout per call, as _int8_dot does.
 # ---------------------------------------------------------------------------
 
-QMM_MAX_N = 1536         # widest output row #11 takes (its cp.async ring fills shared memory)
+QMM_MAX_N = 1536         # widest output row #11 takes in one pass; wider rows are staged
 
 
 def _column_major(name: str, w_q: torch.Tensor, k: int, device) -> torch.Tensor:
@@ -879,17 +924,20 @@ def qmm_res_ln(hq: torch.Tensor, hs: torch.Tensor, w_q: torch.Tensor, w_scale: t
     kernel: hq int8 (..., K), hs fp32 per row (..., 1) or one scalar, w_q
     int8 (K, N), w_scale and bias (N,), x_prev (..., N), gamma and beta (N,),
     out_scale one fp32 -> (x_new (..., N) in x_prev's dtype, yq int8
-    (..., N)). CUDA: K a multiple of 16, N a multiple of 128 and at most
-    1536, x_prev bf16 or fp32; the scales stay on the device."""
+    (..., N)). CUDA: N a multiple of 128, x_prev bf16 or fp32; the scales
+    stay on the device. One launch: a row up to QMM_MAX_N columns wide in one
+    pass, a wider one in chunks through an fp32 (M, N) scratch row this
+    allocates. A K that is not a multiple of 16 is padded with zero codes
+    (hq and the weight copied), which leaves the exact products alone."""
     if hq.device.type == "cpu":
         return qmm_res_ln_plain(hq, hs, w_q, w_scale, bias, x_prev, gamma, beta, out_scale, eps)
     name = "qmm_res_ln"
     dev = hq.device
     _check_cuda(name, hq, torch.int8)
     k, n = hq.shape[-1], w_q.shape[-1]
-    if k % 16 or n % 128 or n > QMM_MAX_N:
-        raise ValueError(f"{name} kernel: K ({k}) must be a multiple of 16, N ({n}) a multiple "
-                         f"of 128 and at most {QMM_MAX_N}")
+    if k <= 0 or n <= 0 or n % 128:
+        raise ValueError(f"{name} kernel: K ({k}) must be positive and N ({n}) a positive "
+                         "multiple of 128")
     if tuple(x_prev.shape) != tuple(hq.shape[:-1]) + (n,):
         raise ValueError(f"{name}: x_prev {tuple(x_prev.shape)} for hq {tuple(hq.shape)}, N {n}")
     if x_prev.dtype not in (torch.bfloat16, torch.float32):
@@ -897,6 +945,11 @@ def qmm_res_ln(hq: torch.Tensor, hs: torch.Tensor, w_q: torch.Tensor, w_scale: t
     _check_cuda(name, x_prev, x_prev.dtype)
     wt = _column_major(name, w_q, k, dev)
     m = hq.numel() // k
+    hq = hq.reshape(m, k)
+    if k % 16:
+        kp = -(-k // 16) * 16
+        hq = F.pad(hq, (0, kp - k))
+        wt = F.pad(wt, (0, kp - k))
     hs32 = hs.to(torch.float32).contiguous()
     if hs32.device != dev or hs32.numel() not in (1, m):
         raise ValueError(f"{name}: hs has {hs32.numel()} values on {hs32.device} for {m} "
@@ -907,10 +960,12 @@ def qmm_res_ln(hq: torch.Tensor, hs: torch.Tensor, w_q: torch.Tensor, w_scale: t
     x_new = torch.empty_like(x_prev)
     yq = torch.empty(x_prev.shape, dtype=torch.int8, device=dev)
     if m:
+        staged = (torch.empty((m, n), dtype=torch.float32, device=dev) if n > QMM_MAX_N
+                  else None)
         _launch(name, dev, hq.data_ptr(), hs32.data_ptr(), int(hs32.numel() > 1),
                 wt.data_ptr(), ws.data_ptr(), _ptr(bias), x_prev.data_ptr(), g.data_ptr(),
-                b.data_ptr(), os32.data_ptr(), x_new.data_ptr(), yq.data_ptr(), m, k, n, eps,
-                int(x_prev.dtype == torch.float32))
+                b.data_ptr(), os32.data_ptr(), x_new.data_ptr(), yq.data_ptr(), _ptr(staged),
+                m, hq.shape[-1], n, eps, int(x_prev.dtype == torch.float32))
     return x_new, yq
 
 

@@ -119,12 +119,13 @@ def test_gelu_quant_kernel_matches_plain(card, shape, approx):
 def test_packed_qkv_kernel_refuses_what_it_cannot_take(card):
     qkv = torch.zeros((1, 4, 3 * 2 * 88), device=card)
     with pytest.raises(TypeError):
-        kernels.packed_qkv_attention(qkv, 2, 88, 0.1)          # fp32
+        kernels.packed_qkv_attention(qkv.half(), 2, 88, 0.1)   # fp16
     with pytest.raises(ValueError):
         kernels.packed_qkv_attention(qkv.bfloat16()[:, ::2], 2, 88, 0.1)  # strided
-    with pytest.raises(ValueError):
-        kernels.packed_qkv_attention(torch.zeros((1, 4, 3 * 2 * 20), device=card,
-                                                 dtype=torch.bfloat16), 2, 20, 0.1)
+    for d in (20, 136):                                       # D % 8, D > 128
+        with pytest.raises(ValueError):
+            kernels.packed_qkv_attention(torch.zeros((1, 4, 3 * 2 * d), device=card,
+                                                     dtype=torch.bfloat16), 2, d, 0.1)
 
 
 @pytest.mark.parametrize("kernel", ["quant", "s8"])
@@ -137,8 +138,9 @@ def test_packed_int8_kernels_refuse_what_they_cannot_take(card, kernel):
             return kernels.packed_qkv_attention_quant(t, 2, d, 0.1)
         return kernels.packed_qkv_attention_s8(t, scales, 2, d, 0.1)
 
-    with pytest.raises(TypeError):
-        call(torch.zeros((1, 4, 3 * 2 * 88), device=card))               # fp32
+    with pytest.raises(TypeError):   # fp16; #3 takes int8 only
+        call(torch.zeros((1, 4, 3 * 2 * 88), device=card,
+                         dtype=torch.float16 if kernel == "quant" else torch.float32))
     with pytest.raises(ValueError):
         call(torch.zeros((1, 4, 6 * 2 * 88), device=card, dtype=dtype)[..., ::2])
     with pytest.raises(ValueError):
@@ -429,7 +431,7 @@ def test_packed_qkv_backward_on_the_card(card):
 def test_training_attention_kernels_refuse_what_they_cannot_take(card):
     q, k, v, kv_mask, g = _attn_inputs(card, 1, 64, 64, 2, 32)
     with pytest.raises(TypeError, match="bfloat16"):
-        kernels.fused_short_attention(q.float(), k.float(), v.float(), None, True, 0.1)
+        kernels.fused_short_attention(q.float(), k, v, None, True, 0.1)    # mixed dtypes
     with pytest.raises(TypeError, match="bfloat16"):
         kernels.flash_attention_fwd(q.half(), k.half(), v.half(), None, True, 0.1)
     with pytest.raises(ValueError):
@@ -479,14 +481,22 @@ def _res_ln_inputs(card, b, s, k, n, *, per_row, dtype=torch.bfloat16, layout="c
 
 # (B, S, K, N, per-row hs, x dtype, weight layout): the ViT-g proj and fc2
 # sites, the tiny model's shape in fp32, a row-major (converted) weight, a
-# short ragged K, and one N for each row width the kernel is built for
+# short ragged K, one N for each row width the kernel is built for, then the
+# rows wider than 1536 (staged in chunks: 2 x 1024, 3 x 1408, 6 x 1408 at
+# most) and K that are not multiples of 16 (padded with zero codes)
 RES_LN_CASES = [(16, 257, 1408, 1408, True, torch.bfloat16, "column"),
                 (16, 257, 6144, 1408, False, torch.bfloat16, "column"),
                 (2, 17, 384, 256, True, torch.float32, "column"),
                 (3, 37, 1408, 1408, True, torch.bfloat16, "row"),
                 (1, 5, 80, 128, False, torch.bfloat16, "column"),
                 (2, 9, 256, 640, True, torch.float32, "column"),
-                (1, 20, 256, 1536, False, torch.bfloat16, "column")]
+                (1, 20, 256, 1536, False, torch.bfloat16, "column"),
+                (4, 257, 1408, 2048, True, torch.bfloat16, "column"),
+                (2, 257, 1408, 3968, False, torch.bfloat16, "column"),
+                (2, 16, 1408, 8192, True, torch.bfloat16, "column"),
+                (2, 9, 512, 1664, True, torch.float32, "row"),
+                (3, 37, 1000, 1408, True, torch.bfloat16, "column"),
+                (1, 20, 40, 256, False, torch.bfloat16, "row")]
 
 
 @pytest.mark.parametrize("case", RES_LN_CASES,
@@ -527,11 +537,7 @@ def test_int8_gemm_kernels_refuse_what_they_cannot_take(card):
     with pytest.raises(TypeError):
         kernels.qmm_res_ln(*args[:5], args[5].half(), *args[6:])            # fp16 x_prev
     with pytest.raises(ValueError):
-        kernels.qmm_res_ln(*_res_ln_inputs(card, 1, 4, 40, 128, per_row=True))    # K % 16
-    with pytest.raises(ValueError):
         kernels.qmm_res_ln(*_res_ln_inputs(card, 1, 4, 64, 200, per_row=True))    # N % 128
-    with pytest.raises(ValueError):
-        kernels.qmm_res_ln(*_res_ln_inputs(card, 1, 4, 64, 1664, per_row=True))   # N > 1536
     x = torch.randn(2, 4, 64, device=card)
     w = torch.zeros((64, 16), device=card, dtype=torch.int8)
     ws = torch.ones(16, device=card)
@@ -541,3 +547,80 @@ def test_int8_gemm_kernels_refuse_what_they_cannot_take(card):
         kernels.quant_matmul_blockwise(x[..., :40].contiguous(), w[:40], ws, 40)   # K % 16
     with pytest.raises(ValueError):
         kernels.quant_matmul_blockwise(x, w, ws, 48)                       # bk does not divide K
+
+
+# ---------------------------------------------------------------------------
+# the fp32 instantiations of #1, #2 and #4-#7 (csrc/attention_f32.cuh): fp32
+# products on the CUDA cores, held to the fp32 plain versions within
+# atol = 1e-5 plus rtol = 1e-4 (the sums run in another order); #2's codes at
+# most one step apart with scales within the same tolerance.
+# ---------------------------------------------------------------------------
+
+F32_ATOL, F32_RTOL = 1e-5, 1e-4
+
+
+def _close_f32(got, want):
+    assert got.dtype == torch.float32 and got.shape == want.shape
+    torch.testing.assert_close(got, want, atol=F32_ATOL, rtol=F32_RTOL)
+
+
+@pytest.mark.parametrize("shape", [(2, 257, 4, 88), (8, 16, 4, 88), (2, 37, 3, 24),
+                                   (1, 40, 2, 128)])
+def test_packed_qkv_kernels_fp32_match_plain(card, shape):
+    b, s, h, d = shape
+    qkv = _qkv(card, b, s, h, d).float()
+    got = _counted("packed_qkv_attention",
+                   lambda: kernels.packed_qkv_attention(qkv, h, d, d ** -0.5))
+    _close_f32(got, kernels.packed_qkv_attention_plain(qkv, h, d, d ** -0.5))
+    (gq, gs) = _counted("packed_qkv_attention_quant",
+                        lambda: kernels.packed_qkv_attention_quant(qkv, h, d, d ** -0.5))
+    wq, ws = kernels.packed_qkv_attention_quant_plain(qkv, h, d, d ** -0.5)
+    assert gq.dtype == torch.int8 and int((gq.int() - wq.int()).abs().max()) <= 1
+    torch.testing.assert_close(gs, ws, atol=F32_ATOL, rtol=F32_RTOL)
+
+
+@pytest.mark.parametrize("causal,masked", [(False, False), (True, True), (False, True)])
+@pytest.mark.parametrize("shape", [(2, 100, 100, 2, 32), (2, 70, 130, 3, 64),
+                                   (1, 40, 40, 2, 128), (3, 17, 17, 2, 16)])
+def test_fused_short_kernel_fp32_matches_plain(card, shape, causal, masked):
+    b, sq, sk, h, d = shape
+    q, k, v, kv_mask, _ = (t.float() for t in _attn_inputs(card, b, sq, sk, h, d))
+    kv_mask = kv_mask.int() if masked else None
+    got = _counted("fused_short_attention",
+                   lambda: kernels.fused_short_attention(q, k, v, kv_mask, causal, d ** -0.5))
+    _close_f32(got, kernels.fused_short_attention_plain(q, k, v, kv_mask, causal, d ** -0.5))
+
+
+@pytest.mark.parametrize("causal,masked", [(False, False), (True, True), (True, False)])
+@pytest.mark.parametrize("shape", [(2, 100, 2, 32), (1, 130, 3, 88), (1, 64, 2, 128)])
+def test_flash_kernels_fp32_match_plain(card, shape, causal, masked):
+    b, s, h, d = shape
+    q, k, v, kv_mask, g = (t.float() for t in _attn_inputs(card, b, s, s, h, d, seed=5))
+    kv_mask = kv_mask.int() if masked else None
+    scale = d ** -0.5
+    out, lse = _counted("flash_attention_fwd",
+                        lambda: kernels.flash_attention_fwd(q, k, v, kv_mask, causal, scale))
+    want_out, want_lse = kernels.flash_attention_fwd_plain(q, k, v, kv_mask, causal, scale)
+    _close_f32(out, want_out)
+    _close_f32(lse, want_lse)
+    delta = (g * want_out).sum(-1).transpose(1, 2).contiguous()
+    dq = _counted("flash_attention_bwd_dq", lambda: kernels.flash_attention_bwd_dq(
+        q, k, v, kv_mask, g, want_lse, delta, causal, scale))
+    dk, dv = _counted("flash_attention_bwd_dkv", lambda: kernels.flash_attention_bwd_dkv(
+        q, k, v, kv_mask, g, want_lse, delta, causal, scale))
+    for got, want in zip((dq, dk, dv), kernels.flash_attention_bwd_plain(
+            q, k, v, kv_mask, g, want_lse, delta, causal, scale)):
+        _close_f32(got, want)
+
+
+def test_fp32_forward_rows_without_a_visible_key(card):
+    """fp32 as bf16: the flash forward gives 0 and lse = 1e30 for a row with
+    no visible key, the fused short forward averages v over every key."""
+    b, s, h, d = 2, 96, 2, 64
+    q, k, v, kv_mask, _ = (t.float() for t in _attn_inputs(card, b, s, s, h, d, seed=6))
+    kv_mask = kv_mask.int()
+    kv_mask[1] = 0
+    out, lse = kernels.flash_attention_fwd(q, k, v, kv_mask, True, 0.1)
+    assert bool((out[1] == 0).all()) and bool((lse[1] == kernels.LSE_MASKED).all())
+    got = kernels.fused_short_attention(q, k, v, kv_mask, True, 0.1)
+    _close_f32(got, kernels.fused_short_attention_plain(q, k, v, kv_mask, True, 0.1))
