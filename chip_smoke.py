@@ -15,7 +15,10 @@ toolkit. Phases, each fatal on failure:
    the port never calls) and the bound; for the two int8 GEMMs (#11 at the
    ViT-g proj and fc2 sites, #8 at its fc1 and fc2 shapes) the time of the
    port's own unfused chain that each replaces stands beside a null library
-   time;
+   time; #12's wgmma prefill form (M = 576 and 640) and #11's cluster form
+   are timed beside the design each replaced (the tile loop, the 16-row
+   kernel; both kept in the same libraries), in the order parent, new, new,
+   parent;
 3. slice  - the QA config (config/instructblipbase_stllm_qa.yaml: EVA-ViT-g +
    BTAdapter, InstructBLIP Q-Former, Vicuna-7B, bf16, 16 frames, video_input
    all) at full width with random weights from a seed, served by
@@ -35,7 +38,8 @@ toolkit. Phases, each fatal on failure:
    Q-Former bf16, and Vicuna-7B converted by quantize_llama_params_int4
    (per-channel int4, q|k|v and gate|up fused, int8 lm_head), serves the
    same 6 requests from an int8 KV cache: 42 static-int8 attention launches
-   per video and exactly 128 W4A16 launches per LLaMA forward; a tiny bf16
+   per video and exactly 128 W4A16 launches per LLaMA forward (prefill on
+   the wgmma form, decode on the tile loop); a tiny bf16
    W4A16 + int8-KV LLaMA must give the same prefill logits on the card and
    on the CPU;
 6. pipeline - the stack of script/bench_pipeline_serving.py under
@@ -46,7 +50,8 @@ toolkit. Phases, each fatal on failure:
    quant-epilogue attention launches), with the W4A16 phase's Q-Former and
    fused int4 Vicuna-7B, serves 6 requests (64 prefix, 32 suffix and 16
    question ids, 16 greedy tokens, no stop; slots 4, chunk 8, max_len 768):
-   per video exactly 77 launches of #11 and 39 static-int8 attentions and
+   per video exactly 77 launches of #11 (all on its cluster form) and 39
+   static-int8 attentions and
    nothing dynamic, 128 W4A16 launches per LLaMA forward; then one clip's
    trunk under STLLM_FUSED_LN off, "proj", "fc2" and "both" (0, 39, 38 and 77
    launches of #11), each fused trunk no farther from the unfused one than
@@ -150,6 +155,7 @@ STATIC_PER_VIDEO = {"layer_norm_quant": 0, "gelu_quant": 0, "packed_qkv_attentio
                     "packed_qkv_attention": 0, "packed_qkv_attention_s8": 42}
 PROBES = ("w4v3_matmul", "w8p_matmul", "w4_unpack_matmul")   # launched by their checks only
 W4A16_LAUNCHES_PER_FORWARD = 4 * 32   # fused qkv, o, fused gate|up, down in 32 layers
+W4_ROWS = (4, 576, 640)    # #12's rows: decode (4 slots), the QA and the pipeline prompts
 # Vicuna-7B decoder shapes (K, N, packed rows of K-padding) of the W4A16 stack
 W4_SHAPES = {"qkv": (4096, 12288, 0), "o": (4096, 4096, 0), "gateup": (4096, 22016, 0),
              "down": (11008, 4096, 128)}
@@ -341,6 +347,25 @@ def _check_kernel(name: str, cases, kernel, plain, err_fn, library=None,
     return rows
 
 
+def _vs_parent(row: dict, kernel, parent, bufs, err_fn, plain, iters: int = 40) -> None:
+    """Time the design a redesigned kernel replaced (``parent``, its form
+    kept in the same library) beside the kernel on the same four input
+    copies, in the order parent, kernel, kernel, parent: ``parent_ms`` and
+    ``ms_again`` are the means of each pair. The parent is held to the
+    plain version too."""
+    err_fn(parent(*bufs[0]), plain(*bufs[0]))
+    it = iter(range(1 << 30))
+
+    def timed(fn):
+        return graph_ms(lambda: fn(*bufs[next(it) % len(bufs)]), iters)
+
+    p1, n1, n2, p2 = timed(parent), timed(kernel), timed(kernel), timed(parent)
+    row["parent_ms"] = (p1 + p2) / 2
+    row["ms_again"] = (n1 + n2) / 2
+    print(f"[kernels]   {row['shape']}: parent design {row['parent_ms']:.4f} ms, this one "
+          f"{row['ms_again']:.4f} ms (parent, new, new, parent)")
+
+
 def _entry(name, source, replaces, rows, atol, rtol) -> dict:
     head = rows[0]
     return {"name": name, "route": "cuda", "source": f"stllm_tpu_torch/csrc/{source}",
@@ -483,11 +508,12 @@ def _ws_bound(m: int, k: int, n: int, w_bytes: int, out_bytes: int, scaled: bool
 
 
 def _weight_stream_kernels(kernels, gen) -> dict:
-    """W4A16 (#12) at the stack's decode (M = 4 slots) and prefill (M = 576)
-    shapes, and the probes #13-#15 at theirs. No single PyTorch call
-    computes these functions on this storage, so library_ms is null; #12's
-    rows add the time of torch.matmul on the dense bf16 weight of the same
-    shape, as context."""
+    """W4A16 (#12) at the stack's decode (M = 4 slots) and prefill (M = 576,
+    the QA prompt; 640, the pipeline prompt) shapes, and the probes #13-#15
+    at theirs. No single PyTorch call computes these functions on this
+    storage, so library_ms is null; #12's rows add the time of torch.matmul
+    on the dense bf16 weight of the same shape, as context, and at prefill
+    the time of the tile loop the wgmma form replaced (parent_ms)."""
     out = {}
 
     def codes(shape):
@@ -497,7 +523,7 @@ def _weight_stream_kernels(kernels, gen) -> dict:
         return ((0.02 * 3 / 7) * (0.5 + torch.rand(n, generator=gen, device="cuda"))).contiguous()
 
     cases, dense = [], {}
-    for m in (4, 576):
+    for m in W4_ROWS:
         for label, (k, n, pad) in W4_SHAPES.items():
             bufs = []
             for _ in range(4):
@@ -511,18 +537,28 @@ def _weight_stream_kernels(kernels, gen) -> dict:
             cases.append(([label, m, k, n, pad], bufs, *_ws_bound(m, k, n, k // 2 * n, 2)))
     rows = _check_kernel("w4a16_matmul", cases, kernels.w4a16_matmul,
                          kernels.w4a16_matmul_plain, _ws_err)
-    for row in rows:
-        row["dense_bf16_matmul_ms"] = dense[(row["shape"][0], row["shape"][1])]
-        row["splits"] = kernels.weight_stream_splits(row["shape"][1], row["shape"][3],
-                                                     row["shape"][2] // 2)
+    for row, (_, bufs, *_) in zip(rows, cases):
+        m = row["shape"][1]
+        row["dense_bf16_matmul_ms"] = dense[(row["shape"][0], m)]
+        row["form"] = kernels.w4a16_form(m)
+        if row["form"] == "wgmma":
+            _vs_parent(row, kernels.w4a16_matmul,
+                       lambda x, p, s_: kernels._w4a16_matmul(x, p, s_, "stream"), bufs, _ws_err,
+                       kernels.w4a16_matmul_plain)
+        else:
+            row["splits"] = kernels.weight_stream_splits(m, row["shape"][3], row["shape"][2] // 2)
     out["w4a16_matmul"] = _entry("w4a16_matmul", "w4a16_matmul.cu",
                                  "stllm_tpu/ops/quant.py:639", rows, WS_ATOL, WS_RTOL)
-    for m in (4, 576):
-        dec = [r for r in rows if r["shape"][1] == m]
-        print(f"[kernels] w4a16_matmul M={m}: {sum(r['ms'] for r in dec):.4f} ms for the four "
-              f"shapes (bound {sum(r['bound_ms'] for r in dec):.4f} ms), x32 layers "
-              f"{32 * sum(r['ms'] for r in dec):.3f} ms; dense bf16 torch.matmul "
-              f"{sum(r['dense_bf16_matmul_ms'] for r in dec):.4f} ms")
+    totals = {}
+    for m in W4_ROWS:
+        sel = [r for r in rows if r["shape"][1] == m]
+        totals[m] = {k: 32 * sum(r[k] for r in sel)
+                     for k in ("ms", "bound_ms", "plain_ms", "dense_bf16_matmul_ms",
+                               "parent_ms") if all(k in r for r in sel)}
+        print(f"[kernels] w4a16_matmul M={m}, the four shapes x 32 layers: "
+              f"{json.dumps(totals[m])}")
+    out["w4a16_matmul"]["per_forward_32_layers"] = totals
+    out["w4a16_matmul"]["parent_ms"] = None   # the head row is decode: one form
     del cases
 
     # #13 arithmetic-packed W4A16 and #14 int8 streaming at the probe's M = 1
@@ -635,11 +671,18 @@ def _int8_gemm_kernels(kernels, gen) -> dict:
             chains[label] = graph_ms(lambda: chain(*bufs[0]), 20)
     rows = _check_kernel("qmm_res_ln", cases, kernels.qmm_res_ln, kernels.qmm_res_ln_plain,
                          _res_ln_err)
-    for row in rows:
+    for row, (_, bufs, *_) in zip(rows, cases):
         row["unfused_chain_ms"] = chains.get(row["shape"][0])
+        _, b, s, k, n, _ = row["shape"]
+        row["form"] = kernels.qmm_res_ln_form(b * s, n, torch.bfloat16)
+        if row["form"] == "cluster":
+            _vs_parent(row, kernels.qmm_res_ln,
+                       lambda *a: kernels._qmm_res_ln(*a, "rows"), bufs, _res_ln_err,
+                       kernels.qmm_res_ln_plain, iters=20)
     out["qmm_res_ln"] = _entry("qmm_res_ln", "qmm_res_ln.cu", "stllm_tpu/ops/quant.py:423",
                                rows, BF16_ATOL, BF16_RTOL)
     out["qmm_res_ln"]["unfused_chain_ms"] = rows[0]["unfused_chain_ms"]
+    out["qmm_res_ln"]["parent_ms"] = rows[0].get("parent_ms")
     del cases
 
     cases, chains = [], {}
@@ -809,10 +852,20 @@ def _train_attention_kernels(kernels, gen, packed_entry) -> dict:
     out["flash_attention_bwd_dkv"] = _entry(
         "flash_attention_bwd_dkv", "flash_attention_bwd_dkv.cu",
         "stllm_tpu/ops/attention.py:257", rows, BF16_ATOL, BF16_RTOL)
+    # no single PyTorch call computes dq alone or dk, dv alone: library_ms is
+    # null for each, and SDPA's whole backward stands beside the pair
+    pair = out["flash_attention_bwd_dq"]["ms"] + out["flash_attention_bwd_dkv"]["ms"]
     for name in ("flash_attention_bwd_dq", "flash_attention_bwd_dkv"):
-        out[name]["library_is"] = ("SDPA backward through autograd: dq, dk and dv together, "
-                                   "launched one by one (host time included)")
-        out[name]["plain_is"] = "the whole plain backward: dq, dk and dv together"
+        entry = out[name]
+        for row in entry["per_shape"]:
+            row["sdpa_whole_backward_ms"] = row.pop("library_ms")
+            row["library_ms"] = None
+        entry["library_ms"] = None
+        entry["sdpa_whole_backward_ms"] = entry["per_shape"][0]["sdpa_whole_backward_ms"]
+        entry["sdpa_whole_backward_is"] = ("SDPA backward through autograd: dq, dk and dv "
+                                           "together, launched one by one (host time included)")
+        entry["pair_ms"] = pair
+        entry["plain_is"] = "the whole plain backward: dq, dk and dv together"
     del graphs
 
     # the packed kernel's backward: the vjp of the plain-softmax reference
@@ -1076,6 +1129,7 @@ def serve(kernels, params, cfg, reqs, label: str, gen=None, **server) -> dict:
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = dict(kernels.LAUNCHES)
+    form_launches = dict(kernels.FORM_LAUNCHES)
     forwards = FORWARD_CALLS[0]
 
     if set(answers) != {r[0] for r in reqs}:
@@ -1114,7 +1168,7 @@ def serve(kernels, params, cfg, reqs, label: str, gen=None, **server) -> dict:
            "prefill_ms": prefill_ms, "decode_ms_per_token": decode_ms_step,
            "decode_slots": b.slots,
            "max_memory_allocated_gib": torch.cuda.max_memory_allocated() / 2**30,
-           "launches": launches, "llama_forwards": forwards,
+           "launches": launches, "form_launches": form_launches, "llama_forwards": forwards,
            "launches_per_video": {k: v / NUM_REQUESTS for k, v in launches.items()},
            "kv_cache": {"dtype": str(b.cache.k[0].dtype).replace("torch.", ""),
                         "scales": b.cache.k_scale is not None},
@@ -1139,6 +1193,16 @@ def count_forwards() -> None:
         return real(*args, **kw)
 
     generation.llama_forward = counted
+
+
+def _expect_w4_forms(label: str, out: dict) -> None:
+    """Every prefill forward ran #12's wgmma form (4 x 32 launches each),
+    every decode step the tile loop."""
+    forms = out["form_launches"]
+    wgmma, stream = forms["w4a16_matmul/wgmma"], forms["w4a16_matmul/stream"]
+    if not wgmma or wgmma % W4A16_LAUNCHES_PER_FORWARD or stream % W4A16_LAUNCHES_PER_FORWARD \
+            or wgmma + stream != out["launches"]["w4a16_matmul"]:
+        raise AssertionError(f"[{label}] W4A16 launches by form {forms}")
 
 
 def _expect(label: str, launches: dict, want: dict, per: int) -> None:
@@ -1295,6 +1359,7 @@ def phase_w4a16(kernels) -> dict:
     if not forwards or w4 != W4A16_LAUNCHES_PER_FORWARD * forwards:
         raise AssertionError(f"[w4a16] {w4} W4A16 launches over {forwards} LLaMA forwards, "
                              f"want {W4A16_LAUNCHES_PER_FORWARD} each")
+    _expect_w4_forms("w4a16", out)
     if out["kv_cache"] != {"dtype": "int8", "scales": True}:
         raise AssertionError(f"[w4a16] KV cache {out['kv_cache']}, want int8 with scales")
     print(f"[w4a16] encode {out['encode_ms_per_video']:.2f} ms/video, prefill "
@@ -1409,6 +1474,10 @@ def phase_pipeline(kernels, w4_params, w4_cfg) -> dict:
         if not forwards or w4 != W4A16_LAUNCHES_PER_FORWARD * forwards:
             raise AssertionError(f"[pipeline] {w4} W4A16 launches over {forwards} LLaMA "
                                  f"forwards, want {W4A16_LAUNCHES_PER_FORWARD} each")
+        _expect_w4_forms("pipeline", out)
+        if out["form_launches"]["qmm_res_ln/cluster"] != out["launches"]["qmm_res_ln"]:
+            raise AssertionError(f"[pipeline] #11 launches by form {out['form_launches']}: the "
+                                 "ViT-g sites must take the cluster form")
         if set(out["tokens_per_request"].values()) != {PIPE_ANSWER}:
             raise AssertionError(f"[pipeline] tokens per request {out['tokens_per_request']}, "
                                  f"want {PIPE_ANSWER} each")
@@ -1712,6 +1781,9 @@ def main() -> int:
         entry["launches_by_path"]["pipeline-calibration"] = pipeline["calibration_launches"][name]
         entry["launches_per_train_step"] = {t["mode"]: t["launches"][name] / t["steps"]
                                             for t in (short, long_)}
+        if name in kernels.FORMS:
+            entry["form_launches"] = {k: v for k, v in path_of[name]["form_launches"].items()
+                                      if k.startswith(name + "/")}
     print(json.dumps({"kernels": list(entries.values())}))
     print(smi_line())
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -1,13 +1,19 @@
 #!/usr/bin/env python3
-"""Blocks per SM of the packed-qkv attention (#1) and the flash forward (#4)
-on the current CUDA card, by cudaOccupancyMaxActiveBlocksPerMultiprocessor.
+"""Blocks per SM of the packed-qkv attention (#1), the flash forward (#4),
+both forms of the W4A16 matmul (#12: the wgmma prefill form, the tile loop
+at 64 and 16 rows) and both forms of the fused
+LayerNorm int8 GEMM (#11 at the ViT-g width N = 1408, M = 16 x 257: the
+cluster form's blocks per SM and the clusters of 8 the card holds at once,
+the 16-row kernel's blocks per SM) on the current CUDA card, by
+cudaOccupancyMaxActiveBlocksPerMultiprocessor and
+cudaOccupancyMaxActiveClusters.
 
     python3 script/kernel_occupancy.py                  # this tree's kernels
     python3 script/kernel_occupancy.py --csrc OTHER/stllm_tpu_torch/csrc
 
 Without ``--csrc`` it asks the kernels' own entry points (#1 at the ViT-g
 trunk shape S = 257 and the BTAdapter temporal S = 16, D = 88; #4 at
-D = 128). With ``--csrc`` it builds a small shim against another tree's
+D = 128; #12 and #11 as above). With ``--csrc`` it builds a small shim against another tree's
 headers of the earlier design (``packed_qkv_attention_kernel<96>`` with 128
 threads and static shared memory, ``flash::flash_fwd_kernel<128, false>``
 with its dynamic shared memory), so the two designs can be read side by side
@@ -66,9 +72,18 @@ def earlier_design(csrc: Path) -> dict:
 def this_design() -> dict:
     from stllm_tpu_torch.ops import kernels
 
+    m, n = 16 * 257, 1408
     return {"packed_qkv_attention": {f"S={s}": kernels.occupancy("packed_qkv_attention", s, 88)
                                      for s in (257, 16)},
-            "flash_attention_fwd": kernels.occupancy("flash_attention_fwd", 128)}
+            "flash_attention_fwd": kernels.occupancy("flash_attention_fwd", 128),
+            "w4a16_matmul": {"wgmma": kernels.occupancy("w4a16_matmul", 1, 0),
+                             "tile loop BM=64": kernels.occupancy("w4a16_matmul", 0, 64),
+                             "tile loop BM=16": kernels.occupancy("w4a16_matmul", 0, 16)},
+            "qmm_res_ln": {"cluster, blocks per SM": kernels.occupancy("qmm_res_ln", 1, 0, m, n),
+                           "cluster, clusters on the card":
+                               kernels.occupancy("qmm_res_ln", 1, 1, m, n),
+                           "16-row kernel, blocks per SM":
+                               kernels.occupancy("qmm_res_ln", 0, 0, m, n)}}
 
 
 def main() -> int:

@@ -57,12 +57,12 @@ sys.path.insert(0, str(REPO))
 
 GEMM_MARKS = ("gemm", "nvjet", "cutlass", "xmma", "matmul")
 ATTN_MARKS = ("packed_qkv_attention_kernel", "packed_qkv_s8_kernel")
-W4_MARKS = ("weight_stream_kernel", "splitk_reduce_kernel")
+W4_MARKS = ("weight_stream_kernel", "splitk_reduce_kernel", "w4_prefill_kernel")
 # kernels reported on their own: the training attention (the forward kernel is
 # #7 at the short tier, #4 at the long) and #11, the int8 matmul with the
-# epilogue-carried LayerNorm
+# epilogue-carried LayerNorm (its 16-row, wide-row and cluster kernels)
 KERNEL_MARKS = {"attention_fwd_ms": "flash_fwd_kernel", "flash_bwd_dq_ms": "flash_bwd_dq_kernel",
-                "flash_bwd_dkv_ms": "flash_bwd_dkv_kernel", "qmm_res_ln_ms": "qmm_res_ln_kernel"}
+                "flash_bwd_dkv_ms": "flash_bwd_dkv_kernel", "qmm_res_ln_ms": "qmm_res_ln_"}
 SETTINGS = (False, "proj", "fc2", "both")     # STLLM_FUSED_LN off, and its three sites
 
 

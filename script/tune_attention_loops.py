@@ -104,7 +104,9 @@ def use_library(name: str, lib: Path) -> None:
 
     kernels._LIBS[name] = ctypes.CDLL(str(lib))
     for symbol in [kernels._ENTRY[name][0], kernels._F32_SYMBOLS.get(name),
-                   kernels._OCCUPANCY.get(name, (None,))[0]]:
+                   kernels._OCCUPANCY.get(name, (None,))[0],
+                   *(sym for (kernel, _), (sym, _) in kernels._FORM_ENTRY.items()
+                     if kernel == name)]:
         kernels._FNS.pop(symbol, None)
 
 

@@ -1,7 +1,12 @@
 """JAX parameter pytree -> the port's tensors under the same key paths.
 
 The port keeps the reference's tree layout (linear ``w`` is (in, out), the
-same dict and list nesting), so conversion is a copy by key path. The same
+same dict and list nesting), so conversion is a copy by key path. One
+layout differs: a 2-D int8 ``w_q`` leaf (the (K, N) codes of an int8
+linear) is stored column-major, as the port's own ``quantize_weights``
+stores it, with the same values, shape and dtype: the int8 products on the
+card (``torch._int_mm``, kernels #8 and #11) read it in that layout without
+a copy per call. The same
 rule carries a gradient tree or a ``TrainState``'s two partitions across:
 the reference marks a leaf that lives in the other partition with a sentinel
 object, which converts to None here.
@@ -35,14 +40,17 @@ def load_jax_params(tree: Any, device=None) -> Any:
     Default device: the CUDA card."""
     dev = resolve_device(device)
 
-    def conv(x):
+    def conv(x, key=None):
         if x is None or not (isinstance(x, (dict, list, tuple)) or hasattr(x, "shape")):
             return None   # None, or the reference's "absent from this partition" sentinel
         if isinstance(x, dict):
-            return {k: conv(v) for k, v in x.items()}
+            return {k: conv(v, k) for k, v in x.items()}
         if isinstance(x, (list, tuple)):
             return type(x)(conv(v) for v in x)
-        return _to_tensor(x, dev)
+        t = _to_tensor(x, dev)
+        if key == "w_q" and t.dim() == 2 and t.dtype == torch.int8:
+            t = t.t().contiguous().t()   # column-major (K, N): stride(0) == 1
+        return t
 
     return conv(tree)
 

@@ -44,9 +44,33 @@
 // wrapper allocates (M x N, at most 4 MiB a sample by the dispatch rule),
 // and takes the mean, the centred variance and the codes from it afterwards.
 // The 1408-wide ViT-g sites never take it.
+//
+// The cluster form (qmm_res_ln_cluster_kernel), which the ViT-g sites take
+// (ops/kernels.py:qmm_res_ln_form: N = 8 x 128, 8 x 176 or 8 x 256). The
+// 16-row blocks above each read the whole weight, from L2 after the first,
+// about 2.2 GB of L2 traffic at fc2 over 257 blocks, and run mma.sync. Here
+// a cluster of 8 CTAs owns 128 rows and each CTA a 1/8 slice of N (176
+// columns at N = 1408), so a CTA reads only its slice of the weight and
+// each weight byte crosses L2 once per 128 rows. Per 128-byte step of K a
+// producer warp loads the CTA's (slice, 128) weight tile by TMA and 16 of
+// the 128 hq rows by TMA multicast to all 8 CTAs, so each hq tile crosses
+// L2 once per cluster; both operands are K-major as the s8 wgmma requires
+// (hq (M, K) row-major, the weight (N, K) row-major, the layout
+// quantize_weights stores), in the 128-byte swizzle, through a 4-stage ring
+// whose full mbarriers count the bytes and whose empty mbarriers count the
+// 16 consumer warpgroups of the cluster (remote arrives). Two consumer
+// warpgroups each run m64nSk32 s8 wgmmas (S = the slice) into s32
+// accumulators: 64 rows by S columns. At the k-exit each thread makes
+// y, xn and x_new for its columns as the kernel above does; the row sums of
+// each CTA's slice reduce over the quad and land in shared memory, every
+// CTA reads the 8 partials of its rows through distributed shared memory
+// (mapa, in rank order, so all 8 get the same mean) after a cluster
+// barrier, then the same for the centred sum of squares, then the codes.
+// One launch (cudaLaunchKernelEx with the cluster dimension).
 
 #include <cuda_bf16.h>
 
+#include "hopper.cuh"
 #include "s8_matmul.cuh"
 
 namespace {
@@ -418,6 +442,320 @@ cudaError_t launch(const void* hq, const float* hs, int hs_step, const void* w, 
   return cudaGetLastError();
 }
 
+
+// --------------------------------------------------------------------------
+// the cluster form
+// --------------------------------------------------------------------------
+
+namespace cl {
+
+using namespace stllm::hopper;
+
+constexpr int kC = 8;                 // CTAs a cluster, along N
+constexpr int kBM = 128;              // rows a cluster owns
+constexpr int kConsumers = kBM / 64;  // warpgroups, 64 rows each
+constexpr int kBK = 128;              // K bytes a stage: one swizzle span
+constexpr int kStages = 4;
+constexpr int kBlocksPerSM = 1;
+constexpr int kPiece = kBM / kC;      // hq rows each CTA multicasts
+constexpr int kProducerWarp = 4 * kConsumers;
+constexpr int kThreads = kConsumers * 128 + 32;
+
+template <int S>
+struct Layout {
+  static constexpr int kABytes = kBM * kBK;           // the hq tile
+  static constexpr int kBBytes = S * kBK;             // the weight slice's tile
+  static constexpr int kStage = kABytes + kBBytes;    // a 1024-byte multiple
+  static constexpr size_t kSmem =
+      1024 + static_cast<size_t>(kStages) * kStage + 2 * kStages * sizeof(uint64_t);
+};
+
+template <int S>
+__device__ __forceinline__ void wgmma_s8(int (&acc)[S / 2], uint64_t da, uint64_t db) {
+  if constexpr (S == 128) {
+    wgmma_m64n128k32_s8(acc, da, db);
+  } else if constexpr (S == 176) {
+    wgmma_m64n176k32_s8(acc, da, db);
+  } else {
+    wgmma_m64n256k32_s8(acc, da, db);
+  }
+}
+
+// S: the columns of each CTA's slice, N / 8.
+template <int S>
+__global__ void __launch_bounds__(kThreads, kBlocksPerSM)
+qmm_res_ln_cluster_kernel(const __grid_constant__ CUtensorMap hq_map,
+                          const __grid_constant__ CUtensorMap w_map, const float* __restrict__ hs,
+                          int hs_step, const float* __restrict__ ws,
+                          const float* __restrict__ bias, const void* __restrict__ x_prev,
+                          const float* __restrict__ gamma, const float* __restrict__ beta,
+                          const float* __restrict__ out_scale, void* __restrict__ x_new,
+                          int8_t* __restrict__ yq, int M, int K, int N, float eps, int io_f32) {
+  using L = Layout<S>;
+  extern __shared__ unsigned char smem_raw[];
+  __shared__ float red_sum[kBM], red_sq[kBM];
+  __shared__ float v_ws[S], v_bias[S], v_gamma[S], v_beta[S];   // this slice's columns
+  unsigned char* base = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  uint64_t* full = reinterpret_cast<uint64_t*>(base + kStages * L::kStage);
+  uint64_t* empty = full + kStages;
+
+  const uint32_t rank = cluster_rank();
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int m0 = blockIdx.y * kBM;
+  const int steps = (K + kBK - 1) / kBK;
+  const bool consumer = warp < kProducerWarp;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&full[s], 1);                   // the producer's expect_tx
+      mbar_init(&empty[s], kConsumers * kC);    // every consumer warpgroup of the cluster
+    }
+    mbar_init_fence();
+  }
+  for (int i = threadIdx.x; i < S; i += kThreads) {
+    const int c = static_cast<int>(rank) * S + i;
+    v_ws[i] = ws[c];
+    v_bias[i] = bias ? bias[c] : 0.0f;
+    v_gamma[i] = gamma[c];
+    v_beta[i] = beta[c];
+  }
+  cluster_sync();                               // the cluster's barriers and vectors ready
+
+  // consumer warpgroup wg owns rows [64 wg, 64 wg + 64); lane (g, t) of warp
+  // w holds rows 16 w + g and + 8, columns 8 j + 2 t and + 1 of the slice
+  const int wg = warp >> 2;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  const int la = wg * 64 + (warp & 3) * 16 + g;
+  const int lb = la + 8;
+  const int ra = m0 + la;
+  const int rb = m0 + lb;
+  const bool va = consumer && ra < M;
+  const bool vb = consumer && rb < M;
+  int acc[S / 2];
+#pragma unroll
+  for (int i = 0; i < S / 2; ++i) acc[i] = 0;
+
+  if (warp == kProducerWarp) {
+    // the whole warp walks the ring and lane 0 issues the copies: a warp
+    // whose lanes split between this loop and the cluster barriers below
+    // would run those .aligned barriers diverged
+    int stage = 0;
+    uint32_t phase = 0;
+    for (int s = 0; s < steps; ++s) {
+      mbar_wait(&empty[stage], phase ^ 1);      // a fresh barrier passes at once
+      if (lane == 0) {
+        unsigned char* dst = base + stage * L::kStage;
+        mbar_arrive_expect_tx(&full[stage], L::kStage);
+        tma_load_2d_multicast(dst + rank * kPiece * kBK, &hq_map, &full[stage],
+                              static_cast<uint16_t>((1u << kC) - 1), s * kBK,
+                              m0 + static_cast<int>(rank) * kPiece);
+        tma_load_2d(dst + L::kABytes, &w_map, &full[stage], s * kBK, static_cast<int>(rank) * S);
+      }
+      __syncwarp();
+      if (++stage == kStages) {
+        stage = 0;
+        phase ^= 1;
+      }
+    }
+  } else {
+    int stage = 0, prev = -1;
+    uint32_t phase = 0;
+    for (int s = 0; s < steps; ++s) {
+      mbar_wait(&full[stage], phase);
+      const unsigned char* src = base + stage * L::kStage;
+      const uint64_t da = desc_k_sw128(src + wg * 64 * kBK);
+      const uint64_t db = desc_k_sw128(src + L::kABytes);
+      wgmma_fence();
+#pragma unroll
+      for (int j = 0; j < kBK / 32; ++j) wgmma_s8<S>(acc, da + 2 * j, db + 2 * j);
+      wgmma_commit();
+      wgmma_wait<1>();                          // the previous stage's products are done
+      if (prev >= 0 && (threadIdx.x & 127) == 0) {
+        for (int r = 0; r < kC; ++r) mbar_arrive_cluster(&empty[prev], r);
+      }
+      __syncwarp();
+      prev = stage;
+      if (++stage == kStages) {
+        stage = 0;
+        phase ^= 1;
+      }
+    }
+    wgmma_wait<0>();
+    fence_regs(acc);
+  }
+
+  // k-exit: y, the residual add and x_new; this slice's row sums. x_prev
+  // is read 8 n8-tiles at a time, all 16 loads in flight before the first
+  // store, and the per-column vectors come from shared memory.
+  constexpr int kTiles = S / 8;                          // n8-tiles of the slice
+  constexpr int kGroup = 8;
+  const int c0 = static_cast<int>(rank) * S + 2 * t;     // this thread's first column
+  const float ha = va ? hs[static_cast<long long>(ra) * hs_step] : 0.0f;
+  const float hb = vb ? hs[static_cast<long long>(rb) * hs_step] : 0.0f;
+  const long long oa = static_cast<long long>(ra) * N;
+  const long long ob = static_cast<long long>(rb) * N;
+  float v[kTiles][4];
+  if (consumer) {
+    float sa = 0.0f, sb = 0.0f;
+#pragma unroll
+    for (int j0 = 0; j0 < kTiles; j0 += kGroup) {
+      float2 xa[kGroup], xb[kGroup];
+#pragma unroll
+      for (int i = 0; i < kGroup && j0 + i < kTiles; ++i) {
+        const int c = c0 + 8 * (j0 + i);
+        xa[i] = va ? load_pair(x_prev, oa + c, io_f32) : make_float2(0.0f, 0.0f);
+        xb[i] = vb ? load_pair(x_prev, ob + c, io_f32) : make_float2(0.0f, 0.0f);
+      }
+#pragma unroll
+      for (int i = 0; i < kGroup && j0 + i < kTiles; ++i) {
+        const int j = j0 + i;
+        const float x[4] = {xa[i].x, xa[i].y, xb[i].x, xb[i].y};
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int lc = 8 * j + 2 * t + (e & 1);        // column within the slice
+          const float h = e < 2 ? ha : hb;
+          // xn = x_prev + ((acc * hs) * ws + bias), each step rounded on its own
+          v[j][e] = __fadd_rn(x[e], __fadd_rn(__fmul_rn(__fmul_rn(__int2float_rn(acc[4 * j + e]),
+                                                                  h), v_ws[lc]), v_bias[lc]));
+        }
+        const int c = c0 + 8 * j;
+        if (va) store_pair(x_new, oa + c, v[j][0], v[j][1], io_f32);
+        if (vb) store_pair(x_new, ob + c, v[j][2], v[j][3], io_f32);
+        sa += v[j][0] + v[j][1];
+        sb += v[j][2] + v[j][3];
+      }
+    }
+    sa += __shfl_xor_sync(0xffffffffu, sa, 1);
+    sa += __shfl_xor_sync(0xffffffffu, sa, 2);
+    sb += __shfl_xor_sync(0xffffffffu, sb, 1);
+    sb += __shfl_xor_sync(0xffffffffu, sb, 2);
+    if (t == 0) {
+      red_sum[la] = sa;
+      red_sum[lb] = sb;
+    }
+  }
+  cluster_sync();                               // every slice's row sums are out
+
+  const float fn = static_cast<float>(N);
+  float mean_a = 0.0f, mean_b = 0.0f;
+  if (consumer) {
+    float sa = 0.0f, sb = 0.0f;
+    for (int r = 0; r < kC; ++r) {              // rank order: one sum on every CTA
+      sa = __fadd_rn(sa, ld_cluster_f32(&red_sum[la], r));
+      sb = __fadd_rn(sb, ld_cluster_f32(&red_sum[lb], r));
+    }
+    mean_a = __fdiv_rn(sa, fn);
+    mean_b = __fdiv_rn(sb, fn);
+    float qa = 0.0f, qb = 0.0f;
+#pragma unroll
+    for (int j = 0; j < S / 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const float da = __fsub_rn(v[j][e], mean_a);
+        const float db = __fsub_rn(v[j][2 + e], mean_b);
+        qa = __fadd_rn(qa, __fmul_rn(da, da));
+        qb = __fadd_rn(qb, __fmul_rn(db, db));
+      }
+    }
+    qa += __shfl_xor_sync(0xffffffffu, qa, 1);
+    qa += __shfl_xor_sync(0xffffffffu, qa, 2);
+    qb += __shfl_xor_sync(0xffffffffu, qb, 1);
+    qb += __shfl_xor_sync(0xffffffffu, qb, 2);
+    if (t == 0) {
+      red_sq[la] = qa;
+      red_sq[lb] = qb;
+    }
+  }
+  cluster_sync();                               // every slice's centred squares are out
+
+  if (consumer) {
+    float qa = 0.0f, qb = 0.0f;
+    for (int r = 0; r < kC; ++r) {
+      qa = __fadd_rn(qa, ld_cluster_f32(&red_sq[la], r));
+      qb = __fadd_rn(qb, ld_cluster_f32(&red_sq[lb], r));
+    }
+    const float inv_a = __fdiv_rn(1.0f, __fsqrt_rn(__fadd_rn(__fdiv_rn(qa, fn), eps)));
+    const float inv_b = __fdiv_rn(1.0f, __fsqrt_rn(__fadd_rn(__fdiv_rn(qb, fn), eps)));
+    const float inv_os = __fdiv_rn(1.0f, out_scale[0]);
+#pragma unroll
+    for (int j = 0; j < S / 8; ++j) {
+      const int c = c0 + 8 * j;
+      int8_t code[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int lc = 8 * j + 2 * t + (e & 1);
+        code[e] = e < 2 ? ln_code(v[j][e], mean_a, inv_a, v_gamma[lc], v_beta[lc], inv_os)
+                        : ln_code(v[j][e], mean_b, inv_b, v_gamma[lc], v_beta[lc], inv_os);
+      }
+      if (va) *reinterpret_cast<char2*>(yq + oa + c) = make_char2(code[0], code[1]);
+      if (vb) *reinterpret_cast<char2*>(yq + ob + c) = make_char2(code[2], code[3]);
+    }
+  }
+  cluster_sync();                               // no CTA leaves while another reads it
+}
+
+template <int S>
+cudaError_t configure(cudaLaunchConfig_t& cfg, cudaLaunchAttribute& attr, int M,
+                      cudaStream_t stream) {
+  constexpr size_t smem = Layout<S>::kSmem;
+  const cudaError_t err = cudaFuncSetAttribute(
+      qmm_res_ln_cluster_kernel<S>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  cfg = cudaLaunchConfig_t{};
+  cfg.gridDim = dim3(kC, (M + kBM - 1) / kBM);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = kC;
+  attr.val.clusterDim.y = 1;
+  attr.val.clusterDim.z = 1;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  return cudaSuccess;
+}
+
+template <int S>
+cudaError_t launch(const void* hq, const float* hs, int hs_step, const void* w, const float* ws,
+                   const float* bias, const void* x_prev, const float* gamma, const float* beta,
+                   const float* out_scale, void* x_new, void* yq, int M, int K, int N, float eps,
+                   int io_f32, cudaStream_t stream) {
+  if ((M + kBM - 1) / kBM > 65535) return cudaErrorInvalidValue;
+  CUtensorMap hq_map, w_map;
+  cudaError_t err = tensor_map_2d(&hq_map, CU_TENSOR_MAP_DATA_TYPE_UINT8, hq, K, M, K, kBK, kPiece);
+  if (err != cudaSuccess) return err;
+  err = tensor_map_2d(&w_map, CU_TENSOR_MAP_DATA_TYPE_UINT8, w, K, N, K, kBK, S);
+  if (err != cudaSuccess) return err;
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  err = configure<S>(cfg, attr, M, stream);
+  if (err != cudaSuccess) return err;
+  err = cudaLaunchKernelEx(&cfg, qmm_res_ln_cluster_kernel<S>, hq_map, w_map, hs, hs_step, ws,
+                           bias, x_prev, gamma, beta, out_scale, x_new,
+                           static_cast<int8_t*>(yq), M, K, N, eps, io_f32);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
+}
+
+// blocks an SM holds, or (clusters) clusters the card holds at once, at M rows
+template <int S>
+int occupancy(int clusters, int M) {
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  if (configure<S>(cfg, attr, M, nullptr) != cudaSuccess) return -1;
+  int n = -1;
+  const cudaError_t err =
+      clusters ? cudaOccupancyMaxActiveClusters(&n, qmm_res_ln_cluster_kernel<S>, &cfg)
+               : cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                     &n, qmm_res_ln_cluster_kernel<S>, kThreads, Layout<S>::kSmem);
+  return err == cudaSuccess ? n : -1;
+}
+
+}  // namespace cl
+
 }  // namespace
 
 // Plain C entry point, loaded with ctypes. hq: int8 (M, K) row-major; hs: fp32,
@@ -461,4 +799,77 @@ extern "C" int stllm_qmm_res_ln(const void* hq, const void* hs, int hs_step, con
                      M, K, N, eps, io_f32, st);
   }
   return static_cast<int>(err);
+}
+
+// The cluster form, for N = 8 x 128, 8 x 176 or 8 x 256: the arguments of
+// stllm_qmm_res_ln without the scratch row; hq and the weight 16-byte aligned
+// with K a multiple of 16. One launch of a (8, ceil(M / 128)) grid in
+// clusters of 8 on ``stream``; returns the CUDA error (0 on success); never
+// synchronises.
+extern "C" int stllm_qmm_res_ln_cluster(const void* hq, const void* hs, int hs_step, const void* w,
+                                        const void* ws, const void* bias, const void* x_prev,
+                                        const void* gamma, const void* beta,
+                                        const void* out_scale, void* x_new, void* yq, int M, int K,
+                                        int N, float eps, int io_f32, void* stream) {
+  if (M < 0 || K <= 0 || K % 16 != 0 || N % cl::kC != 0 || (hs_step != 0 && hs_step != 1)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (M == 0) return 0;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const float* f_hs = static_cast<const float*>(hs);
+  const float* f_ws = static_cast<const float*>(ws);
+  const float* f_b = static_cast<const float*>(bias);
+  const float* f_g = static_cast<const float*>(gamma);
+  const float* f_be = static_cast<const float*>(beta);
+  const float* f_os = static_cast<const float*>(out_scale);
+  cudaError_t err;
+  switch (N / cl::kC) {
+    case 128:
+      err = cl::launch<128>(hq, f_hs, hs_step, w, f_ws, f_b, x_prev, f_g, f_be, f_os, x_new, yq,
+                            M, K, N, eps, io_f32, st);
+      break;
+    case 176:
+      err = cl::launch<176>(hq, f_hs, hs_step, w, f_ws, f_b, x_prev, f_g, f_be, f_os, x_new, yq,
+                            M, K, N, eps, io_f32, st);
+      break;
+    case 256:
+      err = cl::launch<256>(hq, f_hs, hs_step, w, f_ws, f_b, x_prev, f_g, f_be, f_os, x_new, yq,
+                            M, K, N, eps, io_f32, st);
+      break;
+    default:
+      err = cudaErrorInvalidValue;
+  }
+  return static_cast<int>(err);
+}
+
+// Occupancy of the form that runs N at M rows: blocks an SM holds
+// (what = 0), or for the cluster form clusters the card holds (what = 1);
+// cluster = 0 asks the one-pass 16-row kernel. -1 on an error.
+extern "C" int stllm_qmm_res_ln_occupancy(int cluster, int what, int M, int N) {
+  if (cluster) {
+    switch (N / cl::kC) {
+      case 128: return cl::occupancy<128>(what, M);
+      case 176: return cl::occupancy<176>(what, M);
+      case 256: return cl::occupancy<256>(what, M);
+      default: return -1;
+    }
+  }
+  if (what != 0 || N > kChunk || N % 128) return -1;
+  const size_t smem = ring_bytes(N / 64);
+  int n = -1;
+  auto occ = [&](auto kernel) {
+    if (cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(smem)) != cudaSuccess ||
+        cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, kernel, kThreads, smem) != cudaSuccess) {
+      n = -1;
+    }
+  };
+  if (N / 64 <= 8) {
+    occ(qmm_res_ln_kernel<8>);
+  } else if (N / 64 <= 16) {
+    occ(qmm_res_ln_kernel<16>);
+  } else {
+    occ(qmm_res_ln_kernel<24>);
+  }
+  return n;
 }

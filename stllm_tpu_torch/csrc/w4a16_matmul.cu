@@ -19,18 +19,23 @@
 // prefill (M = 576) it does 19.3 to 103.9 GFLOP: 19.5 to 105 us at 989
 // TFLOP/s bf16, about 7.5 ms per prompt.
 //
-// Design (tile loop in weight_stream_matmul.cuh): the packed bytes cross
-// device memory once, through a ring of cp.async stages (4 at decode), and
-// are unpacked in shared memory into two bf16 tiles without an int-to-float
-// conversion (the nibble, xor 8, ORed into the mantissa of bf16 128, minus
-// 136); products on mma.sync m16n8k16 with fp32 accumulation. Decode pads its
-// 4 rows to the mma's 16 by zero-filling; when the 128-column output tiles
-// give fewer than 528 blocks (four per SM) the wrapper splits K, and a second
-// launch sums the fp32 partials. Decode still runs at about a third of the
-// HBM rate, and prefill, which unpacks each weight tile again for every
-// 64-row x tile, far from its compute bound; wgmma, TMA and a persistent
-// schedule are later work.
+// Two forms, picked by the wrapper by M (ops/kernels.py:w4a16_form):
+// - decode (M <= 16; tile loop in weight_stream_matmul.cuh): the packed bytes
+//   cross device memory once, through a ring of cp.async stages (4 at
+//   decode), and are unpacked in shared memory into two bf16 tiles without
+//   an int-to-float conversion (the nibble, xor 8, ORed into the mantissa of
+//   bf16 128, minus 136); products on mma.sync m16n8k16 with fp32
+//   accumulation. Decode pads its 4 rows to the mma's 16 by zero-filling;
+//   when the 128-column output tiles give fewer than 528 blocks (four per
+//   SM) the wrapper splits K, and a second launch sums the fp32 partials.
+//   Decode still runs at about a third of the HBM rate.
+// - prefill (M > 16; w4a16_prefill.cuh): wgmma on the swapped product, x
+//   by TMA, each packed byte unpacked in registers once per block of 192
+//   rows. The same library keeps the tile loop's 64-row instance
+//   (stllm_w4a16_matmul at M > 16), the design the prefill form replaced,
+//   so the two can be timed side by side.
 
+#include "w4a16_prefill.cuh"
 #include "weight_stream_matmul.cuh"
 
 // Plain C entry point, loaded with ctypes. x: contiguous (M, 2 * k2t) bf16;
@@ -43,4 +48,35 @@ extern "C" int stllm_w4a16_matmul(const void* x, const void* packed, const void*
                                   int splits, int out_f32, void* stream) {
   return stllm::wsm::run<stllm::wsm::kNibble>(x, packed, scale, out, partial, M, N, k2t,
                                              splits, out_f32, stream);
+}
+
+// The prefill form: x contiguous (M, 2 * k2t) bf16, 16-byte aligned; packed
+// (>= k2t, N) int8; scale (N,) fp32; out (M, N) bf16, or fp32 when out_f32.
+// N and k2t multiples of 8. One launch on
+// ``stream``; returns its CUDA error (0 on success); never synchronises.
+extern "C" int stllm_w4a16_matmul_prefill(const void* x, const void* packed, const void* scale,
+                                          void* out, int M, int N, int k2t, int out_f32,
+                                          void* stream) {
+  return stllm::w4p::run(x, packed, scale, out, M, N, k2t, out_f32, stream);
+}
+
+// Blocks one SM holds of the prefill form (wgmma) or of the tile loop's bm
+// instance (bm 16 or 64); -1 on an error.
+extern "C" int stllm_w4a16_matmul_occupancy(int wgmma, int bm) {
+  using namespace stllm::wsm;
+  if (wgmma) return stllm::w4p::occupancy();
+  int n = -1;
+  auto occ = [&](auto kernel, size_t smem) {
+    if (cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(smem)) != cudaSuccess ||
+        cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, kernel, kThreads, smem) != cudaSuccess) {
+      n = -1;
+    }
+  };
+  if (bm == 16) {
+    occ(weight_stream_kernel<kNibble, 16, 4>, smem_bytes<kNibble, 16, 4>());
+  } else if (bm == 64) {
+    occ(weight_stream_kernel<kNibble, 64, 2>, smem_bytes<kNibble, 64, 2>());
+  }
+  return n;
 }

@@ -27,7 +27,12 @@ Kernels (TPU kernel each replaces):
   quant_matmul_blockwise      stllm_tpu/ops/quant.py:_quant_matmul_kernel
 The four weight-streaming kernels share one tile loop
 (``csrc/weight_stream_matmul.cuh``); only the model path launches
-``w4a16_matmul``, the probes are launched by their checks and timings. The
+``w4a16_matmul``, the probes are launched by their checks and timings.
+``w4a16_matmul`` has a second form for M > 16 rows (``w4a16_form``): a
+``wgmma`` mixed-input GEMM with TMA (``csrc/w4a16_prefill.cuh``).
+``qmm_res_ln`` has a cluster form for the widths ``qmm_res_ln_form``
+admits (thread-block clusters of 8, ``wgmma`` s8, row statistics exchanged
+through distributed shared memory); both build on ``csrc/hopper.cuh``. The
 four training attention kernels (``csrc/flash_attention.cuh``) are wired
 into autograd by ``ops/attention.py``. The packed-qkv loop and the flash
 loops share the copy and fragment helpers of ``csrc/mma_tiles.cuh``. #1, #2
@@ -114,6 +119,18 @@ _ENTRY = {
         "stllm_quant_matmul", [_P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _P]),
 }
 
+# the second forms' entry points, in the same libraries: (kernel, form) ->
+# (symbol, argtypes)
+_FORM_ENTRY = {
+    # x, packed, scale, out, M, N, K/2, out_f32
+    ("w4a16_matmul", "wgmma"): (
+        "stllm_w4a16_matmul_prefill", [_P, _P, _P, _P, _I, _I, _I, _I, _P]),
+    # qmm_res_ln's arguments without the staged scratch row
+    ("qmm_res_ln", "cluster"): (
+        "stllm_qmm_res_ln_cluster",
+        [_P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _P]),
+}
+
 # the fp32-io entry points of the attention kernels (csrc/attention_f32.cuh),
 # in the same libraries and with the same arguments as the bf16 ones
 _F32_SYMBOLS = {
@@ -128,9 +145,15 @@ _F32_SYMBOLS = {
 _OCCUPANCY = {
     "packed_qkv_attention": ("stllm_packed_qkv_attention_occupancy", [_I, _I]),
     "flash_attention_fwd": ("stllm_flash_attention_fwd_occupancy", [_I]),
+    "w4a16_matmul": ("stllm_w4a16_matmul_occupancy", [_I, _I]),
+    "qmm_res_ln": ("stllm_qmm_res_ln_occupancy", [_I, _I, _I, _I]),
 }
 
 LAUNCHES: Dict[str, int] = {name: 0 for name in SOURCES}
+# the kernels with two forms, the first the one an entry point without a form
+# runs; FORM_LAUNCHES splits their LAUNCHES by form ("w4a16_matmul/wgmma")
+FORMS = {"w4a16_matmul": ("stream", "wgmma"), "qmm_res_ln": ("rows", "cluster")}
+FORM_LAUNCHES: Dict[str, int] = {f"{n}/{f}": 0 for n, fs in FORMS.items() for f in fs}
 BUILD_LOG: Dict[str, str] = {}   # nvcc output (ptxas register/spill report)
 _LIBS: Dict[str, ctypes.CDLL] = {}
 _FNS: Dict[str, object] = {}
@@ -142,8 +165,9 @@ _INCLUDE = re.compile(r'^\s*#\s*include\s+"([^"]+)"', re.M)
 
 
 def reset_launches() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+    for counts in (LAUNCHES, FORM_LAUNCHES):
+        for name in counts:
+            counts[name] = 0
 
 
 def _source_files(name: str) -> Tuple[Path, ...]:
@@ -229,23 +253,30 @@ def _symbol(name: str, symbol: str, argtypes):
     return fn
 
 
-def _launch(name: str, device: torch.device, *args, f32: bool = False) -> None:
-    """Launch kernel ``name`` (its fp32-io entry point with ``f32``) on
-    ``device``'s current stream (appended as the last argument), raise on a
-    refused launch, and count it."""
-    symbol, argtypes = _ENTRY[name]
+def _launch(name: str, device: torch.device, *args, f32: bool = False,
+            form: Optional[str] = None) -> None:
+    """Launch kernel ``name`` (its fp32-io entry point with ``f32``, its
+    second form's with ``form``) on ``device``'s current stream (appended as
+    the last argument), raise on a refused launch, and count it."""
+    symbol, argtypes = _FORM_ENTRY[name, form] if form else _ENTRY[name]
     fn = _symbol(name, _F32_SYMBOLS[name] if f32 else symbol, argtypes)
     with torch.cuda.device(device):
         err = fn(*args, torch.cuda.current_stream().cuda_stream)
     if err:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
     LAUNCHES[name] += 1
+    if name in FORMS:
+        FORM_LAUNCHES[f"{name}/{form or FORMS[name][0]}"] += 1
 
 
 def occupancy(name: str, *shape: int) -> int:
     """Blocks of kernel ``name``'s bf16 instantiation one SM holds at once
-    at ``shape`` (packed_qkv_attention: S, D; flash_attention_fwd: D), by
-    cudaOccupancyMaxActiveBlocksPerMultiprocessor on the current device."""
+    at ``shape`` (packed_qkv_attention: S, D; flash_attention_fwd: D;
+    w4a16_matmul: wgmma form or not, the tile loop's row tile (16 or 64);
+    qmm_res_ln: cluster form or not, blocks an SM (0)
+    or clusters the card holds (1), M, N), by
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor (or MaxActiveClusters)
+    on the current device."""
     fn = _symbol(name, *_OCCUPANCY[name])
     return int(fn(*shape))
 
@@ -493,12 +524,23 @@ def weight_stream_splits(m: int, n: int, kw: int) -> int:
     return -(-steps // per)
 
 
+W4_DECODE_ROWS = 16                 # the most rows the tile loop's decode instance takes
+
+
+def w4a16_form(m: int) -> str:
+    """Which form of #12 runs M rows: "stream", the weight-streaming tile
+    loop (csrc/weight_stream_matmul.cuh, with split-K) for M <= 16 (decode),
+    else "wgmma", the Hopper mixed-input GEMM (csrc/w4a16_prefill.cuh)."""
+    return "stream" if m <= W4_DECODE_ROWS else "wgmma"
+
+
 def _weight_stream(name: str, x: torch.Tensor, w: torch.Tensor,
                    scale: Optional[torch.Tensor], kw: int, flag: int,
-                   out_dtype: torch.dtype) -> torch.Tensor:
+                   out_dtype: torch.dtype, form: str = "stream") -> torch.Tensor:
     """Check and launch one weight-streaming kernel: x (..., K) cast to a
     contiguous bf16 (M, K), w (>= kw, N) int8, scale (N,) fp32 or None, kw
-    the weight rows in use. Allocates the output and the split-K scratch."""
+    the weight rows in use. Allocates the output and the split-K scratch.
+    ``form`` "wgmma" launches #12's prefill form instead of the tile loop."""
     if x.device.type != "cuda":
         raise ValueError(f"{name}: no kernel for {x.device}")
     if x.dtype not in (torch.bfloat16, torch.float32):
@@ -521,7 +563,10 @@ def _weight_stream(name: str, x: torch.Tensor, w: torch.Tensor,
     _check_cuda(name, x2, torch.bfloat16)
     m = x2.shape[0]
     out = torch.empty((m, n), dtype=out_dtype, device=x.device)
-    if m:
+    if m and form == "wgmma":
+        _launch(name, x.device, x2.data_ptr(), w.data_ptr(), scale.data_ptr(), out.data_ptr(),
+                m, n, kw, flag, form=form)
+    elif m:
         splits = weight_stream_splits(m, n, kw)
         partial = (torch.empty((splits, m, n), dtype=torch.float32, device=x.device)
                    if splits > 1 else None)
@@ -550,13 +595,22 @@ def w4a16_matmul_plain(x: torch.Tensor, packed: torch.Tensor, scale: torch.Tenso
 def w4a16_matmul(x: torch.Tensor, packed: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
     """W4A16: x (..., K) @ int4-packed (>= K/2, N) with per-channel scales
     -> (..., N) in x.dtype. CUDA: x bf16 or fp32 (multiplied as bf16); K/2
-    and N multiples of 8; packed rows at K/2 and beyond are never read."""
+    and N multiples of 8; packed rows at K/2 and beyond are never read. One
+    form by M (``w4a16_form``): the tile loop at decode, wgmma above."""
     if x.device.type == "cpu":
         return w4a16_matmul_plain(x, packed, scale)
+    return _w4a16_matmul(x, packed, scale, w4a16_form(x.numel() // max(x.shape[-1], 1)))
+
+
+def _w4a16_matmul(x: torch.Tensor, packed: torch.Tensor, scale: torch.Tensor,
+                  form: str) -> torch.Tensor:
+    """#12 on the card in ``form`` ("stream" or "wgmma"), whatever M is;
+    chip_smoke.py times the tile loop at prefill (the design the wgmma form
+    replaced) through it."""
     if x.shape[-1] % 2:
         raise ValueError(f"w4a16_matmul: K ({x.shape[-1]}) must be even")
     return _weight_stream("w4a16_matmul", x, packed, scale, x.shape[-1] // 2,
-                          int(x.dtype == torch.float32), x.dtype)
+                          int(x.dtype == torch.float32), x.dtype, form)
 
 
 def pack_int4_arith(top: torch.Tensor, bottom: torch.Tensor) -> torch.Tensor:
@@ -866,11 +920,26 @@ def flash_attention_bwd_dkv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 # ---------------------------------------------------------------------------
 # int8 GEMMs: the s8 matmul with the epilogue-carried LayerNorm (#11) and the
 # blockwise dynamic-quant matmul (#8). Both kernels read the (K, N) weight
-# column-major, the layout quantize_weights stores; a row-major weight (a tree
-# converted from JAX) is copied to that layout per call, as _int8_dot does.
+# column-major, the layout quantize_weights and load_jax_params store; a
+# row-major weight is copied to that layout per call, as _int8_dot does.
 # ---------------------------------------------------------------------------
 
 QMM_MAX_N = 1536         # widest output row #11 takes in one pass; wider rows are staged
+QMM_CLUSTER = 8          # CTAs of a cluster of #11's cluster form, each a 1/8 slice of N
+QMM_CLUSTER_SLICES = (128, 176, 256)   # the slice widths it is built for (csrc/qmm_res_ln.cu)
+
+
+def qmm_res_ln_form(m: int, n: int, dtype: torch.dtype) -> str:
+    """Which form of #11 runs M rows of width N with x_prev in ``dtype``:
+    "cluster" (clusters of 8 CTAs, each a slice of N / 8 columns, wgmma s8)
+    where N / 8 is one of QMM_CLUSTER_SLICES (N = 1024, 1408, 2048: the
+    ViT-g sites are 1408) and x_prev is bf16 or fp32, at any M >= 1; else
+    "rows", the 16-row kernels (one pass up to QMM_MAX_N columns, chunked
+    above)."""
+    if m >= 1 and n % QMM_CLUSTER == 0 and n // QMM_CLUSTER in QMM_CLUSTER_SLICES \
+            and dtype in (torch.bfloat16, torch.float32):
+        return "cluster"
+    return "rows"
 
 
 def _column_major(name: str, w_q: torch.Tensor, k: int, device) -> torch.Tensor:
@@ -928,9 +997,22 @@ def qmm_res_ln(hq: torch.Tensor, hs: torch.Tensor, w_q: torch.Tensor, w_scale: t
     stay on the device. One launch: a row up to QMM_MAX_N columns wide in one
     pass, a wider one in chunks through an fp32 (M, N) scratch row this
     allocates. A K that is not a multiple of 16 is padded with zero codes
-    (hq and the weight copied), which leaves the exact products alone."""
+    (hq and the weight copied), which leaves the exact products alone. The
+    form follows ``qmm_res_ln_form``."""
     if hq.device.type == "cpu":
         return qmm_res_ln_plain(hq, hs, w_q, w_scale, bias, x_prev, gamma, beta, out_scale, eps)
+    m = hq.numel() // max(hq.shape[-1], 1)
+    return _qmm_res_ln(hq, hs, w_q, w_scale, bias, x_prev, gamma, beta, out_scale, eps,
+                       qmm_res_ln_form(m, w_q.shape[-1], x_prev.dtype))
+
+
+def _qmm_res_ln(hq: torch.Tensor, hs: torch.Tensor, w_q: torch.Tensor, w_scale: torch.Tensor,
+                bias: Optional[torch.Tensor], x_prev: torch.Tensor, gamma: torch.Tensor,
+                beta: torch.Tensor, out_scale: torch.Tensor, eps: float, form: str
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """#11 on the card in ``form`` ("cluster" or "rows"); chip_smoke.py
+    times the 16-row kernel at the ViT-g sites (the design the cluster form
+    replaced) through it."""
     name = "qmm_res_ln"
     dev = hq.device
     _check_cuda(name, hq, torch.int8)
@@ -959,7 +1041,14 @@ def qmm_res_ln(hq: torch.Tensor, hs: torch.Tensor, w_q: torch.Tensor, w_scale: t
     bias = None if bias is None else _f32_vector(name, bias, n, dev)
     x_new = torch.empty_like(x_prev)
     yq = torch.empty(x_prev.shape, dtype=torch.int8, device=dev)
-    if m:
+    if m and form == "cluster":
+        if qmm_res_ln_form(m, n, x_prev.dtype) != "cluster":
+            raise ValueError(f"{name}: no cluster form for N {n}")
+        _launch(name, dev, hq.data_ptr(), hs32.data_ptr(), int(hs32.numel() > 1),
+                wt.data_ptr(), ws.data_ptr(), _ptr(bias), x_prev.data_ptr(), g.data_ptr(),
+                b.data_ptr(), os32.data_ptr(), x_new.data_ptr(), yq.data_ptr(),
+                m, hq.shape[-1], n, eps, int(x_prev.dtype == torch.float32), form=form)
+    elif m:
         staged = (torch.empty((m, n), dtype=torch.float32, device=dev) if n > QMM_MAX_N
                   else None)
         _launch(name, dev, hq.data_ptr(), hs32.data_ptr(), int(hs32.numel() > 1),

@@ -67,7 +67,8 @@ _INT_MM_MIN_ROWS = 17
 def _int8_dot(x_q: torch.Tensor, w_q: torch.Tensor) -> torch.Tensor:
     """s8 x s8 matmul over the last/first axes with int32 accumulation,
     returned in fp32. x_q: (..., K), w_q: (K, N). On the card a row-major
-    w_q (a tree converted from JAX) is copied to column-major per call."""
+    w_q is copied to column-major per call; quantize_weights and
+    load_jax_params store it column-major, so no model weight is."""
     lead, k = x_q.shape[:-1], x_q.shape[-1]
     n = w_q.shape[1]
     a = x_q.reshape(-1, k)

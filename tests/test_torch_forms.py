@@ -1,0 +1,112 @@
+"""PyTorch port, on the CPU: the rules that pick the form of the two kernels
+with two forms, and the layout in which load_jax_params stores int8
+weights.
+
+- #12 (W4A16 matmul): the weight-streaming tile loop at M <= 16 rows
+  (decode), the wgmma mixed-input GEMM above (prefill).
+- #11 (s8 matmul + residual + LayerNorm + int8): the cluster form where
+  N / 8 is a slice width it is built for (128, 176, 256), else the 16-row
+  kernels.
+- A converted 2-D int8 ``w_q`` leaf is column-major (stride(0) == 1) with the
+  same values; a tiny static-int8 ViT converted from JAX gives the same
+  outputs bit for bit as the same tree held row-major (the int8 products
+  are exact integers in either layout).
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from stllm_tpu.models import vit as jvit
+from stllm_tpu_torch.convert.from_jax import load_jax_params
+from stllm_tpu_torch.models import vit as tvit
+from stllm_tpu_torch.ops import kernels
+
+
+@pytest.mark.parametrize("m,form", [(1, "stream"), (4, "stream"), (16, "stream"),
+                                    (17, "wgmma"), (576, "wgmma"), (640, "wgmma")])
+def test_w4a16_form_by_rows(m, form):
+    assert kernels.w4a16_form(m) == form
+
+
+@pytest.mark.parametrize("m,n,dtype,form", [
+    (16 * 257, 1408, torch.bfloat16, "cluster"),    # the ViT-g proj and fc2 sites
+    (16 * 257, 1408, torch.float32, "cluster"),
+    (1, 1408, torch.bfloat16, "cluster"),
+    (300, 1024, torch.float32, "cluster"),
+    (300, 2048, torch.bfloat16, "cluster"),
+    (16 * 257, 1536, torch.bfloat16, "rows"),       # 192-column slices: not built
+    (16 * 257, 1280, torch.bfloat16, "rows"),
+    (2 * 9, 640, torch.float32, "rows"),
+    (20, 256, torch.bfloat16, "rows"),
+    (16 * 257, 8192, torch.bfloat16, "rows"),
+    (0, 1408, torch.bfloat16, "rows"),
+    (16 * 257, 1408, torch.float16, "rows"),
+])
+def test_qmm_res_ln_form(m, n, dtype, form):
+    assert kernels.qmm_res_ln_form(m, n, dtype) == form
+
+
+def test_load_jax_params_stores_int8_w_q_column_major():
+    rng = np.random.default_rng(0)
+    w_q = rng.integers(-127, 128, (24, 40)).astype(np.int8)
+    packed = rng.integers(-128, 128, (12, 40)).astype(np.int8)
+    tree = {"fc": {"w_q": w_q, "w_scale": np.ones(40, np.float32)},
+            "lin": {"w": rng.standard_normal((24, 40)).astype(np.float32)},
+            "w4": {"w4": packed}, "codes": {"w_q": w_q[0]}}
+    got = load_jax_params(tree, device="cpu")
+    t = got["fc"]["w_q"]
+    assert t.dtype == torch.int8 and tuple(t.shape) == (24, 40) and t.stride() == (1, 24)
+    np.testing.assert_array_equal(t.numpy(), w_q)
+    for leaf in (got["lin"]["w"], got["w4"]["w4"], got["codes"]["w_q"]):
+        assert leaf.is_contiguous()
+    np.testing.assert_array_equal(got["w4"]["w4"].numpy(), packed)
+
+
+def _w_q_leaves(tree, path=()):
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from ([(path + (k,), v)] if k == "w_q" else _w_q_leaves(v, path + (k,)))
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            yield from _w_q_leaves(v, path + (i,))
+
+
+def _row_major(tree):
+    if isinstance(tree, dict):
+        return {k: (v.contiguous() if k == "w_q" else _row_major(v)) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_row_major(v) for v in tree)
+    return tree
+
+
+VIT = dict(image_size=28, patch_size=14, width=128, depth=2, heads=4, mlp_hidden=256,
+           use_flash=None, gelu_approx=True)
+
+
+@pytest.mark.parametrize("fused", [False, "both"])
+def test_converted_static_vit_same_in_either_layout(fused):
+    """A tiny plain ViT quantized and calibrated by JAX, converted: every
+    w_q leaf column-major, and the static-int8 forward (unfused, and with
+    both fused-LN sites) equal to that of the same tree held row-major."""
+    jcfg = jvit.ViTConfig(dtype=jnp.float32, **VIT)
+    tcfg = tvit.ViTConfig(dtype=torch.float32, **VIT)
+    params = jvit.init_vit(jax.random.PRNGKey(1), jcfg)
+    frames = np.random.default_rng(2).integers(0, 256, (2, 28, 28, 3)).astype(np.uint8)
+    images = jnp.asarray(frames, jnp.float32) / 255.0
+    static = jvit.calibrate_vit_scales(jvit.quantize_vit_params(params), images, jcfg)
+    tree = load_jax_params(jax.tree_util.tree_map(np.asarray, static), device="cpu")
+    leaves = list(_w_q_leaves(tree))
+    assert len(leaves) == 4 * VIT["depth"]          # qkv, proj, fc1, fc2 of each block
+    for path, w in leaves:
+        assert w.dtype == torch.int8 and w.dim() == 2 and w.stride(0) == 1, path
+    x = torch.from_numpy(np.random.default_rng(3).standard_normal((2, 28, 28, 3))
+                         .astype(np.float32))
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(tvit, "FUSED_LN", fused)
+        got = tvit.vit_forward(tree, x, tcfg)
+        want = tvit.vit_forward(_row_major(tree), x, tcfg)
+    assert bool(torch.isfinite(got).all())
+    torch.testing.assert_close(got, want, atol=0, rtol=0)

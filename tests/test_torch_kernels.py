@@ -215,11 +215,18 @@ def _ws_inputs(card, m, k, n, seed, *, pad=0, dtype=torch.bfloat16):
 
 # (m, K, N, padded packed rows, x dtype): the decode and prefill shapes of the
 # W4A16 stack, the K-padded down projection (5504 -> 5632 packed rows), a
-# ragged N tile with 8-byte weight rows, and an fp32 x
+# ragged N tile with 8-byte weight rows, and an fp32 x; then the wgmma form
+# (M > 16): the pipeline prompt (640 = 5 x 128), ragged M (17, 200), the
+# QA prompt's gate|up, an fp32 x, the padded down projection at M = 576,
+# and K/2 (40) not a multiple of the 64-row stage
 W4_CASES = [(4, 4096, 12288, 0, torch.bfloat16), (4, 11008, 4096, 128, torch.bfloat16),
             (1, 4096, 4096, 0, torch.bfloat16), (16, 4096, 22016, 0, torch.bfloat16),
             (576, 4096, 4096, 0, torch.bfloat16), (576, 11008, 4096, 128, torch.bfloat16),
-            (20, 80, 200, 0, torch.bfloat16), (3, 96, 136, 5, torch.float32)]
+            (20, 80, 200, 0, torch.bfloat16), (3, 96, 136, 5, torch.float32),
+            (640, 4096, 12288, 0, torch.bfloat16), (17, 4096, 4096, 0, torch.bfloat16),
+            (200, 4096, 4096, 0, torch.bfloat16), (576, 4096, 22016, 0, torch.bfloat16),
+            (100, 4096, 4096, 0, torch.float32), (576, 11008, 4096, 128, torch.float32),
+            (33, 80, 136, 3, torch.bfloat16)]
 
 
 @pytest.mark.parametrize("case", W4_CASES, ids=lambda c: f"m{c[0]}-k{c[1]}-n{c[2]}-pad{c[3]}")
@@ -228,6 +235,15 @@ def test_w4a16_kernel_matches_plain(card, case):
     x, packed, scale = _ws_inputs(card, m, k, n, 4, pad=pad, dtype=dtype)
     got = _counted("w4a16_matmul", lambda: kernels.w4a16_matmul(x, packed, scale))
     _assert_ws_close(got, kernels.w4a16_matmul_plain(x, packed, scale))
+
+
+@pytest.mark.parametrize("m", [17, 576, 640])
+def test_w4a16_forms_agree(card, m):
+    """At M > 16 the wgmma form and the tile loop (the design it replaced)
+    give the same product."""
+    x, packed, scale = _ws_inputs(card, m, 4096, 4096, 14)
+    wgmma = kernels._w4a16_matmul(x, packed, scale, "wgmma")
+    _assert_ws_close(wgmma, kernels._w4a16_matmul(x, packed, scale, "stream"))
 
 
 # the probes' decoder shapes at M = 1 (down's K padded 11008 -> 11264 as the
@@ -483,7 +499,10 @@ def _res_ln_inputs(card, b, s, k, n, *, per_row, dtype=torch.bfloat16, layout="c
 # sites, the tiny model's shape in fp32, a row-major (converted) weight, a
 # short ragged K, one N for each row width the kernel is built for, then the
 # rows wider than 1536 (staged in chunks: 2 x 1024, 3 x 1408, 6 x 1408 at
-# most) and K that are not multiples of 16 (padded with zero codes)
+# most) and K that are not multiples of 16 (padded with zero codes); then
+# the cluster form: rows that are not a multiple of its 128-row tile, the
+# scalar-hs fc2 site in fp32 x_prev, and N = 1024 and 2048 (slices of 128 and
+# 256 columns; 1408 is the sites' 176)
 RES_LN_CASES = [(16, 257, 1408, 1408, True, torch.bfloat16, "column"),
                 (16, 257, 6144, 1408, False, torch.bfloat16, "column"),
                 (2, 17, 384, 256, True, torch.float32, "column"),
@@ -496,7 +515,11 @@ RES_LN_CASES = [(16, 257, 1408, 1408, True, torch.bfloat16, "column"),
                 (2, 16, 1408, 8192, True, torch.bfloat16, "column"),
                 (2, 9, 512, 1664, True, torch.float32, "row"),
                 (3, 37, 1000, 1408, True, torch.bfloat16, "column"),
-                (1, 20, 40, 256, False, torch.bfloat16, "row")]
+                (1, 20, 40, 256, False, torch.bfloat16, "row"),
+                (3, 67, 1408, 1408, True, torch.bfloat16, "column"),
+                (4, 257, 6144, 1408, False, torch.float32, "column"),
+                (2, 100, 512, 1024, True, torch.bfloat16, "column"),
+                (1, 300, 1408, 2048, False, torch.float32, "column")]
 
 
 @pytest.mark.parametrize("case", RES_LN_CASES,
@@ -509,6 +532,19 @@ def test_qmm_res_ln_kernel_matches_plain(card, case):
     assert x_new.dtype == dtype and yq.dtype == torch.int8 and yq.shape == want_q.shape
     torch.testing.assert_close(x_new.float(), want_x.float(), atol=1e-2, rtol=1e-2)
     assert int((yq.int() - want_q.int()).abs().max()) <= 1
+
+
+@pytest.mark.parametrize("shape", [(16, 257, 1408, 1408), (16, 257, 6144, 1408),
+                                   (1, 5, 256, 1024)])
+def test_qmm_res_ln_forms_agree(card, shape):
+    """Where the cluster form runs, the 16-row kernel (the design it
+    replaced) gives x_new within 1e-2 and codes at most one step apart."""
+    b, s, k, n = shape
+    args = _res_ln_inputs(card, b, s, k, n, per_row=True)
+    x_c, q_c = kernels._qmm_res_ln(*args, 1e-6, "cluster")
+    x_r, q_r = kernels._qmm_res_ln(*args, 1e-6, "rows")
+    torch.testing.assert_close(x_c.float(), x_r.float(), atol=1e-2, rtol=1e-2)
+    assert int((q_c.int() - q_r.int()).abs().max()) <= 1
 
 
 WS_CASES_8 = [(16, 257, 1408, 6144, torch.bfloat16, "column"),
