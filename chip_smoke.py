@@ -18,7 +18,11 @@ toolkit. Phases, each fatal on failure:
    time; #12's wgmma prefill form (M = 576 and 640) and #11's cluster form
    are timed beside the design each replaced (the tile loop, the 16-row
    kernel; both kept in the same libraries), in the order parent, new, new,
-   parent;
+   parent; the flash backward pair (#5, #6) is also held to the plain
+   backward at the edges of its walked tiles (lengths that are no multiple
+   of 64, whole masked tiles, more or fewer keys than queries), prints its
+   blocks per SM, and stands beside SDPA's whole backward timed on the
+   device alone (queued behind a device-side sleep) and with the host;
 3. slice  - the QA config (config/instructblipbase_stllm_qa.yaml: EVA-ViT-g +
    BTAdapter, InstructBLIP Q-Former, Vicuna-7B, bf16, 16 frames, video_input
    all) at full width with random weights from a seed, served by
@@ -239,6 +243,38 @@ def cuda_ms(fn, iters: int, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
+def queued_ms(fn, iters: int = 20, warmup: int = 3) -> float:
+    """Mean device time of fn() over ``iters`` calls that the host enqueues
+    while the device sleeps (``torch.cuda._sleep``), timed by CUDA events
+    from the end of the sleep: the calls then run back to back, so the
+    host's time per call stays out even where fn cannot be captured in a
+    CUDA graph (an autograd backward). Raises if the host fell behind."""
+    for _ in range(warmup):
+        fn()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    start.record()
+    torch.cuda._sleep(10 ** 6)
+    end.record()
+    torch.cuda.synchronize()
+    ms_per_mcycle = start.elapsed_time(end)
+    torch.cuda._sleep(int((2 * wall_ms + 20) / ms_per_mcycle * 10 ** 6))
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    behind = start.query()       # the sleep ended before the last call was enqueued
+    torch.cuda.synchronize()
+    if behind:
+        raise RuntimeError("queued_ms: the host fell behind the device's sleep")
+    return start.elapsed_time(end) / iters
+
+
 def phase_build(kernels) -> None:
     t0 = time.perf_counter()
     kernels.build()
@@ -316,15 +352,12 @@ def _ws_err(got, want) -> float:
     return float(err.max())
 
 
-def _check_kernel(name: str, cases, kernel, plain, err_fn, library=None,
-                  library_graph: bool = True) -> list:
+def _check_kernel(name: str, cases, kernel, plain, err_fn, library=None) -> list:
     """Each case: (label, [4 input tuples], bytes, ops time in s). The kernel
     is held to its plain version on the first inputs, then timed cycling the
     four copies so that each launch reads inputs the 50 MB L2 does not hold:
     ``ms`` by CUDA-graph replay, ``ms_stream`` launched one by one from
-    Python (where short kernels measure the host). ``library_graph=False``
-    times the library call launched one by one too (an autograd backward
-    cannot be captured in a graph)."""
+    Python (where short kernels measure the host)."""
     rows = []
     for label, bufs, nbytes, ops_s in cases:
         got = kernel(*bufs[0])
@@ -338,8 +371,7 @@ def _check_kernel(name: str, cases, kernel, plain, err_fn, library=None,
         row = {"shape": label, "max_abs_err": max_err,
                "ms": graph_ms(lambda: kernel(*nxt()), 40),
                "plain_ms": graph_ms(lambda: plain(*nxt()), 8),
-               "library_ms": ((graph_ms if library_graph else cuda_ms)(
-                   lambda: library(*nxt()), 40) if library else None),
+               "library_ms": graph_ms(lambda: library(*nxt()), 40) if library else None,
                "ms_stream": cuda_ms(lambda: kernel(*nxt()), 40),
                **_bound(nbytes, ops_s)}
         rows.append(row)
@@ -810,11 +842,31 @@ def _train_attention_kernels(kernels, gen, packed_entry) -> dict:
     print(f"[kernels] flash_attention_fwd: {blocks} blocks per SM at head_dim {TRAIN_LONG[3]}")
 
     # #5 dQ and #6 dK, dV from the forward kernel's out and lse
-    cases5, cases6, graphs = [], [], {}
+    def bwd_case(shape, causal, masked, sk=None, hidden=None):
+        """bf16 backward inputs at (B, S, H, D) (keys: ``sk``, default S;
+        ``hidden``: a key range masked in every batch row), lse and delta
+        from the plain forward."""
+        b, s_q, h, d = shape
+        s_k = sk or s_q
+        q = torch.randn(b, s_q, h, d, generator=gen, device="cuda").bfloat16()
+        k, v = (torch.randn(b, s_k, h, d, generator=gen, device="cuda").bfloat16()
+                for _ in range(2))
+        kv_mask = None
+        if masked:
+            kv_mask = torch.ones(b, s_k, dtype=torch.int32, device="cuda")
+            kv_mask[-1, s_k - s_k // 5:] = 0
+            if hidden:
+                kv_mask[:, hidden[0]:hidden[1]] = 0
+        o, lse = kernels.flash_attention_fwd_plain(q, k, v, kv_mask, causal, d ** -0.5)
+        g = torch.randn(q.shape, generator=gen, device="cuda").bfloat16()
+        delta = (g.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
+        return q, k, v, kv_mask, g, lse, delta, causal, d ** -0.5
+
+    cases5, cases6, sdpa_rows = [], [], []
     for shape, causal, masked, dtype in long_specs[:3]:
         bufs, m = _attn_case(gen, shape, causal, masked, dtype)
         masks.update(m)
-        bwd = []
+        bwd, graphs = [], {}
         for q, k, v, kv_mask, _, scale in bufs:
             o, lse = kernels.flash_attention_fwd(q, k, v, kv_mask, causal, scale)
             g = torch.randn(q.shape, generator=gen, device="cuda").to(dtype)
@@ -828,10 +880,19 @@ def _train_attention_kernels(kernels, gen, packed_entry) -> dict:
         label = _attn_label(shape, causal, masked, dtype)
         cases5.append((label, bwd, *_attn_bound(shape, causal, masked, 5, 6, 2, dtype)))
         cases6.append((label, bwd, *_attn_bound(shape, causal, masked, 6, 8, 2, dtype)))
+        # SDPA's whole backward (dq, dk and dv together) through autograd on
+        # the same inputs: device time only (queued behind a sleep), and
+        # launched one by one with the host's time inside, as earlier versions of
+        # this script printed it
+        it = iter(range(1 << 30))
 
-    def sdpa_backward(q, *_):
-        ref, leaves, g = graphs[q.data_ptr()]
-        return torch.autograd.grad(ref, leaves, g, retain_graph=True)
+        def sdpa_backward():
+            ref, leaves, g = graphs[bwd[next(it) % 4][0].data_ptr()]
+            return torch.autograd.grad(ref, leaves, g, retain_graph=True)
+
+        sdpa_rows.append({"sdpa_whole_backward_ms": queued_ms(sdpa_backward, 40),
+                          "sdpa_whole_backward_host_ms": cuda_ms(sdpa_backward, 40)})
+        del graphs
 
     def plain_dq(*a):
         return kernels.flash_attention_bwd_plain(*a)[0]
@@ -843,30 +904,66 @@ def _train_attention_kernels(kernels, gen, packed_entry) -> dict:
         return max(_attn_err(g, w) for g, w in zip(got, want))
 
     rows = _check_kernel("flash_attention_bwd_dq", cases5, kernels.flash_attention_bwd_dq,
-                         plain_dq, _attn_err, library=sdpa_backward, library_graph=False)
+                         plain_dq, _attn_err)
     out["flash_attention_bwd_dq"] = _entry(
         "flash_attention_bwd_dq", "flash_attention_bwd_dq.cu", "stllm_tpu/ops/attention.py:214",
         rows, BF16_ATOL, BF16_RTOL)
     rows = _check_kernel("flash_attention_bwd_dkv", cases6, kernels.flash_attention_bwd_dkv,
-                         plain_dkv, pair_err, library=sdpa_backward, library_graph=False)
+                         plain_dkv, pair_err)
     out["flash_attention_bwd_dkv"] = _entry(
         "flash_attention_bwd_dkv", "flash_attention_bwd_dkv.cu",
         "stllm_tpu/ops/attention.py:257", rows, BF16_ATOL, BF16_RTOL)
+    # the edges of the walked tiles, held to the plain backward (not timed):
+    # lengths that are no multiple of the 64-row tile, a kv_mask that hides
+    # two whole walked tiles (and a whole block's keys), more or fewer keys
+    # than queries
+    edges = [((1, 1000, 4, 128), True, True, None, None),
+             ((2, 70, 2, 64), True, True, None, None),
+             ((2, 70, 2, 64), False, True, None, None),
+             ((2, 320, 2, 128), True, True, None, (64, 192)),
+             ((2, 70, 2, 64), True, True, 130, None),
+             ((1, 300, 2, 128), True, True, 200, None),
+             ((1, 1000, 4, 128), False, True, 1100, None)]
+    for name in ("flash_attention_bwd_dq", "flash_attention_bwd_dkv"):
+        out[name]["edge_shapes"] = []
+    for shape, causal, masked, sk, hidden in edges:
+        a = bwd_case(shape, causal, masked, sk, hidden)
+        label = [*shape, f"sk={sk or shape[1]}", f"causal={causal}", f"kv_mask={masked}"] + (
+            [f"hidden keys {hidden[0]}:{hidden[1]}"] if hidden else [])
+        for name, plain, err_fn in (("flash_attention_bwd_dq", plain_dq, _attn_err),
+                                    ("flash_attention_bwd_dkv", plain_dkv, pair_err)):
+            kernel = getattr(kernels, name)
+            err = err_fn(kernel(*a), plain(*a))
+            out[name]["edge_shapes"].append({"shape": label, "max_abs_err": err})
+            out[name]["max_abs_err"] = max(out[name]["max_abs_err"], err)
+        if hidden:
+            dk, dv = kernels.flash_attention_bwd_dkv(*a)
+            if bool(dk[:, hidden[0]:hidden[1]].any()) or bool(dv[:, hidden[0]:hidden[1]].any()):
+                raise AssertionError("dK, dV of hidden keys are not 0")
+    print(f"[kernels] flash backward edge shapes: "
+          f"{[r['shape'] for r in out['flash_attention_bwd_dq']['edge_shapes']]} held to the "
+          f"plain backward")
     # no single PyTorch call computes dq alone or dk, dv alone: library_ms is
     # null for each, and SDPA's whole backward stands beside the pair
     pair = out["flash_attention_bwd_dq"]["ms"] + out["flash_attention_bwd_dkv"]["ms"]
     for name in ("flash_attention_bwd_dq", "flash_attention_bwd_dkv"):
         entry = out[name]
-        for row in entry["per_shape"]:
-            row["sdpa_whole_backward_ms"] = row.pop("library_ms")
-            row["library_ms"] = None
-        entry["library_ms"] = None
-        entry["sdpa_whole_backward_ms"] = entry["per_shape"][0]["sdpa_whole_backward_ms"]
-        entry["sdpa_whole_backward_is"] = ("SDPA backward through autograd: dq, dk and dv "
-                                           "together, launched one by one (host time included)")
+        for row, sdpa_row in zip(entry["per_shape"], sdpa_rows):
+            row.update(sdpa_row)
+        entry.update(sdpa_rows[0])
+        entry["sdpa_whole_backward_is"] = (
+            "SDPA backward through autograd, dq, dk and dv together: sdpa_whole_backward_ms "
+            "device time only (40 calls enqueued while the card sleeps, CUDA events from the "
+            "sleep's end); sdpa_whole_backward_host_ms launched one by one with the host's "
+            "time inside (what earlier versions of this script printed as sdpa_whole_backward_ms)")
         entry["pair_ms"] = pair
         entry["plain_is"] = "the whole plain backward: dq, dk and dv together"
-    del graphs
+        blocks = kernels.occupancy(name, TRAIN_LONG[3])
+        entry["blocks_per_sm"] = blocks
+        print(f"[kernels] {name}: {blocks} blocks per SM at head_dim {TRAIN_LONG[3]}")
+    print(f"[kernels] flash backward pair {pair:.4f} ms against SDPA's whole backward "
+          f"{sdpa_rows[0]['sdpa_whole_backward_ms']:.4f} ms device only "
+          f"({sdpa_rows[0]['sdpa_whole_backward_host_ms']:.4f} ms with the host)")
 
     # the packed kernel's backward: the vjp of the plain-softmax reference
     b, s, h, d = TRUNK

@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
 """Blocks per SM of the packed-qkv attention (#1), the flash forward (#4),
+the flash backward pair (#5 dQ, #6 dK/dV),
 both forms of the W4A16 matmul (#12: the wgmma prefill form, the tile loop
 at 64 and 16 rows) and both forms of the fused
 LayerNorm int8 GEMM (#11 at the ViT-g width N = 1408, M = 16 x 257: the
@@ -9,15 +10,18 @@ cudaOccupancyMaxActiveBlocksPerMultiprocessor and
 cudaOccupancyMaxActiveClusters.
 
     python3 script/kernel_occupancy.py                  # this tree's kernels
-    python3 script/kernel_occupancy.py --csrc OTHER/stllm_tpu_torch/csrc
+    python3 script/kernel_occupancy.py --csrc OTHER/stllm_tpu_torch/csrc   # and another's
 
-Without ``--csrc`` it asks the kernels' own entry points (#1 at the ViT-g
-trunk shape S = 257 and the BTAdapter temporal S = 16, D = 88; #4 at
-D = 128; #12 and #11 as above). With ``--csrc`` it builds a small shim against another tree's
-headers of the earlier design (``packed_qkv_attention_kernel<96>`` with 128
-threads and static shared memory, ``flash::flash_fwd_kernel<128, false>``
-with its dynamic shared memory), so the two designs can be read side by side
-on one card. Prints one JSON line with the card's name and power limit.
+It asks the kernels' own entry points (#1 at the ViT-g trunk shape S = 257
+and the BTAdapter temporal S = 16, D = 88; #4, #5 and #6 at D = 128; #12
+and #11 as above). With ``--csrc`` it also builds small shims against
+another tree's headers of the earlier designs (``packed_qkv_attention_kernel
+<96>`` with 128 threads and static shared memory; ``flash::flash_fwd_kernel
+<128, false>``, ``flash::flash_bwd_dq_kernel<128>`` and ``flash::
+flash_bwd_dkv_kernel<128>`` with their dynamic shared memory), one shim a
+kernel, so the two designs can be read side by side on one card; a kernel
+the other tree does not have under that name reads null. Prints one JSON
+line with the card's name and power limit.
 """
 
 from __future__ import annotations
@@ -33,40 +37,55 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(ROOT))
 
-SHIM = r"""
+_FLASH_SHIM = r"""
 #include "flash_attention.cuh"
-#include "packed_qkv_attention.cuh"
 
-extern "C" int occ_packed() {
-  int n = -1;
-  cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &n, stllm::packed_qkv_attention_kernel<96, __nv_bfloat16>, 128, 0);
-  return n;
-}
-
-extern "C" int occ_flash() {
-  auto k = stllm::flash::flash_fwd_kernel<128, false>;
-  const int smem = stllm::flash::fwd_smem_bytes<128>();
+extern "C" int occ() {
+  auto k = stllm::flash::%s<128%s>;
+  const int smem = stllm::flash::%s<128>();
   cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   int n = -1;
   cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, k, 128, smem);
   return n;
 }
 """
+SHIMS = {
+    "packed_qkv_attention": r"""
+#include "packed_qkv_attention.cuh"
+
+extern "C" int occ() {
+  int n = -1;
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &n, stllm::packed_qkv_attention_kernel<96, __nv_bfloat16>, 128, 0);
+  return n;
+}
+""",
+    "flash_attention_fwd": _FLASH_SHIM % ("flash_fwd_kernel", ", false", "fwd_smem_bytes"),
+    "flash_attention_bwd_dq": _FLASH_SHIM % ("flash_bwd_dq_kernel", "", "dq_smem_bytes"),
+    "flash_attention_bwd_dkv": _FLASH_SHIM % ("flash_bwd_dkv_kernel", "", "dkv_smem_bytes"),
+}
 
 
 def earlier_design(csrc: Path) -> dict:
+    """Blocks per SM of each shim's kernel built against ``csrc`` (null
+    where that tree has no such kernel)."""
     from stllm_tpu_torch.ops.kernels import _nvcc
 
+    out = {}
     with tempfile.TemporaryDirectory() as tmp:
-        src, lib = Path(tmp) / "occupancy.cu", Path(tmp) / "libocc.so"
-        src.write_text(SHIM)
-        subprocess.run([_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-                        "-O3", "-shared", "-Xcompiler", "-fPIC", f"-I{csrc}", "-o", str(lib),
-                        str(src)], check=True)
-        so = ctypes.CDLL(str(lib))
-        return {"packed_qkv_attention": {"S=257": so.occ_packed(), "S=16": so.occ_packed()},
-                "flash_attention_fwd": so.occ_flash()}
+        running = []
+        for name, shim in SHIMS.items():
+            src, lib = Path(tmp) / f"{name}.cu", Path(tmp) / f"lib{name}.so"
+            src.write_text(shim)
+            cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+                   "-shared", "-Xcompiler", "-fPIC", f"-I{csrc}", "-o", str(lib), str(src)]
+            running.append((name, lib, subprocess.Popen(cmd, stdout=subprocess.DEVNULL,
+                                                        stderr=subprocess.DEVNULL)))
+        for name, lib, proc in running:
+            out[name] = ctypes.CDLL(str(lib)).occ() if proc.wait() == 0 else None
+    out["packed_qkv_attention"] = {"S=257": out["packed_qkv_attention"],
+                                   "S=16": out["packed_qkv_attention"]}
+    return out
 
 
 def this_design() -> dict:
@@ -76,6 +95,8 @@ def this_design() -> dict:
     return {"packed_qkv_attention": {f"S={s}": kernels.occupancy("packed_qkv_attention", s, 88)
                                      for s in (257, 16)},
             "flash_attention_fwd": kernels.occupancy("flash_attention_fwd", 128),
+            "flash_attention_bwd_dq": kernels.occupancy("flash_attention_bwd_dq", 128),
+            "flash_attention_bwd_dkv": kernels.occupancy("flash_attention_bwd_dkv", 128),
             "w4a16_matmul": {"wgmma": kernels.occupancy("w4a16_matmul", 1, 0),
                              "tile loop BM=64": kernels.occupancy("w4a16_matmul", 0, 64),
                              "tile loop BM=16": kernels.occupancy("w4a16_matmul", 0, 16)},
@@ -96,11 +117,12 @@ def main() -> int:
         print("kernel_occupancy: no CUDA device", file=sys.stderr)
         return 1
     torch.cuda.init()
-    blocks = earlier_design(args.csrc.resolve()) if args.csrc else this_design()
+    blocks = {"this tree": this_design()}
+    if args.csrc:
+        blocks[f"earlier design ({args.csrc})"] = earlier_design(args.csrc.resolve())
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip()
-    print(json.dumps({"csrc": str(args.csrc or "this tree"), "blocks_per_sm": blocks,
-                      "card": smi.splitlines()[0]}))
+    print(json.dumps({"blocks_per_sm": blocks, "card": smi.splitlines()[0]}))
     return 0
 
 

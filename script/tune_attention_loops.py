@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
-"""Time variants of the packed-qkv loop (#1) and the flash forward loop
-(#4, #7) on one CUDA card, each held to its plain version first.
+"""Time variants of the packed-qkv loop (#1), the flash forward loop
+(#4, #7) and the flash backward pair (#5 dQ, #6 dK/dV) on one CUDA card,
+each held to its plain version first.
 
-    python3 script/tune_attention_loops.py [--out FILE]
+    python3 script/tune_attention_loops.py [--only KERNEL ...] [--parent CSRC] [--out FILE]
 
 A variant is the shipped source with some of its tile constants changed:
 the script copies stllm_tpu_torch/csrc into a temporary directory, rewrites
@@ -10,10 +11,17 @@ the constants there (the checkout is not touched), builds the variant's
 library with nvcc as ops/kernels.py builds it, and swaps it in for the
 kernel's own. Shapes: #1 at the ViT-g trunk (16, 257, 16, 88) and the
 BTAdapter temporal shape (256, 16, 16, 88); #4 at (1, 1024, 32, 128) causal
-with a padded kv_mask; #7 at (1, 768, 32, 128), causal, padded. Times are
+with a padded kv_mask; #7 at (1, 768, 32, 128), causal, padded; #5 and
+#6 at (1, 1024, 32, 128) causal with a padded kv_mask, beside SDPA's whole
+backward on the same inputs, device time only (chip_smoke.queued_ms). The
+backward variants are the walked tile's width, dQ's stage depth and score
+sub-tile, the rows a block owns and the blocks per SM, and the earlier
+launch order (row tile fastest, ascending); ``--parent`` adds "parent", each backward kernel
+built from another tree's csrc (the earlier design, timed in the same
+call). ``--only`` keeps the named kernels' variants. Times are
 CUDA-graph replays cycling four input copies (chip_smoke.graph_ms), beside
-SDPA on the same inputs. Prints one JSON line per variant and the card's
-name and power limit.
+SDPA on the same inputs. Prints one JSON line per variant (with ptxas's
+registers and spill bytes) and the card's name and power limit.
 """
 
 from __future__ import annotations
@@ -61,6 +69,26 @@ def _fwd_keys(n):
     return (FLASH, r"constexpr int kFwdTile = \d+;", f"constexpr int kFwdTile = {n};")
 
 
+def _bwd_const(name, n):
+    return (FLASH, rf"constexpr int {name} = \d+;", f"constexpr int {name} = {n};")
+
+
+def _bwd_min_blocks(kernel, n):
+    return (FLASH, rf"__launch_bounds__\(2 \* ROWS, 128 / ROWS\) {kernel}",
+            f"__launch_bounds__(2 * ROWS, {n}) {kernel}")
+
+
+def _row_tile_fastest(first_use):
+    """The earlier launch order: the block's row tile fastest and in
+    ascending order, (head, batch) slowest."""
+    return [(FLASH, r"const int tile = blockIdx.x / bh_count;\n  const int bh = blockIdx.x % "
+                    rf"bh_count;\n(  const int {first_use})",
+             "const int n_tiles_ = gridDim.x / bh_count;\n  const int tile = blockIdx.x % "
+             "n_tiles_;\n  const int bh = blockIdx.x / n_tiles_;\n\\1")] + (
+        [(FLASH, r"\(p\.causal \? n_q - 1 - tile : tile\) \* ROWS", "tile * ROWS")]
+        if first_use == "q0" else [])
+
+
 VARIANTS = {
     "packed_qkv_attention": [
         ("shipped", []),
@@ -75,16 +103,35 @@ VARIANTS = {
         ("32 keys", [_fwd_keys(32)]),
         ("32 keys, 4 blocks", [_fwd_keys(32), _flash_min_blocks(4)]),
     ],
+    "flash_attention_bwd_dq": [
+        ("shipped", []),
+        ("32-key tile", [_bwd_const("kDqTile", 32)]),
+        ("32-key tile, row tile fastest (step 1)",
+         [_bwd_const("kDqTile", 32), *_row_tile_fastest("q0")]),
+        ("row tile fastest (step 2)", _row_tile_fastest("q0")),
+        ("3 stages", [_bwd_const("kDqStages", 3)]),
+        ("64-key sub-tile", [_bwd_const("kDqSub", 64)]),
+        ("128 rows", [_bwd_const("kDqRows", 128)]),
+        ("3 blocks", [_bwd_min_blocks("flash_bwd_dq_kernel", 3)]),
+    ],
+    "flash_attention_bwd_dkv": [
+        ("shipped", []),
+        ("64 rows (one warpgroup, 2 blocks)", [_bwd_const("kDkvRows", 64)]),
+        ("32-query tile", [_bwd_const("kDkvTile", 32)]),
+        ("row tile fastest", _row_tile_fastest("kbase")),
+    ],
 }
+BACKWARD = ("flash_attention_bwd_dq", "flash_attention_bwd_dkv")
 
 
-def start_build(name: str, edits, tmp: Path):
-    """Copy the sources to ``tmp``, apply ``edits`` and start nvcc on the
-    kernel's file; returns (the running nvcc, the library it writes)."""
+def start_build(name: str, edits, tmp: Path, csrc: Path = None):
+    """Copy the sources (``csrc``, default this tree's) to ``tmp``, apply
+    ``edits`` and start nvcc on the kernel's file; returns (the running
+    nvcc, the library it writes)."""
     from stllm_tpu_torch.ops import kernels
 
     src = tmp / "csrc"
-    shutil.copytree(kernels.CSRC, src)
+    shutil.copytree(csrc or kernels.CSRC, src)
     for header, pattern, repl in edits:
         path = src / header
         text, n = re.subn(pattern, repl, path.read_text())
@@ -158,9 +205,62 @@ def time_flash(gen) -> dict:
     return out
 
 
+_SDPA_BWD = {}
+
+
+def time_backward(name: str, gen) -> dict:
+    """#5 or #6 at the training shape, held to the plain backward first;
+    SDPA's whole backward on the same inputs, device time only, once a
+    call."""
+    import torch
+    import torch.nn.functional as F
+
+    import chip_smoke as cs
+    from stllm_tpu_torch.ops import kernels
+
+    b, s, h, d = cs.TRAIN_LONG
+    bufs, masks = cs._attn_case(gen, cs.TRAIN_LONG, True, True)
+    args = []
+    for q, k, v, kv_mask, causal, scale in bufs:
+        o, lse = kernels.flash_attention_fwd_plain(q, k, v, kv_mask, causal, scale)
+        g = torch.randn(q.shape, generator=gen, device="cuda").bfloat16()
+        delta = (g.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
+        args.append((q, k, v, kv_mask, g, lse, delta, causal, scale))
+    fn = getattr(kernels, name)
+    got, want = fn(*args[0]), kernels.flash_attention_bwd_plain(*args[0])
+    pairs = zip([got], want[:1]) if name == "flash_attention_bwd_dq" else zip(got, want[1:])
+    err = max(cs._bf16_err(a, w) for a, w in pairs)
+    it = iter(range(1 << 30))
+    out = {"ms": cs.graph_ms(lambda: fn(*args[next(it) % 4]), 40), "max_abs_err": err}
+    try:
+        out["blocks_per_sm"] = kernels.occupancy(name, d)
+    except AttributeError:          # a tree whose library has no occupancy entry
+        out["blocks_per_sm"] = None
+    if not _SDPA_BWD:
+        refs = []
+        for q, k, v, kv_mask, g, *_ in args:
+            leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+            ref = F.scaled_dot_product_attention(
+                *(t.transpose(1, 2) for t in leaves), attn_mask=masks[q.data_ptr()],
+                scale=d ** -0.5)
+            refs.append((ref, leaves, g.transpose(1, 2)))
+        it2 = iter(range(1 << 30))
+
+        def sdpa_backward():
+            ref, leaves, g = refs[next(it2) % 4]
+            return torch.autograd.grad(ref, leaves, g, retain_graph=True)
+
+        _SDPA_BWD["sdpa_whole_backward_ms"] = cs.queued_ms(sdpa_backward, 40)
+    out.update(_SDPA_BWD)
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", type=Path, help="also write the lines to this file")
+    ap.add_argument("--only", nargs="+", choices=sorted(VARIANTS), help="these kernels only")
+    ap.add_argument("--parent", type=Path,
+                    help="another tree's stllm_tpu_torch/csrc: its backward pair as a variant")
     args = ap.parse_args()
     import torch
 
@@ -173,19 +273,37 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         builds = []        # every variant's nvcc at once, one per source
         for name, variants in VARIANTS.items():
+            if args.only and name not in args.only:
+                continue
+            variants = list(variants)
+            if args.parent and name in BACKWARD:
+                variants.append(("parent", None))
             for i, (label, edits) in enumerate(variants):
                 where = Path(tmp) / f"{name}-{i}"
                 where.mkdir()
-                builds.append((name, label, *start_build(name, edits, where)))
+                csrc = args.parent.resolve() if edits is None else None
+                builds.append((name, label, *start_build(name, edits or [], where, csrc)))
         for name, label, proc, lib in builds:
             log = proc.communicate()[0]
             if proc.returncode:
+                for other in builds:
+                    other[2].kill()
                 raise RuntimeError(f"{name} {label}: nvcc failed\n{log}")
             regs = sorted({int(r) for r in re.findall(r"Used (\d+) registers", log)})
+            spills = sorted({int(r) for r in re.findall(r"(\d+) bytes spill stores", log)})
             use_library(name, lib)
             gen = torch.Generator(device="cuda").manual_seed(0)
-            res = time_packed(gen) if name == "packed_qkv_attention" else time_flash(gen)
-            lines.append(json.dumps({"kernel": name, "variant": label, "registers": regs, **res}))
+            try:
+                if name == "packed_qkv_attention":
+                    res = time_packed(gen)
+                elif name in BACKWARD:
+                    res = time_backward(name, gen)
+                else:
+                    res = time_flash(gen)
+            except (AssertionError, RuntimeError) as e:    # wrong, or refused: not timed
+                res = {"error": str(e)[:400]}
+            lines.append(json.dumps({"kernel": name, "variant": label, "registers": regs,
+                                     "spill_store_bytes": spills, **res}))
             print(lines[-1], flush=True)
     lines.append(cs.smi_line())
     print(lines[-1])

@@ -3,14 +3,19 @@
 // Replaces stllm_tpu/ops/attention.py:_flash_bwd_dkv_kernel. From the same
 // inputs as the dQ kernel it recomputes p and ds on the transposed scores
 // k . q^T and accumulates dv = p^T . dO and dk = ds^T . q over the query
-// tiles in fp32, stored as bf16. A block owns 64 keys, so no two blocks
+// tiles in fp32, stored as bf16. A block owns 128 keys, so no two blocks
 // write one row and no atomics are needed; causal query tiles before the
 // block's first key are skipped.
 //
 // Bound on the H100 at (1, 1024, 32, 128) causal: 8 * B * H * S^2 * D / 2 =
 // 17.2 GFLOP (17.4 us at 989 TFLOP/s) against 50 MB moved (15 us): bound by
-// operations. The tile loop is in flash_attention.cuh; an fp32 q, k, v, dO
-// takes the fp32 instantiation of attention_f32.cuh.
+// operations. What the loop does about it (flash_attention.cuh): the four
+// products run on wgmma, two warpgroups of 64 keys sharing each walked tile;
+// 64-query tiles of Q, dO, lse and delta come through a two-stage cp.async
+// ring, one barrier a tile, with the next tile's copies in flight under the
+// current tile's products; the key tiles that walk the most queries (the
+// first ones, under causal) launch first. An fp32 q, k, v, dO takes the fp32
+// instantiation of attention_f32.cuh.
 
 #include "attention_f32.cuh"
 #include "flash_attention.cuh"
@@ -46,4 +51,10 @@ extern "C" int stllm_flash_attention_bwd_dkv_f32(const void* q, const void* k, c
   p.out2 = static_cast<float*>(dk);
   p.out3 = static_cast<float*>(dv);
   return static_cast<int>(stllm::f32attn::launch_dkv(p, static_cast<cudaStream_t>(stream)));
+}
+
+// Resident blocks of the bf16 kernel a streaming multiprocessor holds at
+// head_dim D (-1 on an error).
+extern "C" int stllm_flash_attention_bwd_dkv_occupancy(int D) {
+  return stllm::flash::dkv_occupancy(D);
 }

@@ -145,6 +145,8 @@ _F32_SYMBOLS = {
 _OCCUPANCY = {
     "packed_qkv_attention": ("stllm_packed_qkv_attention_occupancy", [_I, _I]),
     "flash_attention_fwd": ("stllm_flash_attention_fwd_occupancy", [_I]),
+    "flash_attention_bwd_dq": ("stllm_flash_attention_bwd_dq_occupancy", [_I]),
+    "flash_attention_bwd_dkv": ("stllm_flash_attention_bwd_dkv_occupancy", [_I]),
     "w4a16_matmul": ("stllm_w4a16_matmul_occupancy", [_I, _I]),
     "qmm_res_ln": ("stllm_qmm_res_ln_occupancy", [_I, _I, _I, _I]),
 }
@@ -271,7 +273,8 @@ def _launch(name: str, device: torch.device, *args, f32: bool = False,
 
 def occupancy(name: str, *shape: int) -> int:
     """Blocks of kernel ``name``'s bf16 instantiation one SM holds at once
-    at ``shape`` (packed_qkv_attention: S, D; flash_attention_fwd: D;
+    at ``shape`` (packed_qkv_attention: S, D; flash_attention_fwd,
+    flash_attention_bwd_dq, flash_attention_bwd_dkv: D;
     w4a16_matmul: wgmma form or not, the tile loop's row tile (16 or 64);
     qmm_res_ln: cluster form or not, blocks an SM (0)
     or clusters the card holds (1), M, N), by

@@ -369,8 +369,10 @@ def test_fused_short_kernel_rows_without_a_visible_key(card):
         _close_bf16(got[1], v[1].float().mean(dim=0, keepdim=True).expand(s, h, d))
 
 
+# the last two: lengths that are no multiple of the backward's 64-row walked
+# tile
 FLASH_SHAPES = [(1, 1024, 32, 128), (2, 1100, 2, 88), (16, 257, 16, 88), (2, 100, 2, 32),
-                (1, 2048, 4, 128)]
+                (1, 2048, 4, 128), (1, 1000, 4, 128), (2, 70, 2, 64)]
 
 
 @pytest.mark.parametrize("causal,masked", [(False, False), (True, True), (True, False)])
@@ -393,6 +395,42 @@ def test_flash_kernels_match_plain(card, shape, causal, masked):
     for got, want in zip((dq, dk, dv), kernels.flash_attention_bwd_plain(
             q, k, v, kv_mask, g, want_lse, delta, causal, scale)):
         _close_bf16(got, want)
+
+
+def _backward_vs_plain(q, k, v, kv_mask, g, causal, scale):
+    """#5 and #6 against the plain backward, from the plain forward's lse;
+    returns the kernels' dk, dv."""
+    want_out, lse = kernels.flash_attention_fwd_plain(q, k, v, kv_mask, causal, scale)
+    delta = (g.float() * want_out.float()).sum(-1).transpose(1, 2).contiguous()
+    dq = _counted("flash_attention_bwd_dq", lambda: kernels.flash_attention_bwd_dq(
+        q, k, v, kv_mask, g, lse, delta, causal, scale))
+    dk, dv = _counted("flash_attention_bwd_dkv", lambda: kernels.flash_attention_bwd_dkv(
+        q, k, v, kv_mask, g, lse, delta, causal, scale))
+    for got, want in zip((dq, dk, dv), kernels.flash_attention_bwd_plain(
+            q, k, v, kv_mask, g, lse, delta, causal, scale)):
+        _close_bf16(got, want)
+    return dk, dv
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_flash_backward_kernels_with_whole_walked_tiles_masked(card, causal):
+    """A kv_mask that hides keys 64-191 in every batch row: two whole 64-key
+    tiles dQ walks, and the whole key block of one dK, dV block, whose
+    gradients are then 0."""
+    b, s, h, d = 2, 320, 2, 128
+    q, k, v, kv_mask, g = _attn_inputs(card, b, s, s, h, d, seed=5)
+    kv_mask[:, 64:192] = 0
+    dk, dv = _backward_vs_plain(q, k, v, kv_mask, g, causal, d ** -0.5)
+    assert not bool(dk[:, 64:192].any()) and not bool(dv[:, 64:192].any())
+
+
+@pytest.mark.parametrize("causal,masked", [(False, True), (True, True), (True, False)])
+@pytest.mark.parametrize("sq,sk", [(70, 130), (130, 70), (300, 200), (1000, 1100)])
+def test_flash_backward_kernels_with_more_or_fewer_keys(card, sq, sk, causal, masked):
+    """Sk != Sq through the wrappers (causal: key <= query, no offset)."""
+    b, h, d = 2, 2, 64
+    q, k, v, kv_mask, g = _attn_inputs(card, b, sq, sk, h, d, seed=6)
+    _backward_vs_plain(q, k, v, kv_mask if masked else None, g, causal, d ** -0.5)
 
 
 def test_flash_kernel_rows_without_a_visible_key(card):
