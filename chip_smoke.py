@@ -15,10 +15,14 @@ toolkit. Phases, each fatal on failure:
    the port never calls) and the bound; for the two int8 GEMMs (#11 at the
    ViT-g proj and fc2 sites, #8 at its fc1 and fc2 shapes) the time of the
    port's own unfused chain that each replaces stands beside a null library
-   time; #12's wgmma prefill form (M = 576 and 640) and #11's cluster form
-   are timed beside the design each replaced (the tile loop, the 16-row
-   kernel; both kept in the same libraries), in the order parent, new, new,
-   parent; the flash backward pair (#5, #6) is also held to the plain
+   time; #12's decode form (M = 4, with the 32-layer totals) and wgmma
+   prefill form (M = 576 and 640) and #11's cluster form are timed beside
+   the design each replaced (the tile loop, the 16-row kernel; both kept in
+   the same libraries), in the order parent, new, new, parent; the decode
+   form is also held at 1, 3, 8 and 16 rows; #12's timed copies together
+   exceed the 50 MB L2 at every shape;
+   #1, #2 and #3 are held (not timed) at head_dim 120 and 128 and at
+   H*D = 12544; the flash backward pair (#5, #6) is also held to the plain
    backward at the edges of its walked tiles (lengths that are no multiple
    of 64, whole masked tiles, more or fewer keys than queries), prints its
    blocks per SM, and stands beside SDPA's whole backward timed on the
@@ -43,7 +47,8 @@ toolkit. Phases, each fatal on failure:
    (per-channel int4, q|k|v and gate|up fused, int8 lm_head), serves the
    same 6 requests from an int8 KV cache: 42 static-int8 attention launches
    per video and exactly 128 W4A16 launches per LLaMA forward (prefill on
-   the wgmma form, decode on the tile loop); a tiny bf16
+   the wgmma form, decode on the decode form, none on the tile loop); a
+   tiny bf16
    W4A16 + int8-KV LLaMA must give the same prefill logits on the card and
    on the CPU;
 6. pipeline - the stack of script/bench_pipeline_serving.py under
@@ -93,6 +98,7 @@ import numpy as np
 import torch
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM, published
+L2_BYTES = 50 * 2 ** 20         # H100 SXM L2, published
 BF16_FLOP_PER_S = 989e12       # H100 SXM dense bf16, published
 INT8_OP_PER_S = 1979e12        # H100 SXM dense int8, published
 FP32_FLOP_PER_S = 67e12        # H100 SXM fp32 outside the tensor cores, published
@@ -160,6 +166,11 @@ STATIC_PER_VIDEO = {"layer_norm_quant": 0, "gelu_quant": 0, "packed_qkv_attentio
 PROBES = ("w4v3_matmul", "w8p_matmul", "w4_unpack_matmul")   # launched by their checks only
 W4A16_LAUNCHES_PER_FORWARD = 4 * 32   # fused qkv, o, fused gate|up, down in 32 layers
 W4_ROWS = (4, 576, 640)    # #12's rows: decode (4 slots), the QA and the pipeline prompts
+W4_DECODE_HELD = (1, 3, 8, 16)   # other decode row counts the decode form is held at, untimed
+# the packed kernels at the widths the reference's feasibility rule admits
+# beyond the trunk's: head_dim 120 and 128 (#3), and H*D = 98 x 128 = 12544,
+# wider than a row-quant block's shared memory (12288), short and long loops
+WIDE_PACKED = [(2, 37, 4, 120), (2, 37, 4, 128), (1, 16, 98, 128), (1, 40, 98, 128)]
 # Vicuna-7B decoder shapes (K, N, packed rows of K-padding) of the W4A16 stack
 W4_SHAPES = {"qkv": (4096, 12288, 0), "o": (4096, 4096, 0), "gateup": (4096, 22016, 0),
              "down": (11008, 4096, 128)}
@@ -338,6 +349,24 @@ def _int8_err(got, want) -> float:
     return float(err.max())
 
 
+def _int8_step_err(got, want) -> float:
+    """As _int8_err where a row's scale may exceed INT8_ATOL (the wide
+    rows reach amax 8 and more): codes at most one step apart, scales
+    within INT8_RTOL, and a value one code step away within one scale."""
+    (gq, gs), (wq, ws) = got, want
+    if gq.dtype != torch.int8 or gq.shape != wq.shape or gs.shape != ws.shape:
+        raise AssertionError(f"int8 output {gq.dtype} {tuple(gq.shape)} {tuple(gs.shape)}")
+    steps = int((gq.int() - wq.int()).abs().max())
+    g, w = gq.float() * gs, wq.float() * ws
+    err = (g - w).abs()
+    ok = bool((err <= torch.clamp(ws, min=INT8_ATOL) + INT8_RTOL * w.abs()).all()) \
+        and bool(((gs - ws).abs() <= INT8_RTOL * ws).all())
+    if steps > 1 or not ok:
+        raise AssertionError(f"codes {steps} steps apart, max abs err {float(err.max())} "
+                             f"outside one step, atol={INT8_ATOL}, rtol={INT8_RTOL}")
+    return float(err.max())
+
+
 def _ws_err(got, want) -> float:
     """Weight-streaming outputs in fp32 within WS_ATOL times the plain
     output's largest magnitude plus WS_RTOL relative."""
@@ -353,9 +382,9 @@ def _ws_err(got, want) -> float:
 
 
 def _check_kernel(name: str, cases, kernel, plain, err_fn, library=None) -> list:
-    """Each case: (label, [4 input tuples], bytes, ops time in s). The kernel
+    """Each case: (label, [input tuples], bytes, ops time in s). The kernel
     is held to its plain version on the first inputs, then timed cycling the
-    four copies so that each launch reads inputs the 50 MB L2 does not hold:
+    copies (four or more) so that each launch reads inputs the L2 does not hold:
     ``ms`` by CUDA-graph replay, ``ms_stream`` launched one by one from
     Python (where short kernels measure the host)."""
     rows = []
@@ -381,7 +410,7 @@ def _check_kernel(name: str, cases, kernel, plain, err_fn, library=None) -> list
 
 def _vs_parent(row: dict, kernel, parent, bufs, err_fn, plain, iters: int = 40) -> None:
     """Time the design a redesigned kernel replaced (``parent``, its form
-    kept in the same library) beside the kernel on the same four input
+    kept in the same library) beside the kernel on the same input
     copies, in the order parent, kernel, kernel, parent: ``parent_ms`` and
     ``ms_again`` are the means of each pair. The parent is held to the
     plain version too."""
@@ -500,6 +529,8 @@ def phase_kernels(kernels) -> dict:
     out["packed_qkv_attention_s8"] = _entry(
         "packed_qkv_attention_s8", "packed_qkv_attention_s8.cu",
         "stllm_tpu/ops/attention.py:830", rows, INT8_ATOL, INT8_RTOL)
+    for name, held in _wide_packed(kernels, gen).items():
+        out[name]["wide_cases"] = held
 
     # #9 LayerNorm -> int8 and #10 GELU -> int8 over the trunk's rows
     cases9, cases10 = [], []
@@ -532,6 +563,32 @@ def phase_kernels(kernels) -> dict:
     return out
 
 
+def _wide_packed(kernels, gen) -> dict:
+    """#1, #2 and #3 held (not timed) to their plain versions at
+    WIDE_PACKED: each call launches its kernel once."""
+    held = {"packed_qkv_attention": [], "packed_qkv_attention_quant": [],
+            "packed_qkv_attention_s8": []}
+    for b, s, h, d in WIDE_PACKED:
+        qkv = _qkv_bufs(gen, b, s, h, d)[0]
+        for name in held:
+            if name == "packed_qkv_attention_s8":
+                args, err_fn = (*_static_int8(qkv), h, d, d ** -0.5), _int8_step_err
+            elif name == "packed_qkv_attention_quant":
+                args, err_fn = (qkv, h, d, d ** -0.5), _int8_step_err
+            else:
+                args, err_fn = (qkv, h, d, d ** -0.5), _bf16_err
+            before = kernels.LAUNCHES[name]
+            got = getattr(kernels, name)(*args)
+            torch.cuda.synchronize()
+            if kernels.LAUNCHES[name] != before + 1:
+                raise AssertionError(f"[kernels] {name} at {(b, s, h, d)} did not launch once")
+            err = err_fn(got, getattr(kernels, name + "_plain")(*args))
+            held[name].append({"shape": [b, s, h, d], "max_abs_err": err})
+        print(f"[kernels] packed kernels at (B, S, H, D) = {(b, s, h, d)}, H*D = {h * d}: "
+              + ", ".join(f"{n} {v[-1]['max_abs_err']:.4g}" for n, v in held.items()))
+    return held
+
+
 def _ws_bound(m: int, k: int, n: int, w_bytes: int, out_bytes: int, scaled: bool = True) -> tuple:
     """Bytes (x, weights, scale, out each moved once) and tensor-core time of
     an (m, k) x (k, n) weight-streaming product."""
@@ -539,13 +596,22 @@ def _ws_bound(m: int, k: int, n: int, w_bytes: int, out_bytes: int, scaled: bool
     return nbytes, 2 * m * k * n / BF16_FLOP_PER_S
 
 
+def w4_copies(w_bytes: int) -> int:
+    """Input copies that #12's timings cycle at a weight of ``w_bytes``:
+    at least four, and together at least twice the L2, so that each launch
+    streams its weight from device memory (o's 8.4 MB weight takes 13)."""
+    return max(4, -(-2 * L2_BYTES // w_bytes))
+
+
 def _weight_stream_kernels(kernels, gen) -> dict:
     """W4A16 (#12) at the stack's decode (M = 4 slots) and prefill (M = 576,
     the QA prompt; 640, the pipeline prompt) shapes, and the probes #13-#15
     at theirs. No single PyTorch call computes these functions on this
     storage, so library_ms is null; #12's rows add the time of torch.matmul
-    on the dense bf16 weight of the same shape, as context, and at prefill
-    the time of the tile loop the wgmma form replaced (parent_ms)."""
+    on the dense bf16 weight of the same shape, as context, and the time of
+    the tile loop that the decode and wgmma forms replaced (parent_ms), on
+    w4_copies input copies. The decode form is also held at W4_DECODE_HELD
+    rows."""
     out = {}
 
     def codes(shape):
@@ -558,7 +624,7 @@ def _weight_stream_kernels(kernels, gen) -> dict:
     for m in W4_ROWS:
         for label, (k, n, pad) in W4_SHAPES.items():
             bufs = []
-            for _ in range(4):
+            for _ in range(w4_copies(k // 2 * n)):
                 x = torch.randn(m, k, generator=gen, device="cuda").bfloat16()
                 packed = torch.cat([kernels.pack_int4_nibbles(codes((k // 2, n)), codes((k // 2, n))),
                                     torch.zeros((pad, n), dtype=torch.int8, device="cuda")])
@@ -573,14 +639,36 @@ def _weight_stream_kernels(kernels, gen) -> dict:
         m = row["shape"][1]
         row["dense_bf16_matmul_ms"] = dense[(row["shape"][0], m)]
         row["form"] = kernels.w4a16_form(m)
-        if row["form"] == "wgmma":
-            _vs_parent(row, kernels.w4a16_matmul,
-                       lambda x, p, s_: kernels._w4a16_matmul(x, p, s_, "stream"), bufs, _ws_err,
-                       kernels.w4a16_matmul_plain)
-        else:
-            row["splits"] = kernels.weight_stream_splits(m, row["shape"][3], row["shape"][2] // 2)
+        _vs_parent(row, kernels.w4a16_matmul,
+                   lambda x, p, s_: kernels._w4a16_matmul(x, p, s_, "stream"), bufs, _ws_err,
+                   kernels.w4a16_matmul_plain)
+        row["parent_splits"] = kernels.weight_stream_splits(m, row["shape"][3],
+                                                            row["shape"][2] // 2)
     out["w4a16_matmul"] = _entry("w4a16_matmul", "w4a16_matmul.cu",
                                  "stllm_tpu/ops/quant.py:639", rows, WS_ATOL, WS_RTOL)
+    out["w4a16_matmul"]["forms"] = {
+        f: f"stllm_tpu_torch/csrc/{src}" for f, src in (
+            ("decode", "w4a16_decode.cuh"), ("wgmma", "w4a16_prefill.cuh"),
+            ("stream", "weight_stream_matmul.cuh"))}
+    held = {}
+    for m in W4_DECODE_HELD:
+        for label, (k, n, pad) in W4_SHAPES.items():
+            x = torch.randn(m, k, generator=gen, device="cuda").bfloat16()
+            packed = torch.cat([
+                kernels.pack_int4_nibbles(codes((k // 2, n)), codes((k // 2, n))),
+                torch.zeros((pad, n), dtype=torch.int8, device="cuda")])
+            sc = scale(n)
+            if kernels.w4a16_form(m) != "decode":
+                raise AssertionError(f"[kernels] w4a16_matmul M={m} is not on the decode form")
+            held[f"{label} M={m}"] = _ws_err(kernels.w4a16_matmul(x, packed, sc),
+                                            kernels.w4a16_matmul_plain(x, packed, sc))
+    out["w4a16_matmul"]["decode_held"] = held
+    blocks = {"decode M<=8": kernels.occupancy("w4a16_matmul", 2, 8),
+              "decode M<=16": kernels.occupancy("w4a16_matmul", 2, 16),
+              "tile loop BM=16": kernels.occupancy("w4a16_matmul", 0, 16)}
+    out["w4a16_matmul"]["blocks_per_sm"] = blocks
+    print(f"[kernels] w4a16_matmul decode form held at M {W4_DECODE_HELD}: max abs err "
+          f"{max(held.values()):.4g}; blocks per SM {blocks}")
     totals = {}
     for m in W4_ROWS:
         sel = [r for r in rows if r["shape"][1] == m]
@@ -590,7 +678,7 @@ def _weight_stream_kernels(kernels, gen) -> dict:
         print(f"[kernels] w4a16_matmul M={m}, the four shapes x 32 layers: "
               f"{json.dumps(totals[m])}")
     out["w4a16_matmul"]["per_forward_32_layers"] = totals
-    out["w4a16_matmul"]["parent_ms"] = None   # the head row is decode: one form
+    out["w4a16_matmul"]["parent_ms"] = rows[0]["parent_ms"]
     del cases
 
     # #13 arithmetic-packed W4A16 and #14 int8 streaming at the probe's M = 1
@@ -1293,12 +1381,14 @@ def count_forwards() -> None:
 
 
 def _expect_w4_forms(label: str, out: dict) -> None:
-    """Every prefill forward ran #12's wgmma form (4 x 32 launches each),
-    every decode step the tile loop."""
+    """Every prefill forward ran #12's wgmma form and every decode step its
+    decode form, 4 x 32 launches a forward each, and nothing ran the tile
+    loop (so no split-K launch)."""
     forms = out["form_launches"]
-    wgmma, stream = forms["w4a16_matmul/wgmma"], forms["w4a16_matmul/stream"]
-    if not wgmma or wgmma % W4A16_LAUNCHES_PER_FORWARD or stream % W4A16_LAUNCHES_PER_FORWARD \
-            or wgmma + stream != out["launches"]["w4a16_matmul"]:
+    wgmma, decode = forms["w4a16_matmul/wgmma"], forms["w4a16_matmul/decode"]
+    if not wgmma or not decode or wgmma % W4A16_LAUNCHES_PER_FORWARD \
+            or decode % W4A16_LAUNCHES_PER_FORWARD or forms["w4a16_matmul/stream"] \
+            or wgmma + decode != out["launches"]["w4a16_matmul"]:
         raise AssertionError(f"[{label}] W4A16 launches by form {forms}")
 
 

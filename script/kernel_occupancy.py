@@ -98,6 +98,8 @@ def this_design() -> dict:
             "flash_attention_bwd_dq": kernels.occupancy("flash_attention_bwd_dq", 128),
             "flash_attention_bwd_dkv": kernels.occupancy("flash_attention_bwd_dkv", 128),
             "w4a16_matmul": {"wgmma": kernels.occupancy("w4a16_matmul", 1, 0),
+                             "decode M<=8": kernels.occupancy("w4a16_matmul", 2, 8),
+                             "decode M<=16": kernels.occupancy("w4a16_matmul", 2, 16),
                              "tile loop BM=64": kernels.occupancy("w4a16_matmul", 0, 64),
                              "tile loop BM=16": kernels.occupancy("w4a16_matmul", 0, 16)},
             "qmm_res_ln": {"cluster, blocks per SM": kernels.occupancy("qmm_res_ln", 1, 0, m, n),

@@ -57,7 +57,8 @@ sys.path.insert(0, str(REPO))
 
 GEMM_MARKS = ("gemm", "nvjet", "cutlass", "xmma", "matmul")
 ATTN_MARKS = ("packed_qkv_attention_kernel", "packed_qkv_s8_kernel")
-W4_MARKS = ("weight_stream_kernel", "splitk_reduce_kernel", "w4_prefill_kernel")
+W4_MARKS = ("weight_stream_kernel", "splitk_reduce_kernel", "w4_prefill_kernel",
+            "w4_decode_kernel")
 # kernels reported on their own: the training attention (the forward kernel is
 # #7 at the short tier, #4 at the long) and #11, the int8 matmul with the
 # epilogue-carried LayerNorm (its 16-row, wide-row and cluster kernels)

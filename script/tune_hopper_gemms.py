@@ -1,10 +1,12 @@
 #!/usr/bin/env python3
-"""Time variants of the two Hopper GEMM forms on one CUDA card: the cluster
-form of the fused-LayerNorm int8 GEMM (#11, csrc/qmm_res_ln.cu) and the
-wgmma prefill form of the W4A16 matmul (#12, csrc/w4a16_prefill.cuh), each
-held to its plain version first.
+"""Time variants of the Hopper GEMM forms on one CUDA card: the cluster
+form of the fused-LayerNorm int8 GEMM (#11, csrc/qmm_res_ln.cu), the wgmma
+prefill form and the decode form of the W4A16 matmul (#12,
+csrc/w4a16_prefill.cuh, csrc/w4a16_decode.cuh), each held to its plain
+version first.
 
-    python3 script/tune_hopper_gemms.py [--baseline OTHER/stllm_tpu_torch/csrc] [--out FILE]
+    python3 script/tune_hopper_gemms.py [--only KEY ...] [--baseline OTHER/stllm_tpu_torch/csrc]
+                                        [--out FILE]
 
 A variant is the shipped source with some lines changed: the script copies
 stllm_tpu_torch/csrc into a temporary directory, rewrites it there (the
@@ -12,8 +14,14 @@ checkout is not touched), builds the variant's library with nvcc as
 ops/kernels.py builds it, and swaps it in for the kernel's own. #11 at the
 ViT-g proj and fc2 sites ((16 x 257) x 1408 . 1408 x 1408 with per-row hs,
 6144 -> 1408 with a scalar hs), beside the 16-row kernel it replaced; #12 at
-the four Vicuna-7B shapes at M = 576 and 640. Times are
-CUDA-graph replays cycling four input copies (chip_smoke.graph_ms). With
+the four Vicuna-7B shapes at M = 576 and 640 (key w4a16_matmul) and, for the
+decode form, at M = 4 (key w4a16_matmul/decode) at the CTAs along K its
+rule gives (variants change the rule's kMaxCluster and kTargetCTAs) and the
+tile loop beside it (the same in every variant's library); the variants
+marked "diagnostic" drop work (the tensor-core products, or also the
+unpack) and are not held to the plain version. Times are CUDA-graph
+replays cycling input copies (chip_smoke.graph_ms; the decode form's
+copies more than the 50 MB L2 holds, chip_smoke.w4_copies). With
 ``--baseline`` each kernel is also built from another tree's sources (an
 earlier design with the same entry points). Prints one JSON line per
 variant and the card's name and power limit.
@@ -74,6 +82,37 @@ _ROWS64 = [(QMM, r"constexpr int kBM = 128;", "constexpr int kBM = 64;"),
 # #12: blocks that each load their own x tiles (clusters of one)
 _CLUSTER1 = ("w4a16_prefill.cuh", r"constexpr int kClusterN = 2;", "constexpr int kClusterN = 1;")
 
+# #12's decode form: CTA shapes (128-column slices, K groups), ring depth,
+# cluster limit, CTAs a call, and diagnostics that drop work or move the
+# reads
+DECODE = "w4a16_decode.cuh"
+
+
+def _decode(slices: int = 1, kgroups: int = 2, stages: int = 4, clusters: int = 16,
+            target: int = 512) -> list:
+    return [(DECODE, r"constexpr int kSlices = 1;", f"constexpr int kSlices = {slices};"),
+            (DECODE, r"constexpr int kKGroups = 2;", f"constexpr int kKGroups = {kgroups};"),
+            (DECODE, r"constexpr int kStages = 4;", f"constexpr int kStages = {stages};"),
+            (DECODE, r"constexpr int kMaxCluster = 16;",
+             f"constexpr int kMaxCluster = {clusters};"),
+            (DECODE, r"constexpr int kTargetCTAs = 512;", f"constexpr int kTargetCTAs = {target};")]
+
+
+_DECODE_NO_MMA = (DECODE, r"wsm::mma_bf16\(acc\[h\]\[j\], top, xt\[h\]\.x, xt\[h\]\.y\);\s*"
+                          r"wsm::mma_bf16\(acc\[h\]\[j\], bot, xb\[h\]\.x, xb\[h\]\.y\);",
+                  "acc[h][j][0] += __uint_as_float((top[0] ^ top[3] ^ bot[0] ^ bot[3] ^ xt[h].x "
+                  "^ xb[h].y) & 0x3fffffffu);")
+_DECODE_NO_UNPACK = (DECODE, r"const uint32_t top\[4\] = \{[^;]*\};\s*const uint32_t bot\[4\] = "
+                             r"\{[^;]*\};",
+                     "const uint32_t top[4] = {p01, p01, p23, p23}, bot[4] = {p23, p23, p01, p01};")
+# the same bytes a step copies, read from one contiguous span of device memory
+# (the matrix as if stored tile by tile)
+_DECODE_CONTIGUOUS = (
+    DECODE, r"const int8_t\* src = packed \+ static_cast<long long>\(k\) \* N \+ col;",
+    "const int8_t* src = packed + ((static_cast<long long>(blockIdx.y) * ((kw + 15) / 16) + "
+    "k / 16) * (16 * kBN) + (k % 16) * kBN + 16 * chunk) % (static_cast<long long>(kw) * N);")
+_LOADS_ONLY = [_DECODE_NO_MMA, _DECODE_NO_UNPACK]
+
 VARIANTS = {
     "qmm_res_ln": [
         ("shipped", []),
@@ -85,6 +124,25 @@ VARIANTS = {
     "w4a16_matmul": [
         ("shipped", []),
         ("clusters of 1", [_CLUSTER1]),
+    ],
+    "w4a16_matmul/decode": [
+        ("shipped", _decode()),
+        ("1 K group", _decode(kgroups=1)),
+        ("4 K groups", _decode(kgroups=4)),
+        ("256 columns", _decode(slices=2)),
+        ("512 columns, 1 K group", _decode(slices=4, kgroups=1)),
+        ("6 stages", _decode(stages=6)),
+        ("clusters to 8", _decode(clusters=8)),
+        ("clusters to 4", _decode(clusters=4)),
+        ("clusters of 1", _decode(clusters=1)),
+        ("256 CTAs a call", _decode(target=256)),
+        ("1024 CTAs a call", _decode(target=1024)),
+        ("diagnostic: no products", _decode() + [_DECODE_NO_MMA]),
+        ("diagnostic: loads only", _decode() + _LOADS_ONLY),
+        ("diagnostic: loads only, 512 columns, 1 K group",
+         _decode(slices=4, kgroups=1) + _LOADS_ONLY),
+        ("diagnostic: loads only, tile-contiguous reads",
+         _decode() + _LOADS_ONLY + [_DECODE_CONTIGUOUS]),
     ],
 }
 
@@ -148,10 +206,53 @@ def time_w4(gen) -> dict:
     return out
 
 
+def time_w4_decode(gen, checked: bool) -> dict:
+    """#12's decode form at M = 4, the four Vicuna-7B shapes, at the CTAs
+    along K that the built variant's rule gives (kMaxCluster, kTargetCTAs),
+    the tile loop beside it, and 32-layer totals."""
+    import torch
+
+    import chip_smoke as cs
+    from stllm_tpu_torch.ops import kernels
+
+    out = {}
+    for label, (k, n, pad) in cs.W4_SHAPES.items():
+        bufs = []
+        for _ in range(cs.w4_copies(k // 2 * n)):
+            codes = lambda sh: torch.randint(-7, 8, sh, generator=gen,  # noqa: E731
+                                             device="cuda", dtype=torch.int8)
+            x = torch.randn(4, k, generator=gen, device="cuda").bfloat16()
+            packed = torch.cat([kernels.pack_int4_nibbles(codes((k // 2, n)), codes((k // 2, n))),
+                                torch.zeros((pad, n), dtype=torch.int8, device="cuda")])
+            scale = 0.01 * (0.5 + torch.rand(n, generator=gen, device="cuda"))
+            bufs.append((x, packed, scale.contiguous()))
+        row = {}
+
+        def timed(fn):
+            it = iter(range(1 << 30))
+            return cs.graph_ms(lambda: fn(*bufs[next(it) % len(bufs)]), 40)
+
+        decode = lambda *a: kernels._w4a16_matmul(*a, "decode")  # noqa: E731
+        if checked:
+            cs._ws_err(decode(*bufs[0]), kernels.w4a16_matmul_plain(*bufs[0]))
+        row["decode"] = timed(decode)
+        row["tile loop"] = timed(lambda *a: kernels._w4a16_matmul(*a, "stream"))
+        # a yardstick of reading the same bytes: torch's sum of the packed
+        # weight as int64 words
+        row["torch sum of the weight"] = timed(
+            lambda x, p, s: p[:k // 2].view(torch.int64).sum())
+        out[label] = row
+        del bufs
+    out["32 layers"] = {f: 32 * sum(r[f] for r in out.values()) for f in ("decode", "tile loop")}
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--baseline", type=Path, help="another tree's csrc (an earlier design)")
     ap.add_argument("--out", type=Path, help="also write the lines to this file")
+    ap.add_argument("--only", nargs="+", choices=sorted(VARIANTS), help="these keys only")
+    ap.add_argument("--variant", nargs="+", help="variants whose label holds one of these")
     args = ap.parse_args()
     import torch
 
@@ -166,27 +267,36 @@ def main() -> int:
 
         builds = []        # every variant's nvcc at once, one per source
         for name, variants in VARIANTS.items():
+            if args.only and name not in args.only:
+                continue
             if args.baseline:
                 variants = variants + [("baseline", [])]
             for i, (label, edits) in enumerate(variants):
-                where = Path(tmp) / f"{name}-{i}"
+                if args.variant and not any(v in label for v in args.variant):
+                    continue
+                where = Path(tmp) / f"{name.replace('/', '-')}-{i}"
                 where.mkdir()
                 shipped = kernels.CSRC
                 if label == "baseline":
                     kernels.CSRC = args.baseline.resolve()
                 try:
-                    builds.append((name, label, *tune_attention_loops.start_build(
-                        name, edits, where)))
+                    builds.append((name, label, edits, *tune_attention_loops.start_build(
+                        name.split("/")[0], edits, where)))
                 finally:
                     kernels.CSRC = shipped
-        for name, label, proc, lib in builds:
+        for name, label, edits, proc, lib in builds:
             log = proc.communicate()[0]
             if proc.returncode:
                 raise RuntimeError(f"{name} {label}: nvcc failed\n{log}")
             regs = sorted({int(r) for r in re.findall(r"Used (\d+) registers", log)})
-            use_library(name, lib)
+            use_library(name.split("/")[0], lib)
             gen = torch.Generator(device="cuda").manual_seed(0)
-            res = time_qmm(gen) if name == "qmm_res_ln" else time_w4(gen)
+            if name == "qmm_res_ln":
+                res = time_qmm(gen)
+            elif name == "w4a16_matmul":
+                res = time_w4(gen)
+            else:
+                res = time_w4_decode(gen, not label.startswith("diagnostic"))
             lines.append(json.dumps({"kernel": name, "variant": label, "registers": regs, **res}))
             print(lines[-1], flush=True)
     lines.append(cs.smi_line())

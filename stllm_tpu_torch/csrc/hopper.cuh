@@ -1,6 +1,7 @@
-// Hopper (sm_90a) building blocks shared by the W4A16 prefill form
-// (w4a16_prefill.cuh), the cluster form of qmm_res_ln (qmm_res_ln.cu) and
-// the flash backward pair (flash_attention.cuh): mbarriers, TMA tile loads
+// Hopper (sm_90a) building blocks shared by the W4A16 prefill and decode
+// forms (w4a16_prefill.cuh, w4a16_decode.cuh), the cluster form of
+// qmm_res_ln (qmm_res_ln.cu) and the flash backward pair
+// (flash_attention.cuh): mbarriers, TMA tile loads
 // (one CTA or multicast to a cluster), cp.async completion reported to an
 // mbarrier, distributed shared memory, wgmma descriptors for K-major
 // operands in the 128-byte swizzle and for the no-swizzle core-matrix

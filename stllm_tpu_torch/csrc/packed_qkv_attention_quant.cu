@@ -42,13 +42,12 @@ cudaError_t quantize(float* rows, void* out_q, void* out_scale, int B, int S, in
 // Plain C entry points, loaded with ctypes. qkv: contiguous (B, S, 3*H*D),
 // 16-byte aligned, bf16 or (the _f32 entry) fp32; scratch: fp32 (B, S, H*D);
 // out_q: int8 (B, S, H*D); out_scale: fp32 (B, S). D is a multiple of 8 and
-// at most 128, H*D at most 12288. Each launches on ``stream`` and returns the
-// CUDA error of the launches (0 on success).
+// at most 128; any H*D (rowwise_quant.cuh). Each launches on ``stream`` and
+// returns the CUDA error of the launches (0 on success).
 extern "C" int stllm_packed_qkv_attention_quant_bf16(const void* qkv, void* scratch,
                                                      void* out_q, void* out_scale,
                                                      int B, int S, int H, int D,
                                                      float scale_log2e, void* stream) {
-  if (H * D > stllm::kMaxRowK) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   float* rows = static_cast<float*>(scratch);
   cudaError_t err = stllm::packed::launch(qkv, rows, B, S, H, D, scale_log2e, st);
@@ -60,7 +59,7 @@ extern "C" int stllm_packed_qkv_attention_quant_f32(const void* qkv, void* scrat
                                                     void* out_q, void* out_scale, int B, int S,
                                                     int H, int D, float scale_log2e,
                                                     void* stream) {
-  if (D % 8 || D > stllm::packed::kMaxHeadDim || H * D > stllm::kMaxRowK) {
+  if (D % 8 || D > stllm::packed::kMaxHeadDim) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t st = static_cast<cudaStream_t>(stream);

@@ -26,7 +26,8 @@
 // runs P.V as in the bf16 kernel. The three scales come in as a device
 // pointer, so no launch waits for the host. The row amax spans the heads, so
 // the epilogue takes the two-launch route of packed_qkv_attention_quant.cu:
-// fp32 rows to a scratch buffer, then the row-quant pass.
+// fp32 rows to a scratch buffer, then the row-quant pass, which takes every
+// row width (rowwise_quant.cuh).
 
 #include "packed_qkv_attention.cuh"
 #include "rowwise_quant.cuh"
@@ -66,9 +67,11 @@ packed_qkv_s8_kernel(const int8_t* __restrict__ qkv, const float* __restrict__ s
   __shared__ __align__(16) int8_t sK[kBK * LDQ];
   __shared__ __align__(16) __nv_bfloat16 sVt[DP * LDV];
 
-  const int q0 = blockIdx.x * kBQ;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
+  // a linear grid, query tile fastest, then head, then batch
+  const int q_tiles = (S + kBQ - 1) / kBQ;
+  const int q0 = static_cast<int>(blockIdx.x % q_tiles) * kBQ;
+  const int h = static_cast<int>(blockIdx.x / q_tiles % H);
+  const int b = static_cast<int>(blockIdx.x / q_tiles / H);
   const int tid = threadIdx.x;
   const int warp = tid >> 5;
   const int lane = tid & 31;
@@ -185,8 +188,8 @@ packed_qkv_s8_kernel(const int8_t* __restrict__ qkv, const float* __restrict__ s
 template <int DP>
 void launch_s8(const void* qkv, const float* scales, float scale, float* out, int B,
                int S, int H, int D, cudaStream_t stream) {
-  const dim3 grid((S + kBQ - 1) / kBQ, H, B);
-  packed_qkv_s8_kernel<DP><<<grid, kThreads, 0, stream>>>(
+  const long long blocks = static_cast<long long>((S + kBQ - 1) / kBQ) * H * B;
+  packed_qkv_s8_kernel<DP><<<static_cast<unsigned>(blocks), kThreads, 0, stream>>>(
       static_cast<const int8_t*>(qkv), scales, scale, out, S, H, D);
 }
 
@@ -195,13 +198,14 @@ void launch_s8(const void* qkv, const float* scales, float scale, float* out, in
 // Plain C entry point, loaded with ctypes. qkv: contiguous int8 (B, S, 3*H*D),
 // 16-byte aligned; scales: 3 fp32 (q, k, v) on the device; scratch: fp32
 // (B, S, H*D); out_q: int8 (B, S, H*D); out_scale: fp32 (B, S). D is a
-// multiple of 8 and at most 112. Launches on ``stream`` and returns the CUDA
-// error of the launches (0 on success); never synchronises.
+// multiple of 8 and at most 128; any H*D. Launches on ``stream`` and
+// returns the CUDA error of the launches (0 on success); never
+// synchronises.
 extern "C" int stllm_packed_qkv_attention_s8(const void* qkv, const void* scales,
                                              float scale, void* scratch, void* out_q,
                                              void* out_scale, int B, int S, int H,
                                              int D, void* stream) {
-  if (!stllm::packed_shape_ok(B, S, H, D) || H * D > stllm::kMaxRowK) {
+  if (!stllm::packed_shape_ok(B, S, H, D)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t st = static_cast<cudaStream_t>(stream);

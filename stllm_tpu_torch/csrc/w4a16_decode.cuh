@@ -1,0 +1,386 @@
+// The decode form of the W4A16 matmul (#12) for Hopper (sm_90a): M <= 16
+// rows of x against the int4-packed weight, the function of
+// w4a16_matmul.cu's note, in one launch.
+//
+// Bound on the H100: at decode (M = 4) a call moves the packed weight and
+// little else, 8.4 MB (o) to 45.1 MB (gate|up), 2.5 to 13.5 us at 3.35 TB/s
+// (0.97 ms over the 128 calls of a 32-layer step). The tile loop it replaces
+// (weight_stream_matmul.cuh, 16-row instance) spent two launches on every
+// Vicuna-7B shape (a split-K pass and a reduce over an fp32 partial buffer
+// the wrapper allocated), unpacked each weight tile into bf16 tiles in
+// shared memory and read them back by ldmatrix, and padded 4 rows of x to
+// the mma's 16.
+//
+// Design: the swapped product of the prefill form (w4a16_prefill.cuh),
+// out^T = W^T . x^T, on mma.sync m16n8k16: the weight is the A operand,
+// unpacked in registers, and x the B operand, whose n8 holds 8 rows of x
+// (M <= 8: one n8 tile; M <= 16: two), so no product is padded past 8 rows.
+// The contraction index inside a 16-row step is permuted, alike for both
+// operands: lane (g, t) takes packed rows 4t .. 4t + 3 as the mma's k slots
+// 2t, 2t + 1, 2t + 8, 2t + 9, so its x fragment is 4 contiguous bf16 (one
+// 8-byte read) and its weight is 4 rows of 16 contiguous bytes (columns
+// 16g .. 16g + 15 of its slice). Byte 2j of a row is A row g of weight tile
+// j, byte 2j + 1 its A row g + 8: one byte_perm of two rows yields the four
+// fragments of two weight columns (low and high nibble, two rows each),
+// unpacked with the exponent trick of weight_stream_matmul.cuh (no
+// int-to-float conversion). The weight never crosses shared memory as bf16.
+//
+// A CTA owns kBN = 128 kSlices weight columns and a share of K, which its
+// kKGroups groups of kSlices warps split step by step. Each group runs a
+// ring of kStages cp.async stages (16 rows x kBN packed bytes, each copy
+// instruction whole 128-byte row pieces, plus the step's x columns of both
+// halves), one barrier a step. K is split further across the CTAs of a
+// thread-block cluster along gridDim.x (up to 16, a non-portable size past
+// 8), enough that a call has about kTargetCTAs CTAs: what the card took
+// best at M = 4 (script/tune_hopper_gemms.py: many small CTAs, the weight's
+// bytes in flight from every SM, the unpack of one warp under the loads of
+// the others). At the end each CTA sums its groups' accumulators in shared
+// memory, and, after a cluster barrier, each CTA sums one share of the
+// outputs over the cluster's CTAs through distributed shared memory, in rank
+// order, scales and stores it. One launch, no atomics, no scratch in device
+// memory, the same sum on every run.
+
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#include "hopper.cuh"
+#include "weight_stream_matmul.cuh"
+
+namespace stllm {
+namespace w4d {
+// internal linkage, as weight_stream_matmul.cuh explains
+namespace {
+
+using hopper::cluster_rank;
+using hopper::cluster_sync;
+using hopper::cp_async16;
+using hopper::cp_async8;
+using hopper::cp_async_wait_all;
+using hopper::ld_cluster_f32;
+using hopper::smem_u32;
+
+constexpr int kSlices = 1;                // 128-column slices a CTA owns, a warp each
+constexpr int kKGroups = 2;               // groups of kSlices warps splitting the CTA's share of K
+constexpr int kWarps = kSlices * kKGroups;
+constexpr int kThreads = kWarps * 32;
+constexpr int kGroupThreads = kSlices * 32;
+constexpr int kBN = 128 * kSlices;        // weight columns a CTA owns
+constexpr int kStep = 16;                 // packed rows a step (the mma's k)
+constexpr int kStages = 4;                // a K group's ring
+constexpr int kMaxCluster = 16;           // CTAs along K (past 8: a non-portable cluster)
+constexpr int kTargetCTAs = 512;          // CTAs a call aims at
+constexpr int kMaxRows = 16;
+
+// MT n8 tiles of x rows (M <= 8 * MT)
+template <int MT>
+struct Layout {
+  static constexpr int kWBytes = kStep * kBN;                // [row][kBN] packed bytes
+  static constexpr int kXBytes = 2 * MT * 8 * kStep * 2;     // [half][row][16] bf16
+  static constexpr int kStageBytes = kWBytes + kXBytes;
+  static constexpr int kAcc = MT * 8 * 4;                    // accumulators a lane
+  static constexpr int kRing = kKGroups * kStages * kStageBytes;
+  static constexpr int kRed = kWarps * kAcc * 32 * 4;        // [warp][acc][lane] fp32
+  static constexpr int kSmem = kRing > kRed ? kRing : kRed;
+};
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+__device__ __forceinline__ uint4 lds128(const unsigned char* p) {
+  uint4 v;
+  asm volatile("ld.shared.v4.u32 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
+               : "r"(smem_u32(p)));
+  return v;
+}
+
+__device__ __forceinline__ uint2 lds64(const unsigned char* p) {
+  uint2 v;
+  asm volatile("ld.shared.v2.u32 {%0, %1}, [%2];\n" : "=r"(v.x), "=r"(v.y) : "r"(smem_u32(p)));
+  return v;
+}
+
+// byte offset in a stage of the 16-byte chunk c (of kBN / 16) of row r (of
+// kStep): chunks permuted by 2 ((r / 4) % 4), so the lanes of a quarter warp
+// (rows 4t + j, chunks 2q, 2q + 1 of one slice) read 8 distinct bank groups
+__device__ __forceinline__ int chunk_at(int r, int c) {
+  return r * kBN + ((c ^ (2 * ((r >> 2) & 3))) << 4);
+}
+
+template <int MT>
+__global__ void __launch_bounds__(kThreads, 16 / kWarps)
+w4_decode_kernel(const __nv_bfloat16* __restrict__ x, const int8_t* __restrict__ packed,
+                 const float* __restrict__ scale, void* __restrict__ out, int M, int N, int kw,
+                 int out_f32) {
+  using L = Layout<MT>;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int warp = threadIdx.x >> 5;
+  const int slice = warp % kSlices;
+  const int kgroup = warp / kSlices;
+  const int gtid = threadIdx.x % kGroupThreads;     // thread within the K group
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  const int n0 = blockIdx.y * kBN;
+  const int C = gridDim.x;                          // the cluster: CTAs along K
+  const uint32_t rank = cluster_rank();
+  const int ldx = 2 * kw;
+
+  // this CTA's 16-row steps [s0, s1); K group j takes every kKGroups-th
+  const int steps = (kw + kStep - 1) / kStep;
+  const int per = (steps + C - 1) / C;
+  const int s0 = min(steps, static_cast<int>(rank) * per);
+  const int s1 = min(steps, s0 + per);
+  const int mine = s1 - s0 > kgroup ? (s1 - s0 - kgroup + kKGroups - 1) / kKGroups : 0;
+  const int most = s1 - s0 > 0 ? (s1 - s0 + kKGroups - 1) / kKGroups : 0;
+  const bool vec16 = N % 16 == 0 && reinterpret_cast<uintptr_t>(packed) % 16 == 0;
+
+  unsigned char* ring = smem + kgroup * kStages * L::kStageBytes;
+
+  // copies of the group's i-th step into ring stage ``st``: each copy
+  // instruction takes whole 128-byte pieces of rows, 16 bytes a lane; then
+  // the step's x columns
+  auto issue = [&](int i, int st) {
+    const int k0 = (s0 + kgroup + i * kKGroups) * kStep;
+    unsigned char* sw = ring + st * L::kStageBytes;
+#pragma unroll
+    for (int c = gtid; c < kStep * (kBN / 16); c += kGroupThreads) {
+      const int r = c / (kBN / 16);
+      const int chunk = c % (kBN / 16);
+      const int k = k0 + r;
+      const int col = n0 + 16 * chunk;
+      unsigned char* dst = sw + chunk_at(r, chunk);
+      const int8_t* src = packed + static_cast<long long>(k) * N + col;
+      if (vec16) {
+        const bool ok = k < kw && col < N;
+        cp_async16(dst, ok ? src : packed, ok ? 16 : 0);
+      } else {
+        const bool ok0 = k < kw && col < N, ok1 = k < kw && col + 8 < N;
+        cp_async8(dst, ok0 ? src : packed, ok0 ? 8 : 0);
+        cp_async8(dst + 8, ok1 ? src + 8 : packed, ok1 ? 8 : 0);
+      }
+    }
+    // x: [half][row][16 columns]; piece i: row i / 4, half (i / 2) % 2, 8
+    // columns (i % 2)
+#pragma unroll
+    for (int i = gtid; i < 32 * MT; i += kGroupThreads) {
+      const int m = i >> 2;
+      const int half = (i >> 1) & 1;
+      const int piece = i & 1;
+      const bool ok = m < M && k0 + 8 * piece < kw;   // kw % 8 == 0: whole pieces
+      const __nv_bfloat16* src = x + static_cast<long long>(m) * ldx + half * kw + k0 + 8 * piece;
+      cp_async16(sw + L::kWBytes + ((half * MT * 8) + m) * 32 + piece * 16, ok ? src : x,
+                 ok ? 16 : 0);
+    }
+  };
+
+  float acc[MT][8][4];
+#pragma unroll
+  for (int h = 0; h < MT; ++h)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc[h][j][0] = acc[h][j][1] = acc[h][j][2] = acc[h][j][3] = 0.0f;
+
+#pragma unroll
+  for (int i = 0; i < kStages - 1; ++i) {
+    if (i < mine) issue(i, i);
+    cp_async_commit();
+  }
+  for (int i = 0; i < most; ++i) {
+    cp_async_wait<kStages - 2>();
+    __syncthreads();                // step i landed for every thread; step i - 1 is consumed
+    if (i + kStages - 1 < mine) issue(i + kStages - 1, (i + kStages - 1) % kStages);
+    cp_async_commit();
+    if (i >= mine) continue;
+
+    // lane (g, t): rows 4t .. 4t + 3 of the step, columns 16g .. 16g + 15 of
+    // the warp's slice
+    const unsigned char* sw = ring + (i % kStages) * L::kStageBytes;
+    const int chunk = 8 * slice + g;
+    const uint4 w0 = lds128(sw + chunk_at(4 * t + 0, chunk));
+    const uint4 w1 = lds128(sw + chunk_at(4 * t + 1, chunk));
+    const uint4 w2 = lds128(sw + chunk_at(4 * t + 2, chunk));
+    const uint4 w3 = lds128(sw + chunk_at(4 * t + 3, chunk));
+    uint2 xt[MT], xb[MT];
+#pragma unroll
+    for (int h = 0; h < MT; ++h) {
+      xt[h] = lds64(sw + L::kWBytes + (h * 8 + g) * 32 + 8 * t);
+      xb[h] = lds64(sw + L::kWBytes + ((MT * 8) + h * 8 + g) * 32 + 8 * t);
+    }
+    const uint32_t r0[4] = {w0.x, w0.y, w0.z, w0.w}, r1[4] = {w1.x, w1.y, w1.z, w1.w};
+    const uint32_t r2[4] = {w2.x, w2.y, w2.z, w2.w}, r3[4] = {w3.x, w3.y, w3.z, w3.w};
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      // bytes 2j, 2j + 1 of rows 4t, 4t + 1 (and 4t + 2, 4t + 3) as the two
+      // 16-bit halves of a word: row 4t (4t + 2) low
+      const uint32_t sel = (j & 1) ? 0x7632u : 0x5410u;
+      const uint32_t p01 = __byte_perm(r0[j >> 1], r1[j >> 1], sel);
+      const uint32_t p23 = __byte_perm(r2[j >> 1], r3[j >> 1], sel);
+      const uint32_t top[4] = {wsm::nibbles_to_bf16x2(p01), wsm::nibbles_to_bf16x2(p01 >> 8),
+                               wsm::nibbles_to_bf16x2(p23), wsm::nibbles_to_bf16x2(p23 >> 8)};
+      const uint32_t bot[4] = {wsm::nibbles_to_bf16x2(p01 >> 4), wsm::nibbles_to_bf16x2(p01 >> 12),
+                               wsm::nibbles_to_bf16x2(p23 >> 4), wsm::nibbles_to_bf16x2(p23 >> 12)};
+#pragma unroll
+      for (int h = 0; h < MT; ++h) {
+        wsm::mma_bf16(acc[h][j], top, xt[h].x, xt[h].y);
+        wsm::mma_bf16(acc[h][j], bot, xb[h].x, xb[h].y);
+      }
+    }
+  }
+  cp_async_wait_all();
+  __syncthreads();                  // every warp is done with the ring: it becomes red
+
+  // each slice's sum over the K groups, in group order, into group 0's slot
+  // of red: [warp][acc][lane]
+  float* red = reinterpret_cast<float*>(smem);
+#pragma unroll
+  for (int h = 0; h < MT; ++h)
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        red[(warp * L::kAcc + (h * 8 + j) * 4 + c) * 32 + lane] = acc[h][j][c];
+      }
+  if (kKGroups > 1) {
+    __syncthreads();
+    for (int i = threadIdx.x; i < kSlices * L::kAcc * 32; i += kThreads) {
+      float v = red[i];
+#pragma unroll
+      for (int q = 1; q < kKGroups; ++q) v += red[q * kSlices * L::kAcc * 32 + i];
+      red[i] = v;
+    }
+  }
+  cluster_sync();                   // every CTA's sums are in red
+
+  // output (m, n0 + c), c < kBN, of this CTA's share: summed over the
+  // cluster's CTAs in rank order, scaled, stored
+  const int outputs = M * kBN;
+  const int share = (outputs + C - 1) / C;
+  const int o1 = min(outputs, (static_cast<int>(rank) + 1) * share);
+  for (int o = static_cast<int>(rank) * share + threadIdx.x; o < o1; o += kThreads) {
+    const int m = o / kBN;
+    const int c = o - m * kBN;
+    const int n = n0 + c;
+    if (n >= N) continue;
+    // slice c / 128's lane ((c % 128) / 16, (m % 8) / 2) holds it in tile
+    // (m / 8, (c % 16) / 2), entry 2 (c % 2) + m % 2
+    const int src = (c >> 7) * L::kAcc * 32 +
+                    ((((m >> 3) * 8 + ((c & 15) >> 1)) * 4 + (c & 1) * 2 + (m & 1)) * 32) +
+                    ((c & 127) >> 4) * 4 + ((m & 7) >> 1);
+    float v = 0.0f;
+#pragma unroll
+    for (int q = 0; q < kMaxCluster; ++q) {
+      if (q < C) v += ld_cluster_f32(red + src, static_cast<uint32_t>(q));
+    }
+    v *= scale[n];
+    const long long e = static_cast<long long>(m) * N + n;
+    if (out_f32) {
+      static_cast<float*>(out)[e] = v;
+    } else {
+      static_cast<__nv_bfloat16*>(out)[e] = __float2bfloat16_rn(v);
+    }
+  }
+  cluster_sync();                   // no CTA leaves while another reads its red
+}
+
+template <int MT>
+cudaError_t prepare() {
+  cudaError_t err = cudaFuncSetAttribute(w4_decode_kernel<MT>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         Layout<MT>::kSmem);
+  if (err == cudaSuccess && kMaxCluster > 8) {
+    err = cudaFuncSetAttribute(w4_decode_kernel<MT>,
+                               cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  }
+  return err;
+}
+
+// the kernels' shared-memory and cluster attributes, set once per device
+cudaError_t device_ready() {
+  static bool ready[64] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev >= 64) return cudaErrorInvalidDevice;
+  if (!ready[dev]) {
+    err = prepare<1>();
+    if (err == cudaSuccess) err = prepare<2>();
+    if (err != cudaSuccess) return err;
+    ready[dev] = true;
+  }
+  return cudaSuccess;
+}
+
+// CTAs a cluster splits K over: doubling until the call has kTargetCTAs
+// CTAs, at most kMaxCluster and the steps.
+int cluster_size(int col_tiles, int steps) {
+  int c = 1;
+  while (c < kMaxCluster && c * col_tiles < kTargetCTAs) c *= 2;
+  return c < steps ? c : steps;
+}
+
+template <int MT>
+cudaError_t launch(const void* x, const void* packed, const void* scale, void* out, int M, int N,
+                   int kw, int out_f32, cudaStream_t stream) {
+  const int cluster = cluster_size((N + kBN - 1) / kBN, (kw + kStep - 1) / kStep);
+  cudaLaunchConfig_t cfg{};
+  cfg.gridDim = dim3(cluster, (N + kBN - 1) / kBN);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = Layout<MT>::kSmem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = cluster;
+  attr.val.clusterDim.y = 1;
+  attr.val.clusterDim.z = 1;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  cudaError_t err = cudaLaunchKernelEx(&cfg, w4_decode_kernel<MT>,
+                                       static_cast<const __nv_bfloat16*>(x),
+                                       static_cast<const int8_t*>(packed),
+                                       static_cast<const float*>(scale), out, M, N, kw, out_f32);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
+}
+
+// Shape checks, then the launch. x: contiguous (M, 2 kw) bf16, 16-byte
+// aligned, M <= 16; packed (>= kw, N) int8, 8-byte aligned; scale (N,) fp32;
+// out (M, N) bf16, or fp32 when out_f32. N and kw multiples of 8.
+int run(const void* x, const void* packed, const void* scale, void* out, int M, int N, int kw,
+        int out_f32, void* stream) {
+  if (M <= 0 || M > kMaxRows || N <= 0 || N % 8 || kw <= 0 || kw % 8 || scale == nullptr ||
+      (N + kBN - 1) / kBN > 65535 || reinterpret_cast<uintptr_t>(x) % 16 ||
+      reinterpret_cast<uintptr_t>(packed) % 8) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaError_t err = device_ready();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  err = M > 8 ? launch<2>(x, packed, scale, out, M, N, kw, out_f32, st)
+              : launch<1>(x, packed, scale, out, M, N, kw, out_f32, st);
+  return static_cast<int>(err);
+}
+
+// Blocks one SM holds at once (M <= 8: mt 1; M <= 16: mt 2); -1 on an error.
+int occupancy(int mt) {
+  int n = -1;
+  if (device_ready() != cudaSuccess || (mt != 1 && mt != 2)) return -1;
+  const cudaError_t err =
+      mt == 1 ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, w4_decode_kernel<1>, kThreads,
+                                                              Layout<1>::kSmem)
+              : cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, w4_decode_kernel<2>, kThreads,
+                                                              Layout<2>::kSmem);
+  return err == cudaSuccess ? n : -1;
+}
+
+}  // namespace
+}  // namespace w4d
+}  // namespace stllm

@@ -20,21 +20,21 @@
 // TFLOP/s bf16, about 7.5 ms per prompt.
 //
 // Two forms, picked by the wrapper by M (ops/kernels.py:w4a16_form):
-// - decode (M <= 16; tile loop in weight_stream_matmul.cuh): the packed bytes
-//   cross device memory once, through a ring of cp.async stages (4 at
-//   decode), and are unpacked in shared memory into two bf16 tiles without
-//   an int-to-float conversion (the nibble, xor 8, ORed into the mantissa of
-//   bf16 128, minus 136); products on mma.sync m16n8k16 with fp32
-//   accumulation. Decode pads its 4 rows to the mma's 16 by zero-filling;
-//   when the 128-column output tiles give fewer than 528 blocks (four per
-//   SM) the wrapper splits K, and a second launch sums the fp32 partials.
-//   Decode still runs at about a third of the HBM rate.
+// - decode (M <= 16; w4a16_decode.cuh): one launch; the swapped product on
+//   mma.sync m16n8k16 with the weight unpacked in registers as the A
+//   operand and x's rows in the n8 (no padding to 16 rows), the packed bytes
+//   through cp.async rings, K split between the warps of a CTA and across
+//   the CTAs of a thread-block cluster (up to 16), summed through
+//   distributed shared memory in rank order.
 // - prefill (M > 16; w4a16_prefill.cuh): wgmma on the swapped product, x
 //   by TMA, each packed byte unpacked in registers once per block of 192
-//   rows. The same library keeps the tile loop's 64-row instance
-//   (stllm_w4a16_matmul at M > 16), the design the prefill form replaced,
-//   so the two can be timed side by side.
+//   rows.
+// The same library keeps the tile loop (weight_stream_matmul.cuh:
+// stllm_w4a16_matmul, the 16-row instance with split-K and a reduce launch
+// at M <= 16, the 64-row one above), the design both forms replaced, so it
+// can be timed beside them; the probes #13-#15 run on it.
 
+#include "w4a16_decode.cuh"
 #include "w4a16_prefill.cuh"
 #include "weight_stream_matmul.cuh"
 
@@ -60,11 +60,23 @@ extern "C" int stllm_w4a16_matmul_prefill(const void* x, const void* packed, con
   return stllm::w4p::run(x, packed, scale, out, M, N, k2t, out_f32, stream);
 }
 
-// Blocks one SM holds of the prefill form (wgmma) or of the tile loop's bm
-// instance (bm 16 or 64); -1 on an error.
-extern "C" int stllm_w4a16_matmul_occupancy(int wgmma, int bm) {
+// The decode form: x contiguous (M, 2 * k2t) bf16, 16-byte aligned, M <= 16;
+// packed (>= k2t, N) int8; scale (N,) fp32; out (M, N) bf16, or fp32 when
+// out_f32. N and k2t multiples of 8. One launch on ``stream``; returns its
+// CUDA error (0 on success); never synchronises.
+extern "C" int stllm_w4a16_matmul_decode(const void* x, const void* packed, const void* scale,
+                                         void* out, int M, int N, int k2t, int out_f32,
+                                         void* stream) {
+  return stllm::w4d::run(x, packed, scale, out, M, N, k2t, out_f32, stream);
+}
+
+// Blocks one SM holds of the tile loop's bm instance (form 0; bm 16 or 64),
+// the prefill form (form 1) or the decode form (form 2; bm the rows, up to
+// 8 or up to 16); -1 on an error.
+extern "C" int stllm_w4a16_matmul_occupancy(int form, int bm) {
   using namespace stllm::wsm;
-  if (wgmma) return stllm::w4p::occupancy();
+  if (form == 1) return stllm::w4p::occupancy();
+  if (form == 2) return stllm::w4d::occupancy(bm > 8 ? 2 : 1);
   int n = -1;
   auto occ = [&](auto kernel, size_t smem) {
     if (cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,

@@ -28,8 +28,11 @@ Kernels (TPU kernel each replaces):
 The four weight-streaming kernels share one tile loop
 (``csrc/weight_stream_matmul.cuh``); only the model path launches
 ``w4a16_matmul``, the probes are launched by their checks and timings.
-``w4a16_matmul`` has a second form for M > 16 rows (``w4a16_form``): a
-``wgmma`` mixed-input GEMM with TMA (``csrc/w4a16_prefill.cuh``).
+``w4a16_matmul`` runs two other forms (``w4a16_form``): for M <= 16 rows
+one launch with the weight unpacked in registers and K split across a
+thread-block cluster (``csrc/w4a16_decode.cuh``), above that a ``wgmma``
+mixed-input GEMM with TMA (``csrc/w4a16_prefill.cuh``); the tile loop
+stays in the library as the design both replaced.
 ``qmm_res_ln`` has a cluster form for the widths ``qmm_res_ln_form``
 admits (thread-block clusters of 8, ``wgmma`` s8, row statistics exchanged
 through distributed shared memory); both build on ``csrc/hopper.cuh``. The
@@ -125,6 +128,8 @@ _FORM_ENTRY = {
     # x, packed, scale, out, M, N, K/2, out_f32
     ("w4a16_matmul", "wgmma"): (
         "stllm_w4a16_matmul_prefill", [_P, _P, _P, _P, _I, _I, _I, _I, _P]),
+    ("w4a16_matmul", "decode"): (
+        "stllm_w4a16_matmul_decode", [_P, _P, _P, _P, _I, _I, _I, _I, _P]),
     # qmm_res_ln's arguments without the staged scratch row
     ("qmm_res_ln", "cluster"): (
         "stllm_qmm_res_ln_cluster",
@@ -152,9 +157,10 @@ _OCCUPANCY = {
 }
 
 LAUNCHES: Dict[str, int] = {name: 0 for name in SOURCES}
-# the kernels with two forms, the first the one an entry point without a form
-# runs; FORM_LAUNCHES splits their LAUNCHES by form ("w4a16_matmul/wgmma")
-FORMS = {"w4a16_matmul": ("stream", "wgmma"), "qmm_res_ln": ("rows", "cluster")}
+# the kernels with more than one form, the first the one an entry point
+# without a form runs; FORM_LAUNCHES splits their LAUNCHES by form
+# ("w4a16_matmul/decode")
+FORMS = {"w4a16_matmul": ("stream", "wgmma", "decode"), "qmm_res_ln": ("rows", "cluster")}
 FORM_LAUNCHES: Dict[str, int] = {f"{n}/{f}": 0 for n, fs in FORMS.items() for f in fs}
 BUILD_LOG: Dict[str, str] = {}   # nvcc output (ptxas register/spill report)
 _LIBS: Dict[str, ctypes.CDLL] = {}
@@ -162,7 +168,7 @@ _FNS: Dict[str, object] = {}
 
 _EXP2_CLAMP = 50.0
 _LOG2E = 1.4426950408889634
-MAX_ROW = 12288          # widest row a row-quant block holds in shared memory
+MAX_ROW = 12288          # widest row #9 and #10 hold in a block's shared memory
 _INCLUDE = re.compile(r'^\s*#\s*include\s+"([^"]+)"', re.M)
 
 
@@ -275,7 +281,8 @@ def occupancy(name: str, *shape: int) -> int:
     """Blocks of kernel ``name``'s bf16 instantiation one SM holds at once
     at ``shape`` (packed_qkv_attention: S, D; flash_attention_fwd,
     flash_attention_bwd_dq, flash_attention_bwd_dkv: D;
-    w4a16_matmul: wgmma form or not, the tile loop's row tile (16 or 64);
+    w4a16_matmul: the form (0 the tile loop, 1 wgmma, 2 decode), the tile
+    loop's row tile (16 or 64) or the decode form's rows (up to 8 or 16);
     qmm_res_ln: cluster form or not, blocks an SM (0)
     or clusters the card holds (1), M, N), by
     cudaOccupancyMaxActiveBlocksPerMultiprocessor (or MaxActiveClusters)
@@ -309,20 +316,38 @@ def rowwise_quant_plain(y: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
 # qkv (#3)
 # ---------------------------------------------------------------------------
 
-PACKED_MAX_HEAD_DIM = 128   # widest head of #1 and #2 (csrc/packed_qkv_attention.cuh)
-S8_MAX_HEAD_DIM = 112       # widest head of #3 (its static shared-memory tiles)
+PACKED_MAX_HEAD_DIM = 128   # widest head of #1, #2 and #3 (csrc/packed_qkv_attention.cuh)
+_GRID_MAX = 2 ** 31 - 1     # blocks of a one-dimensional grid
+_GRID_YZ_MAX = 65535        # blocks along a grid's y or z
+
+
+def packed_shape_ok(b: int, s: int, heads: int, head_dim: int, dtype: torch.dtype) -> bool:
+    """Whether the packed kernels launch at (B, S, H, D) on a ``dtype`` qkv
+    (#1 and #2: bf16 or fp32; #3: int8): head_dim a multiple of 8 and at
+    most 128, and grids that fit: B * H * ceil(S / 16) blocks at most (the
+    bf16 and s8 loops, linear grids), B * S rows (the row-quant pass of #2
+    and #3), and for the fp32 instantiation H and B along the grid's y and
+    z. Every H * D is taken: the row-quant pass reads a row too wide for a
+    block's shared memory from device memory twice."""
+    if min(b, s, heads, head_dim) <= 0 or head_dim % 8 or head_dim > PACKED_MAX_HEAD_DIM:
+        return False
+    if b * heads * -(-s // 16) > _GRID_MAX or b * s > _GRID_MAX:
+        return False
+    return dtype != torch.float32 or max(b, heads) <= _GRID_YZ_MAX
 
 
 def _check_packed(name: str, qkv: torch.Tensor, heads: int, head_dim: int,
-                  max_head_dim: int, *dtypes: torch.dtype) -> None:
+                  *dtypes: torch.dtype) -> None:
     _check_cuda(name, qkv, *dtypes)
     if qkv.dim() != 3:
         raise ValueError(f"{name} kernel takes a (B, S, 3*H*D) tensor")
     if qkv.shape[-1] != 3 * heads * head_dim:
         raise ValueError(f"qkv width {qkv.shape[-1]} != 3 * {heads} * {head_dim}")
-    if head_dim % 8 or head_dim > max_head_dim or heads * head_dim > MAX_ROW:
-        raise ValueError(f"{name} kernel: head_dim {head_dim} must be a multiple of 8 "
-                         f"and at most {max_head_dim}, and H*D at most {MAX_ROW}")
+    b, s, _ = qkv.shape
+    if not packed_shape_ok(b, s, heads, head_dim, qkv.dtype):
+        raise ValueError(f"{name} kernel: head_dim {head_dim} must be a multiple of 8 and at "
+                         f"most {PACKED_MAX_HEAD_DIM}, and (B, S, H) = {(b, s, heads)} must "
+                         "fit its grid")
 
 
 def _packed_rows_plain(qkv: torch.Tensor, heads: int, head_dim: int,
@@ -355,8 +380,7 @@ def packed_qkv_attention(qkv: torch.Tensor, heads: int, head_dim: int,
     multiple of 8 and at most 128."""
     if qkv.device.type == "cpu":
         return packed_qkv_attention_plain(qkv, heads, head_dim, scale)
-    _check_packed("packed_qkv_attention", qkv, heads, head_dim, PACKED_MAX_HEAD_DIM,
-                  torch.bfloat16, torch.float32)
+    _check_packed("packed_qkv_attention", qkv, heads, head_dim, torch.bfloat16, torch.float32)
     b, s, _ = qkv.shape
     out = torch.empty((b, s, heads * head_dim), dtype=qkv.dtype, device=qkv.device)
     if out.numel():
@@ -380,8 +404,8 @@ def packed_qkv_attention_quant(qkv: torch.Tensor, heads: int, head_dim: int,
     quantizes them."""
     if qkv.device.type == "cpu":
         return packed_qkv_attention_quant_plain(qkv, heads, head_dim, scale)
-    _check_packed("packed_qkv_attention_quant", qkv, heads, head_dim, PACKED_MAX_HEAD_DIM,
-                  torch.bfloat16, torch.float32)
+    _check_packed("packed_qkv_attention_quant", qkv, heads, head_dim, torch.bfloat16,
+                  torch.float32)
     b, s, _ = qkv.shape
     hd = heads * head_dim
     out_q = torch.empty((b, s, hd), dtype=torch.int8, device=qkv.device)
@@ -420,11 +444,11 @@ def packed_qkv_attention_s8(qkv_q: torch.Tensor, scales: torch.Tensor, heads: in
     """Packed-qkv attention on static-int8 (B, S, 3*H*D) qkv with per-third
     scales ``scales`` (fp32 (3,), on the tensor's device) -> (int8
     (B, S, H*D), fp32 (B, S, 1)). CUDA: int8, contiguous, head_dim a
-    multiple of 8 and at most 112; the scales stay on the device."""
+    multiple of 8 and at most 128 (``packed_shape_ok``); the scales stay on
+    the device."""
     if qkv_q.device.type == "cpu":
         return packed_qkv_attention_s8_plain(qkv_q, scales, heads, head_dim, scale)
-    _check_packed("packed_qkv_attention_s8", qkv_q, heads, head_dim, S8_MAX_HEAD_DIM,
-                  torch.int8)
+    _check_packed("packed_qkv_attention_s8", qkv_q, heads, head_dim, torch.int8)
     if (scales.device != qkv_q.device or scales.dtype != torch.float32
             or scales.numel() != 3 or not scales.is_contiguous()):
         raise ValueError("packed_qkv_attention_s8 kernel takes its 3 scales as a "
@@ -527,14 +551,16 @@ def weight_stream_splits(m: int, n: int, kw: int) -> int:
     return -(-steps // per)
 
 
-W4_DECODE_ROWS = 16                 # the most rows the tile loop's decode instance takes
+W4_DECODE_ROWS = 16                 # the most rows the decode form takes
 
 
 def w4a16_form(m: int) -> str:
-    """Which form of #12 runs M rows: "stream", the weight-streaming tile
-    loop (csrc/weight_stream_matmul.cuh, with split-K) for M <= 16 (decode),
-    else "wgmma", the Hopper mixed-input GEMM (csrc/w4a16_prefill.cuh)."""
-    return "stream" if m <= W4_DECODE_ROWS else "wgmma"
+    """Which form of #12 runs M rows: "decode" (csrc/w4a16_decode.cuh, one
+    launch, the weight unpacked in registers, K split across a cluster) for
+    M <= 16, else "wgmma", the Hopper mixed-input GEMM
+    (csrc/w4a16_prefill.cuh). "stream", the weight-streaming tile loop both
+    replaced, runs only where a caller asks for it."""
+    return "decode" if m <= W4_DECODE_ROWS else "wgmma"
 
 
 def _weight_stream(name: str, x: torch.Tensor, w: torch.Tensor,
@@ -542,8 +568,9 @@ def _weight_stream(name: str, x: torch.Tensor, w: torch.Tensor,
                    out_dtype: torch.dtype, form: str = "stream") -> torch.Tensor:
     """Check and launch one weight-streaming kernel: x (..., K) cast to a
     contiguous bf16 (M, K), w (>= kw, N) int8, scale (N,) fp32 or None, kw
-    the weight rows in use. Allocates the output and the split-K scratch.
-    ``form`` "wgmma" launches #12's prefill form instead of the tile loop."""
+    the weight rows in use. Allocates the output (and, for the tile loop,
+    the split-K scratch). ``form`` "wgmma" or "decode" launches that form of
+    #12 instead of the tile loop."""
     if x.device.type != "cuda":
         raise ValueError(f"{name}: no kernel for {x.device}")
     if x.dtype not in (torch.bfloat16, torch.float32):
@@ -565,8 +592,10 @@ def _weight_stream(name: str, x: torch.Tensor, w: torch.Tensor,
     x2 = x.reshape(-1, k).to(torch.bfloat16).contiguous()
     _check_cuda(name, x2, torch.bfloat16)
     m = x2.shape[0]
+    if form == "decode" and m > W4_DECODE_ROWS:
+        raise ValueError(f"{name}: the decode form takes at most {W4_DECODE_ROWS} rows, got {m}")
     out = torch.empty((m, n), dtype=out_dtype, device=x.device)
-    if m and form == "wgmma":
+    if m and form in ("wgmma", "decode"):
         _launch(name, x.device, x2.data_ptr(), w.data_ptr(), scale.data_ptr(), out.data_ptr(),
                 m, n, kw, flag, form=form)
     elif m:
@@ -599,7 +628,8 @@ def w4a16_matmul(x: torch.Tensor, packed: torch.Tensor, scale: torch.Tensor) -> 
     """W4A16: x (..., K) @ int4-packed (>= K/2, N) with per-channel scales
     -> (..., N) in x.dtype. CUDA: x bf16 or fp32 (multiplied as bf16); K/2
     and N multiples of 8; packed rows at K/2 and beyond are never read. One
-    form by M (``w4a16_form``): the tile loop at decode, wgmma above."""
+    form by M (``w4a16_form``): the decode form up to 16 rows, wgmma
+    above."""
     if x.device.type == "cpu":
         return w4a16_matmul_plain(x, packed, scale)
     return _w4a16_matmul(x, packed, scale, w4a16_form(x.numel() // max(x.shape[-1], 1)))
@@ -607,11 +637,13 @@ def w4a16_matmul(x: torch.Tensor, packed: torch.Tensor, scale: torch.Tensor) -> 
 
 def _w4a16_matmul(x: torch.Tensor, packed: torch.Tensor, scale: torch.Tensor,
                   form: str) -> torch.Tensor:
-    """#12 on the card in ``form`` ("stream" or "wgmma"), whatever M is;
-    chip_smoke.py times the tile loop at prefill (the design the wgmma form
-    replaced) through it."""
+    """#12 on the card in ``form`` ("stream", "wgmma" or, up to 16 rows,
+    "decode"), whatever M is; chip_smoke.py times the tile loop (the design
+    the other two forms replaced) through it."""
     if x.shape[-1] % 2:
         raise ValueError(f"w4a16_matmul: K ({x.shape[-1]}) must be even")
+    if form not in FORMS["w4a16_matmul"]:
+        raise ValueError(f"w4a16_matmul: form {form!r} not in {FORMS['w4a16_matmul']}")
     return _weight_stream("w4a16_matmul", x, packed, scale, x.shape[-1] // 2,
                           int(x.dtype == torch.float32), x.dtype, form)
 

@@ -2,8 +2,9 @@
 with two forms, and the layout in which load_jax_params stores int8
 weights.
 
-- #12 (W4A16 matmul): the weight-streaming tile loop at M <= 16 rows
-  (decode), the wgmma mixed-input GEMM above (prefill).
+- #12 (W4A16 matmul): the one-launch decode form at M <= 16 rows, the
+  wgmma mixed-input GEMM above (prefill); the weight-streaming tile loop
+  both replaced runs only where a caller asks for it.
 - #11 (s8 matmul + residual + LayerNorm + int8): the cluster form where
   N / 8 is a slice width it is built for (128, 176, 256), else the 16-row
   kernels.
@@ -25,10 +26,25 @@ from stllm_tpu_torch.models import vit as tvit
 from stllm_tpu_torch.ops import kernels
 
 
-@pytest.mark.parametrize("m,form", [(1, "stream"), (4, "stream"), (16, "stream"),
+@pytest.mark.parametrize("m,form", [(1, "decode"), (4, "decode"), (16, "decode"),
                                     (17, "wgmma"), (576, "wgmma"), (640, "wgmma")])
 def test_w4a16_form_by_rows(m, form):
     assert kernels.w4a16_form(m) == form
+
+
+def test_w4a16_form_names():
+    """#12's forms: the tile loop first (what an entry point without a form
+    runs; the probes #13-#15 run on it and the rule no longer picks it),
+    then the prefill and decode forms, each with a launch counter; an
+    unknown form is refused before anything is checked or launched."""
+    assert kernels.FORMS["w4a16_matmul"] == ("stream", "wgmma", "decode")
+    assert {f"w4a16_matmul/{f}" for f in kernels.FORMS["w4a16_matmul"]} <= set(
+        kernels.FORM_LAUNCHES)
+    assert {kernels.w4a16_form(m) for m in range(1, 2000)} == {"decode", "wgmma"}
+    assert kernels.W4_DECODE_ROWS == 16
+    x, packed, scale = torch.zeros(4, 64), torch.zeros(32, 64, dtype=torch.int8), torch.ones(64)
+    with pytest.raises(ValueError, match="form"):
+        kernels._w4a16_matmul(x, packed, scale, "split-k")
 
 
 @pytest.mark.parametrize("m,n,dtype,form", [

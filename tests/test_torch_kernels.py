@@ -50,6 +50,20 @@ def _assert_int8_close(got, want):
                                atol=INT8_ATOL, rtol=INT8_RTOL)
 
 
+def _assert_int8_within_one_step(got, want):
+    """As _assert_int8_close, where a row's scale may exceed atol: at 98
+    heads of 128 the attention rows reach amax 8 and more, so one code step
+    (the row's scale, above 0.06) is wider than atol = 3e-2; a code that
+    lands one step away then counts as within tolerance, by one scale."""
+    (gq, gs), (wq, ws) = got, want
+    assert gq.dtype == torch.int8 and gs.dtype == torch.float32
+    assert gq.shape == wq.shape and gs.shape == ws.shape
+    assert int((gq.int() - wq.int()).abs().max()) <= 1
+    torch.testing.assert_close(gs, ws, atol=0, rtol=INT8_RTOL)
+    g, w = gq.float() * gs, wq.float() * ws
+    assert bool(((g - w).abs() <= torch.clamp(ws, min=INT8_ATOL) + INT8_RTOL * w.abs()).all())
+
+
 def _counted(name, fn):
     before = kernels.LAUNCHES[name]
     out = fn()
@@ -93,6 +107,56 @@ def test_packed_qkv_s8_kernel_matches_plain(card, shape):
                    lambda: kernels.packed_qkv_attention_s8(qkv_q, scales, h, d, d ** -0.5))
     _assert_int8_close(got, kernels.packed_qkv_attention_s8_plain(qkv_q, scales, h, d,
                                                                   d ** -0.5))
+
+
+# head_dim 120 and 128 (#3 took at most 112 before), and H*D = 98 x 128 =
+# 12544 rows wider than a row-quant block's shared memory holds (12288), in
+# the short (S <= 16) and long loops: shapes the reference's feasibility rule
+# admits
+WIDE_SHAPES = [(2, 37, 4, 120), (2, 37, 4, 128), (1, 16, 98, 128), (1, 40, 98, 128)]
+
+
+def _static_int8_qkv(qkv, b, s, h, d):
+    qkv = qkv.float()
+    scales = (qkv.abs().reshape(b, s, 3, h * d).amax(dim=(0, 1, 3)) / 127.0).contiguous()
+    qkv_q = torch.clamp(torch.round(qkv.reshape(b, s, 3, h * d) / scales[:, None]),
+                        -127, 127).to(torch.int8).reshape(b, s, 3 * h * d)
+    return qkv_q, scales
+
+
+@pytest.mark.parametrize("kernel", ["packed_qkv_attention", "packed_qkv_attention_quant",
+                                    "packed_qkv_attention_s8"])
+@pytest.mark.parametrize("shape", WIDE_SHAPES)
+def test_packed_kernels_at_wide_heads_and_rows(card, shape, kernel):
+    b, s, h, d = shape
+    qkv = _qkv(card, b, s, h, d)
+    scale = d ** -0.5
+    if kernel == "packed_qkv_attention_s8":
+        args = (*_static_int8_qkv(qkv, b, s, h, d), h, d, scale)
+    else:
+        args = (qkv, h, d, scale)
+    got = _counted(kernel, lambda: getattr(kernels, kernel)(*args))
+    want = getattr(kernels, kernel + "_plain")(*args)
+    if kernel == "packed_qkv_attention":
+        torch.testing.assert_close(got.float(), want.float(), atol=3e-2, rtol=3e-2)
+    else:
+        _assert_int8_within_one_step(got, want)
+
+
+@pytest.mark.parametrize("shape", [(1, 16, 98, 128), (2, 19, 100, 128)])
+def test_wide_row_quant_pass_matches_plain_in_fp32(card, shape):
+    """#1 and #2's fp32 instantiations at H*D above 12288: the wide
+    row-quant pass on fp32 attention rows."""
+    b, s, h, d = shape
+    qkv = _qkv(card, b, s, h, d).float()
+    got = _counted("packed_qkv_attention_quant",
+                   lambda: kernels.packed_qkv_attention_quant(qkv, h, d, d ** -0.5))
+    _assert_int8_within_one_step(
+        got, kernels.packed_qkv_attention_quant_plain(qkv, h, d, d ** -0.5))
+    got = _counted("packed_qkv_attention",
+                   lambda: kernels.packed_qkv_attention(qkv, h, d, d ** -0.5))
+    torch.testing.assert_close(got, kernels.packed_qkv_attention_plain(qkv, h, d, d ** -0.5),
+                               atol=1e-5, rtol=1e-4)
 
 
 @pytest.mark.parametrize("shape", [(16, 257, 1408), (3, 37, 1408), (2, 5, 64)])
@@ -244,6 +308,83 @@ def test_w4a16_forms_agree(card, m):
     x, packed, scale = _ws_inputs(card, m, 4096, 4096, 14)
     wgmma = kernels._w4a16_matmul(x, packed, scale, "wgmma")
     _assert_ws_close(wgmma, kernels._w4a16_matmul(x, packed, scale, "stream"))
+
+
+# the decode form (M <= 16): the Vicuna-7B shapes (K, N, padded packed rows;
+# down's K/2 = 5504 stored as 5632 rows) at every row count up to 16 that
+# splits the n8 tiles differently, then a ragged N (200: a multiple of 8,
+# not of 16 or 64, so 8-byte weight copies and a part-filled column tile)
+# and an fp32 x
+W4_DECODE_SHAPES = [(4096, 12288, 0), (4096, 4096, 0), (4096, 22016, 0), (11008, 4096, 128)]
+W4_DECODE_CASES = ([(m, k, n, pad, torch.bfloat16) for m in (1, 3, 4, 8, 16)
+                    for k, n, pad in W4_DECODE_SHAPES]
+                   + [(4, 80, 200, 0, torch.bfloat16), (13, 336, 200, 8, torch.bfloat16),
+                      (4, 4096, 12288, 0, torch.float32), (9, 11008, 4096, 128, torch.float32)])
+
+
+@pytest.mark.parametrize("case", W4_DECODE_CASES,
+                         ids=lambda c: f"m{c[0]}-k{c[1]}-n{c[2]}-pad{c[3]}-{str(c[4])[6:]}")
+def test_w4a16_decode_form_matches_plain(card, case):
+    m, k, n, pad, dtype = case
+    assert kernels.w4a16_form(m) == "decode"
+    x, packed, scale = _ws_inputs(card, m, k, n, 15, pad=pad, dtype=dtype)
+    before = dict(kernels.FORM_LAUNCHES)
+    got = _counted("w4a16_matmul", lambda: kernels.w4a16_matmul(x, packed, scale))
+    assert kernels.FORM_LAUNCHES["w4a16_matmul/decode"] == before["w4a16_matmul/decode"] + 1
+    _assert_ws_close(got, kernels.w4a16_matmul_plain(x, packed, scale))
+
+
+@pytest.mark.parametrize("m", [1, 4, 16])
+def test_w4a16_decode_form_and_tile_loop_agree(card, m):
+    """The decode form and the tile loop it replaced (split-K at these
+    shapes) give the same product, and the tile loop, kept as the timed
+    parent, still gives the plain one."""
+    for k, n, pad in W4_DECODE_SHAPES:
+        x, packed, scale = _ws_inputs(card, m, k, n, 16, pad=pad)
+        stream = kernels._w4a16_matmul(x, packed, scale, "stream")
+        _assert_ws_close(stream, kernels.w4a16_matmul_plain(x, packed, scale))
+        _assert_ws_close(kernels._w4a16_matmul(x, packed, scale, "decode"), stream)
+
+
+# (K, N, expected CTAs along K): the decode form's rule (cluster_size in
+# csrc/w4a16_decode.cuh) doubles the CTAs of a cluster until a call has 512
+# CTAs, at most 16 and at most the 16-row steps of K/2. So 512 column tiles
+# take 1, 256 take 2, a few steps (K/2 = 48, 80, 112) take 3, 5 or 7, 64 tiles
+# take 8, and down's 344 steps, uneven at 16, take 16.
+W4_DECODE_CLUSTERS = [(512, 65536, 1), (512, 32768, 2), (96, 4096, 3), (160, 4096, 5),
+                      (224, 4096, 7), (11008, 8192, 8), (11008, 4096, 16)]
+
+
+@pytest.mark.parametrize("case", W4_DECODE_CLUSTERS, ids=lambda c: f"k{c[0]}-n{c[1]}-c{c[2]}")
+def test_w4a16_decode_form_at_every_cluster_size(card, case):
+    """K split over 1 to 16 CTAs of a cluster, summed through distributed
+    shared memory: each size the rule gives, whole or uneven shares of the
+    steps, gives the plain product at one and two n8 tiles of rows."""
+    k, n, _ = case
+    for m in (4, 12):
+        x, packed, scale = _ws_inputs(card, m, k, n, 17, pad=128 if k == 11008 else 0)
+        got = kernels.w4a16_matmul(x, packed, scale)
+        _assert_ws_close(got, kernels.w4a16_matmul_plain(x, packed, scale))
+
+
+def test_w4a16_decode_form_is_one_launch(card):
+    """One call of the decode form is one launch and nothing of the tile
+    loop, at the shapes where the tile loop split K into a second launch."""
+    for k, n, pad in W4_DECODE_SHAPES:
+        x, packed, scale = _ws_inputs(card, 4, k, n, 18, pad=pad)
+        assert kernels.weight_stream_splits(4, n, k // 2) > 1
+        before, forms = dict(kernels.LAUNCHES), dict(kernels.FORM_LAUNCHES)
+        kernels.w4a16_matmul(x, packed, scale)
+        torch.cuda.synchronize()
+        assert kernels.LAUNCHES["w4a16_matmul"] == before["w4a16_matmul"] + 1
+        assert {f: kernels.FORM_LAUNCHES[f] - forms[f] for f in forms} == {
+            f: int(f == "w4a16_matmul/decode") for f in forms}
+
+
+def test_w4a16_decode_form_refuses_more_than_16_rows(card):
+    x, packed, scale = _ws_inputs(card, 17, 64, 64, 19)
+    with pytest.raises(ValueError):
+        kernels._w4a16_matmul(x, packed, scale, "decode")
 
 
 # the probes' decoder shapes at M = 1 (down's K padded 11008 -> 11264 as the
