@@ -22,7 +22,11 @@ toolkit. Phases, each fatal on failure:
    form is also held at 1, 3, 8 and 16 rows; #12's timed copies together
    exceed the 50 MB L2 at every shape;
    #1, #2 and #3 are held (not timed) at head_dim 120 and 128 and at
-   H*D = 12544; the flash backward pair (#5, #6) is also held to the plain
+   H*D = 12544, and their "any" form at head_dim 13, 20, 36, 136 and 200
+   (#1 in bf16 and fp32); #3 is timed beside its design before the ring loop
+   (script/replaced_kernels/, built here for that alone) in the order
+   parent, new, new, parent, and its row-quant pass alone at the trunk's
+   4112 rows of 1408; the flash backward pair (#5, #6) is also held to the plain
    backward at the edges of its walked tiles (lengths that are no multiple
    of 64, whole masked tiles, more or fewer keys than queries), prints its
    blocks per SM, and stands beside SDPA's whole backward timed on the
@@ -171,6 +175,12 @@ W4_DECODE_HELD = (1, 3, 8, 16)   # other decode row counts the decode form is he
 # beyond the trunk's: head_dim 120 and 128 (#3), and H*D = 98 x 128 = 12544,
 # wider than a row-quant block's shared memory (12288), short and long loops
 WIDE_PACKED = [(2, 37, 4, 120), (2, 37, 4, 128), (1, 16, 98, 128), (1, 40, 98, 128)]
+# head_dim the tile loops do not take: the packed kernels' "any" form (H*D 39,
+# 40, 108, 272 and 600)
+ANY_PACKED = [(2, 37, 3, 13), (1, 40, 2, 20), (2, 19, 3, 36), (1, 33, 2, 136), (1, 16, 3, 200)]
+# #3's design before its ring loop, built only to be timed beside it
+REPLACED_S8 = ROOT / "script" / "replaced_kernels" / "packed_qkv_attention_s8_rows64.cu"
+ROW_QUANT_ROWS = TRUNK[0] * TRUNK[1]   # #3's row-quant pass at the trunk: 4112 rows of 1408
 # Vicuna-7B decoder shapes (K, N, packed rows of K-padding) of the W4A16 stack
 W4_SHAPES = {"qkv": (4096, 12288, 0), "o": (4096, 4096, 0), "gateup": (4096, 22016, 0),
              "down": (11008, 4096, 128)}
@@ -286,15 +296,64 @@ def queued_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def phase_build(kernels) -> None:
+def start_replaced_build(kernels):
+    """Start nvcc on REPLACED_S8 (as ops/kernels.py builds a kernel, with the
+    port's headers on the include path); returns (the process, its log, the
+    library)."""
+    kernels.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    lib = kernels.BUILD_DIR / "libreplaced_packed_qkv_attention_s8.so"
+    log = open(lib.with_suffix(".log"), "w+")
+    cmd = kernels.nvcc_command(REPLACED_S8, lib, f"-I{kernels.CSRC}")
+    return subprocess.Popen(cmd, stdout=log, stderr=subprocess.STDOUT), log, lib
+
+
+def finish_replaced_build(kernels, proc, log, lib):
+    """Wait for start_replaced_build's nvcc; returns the library's entry
+    point wrapped like kernels.packed_qkv_attention_s8 (uncounted: a
+    yardstick)."""
+    import ctypes
+
+    rc = proc.wait()
+    log.seek(0)
+    text = log.read()
+    log.close()
+    if rc:
+        raise RuntimeError(f"{REPLACED_S8.name}: nvcc exit {rc}\n{text}")
+    for line in text.splitlines():
+        if "registers" in line or "spill" in line:
+            print(f"[build] replaced packed_qkv_attention_s8: {line.strip()}")
+    fn = ctypes.CDLL(str(lib)).stllm_packed_qkv_attention_s8
+    fn.argtypes, fn.restype = kernels._ENTRY["packed_qkv_attention_s8"][1], ctypes.c_int
+
+    def replaced(qkv_q, scales, h, d, scale):
+        b, s, _ = qkv_q.shape
+        out_q = torch.empty((b, s, h * d), dtype=torch.int8, device=qkv_q.device)
+        out_s = torch.empty((b, s, 1), dtype=torch.float32, device=qkv_q.device)
+        scratch = torch.empty((b, s, h * d), dtype=torch.float32, device=qkv_q.device)
+        err = fn(qkv_q.data_ptr(), scales.data_ptr(), scale, scratch.data_ptr(),
+                 out_q.data_ptr(), out_s.data_ptr(), b, s, h, d,
+                 torch.cuda.current_stream().cuda_stream)
+        if err:
+            raise RuntimeError(f"replaced packed_qkv_attention_s8: CUDA error {err}")
+        return out_q, out_s
+
+    return replaced
+
+
+def phase_build(kernels):
+    """Build every kernel and #3's replaced design; returns the latter's
+    wrapper."""
     t0 = time.perf_counter()
+    replaced = start_replaced_build(kernels)
     kernels.build()
+    replaced = finish_replaced_build(kernels, *replaced)
     print(f"[build] kernels {sorted(kernels.SOURCES)} built in {time.perf_counter() - t0:.2f} s")
     for name, log in kernels.BUILD_LOG.items():
         for line in log.splitlines():
             if "registers" in line or "spill" in line:
                 print(f"[build] {name}: {line.strip()}")
     print(f"[build] card: {smi_line()}")
+    return replaced
 
 
 # ---------------------------------------------------------------------------
@@ -471,10 +530,11 @@ def _static_int8(qkv: torch.Tensor):
     return q.reshape(b, s, f), scales
 
 
-def phase_kernels(kernels) -> dict:
+def phase_kernels(kernels, replaced_s8) -> dict:
     """Every kernel against its plain version at the main-path shapes (the
     ViT trunk and spatial shape, the BTAdapter temporal shape for the bf16
-    kernel), a ragged shape, and head_dim 24 and 64."""
+    kernel), a ragged shape, and head_dim 24 and 64; #3 also beside
+    ``replaced_s8``, the design its ring loop replaced."""
     import torch.nn.functional as F
 
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -526,11 +586,23 @@ def phase_kernels(kernels) -> dict:
         "stllm_tpu/ops/attention.py:678", rows, INT8_ATOL, INT8_RTOL)
     rows = _check_kernel("packed_qkv_attention_s8", cases3, kernels.packed_qkv_attention_s8,
                          kernels.packed_qkv_attention_s8_plain, _int8_err)
+    for row, (_, bufs, *_) in list(zip(rows, cases3))[:2]:     # the trunk and ragged shapes
+        _vs_parent(row, kernels.packed_qkv_attention_s8, replaced_s8, bufs, _int8_err,
+                   kernels.packed_qkv_attention_s8_plain)
     out["packed_qkv_attention_s8"] = _entry(
         "packed_qkv_attention_s8", "packed_qkv_attention_s8.cu",
         "stllm_tpu/ops/attention.py:830", rows, INT8_ATOL, INT8_RTOL)
-    for name, held in _wide_packed(kernels, gen).items():
-        out[name]["wide_cases"] = held
+    out["packed_qkv_attention_s8"]["parent_ms"] = rows[0]["parent_ms"]
+    out["packed_qkv_attention_s8"]["parent_source"] = str(REPLACED_S8.relative_to(ROOT))
+    out["packed_qkv_attention_s8"]["row_quant_pass"] = _row_quant_pass(kernels, gen)
+    blocks = {f"S={s}": kernels.occupancy("packed_qkv_attention_s8", s, 88)
+              for s in (TRUNK[1], TEMPORAL[1])}
+    out["packed_qkv_attention_s8"]["blocks_per_sm"] = blocks
+    print(f"[kernels] packed_qkv_attention_s8: blocks per SM {blocks}")
+    for name, held in _held_packed(kernels, gen).items():
+        out[name].update(held)
+        out[name]["forms"] = {"tiles": f"stllm_tpu_torch/csrc/{kernels.SOURCES[name]}",
+                              "any": "stllm_tpu_torch/csrc/packed_qkv_any.cuh"}
 
     # #9 LayerNorm -> int8 and #10 GELU -> int8 over the trunk's rows
     cases9, cases10 = [], []
@@ -563,30 +635,55 @@ def phase_kernels(kernels) -> dict:
     return out
 
 
-def _wide_packed(kernels, gen) -> dict:
-    """#1, #2 and #3 held (not timed) to their plain versions at
-    WIDE_PACKED: each call launches its kernel once."""
-    held = {"packed_qkv_attention": [], "packed_qkv_attention_quant": [],
-            "packed_qkv_attention_s8": []}
-    for b, s, h, d in WIDE_PACKED:
-        qkv = _qkv_bufs(gen, b, s, h, d)[0]
-        for name in held:
-            if name == "packed_qkv_attention_s8":
-                args, err_fn = (*_static_int8(qkv), h, d, d ** -0.5), _int8_step_err
-            elif name == "packed_qkv_attention_quant":
-                args, err_fn = (qkv, h, d, d ** -0.5), _int8_step_err
-            else:
-                args, err_fn = (qkv, h, d, d ** -0.5), _bf16_err
-            before = kernels.LAUNCHES[name]
-            got = getattr(kernels, name)(*args)
-            torch.cuda.synchronize()
-            if kernels.LAUNCHES[name] != before + 1:
-                raise AssertionError(f"[kernels] {name} at {(b, s, h, d)} did not launch once")
-            err = err_fn(got, getattr(kernels, name + "_plain")(*args))
-            held[name].append({"shape": [b, s, h, d], "max_abs_err": err})
-        print(f"[kernels] packed kernels at (B, S, H, D) = {(b, s, h, d)}, H*D = {h * d}: "
-              + ", ".join(f"{n} {v[-1]['max_abs_err']:.4g}" for n, v in held.items()))
+def _held_packed(kernels, gen) -> dict:
+    """#1, #2 and #3 held (not timed) to their plain versions at WIDE_PACKED
+    ("wide_cases", the tile loops) and ANY_PACKED ("any_cases", the "any"
+    form; #1 in bf16 and fp32): each call launches its kernel once, in the
+    form packed_form names."""
+    names = ("packed_qkv_attention", "packed_qkv_attention_quant", "packed_qkv_attention_s8")
+    held = {n: {"wide_cases": [], "any_cases": []} for n in names}
+    for key, shapes in (("wide_cases", WIDE_PACKED), ("any_cases", ANY_PACKED)):
+        for b, s, h, d in shapes:
+            qkv = _qkv_bufs(gen, b, s, h, d)[0]
+            calls = [(n, (qkv, h, d, d ** -0.5)) for n in names[:2]]
+            calls.append((names[2], (*_static_int8(qkv), h, d, d ** -0.5)))
+            if key == "any_cases":
+                calls.append((names[0], (qkv.float(), h, d, d ** -0.5)))
+            for name, args in calls:
+                err_fn = _attn_err if name == "packed_qkv_attention" else _int8_step_err
+                form = f"{name}/{kernels.packed_form(d)}"
+                before, before_form = kernels.LAUNCHES[name], kernels.FORM_LAUNCHES[form]
+                got = getattr(kernels, name)(*args)
+                torch.cuda.synchronize()
+                if (kernels.LAUNCHES[name] != before + 1
+                        or kernels.FORM_LAUNCHES[form] != before_form + 1):
+                    raise AssertionError(f"[kernels] {form} at {(b, s, h, d)} did not launch "
+                                         "once")
+                err = err_fn(got, getattr(kernels, name + "_plain")(*args))
+                held[name][key].append({"shape": [b, s, h, d], "dtype": str(args[0].dtype),
+                                        "form": kernels.packed_form(d), "max_abs_err": err})
+            print(f"[kernels] packed kernels at (B, S, H, D) = {(b, s, h, d)}, H*D = {h * d}, "
+                  f"{kernels.packed_form(d)} form: "
+                  + ", ".join(f"{n} {held[n][key][-1]['max_abs_err']:.4g}" for n in names))
     return held
+
+
+def _row_quant_pass(kernels, gen) -> dict:
+    """#3's second launch alone: the row-quant pass on fp32 attention rows at
+    the trunk (4112 x 1408), held to rowwise_quant_plain and timed on four
+    copies; its bound moves the fp32 rows in and the codes and scales out."""
+    k = TRUNK[2] * TRUNK[3]
+    ys = [torch.randn(ROW_QUANT_ROWS, k, generator=gen, device="cuda") * 0.05
+          for _ in range(4)]
+    err = _int8_err(kernels._rowwise_quant_pass(ys[0]), kernels.rowwise_quant_plain(ys[0]))
+    it = iter(range(1 << 30))
+    row = {"shape": [ROW_QUANT_ROWS, k], "max_abs_err": err,
+           "ms": graph_ms(lambda: kernels._rowwise_quant_pass(ys[next(it) % 4]), 40),
+           "plain_ms": graph_ms(lambda: kernels.rowwise_quant_plain(ys[next(it) % 4]), 8),
+           **_bound(ROW_QUANT_ROWS * (k * 5 + 4), ROW_QUANT_ROWS * k * QUANT_OPS_PER_ELEM
+                    / FP32_FLOP_PER_S)}
+    print(f"[kernels] packed_qkv_attention_s8 row-quant pass alone {row}")
+    return row
 
 
 def _ws_bound(m: int, k: int, n: int, w_bytes: int, out_bytes: int, scaled: bool = True) -> tuple:
@@ -1316,6 +1413,9 @@ def serve(kernels, params, cfg, reqs, label: str, gen=None, **server) -> dict:
     launches = dict(kernels.LAUNCHES)
     form_launches = dict(kernels.FORM_LAUNCHES)
     forwards = FORWARD_CALLS[0]
+    any_form = {k: v for k, v in form_launches.items() if k.endswith("/any") and v}
+    if any_form:       # every model's head_dim (64, 88, 128) runs the packed tile loops
+        raise AssertionError(f"[{label}] packed launches on the any form: {any_form}")
 
     if set(answers) != {r[0] for r in reqs}:
         raise AssertionError(f"[{label}] answers for {sorted(answers)}, not all "
@@ -1933,8 +2033,8 @@ def main() -> int:
         return 1
     from stllm_tpu_torch.ops import kernels
 
-    phase_build(kernels)
-    entries = phase_kernels(kernels)
+    replaced_s8 = phase_build(kernels)
+    entries = phase_kernels(kernels, replaced_s8)
     gc.collect()
     print(f"[kernels] held after the phase: {torch.cuda.memory_allocated() / 2**30:.3f} GiB")
     count_forwards()

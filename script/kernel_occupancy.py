@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Blocks per SM of the packed-qkv attention (#1), the flash forward (#4),
+"""Blocks per SM of the packed-qkv attention (#1) and its static-int8 ring
+loop (#3), the flash forward (#4),
 the flash backward pair (#5 dQ, #6 dK/dV),
 both forms of the W4A16 matmul (#12: the wgmma prefill form, the tile loop
 at 64 and 16 rows) and both forms of the fused
@@ -12,7 +13,7 @@ cudaOccupancyMaxActiveClusters.
     python3 script/kernel_occupancy.py                  # this tree's kernels
     python3 script/kernel_occupancy.py --csrc OTHER/stllm_tpu_torch/csrc   # and another's
 
-It asks the kernels' own entry points (#1 at the ViT-g trunk shape S = 257
+It asks the kernels' own entry points (#1 and #3 at the ViT-g trunk shape S = 257
 and the BTAdapter temporal S = 16, D = 88; #4, #5 and #6 at D = 128; #12
 and #11 as above). With ``--csrc`` it also builds small shims against
 another tree's headers of the earlier designs (``packed_qkv_attention_kernel
@@ -94,6 +95,8 @@ def this_design() -> dict:
     m, n = 16 * 257, 1408
     return {"packed_qkv_attention": {f"S={s}": kernels.occupancy("packed_qkv_attention", s, 88)
                                      for s in (257, 16)},
+            "packed_qkv_attention_s8": {
+                f"S={s}": kernels.occupancy("packed_qkv_attention_s8", s, 88) for s in (257, 16)},
             "flash_attention_fwd": kernels.occupancy("flash_attention_fwd", 128),
             "flash_attention_bwd_dq": kernels.occupancy("flash_attention_bwd_dq", 128),
             "flash_attention_bwd_dkv": kernels.occupancy("flash_attention_bwd_dkv", 128),

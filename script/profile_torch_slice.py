@@ -56,7 +56,7 @@ REPO = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(REPO))
 
 GEMM_MARKS = ("gemm", "nvjet", "cutlass", "xmma", "matmul")
-ATTN_MARKS = ("packed_qkv_attention_kernel", "packed_qkv_s8_kernel")
+ATTN_MARKS = ("packed::packed_kernel", "packed::packed_s8_kernel", "packed_any_kernel")
 W4_MARKS = ("weight_stream_kernel", "splitk_reduce_kernel", "w4_prefill_kernel",
             "w4_decode_kernel")
 # kernels reported on their own: the training attention (the forward kernel is

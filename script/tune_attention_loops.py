@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
-"""Time variants of the packed-qkv loop (#1), the flash forward loop
-(#4, #7) and the flash backward pair (#5 dQ, #6 dK/dV) on one CUDA card,
-each held to its plain version first.
+"""Time variants of the packed-qkv loop (#1), its static-int8 ring loop
+(#3), the flash forward loop (#4, #7) and the flash backward pair (#5 dQ,
+#6 dK/dV) on one CUDA card, each held to its plain version first.
 
     python3 script/tune_attention_loops.py [--only KERNEL ...] [--parent CSRC] [--out FILE]
 
@@ -10,15 +10,18 @@ the script copies stllm_tpu_torch/csrc into a temporary directory, rewrites
 the constants there (the checkout is not touched), builds the variant's
 library with nvcc as ops/kernels.py builds it, and swaps it in for the
 kernel's own. Shapes: #1 at the ViT-g trunk (16, 257, 16, 88) and the
-BTAdapter temporal shape (256, 16, 16, 88); #4 at (1, 1024, 32, 128) causal
+BTAdapter temporal shape (256, 16, 16, 88); #3 at the trunk and the ragged
+(3, 37, 4, 88), on static-int8 qkv, its whole call (the ring loop and the
+row-quant pass); #4 at (1, 1024, 32, 128) causal
 with a padded kv_mask; #7 at (1, 768, 32, 128), causal, padded; #5 and
 #6 at (1, 1024, 32, 128) causal with a padded kv_mask, beside SDPA's whole
 backward on the same inputs, device time only (chip_smoke.queued_ms). The
 backward variants are the walked tile's width, dQ's stage depth and score
 sub-tile, the rows a block owns and the blocks per SM, and the earlier
-launch order (row tile fastest, ascending); ``--parent`` adds "parent", each backward kernel
-built from another tree's csrc (the earlier design, timed in the same
-call). ``--only`` keeps the named kernels' variants. Times are
+launch order (row tile fastest, ascending); ``--parent`` adds "parent", #3
+and each backward kernel built from another tree's csrc (the earlier
+design, timed in the same call). Variants labelled "diagnostic" drop work and are timed without the
+check. ``--only`` keeps the named kernels' variants. Times are
 CUDA-graph replays cycling four input copies (chip_smoke.graph_ms), beside
 SDPA on the same inputs. Prints one JSON line per variant (with ptxas's
 registers and spill bytes) and the card's name and power limit.
@@ -41,6 +44,7 @@ sys.path.insert(0, str(ROOT))
 
 # an edit: (header, pattern that must match once, replacement)
 PACKED = "packed_qkv_attention.cuh"
+S8 = "packed_qkv_attention_s8.cu"
 FLASH = "flash_attention.cuh"
 
 
@@ -50,6 +54,25 @@ def _warps(n):
 
 def _packed_min_blocks(n):
     return (PACKED, r"__launch_bounds__\(kMaxThreads, 2\)", f"__launch_bounds__(kMaxThreads, {n})")
+
+
+def _s8_min_blocks(n):
+    return (S8, r"__launch_bounds__\(kMaxThreads, 2\)", f"__launch_bounds__(kMaxThreads, {n})")
+
+
+def _s8_stages(n):
+    return (S8, r"constexpr int kS8Stages = \d+;", f"constexpr int kS8Stages = {n};")
+
+
+# diagnostics (timed without the check): the ring loop's loads, conversions,
+# barriers and stores with no products; the attention launch without the
+# row-quant pass
+_S8_NO_PRODUCTS = (S8, r"    if \(active\) \{\n      const int k0 = i \* BK;",
+                   "    if (active && S < 0) {\n      const int k0 = i * BK;")
+_S8_NO_ROW_QUANT = (S8, r"(launch_s8\([^;]*;\n\s*if \(err != cudaSuccess\) return "
+                        r"static_cast<int>\(err\);\n\s*)return static_cast<int>\(quantize"
+                        r"\(rows, out_q, out_scale, B, S, H, D, st\)\);",
+                    r"\1return 0;")
 
 
 def _flash_min_blocks(n):
@@ -97,6 +120,16 @@ VARIANTS = {
         ("warps 6, 3 blocks", [_warps(6), _packed_min_blocks(3)]),
         ("warps 17, 1 block", [_warps(17), _packed_min_blocks(1)]),
     ],
+    "packed_qkv_attention_s8": [
+        ("shipped", []),
+        ("16 keys", [_keys(16)]),
+        ("64 keys", [_keys(64)]),
+        ("2 stages", [_s8_stages(2)]),
+        ("4 stages", [_s8_stages(4)]),
+        ("warps 6, 3 blocks", [_warps(6), _s8_min_blocks(3)]),
+        ("diagnostic: no products", [_S8_NO_PRODUCTS]),
+        ("diagnostic: attention launch alone", [_S8_NO_ROW_QUANT]),
+    ],
     "flash_attention_fwd": [
         ("shipped", []),
         ("2 blocks", [_flash_min_blocks(2)]),
@@ -122,6 +155,7 @@ VARIANTS = {
     ],
 }
 BACKWARD = ("flash_attention_bwd_dq", "flash_attention_bwd_dkv")
+WITH_PARENT = ("packed_qkv_attention_s8", *BACKWARD)   # the kernels --parent adds
 
 
 def start_build(name: str, edits, tmp: Path, csrc: Path = None):
@@ -139,9 +173,7 @@ def start_build(name: str, edits, tmp: Path, csrc: Path = None):
             raise RuntimeError(f"{header}: {pattern!r} matched {n} times")
         path.write_text(text)
     lib = tmp / f"lib{name}.so"
-    cmd = [kernels._nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-           "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-o", str(lib),
-           str(src / kernels.SOURCES[name])]
+    cmd = kernels.nvcc_command(src / kernels.SOURCES[name], lib)
     return subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), lib
 
 
@@ -181,6 +213,29 @@ def time_packed(gen) -> dict:
                 bufs[next(it) % 4], h, d, d ** -0.5), 40),
             "sdpa_ms": cs.graph_ms(lambda: sdpa(bufs[next(it) % 4]), 40),
             "blocks_per_sm": kernels.occupancy("packed_qkv_attention", s, d)}
+    return out
+
+
+def time_s8(gen, check: bool = True) -> dict:
+    """#3's whole call (ring loop and row-quant pass) on static-int8 qkv,
+    held to its plain version first (a diagnostic variant is not)."""
+    import chip_smoke as cs
+    from stllm_tpu_torch.ops import kernels
+
+    out = {}
+    for label, shape in (("trunk", cs.TRUNK), ("ragged", (3, 37, 4, 88))):
+        b, s, h, d = shape
+        bufs = [(*cs._static_int8(q), h, d, d ** -0.5) for q in cs._qkv_bufs(gen, b, s, h, d)]
+        if check:
+            cs._int8_err(kernels.packed_qkv_attention_s8(*bufs[0]),
+                         kernels.packed_qkv_attention_s8_plain(*bufs[0]))
+        it = iter(range(1 << 30))
+        out[label] = {"ms": cs.graph_ms(lambda: kernels.packed_qkv_attention_s8(
+            *bufs[next(it) % 4]), 40)}
+    try:
+        out["blocks_per_sm"] = kernels.occupancy("packed_qkv_attention_s8", cs.TRUNK[1], 88)
+    except AttributeError:          # a tree whose library has no occupancy entry
+        out["blocks_per_sm"] = None
     return out
 
 
@@ -260,7 +315,8 @@ def main() -> int:
     ap.add_argument("--out", type=Path, help="also write the lines to this file")
     ap.add_argument("--only", nargs="+", choices=sorted(VARIANTS), help="these kernels only")
     ap.add_argument("--parent", type=Path,
-                    help="another tree's stllm_tpu_torch/csrc: its backward pair as a variant")
+                    help="another tree's stllm_tpu_torch/csrc: its #3 and backward pair as "
+                         "variants")
     args = ap.parse_args()
     import torch
 
@@ -276,7 +332,7 @@ def main() -> int:
             if args.only and name not in args.only:
                 continue
             variants = list(variants)
-            if args.parent and name in BACKWARD:
+            if args.parent and name in WITH_PARENT:
                 variants.append(("parent", None))
             for i, (label, edits) in enumerate(variants):
                 where = Path(tmp) / f"{name}-{i}"
@@ -296,6 +352,8 @@ def main() -> int:
             try:
                 if name == "packed_qkv_attention":
                     res = time_packed(gen)
+                elif name == "packed_qkv_attention_s8":
+                    res = time_s8(gen, not label.startswith("diagnostic"))
                 elif name in BACKWARD:
                     res = time_backward(name, gen)
                 else:

@@ -4,7 +4,10 @@
 //
 // Tiles sit in shared memory as [row][dim] with a row stride of DP + kPad
 // bf16 (DP the padded head_dim): the 16-byte padding puts the eight rows of
-// an ldmatrix read in distinct banks. They come in by cp.async, 16 bytes a
+// an ldmatrix read in distinct banks. An int8 [row][dim] tile (16-byte row
+// padding too) is read through the same helpers as a bf16 tile of half the
+// width: an s8 m16n8k32 fragment holds, in each 32-bit register, the four
+// bytes that ldmatrix gives a lane for one 16-byte row. They come in by cp.async, 16 bytes a
 // copy, without passing through registers; commit groups let a loop keep the
 // next tiles' copies in flight while it computes on the current one.
 // ldmatrix reads the mma.sync m16n8k16 operand fragments from them, with
@@ -78,6 +81,14 @@ __device__ __forceinline__ uint32_t shared_addr(const void* p) {
 __device__ __forceinline__ void cp_async16(void* dst, const void* src, bool pred) {
   const int bytes = pred ? 16 : 0;
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(shared_addr(dst)),
+               "l"(src), "r"(bytes));
+}
+
+// 8 bytes (.ca: .cg takes 16 only), zero-filled when ``pred`` is false: rows
+// that are only 8-byte aligned, such as an int8 head of 88 bytes.
+__device__ __forceinline__ void cp_async8(void* dst, const void* src, bool pred) {
+  const int bytes = pred ? 8 : 0;
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(shared_addr(dst)),
                "l"(src), "r"(bytes));
 }
 

@@ -24,9 +24,12 @@
 // evenly (two blocks of 9 and 8 warps at S = 257, two blocks an SM) and a
 // short form that gives each warp of a block its own sequence (S <= 16, the
 // BTAdapter's temporal attention). An fp32 qkv takes the fp32
-// instantiation of attention_f32.cuh (CUDA-core products).
+// instantiation of attention_f32.cuh (CUDA-core products). Those loops take
+// head_dim a multiple of 8 up to 128; every other head_dim takes the "any"
+// form (packed_qkv_any.cuh), whose entry point is the _any one below.
 
 #include "attention_f32.cuh"
+#include "packed_qkv_any.cuh"
 #include "packed_qkv_attention.cuh"
 
 // Plain C entry points, loaded with ctypes. qkv and out are contiguous
@@ -48,6 +51,22 @@ extern "C" int stllm_packed_qkv_attention_f32(const void* qkv, void* out, int B,
   return static_cast<int>(stllm::f32attn::launch_packed(qkv, static_cast<float*>(out), B, S,
                                                         H, D, scale_log2e,
                                                         static_cast<cudaStream_t>(stream)));
+}
+
+// The "any" form: any D >= 1 and S <= 1023; qkv and out bf16, or fp32 with
+// io_f32, contiguous (no alignment past the element's).
+extern "C" int stllm_packed_qkv_attention_any(const void* qkv, void* out, int B, int S, int H,
+                                              int D, float scale_log2e, int io_f32,
+                                              void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (io_f32) {
+    return static_cast<int>(stllm::packed_any::launch<float, float, false>(
+        static_cast<const float*>(qkv), nullptr, scale_log2e, static_cast<float*>(out), B, S,
+        H, D, st));
+  }
+  return static_cast<int>(stllm::packed_any::launch<__nv_bfloat16, __nv_bfloat16, true>(
+      static_cast<const __nv_bfloat16*>(qkv), nullptr, scale_log2e,
+      static_cast<__nv_bfloat16*>(out), B, S, H, D, st));
 }
 
 // Resident blocks a streaming multiprocessor holds for the bf16 kernel at

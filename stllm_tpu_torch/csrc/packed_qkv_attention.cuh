@@ -1,7 +1,8 @@
 // The packed-qkv attention tile loop, shared by the bf16 kernel
 // (packed_qkv_attention.cu) and the int8-epilogue kernel
-// (packed_qkv_attention_quant.cu), plus the constants and the shape rule
-// that the static-int8 kernel (packed_qkv_attention_s8.cu) keeps.
+// (packed_qkv_attention_quant.cu); the static-int8 kernel
+// (packed_qkv_attention_s8.cu) runs the same geometry, ring and shape rule
+// on int8 tiles.
 //
 //   qkv (B, S, 3*H*D), q|k|v by thirds, heads contiguous within a third
 //   s   = q . k^T * scale * log2(e)                    (fp32 accumulation)
@@ -38,23 +39,10 @@
 
 namespace stllm {
 
-// the static-int8 kernel's fixed tiling (packed_qkv_attention_s8.cu)
-constexpr int kBQ = 64;                 // query rows per block
-constexpr int kBK = 64;                 // keys per tile
-constexpr int kWarps = 4;               // 16 query rows per warp
-constexpr int kThreads = kWarps * 32;
 constexpr float kClamp = 50.0f;
 
 __device__ __forceinline__ float clamped_exp2(float s, float scale_log2e) {
   return exp2f(fminf(s * scale_log2e, kClamp) - kClamp);
-}
-
-// The static-int8 kernel's shapes: B, S, H > 0; D a multiple of 8 and at most
-// 128 (its three tiles take 36.9 KB of static shared memory at a padded
-// head_dim of 128); a linear grid of ceil(S / 64) * H * B blocks.
-inline bool packed_shape_ok(int B, int S, int H, int D) {
-  return B > 0 && S > 0 && H > 0 && D > 0 && D % 8 == 0 && D <= 128 &&
-         (long long)((S + kBQ - 1) / kBQ) * H * B <= 0x7fffffffLL;
 }
 
 namespace packed {

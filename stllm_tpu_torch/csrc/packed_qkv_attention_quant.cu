@@ -22,9 +22,12 @@
 // shape, where a block per query tile that loops over the heads would hold
 // a 180 KB fp32 row tile in shared memory and run one block of few warps
 // per SM. The price is the scratch round trip:
-// 23.1 MB written and read again, much of it from the 50 MB L2.
+// 23.1 MB written and read again, much of it from the 50 MB L2. A head_dim
+// the tile loops do not take (not a multiple of 8, or above 128) writes its
+// rows with the "any" form of packed_qkv_any.cuh (the _any entry point).
 
 #include "attention_f32.cuh"
+#include "packed_qkv_any.cuh"
 #include "packed_qkv_attention.cuh"
 #include "rowwise_quant.cuh"
 
@@ -65,6 +68,24 @@ extern "C" int stllm_packed_qkv_attention_quant_f32(const void* qkv, void* scrat
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   float* rows = static_cast<float*>(scratch);
   cudaError_t err = stllm::f32attn::launch_packed(qkv, rows, B, S, H, D, scale_log2e, st);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(quantize(rows, out_q, out_scale, B, S, H, D, st));
+}
+
+// The "any" form: any D >= 1 and S <= 1023, bf16 or (io_f32) fp32 qkv,
+// contiguous; any H*D.
+extern "C" int stllm_packed_qkv_attention_quant_any(const void* qkv, void* scratch,
+                                                    void* out_q, void* out_scale, int B, int S,
+                                                    int H, int D, float scale_log2e,
+                                                    int io_f32, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  float* rows = static_cast<float*>(scratch);
+  cudaError_t err =
+      io_f32 ? stllm::packed_any::launch<float, float, false>(
+                   static_cast<const float*>(qkv), nullptr, scale_log2e, rows, B, S, H, D, st)
+             : stllm::packed_any::launch<__nv_bfloat16, float, true>(
+                   static_cast<const __nv_bfloat16*>(qkv), nullptr, scale_log2e, rows, B, S,
+                   H, D, st);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(quantize(rows, out_q, out_scale, B, S, H, D, st));
 }

@@ -109,13 +109,12 @@ class _PackedQKVAttention(torch.autograd.Function):
 
 def _packed_kernel_runs(qkv: torch.Tensor, heads: int, head_dim: int) -> bool:
     """Whether the packed kernel (#1, #2) takes this call: the reference's
-    feasibility rule, and a head_dim the kernel is built for (a multiple of
-    8, at most kernels.PACKED_MAX_HEAD_DIM). Where it fails,
-    the reference runs ``_packed_reference`` (the max-subtracted softmax, left
-    to XLA) and so does the port, in plain torch on either device; no kernel
-    launches for such a call."""
-    return (head_dim % 8 == 0 and head_dim <= kernels.PACKED_MAX_HEAD_DIM
-            and packed_qkv_feasible(qkv.shape[1], heads, head_dim, qkv.element_size()))
+    feasibility rule, whatever the head_dim (``kernels.packed_form`` picks
+    the kernel's form for it). Where it fails, the reference runs
+    ``_packed_reference`` (the max-subtracted softmax, left to XLA) and so
+    does the port, in plain torch on either device; no kernel launches for
+    such a call."""
+    return packed_qkv_feasible(qkv.shape[1], heads, head_dim, qkv.element_size())
 
 
 def fused_qkv_attention(qkv: torch.Tensor, heads: int, head_dim: int, *,

@@ -25,6 +25,11 @@ Kernels (TPU kernel each replaces):
   flash_attention_bwd_dkv     stllm_tpu/ops/attention.py:_flash_bwd_dkv_kernel
   qmm_res_ln                  stllm_tpu/ops/quant.py:_qmm_res_ln_kernel
   quant_matmul_blockwise      stllm_tpu/ops/quant.py:_quant_matmul_kernel
+The three packed-qkv kernels have two forms (``packed_form``): the tile
+loops (``csrc/packed_qkv_attention.cuh``, and #3's ring loop on int8 tiles)
+for head_dim a multiple of 8 up to 128, and a simple form
+(``csrc/packed_qkv_any.cuh``) for every other head_dim, as the TPU kernels
+take any head_dim their feasibility rule admits.
 The four weight-streaming kernels share one tile loop
 (``csrc/weight_stream_matmul.cuh``); only the model path launches
 ``w4a16_matmul``, the probes are launched by their checks and timings.
@@ -130,6 +135,14 @@ _FORM_ENTRY = {
         "stllm_w4a16_matmul_prefill", [_P, _P, _P, _P, _I, _I, _I, _I, _P]),
     ("w4a16_matmul", "decode"): (
         "stllm_w4a16_matmul_decode", [_P, _P, _P, _P, _I, _I, _I, _I, _P]),
+    # the packed kernels' "any" form: the tile loop's arguments, then io_f32
+    # (#1, #2); #3's are its tile loop's
+    ("packed_qkv_attention", "any"): (
+        "stllm_packed_qkv_attention_any", [_P, _P, _I, _I, _I, _I, _F, _I, _P]),
+    ("packed_qkv_attention_quant", "any"): (
+        "stllm_packed_qkv_attention_quant_any", [_P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _P]),
+    ("packed_qkv_attention_s8", "any"): (
+        "stllm_packed_qkv_attention_s8_any", _ENTRY["packed_qkv_attention_s8"][1]),
     # qmm_res_ln's arguments without the staged scratch row
     ("qmm_res_ln", "cluster"): (
         "stllm_qmm_res_ln_cluster",
@@ -149,6 +162,7 @@ _F32_SYMBOLS = {
 # resident blocks an SM holds (cudaOccupancyMaxActiveBlocksPerMultiprocessor)
 _OCCUPANCY = {
     "packed_qkv_attention": ("stllm_packed_qkv_attention_occupancy", [_I, _I]),
+    "packed_qkv_attention_s8": ("stllm_packed_qkv_attention_s8_occupancy", [_I, _I]),
     "flash_attention_fwd": ("stllm_flash_attention_fwd_occupancy", [_I]),
     "flash_attention_bwd_dq": ("stllm_flash_attention_bwd_dq_occupancy", [_I]),
     "flash_attention_bwd_dkv": ("stllm_flash_attention_bwd_dkv_occupancy", [_I]),
@@ -160,7 +174,9 @@ LAUNCHES: Dict[str, int] = {name: 0 for name in SOURCES}
 # the kernels with more than one form, the first the one an entry point
 # without a form runs; FORM_LAUNCHES splits their LAUNCHES by form
 # ("w4a16_matmul/decode")
-FORMS = {"w4a16_matmul": ("stream", "wgmma", "decode"), "qmm_res_ln": ("rows", "cluster")}
+FORMS = {"w4a16_matmul": ("stream", "wgmma", "decode"), "qmm_res_ln": ("rows", "cluster"),
+         **{name: ("tiles", "any") for name in (
+             "packed_qkv_attention", "packed_qkv_attention_quant", "packed_qkv_attention_s8")}}
 FORM_LAUNCHES: Dict[str, int] = {f"{n}/{f}": 0 for n, fs in FORMS.items() for f in fs}
 BUILD_LOG: Dict[str, str] = {}   # nvcc output (ptxas register/spill report)
 _LIBS: Dict[str, ctypes.CDLL] = {}
@@ -211,6 +227,15 @@ def _nvcc() -> str:
                        "with the CUDA toolkit")
 
 
+def nvcc_command(source: Path, out: Path, *flags: str) -> list:
+    """The nvcc command that builds ``source`` into the shared library
+    ``out`` for sm_90a (plain C interface, ptxas's register report on),
+    with ``flags`` added (an include path)."""
+    return [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+            "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", *flags, "-o", str(out),
+            str(source)]
+
+
 def build(names: Optional[Iterable[str]] = None) -> None:
     """Compile the named kernels (default: all) that are not built yet,
     one ``nvcc`` per source, all started together."""
@@ -219,15 +244,12 @@ def build(names: Optional[Iterable[str]] = None) -> None:
     if not todo:
         return
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    nvcc = _nvcc()
     running = []
     for name in todo:
         out = _lib_path(name)
         tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
         log = open(out.with_name(f"{out.name}.log"), "w+")
-        cmd = [nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-               "-o", str(tmp), str(CSRC / SOURCES[name])]
+        cmd = nvcc_command(CSRC / SOURCES[name], tmp)
         running.append((name, subprocess.Popen(cmd, stdout=log,
                                                stderr=subprocess.STDOUT),
                         log, tmp, out))
@@ -279,7 +301,8 @@ def _launch(name: str, device: torch.device, *args, f32: bool = False,
 
 def occupancy(name: str, *shape: int) -> int:
     """Blocks of kernel ``name``'s bf16 instantiation one SM holds at once
-    at ``shape`` (packed_qkv_attention: S, D; flash_attention_fwd,
+    at ``shape`` (packed_qkv_attention, packed_qkv_attention_s8: S, D
+    (the tile loop); flash_attention_fwd,
     flash_attention_bwd_dq, flash_attention_bwd_dkv: D;
     w4a16_matmul: the form (0 the tile loop, 1 wgmma, 2 decode), the tile
     loop's row tile (16 or 64) or the decode form's rows (up to 8 or 16);
@@ -316,22 +339,35 @@ def rowwise_quant_plain(y: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
 # qkv (#3)
 # ---------------------------------------------------------------------------
 
-PACKED_MAX_HEAD_DIM = 128   # widest head of #1, #2 and #3 (csrc/packed_qkv_attention.cuh)
+PACKED_MAX_HEAD_DIM = 128   # widest head of the tile loops (csrc/packed_qkv_attention.cuh)
+PACKED_ANY_ROWS = 8         # query rows of an "any" form block (csrc/packed_qkv_any.cuh)
+PACKED_ANY_MAX_SEQ = 1023   # its scores of a row in shared memory: the reference's S < 1024
 _GRID_MAX = 2 ** 31 - 1     # blocks of a one-dimensional grid
 _GRID_YZ_MAX = 65535        # blocks along a grid's y or z
 
 
+def packed_form(head_dim: int) -> str:
+    """The form of #1, #2 and #3 that runs at ``head_dim``: "tiles" (the
+    tensor-core tile loops, head_dim a multiple of 8 up to 128: every model
+    of the repository) or "any" (a simple CUDA-core form for every other
+    head_dim, csrc/packed_qkv_any.cuh)."""
+    return "tiles" if head_dim % 8 == 0 and 0 < head_dim <= PACKED_MAX_HEAD_DIM else "any"
+
+
 def packed_shape_ok(b: int, s: int, heads: int, head_dim: int, dtype: torch.dtype) -> bool:
     """Whether the packed kernels launch at (B, S, H, D) on a ``dtype`` qkv
-    (#1 and #2: bf16 or fp32; #3: int8): head_dim a multiple of 8 and at
-    most 128, and grids that fit: B * H * ceil(S / 16) blocks at most (the
-    bf16 and s8 loops, linear grids), B * S rows (the row-quant pass of #2
-    and #3), and for the fp32 instantiation H and B along the grid's y and
-    z. Every H * D is taken: the row-quant pass reads a row too wide for a
-    block's shared memory from device memory twice."""
-    if min(b, s, heads, head_dim) <= 0 or head_dim % 8 or head_dim > PACKED_MAX_HEAD_DIM:
+    (#1 and #2: bf16 or fp32; #3: int8), in the form ``packed_form`` picks:
+    B, S, H, D positive and grids that fit: B * S rows (the row-quant pass
+    of #2 and #3); for the tile loops B * H * ceil(S / 16) blocks of a
+    linear grid, and for their fp32 instantiation H and B along the grid's y
+    and z; for the "any" form S <= 1023 and B * H * ceil(S / 8) blocks. Every
+    H * D is taken: the row-quant pass reads a row too wide for a block's
+    shared memory from device memory twice."""
+    if min(b, s, heads, head_dim) <= 0 or b * s > _GRID_MAX:
         return False
-    if b * heads * -(-s // 16) > _GRID_MAX or b * s > _GRID_MAX:
+    if packed_form(head_dim) == "any":
+        return s <= PACKED_ANY_MAX_SEQ and b * heads * -(-s // PACKED_ANY_ROWS) <= _GRID_MAX
+    if b * heads * -(-s // 16) > _GRID_MAX:
         return False
     return dtype != torch.float32 or max(b, heads) <= _GRID_YZ_MAX
 
@@ -345,9 +381,8 @@ def _check_packed(name: str, qkv: torch.Tensor, heads: int, head_dim: int,
         raise ValueError(f"qkv width {qkv.shape[-1]} != 3 * {heads} * {head_dim}")
     b, s, _ = qkv.shape
     if not packed_shape_ok(b, s, heads, head_dim, qkv.dtype):
-        raise ValueError(f"{name} kernel: head_dim {head_dim} must be a multiple of 8 and at "
-                         f"most {PACKED_MAX_HEAD_DIM}, and (B, S, H) = {(b, s, heads)} must "
-                         "fit its grid")
+        raise ValueError(f"{name} kernel ({packed_form(head_dim)} form): (B, S, H, D) = "
+                         f"{(b, s, heads, head_dim)} must be positive and fit its grid")
 
 
 def _packed_rows_plain(qkv: torch.Tensor, heads: int, head_dim: int,
@@ -376,16 +411,21 @@ def packed_qkv_attention_plain(qkv: torch.Tensor, heads: int, head_dim: int,
 def packed_qkv_attention(qkv: torch.Tensor, heads: int, head_dim: int,
                          scale: float) -> torch.Tensor:
     """Non-causal attention on packed (B, S, 3*H*D) qkv -> (B, S, H*D).
-    CUDA: bf16 or fp32 (the fp32 instantiation), contiguous, head_dim a
-    multiple of 8 and at most 128."""
+    CUDA: bf16 or fp32 (the fp32 instantiation), contiguous, in the form
+    ``packed_form(head_dim)`` picks (``packed_shape_ok``)."""
     if qkv.device.type == "cpu":
         return packed_qkv_attention_plain(qkv, heads, head_dim, scale)
     _check_packed("packed_qkv_attention", qkv, heads, head_dim, torch.bfloat16, torch.float32)
     b, s, _ = qkv.shape
+    f32 = qkv.dtype == torch.float32
     out = torch.empty((b, s, heads * head_dim), dtype=qkv.dtype, device=qkv.device)
-    if out.numel():
-        _launch("packed_qkv_attention", qkv.device, qkv.data_ptr(), out.data_ptr(),
-                b, s, heads, head_dim, scale * _LOG2E, f32=qkv.dtype == torch.float32)
+    if not out.numel():
+        return out
+    args = (qkv.data_ptr(), out.data_ptr(), b, s, heads, head_dim, scale * _LOG2E)
+    if packed_form(head_dim) == "any":
+        _launch("packed_qkv_attention", qkv.device, *args, int(f32), form="any")
+    else:
+        _launch("packed_qkv_attention", qkv.device, *args, f32=f32)
     return out
 
 
@@ -408,13 +448,18 @@ def packed_qkv_attention_quant(qkv: torch.Tensor, heads: int, head_dim: int,
                   torch.float32)
     b, s, _ = qkv.shape
     hd = heads * head_dim
+    f32 = qkv.dtype == torch.float32
     out_q = torch.empty((b, s, hd), dtype=torch.int8, device=qkv.device)
     out_s = torch.empty((b, s, 1), dtype=torch.float32, device=qkv.device)
-    if out_q.numel():
-        scratch = torch.empty((b, s, hd), dtype=torch.float32, device=qkv.device)
-        _launch("packed_qkv_attention_quant", qkv.device, qkv.data_ptr(),
-                scratch.data_ptr(), out_q.data_ptr(), out_s.data_ptr(), b, s, heads,
-                head_dim, scale * _LOG2E, f32=qkv.dtype == torch.float32)
+    if not out_q.numel():
+        return out_q, out_s
+    scratch = torch.empty((b, s, hd), dtype=torch.float32, device=qkv.device)
+    args = (qkv.data_ptr(), scratch.data_ptr(), out_q.data_ptr(), out_s.data_ptr(), b, s,
+            heads, head_dim, scale * _LOG2E)
+    if packed_form(head_dim) == "any":
+        _launch("packed_qkv_attention_quant", qkv.device, *args, int(f32), form="any")
+    else:
+        _launch("packed_qkv_attention_quant", qkv.device, *args, f32=f32)
     return out_q, out_s
 
 
@@ -443,9 +488,9 @@ def packed_qkv_attention_s8(qkv_q: torch.Tensor, scales: torch.Tensor, heads: in
                             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Packed-qkv attention on static-int8 (B, S, 3*H*D) qkv with per-third
     scales ``scales`` (fp32 (3,), on the tensor's device) -> (int8
-    (B, S, H*D), fp32 (B, S, 1)). CUDA: int8, contiguous, head_dim a
-    multiple of 8 and at most 128 (``packed_shape_ok``); the scales stay on
-    the device."""
+    (B, S, H*D), fp32 (B, S, 1)). CUDA: int8, contiguous, in the form
+    ``packed_form(head_dim)`` picks (``packed_shape_ok``); the scales stay
+    on the device."""
     if qkv_q.device.type == "cpu":
         return packed_qkv_attention_s8_plain(qkv_q, scales, heads, head_dim, scale)
     _check_packed("packed_qkv_attention_s8", qkv_q, heads, head_dim, torch.int8)
@@ -459,10 +504,31 @@ def packed_qkv_attention_s8(qkv_q: torch.Tensor, scales: torch.Tensor, heads: in
     out_s = torch.empty((b, s, 1), dtype=torch.float32, device=qkv_q.device)
     if out_q.numel():
         scratch = torch.empty((b, s, hd), dtype=torch.float32, device=qkv_q.device)
+        form = packed_form(head_dim)
         _launch("packed_qkv_attention_s8", qkv_q.device, qkv_q.data_ptr(),
                 scales.data_ptr(), scale, scratch.data_ptr(), out_q.data_ptr(),
-                out_s.data_ptr(), b, s, heads, head_dim)
+                out_s.data_ptr(), b, s, heads, head_dim, form=None if form == "tiles" else form)
     return out_q, out_s
+
+
+def _rowwise_quant_pass(y: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The row-quant pass of #2 and #3 (their second launch) alone, on
+    contiguous fp32 CUDA rows (..., K), any K: (int8 (..., K), fp32 (..., 1)),
+    the function of ``rowwise_quant_plain``. Not on any path and not counted:
+    it lets a timing split #3 between its two launches."""
+    _check_cuda("rowwise_quant", y, torch.float32)
+    k = y.shape[-1]
+    rows = y.numel() // max(k, 1)
+    q = torch.empty(y.shape, dtype=torch.int8, device=y.device)
+    s = torch.empty((*y.shape[:-1], 1), dtype=torch.float32, device=y.device)
+    if rows:
+        fn = _symbol("packed_qkv_attention_s8", "stllm_rowwise_quant", [_P, _P, _P, _LL, _I, _P])
+        with torch.cuda.device(y.device):
+            err = fn(y.data_ptr(), q.data_ptr(), s.data_ptr(), rows, k,
+                     torch.cuda.current_stream().cuda_stream)
+        if err:
+            raise RuntimeError(f"rowwise_quant kernel launch failed: CUDA error {err}")
+    return q, s
 
 
 # ---------------------------------------------------------------------------

@@ -1,6 +1,6 @@
-"""PyTorch port, on the CPU: the rules that pick the form of the two kernels
-with two forms, and the layout in which load_jax_params stores int8
-weights.
+"""PyTorch port, on the CPU: the rules that pick the form of the kernels
+with more than one form, and the layout in which load_jax_params stores
+int8 weights.
 
 - #12 (W4A16 matmul): the one-launch decode form at M <= 16 rows, the
   wgmma mixed-input GEMM above (prefill); the weight-streaming tile loop
@@ -8,6 +8,9 @@ weights.
 - #11 (s8 matmul + residual + LayerNorm + int8): the cluster form where
   N / 8 is a slice width it is built for (128, 176, 256), else the 16-row
   kernels.
+- #1-#3 (the packed-qkv attention kernels): the tile loops at head_dim a
+  multiple of 8 up to 128 (every model of the repository), the "any" form
+  at every other head_dim.
 - A converted 2-D int8 ``w_q`` leaf is column-major (stride(0) == 1) with the
   same values; a tiny static-int8 ViT converted from JAX gives the same
   outputs bit for bit as the same tree held row-major (the int8 products
@@ -63,6 +66,32 @@ def test_w4a16_form_names():
 ])
 def test_qmm_res_ln_form(m, n, dtype, form):
     assert kernels.qmm_res_ln_form(m, n, dtype) == form
+
+
+@pytest.mark.parametrize("head_dim,form", [(8, "tiles"), (64, "tiles"), (88, "tiles"),
+                                           (120, "tiles"), (128, "tiles"), (1, "any"),
+                                           (13, "any"), (20, "any"), (36, "any"),
+                                           (136, "any"), (200, "any")])
+def test_packed_form_by_head_dim(head_dim, form):
+    assert kernels.packed_form(head_dim) == form
+
+
+def test_packed_form_names():
+    """#1-#3's forms, the tile loops first (the entry point without a form),
+    each with a launch counter; the CPU runs the plain versions and counts
+    no launch at either form."""
+    names = ("packed_qkv_attention", "packed_qkv_attention_quant", "packed_qkv_attention_s8")
+    for name in names:
+        assert kernels.FORMS[name] == ("tiles", "any")
+        assert {f"{name}/tiles", f"{name}/any"} <= set(kernels.FORM_LAUNCHES)
+        assert (name, "any") in kernels._FORM_ENTRY
+    before = dict(kernels.FORM_LAUNCHES)
+    qkv = torch.randn(1, 5, 3 * 2 * 13)
+    kernels.packed_qkv_attention(qkv, 2, 13, 0.3)
+    kernels.packed_qkv_attention_quant(qkv, 2, 13, 0.3)
+    kernels.packed_qkv_attention_s8(qkv.clamp(-1, 1).mul(127).round().to(torch.int8),
+                                    torch.full((3,), 0.01), 2, 13, 0.3)
+    assert kernels.FORM_LAUNCHES == before
 
 
 def test_load_jax_params_stores_int8_w_q_column_major():

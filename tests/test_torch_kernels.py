@@ -73,7 +73,7 @@ def _counted(name, fn):
 
 
 PACKED_SHAPES = [(16, 257, 16, 88), (256, 16, 16, 88), (3, 37, 4, 88),
-                 (2, 37, 4, 24), (1, 19, 2, 88), (2, 130, 3, 64)]
+                 (2, 37, 4, 24), (1, 19, 2, 88), (2, 130, 3, 64), (2, 70, 2, 16)]
 
 
 @pytest.mark.parametrize("shape", PACKED_SHAPES)
@@ -143,6 +143,70 @@ def test_packed_kernels_at_wide_heads_and_rows(card, shape, kernel):
         _assert_int8_within_one_step(got, want)
 
 
+# head_dim the tile loops do not take (not a multiple of 8, or above 128):
+# the "any" form, with H*D 39, 40, 108, 272, 600 and 65
+ANY_SHAPES = [(2, 37, 3, 13), (1, 40, 2, 20), (2, 19, 3, 36), (1, 33, 2, 136),
+              (1, 16, 3, 200), (2, 9, 5, 13)]
+ANY_KERNELS = ["packed_qkv_attention", "packed_qkv_attention/fp32",
+               "packed_qkv_attention_quant", "packed_qkv_attention_quant/fp32",
+               "packed_qkv_attention_s8"]
+
+
+def _packed_args(card, kernel, shape):
+    """(wrapper name, its arguments) for ``kernel`` ("name" or "name/fp32")
+    at (B, S, H, D)."""
+    b, s, h, d = shape
+    name, _, io = kernel.partition("/")
+    qkv = _qkv(card, b, s, h, d)
+    if name == "packed_qkv_attention_s8":
+        return name, (*_static_int8_qkv(qkv, b, s, h, d), h, d, d ** -0.5)
+    return name, (qkv.float() if io == "fp32" else qkv, h, d, d ** -0.5)
+
+
+@pytest.mark.parametrize("kernel", ANY_KERNELS)
+@pytest.mark.parametrize("shape", ANY_SHAPES)
+def test_packed_kernels_any_form_match_plain(card, shape, kernel):
+    assert kernels.packed_form(shape[3]) == "any"
+    name, args = _packed_args(card, kernel, shape)
+    before = kernels.FORM_LAUNCHES[f"{name}/any"]
+    got = _counted(name, lambda: getattr(kernels, name)(*args))
+    assert kernels.FORM_LAUNCHES[f"{name}/any"] == before + 1
+    want = getattr(kernels, name + "_plain")(*args)
+    if name != "packed_qkv_attention":
+        _assert_int8_within_one_step(got, want)
+    elif got.dtype == torch.float32:
+        torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-4)
+    else:
+        torch.testing.assert_close(got.float(), want.float(), atol=3e-2, rtol=3e-2)
+
+
+@pytest.mark.parametrize("kernel", ["packed_qkv_attention", "packed_qkv_attention_quant",
+                                    "packed_qkv_attention_s8"])
+@pytest.mark.parametrize("head_dim", [88, 128, 20, 136])
+def test_packed_call_makes_the_launches_of_its_form(card, kernel, head_dim):
+    """One call launches its kernel once, in the form packed_form names and
+    no other (FORM_LAUNCHES)."""
+    name, args = _packed_args(card, kernel, (2, 37, 3, head_dim))
+    forms = dict(kernels.FORM_LAUNCHES)
+    _counted(name, lambda: getattr(kernels, name)(*args))
+    moved = {k: v - forms[k] for k, v in kernels.FORM_LAUNCHES.items() if v != forms[k]}
+    assert moved == {f"{name}/{kernels.packed_form(head_dim)}": 1}
+
+
+@pytest.mark.parametrize("shape", [(4, 13), (3, 12545), (2, 1408), (5, 7)])
+def test_row_quant_pass_at_any_width(card, shape):
+    """The row-quant pass of #2 and #3 alone at row widths that are no
+    multiple of 8 (13: staged, element by element; 12545: read from device
+    memory twice)."""
+    gen = torch.Generator(device=card).manual_seed(4)
+    y = torch.randn(shape, generator=gen, device=card) * 3
+    y[0] = 0.0                                       # amax 0: scale 1, codes 0
+    got = kernels._rowwise_quant_pass(y)
+    torch.cuda.synchronize()
+    _assert_int8_within_one_step(got, kernels.rowwise_quant_plain(y))
+    assert float(got[1][0]) == 1.0 and not bool(got[0][0].any())
+
+
 @pytest.mark.parametrize("shape", [(1, 16, 98, 128), (2, 19, 100, 128)])
 def test_wide_row_quant_pass_matches_plain_in_fp32(card, shape):
     """#1 and #2's fp32 instantiations at H*D above 12288: the wide
@@ -186,9 +250,9 @@ def test_packed_qkv_kernel_refuses_what_it_cannot_take(card):
         kernels.packed_qkv_attention(qkv.half(), 2, 88, 0.1)   # fp16
     with pytest.raises(ValueError):
         kernels.packed_qkv_attention(qkv.bfloat16()[:, ::2], 2, 88, 0.1)  # strided
-    for d in (20, 136):                                       # D % 8, D > 128
+    for s, d in ((4, 0), (1024, 20)):             # no head; the "any" form's S <= 1023
         with pytest.raises(ValueError):
-            kernels.packed_qkv_attention(torch.zeros((1, 4, 3 * 2 * d), device=card,
+            kernels.packed_qkv_attention(torch.zeros((1, s, 3 * 2 * d), device=card,
                                                      dtype=torch.bfloat16), 2, d, 0.1)
 
 
@@ -208,7 +272,9 @@ def test_packed_int8_kernels_refuse_what_they_cannot_take(card, kernel):
     with pytest.raises(ValueError):
         call(torch.zeros((1, 4, 6 * 2 * 88), device=card, dtype=dtype)[..., ::2])
     with pytest.raises(ValueError):
-        call(torch.zeros((1, 4, 3 * 2 * 20), device=card, dtype=dtype), d=20)
+        call(torch.zeros((1, 4, 0), device=card, dtype=dtype), d=0)
+    with pytest.raises(ValueError):
+        call(torch.zeros((1, 1024, 3 * 2 * 20), device=card, dtype=dtype), d=20)
 
 
 @pytest.mark.parametrize("kernel", ["layer_norm", "gelu"])

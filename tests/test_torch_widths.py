@@ -2,14 +2,15 @@
 reference's feasibility rule admits, on the CPU.
 
 The JAX package runs its packed kernels wherever ``_packed_qkv_feasible``
-holds (S < 1024 and the on-chip working set), whatever H*D is; the port's
-wrappers take the same shapes on the card: head_dim a multiple of 8 up to
-128 for all three (the static-int8 kernel took at most 112 before), and
-rows of any H*D (the row-quant pass of #2 and #3 reads a row too wide for a
-block's shared memory from device memory twice). Here the plain versions the
-wrappers run on the CPU are held to the JAX Pallas kernels in interpret mode
-at head_dim 128 and at H*D = 98 x 128 = 12544, above the 12288 a row block
-held, and a property test holds the wrappers' shape rule to the reference's
+holds (S < 1024 and the on-chip working set), whatever the head_dim and
+H*D are; the port's wrappers take the same shapes on the card: head_dim a
+multiple of 8 up to 128 in the tile loops, every other head_dim in the
+"any" form, and rows of any H*D (the row-quant pass of #2 and #3 reads a
+row too wide for a block's shared memory from device memory twice). Here
+the plain versions the wrappers run on the CPU are held to the JAX Pallas
+kernels in interpret mode at head_dim 128, at H*D = 98 x 128 = 12544, above
+the 12288 a row block held, and (#3) at head_dim 13, 20, 36 and 136, and a
+property test holds the wrappers' shape rule to the reference's
 feasibility rule.
 
 Tolerances: fp32 outputs within 1e-5 absolute (summation order); int8 codes
@@ -62,6 +63,25 @@ def test_packed_s8_plain_matches_jax_at_wide_shapes(shape):
     _codes_close(got, (jq, js))
 
 
+@pytest.mark.parametrize("shape", [(1, 9, 2, 20), (2, 17, 3, 36), (1, 8, 2, 136), (1, 11, 3, 13),
+                                   (2, 6, 5, 13)],
+                         ids=["head_dim-20", "head_dim-36", "head_dim-136", "head_dim-13",
+                              "odd-H*D-65"])
+def test_packed_s8_plain_matches_jax_at_any_head_dim(shape):
+    """#3's plain version (the "any" form's function on the card) against
+    fused_qkv_attention_quant_static in interpret mode at head_dims the tile
+    loop does not take, H*D 40, 108, 272, 39 and 65."""
+    b, s, h, d = shape
+    assert kernels.packed_form(d) == "any" and kernels.packed_shape_ok(b, s, h, d, torch.int8)
+    qkv_q, sc = _s8_inputs(72, b, s, h, d)
+    jq, js = jattn.fused_qkv_attention_quant_static(
+        jnp.asarray(qkv_q), *map(jnp.asarray, sc), h, d, interpret=True)
+    got = tattn.fused_qkv_attention_quant_static(torch.from_numpy(qkv_q), torch.from_numpy(sc),
+                                                 h, d)
+    assert got is not None
+    _codes_close(got, (jq, js))
+
+
 @pytest.mark.parametrize("shape", [(1, 8, 98, 128), (2, 5, 100, 128)])
 def test_packed_bf16_and_quant_match_jax_above_12288(shape):
     """#1 and #2 at H*D above 12288 (the row width the port's wrappers
@@ -83,15 +103,14 @@ def test_packed_bf16_and_quant_match_jax_above_12288(shape):
 
 
 @settings(max_examples=400, deadline=None)
-@given(b=st.integers(1, 1024), s=st.integers(1, 1023),
-       head_dim=st.sampled_from(range(8, 129, 8)),
+@given(b=st.integers(1, 1024), s=st.integers(1, 1023), head_dim=st.integers(1, 256),
        dtype=st.sampled_from([torch.int8, torch.bfloat16, torch.float32]), data=st.data())
 def test_wrapper_shape_rule_takes_every_feasible_shape(b, s, head_dim, dtype, data):
-    """Every shape (head_dim a multiple of 8, at most 128) that the
-    reference's feasibility rule admits passes the wrappers' shape rule, so
-    a call the dispatch sends to a kernel never raises for its shape on the
-    card; batches up to 1024 sequences, heads up to the most the rule
-    admits at (S, head_dim)."""
+    """Every shape (head_dim 1-256) that the reference's feasibility rule
+    admits passes the wrappers' shape rule, in the tile loops or the "any"
+    form, so a call the dispatch sends to a kernel never raises for its
+    shape on the card; batches up to 1024 sequences, heads up to the most
+    the rule admits at (S, head_dim)."""
     itemsize = torch.empty(0, dtype=dtype).element_size()
     budget = 10 * 1024 * 1024 - 4 * s * s          # the rule's working set, per H*D column
     most = budget // (s * (6 * itemsize + 4)) // head_dim
@@ -106,9 +125,9 @@ def test_wrapper_shape_rule_takes_every_feasible_shape(b, s, head_dim, dtype, da
     assert not jattn._packed_qkv_feasible(s, (most + 1), head_dim, itemsize)
 
 
-@pytest.mark.parametrize("head_dim", [20, 136, 0])
+@pytest.mark.parametrize("head_dim", [20, 136, 13, 0])
 def test_wrapper_shape_rule_keeps_the_head_dim_limits(head_dim):
-    """head_dim not a multiple of 8, or above 128, stays outside the
-    kernels (bf16 takes the reference path there; static int8 raises)."""
+    """The one head_dim limit left is head_dim >= 1: not a multiple of 8, or
+    above 128, is taken by the "any" form; 0 is refused."""
     for dtype in (torch.int8, torch.bfloat16, torch.float32):
-        assert not kernels.packed_shape_ok(1, 16, 2, head_dim, dtype)
+        assert kernels.packed_shape_ok(1, 16, 2, head_dim, dtype) == (head_dim > 0)
