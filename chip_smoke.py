@@ -22,11 +22,21 @@ toolkit. Phases, each fatal on failure:
    form is also held at 1, 3, 8 and 16 rows; #12's timed copies together
    exceed the 50 MB L2 at every shape;
    #1, #2 and #3 are held (not timed) at head_dim 120 and 128 and at
-   H*D = 12544, and their "any" form at head_dim 13, 20, 36, 136 and 200
-   (#1 in bf16 and fp32); #3 is timed beside its design before the ring loop
+   H*D = 12288 and 12544, and their "any" form at head_dim 13, 20, 36, 136
+   and 200 (#1 in bf16 and fp32); #3 is timed beside its design before the ring loop
    (script/replaced_kernels/, built here for that alone) in the order
    parent, new, new, parent, and its row-quant pass alone at the trunk's
-   4112 rows of 1408; the flash backward pair (#5, #6) is also held to the plain
+   4112 rows of 1408; #9 (LayerNorm -> int8) and #10 (GELU -> int8, erf and
+   tanh) run their register form at the trunk's rows (1408 and 6144 wide)
+   and a ragged shape in bf16 and at the trunk's rows in fp32 (#9 with fp32
+   and with bf16 gamma and beta), and are timed beside their designs before
+   the register form (script/replaced_kernels/, parent, new, new, parent)
+   and beside their "any" form forced at the same shape, with the codes
+   each design puts one step from the plain version's; the "any" form is
+   held at widths 13, 1412, 12255, 12285, 12287, 12296 and 16384 in bf16
+   and fp32; the register form's divide is held to __fdiv_rn at every code
+   boundary (script/row_divide_check.cu, built beside the replaced designs);
+   the flash backward pair (#5, #6) is also held to the plain
    backward at the edges of its walked tiles (lengths that are no multiple
    of 64, whole masked tiles, more or fewer keys than queries), prints its
    blocks per SM, and stands beside SDPA's whole backward timed on the
@@ -43,8 +53,11 @@ toolkit. Phases, each fatal on failure:
    attention and 6 bf16 attention launches), calibrate_btadapter_scales runs
    on one 16-frame clip (78, 39, 39 and 39 static-int8 attention launches),
    and the static-int8 model serves them again (42 static-int8 attention
-   launches per video, nothing else); a tiny bf16 int8 model, dynamic and
-   static, must encode one video on the card and on the CPU alike;
+   launches per video, nothing else); every launch of #9 and #10 in the
+   serving and calibration runs is on their register form; a tiny bf16 int8
+   model, dynamic and static, must encode one video on the card and on the
+   CPU alike, and a tiny fp32 dynamic-int8 model must encode and calibrate
+   on the card (#9 and #10 on fp32 rows) as on the CPU;
 5. w4a16  - the W4A16 serving stack: the same config with llama.kv_int8,
    the ViT converted to int8 and calibrated on one clip (static int8), the
    Q-Former bf16, and Vicuna-7B converted by quantize_llama_params_int4
@@ -91,6 +104,7 @@ from __future__ import annotations
 
 import gc
 import json
+import re
 import shutil
 import subprocess
 import sys
@@ -109,6 +123,10 @@ FP32_FLOP_PER_S = 67e12        # H100 SXM fp32 outside the tensor cores, publish
 BF16_ATOL = BF16_RTOL = 3e-2   # bf16 attention tolerance of tests/test_ops.py
 INT8_ATOL = INT8_RTOL = 3e-2   # dequantized int8 outputs; codes at most 1 step apart
 INT8_TINY_REL = 5e-2           # tiny int8 encode, card vs CPU, relative L2
+# #9's and #10's rows against their plain versions (tests/test_torch_quant.py's
+# tolerance against JAX): codes one step apart in under 1e-3 of them, scales
+# 1e-5 relative
+ROW_CODES_DIFFER, ROW_SCALE_RTOL = 1e-3, 1e-5
 # weight-streaming matmuls (#12-#15), compared in fp32: the products are exact,
 # the fp32 sums run in another order and a bf16 output rounds once, so within
 # atol = 1e-2 times the plain output's largest magnitude and rtol = 1e-2
@@ -117,9 +135,14 @@ WS_ATOL = WS_RTOL = 1e-2
 # output may round the other way after fp32 sums in another order, and an int8
 # KV code then moves by one step
 W4_TINY_REL = 5e-2
-# estimated fp32 operations per element of the row kernels (mean, variance,
-# normalize, affine, amax, divide, round; GELU adds its erf or tanh)
-LN_OPS_PER_ELEM, GELU_OPS_PER_ELEM = 10, 25
+# fp32-pipe instructions an element of the row kernels' register forms (#9
+# at K = 1408, #10 at K = 6144, erf and tanh; bf16 rows), the operations of
+# their bound: one issues in each of an SM's 128 fp32 lanes a cycle, half
+# the fp32 rate that counts a fused multiply-add as two operations. Counted
+# in the SASS of their build by script/row_quant_sass.py, which also says
+# whether these numbers still match the built kernels (NVIDIA H100 80GB HBM3)
+LN_OPS_PER_ELEM, GELU_OPS_PER_ELEM = 15.27, {False: 28.38, True: 25.38}
+FP32_INSTR_PER_S = FP32_FLOP_PER_S / 2
 # and of #11's epilogue (scales, bias, residual, mean, variance, normalize,
 # affine, quantize) and #8's activation quantization (amax, divide, round)
 RES_LN_OPS_PER_ELEM, QUANT_OPS_PER_ELEM = 16, 3
@@ -173,13 +196,29 @@ W4_ROWS = (4, 576, 640)    # #12's rows: decode (4 slots), the QA and the pipeli
 W4_DECODE_HELD = (1, 3, 8, 16)   # other decode row counts the decode form is held at, untimed
 # the packed kernels at the widths the reference's feasibility rule admits
 # beyond the trunk's: head_dim 120 and 128 (#3), and H*D = 98 x 128 = 12544,
-# wider than a row-quant block's shared memory (12288), short and long loops
-WIDE_PACKED = [(2, 37, 4, 120), (2, 37, 4, 128), (1, 16, 98, 128), (1, 40, 98, 128)]
+# wider than a row-quant block's shared memory (12256), short and long loops,
+# and H*D = 96 x 128 = 12288, just past it
+WIDE_PACKED = [(2, 37, 4, 120), (2, 37, 4, 128), (1, 16, 98, 128), (1, 40, 98, 128),
+               (1, 16, 96, 128)]
 # head_dim the tile loops do not take: the packed kernels' "any" form (H*D 39,
 # 40, 108, 272 and 600)
 ANY_PACKED = [(2, 37, 3, 13), (1, 40, 2, 20), (2, 19, 3, 36), (1, 33, 2, 136), (1, 16, 3, 200)]
-# #3's design before its ring loop, built only to be timed beside it
-REPLACED_S8 = ROOT / "script" / "replaced_kernels" / "packed_qkv_attention_s8_rows64.cu"
+# the designs that #3's ring loop and #9's and #10's register forms replaced,
+# built only to be timed beside them, by the kernel's name
+REPLACED = {name: ROOT / "script" / "replaced_kernels" / src for name, src in (
+    ("packed_qkv_attention_s8", "packed_qkv_attention_s8_rows64.cu"),
+    ("layer_norm_quant", "layer_norm_quant_row_block.cu"),
+    ("gelu_quant", "gelu_quant_row_block.cu"))}
+# #9 and #10 held (not timed) in their "any" form: (B, S, K) at bf16 widths
+# that are no multiple of 8 (13, 1412; 12255, the widest row the form stages
+# in shared memory, and 12285, 12287 just past it) and rows wider than 12288
+# (12296, 16384), in bf16 and fp32 (fp32 at 1412 is whole 16-byte chunks:
+# the register form)
+ANY_ROWS = [(3, 5, 13), (2, 37, 1412), (2, 3, 12255), (2, 3, 12285), (2, 3, 12287),
+            (2, 3, 12296), (2, 3, 16384)]
+# the register form's divide held to __fdiv_rn at every code boundary, built
+# beside the replaced designs (not part of the port)
+DIVIDE_CHECK = ROOT / "script" / "row_divide_check.cu"
 ROW_QUANT_ROWS = TRUNK[0] * TRUNK[1]   # #3's row-quant pass at the trunk: 4112 rows of 1408
 # Vicuna-7B decoder shapes (K, N, packed rows of K-padding) of the W4A16 stack
 W4_SHAPES = {"qkv": (4096, 12288, 0), "o": (4096, 4096, 0), "gateup": (4096, 22016, 0),
@@ -296,64 +335,148 @@ def queued_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def start_replaced_build(kernels):
-    """Start nvcc on REPLACED_S8 (as ops/kernels.py builds a kernel, with the
+def _start_nvcc(kernels, source: Path, lib_name: str):
+    """Start nvcc on ``source`` (as ops/kernels.py builds a kernel, with the
     port's headers on the include path); returns (the process, its log, the
     library)."""
     kernels.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    lib = kernels.BUILD_DIR / "libreplaced_packed_qkv_attention_s8.so"
+    lib = kernels.BUILD_DIR / f"lib{lib_name}.so"
     log = open(lib.with_suffix(".log"), "w+")
-    cmd = kernels.nvcc_command(REPLACED_S8, lib, f"-I{kernels.CSRC}")
+    cmd = kernels.nvcc_command(source, lib, f"-I{kernels.CSRC}")
     return subprocess.Popen(cmd, stdout=log, stderr=subprocess.STDOUT), log, lib
 
 
-def finish_replaced_build(kernels, proc, log, lib):
-    """Wait for start_replaced_build's nvcc; returns the library's entry
-    point wrapped like kernels.packed_qkv_attention_s8 (uncounted: a
-    yardstick)."""
-    import ctypes
-
+def _finish_nvcc(source: Path, proc, log) -> str:
+    """Wait for _start_nvcc's nvcc; returns its log."""
     rc = proc.wait()
     log.seek(0)
     text = log.read()
     log.close()
     if rc:
-        raise RuntimeError(f"{REPLACED_S8.name}: nvcc exit {rc}\n{text}")
+        raise RuntimeError(f"{source.name}: nvcc exit {rc}\n{text}")
+    return text
+
+
+def start_replaced_build(kernels, name: str):
+    """_start_nvcc on REPLACED[name]."""
+    return _start_nvcc(kernels, REPLACED[name], f"replaced_{name}")
+
+
+def start_divide_check_build(kernels):
+    """_start_nvcc on DIVIDE_CHECK."""
+    return _start_nvcc(kernels, DIVIDE_CHECK, "row_divide_check")
+
+
+def finish_divide_check_build(kernels, proc, log, lib):
+    """Wait for start_divide_check_build's nvcc; returns ``check(window)``
+    (script/row_divide_check.cu): the number of quotients and of codes of
+    the register form's divide that differ from __fdiv_rn's within
+    ``window`` fp32 values of every code boundary of every scale mantissa."""
+    import ctypes
+
+    _finish_nvcc(DIVIDE_CHECK, proc, log)
+    fn = ctypes.CDLL(str(lib)).stllm_row_divide_ties
+    fn.argtypes = [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
+
+    def check(window: int) -> tuple:
+        count = torch.zeros(2, dtype=torch.int64, device="cuda")
+        err = fn(window, count.data_ptr(), torch.cuda.current_stream().cuda_stream)
+        if err:
+            raise RuntimeError(f"row_divide_check: CUDA error {err}")
+        return tuple(count.tolist())
+
+    return check
+
+
+def build_divide_check(kernels):
+    """Build DIVIDE_CHECK and load it (finish_divide_check_build)."""
+    return finish_divide_check_build(kernels, *start_divide_check_build(kernels))
+
+
+# the replaced designs' C entry points: #3's is its ring loop's; #9's and #10's
+# take bf16 only, without the type flags of today's entry points
+_REPLACED_SYMBOLS = {"packed_qkv_attention_s8": "stllm_packed_qkv_attention_s8",
+                     "layer_norm_quant": "stllm_layer_norm_quant_bf16",
+                     "gelu_quant": "stllm_gelu_quant_bf16"}
+
+
+def finish_replaced_build(kernels, name: str, proc, log, lib):
+    """Wait for start_replaced_build's nvcc; returns the library's entry
+    point wrapped like the kernel's wrapper in ops/kernels.py (uncounted: a
+    yardstick)."""
+    import ctypes
+
+    text = _finish_nvcc(REPLACED[name], proc, log)
     for line in text.splitlines():
         if "registers" in line or "spill" in line:
-            print(f"[build] replaced packed_qkv_attention_s8: {line.strip()}")
-    fn = ctypes.CDLL(str(lib)).stllm_packed_qkv_attention_s8
-    fn.argtypes, fn.restype = kernels._ENTRY["packed_qkv_attention_s8"][1], ctypes.c_int
+            print(f"[build] replaced {name}: {line.strip()}")
+    fn = getattr(ctypes.CDLL(str(lib)), _REPLACED_SYMBOLS[name])
+    P, I, LL, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
+    fn.argtypes = {"packed_qkv_attention_s8": kernels._ENTRY["packed_qkv_attention_s8"][1],
+                   "layer_norm_quant": [P, P, P, P, P, LL, I, F, P],
+                   "gelu_quant": [P, P, P, LL, I, I, P]}[name]
+    fn.restype = ctypes.c_int
 
-    def replaced(qkv_q, scales, h, d, scale):
+    def check(err):
+        if err:
+            raise RuntimeError(f"replaced {name}: CUDA error {err}")
+
+    def stream():
+        return torch.cuda.current_stream().cuda_stream
+
+    def rows(x):
+        q = torch.empty(x.shape, dtype=torch.int8, device=x.device)
+        return q, torch.empty((*x.shape[:-1], 1), dtype=torch.float32, device=x.device)
+
+    def packed_s8(qkv_q, scales, h, d, scale):
         b, s, _ = qkv_q.shape
         out_q = torch.empty((b, s, h * d), dtype=torch.int8, device=qkv_q.device)
         out_s = torch.empty((b, s, 1), dtype=torch.float32, device=qkv_q.device)
         scratch = torch.empty((b, s, h * d), dtype=torch.float32, device=qkv_q.device)
-        err = fn(qkv_q.data_ptr(), scales.data_ptr(), scale, scratch.data_ptr(),
-                 out_q.data_ptr(), out_s.data_ptr(), b, s, h, d,
-                 torch.cuda.current_stream().cuda_stream)
-        if err:
-            raise RuntimeError(f"replaced packed_qkv_attention_s8: CUDA error {err}")
+        check(fn(qkv_q.data_ptr(), scales.data_ptr(), scale, scratch.data_ptr(),
+                 out_q.data_ptr(), out_s.data_ptr(), b, s, h, d, stream()))
         return out_q, out_s
 
-    return replaced
+    def layer_norm(x, gamma, beta, eps):
+        q, s = rows(x)
+        check(fn(x.data_ptr(), gamma.data_ptr(), beta.data_ptr(), q.data_ptr(), s.data_ptr(),
+                 x.numel() // x.shape[-1], x.shape[-1], eps, stream()))
+        return q, s
+
+    def gelu(x, approx):
+        q, s = rows(x)
+        check(fn(x.data_ptr(), q.data_ptr(), s.data_ptr(), x.numel() // x.shape[-1],
+                 x.shape[-1], int(approx), stream()))
+        return q, s
+
+    return {"packed_qkv_attention_s8": packed_s8, "layer_norm_quant": layer_norm,
+            "gelu_quant": gelu}[name]
 
 
 def phase_build(kernels):
-    """Build every kernel and #3's replaced design; returns the latter's
-    wrapper."""
+    """Build every kernel, the replaced designs and the divide check (all
+    nvcc at once); returns the replaced designs' wrappers by kernel name and
+    the divide check (finish_divide_check_build)."""
     t0 = time.perf_counter()
-    replaced = start_replaced_build(kernels)
+    started = {name: start_replaced_build(kernels, name) for name in REPLACED}
+    divide_job = start_divide_check_build(kernels)
     kernels.build()
-    replaced = finish_replaced_build(kernels, *replaced)
+    replaced = {name: finish_replaced_build(kernels, name, *job) for name, job in started.items()}
+    divide_check = finish_divide_check_build(kernels, *divide_job)
     print(f"[build] kernels {sorted(kernels.SOURCES)} built in {time.perf_counter() - t0:.2f} s")
     for name, log in kernels.BUILD_LOG.items():
-        for line in log.splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"[build] {name}: {line.strip()}")
+        lines = [line.strip() for line in log.splitlines()
+                 if "registers" in line or "spill" in line]
+        if name in ("layer_norm_quant", "gelu_quant"):   # 60-130 instances: a summary
+            regs = [int(r) for r in re.findall(r"Used (\d+) registers", log)]
+            spills = [line for line in lines
+                      if "spill" in line and " 0 bytes spill stores" not in line]
+            lines = [f"{len(regs)} instances, {min(regs)}-{max(regs)} registers, "
+                     f"{len(spills)} with spills: {sorted(set(spills))}"]
+        for line in lines:
+            print(f"[build] {name}: {line}")
     print(f"[build] card: {smi_line()}")
-    return replaced
+    return replaced, divide_check
 
 
 # ---------------------------------------------------------------------------
@@ -424,6 +547,27 @@ def _int8_step_err(got, want) -> float:
         raise AssertionError(f"codes {steps} steps apart, max abs err {float(err.max())} "
                              f"outside one step, atol={INT8_ATOL}, rtol={INT8_RTOL}")
     return float(err.max())
+
+
+def _row_err(got, want) -> float:
+    """#9's and #10's int8 rows against their plain version, codes and
+    scales compared directly: codes at most one step apart in under
+    ROW_CODES_DIFFER of the elements (the same fp32 math summed in another
+    order may put a value on the other side of a rounding boundary), scales
+    within ROW_SCALE_RTOL. Returns the max abs error of the dequantized
+    outputs."""
+    (gq, gs), (wq, ws) = got, want
+    if gq.dtype != torch.int8 or gq.shape != wq.shape or gs.shape != ws.shape:
+        raise AssertionError(f"int8 output {gq.dtype} {tuple(gq.shape)} {tuple(gs.shape)}")
+    diff = (gq.int() - wq.int()).abs()
+    steps, share = int(diff.max()), float((diff > 0).float().mean())
+    scale_err = float(((gs - ws).abs() / ws).max())
+    if steps > 1 or share >= ROW_CODES_DIFFER or scale_err > ROW_SCALE_RTOL \
+            or not bool(torch.isfinite(gs).all()):
+        raise AssertionError(f"codes {steps} steps apart in {share:.2e} of them, scales "
+                             f"{scale_err:.2e} apart (limits 1, {ROW_CODES_DIFFER}, "
+                             f"{ROW_SCALE_RTOL})")
+    return float((gq.float() * gs - wq.float() * ws).abs().max())
 
 
 def _ws_err(got, want) -> float:
@@ -530,11 +674,12 @@ def _static_int8(qkv: torch.Tensor):
     return q.reshape(b, s, f), scales
 
 
-def phase_kernels(kernels, replaced_s8) -> dict:
+def phase_kernels(kernels, replaced, divide_check) -> dict:
     """Every kernel against its plain version at the main-path shapes (the
     ViT trunk and spatial shape, the BTAdapter temporal shape for the bf16
-    kernel), a ragged shape, and head_dim 24 and 64; #3 also beside
-    ``replaced_s8``, the design its ring loop replaced."""
+    kernel), a ragged shape, and head_dim 24 and 64; #3, #9 and #10 also
+    beside ``replaced``, the designs their redesigns replaced, and #9's and
+    #10's divide through ``divide_check``."""
     import torch.nn.functional as F
 
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -587,13 +732,14 @@ def phase_kernels(kernels, replaced_s8) -> dict:
     rows = _check_kernel("packed_qkv_attention_s8", cases3, kernels.packed_qkv_attention_s8,
                          kernels.packed_qkv_attention_s8_plain, _int8_err)
     for row, (_, bufs, *_) in list(zip(rows, cases3))[:2]:     # the trunk and ragged shapes
-        _vs_parent(row, kernels.packed_qkv_attention_s8, replaced_s8, bufs, _int8_err,
+        _vs_parent(row, kernels.packed_qkv_attention_s8, replaced["packed_qkv_attention_s8"],
+                   bufs, _int8_err,
                    kernels.packed_qkv_attention_s8_plain)
     out["packed_qkv_attention_s8"] = _entry(
         "packed_qkv_attention_s8", "packed_qkv_attention_s8.cu",
         "stllm_tpu/ops/attention.py:830", rows, INT8_ATOL, INT8_RTOL)
     out["packed_qkv_attention_s8"]["parent_ms"] = rows[0]["parent_ms"]
-    out["packed_qkv_attention_s8"]["parent_source"] = str(REPLACED_S8.relative_to(ROOT))
+    out["packed_qkv_attention_s8"]["parent_source"] = str(REPLACED["packed_qkv_attention_s8"].relative_to(ROOT))
     out["packed_qkv_attention_s8"]["row_quant_pass"] = _row_quant_pass(kernels, gen)
     blocks = {f"S={s}": kernels.occupancy("packed_qkv_attention_s8", s, 88)
               for s in (TRUNK[1], TEMPORAL[1])}
@@ -604,35 +750,146 @@ def phase_kernels(kernels, replaced_s8) -> dict:
         out[name]["forms"] = {"tiles": f"stllm_tpu_torch/csrc/{kernels.SOURCES[name]}",
                               "any": "stllm_tpu_torch/csrc/packed_qkv_any.cuh"}
 
-    # #9 LayerNorm -> int8 and #10 GELU -> int8 over the trunk's rows
-    cases9, cases10 = [], []
-    for b, s in [(16, 257), (3, 37)]:
-        n = b * s
-        bufs = []
-        for _ in range(4):
-            x = (torch.randn(b, s, 1408, generator=gen, device="cuda") * 2 + 0.5).bfloat16()
-            g = (1 + 0.1 * torch.randn(1408, generator=gen, device="cuda")).bfloat16()
-            be = (0.1 * torch.randn(1408, generator=gen, device="cuda")).bfloat16()
-            bufs.append((x, g, be, 1e-6))
-        cases9.append(([b, s, 1408], bufs, n * 1408 * 3 + 2 * 1408 * 2 + n * 4,
-                       n * 1408 * LN_OPS_PER_ELEM / FP32_FLOP_PER_S))
-        xs = [(torch.randn(b, s, 6144, generator=gen, device="cuda") * 2).bfloat16()
-              for _ in range(4)]
-        for approx in (False, True):
-            cases10.append(([b, s, 6144, f"approx={approx}"], [(x, approx) for x in xs],
-                            n * 6144 * 3 + n * 4, n * 6144 * GELU_OPS_PER_ELEM / FP32_FLOP_PER_S))
-    rows = _check_kernel("layer_norm_quant", cases9, kernels.layer_norm_quant,
-                         kernels.layer_norm_quant_plain, _int8_err)
-    out["layer_norm_quant"] = _entry("layer_norm_quant", "layer_norm_quant.cu",
-                                     "stllm_tpu/ops/quant.py:252", rows, INT8_ATOL, INT8_RTOL)
-    rows = _check_kernel("gelu_quant", cases10, kernels.gelu_quant, kernels.gelu_quant_plain,
-                         _int8_err)
-    out["gelu_quant"] = _entry("gelu_quant", "gelu_quant.cu", "stllm_tpu/ops/quant.py:261",
-                               rows, INT8_ATOL, INT8_RTOL)
+    out.update(_row_kernels(kernels, gen, replaced, divide_check))
     out.update(_weight_stream_kernels(kernels, gen))
     out.update(_int8_gemm_kernels(kernels, gen))
     out.update(_train_attention_kernels(kernels, gen, out["packed_qkv_attention"]))
     return out
+
+
+def _row_kernels(kernels, gen, replaced, divide_check) -> dict:
+    """#9 (LayerNorm -> int8) and #10 (GELU -> int8, erf and tanh) over the
+    trunk's rows and a ragged shape in bf16 (the models' rows), and over the
+    trunk's rows in fp32 (#9 with fp32 and with bf16 gamma and beta), in the
+    register form; the bf16 rows are timed beside the replaced design and
+    the "any" form forced at the same shape (parent, new, new, parent; then
+    the "any" form), with the codes each design puts one step from the
+    plain version's (``codes_differ``); the "any" form is held at ANY_ROWS,
+    and the register form's divide at every code boundary."""
+    bf16, f32 = torch.bfloat16, torch.float32
+    out = {}
+    specs = {"layer_norm_quant": [((16, 257), bf16, bf16), ((3, 37), bf16, bf16),
+                                  ((16, 257), f32, f32), ((16, 257), f32, bf16)],
+             "gelu_quant": [((16, 257), bf16, None), ((3, 37), bf16, None),
+                            ((16, 257), f32, None)]}
+    k_of = {"layer_norm_quant": 1408, "gelu_quant": 6144}
+    for name, plain in (("layer_norm_quant", kernels.layer_norm_quant_plain),
+                        ("gelu_quant", kernels.gelu_quant_plain)):
+        k, kernel = k_of[name], getattr(kernels, name)
+        cases, timed = [], []
+        for (b, s), dt, pdt in specs[name]:
+            n, size = b * s, torch.finfo(dt).bits // 8
+            xs = [_row_input(gen, (b, s, k), dt, pdt) for _ in range(4)]
+            label = [b, s, k] + ([] if dt == bf16 else ["fp32"] + (
+                [f"{str(pdt)[6:]} params"] if pdt else []))
+            nbytes = n * k * (size + 1) + n * 4
+            if name == "layer_norm_quant":
+                nbytes += 2 * k * (torch.finfo(pdt).bits // 8)
+                variants = [(label, xs, LN_OPS_PER_ELEM)]
+            else:
+                variants = [(label + [f"approx={a}"], [(x[0], a) for x in xs],
+                             GELU_OPS_PER_ELEM[a]) for a in (False, True)]
+            for lab, bufs, ops in variants:
+                cases.append((lab, bufs, nbytes, n * k * ops / FP32_INSTR_PER_S))
+                timed.append(dt == bf16)
+        rows = _check_kernel(name, cases, kernel, plain, _row_err)
+        for row, (_, bufs, *_), is_bf16 in zip(rows, cases, timed):
+            if is_bf16:
+                _vs_parent(row, kernel, replaced[name], bufs, _row_err, plain)
+                _any_form(row, getattr(kernels, "_" + name), bufs, plain)
+                want = plain(*bufs[0])
+                row["codes_differ"] = {"this": _flips(kernel(*bufs[0]), want),
+                                       "parent": _flips(replaced[name](*bufs[0]), want)}
+                print(f"[kernels]   {row['shape']}: codes one step from the plain "
+                      f"version's {row['codes_differ']}")
+        out[name] = _entry(name, f"{name}.cu", {"layer_norm_quant": "stllm_tpu/ops/quant.py:252",
+                                                "gelu_quant": "stllm_tpu/ops/quant.py:261"}[name],
+                           rows, None, ROW_SCALE_RTOL)
+        out[name]["codes_differ_limit"] = ROW_CODES_DIFFER
+        out[name]["parent_ms"] = rows[0]["parent_ms"]
+        out[name]["parent_source"] = str(REPLACED[name].relative_to(ROOT))
+        out[name]["forms"] = {
+            "registers": f"stllm_tpu_torch/csrc/{name}.cu (stllm_tpu_torch/csrc/rowwise_quant.cuh)",
+            "any": f"stllm_tpu_torch/csrc/{name}.cu"}
+        out[name]["occupancy"] = {
+            f"K={kk} {dt}": {"blocks_per_sm": kernels.occupancy(name, kk, f, 0),
+                             "registers": kernels.occupancy(name, kk, f, 1)}
+            for kk in (1408, 6144) for f, dt in ((0, "bf16"), (1, "fp32"))}
+        out[name]["any_cases"] = _held_rows(kernels, gen, name)
+        print(f"[kernels] {name}: register form {out[name]['occupancy']}")
+    # the register form's divide (the row's reciprocal, one fused correction)
+    # against __fdiv_rn: every scale mantissa, every code boundary, 16 fp32
+    # values either side of it, both signs (script/row_divide_check.cu)
+    t0 = time.perf_counter()
+    bad = divide_check(16)
+    if bad != (0, 0):
+        raise AssertionError(f"[kernels] the register form's divide: {bad[0]} quotients and "
+                             f"{bad[1]} codes differ from __fdiv_rn's at the code boundaries")
+    pairs = (1 << 23) * 128 * 33 * 2
+    out["layer_norm_quant"]["divide_check"] = {"pairs": pairs, "quotients_differ": bad[0],
+                                               "codes_differ": bad[1]}
+    print(f"[kernels] row divide held to __fdiv_rn at every code boundary ({pairs} pairs, "
+          f"{time.perf_counter() - t0:.2f} s): {bad}")
+    return out
+
+
+def _flips(got, want) -> dict:
+    """#9's or #10's codes one step from the plain version's: how many, and
+    how many of those lie outside the dequantized int8 tolerance (atol =
+    rtol = INT8_ATOL, the rows' check before the register form)."""
+    (gq, gs), (wq, ws) = got, want
+    w = wq.float() * ws
+    outside = (gq.float() * gs - w).abs() > INT8_ATOL + INT8_RTOL * w.abs()
+    return {"codes": int((gq != wq).sum()), "outside_int8_tol": int(outside.sum())}
+
+
+def _row_input(gen, shape, dtype, params_dtype):
+    """x ~ N(0.5, 2) in ``dtype``; for #9 (``params_dtype`` set) gamma
+    around 1 and beta around 0, and eps."""
+    x = (torch.randn(shape, generator=gen, device="cuda") * 2 + 0.5).to(dtype)
+    if params_dtype is None:
+        return (x,)
+    k = shape[-1]
+    g = (1 + 0.1 * torch.randn(k, generator=gen, device="cuda")).to(params_dtype)
+    be = (0.1 * torch.randn(k, generator=gen, device="cuda")).to(params_dtype)
+    return x, g, be, 1e-6
+
+
+def _any_form(row: dict, forced, bufs, plain, iters: int = 40) -> None:
+    """The "any" form forced (``forced``: kernels._layer_norm_quant or
+    _gelu_quant) at a shape the register form takes: held to the plain
+    version and timed on the same copies (``any_form_ms``)."""
+    _row_err(forced(*bufs[0], "any"), plain(*bufs[0]))
+    it = iter(range(1 << 30))
+    row["any_form_ms"] = graph_ms(lambda: forced(*bufs[next(it) % len(bufs)], "any"), iters)
+    print(f"[kernels]   {row['shape']}: the \"any\" form forced {row['any_form_ms']:.4f} ms")
+
+
+def _held_rows(kernels, gen, name: str) -> list:
+    """#9 or #10 (erf and tanh) held to the plain version at ANY_ROWS in bf16
+    and fp32: each call launches its kernel once, in the form
+    row_quant_form names."""
+    held = []
+    for shape in ANY_ROWS:
+        for dt in (torch.bfloat16, torch.float32):
+            form = f"{name}/{kernels.row_quant_form(shape[-1], dt)}"
+            args = _row_input(gen, shape, dt, dt if name == "layer_norm_quant" else None)
+            calls = [args] if name == "layer_norm_quant" else [(args[0], a) for a in (False, True)]
+            for call in calls:
+                before, before_form = kernels.LAUNCHES[name], kernels.FORM_LAUNCHES[form]
+                got = getattr(kernels, name)(*call)
+                torch.cuda.synchronize()
+                if (kernels.LAUNCHES[name] != before + 1
+                        or kernels.FORM_LAUNCHES[form] != before_form + 1):
+                    raise AssertionError(f"[kernels] {form} at {shape} did not launch once")
+                err = _row_err(got, getattr(kernels, name + "_plain")(*call))
+                held.append({"shape": list(shape), "dtype": str(dt), "form": form,
+                             "max_abs_err": err, **({"approx": call[1]} if len(call) == 2
+                                                    else {})})
+    print(f"[kernels] {name} held at {ANY_ROWS} in bf16 and fp32: "
+          + ", ".join(f"{h['shape'][-1]} {h['dtype'][6:]} {h['form'].split('/')[1]} "
+                      f"{h['max_abs_err']:.3g}" for h in held))
+    return held
 
 
 def _held_packed(kernels, gen) -> dict:
@@ -1195,13 +1452,15 @@ def _tiny_inputs():
     return frames, torch.from_numpy(rng.integers(0, 100, (1, 5)))
 
 
-def _card_vs_cpu(params, cfg, tol: float) -> float:
-    """Relative L2 gap between one encode on the card and on the CPU."""
+def _card_vs_cpu(params, cfg, tol: float, card_params=None) -> float:
+    """Relative L2 gap between one encode on the card (of ``card_params``,
+    default ``params`` copied there) and on the CPU."""
     from stllm_tpu_torch.models.stllm import encode_img
 
     frames, q_ids = _tiny_inputs()
     want = encode_img(params, frames, cfg, q_ids).float()
-    got = encode_img(_tree_to(params, "cuda"), frames.cuda(), cfg, q_ids.cuda()).float().cpu()
+    card_params = _tree_to(params, "cuda") if card_params is None else card_params
+    got = encode_img(card_params, frames.cuda(), cfg, q_ids.cuda()).float().cpu()
     rel = float((got - want).norm() / want.norm())
     if not bool(torch.isfinite(got).all()) or rel > tol:
         raise AssertionError(f"tiny encode: card vs CPU relative L2 error {rel} > {tol}")
@@ -1263,6 +1522,62 @@ def check_small_int8_reference() -> dict:
                                                      model.cfg.vit, frames.shape[1])
     out["static"] = _card_vs_cpu(model.params, model.cfg, INT8_TINY_REL)
     return out
+
+
+def check_small_fp32_int8(kernels) -> dict:
+    """The tiny model in fp32 with quant_int8 (dynamic W8A8; #9 and #10 on
+    fp32 rows with fp32 gamma and beta, in their register form): one encode
+    and calibrate_btadapter_scales on the card and on the CPU from the same
+    weights. The encode, the calibrated scales, and the static encode each
+    device then runs with its own scales agree within INT8_TINY_REL."""
+    from stllm_tpu_torch.models.btadapter import calibrate_btadapter_scales
+    from stllm_tpu_torch.models.zoo import STLLM
+
+    model = STLLM.from_config({**_fp32_tiny_cfg(), "quant_int8": True}, seed=3, device="cpu")
+    cfg = model.cfg
+    frames, _ = _tiny_inputs()
+    before = dict(kernels.LAUNCHES), dict(kernels.FORM_LAUNCHES)
+    out = {"encode_rel_l2": _card_vs_cpu(model.params, cfg, INT8_TINY_REL)}
+    cpu_vit = calibrate_btadapter_scales(model.params["vit"], frames[0], cfg.vit, frames.shape[1])
+    card_vit = calibrate_btadapter_scales(_tree_to(model.params["vit"], "cuda"), frames[0].cuda(),
+                                          cfg.vit, frames.shape[1])
+    torch.cuda.synchronize()
+    names = ("layer_norm_quant", "gelu_quant")
+    ran = {n: kernels.LAUNCHES[n] - before[0][n] for n in names}
+    regs = {n: kernels.FORM_LAUNCHES[f"{n}/registers"] - before[1][f"{n}/registers"]
+            for n in names}
+    if not all(ran.values()) or ran != regs:
+        raise AssertionError(f"tiny fp32 int8 model: row kernel launches {ran}, "
+                             f"on the register form {regs}")
+
+    def scales(tree):
+        return torch.cat([torch.as_tensor(v, dtype=torch.float32).reshape(-1).cpu()
+                          for v in _scale_leaves(tree)])
+
+    want, got = scales(cpu_vit), scales(card_vit)
+    rel = float((got - want).norm() / want.norm())
+    if want.numel() == 0 or rel > INT8_TINY_REL:
+        raise AssertionError(f"tiny fp32 int8 calibration: card vs CPU scales relative L2 "
+                             f"{rel} > {INT8_TINY_REL}")
+    out["calibration_scales_rel_l2"] = rel
+    out["static_encode_rel_l2"] = _card_vs_cpu(
+        dict(model.params, vit=cpu_vit), cfg, INT8_TINY_REL,
+        card_params=dict(_tree_to(model.params, "cuda"), vit=card_vit))
+    out["launches"] = ran
+    return out
+
+
+def _scale_leaves(tree, calibrated: bool = False):
+    """Every calibrated scale (a leaf under an ``act_scales`` key) of a
+    params tree, in the tree's order."""
+    if isinstance(tree, dict):
+        for key, v in tree.items():
+            yield from _scale_leaves(v, calibrated or key == "act_scales")
+    elif isinstance(tree, list):
+        for v in tree:
+            yield from _scale_leaves(v, calibrated)
+    elif calibrated and tree is not None:
+        yield tree
 
 
 def _fp32_tiny_cfg(**llama) -> dict:
@@ -1414,8 +1729,9 @@ def serve(kernels, params, cfg, reqs, label: str, gen=None, **server) -> dict:
     form_launches = dict(kernels.FORM_LAUNCHES)
     forwards = FORWARD_CALLS[0]
     any_form = {k: v for k, v in form_launches.items() if k.endswith("/any") and v}
-    if any_form:       # every model's head_dim (64, 88, 128) runs the packed tile loops
-        raise AssertionError(f"[{label}] packed launches on the any form: {any_form}")
+    if any_form:       # every model's head_dim (64, 88, 128) and row width (1408, 6144)
+        raise AssertionError(f"[{label}] launches on an any form: {any_form}")
+    _expect_register_rows(label, launches, form_launches)
 
     if set(answers) != {r[0] for r in reqs}:
         raise AssertionError(f"[{label}] answers for {sorted(answers)}, not all "
@@ -1492,6 +1808,15 @@ def _expect_w4_forms(label: str, out: dict) -> None:
         raise AssertionError(f"[{label}] W4A16 launches by form {forms}")
 
 
+def _expect_register_rows(label: str, launches: dict, form_launches: dict) -> None:
+    """Every launch of #9 and #10 since the counters were reset ran the
+    register form (every model's rows: 1408 and 6144 wide)."""
+    for name in ("layer_norm_quant", "gelu_quant"):
+        if form_launches[f"{name}/registers"] != launches[name]:
+            raise AssertionError(f"[{label}] {name}: {launches[name]} launches, "
+                                 f"{form_launches[f'{name}/registers']} on the register form")
+
+
 def _expect(label: str, launches: dict, want: dict, per: int) -> None:
     got = {k: launches[k] for k in want}
     if got != {k: v * per for k, v in want.items()}:
@@ -1542,6 +1867,8 @@ def phase_int8(kernels) -> dict:
 
     rels = check_small_int8_reference()
     print(f"[int8] tiny int8 encode, card vs CPU: relative L2 error {rels}")
+    rels_f32 = check_small_fp32_int8(kernels)
+    print(f"[int8] tiny fp32 dynamic-int8 model, card vs CPU: {rels_f32}")
 
     gc.collect()
     torch.cuda.empty_cache()
@@ -1568,6 +1895,7 @@ def phase_int8(kernels) -> dict:
     calib_s = time.perf_counter() - t0
     calib_launches = dict(kernels.LAUNCHES)
     _expect("int8-calibration", calib_launches, CALIBRATION, 1)
+    _expect_register_rows("int8-calibration", calib_launches, kernels.FORM_LAUNCHES)
     n_layers = _check_act_scales(params["vit"])
     print(f"[int8] calibrated {n_layers} layers in {calib_s:.2f} s, launches {calib_launches}")
 
@@ -1581,7 +1909,7 @@ def phase_int8(kernels) -> dict:
               f"{mode['max_memory_allocated_gib']:.2f} GiB")
     return {"dynamic": dynamic, "static": static, "calibration_launches": calib_launches,
             "calibration_s": calib_s, "build_s": build_s, "build_peak_gib": build_gib,
-            "tiny_encode_rel_err": rels}
+            "tiny_encode_rel_err": rels, "tiny_fp32_int8": rels_f32}
 
 
 def _time_heads(llama_params, lcfg) -> dict:
@@ -1746,6 +2074,7 @@ def phase_pipeline(kernels, w4_params, w4_cfg) -> dict:
         calib_s = time.perf_counter() - t1
         calib = dict(kernels.LAUNCHES)
         _expect("pipeline-calibration", calib, PIPE_CALIBRATION, 1)
+        _expect_register_rows("pipeline-calibration", calib, kernels.FORM_LAUNCHES)
         build_s = time.perf_counter() - t0
         print(f"[pipeline] plain ViT-g built, converted and calibrated in {build_s:.1f} s "
               f"(calibration {calib_s:.2f} s, launches {calib}), held "
@@ -2033,8 +2362,8 @@ def main() -> int:
         return 1
     from stllm_tpu_torch.ops import kernels
 
-    replaced_s8 = phase_build(kernels)
-    entries = phase_kernels(kernels, replaced_s8)
+    replaced, divide_check = phase_build(kernels)
+    entries = phase_kernels(kernels, replaced, divide_check)
     gc.collect()
     print(f"[kernels] held after the phase: {torch.cuda.memory_allocated() / 2**30:.3f} GiB")
     count_forwards()

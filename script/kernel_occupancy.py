@@ -1,6 +1,8 @@
 #!/usr/bin/env python3
 """Blocks per SM of the packed-qkv attention (#1) and its static-int8 ring
-loop (#3), the flash forward (#4),
+loop (#3), the row kernels' register form (#9 LayerNorm -> int8, #10 GELU
+-> int8 at K = 1408 and 6144, bf16 and fp32, with registers a thread), the
+flash forward (#4),
 the flash backward pair (#5 dQ, #6 dK/dV),
 both forms of the W4A16 matmul (#12: the wgmma prefill form, the tile loop
 at 64 and 16 rows) and both forms of the fused
@@ -97,6 +99,10 @@ def this_design() -> dict:
                                      for s in (257, 16)},
             "packed_qkv_attention_s8": {
                 f"S={s}": kernels.occupancy("packed_qkv_attention_s8", s, 88) for s in (257, 16)},
+            **{name: {f"K={k} {dt}": {"blocks_per_sm": kernels.occupancy(name, k, f32, 0),
+                                       "registers": kernels.occupancy(name, k, f32, 1)}
+                      for k in (1408, 6144) for f32, dt in ((0, "bf16"), (1, "fp32"))}
+               for name in ("layer_norm_quant", "gelu_quant")},
             "flash_attention_fwd": kernels.occupancy("flash_attention_fwd", 128),
             "flash_attention_bwd_dq": kernels.occupancy("flash_attention_bwd_dq", 128),
             "flash_attention_bwd_dkv": kernels.occupancy("flash_attention_bwd_dkv", 128),

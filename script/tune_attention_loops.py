@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Time variants of the packed-qkv loop (#1), its static-int8 ring loop
-(#3), the flash forward loop (#4, #7) and the flash backward pair (#5 dQ,
-#6 dK/dV) on one CUDA card, each held to its plain version first.
+(#3), the flash forward loop (#4, #7), the flash backward pair (#5 dQ,
+#6 dK/dV) and the row kernels' register form (#9 LayerNorm -> int8, #10
+GELU -> int8) on one CUDA card, each held to its plain version first.
 
     python3 script/tune_attention_loops.py [--only KERNEL ...] [--parent CSRC] [--out FILE]
 
@@ -12,13 +13,16 @@ library with nvcc as ops/kernels.py builds it, and swaps it in for the
 kernel's own. Shapes: #1 at the ViT-g trunk (16, 257, 16, 88) and the
 BTAdapter temporal shape (256, 16, 16, 88); #3 at the trunk and the ragged
 (3, 37, 4, 88), on static-int8 qkv, its whole call (the ring loop and the
-row-quant pass); #4 at (1, 1024, 32, 128) causal
+row-quant pass); #9 at the trunk's 16 x 257 bf16 rows of 1408, #10 at its
+rows of 6144, erf and tanh; #4 at (1, 1024, 32, 128) causal
 with a padded kv_mask; #7 at (1, 768, 32, 128), causal, padded; #5 and
 #6 at (1, 1024, 32, 128) causal with a padded kv_mask, beside SDPA's whole
 backward on the same inputs, device time only (chip_smoke.queued_ms). The
 backward variants are the walked tile's width, dQ's stage depth and score
 sub-tile, the rows a block owns and the blocks per SM, and the earlier
-launch order (row tile fastest, ascending); ``--parent`` adds "parent", #3
+launch order (row tile fastest, ascending); the row kernels' are the
+divide by __fdiv_rn in place of the row's reciprocal and blocks per SM;
+``--parent`` adds "parent", #3
 and each backward kernel built from another tree's csrc (the earlier
 design, timed in the same call). Variants labelled "diagnostic" drop work and are timed without the
 check. ``--only`` keeps the named kernels' variants. Times are
@@ -46,6 +50,13 @@ sys.path.insert(0, str(ROOT))
 PACKED = "packed_qkv_attention.cuh"
 S8 = "packed_qkv_attention_s8.cu"
 FLASH = "flash_attention.cuh"
+ROWS = "rowwise_quant.cuh"
+GELU = "gelu_quant.cu"
+# the row kernels' divide of every code by __fdiv_rn (the same codes, as
+# before the row's reciprocal took its place), or by the product with the
+# reciprocal alone (wrong codes: a diagnostic of the divide's share)
+_FDIV_RN = (ROWS, r"if \(s >= kDivMin && s <= kDivMax\) \{", "if (false) {")
+_NO_DIVIDE = (ROWS, r"rintf\(div_rn_by\(v, s, r\)\)", "rintf(v * r)")
 
 
 def _warps(n):
@@ -153,7 +164,26 @@ VARIANTS = {
         ("32-query tile", [_bwd_const("kDkvTile", 32)]),
         ("row tile fastest", _row_tile_fastest("kbase")),
     ],
+    "layer_norm_quant": [
+        ("shipped", []),
+        ("divide by __fdiv_rn", [_FDIV_RN]),
+        ("4 blocks an SM (at most 64 registers)",
+         [("layer_norm_quant.cu", r"__launch_bounds__\(kRegThreads\)\nlayer_norm_quant_regs",
+           "__launch_bounds__(kRegThreads, 4)\nlayer_norm_quant_regs")]),
+        ("diagnostic: no divide", [_NO_DIVIDE]),
+    ],
+    "gelu_quant": [
+        ("shipped", []),
+        ("divide by __fdiv_rn", [_FDIV_RN]),
+        ("diagnostic: no divide", [_NO_DIVIDE]),
+        ("diagnostic: no erf or tanh",
+         [(GELU, r"inner = tanhf\(", "inner = ("), (GELU, r"inner = erff\(", "inner = (")]),
+        ("diagnostic: no GELU, no divide",
+         [_NO_DIVIDE, (GELU, r"const float y = gelu\(v\[l \* kVec \+ j\], kApprox\);",
+                       "const float y = v[l * kVec + j];")]),
+    ],
 }
+ROW_KERNELS = ("layer_norm_quant", "gelu_quant")
 BACKWARD = ("flash_attention_bwd_dq", "flash_attention_bwd_dkv")
 WITH_PARENT = ("packed_qkv_attention_s8", *BACKWARD)   # the kernels --parent adds
 
@@ -236,6 +266,29 @@ def time_s8(gen, check: bool = True) -> dict:
         out["blocks_per_sm"] = kernels.occupancy("packed_qkv_attention_s8", cs.TRUNK[1], 88)
     except AttributeError:          # a tree whose library has no occupancy entry
         out["blocks_per_sm"] = None
+    return out
+
+
+def time_rows(name: str, gen, check: bool = True) -> dict:
+    """#9 or #10 (erf and tanh) at the trunk's bf16 rows, held to its plain
+    version first (a diagnostic variant is not)."""
+    import torch
+
+    import chip_smoke as cs
+    from stllm_tpu_torch.ops import kernels
+
+    bf16, kernel = torch.bfloat16, getattr(kernels, name)
+    if name == "layer_norm_quant":
+        calls = {"": [cs._row_input(gen, (16, 257, 1408), bf16, bf16) for _ in range(4)]}
+    else:
+        xs = [cs._row_input(gen, (16, 257, 6144), bf16, None)[0] for _ in range(4)]
+        calls = {"_erf": [(x, False) for x in xs], "_tanh": [(x, True) for x in xs]}
+    out = {}
+    for form, bufs in calls.items():
+        if check:
+            cs._row_err(kernel(*bufs[0]), getattr(kernels, name + "_plain")(*bufs[0]))
+        it = iter(range(1 << 30))
+        out["ms" + form] = cs.graph_ms(lambda: kernel(*bufs[next(it) % 4]), 40)
     return out
 
 
@@ -356,6 +409,8 @@ def main() -> int:
                     res = time_s8(gen, not label.startswith("diagnostic"))
                 elif name in BACKWARD:
                     res = time_backward(name, gen)
+                elif name in ROW_KERNELS:
+                    res = time_rows(name, gen, not label.startswith("diagnostic"))
                 else:
                     res = time_flash(gen)
             except (AssertionError, RuntimeError) as e:    # wrong, or refused: not timed

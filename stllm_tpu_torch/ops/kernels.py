@@ -30,6 +30,12 @@ loops (``csrc/packed_qkv_attention.cuh``, and #3's ring loop on int8 tiles)
 for head_dim a multiple of 8 up to 128, and a simple form
 (``csrc/packed_qkv_any.cuh``) for every other head_dim, as the TPU kernels
 take any head_dim their feasibility rule admits.
+The two row kernels (#9 LayerNorm -> int8, #10 GELU -> int8) take bf16 or
+fp32 rows (and #9 bf16 or fp32 gamma and beta, each its own) of any width,
+in two forms (``row_quant_form``): the row held in registers by a group of
+threads where it is whole 16-byte chunks up to 12288 wide (every model), and
+an "any" form, one block a row read element by element, for every other
+width.
 The four weight-streaming kernels share one tile loop
 (``csrc/weight_stream_matmul.cuh``); only the model path launches
 ``w4a16_matmul``, the probes are launched by their checks and timings.
@@ -96,9 +102,11 @@ _ENTRY = {
         "stllm_packed_qkv_attention_quant_bf16", [_P, _P, _P, _P, _I, _I, _I, _I, _F, _P]),
     "packed_qkv_attention_s8": (
         "stllm_packed_qkv_attention_s8", [_P, _P, _F, _P, _P, _P, _I, _I, _I, _I, _P]),
+    # x, gamma, beta, q, scale, rows, K, eps, and whether x, gamma, beta are fp32
     "layer_norm_quant": (
-        "stllm_layer_norm_quant_bf16", [_P, _P, _P, _P, _P, _LL, _I, _F, _P]),
-    "gelu_quant": ("stllm_gelu_quant_bf16", [_P, _P, _P, _LL, _I, _I, _P]),
+        "stllm_layer_norm_quant", [_P, _P, _P, _P, _P, _LL, _I, _F, _I, _I, _I, _P]),
+    # x, q, scale, rows, K, approx, x_f32
+    "gelu_quant": ("stllm_gelu_quant", [_P, _P, _P, _LL, _I, _I, _I, _P]),
     # the weight-streaming kernels: x, weights, scale, out, partial, M, N,
     # weight rows in use, splits, out_f32 (#15: the unpack variant)
     **{name: (f"stllm_{name}", [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P])
@@ -143,6 +151,10 @@ _FORM_ENTRY = {
         "stllm_packed_qkv_attention_quant_any", [_P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _P]),
     ("packed_qkv_attention_s8", "any"): (
         "stllm_packed_qkv_attention_s8_any", _ENTRY["packed_qkv_attention_s8"][1]),
+    # the row kernels' "any" form: the register form's arguments
+    ("layer_norm_quant", "any"): (
+        "stllm_layer_norm_quant_any", _ENTRY["layer_norm_quant"][1]),
+    ("gelu_quant", "any"): ("stllm_gelu_quant_any", _ENTRY["gelu_quant"][1]),
     # qmm_res_ln's arguments without the staged scratch row
     ("qmm_res_ln", "cluster"): (
         "stllm_qmm_res_ln_cluster",
@@ -168,6 +180,8 @@ _OCCUPANCY = {
     "flash_attention_bwd_dkv": ("stllm_flash_attention_bwd_dkv_occupancy", [_I]),
     "w4a16_matmul": ("stllm_w4a16_matmul_occupancy", [_I, _I]),
     "qmm_res_ln": ("stllm_qmm_res_ln_occupancy", [_I, _I, _I, _I]),
+    "layer_norm_quant": ("stllm_layer_norm_quant_occupancy", [_I, _I, _I]),
+    "gelu_quant": ("stllm_gelu_quant_occupancy", [_I, _I, _I]),
 }
 
 LAUNCHES: Dict[str, int] = {name: 0 for name in SOURCES}
@@ -175,6 +189,7 @@ LAUNCHES: Dict[str, int] = {name: 0 for name in SOURCES}
 # without a form runs; FORM_LAUNCHES splits their LAUNCHES by form
 # ("w4a16_matmul/decode")
 FORMS = {"w4a16_matmul": ("stream", "wgmma", "decode"), "qmm_res_ln": ("rows", "cluster"),
+         "layer_norm_quant": ("registers", "any"), "gelu_quant": ("registers", "any"),
          **{name: ("tiles", "any") for name in (
              "packed_qkv_attention", "packed_qkv_attention_quant", "packed_qkv_attention_s8")}}
 FORM_LAUNCHES: Dict[str, int] = {f"{n}/{f}": 0 for n, fs in FORMS.items() for f in fs}
@@ -184,7 +199,9 @@ _FNS: Dict[str, object] = {}
 
 _EXP2_CLAMP = 50.0
 _LOG2E = 1.4426950408889634
-MAX_ROW = 12288          # widest row #9 and #10 hold in a block's shared memory
+# widest row the row-quant pass of #2 and #3 stages in a block's shared
+# memory, and #9 and #10 hold in registers (csrc/rowwise_quant.cuh)
+MAX_ROW = 12288
 _INCLUDE = re.compile(r'^\s*#\s*include\s+"([^"]+)"', re.M)
 
 
@@ -307,7 +324,9 @@ def occupancy(name: str, *shape: int) -> int:
     w4a16_matmul: the form (0 the tile loop, 1 wgmma, 2 decode), the tile
     loop's row tile (16 or 64) or the decode form's rows (up to 8 or 16);
     qmm_res_ln: cluster form or not, blocks an SM (0)
-    or clusters the card holds (1), M, N), by
+    or clusters the card holds (1), M, N; layer_norm_quant, gelu_quant: K,
+    fp32 rows or not, and 1 for the register form's registers a thread
+    instead of its blocks an SM), by
     cudaOccupancyMaxActiveBlocksPerMultiprocessor (or MaxActiveClusters)
     on the current device."""
     fn = _symbol(name, *_OCCUPANCY[name])
@@ -535,13 +554,36 @@ def _rowwise_quant_pass(y: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
 # producer-fused row quantization: LayerNorm (#9) and GELU (#10)
 # ---------------------------------------------------------------------------
 
+def row_quant_form(k: int, dtype: torch.dtype) -> str:
+    """The form of #9 and #10 that runs rows of width ``k`` and type
+    ``dtype`` (bf16 or fp32): "registers" (csrc/rowwise_quant.cuh, the row
+    held in registers by a group of threads) where the row is whole 16-byte
+    chunks (k a multiple of 8 for bf16, of 4 for fp32) and at most 12288
+    wide (every model: 1408 and 6144, or the widths of the tiny configs),
+    else "any" (one block a row, read element by element; a row wider than
+    12288 read from device memory once a pass)."""
+    vec = 4 if dtype == torch.float32 else 8
+    return "registers" if k % vec == 0 and 0 < k <= MAX_ROW else "any"
+
+
 def _check_rows(name: str, x: torch.Tensor) -> int:
-    _check_cuda(name, x, torch.bfloat16)
+    _check_cuda(name, x, torch.bfloat16, torch.float32)
     k = x.shape[-1] if x.dim() else 0
-    if k % 8 or not 0 < k <= MAX_ROW:
-        raise ValueError(f"{name} kernel: row width {k} must be a multiple of 8, "
-                         f"at most {MAX_ROW}")
+    if k <= 0 or x.numel() // k > _GRID_MAX:
+        raise ValueError(f"{name} kernel: row width {k} must be positive, the rows at most "
+                         f"{_GRID_MAX}")
     return k
+
+
+def _row_form(name: str, x: torch.Tensor, k: int, form: Optional[str]) -> Optional[str]:
+    """The form a row-kernel call launches (``form``, else the rule's), as
+    ``_launch`` takes it: None for the register form."""
+    form = form or row_quant_form(k, x.dtype)
+    if form not in FORMS[name]:
+        raise ValueError(f"{name}: no form {form!r}")
+    if form == "registers" and row_quant_form(k, x.dtype) != "registers":
+        raise ValueError(f"{name}: the register form does not take rows of {k} {x.dtype}")
+    return None if form == "registers" else form
 
 
 def layer_norm_quant_plain(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
@@ -558,19 +600,32 @@ def layer_norm_quant_plain(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Ten
 def layer_norm_quant(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
                      eps: float = 1e-6) -> Tuple[torch.Tensor, torch.Tensor]:
     """LayerNorm -> per-row int8: (..., K) -> (int8 (..., K), fp32 (..., 1)).
-    CUDA: bf16 x, gamma and beta; K a multiple of 8 and at most 12288."""
+    CUDA: x bf16 or fp32, gamma and beta (K,) each bf16 or fp32, any K, in
+    the form ``row_quant_form`` picks."""
+    return _layer_norm_quant(x, gamma, beta, eps, None)
+
+
+def _layer_norm_quant(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor, eps: float,
+                      form: Optional[str]) -> Tuple[torch.Tensor, torch.Tensor]:
+    """layer_norm_quant in ``form`` ("registers", or "any", which runs
+    wherever the register form does; None: the rule's), as chip_smoke.py
+    and the tests force one."""
     if x.device.type == "cpu":
         return layer_norm_quant_plain(x, gamma, beta, eps)
     k = _check_rows("layer_norm_quant", x)
     for p in (gamma, beta):
-        _check_cuda("layer_norm_quant", p, torch.bfloat16)
-        if tuple(p.shape) != (k,):
-            raise ValueError(f"layer_norm_quant: norm params {tuple(p.shape)} != ({k},)")
+        _check_cuda("layer_norm_quant", p, torch.bfloat16, torch.float32)
+        if tuple(p.shape) != (k,) or p.device != x.device:
+            raise ValueError(f"layer_norm_quant: norm params {tuple(p.shape)} on {p.device} "
+                             f"!= ({k},) on {x.device}")
+    form = _row_form("layer_norm_quant", x, k, form)
     q = torch.empty(x.shape, dtype=torch.int8, device=x.device)
     s = torch.empty(x.shape[:-1] + (1,), dtype=torch.float32, device=x.device)
     if q.numel():
+        f32 = [int(t.dtype == torch.float32) for t in (x, gamma, beta)]
         _launch("layer_norm_quant", x.device, x.data_ptr(), gamma.data_ptr(),
-                beta.data_ptr(), q.data_ptr(), s.data_ptr(), x.numel() // k, k, eps)
+                beta.data_ptr(), q.data_ptr(), s.data_ptr(), x.numel() // k, k, eps, *f32,
+                form=form)
     return q, s
 
 
@@ -582,15 +637,22 @@ def gelu_quant_plain(x: torch.Tensor, approx: bool) -> Tuple[torch.Tensor, torch
 
 def gelu_quant(x: torch.Tensor, approx: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
     """GELU -> per-row int8: (..., K) -> (int8 (..., K), fp32 (..., 1)).
-    CUDA: bf16; K a multiple of 8 and at most 12288."""
+    CUDA: bf16 or fp32, any K, in the form ``row_quant_form`` picks."""
+    return _gelu_quant(x, approx, None)
+
+
+def _gelu_quant(x: torch.Tensor, approx: bool, form: Optional[str]
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """gelu_quant in ``form`` (as _layer_norm_quant)."""
     if x.device.type == "cpu":
         return gelu_quant_plain(x, approx)
     k = _check_rows("gelu_quant", x)
+    form = _row_form("gelu_quant", x, k, form)
     q = torch.empty(x.shape, dtype=torch.int8, device=x.device)
     s = torch.empty(x.shape[:-1] + (1,), dtype=torch.float32, device=x.device)
     if q.numel():
         _launch("gelu_quant", x.device, x.data_ptr(), q.data_ptr(), s.data_ptr(),
-                x.numel() // k, k, int(approx))
+                x.numel() // k, k, int(approx), int(x.dtype == torch.float32), form=form)
     return q, s
 
 

@@ -34,6 +34,7 @@ by one step.
 
 from __future__ import annotations
 
+import math
 from typing import Dict, Optional, Tuple
 
 import torch
@@ -162,17 +163,52 @@ def quant_linear(params_q: Dict, x: torch.Tensor) -> torch.Tensor:
     return out
 
 
+ROW_TILE_BYTES = 8 * 1024 * 1024   # the reference's fp32 working tile of a (S, K) block
+
+
+def row_quant_fused(shape) -> bool:
+    """The reference's tile rule for the producer-fused quantizers
+    (``_rowwise_pallas``): a (B, S, K) x runs the fused kernel where its
+    fp32 (S, K) block fits 8 MiB, and the unfused composition beyond (the
+    batch clause, a multi-device shard, never holds on one device). An x of
+    another rank reads its second-to-last axis as S (1 for a single row)."""
+    s = shape[-2] if len(shape) >= 2 else 1
+    return s * shape[-1] * 4 <= ROW_TILE_BYTES
+
+
 def layer_norm_quant(params: Dict, x: torch.Tensor, eps: float = 1e-6
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Fused LayerNorm -> per-row int8 (kernel #9). x: (..., K). Returns
-    (x_q int8, scale fp32 (..., 1)): layer_norm then quantize_activations,
-    with the fp32 LayerNorm output quantized directly."""
+    (x_q int8, scale fp32 (..., 1)): the fp32 LayerNorm output quantized
+    directly where ``row_quant_fused`` holds; beyond, as the reference,
+    layer_norm (rounded to x.dtype) then quantize_activations, plain torch
+    on either device."""
+    if not row_quant_fused(x.shape):
+        from stllm_tpu_torch.ops.layers import layer_norm   # layers imports this module
+
+        return quantize_activations(layer_norm(params, x, eps))
     return kernels.layer_norm_quant(x, params["scale"], params["bias"], eps)
+
+
+def _gelu_in_dtype(x: torch.Tensor, approx: bool) -> torch.Tensor:
+    """jax.nn.gelu as the reference's unfused path computes it: its formula
+    and constants in x.dtype, each op rounded to x.dtype (torch rounds a
+    bf16 op's fp32 result once, as XLA's CPU backend does)."""
+    const = lambda c: torch.tensor(c, dtype=x.dtype).item()  # noqa: E731
+    if approx:
+        cube = x * x * x
+        inner = torch.tanh(const((2 / math.pi) ** 0.5) * (x + const(0.044715) * cube))
+        return x * (0.5 * (1.0 + inner))
+    return 0.5 * x * torch.special.erfc(-x * const(0.5 ** 0.5))
 
 
 def gelu_quant(x: torch.Tensor, *, approx: bool = False
                ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Fused GELU -> per-row int8 (kernel #10), erf or tanh form."""
+    """Fused GELU -> per-row int8 (kernel #10), erf or tanh form; beyond
+    ``row_quant_fused``, as the reference, GELU in x.dtype then
+    quantize_activations, plain torch on either device."""
+    if not row_quant_fused(x.shape):
+        return quantize_activations(_gelu_in_dtype(x, approx))
     return kernels.gelu_quant(x, approx)
 
 

@@ -11,6 +11,9 @@ int8 weights.
 - #1-#3 (the packed-qkv attention kernels): the tile loops at head_dim a
   multiple of 8 up to 128 (every model of the repository), the "any" form
   at every other head_dim.
+- #9, #10 (LayerNorm -> int8, GELU -> int8): the register form for rows of
+  whole 16-byte chunks up to 12288 wide (every model), the "any" form for
+  every other width.
 - A converted 2-D int8 ``w_q`` leaf is column-major (stride(0) == 1) with the
   same values; a tiny static-int8 ViT converted from JAX gives the same
   outputs bit for bit as the same tree held row-major (the int8 products
@@ -91,6 +94,44 @@ def test_packed_form_names():
     kernels.packed_qkv_attention_quant(qkv, 2, 13, 0.3)
     kernels.packed_qkv_attention_s8(qkv.clamp(-1, 1).mul(127).round().to(torch.int8),
                                     torch.full((3,), 0.01), 2, 13, 0.3)
+    assert kernels.FORM_LAUNCHES == before
+
+
+@pytest.mark.parametrize("k,dtype,form", [
+    (1408, torch.bfloat16, "registers"),     # the ViT-g LayerNorm and GELU rows
+    (6144, torch.bfloat16, "registers"),
+    (1408, torch.float32, "registers"),
+    (176, torch.float32, "registers"),       # the tiny configs' widths
+    (352, torch.bfloat16, "registers"),
+    (8, torch.bfloat16, "registers"),
+    (12288, torch.bfloat16, "registers"),
+    (12288, torch.float32, "registers"),
+    (1412, torch.float32, "registers"),      # whole 16-byte chunks of fp32
+    (1412, torch.bfloat16, "any"),           # not of bf16
+    (13, torch.bfloat16, "any"),
+    (13, torch.float32, "any"),
+    (4, torch.bfloat16, "any"),
+    (12296, torch.bfloat16, "any"),          # wider than the registers hold
+    (12296, torch.float32, "any"),
+    (16384, torch.bfloat16, "any"),
+])
+def test_row_quant_form_by_width(k, dtype, form):
+    assert kernels.row_quant_form(k, dtype) == form
+
+
+def test_row_quant_form_names():
+    """#9's and #10's forms, the register form first (the entry point
+    without a form), each with a launch counter and an entry point; the CPU
+    runs the plain versions and counts no launch at either form, and a
+    forced form that does not exist is refused on the card only."""
+    for name in ("layer_norm_quant", "gelu_quant"):
+        assert kernels.FORMS[name] == ("registers", "any")
+        assert {f"{name}/registers", f"{name}/any"} <= set(kernels.FORM_LAUNCHES)
+        assert (name, "any") in kernels._FORM_ENTRY
+    before = dict(kernels.FORM_LAUNCHES)
+    x = torch.randn(2, 3, 13)
+    kernels.layer_norm_quant(x, torch.ones(13), torch.zeros(13))
+    kernels.gelu_quant(x, True)
     assert kernels.FORM_LAUNCHES == before
 
 

@@ -9,7 +9,11 @@ Tolerances: bf16 attention outputs within the bf16 attention tolerance of
 tests/test_ops.py (atol = rtol = 3e-2); the kernel and its plain version
 differ only in summation order. The int8 kernels: codes at most one step
 apart (an fp32 value at a rounding boundary may round either way), and the
-dequantized outputs within the same atol = rtol = 3e-2. The
+dequantized outputs within the same atol = rtol = 3e-2 (the row kernels
+#9 and #10 in fp32, in their "any" form and at every register geometry:
+codes at most one step apart in under 1e-3 of them and scales within 1e-5
+relative, the CPU tests' tolerance against JAX, since a LayerNorm row's
+code step exceeds 3e-2). The
 weight-streaming matmuls (W4A16 and the probes): compared in fp32 within
 atol = 1e-2 times the plain output's largest magnitude and rtol = 1e-2; the
 products are exact, the fp32 sums run in another order (split-K adds its
@@ -64,6 +68,19 @@ def _assert_int8_within_one_step(got, want):
     assert bool(((g - w).abs() <= torch.clamp(ws, min=INT8_ATOL) + INT8_RTOL * w.abs()).all())
 
 
+def _assert_row_codes_close(got, want):
+    """#9's and #10's rows: codes at most one step apart in under 1e-3 of
+    them (the same fp32 math summed in another order may put a value on the
+    other side of a rounding boundary), scales within 1e-5 relative (the
+    CPU tests' tolerance against JAX)."""
+    (gq, gs), (wq, ws) = got, want
+    assert gq.dtype == torch.int8 and gs.dtype == torch.float32
+    assert gq.shape == wq.shape and gs.shape == ws.shape
+    diff = (gq.int() - wq.int()).abs()
+    assert int(diff.max()) <= 1 and float((diff > 0).float().mean()) < 1e-3
+    torch.testing.assert_close(gs, ws, atol=0, rtol=1e-5)
+
+
 def _counted(name, fn):
     before = kernels.LAUNCHES[name]
     out = fn()
@@ -109,11 +126,12 @@ def test_packed_qkv_s8_kernel_matches_plain(card, shape):
                                                                   d ** -0.5))
 
 
-# head_dim 120 and 128 (#3 took at most 112 before), and H*D = 98 x 128 =
-# 12544 rows wider than a row-quant block's shared memory holds (12288), in
-# the short (S <= 16) and long loops: shapes the reference's feasibility rule
-# admits
-WIDE_SHAPES = [(2, 37, 4, 120), (2, 37, 4, 128), (1, 16, 98, 128), (1, 40, 98, 128)]
+# head_dim 120 and 128 (#3 took at most 112 before), H*D = 98 x 128 = 12544
+# rows wider than a row-quant block's shared memory holds (12256), in the
+# short (S <= 16) and long loops, and H*D = 96 x 128 = 12288, just past it:
+# shapes the reference's feasibility rule admits
+WIDE_SHAPES = [(2, 37, 4, 120), (2, 37, 4, 128), (1, 16, 98, 128), (1, 40, 98, 128),
+               (1, 16, 96, 128)]
 
 
 def _static_int8_qkv(qkv, b, s, h, d):
@@ -193,11 +211,14 @@ def test_packed_call_makes_the_launches_of_its_form(card, kernel, head_dim):
     assert moved == {f"{name}/{kernels.packed_form(head_dim)}": 1}
 
 
-@pytest.mark.parametrize("shape", [(4, 13), (3, 12545), (2, 1408), (5, 7)])
+@pytest.mark.parametrize("shape", [(4, 13), (3, 12545), (2, 1408), (5, 7), (3, 12255),
+                                   (3, 12256), (3, 12257), (3, 12287), (3, 12288)])
 def test_row_quant_pass_at_any_width(card, shape):
     """The row-quant pass of #2 and #3 alone at row widths that are no
     multiple of 8 (13: staged, element by element; 12545: read from device
-    memory twice)."""
+    memory twice) and either side of the widest staged row (12256: the fp32
+    row and the reduction's 128 bytes fill the 48 KB of shared memory a
+    block gets without an opt-in)."""
     gen = torch.Generator(device=card).manual_seed(4)
     y = torch.randn(shape, generator=gen, device=card) * 3
     y[0] = 0.0                                       # amax 0: scale 1, codes 0
@@ -281,18 +302,136 @@ def test_packed_int8_kernels_refuse_what_they_cannot_take(card, kernel):
 def test_row_quant_kernels_refuse_what_they_cannot_take(card, kernel):
     ones = torch.ones(64, device=card, dtype=torch.bfloat16)
 
-    def call(x):
+    def call(x, params=ones):
         if kernel == "gelu":
             return kernels.gelu_quant(x)
         k = x.shape[-1]
-        return kernels.layer_norm_quant(x, ones[:k].contiguous(), ones[:k].contiguous())
+        return kernels.layer_norm_quant(x, params[:k].contiguous(), params[:k].contiguous())
 
     with pytest.raises(TypeError):
-        call(torch.zeros((2, 64), device=card))                          # fp32
+        call(torch.zeros((2, 64), device=card, dtype=torch.float16))    # fp16
     with pytest.raises(ValueError):
         call(torch.zeros((2, 128), device=card, dtype=torch.bfloat16)[:, ::2])
-    with pytest.raises(ValueError):
-        call(torch.zeros((2, 60), device=card, dtype=torch.bfloat16))    # K % 8
+    if kernel == "layer_norm":
+        with pytest.raises(TypeError):                                   # fp16 params
+            call(torch.zeros((2, 64), device=card, dtype=torch.bfloat16), ones.half())
+
+
+def _row_inputs(card, shape, dtype, seed, params_dtype=None):
+    """x ~ N(0.5, 2) and (for #9) gamma around 1, beta around 0."""
+    gen = torch.Generator(device=card).manual_seed(seed)
+    x = (torch.randn(shape, generator=gen, device=card) * 2 + 0.5).to(dtype)
+    k = shape[-1]
+    gamma = (1 + 0.1 * torch.randn(k, generator=gen, device=card)).to(params_dtype or dtype)
+    beta = (0.1 * torch.randn(k, generator=gen, device=card)).to(params_dtype or dtype)
+    return x, gamma, beta
+
+
+def _row_call(kernel, x, gamma, beta, form=None):
+    """The kernel (in ``form``, else the rule's) and its plain version."""
+    if kernel == "layer_norm":
+        return (kernels._layer_norm_quant(x, gamma, beta, 1e-6, form),
+                kernels.layer_norm_quant_plain(x, gamma, beta, 1e-6))
+    approx = kernel == "gelu-tanh"
+    return kernels._gelu_quant(x, approx, form), kernels.gelu_quant_plain(x, approx)
+
+
+@pytest.mark.parametrize("params_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kernel", ["layer_norm", "gelu-erf", "gelu-tanh"])
+@pytest.mark.parametrize("shape", [(16, 257, 1408), (16, 257, 6144)])
+def test_row_quant_kernels_take_fp32(card, shape, kernel, params_dtype):
+    """fp32 rows (an fp32 model's LayerNorm and GELU) in the register form,
+    #9 with fp32 and with bf16 gamma and beta; the params are read as they
+    are, never cast."""
+    if kernel != "layer_norm" and params_dtype == torch.bfloat16:
+        pytest.skip("GELU has no params")
+    x, gamma, beta = _row_inputs(card, shape, torch.float32, 5, params_dtype)
+    name = "layer_norm_quant" if kernel == "layer_norm" else "gelu_quant"
+    before = kernels.FORM_LAUNCHES[f"{name}/registers"]
+    got, want = _row_call(kernel, x, gamma, beta)
+    torch.cuda.synchronize()
+    assert kernels.FORM_LAUNCHES[f"{name}/registers"] == before + 1
+    _assert_row_codes_close(got, want)
+
+
+# row widths the register form does not take: bf16 K % 8 != 0 (13, 1412;
+# 12255, the widest row the "any" form stages in shared memory, and 12285,
+# 12287, just past it), rows wider than 12288 (12296, 16384); fp32 at the
+# same widths but 1412 (whole 16-byte chunks: the register form)
+ANY_ROWS = [(3, 5, 13), (2, 37, 1412), (2, 3, 12255), (2, 3, 12285), (2, 3, 12287),
+            (2, 3, 12296), (2, 3, 16384)]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("kernel", ["layer_norm", "gelu-erf", "gelu-tanh"])
+@pytest.mark.parametrize("shape", ANY_ROWS)
+def test_row_quant_kernels_any_form_match_plain(card, shape, kernel, dtype):
+    want_form = kernels.row_quant_form(shape[-1], dtype)
+    x, gamma, beta = _row_inputs(card, shape, dtype, 6)
+    name = "layer_norm_quant" if kernel == "layer_norm" else "gelu_quant"
+    before = kernels.FORM_LAUNCHES[f"{name}/{want_form}"]
+    got, want = _row_call(kernel, x, gamma, beta)
+    torch.cuda.synchronize()
+    assert kernels.FORM_LAUNCHES[f"{name}/{want_form}"] == before + 1
+    assert want_form == ("registers" if (dtype, shape[-1]) == (torch.float32, 1412) else "any")
+    _assert_row_codes_close(got, want)
+
+
+# one K for each register geometry (threads a row, groups of 8 a thread):
+# one warp at G = 1..6, then 2, 4 and 8 warps at G = 4, 5, 6
+GEOMETRY_K = [8, 264, 520, 1024, 1032, 1408, 1544, 2056, 3072, 3080, 4104, 6144, 6152,
+              8200, 12288]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("k", GEOMETRY_K)
+def test_row_quant_register_form_at_every_geometry(card, k, dtype):
+    """#9 and #10 (both GELU forms) at a K of each register geometry, with
+    ragged row counts (the last block part empty)."""
+    x, gamma, beta = _row_inputs(card, (3, 7, k), dtype, 7)
+    assert kernels.row_quant_form(k, dtype) == "registers"
+    for kernel in ("layer_norm", "gelu-erf", "gelu-tanh"):
+        got, want = _row_call(kernel, x, gamma, beta)
+        _assert_row_codes_close(got, want)
+
+
+@pytest.fixture(scope="module")
+def divide_check():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU or interpret mode")
+    import chip_smoke
+
+    return chip_smoke.build_divide_check(kernels)
+
+
+def test_row_divide_matches_fdiv_rn(card, divide_check):
+    """The register form divides a row's values by its scale through the
+    row's reciprocal with one fused correction (rowwise_quant.cuh:
+    div_rn_by). Exhaustive where a code can change: for every scale
+    mantissa, every code boundary (k + 1/2) s, k = 0..127, and the 16 fp32
+    values either side of it, both signs, the quotient and its code equal
+    __fdiv_rn's (script/row_divide_check.cu; rowwise_quant.cuh says why
+    that covers every row whose scale lies in [2^-64, 2^64])."""
+    assert divide_check(16) == (0, 0)
+
+
+@pytest.mark.parametrize("kernel", ["layer_norm", "gelu-erf"])
+@pytest.mark.parametrize("k", [1408, 6144])
+def test_row_quant_forms_agree(card, k, kernel):
+    """The "any" form forced at a width the register form takes gives the
+    same codes within one step (the same fp32 math summed in another order)."""
+    x, gamma, beta = _row_inputs(card, (4, 33, k), torch.bfloat16, 8)
+    name = "layer_norm_quant" if kernel == "layer_norm" else "gelu_quant"
+    before = {f: kernels.FORM_LAUNCHES[f"{name}/{f}"] for f in ("registers", "any")}
+    regs, _ = _row_call(kernel, x, gamma, beta)
+    anyf, _ = _row_call(kernel, x, gamma, beta, form="any")
+    torch.cuda.synchronize()
+    assert {f: kernels.FORM_LAUNCHES[f"{name}/{f}"] - before[f] for f in before} == \
+        {"registers": 1, "any": 1}
+    _assert_row_codes_close(regs, anyf)
+    with pytest.raises(ValueError):       # no register form for K % 8 != 0 in bf16
+        _row_call(kernel, x[..., :k - 4].contiguous(), gamma[:k - 4].contiguous(),
+                  beta[:k - 4].contiguous(), form="registers")
 
 
 @pytest.mark.parametrize("layout", ["column", "row"])

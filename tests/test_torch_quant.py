@@ -11,11 +11,15 @@ then moves by one step. Float outputs within 1e-5 relative, a few fp32 ulps.
 The JAX side of each int8 kernel runs its Pallas kernel in interpret mode,
 as the JAX package's own tests run it on the CPU."""
 
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from hypothesis import example, given, settings
+from hypothesis import strategies as st
 
 from stllm_tpu.ops import attention as jattn
 from stllm_tpu.ops import layers as jlayers
@@ -221,6 +225,98 @@ def test_gelu_quant_plain_matches_jax_kernel(approx):
     _float_close(ts, js)
     want = jquant.quantize_activations(jax.nn.gelu(jnp.asarray(x), approximate=approx))
     _codes_close(tq, want[0])
+
+
+def _bf16(x):
+    """x rounded to bf16 once, as numpy fp32 (exact in both packages)."""
+    return np.asarray(jnp.asarray(x).astype(jnp.bfloat16).astype(jnp.float32))
+
+
+def _row_case(kernel, x, p, x_dtype, p_dtype):
+    """#9 or #10 (erf, tanh) on the same values in both packages: x (and
+    gamma, beta) cast to the named dtypes in each."""
+    jx = jnp.asarray(x).astype(x_dtype)
+    tx = _t(np.asarray(jx.astype(jnp.float32))).to(getattr(torch, jnp.dtype(x_dtype).name))
+    if kernel == "layer_norm":
+        jp = {k: jnp.asarray(v).astype(p_dtype) for k, v in p.items()}
+        tp = {k: _t(np.asarray(v.astype(jnp.float32))).to(getattr(torch, jnp.dtype(p_dtype).name))
+              for k, v in jp.items()}
+        return jquant.layer_norm_quant(jp, jx, 1e-6), tquant.layer_norm_quant(tp, tx, 1e-6)
+    approx = kernel == "gelu-tanh"
+    return jquant.gelu_quant(jx, approx=approx), tquant.gelu_quant(tx, approx=approx)
+
+
+def _row_params(seed, k):
+    return {"scale": 1 + _rand(seed, k, scale=0.1), "bias": _rand(seed + 1, k, scale=0.1)}
+
+
+@pytest.mark.parametrize("kernel", ["layer_norm", "gelu-erf", "gelu-tanh"])
+def test_row_quant_past_the_reference_tile_budget_matches_jax(kernel):
+    """Past the reference's 8 MiB fp32 (S, K) tile (S * K * 4 > 8 MiB),
+    ``_rowwise_pallas`` declines and layer_norm_quant / gelu_quant run the
+    unfused composition, which rounds the LayerNorm or GELU output to
+    x.dtype before quantizing: at bf16 (1, 2049, 1024) the port follows it
+    (quantizing the fp32 output instead moves some 5% of #9's codes and 3%
+    of #10's by one step)."""
+    x = _rand(30, 1, 2049, 1024, scale=2.0) + 0.5
+    assert not tquant.row_quant_fused(x.shape)
+    (jq, js), (tq, ts) = _row_case(kernel, x, _row_params(31, 1024), jnp.bfloat16, jnp.float32)
+    _codes_close(tq, jq)
+    _float_close(ts, js)
+
+
+# (x dtype, gamma/beta dtype): fp32 throughout (an fp32 model), bf16 rows
+# with the fp32 params ln_vision keeps, fp32 rows with bf16 params
+ROW_DTYPES = [(jnp.float32, jnp.float32), (jnp.bfloat16, jnp.float32),
+              (jnp.float32, jnp.bfloat16)]
+
+
+@pytest.mark.parametrize("dtypes", ROW_DTYPES, ids=["fp32", "bf16-x", "bf16-params"])
+@pytest.mark.parametrize("k", [13, 1412, 12287, 12296, 16384])
+def test_layer_norm_quant_plain_matches_jax_kernel_at_any_width(k, dtypes):
+    """#9's plain version (what the wrapper runs on the CPU and what the
+    card's two forms are held to) against the Pallas kernel in interpret
+    mode at widths neither of 8 (13, 1412; 12287, past the widest row the
+    card's "any" form stages) nor under 12288 (12296, 16384), small S, each
+    input type the kernel takes."""
+    x = _rand(32, 2, 3, k, scale=2.0) + 0.5
+    assert tquant.row_quant_fused(x.shape)
+    (jq, js), (tq, ts) = _row_case("layer_norm", x, _row_params(33, k), *dtypes)
+    _codes_close(tq, jq)
+    _float_close(ts, js)
+
+
+@pytest.mark.parametrize("x_dtype", [jnp.float32, jnp.bfloat16], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("kernel", ["gelu-erf", "gelu-tanh"])
+@pytest.mark.parametrize("k", [13, 1412, 12287, 12296, 16384])
+def test_gelu_quant_plain_matches_jax_kernel_at_any_width(k, kernel, x_dtype):
+    """#10's plain version against the Pallas kernel in interpret mode, as
+    #9's above."""
+    x = _rand(34, 2, 3, k, scale=2.0)
+    assert tquant.row_quant_fused(x.shape)
+    (jq, js), (tq, ts) = _row_case(kernel, x, None, x_dtype, None)
+    _codes_close(tq, jq)
+    _float_close(ts, js)
+
+
+def _reference_fuses(s, k):
+    """Whether the reference's ``_rowwise_pallas`` runs its kernel on a
+    (1, S, K) fp32 x, read from its traced result (no kernel runs)."""
+    kernel = functools.partial(jquant._gelu_quant_kernel, approx=False)
+    out = jax.eval_shape(lambda a: jquant._rowwise_pallas(kernel, a, [], True),
+                         jax.ShapeDtypeStruct((1, s, k), jnp.float32))
+    return out is not None
+
+
+@settings(max_examples=60, deadline=None)
+@given(st.integers(1, 9000), st.integers(1, 20000))
+@example(2048, 1024)
+@example(2049, 1024)
+@example(257, 6144)
+@example(1, 2 * 1024 * 1024 + 1)
+def test_row_quant_route_rule_matches_reference(s, k):
+    """The port's tile rule and ``_rowwise_pallas``'s agree on (S, K)."""
+    assert tquant.row_quant_fused((1, s, k)) == _reference_fuses(s, k)
 
 
 # --------------------------------------------------------------------------
