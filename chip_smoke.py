@@ -15,7 +15,12 @@ toolkit. Phases, each fatal on failure:
    the port never calls) and the bound; for the two int8 GEMMs (#11 at the
    ViT-g proj and fc2 sites, #8 at its fc1 and fc2 shapes) the time of the
    port's own unfused chain that each replaces stands beside a null library
-   time; #12's decode form (M = 4, with the 32-layer totals) and wgmma
+   time; #8 is also timed beside the design its TMA-fed wgmma GEMM replaced
+   (script/replaced_kernels/, parent, new, new, parent), with its quant pass
+   alone, its route's own floor and torch._int_mm on the same codes beside
+   it, prints its registers and blocks per SM, and is held (not timed) at
+   widths that are no multiple of 16 (K) or 8 (N) in bf16 and fp32; #12's
+   decode form (M = 4, with the 32-layer totals) and wgmma
    prefill form (M = 576 and 640) and #11's cluster form are timed beside
    the design each replaced (the tile loop, the 16-row kernel; both kept in
    the same libraries), in the order parent, new, new, parent; the decode
@@ -208,7 +213,14 @@ ANY_PACKED = [(2, 37, 3, 13), (1, 40, 2, 20), (2, 19, 3, 36), (1, 33, 2, 136), (
 REPLACED = {name: ROOT / "script" / "replaced_kernels" / src for name, src in (
     ("packed_qkv_attention_s8", "packed_qkv_attention_s8_rows64.cu"),
     ("layer_norm_quant", "layer_norm_quant_row_block.cu"),
-    ("gelu_quant", "gelu_quant_row_block.cu"))}
+    ("gelu_quant", "gelu_quant_row_block.cu"),
+    ("quant_matmul_blockwise", "quant_matmul_rows64.cu"))}
+# #8 held (not timed) at widths the reference's tile rule takes whole that
+# are no multiple of 16 (K) or 8 (N), at seventeen k-blocks of 128 (K 2176)
+# and at row counts that are no multiple of a tile: (B, S, K, N), in bf16
+# and fp32
+ODD_BLOCKWISE = [(1, 5, 40, 20), (1, 5, 1000, 100), (1, 5, 13, 1536), (1, 5, 2048, 1500),
+                 (1, 7, 40, 1535), (3, 37, 2176, 384)]
 # #9 and #10 held (not timed) in their "any" form: (B, S, K) at bf16 widths
 # that are no multiple of 8 (13, 1412; 12255, the widest row the form stages
 # in shared memory, and 12285, 12287 just past it) and rows wider than 12288
@@ -397,7 +409,8 @@ def build_divide_check(kernels):
 # take bf16 only, without the type flags of today's entry points
 _REPLACED_SYMBOLS = {"packed_qkv_attention_s8": "stllm_packed_qkv_attention_s8",
                      "layer_norm_quant": "stllm_layer_norm_quant_bf16",
-                     "gelu_quant": "stllm_gelu_quant_bf16"}
+                     "gelu_quant": "stllm_gelu_quant_bf16",
+                     "quant_matmul_blockwise": "stllm_quant_matmul"}
 
 
 def finish_replaced_build(kernels, name: str, proc, log, lib):
@@ -414,7 +427,8 @@ def finish_replaced_build(kernels, name: str, proc, log, lib):
     P, I, LL, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
     fn.argtypes = {"packed_qkv_attention_s8": kernels._ENTRY["packed_qkv_attention_s8"][1],
                    "layer_norm_quant": [P, P, P, P, P, LL, I, F, P],
-                   "gelu_quant": [P, P, P, LL, I, I, P]}[name]
+                   "gelu_quant": [P, P, P, LL, I, I, P],
+                   "quant_matmul_blockwise": [P, I, P, P, P, P, I, I, I, I, P]}[name]
     fn.restype = ctypes.c_int
 
     def check(err):
@@ -449,8 +463,18 @@ def finish_replaced_build(kernels, name: str, proc, log, lib):
                  x.shape[-1], int(approx), stream()))
         return q, s
 
+    def blockwise(x, w_q, w_scale, bk):
+        k, n = x.shape[-1], w_q.shape[-1]
+        m = x.numel() // k
+        out = torch.empty(x.shape[:-1] + (n,), dtype=x.dtype, device=x.device)
+        scales = torch.empty((m, k // bk), dtype=torch.float32, device=x.device)
+        check(fn(x.data_ptr(), int(x.dtype == torch.float32), w_q.t().contiguous().data_ptr(),
+                 w_scale.float().contiguous().data_ptr(), scales.data_ptr(), out.data_ptr(),
+                 m, k, n, bk, stream()))
+        return out
+
     return {"packed_qkv_attention_s8": packed_s8, "layer_norm_quant": layer_norm,
-            "gelu_quant": gelu}[name]
+            "gelu_quant": gelu, "quant_matmul_blockwise": blockwise}[name]
 
 
 def phase_build(kernels):
@@ -752,7 +776,7 @@ def phase_kernels(kernels, replaced, divide_check) -> dict:
 
     out.update(_row_kernels(kernels, gen, replaced, divide_check))
     out.update(_weight_stream_kernels(kernels, gen))
-    out.update(_int8_gemm_kernels(kernels, gen))
+    out.update(_int8_gemm_kernels(kernels, gen, replaced["quant_matmul_blockwise"]))
     out.update(_train_attention_kernels(kernels, gen, out["packed_qkv_attention"]))
     return out
 
@@ -1092,14 +1116,17 @@ def _res_ln_err(got, want) -> float:
     return max(_bf16_err(gx, wx), steps * RES_LN_OUT_SCALE)
 
 
-def _int8_gemm_kernels(kernels, gen) -> dict:
+def _int8_gemm_kernels(kernels, gen, replaced_blockwise) -> dict:
     """#11 at the ViT-g's two fused sites (proj with the attention's per-row
     scales, fc2 with the calibrated scalar) and #8 at the fc1 shape (one
     k-block) and the fc2 shape (three). No single PyTorch call computes
     either function, so library_ms is null; beside it stands the time of the
     port's own unfused chain that the kernel replaces (#11: quant_matmul_pre,
     the residual add and layer_norm_quant_static; #8: the per-row dynamic
-    quant_matmul)."""
+    quant_matmul). #8 is also timed beside ``replaced_blockwise``, the
+    design its TMA-fed wgmma GEMM replaced (parent, new, new, parent), with
+    its quant pass alone and torch._int_mm on the same codes and weight as
+    diagnostics, and held (not timed) at ODD_BLOCKWISE in bf16 and fp32."""
     from stllm_tpu_torch.ops import quant
 
     out = {}
@@ -1171,16 +1198,80 @@ def _int8_gemm_kernels(kernels, gen) -> dict:
         chains[label] = graph_ms(lambda: quant.quant_matmul(*bufs[0][:3]), 20)
     rows = _check_kernel("quant_matmul_blockwise", cases, kernels.quant_matmul_blockwise,
                          kernels.quant_matmul_blockwise_plain, _ws_err)
-    for row in rows:
+    for row, (_, bufs, *_) in zip(rows, cases):
         row["unfused_chain_ms"] = chains[row["shape"][0]]
+        _vs_parent(row, kernels.quant_matmul_blockwise, replaced_blockwise, bufs, _ws_err,
+                   kernels.quant_matmul_blockwise_plain, iters=20)
+        row.update(_blockwise_split(kernels, row["shape"][0], bufs))
     out["quant_matmul_blockwise"] = _entry(
         "quant_matmul_blockwise", "quant_matmul.cu", "stllm_tpu/ops/quant.py:145", rows,
         WS_ATOL, WS_RTOL)
-    out["quant_matmul_blockwise"]["unfused_chain_ms"] = rows[0]["unfused_chain_ms"]
+    entry = out["quant_matmul_blockwise"]
+    entry["unfused_chain_ms"] = rows[0]["unfused_chain_ms"]
+    entry["parent_ms"] = rows[0]["parent_ms"]
+    entry["parent_source"] = str(REPLACED["quant_matmul_blockwise"].relative_to(ROOT))
+    entry["odd_widths_max_abs_err"] = _held_blockwise(kernels, gen)
+    entry["occupancy"] = {
+        label: {part: {what: kernels.occupancy("quant_matmul_blockwise", m, k, n, bk, 0, code)
+                       for what, code in codes_}
+                for part, codes_ in (("gemm", (("blocks_per_sm", 0), ("registers", 1),
+                                               ("tile_columns", 2))),
+                                     ("quant_pass", (("blocks_per_sm", 3), ("registers", 4))))}
+        for label, k, n, bk in (("fc1", 1408, 6144, 1408), ("fc2", 6144, 1408, 2048))}
+    print(f"[kernels] quant_matmul_blockwise: {entry['occupancy']}")
     for name, chain in (("qmm_res_ln", "quant_matmul_pre + residual add + "
                                        "layer_norm_quant_static"),
                         ("quant_matmul_blockwise", "quant_matmul (per-row dynamic W8A8)")):
         out[name]["unfused_chain_is"] = chain
+    return out
+
+
+def _blockwise_split(kernels, label, bufs) -> dict:
+    """#8's diagnostics on the timed copies: its quant pass alone and
+    torch._int_mm on the quant pass's codes and the same weight (the s8
+    product alone, s32 out; a yardstick, not used by the port). Prints the
+    route's own floor, worked out from the byte and operation counts (the
+    quant pass's bytes, then the larger of the GEMM's operations and its
+    bytes: the codes read again, the weight, the output)."""
+    it = iter(range(1 << 30))
+
+    def nxt():
+        return bufs[next(it) % len(bufs)]
+
+    x, w, _, bk = bufs[0]
+    m, k, n = x.numel() // x.shape[-1], x.shape[-1], w.shape[-1]
+    kp = -(-k // 16) * 16
+    quant_bytes = m * k * x.element_size() + m * kp + m * (k // bk) * 4
+    gemm_bytes = m * kp + n * kp + n * 4 + m * n * x.element_size()
+    floor_ms = (quant_bytes / HBM_BYTES_PER_S
+                + max(2 * m * kp * n / INT8_OP_PER_S, gemm_bytes / HBM_BYTES_PER_S)) * 1e3
+    print(f"[kernels] quant_matmul_blockwise {label}: the two-launch route's floor "
+          f"{floor_ms} ms")
+    codes = [kernels._blockwise_quant_pass(b[0], b[3])[0] for b in bufs]
+    cit = iter(range(1 << 30))
+    return {"quant_pass_ms": graph_ms(lambda: kernels._blockwise_quant_pass(nxt()[0], bk), 20),
+            "int_mm_ms": graph_ms(lambda: torch._int_mm(codes[next(cit) % len(codes)],
+                                                        bufs[0][1]), 20)}
+
+
+def _held_blockwise(kernels, gen) -> dict:
+    """#8 against its plain version at ODD_BLOCKWISE, bf16 and fp32, the
+    weight column-major and (bf16) row-major: max abs error by shape."""
+    from stllm_tpu_torch.ops import quant
+
+    out = {}
+    for b, s, k, n in ODD_BLOCKWISE:
+        for dtype in (torch.bfloat16, torch.float32):
+            x = torch.randn(b, s, k, generator=gen, device="cuda").to(dtype)
+            w = torch.randint(-127, 128, (k, n), generator=gen, device="cuda", dtype=torch.int8)
+            if dtype == torch.float32:
+                w = w.t().contiguous().t()
+            ws = torch.rand(n, generator=gen, device="cuda") * 0.002
+            bk = quant._pick_tile(k, 2048)
+            got = kernels.quant_matmul_blockwise(x, w, ws, bk)
+            label = f"{b}x{s}-k{k}-n{n}-{str(dtype).split('.')[-1]}"
+            out[label] = _ws_err(got, kernels.quant_matmul_blockwise_plain(x, w, ws, bk))
+    print(f"[kernels] quant_matmul_blockwise held at odd widths: {out}")
     return out
 
 

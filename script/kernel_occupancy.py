@@ -8,7 +8,10 @@ both forms of the W4A16 matmul (#12: the wgmma prefill form, the tile loop
 at 64 and 16 rows) and both forms of the fused
 LayerNorm int8 GEMM (#11 at the ViT-g width N = 1408, M = 16 x 257: the
 cluster form's blocks per SM and the clusters of 8 the card holds at once,
-the 16-row kernel's blocks per SM) on the current CUDA card, by
+the 16-row kernel's blocks per SM) and the blockwise dynamic W8A8 matmul
+(#8 at its fc1 and fc2 shapes: the GEMM's blocks per SM, registers and
+tile width, the quant pass's blocks per SM and registers) on the current
+CUDA card, by
 cudaOccupancyMaxActiveBlocksPerMultiprocessor and
 cudaOccupancyMaxActiveClusters.
 
@@ -111,6 +114,16 @@ def this_design() -> dict:
                              "decode M<=16": kernels.occupancy("w4a16_matmul", 2, 16),
                              "tile loop BM=64": kernels.occupancy("w4a16_matmul", 0, 64),
                              "tile loop BM=16": kernels.occupancy("w4a16_matmul", 0, 16)},
+            "quant_matmul_blockwise": {
+                label: {"gemm": {what: kernels.occupancy("quant_matmul_blockwise", m, k, nn, bk, 0,
+                                                         code)
+                                 for what, code in (("blocks_per_sm", 0), ("registers", 1),
+                                                    ("tile_columns", 2))},
+                        "quant_pass": {what: kernels.occupancy("quant_matmul_blockwise", m, k, nn,
+                                                               bk, 0, code)
+                                       for what, code in (("blocks_per_sm", 3),
+                                                          ("registers", 4))}}
+                for label, k, nn, bk in (("fc1", 1408, 6144, 1408), ("fc2", 6144, 1408, 2048))},
             "qmm_res_ln": {"cluster, blocks per SM": kernels.occupancy("qmm_res_ln", 1, 0, m, n),
                            "cluster, clusters on the card":
                                kernels.occupancy("qmm_res_ln", 1, 1, m, n),

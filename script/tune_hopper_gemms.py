@@ -2,8 +2,9 @@
 """Time variants of the Hopper GEMM forms on one CUDA card: the cluster
 form of the fused-LayerNorm int8 GEMM (#11, csrc/qmm_res_ln.cu), the wgmma
 prefill form and the decode form of the W4A16 matmul (#12,
-csrc/w4a16_prefill.cuh, csrc/w4a16_decode.cuh), each held to its plain
-version first.
+csrc/w4a16_prefill.cuh, csrc/w4a16_decode.cuh) and the blockwise dynamic
+W8A8 matmul (#8, csrc/quant_matmul.cu), each held to its plain version
+first.
 
     python3 script/tune_hopper_gemms.py [--only KEY ...] [--baseline OTHER/stllm_tpu_torch/csrc]
                                         [--out FILE]
@@ -17,8 +18,11 @@ ViT-g proj and fc2 sites ((16 x 257) x 1408 . 1408 x 1408 with per-row hs,
 the four Vicuna-7B shapes at M = 576 and 640 (key w4a16_matmul) and, for the
 decode form, at M = 4 (key w4a16_matmul/decode) at the CTAs along K its
 rule gives (variants change the rule's kMaxCluster and kTargetCTAs) and the
-tile loop beside it (the same in every variant's library); the variants
-marked "diagnostic" drop work (the tensor-core products, or also the
+tile loop beside it (the same in every variant's library); #8 (key
+quant_matmul_blockwise) at its fc1 and fc2 shapes ((16 x 257) x 1408 ->
+6144, one k-block; 6144 -> 1408, three; 1408 -> 1408, one), bf16, the
+whole call (quant pass and GEMM), variants of the GEMM's tile widths, ring
+depth, overlap and persistence; the variants marked "diagnostic" drop work (the tensor-core products, or also the
 unpack) and are not held to the plain version. Times are CUDA-graph
 replays cycling input copies (chip_smoke.graph_ms; the decode form's
 copies more than the 50 MB L2 holds, chip_smoke.w4_copies). With
@@ -113,6 +117,45 @@ _DECODE_CONTIGUOUS = (
     "k / 16) * (16 * kBN) + (k % 16) * kBN + 16 * chunk) % (static_cast<long long>(kw) * N);")
 _LOADS_ONLY = [_DECODE_NO_MMA, _DECODE_NO_UNPACK]
 
+# #8: the GEMM's tile widths (one k-block; more than one), the ring's depth,
+# the wgmma wait, persistence, and a diagnostic without the products
+QM8 = "quant_matmul.cu"
+
+
+def _widths(one: str, more: str) -> list:
+    return [(QM8, r"constexpr int kWidths1\[\] = \{256, 128\};",
+             f"constexpr int kWidths1[] = {{{one}}};"),
+            (QM8, r"constexpr int kWidthsN\[\] = \{128\};",
+             f"constexpr int kWidthsN[] = {{{more}}};")]
+
+
+# #8: no setmaxnreg (one producer warp, every thread within the 168
+# registers of a 384-thread CTA)
+_QM8_NO_SETMAXNREG = [(QM8, r"constexpr int kThreads = \(kConsumers \+ 1\) \* 128;",
+                       "constexpr int kThreads = kConsumers * 128 + 32;"),
+                      (QM8, r"    setmaxnreg_dec<kProducerRegs>\(\);\n", ""),
+                      (QM8, r"    setmaxnreg_inc<kConsumerRegs>\(\);\n", "")]
+_QM8_STAGES = lambda n: (QM8, r"constexpr int kMaxStages = 8;",  # noqa: E731
+                         f"constexpr int kMaxStages = {n};")
+_QM8_WAIT0 = (QM8, r"wgmma_wait<1>\(\);( +// the previous stage)", r"wgmma_wait<0>();\1")
+_QM8_ONE_TILE = (QM8, r"const int ctas = tiles < sms \? static_cast<int>\(tiles\) : sms;",
+                 "const int ctas = static_cast<int>(tiles);")
+# #8: tiles walked column tile fastest (the CTAs at work share codes tiles
+# rather than weight tiles)
+_QM8_N_FASTEST = [
+    (QM8, rf"(?m)^      const int m0 = tile % m_tiles \* kBM;\n      const int n0 = "
+          rf"tile / m_tiles \* BN;\n{follow}",
+     f"      const int m0 = tile / (tiles / m_tiles) * kBM;\n"
+     f"      const int n0 = tile % (tiles / m_tiles) * BN;\n{follow}")
+    for follow in ("      for", "      const int ra")]
+_QM8_NO_EPILOGUE = (QM8, r"(      // epilogue: the last k-block's fold, times w_scale, cast; staged and\n)",
+                    r"      if (tiles > 0) continue;   // no epilogue\n\1")
+_QM8_DIRECT = (QM8, r"const int tma_out = Layout<BN>::kStaged && !out_f32 && N % 8 == 0;",
+               "const int tma_out = 0;")
+_QM8_NO_MMA = (QM8, r"for \(int j = 0; j < kBK / 32; \+\+j\) wgmma_s8<BN>\(acc, da \+ 2 \* j, "
+                    r"db \+ 2 \* j, s % spb \| j\);",
+               "acc[0] += static_cast<int>(da ^ db);")
+
 VARIANTS = {
     "qmm_res_ln": [
         ("shipped", []),
@@ -124,6 +167,21 @@ VARIANTS = {
     "w4a16_matmul": [
         ("shipped", []),
         ("clusters of 1", [_CLUSTER1]),
+    ],
+    "quant_matmul_blockwise": [
+        ("shipped", []),
+        ("tiles 128 wide", _widths("128", "128")),
+        ("tiles 256 wide at one k-block", _widths("256", "128")),
+        ("no setmaxnreg", _QM8_NO_SETMAXNREG),
+        ("3 stages", [_QM8_STAGES(3)]),
+        ("2 stages", [_QM8_STAGES(2)]),
+        ("no wgmma in flight across stages", [_QM8_WAIT0]),
+        ("one tile a CTA (not persistent)", [_QM8_ONE_TILE]),
+        ("column tile fastest", _QM8_N_FASTEST),
+        ("stores from registers (no staging, no TMA stores)", [_QM8_DIRECT]),
+        ("diagnostic: no products", [_QM8_NO_MMA]),
+        ("diagnostic: no epilogue", [_QM8_NO_EPILOGUE]),
+        ("diagnostic: loads only (no products, no epilogue)", [_QM8_NO_MMA, _QM8_NO_EPILOGUE]),
     ],
     "w4a16_matmul/decode": [
         ("shipped", _decode()),
@@ -247,6 +305,37 @@ def time_w4_decode(gen, checked: bool) -> dict:
     return out
 
 
+def time_blockwise(gen, checked: bool) -> dict:
+    """#8 at its fc1, fc2 and proj shapes, bf16, four input copies cycled
+    (the width rule picks 256 columns at fc1, 128 at proj and fc2)."""
+    import torch
+
+    import chip_smoke as cs
+    from stllm_tpu_torch.ops import kernels, quant
+
+    out = {}
+    for label, k, n in (("fc1", 1408, 6144), ("fc2", 6144, 1408), ("proj", 1408, 1408)):
+        bk = quant._pick_tile(k, 2048)
+        bufs = [(torch.randn(16, 257, k, generator=gen, device="cuda").bfloat16(),
+                 torch.randint(-127, 128, (n, k), generator=gen, device="cuda",
+                               dtype=torch.int8).t(),
+                 torch.rand(n, generator=gen, device="cuda") * 0.002, bk) for _ in range(4)]
+        if checked:
+            cs._ws_err(kernels.quant_matmul_blockwise(*bufs[0]),
+                       kernels.quant_matmul_blockwise_plain(*bufs[0]))
+        it = iter(range(1 << 30))
+        out[label] = cs.graph_ms(lambda: kernels.quant_matmul_blockwise(*bufs[next(it) % 4]), 20)
+        out[f"{label} tile columns"] = kernels.occupancy("quant_matmul_blockwise", 16 * 257, k,
+                                                         n, bk, 0, 2)
+        out[f"{label} quant pass"] = cs.graph_ms(
+            lambda: kernels._blockwise_quant_pass(bufs[next(it) % 4][0], bk), 20)
+        codes = [kernels._blockwise_quant_pass(b[0], bk)[0] for b in bufs]
+        out[f"{label} torch._int_mm"] = cs.graph_ms(
+            lambda: torch._int_mm(codes[next(it) % 4], bufs[0][1]), 20)
+        del bufs
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--baseline", type=Path, help="another tree's csrc (an earlier design)")
@@ -295,6 +384,8 @@ def main() -> int:
                 res = time_qmm(gen)
             elif name == "w4a16_matmul":
                 res = time_w4(gen)
+            elif name == "quant_matmul_blockwise":
+                res = time_blockwise(gen, not label.startswith("diagnostic"))
             else:
                 res = time_w4_decode(gen, not label.startswith("diagnostic"))
             lines.append(json.dumps({"kernel": name, "variant": label, "registers": regs, **res}))

@@ -52,10 +52,12 @@ into autograd by ``ops/attention.py``. The packed-qkv loop and the flash
 loops share the copy and fragment helpers of ``csrc/mma_tiles.cuh``. #1, #2
 and #4-#7 take bf16 or fp32: an fp32 tensor launches the fp32 entry point of
 the same library (``csrc/attention_f32.cuh``, CUDA-core fp32 products) and
-counts as a launch of that kernel. The two int8 GEMMs share the s8
-tensor-core step of ``csrc/s8_matmul.cuh``: ``qmm_res_ln`` runs in the
-static-int8 ViT under ``STLLM_FUSED_LN``; ``quant_matmul_blockwise`` is an
-op of the surface that no model calls, as in the reference.
+counts as a launch of that kernel. ``qmm_res_ln`` runs in the static-int8
+ViT under ``STLLM_FUSED_LN``; ``quant_matmul_blockwise`` (#8) is an op of
+the surface that no model calls, as in the reference: two launches, a quant
+pass that writes each (row, k-block)'s codes and scale once (on the register
+form of ``csrc/rowwise_quant.cuh``), then a persistent TMA-fed ``wgmma`` s8
+GEMM that folds each k-block's sums with its scales, at any K, N and M.
 """
 
 from __future__ import annotations
@@ -130,9 +132,9 @@ _ENTRY = {
     "qmm_res_ln": (
         "stllm_qmm_res_ln",
         [_P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _P]),
-    # x, x_f32, w, ws, scales scratch, out, M, K, N, bk
+    # x, x_f32, w, ws, codes scratch, scales scratch, out, M, K, N, bk
     "quant_matmul_blockwise": (
-        "stllm_quant_matmul", [_P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _P]),
+        "stllm_quant_matmul", [_P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P]),
 }
 
 # the second forms' entry points, in the same libraries: (kernel, form) ->
@@ -182,6 +184,7 @@ _OCCUPANCY = {
     "qmm_res_ln": ("stllm_qmm_res_ln_occupancy", [_I, _I, _I, _I]),
     "layer_norm_quant": ("stllm_layer_norm_quant_occupancy", [_I, _I, _I]),
     "gelu_quant": ("stllm_gelu_quant_occupancy", [_I, _I, _I]),
+    "quant_matmul_blockwise": ("stllm_quant_matmul_occupancy", [_I, _I, _I, _I, _I, _I]),
 }
 
 LAUNCHES: Dict[str, int] = {name: 0 for name in SOURCES}
@@ -326,7 +329,9 @@ def occupancy(name: str, *shape: int) -> int:
     qmm_res_ln: cluster form or not, blocks an SM (0)
     or clusters the card holds (1), M, N; layer_norm_quant, gelu_quant: K,
     fp32 rows or not, and 1 for the register form's registers a thread
-    instead of its blocks an SM), by
+    instead of its blocks an SM; quant_matmul_blockwise: M, K, N, bk, fp32
+    x or not, and what: 0 the GEMM's blocks an SM, 1 its registers, 2 its
+    tile width, 3 the quant pass's blocks an SM, 4 its registers), by
     cudaOccupancyMaxActiveBlocksPerMultiprocessor (or MaxActiveClusters)
     on the current device."""
     fn = _symbol(name, *_OCCUPANCY[name])
@@ -347,9 +352,13 @@ def _check_cuda(name: str, t: torch.Tensor, *dtypes: torch.dtype) -> None:
 def rowwise_quant_plain(y: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """Per-row symmetric int8 of fp32 rows (csrc/rowwise_quant.cuh):
     s = amax|y| / 127 (1 where amax == 0), q = round-half-even(y / s).
-    Returns (int8 (..., K), fp32 (..., 1))."""
+    Returns (int8 (..., K), fp32 (..., 1)). The divisor 127 is a tensor
+    filled on y's device: torch divides a CUDA tensor by a Python number
+    through its reciprocal, at times a scale one ulp from the IEEE quotient
+    the kernels and the reference take (the fill replaces the ones the
+    where took, so no launch is added)."""
     amax = y.abs().amax(dim=-1, keepdim=True)
-    s = torch.where(amax == 0.0, torch.ones_like(amax), amax / 127.0)
+    s = torch.where(amax == 0.0, 1.0, amax / torch.full_like(amax, 127.0))
     return torch.round(y / s).to(torch.int8), s
 
 
@@ -1238,28 +1247,63 @@ def quant_matmul_blockwise_plain(x: torch.Tensor, w_q: torch.Tensor, w_scale: to
     return (acc * w_scale.float()).to(x.dtype)
 
 
+QMM_BLOCK_STEP = 128   # #8's K bytes a stage: a k-block below K is whole stages
+
+
+def _blockwise_args(name: str, x: torch.Tensor, bk: int) -> Tuple[int, int, int]:
+    """#8's checks on the card: x bf16 or fp32, bk dividing K and, below K,
+    a multiple of QMM_BLOCK_STEP (the reference picks K or a multiple of
+    128). Returns (M, K, Kp), Kp = K rounded up to 16."""
+    if x.dtype not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"{name} kernel takes a bf16 or fp32 x, got {x.dtype}")
+    _check_cuda(name, x, x.dtype)
+    k = x.shape[-1] if x.dim() else 0
+    if k <= 0 or bk <= 0 or k % bk or (bk != k and bk % QMM_BLOCK_STEP):
+        raise ValueError(f"{name} kernel: the k-block ({bk}) must divide K ({k}) and, below K, "
+                         f"be a multiple of {QMM_BLOCK_STEP}")
+    return x.numel() // k, k, -(-k // 16) * 16
+
+
 def quant_matmul_blockwise(x: torch.Tensor, w_q: torch.Tensor, w_scale: torch.Tensor,
                            bk: int) -> torch.Tensor:
     """Dynamic W8A8 with the activations quantized per (row, k-block of bk):
     x (..., K) @ w_q (K, N) int8 with w_scale (N,) -> (..., N) in x's dtype.
-    CUDA: x bf16 or fp32, K a multiple of 16, N of 8; bk divides K and,
-    below K, is a multiple of 64."""
+    CUDA: x bf16 or fp32, any K and N; bk divides K and, below K, is a
+    multiple of 128. Two launches: the quant pass writes the codes into an
+    (M, Kp) scratch this allocates (Kp = K rounded up to 16), then the GEMM.
+    A K that is no multiple of 16 takes a copy of the weight padded with
+    zero codes."""
     if x.device.type == "cpu":
         return quant_matmul_blockwise_plain(x, w_q, w_scale, bk)
     name = "quant_matmul_blockwise"
-    if x.dtype not in (torch.bfloat16, torch.float32):
-        raise TypeError(f"{name} kernel takes a bf16 or fp32 x, got {x.dtype}")
-    _check_cuda(name, x, x.dtype)
-    k, n = x.shape[-1], w_q.shape[-1]
-    if k % 16 or n % 8 or bk <= 0 or k % bk or (bk != k and bk % 64):
-        raise ValueError(f"{name} kernel: K ({k}) must be a multiple of 16 and N ({n}) of 8; "
-                         f"the k-block ({bk}) must divide K and, below K, be a multiple of 64")
+    m, k, kp = _blockwise_args(name, x, bk)
+    n = w_q.shape[-1]
     wt = _column_major(name, w_q, k, x.device)
+    if kp != k:
+        wt = F.pad(wt, (0, kp - k))
     ws = _f32_vector(name, w_scale, n, x.device)
-    m = x.numel() // k
     out = torch.empty(x.shape[:-1] + (n,), dtype=x.dtype, device=x.device)
-    if m:
+    if m and n:
+        codes = torch.empty((m, kp), dtype=torch.int8, device=x.device)
         scales = torch.empty((m, k // bk), dtype=torch.float32, device=x.device)
         _launch(name, x.device, x.data_ptr(), int(x.dtype == torch.float32), wt.data_ptr(),
-                ws.data_ptr(), scales.data_ptr(), out.data_ptr(), m, k, n, bk)
+                ws.data_ptr(), codes.data_ptr(), scales.data_ptr(), out.data_ptr(), m, k, n, bk)
     return out
+
+
+def _blockwise_quant_pass(x: torch.Tensor, bk: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """#8's first launch alone (uncounted: for its checks and its share of
+    the time): x (..., K) on the card -> codes int8 (M, Kp) with a zero
+    tail past K, scales fp32 (M, K / bk)."""
+    name = "quant_matmul_blockwise"
+    m, k, kp = _blockwise_args(name, x, bk)
+    codes = torch.empty((m, kp), dtype=torch.int8, device=x.device)
+    scales = torch.empty((m, k // bk), dtype=torch.float32, device=x.device)
+    if m:
+        fn = _symbol(name, "stllm_blockwise_quant", [_P, _I, _P, _P, _I, _I, _I, _P])
+        with torch.cuda.device(x.device):
+            err = fn(x.data_ptr(), int(x.dtype == torch.float32), codes.data_ptr(),
+                     scales.data_ptr(), m, k, bk, torch.cuda.current_stream().cuda_stream)
+        if err:
+            raise RuntimeError(f"{name} quant pass launch failed: CUDA error {err}")
+    return codes, scales

@@ -63,21 +63,27 @@ def quantize_activations(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
 # of 8, and wants a column-major (K, N) operand: cuBLASLt refuses a row-major
 # one at some small shapes (CUBLAS_STATUS_NOT_SUPPORTED) and runs it slower
 _INT_MM_MIN_ROWS = 17
+_INT_MM_ALIGN = 8
 
 
 def _int8_dot(x_q: torch.Tensor, w_q: torch.Tensor) -> torch.Tensor:
     """s8 x s8 matmul over the last/first axes with int32 accumulation,
     returned in fp32. x_q: (..., K), w_q: (K, N). On the card a row-major
     w_q is copied to column-major per call; quantize_weights and
-    load_jax_params store it column-major, so no model weight is."""
+    load_jax_params store it column-major, so no model weight is. A K or N
+    that is no multiple of 8 is padded with zero codes (copies of both
+    operands), which leave the exact sums alone."""
     lead, k = x_q.shape[:-1], x_q.shape[-1]
     n = w_q.shape[1]
     a = x_q.reshape(-1, k)
     if a.is_cuda:
         m = a.shape[0]
-        if k % 8 or n % 8:
-            raise ValueError(f"int8 matmul on the card needs K ({k}) and N ({n}) "
-                             "to be multiples of 8")
+        if k % _INT_MM_ALIGN or n % _INT_MM_ALIGN:
+            kp, np_ = (-(-d // _INT_MM_ALIGN) * _INT_MM_ALIGN for d in (k, n))
+            a = F.pad(a, (0, kp - k))
+            wp = w_q.new_zeros((np_, kp))
+            wp[:n, :k] = w_q.t()
+            return _int8_dot(a, wp.t())[:, :n].reshape(*lead, n)
         if m < _INT_MM_MIN_ROWS:
             # decode runs 4 rows: pad with zero rows, which add nothing
             a = torch.cat([a, a.new_zeros((_INT_MM_MIN_ROWS - m, k))])

@@ -207,13 +207,16 @@ def _mm_inputs(b, s, k, n):
     return x, w_q, ws, torch.from_numpy(np.array(w_q)), torch.from_numpy(np.array(ws))
 
 
-@pytest.mark.parametrize("shape", [(2, 64, 256, 384), (1, 8, 4096, 256)],
+@pytest.mark.parametrize("shape", [(2, 64, 256, 384), (1, 8, 4096, 256),
+                                   (1, 5, 40, 20), (1, 5, 1000, 100), (1, 5, 13, 1536),
+                                   (1, 5, 2048, 1500)],
                          ids=lambda s: "x".join(map(str, s)))
 def test_blockwise_quant_matmul_matches_pallas_kernel(shape):
     """The port's #8 (its plain version on the CPU) against
-    quant_matmul_pallas(interpret=True) at tests/test_ops.py's shape and at
-    one with K > 2048 (two k-blocks of 2048), and the two packages'
-    references against each other."""
+    quant_matmul_pallas(interpret=True) at tests/test_ops.py's shape, at
+    one with K > 2048 (two k-blocks of 2048), and at widths the reference's
+    tile rule takes whole that are no multiple of 16 (K) or 8 (N), and the
+    two packages' references against each other."""
     x, w_q, ws, tw, tws = _mm_inputs(*shape)
     want = jquant.quant_matmul_pallas(jnp.asarray(x), w_q, ws, interpret=True)
     got = tquant.quant_matmul_pallas(torch.from_numpy(x), tw, tws)
@@ -227,12 +230,14 @@ def test_blockwise_quant_matmul_matches_pallas_kernel(shape):
 
 def test_blockwise_quant_matmul_bf16_is_its_fp32_product_rounded():
     """A bf16 x quantizes exactly as its fp32 upcast (the codes come from
-    the same fp32 values) and the product rounds once to bf16."""
-    x, _, _, tw, tws = _mm_inputs(2, 16, 4096, 256)
-    xb = torch.from_numpy(x).bfloat16()
-    got = tquant.quant_matmul_pallas(xb, tw, tws)
-    assert got.dtype == torch.bfloat16
-    assert torch.equal(got, tquant.quant_matmul_pallas(xb.float(), tw, tws).bfloat16())
+    the same fp32 values) and the product rounds once to bf16, at two
+    k-blocks and at an odd width (K 1000, N 100)."""
+    for shape in ((2, 16, 4096, 256), (1, 5, 1000, 100)):
+        x, _, _, tw, tws = _mm_inputs(*shape)
+        xb = torch.from_numpy(x).bfloat16()
+        got = tquant.quant_matmul_pallas(xb, tw, tws)
+        assert got.dtype == torch.bfloat16 and tuple(got.shape) == shape[:2] + shape[3:]
+        assert torch.equal(got, tquant.quant_matmul_pallas(xb.float(), tw, tws).bfloat16())
 
 
 @pytest.mark.parametrize("kn", [(2100, 128), (256, 1600)], ids=["k2100", "n1600"])

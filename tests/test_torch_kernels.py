@@ -931,11 +931,32 @@ def test_qmm_res_ln_forms_agree(card, shape):
     assert int((q_c.int() - q_r.int()).abs().max()) <= 1
 
 
+# the ViT-g fc1 and fc2 shapes, then widths the reference's tile rule takes
+# whole that are no multiple of 16 (K: 40, 13, 1000) or 8 (N: 20, 100, 1500,
+# and the odd 1535), seventeen k-blocks of 128 (K 2176), and row counts that
+# are no multiple of any tile (5, 7, 111, 666)
 WS_CASES_8 = [(16, 257, 1408, 6144, torch.bfloat16, "column"),
               (16, 257, 6144, 1408, torch.bfloat16, "column"),
               (2, 64, 256, 384, torch.float32, "column"),
               (1, 8, 4096, 256, torch.float32, "row"),
-              (3, 37, 80, 136, torch.bfloat16, "column")]
+              (3, 37, 80, 136, torch.bfloat16, "column"),
+              (1, 5, 40, 20, torch.bfloat16, "column"),
+              (1, 5, 40, 20, torch.float32, "row"),
+              (1, 5, 13, 1536, torch.bfloat16, "column"),
+              (1, 5, 13, 1536, torch.float32, "column"),
+              (1, 5, 1000, 100, torch.bfloat16, "row"),
+              (1, 5, 1000, 100, torch.float32, "column"),
+              (1, 5, 2048, 1500, torch.bfloat16, "column"),
+              (1, 7, 40, 1535, torch.bfloat16, "column"),
+              (3, 37, 2176, 384, torch.float32, "column"),
+              (2, 333, 2176, 1500, torch.bfloat16, "column")]
+
+
+def _blockwise_inputs(card, b, s, k, n, dtype, layout, seed=21):
+    gen = torch.Generator(device=card).manual_seed(seed)
+    x = torch.randn(b, s, k, generator=gen, device=card).to(dtype)
+    w = _weight(card, gen, k, n, layout)
+    return x, w, torch.rand(n, generator=gen, device=card) * 0.002
 
 
 @pytest.mark.parametrize("case", WS_CASES_8, ids=lambda c: f"{c[0]}x{c[1]}-k{c[2]}-n{c[3]}-{c[4]}")
@@ -943,13 +964,60 @@ def test_quant_matmul_blockwise_kernel_matches_plain(card, case):
     from stllm_tpu_torch.ops.quant import _pick_tile
 
     b, s, k, n, dtype, layout = case
-    gen = torch.Generator(device=card).manual_seed(21)
-    x = torch.randn(b, s, k, generator=gen, device=card).to(dtype)
-    w = _weight(card, gen, k, n, layout)
-    ws = torch.rand(n, generator=gen, device=card) * 0.002
+    x, w, ws = _blockwise_inputs(card, b, s, k, n, dtype, layout)
     bk = _pick_tile(k, 2048)
     got = _counted("quant_matmul_blockwise", lambda: kernels.quant_matmul_blockwise(x, w, ws, bk))
     _assert_ws_close(got, kernels.quant_matmul_blockwise_plain(x, w, ws, bk))
+
+
+@pytest.mark.parametrize("case", [(16, 257, 1408, torch.bfloat16), (16, 257, 6144, torch.bfloat16),
+                                  (3, 37, 2176, torch.float32), (1, 5, 40, torch.bfloat16),
+                                  (1, 5, 13, torch.float32), (1, 5, 20, torch.bfloat16),
+                                  (2, 9, 1000, torch.float32)],
+                         ids=lambda c: f"{c[0]}x{c[1]}-k{c[2]}-{c[3]}")
+def test_blockwise_quant_pass_equals_plain(card, case):
+    """#8's first launch: every k-block's codes and scale are the plain
+    per-row quantization's exactly (register form, the divide through the
+    row's reciprocal, at 1408, 2048, 128, 40 and 1000 wide; the element form
+    at 13 and 20), and the codes' tail up to Kp is zero."""
+    from stllm_tpu_torch.ops.quant import _pick_tile
+
+    b, s, k, dtype = case
+    x = torch.randn(b, s, k, generator=torch.Generator(device=card).manual_seed(22),
+                    device=card).to(dtype)
+    x[0, 0] = 0.0                                   # an all-zero row: scale 1
+    bk = _pick_tile(k, 2048)
+    codes, scales = kernels._blockwise_quant_pass(x, bk)
+    torch.cuda.synchronize()
+    kp = -(-k // 16) * 16
+    assert codes.shape == (b * s, kp) and scales.shape == (b * s, k // bk)
+    assert not bool(codes[:, k:].any())
+    xf = x.float().reshape(b * s, k)
+    for j in range(k // bk):
+        want_q, want_s = kernels.rowwise_quant_plain(xf[:, j * bk:(j + 1) * bk])
+        assert torch.equal(codes[:, j * bk:(j + 1) * bk], want_q)
+        assert torch.equal(scales[:, j:j + 1], want_s)
+
+
+def test_quant_matmul_blockwise_makes_two_launches(card):
+    """One call at the fc1 and fc2 shapes runs two kernels on the card (the
+    quant pass, then the GEMM) and nothing else."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from stllm_tpu_torch.ops.quant import _pick_tile
+
+    for k, n in ((1408, 6144), (6144, 1408)):
+        x, w, ws = _blockwise_inputs(card, 16, 257, k, n, torch.bfloat16, "column")
+        kernels.quant_matmul_blockwise(x, w, ws, _pick_tile(k, 2048))   # built and loaded
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            kernels.quant_matmul_blockwise(x, w, ws, _pick_tile(k, 2048))
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA]
+        assert len(names) == 2, names
+        assert sum("block_quant_regs" in e for e in names) == 1, names
+        assert sum("gemm_kernel" in e for e in names) == 1, names
 
 
 def test_int8_gemm_kernels_refuse_what_they_cannot_take(card):
@@ -963,8 +1031,6 @@ def test_int8_gemm_kernels_refuse_what_they_cannot_take(card):
     ws = torch.ones(16, device=card)
     with pytest.raises(TypeError):
         kernels.quant_matmul_blockwise(x.half(), w, ws, 64)                # fp16 x
-    with pytest.raises(ValueError):
-        kernels.quant_matmul_blockwise(x[..., :40].contiguous(), w[:40], ws, 40)   # K % 16
     with pytest.raises(ValueError):
         kernels.quant_matmul_blockwise(x, w, ws, 48)                       # bk does not divide K
 
