@@ -240,6 +240,12 @@ W4_SHAPES = {"qkv": (4096, 12288, 0), "o": (4096, 4096, 0), "gateup": (4096, 220
 PROBE_SHAPES = [("q", 4096, 4096), ("k", 4096, 4096), ("v", 4096, 4096), ("o", 4096, 4096),
                 ("gate", 4096, 11008), ("up", 4096, 11008), ("down", 11264, 4096)]
 UNPACK_SHAPE = (16, 4096, 11008)      # script/probe_w4_unpack.py
+# (K, N) no multiple of 8 (or of 128) that the reference's kernels take: the
+# probes #13, #14 held there on the decode form; #12 also at K/2 = 100 (with
+# the 412 stored padding rows the reference's storage rule gives) and 4, on
+# each of its forms
+ODD_WS = [(512, 20), (512, 100), (512, 500), (1024, 12)]
+ODD_W4 = [(200, 20, 412), (8, 12, 0), (512, 100, 0), (512, 500, 0), (1024, 12, 0)]
 # the pipeline-serving stack (script/bench_pipeline_serving.py): prefix,
 # suffix and question ids per request, answer tokens
 PIPE_PROMPT, PIPE_ANSWER = (64, 32, 16), 16
@@ -981,15 +987,177 @@ def w4_copies(w_bytes: int) -> int:
     return max(4, -(-2 * L2_BYTES // w_bytes))
 
 
+def _ws_form_ran(kernels, name: str, form: str, fn):
+    """fn(), which must make one launch of kernel ``name`` in ``form`` and
+    none of any other form."""
+    before = dict(kernels.FORM_LAUNCHES)
+    got = fn()
+    torch.cuda.synchronize()
+    moved = {f: kernels.FORM_LAUNCHES[f] - before[f] for f in before
+             if kernels.FORM_LAUNCHES[f] != before[f]}
+    if moved != {f"{name}/{form}": 1}:
+        raise AssertionError(f"[kernels] {name}: launches by form {moved}, want one {form}")
+    return got
+
+
+def _probe_kernels(kernels, gen, codes, scale) -> dict:
+    """#13 and #14 at the decode-budget probe's seven shapes at M = 1, on
+    the decode form (asserted from FORM_LAUNCHES), cycling w4_copies input
+    copies, with the tile loop they ran before beside each (parent_ms, by
+    _vs_parent), #12's decode form on the same codes in the nibble layout
+    beside #13 (#12, #13, #13, #12: w4a16_same_codes_ms and ms_beside_w4a16),
+    and torch.matmul on a dense bf16 weight of the same shape, also on
+    w4_copies copies (context; library_ms stays null). Then the seven shapes
+    x 32 layers: the probe's question on this card (does int4 beat int8
+    streaming by the bytes, and what does the arithmetic unpack cost). Then
+    both held at W4_DECODE_HELD rows at the probe's and ODD_WS's widths, in
+    fp32, on every byte value, and on the tile loop at 17 rows."""
+    forced = {"w4v3_matmul": kernels._w4v3_matmul, "w8p_matmul": kernels._w8p_matmul}
+    plain = {"w4v3_matmul": kernels.w4v3_matmul_plain, "w8p_matmul": kernels.w8p_matmul_plain}
+    public = {"w4v3_matmul": kernels.w4v3_matmul, "w8p_matmul": kernels.w8p_matmul}
+    rows = {name: [] for name in forced}
+    it = iter(range(1 << 30))
+
+    def timed(fn, bufs):
+        return graph_ms(lambda: fn(*bufs[next(it) % len(bufs)]), 40)
+
+    def form(name, f):
+        return lambda *a: forced[name](*a, f)
+
+    def x_rows(m, k, dtype=torch.bfloat16):
+        return torch.randn(m, k, generator=gen, device="cuda").to(dtype)
+
+    def any_bytes(*shape):
+        return torch.randint(-128, 128, shape, generator=gen, device="cuda", dtype=torch.int8)
+
+    w4 = lambda *a: kernels._w4a16_matmul(*a, "decode")  # noqa: E731
+    for label, k, n in PROBE_SHAPES:
+        b12, b13 = [], []
+        for _ in range(w4_copies(k // 2 * n)):
+            x, top, bot, sc = x_rows(1, k), codes((k // 2, n)), codes((k // 2, n)), scale(n)
+            b13.append((x, kernels.pack_int4_arith(top, bot), sc))
+            b12.append((x, kernels.pack_int4_nibbles(top, bot), sc))
+        b14 = [(x_rows(1, k), any_bytes(k, n), scale(n) * 7 / 127)
+               for _ in range(w4_copies(k * n))]
+        dense = [(x_rows(1, k), (torch.randn(k, n, generator=gen, device="cuda") * 0.02
+                                 ).bfloat16()) for _ in range(w4_copies(2 * k * n))]
+        dense_ms = timed(torch.matmul, dense)
+        del dense
+        for name, bufs, w_bytes in (("w4v3_matmul", b13, k // 2 * n), ("w8p_matmul", b14, k * n)):
+            _ws_form_ran(kernels, name, "decode", lambda: public[name](*bufs[0]))
+            row = _check_kernel(name, [([label, 1, k, n], bufs, *_ws_bound(1, k, n, w_bytes, 2))],
+                                form(name, "decode"), plain[name], _ws_err)[0]
+            row.update(form=kernels.probe_form(1), copies=len(bufs), dense_bf16_matmul_ms=dense_ms)
+            _vs_parent(row, form(name, "decode"), form(name, "stream"), bufs, _ws_err, plain[name])
+            rows[name].append(row)
+        # #12's decode form on the same codes in the nibble layout, #13 beside it
+        _ws_err(w4(*b12[0]), kernels.w4v3_matmul(*b13[0]))
+        a1, n1, n2, a2 = (timed(w4, b12), timed(form("w4v3_matmul", "decode"), b13),
+                          timed(form("w4v3_matmul", "decode"), b13), timed(w4, b12))
+        rows["w4v3_matmul"][-1].update(w4a16_same_codes_ms=(a1 + a2) / 2,
+                                       ms_beside_w4a16=(n1 + n2) / 2)
+        print(f"[kernels]   {label}: #12 decode form on the same codes {(a1 + a2) / 2:.4f} ms, "
+              f"#13 {(n1 + n2) / 2:.4f} ms (#12, #13, #13, #12)")
+        del b12, b13, b14
+
+    def total(name, key):
+        return 32 * sum(r[key] for r in rows[name])
+
+    totals = {"w4a16_matmul decode, same codes": total("w4v3_matmul", "w4a16_same_codes_ms"),
+              "w4v3_matmul decode, beside it": total("w4v3_matmul", "ms_beside_w4a16"),
+              "w4v3_matmul decode": total("w4v3_matmul", "ms"),
+              "w4v3_matmul tile loop": total("w4v3_matmul", "parent_ms"),
+              "w8p_matmul decode": total("w8p_matmul", "ms"),
+              "w8p_matmul tile loop": total("w8p_matmul", "parent_ms"),
+              "int4 bound": total("w4v3_matmul", "bound_ms"),
+              "int8 bound": total("w8p_matmul", "bound_ms"),
+              "dense bf16 matmul": total("w4v3_matmul", "dense_bf16_matmul_ms")}
+    totals["w4v3 / w4a16"] = (totals["w4v3_matmul decode, beside it"]
+                              / totals["w4a16_matmul decode, same codes"])
+    totals["w8p / w4v3"] = totals["w8p_matmul decode"] / totals["w4v3_matmul decode"]
+    print(f"[kernels] decode-budget probe, 7 shapes x 32 layers at M = 1, ms: "
+          f"{json.dumps(totals)}")
+
+    held = {}
+    for name in forced:
+        for m in W4_DECODE_HELD:
+            for k, n in sorted({(k, n) for _, k, n in PROBE_SHAPES}) + ODD_WS:
+                x, w = x_rows(m, k), any_bytes(k // 2 if name == "w4v3_matmul" else k, n)
+                sc = scale(n)
+                got = _ws_form_ran(kernels, name, "decode", lambda: public[name](x, w, sc))
+                held[f"{name} M={m} K={k} N={n}"] = _ws_err(got, plain[name](x, w, sc))
+        for k, n in ODD_WS + [(4096, 4096)]:
+            x, w = x_rows(17, k), any_bytes(k // 2 if name == "w4v3_matmul" else k, n)
+            sc = scale(n)
+            got = _ws_form_ran(kernels, name, "stream", lambda: public[name](x, w, sc))
+            held[f"{name} M=17 K={k} N={n} tile loop"] = _ws_err(got, plain[name](x, w, sc))
+        x, w, sc = x_rows(3, 4096, torch.float32), any_bytes(2048 if name == "w4v3_matmul"
+                                                             else 4096, 4096), scale(4096)
+        got = _ws_form_ran(kernels, name, "decode", lambda: public[name](x, w, sc))
+        held[f"{name} M=3 fp32"] = _ws_err(got, plain[name](x, w, sc))
+    # every byte value, picked out by one-hot rows of x at unit scale: #13's
+    # top and bottom codes and #14's codes exactly as the plain versions'
+    every = ((torch.arange(256 * 16, device="cuda") % 256) - 128).to(torch.int8).reshape(256, 16)
+    eye, one = torch.eye(512, device="cuda"), torch.ones(16, device="cuda")
+    for name, rows_x in (("w4v3_matmul", 512), ("w8p_matmul", 256)):
+        want = plain[name](eye[:rows_x, :rows_x], every, one)
+        for r in range(0, rows_x, 16):
+            got = _ws_form_ran(kernels, name, "decode",
+                               lambda: public[name](eye[r:r + 16, :rows_x], every, one))
+            if not torch.equal(got, want[r:r + 16]):
+                raise AssertionError(f"[kernels] {name}: a byte value off at rows {r}")
+    regs = {}
+    for m in (8, 16):
+        regs[f"kNibble M<={m}"] = {"blocks_per_sm": kernels.occupancy("w4a16_matmul", 2, m),
+                                   "registers": kernels.occupancy("w4a16_matmul", 3, m)}
+        for mode, name in (("kArith", "w4v3_matmul"), ("kInt8", "w8p_matmul")):
+            regs[f"{mode} M<={m}"] = {"blocks_per_sm": kernels.occupancy(name, m, 0),
+                                      "registers": kernels.occupancy(name, m, 1)}
+    print(f"[kernels] probes #13, #14 on the decode form held at M {W4_DECODE_HELD}, at "
+          f"{ODD_WS}, in fp32 and at 17 rows on the tile loop: max abs err "
+          f"{max(held.values()):.4g}; every byte value exact; decode form by mode {regs}")
+    out = {}
+    for name, src, line in (("w4v3_matmul", "w4v3_matmul.cu", 58),
+                            ("w8p_matmul", "w8p_matmul.cu", 116)):
+        out[name] = _entry(name, src, f"script/probe_decode_budget.py:{line}", rows[name],
+                           WS_ATOL, WS_RTOL)
+        out[name].update(parent_ms=rows[name][0]["parent_ms"], held={k: v for k, v in held.items() if k.startswith(name)},
+                         per_probe_32_layers=totals, decode_form_by_mode=regs,
+                         forms={"decode": "stllm_tpu_torch/csrc/w4a16_decode.cuh",
+                                "stream": "stllm_tpu_torch/csrc/weight_stream_matmul.cuh"})
+    return out
+
+
+def _held_w4_odd(kernels, gen) -> dict:
+    """#12 at ODD_WS's widths and K/2 = 100 and 4 (ODD_W4) on each of its
+    forms (decode at 4 rows, wgmma at 17, the tile loop at 4), held to the
+    plain version, the form asserted from FORM_LAUNCHES."""
+    held = {}
+    for k, n, pad in ODD_W4:
+        for f, m in (("decode", 4), ("wgmma", 17), ("stream", 4)):
+            x = torch.randn(m, k, generator=gen, device="cuda").bfloat16()
+            packed = torch.randint(-128, 128, (k // 2 + pad, n), generator=gen, device="cuda",
+                                   dtype=torch.int8)
+            packed[k // 2:] = 0
+            sc = torch.rand(n, generator=gen, device="cuda") * 0.01 + 0.005
+            got = _ws_form_ran(kernels, "w4a16_matmul", f,
+                               lambda: kernels._w4a16_matmul(x, packed, sc, f))
+            held[f"K={k} N={n} pad={pad} {f}"] = _ws_err(
+                got, kernels.w4a16_matmul_plain(x, packed, sc))
+    print(f"[kernels] w4a16_matmul held at {ODD_W4} on every form: max abs err "
+          f"{max(held.values()):.4g}")
+    return held
+
+
 def _weight_stream_kernels(kernels, gen) -> dict:
     """W4A16 (#12) at the stack's decode (M = 4 slots) and prefill (M = 576,
     the QA prompt; 640, the pipeline prompt) shapes, and the probes #13-#15
-    at theirs. No single PyTorch call computes these functions on this
-    storage, so library_ms is null; #12's rows add the time of torch.matmul
-    on the dense bf16 weight of the same shape, as context, and the time of
-    the tile loop that the decode and wgmma forms replaced (parent_ms), on
-    w4_copies input copies. The decode form is also held at W4_DECODE_HELD
-    rows."""
+    at theirs (#13, #14 by _probe_kernels). No single PyTorch call computes
+    these functions on this storage, so library_ms is null; #12's rows add
+    the time of torch.matmul on the dense bf16 weight of the same shape, as
+    context, and the time of the tile loop that the decode and wgmma forms
+    replaced (parent_ms), on w4_copies input copies. The decode form is
+    also held at W4_DECODE_HELD rows, and every form at ODD_W4's widths."""
     out = {}
 
     def codes(shape):
@@ -1059,27 +1227,8 @@ def _weight_stream_kernels(kernels, gen) -> dict:
     out["w4a16_matmul"]["parent_ms"] = rows[0]["parent_ms"]
     del cases
 
-    # #13 arithmetic-packed W4A16 and #14 int8 streaming at the probe's M = 1
-    cases13, cases14 = [], []
-    for label, k, n in PROBE_SHAPES:
-        xs = [torch.randn(1, k, generator=gen, device="cuda").bfloat16() for _ in range(4)]
-        cases13.append(([label, 1, k, n], [(x, kernels.pack_int4_arith(codes((k // 2, n)),
-                                                                       codes((k // 2, n))),
-                                            scale(n)) for x in xs],
-                        *_ws_bound(1, k, n, k // 2 * n, 2)))
-        cases14.append(([label, 1, k, n],
-                        [(x, torch.randint(-127, 128, (k, n), generator=gen, device="cuda",
-                                           dtype=torch.int8), scale(n) * 7 / 127) for x in xs],
-                        *_ws_bound(1, k, n, k * n, 2)))
-    rows = _check_kernel("w4v3_matmul", cases13, kernels.w4v3_matmul,
-                         kernels.w4v3_matmul_plain, _ws_err)
-    out["w4v3_matmul"] = _entry("w4v3_matmul", "w4v3_matmul.cu",
-                                "script/probe_decode_budget.py:58", rows, WS_ATOL, WS_RTOL)
-    rows = _check_kernel("w8p_matmul", cases14, kernels.w8p_matmul, kernels.w8p_matmul_plain,
-                         _ws_err)
-    out["w8p_matmul"] = _entry("w8p_matmul", "w8p_matmul.cu",
-                               "script/probe_decode_budget.py:116", rows, WS_ATOL, WS_RTOL)
-    del cases13, cases14
+    out.update(_probe_kernels(kernels, gen, codes, scale))
+    out["w4a16_matmul"]["odd_widths_held"] = _held_w4_odd(kernels, gen)
 
     # #15: the five unpack variants at the probe's shape, each on its layout
     m, k, n = UNPACK_SHAPE

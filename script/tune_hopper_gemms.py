@@ -3,8 +3,8 @@
 form of the fused-LayerNorm int8 GEMM (#11, csrc/qmm_res_ln.cu), the wgmma
 prefill form and the decode form of the W4A16 matmul (#12,
 csrc/w4a16_prefill.cuh, csrc/w4a16_decode.cuh) and the blockwise dynamic
-W8A8 matmul (#8, csrc/quant_matmul.cu), each held to its plain version
-first.
+W8A8 matmul (#8, csrc/quant_matmul.cu), and the decode form's modes of the
+probes #13 and #14, each held to its plain version first.
 
     python3 script/tune_hopper_gemms.py [--only KEY ...] [--baseline OTHER/stllm_tpu_torch/csrc]
                                         [--out FILE]
@@ -18,7 +18,10 @@ ViT-g proj and fc2 sites ((16 x 257) x 1408 . 1408 x 1408 with per-row hs,
 the four Vicuna-7B shapes at M = 576 and 640 (key w4a16_matmul) and, for the
 decode form, at M = 4 (key w4a16_matmul/decode) at the CTAs along K its
 rule gives (variants change the rule's kMaxCluster and kTargetCTAs) and the
-tile loop beside it (the same in every variant's library); #8 (key
+tile loop beside it (the same in every variant's library); the probes #13
+and #14 on the decode form's kArith and kInt8 modes (keys
+w4v3_matmul/decode, w8p_matmul/decode) at the decode-budget probe's seven
+shapes at M = 1, the tile loop beside them; #8 (key
 quant_matmul_blockwise) at its fc1 and fc2 shapes ((16 x 257) x 1408 ->
 6144, one k-block; 6144 -> 1408, three; 1408 -> 1408, one), bf16, the
 whole call (quant pass and GEMM), variants of the GEMM's tile widths, ring
@@ -102,10 +105,16 @@ def _decode(slices: int = 1, kgroups: int = 2, stages: int = 4, clusters: int = 
             (DECODE, r"constexpr int kTargetCTAs = 512;", f"constexpr int kTargetCTAs = {target};")]
 
 
-_DECODE_NO_MMA = (DECODE, r"wsm::mma_bf16\(acc\[h\]\[j\], top, xt\[h\]\.x, xt\[h\]\.y\);\s*"
-                          r"wsm::mma_bf16\(acc\[h\]\[j\], bot, xb\[h\]\.x, xb\[h\]\.y\);",
-                  "acc[h][j][0] += __uint_as_float((top[0] ^ top[3] ^ bot[0] ^ bot[3] ^ xt[h].x "
-                  "^ xb[h].y) & 0x3fffffffu);")
+# (the products of one mode's branch: the nibble mode's at 10 spaces of
+# indent, the arithmetic mode's at 12)
+def _decode_no_mma(indent: int) -> tuple:
+    return (DECODE, rf"(?m)^ {{{indent}}}wsm::mma_bf16\(acc\[h\]\[j\], top, xt\[h\]\.x, "
+                    r"xt\[h\]\.y\);\s*wsm::mma_bf16\(acc\[h\]\[j\], bot, xb\[h\]\.x, xb\[h\]\.y\);",
+            "acc[h][j][0] += __uint_as_float((top[0] ^ top[3] ^ bot[0] ^ bot[3] ^ xt[h].x "
+            "^ xb[h].y) & 0x3fffffffu);")
+
+
+_DECODE_NO_MMA = _decode_no_mma(10)
 _DECODE_NO_UNPACK = (DECODE, r"const uint32_t top\[4\] = \{[^;]*\};\s*const uint32_t bot\[4\] = "
                              r"\{[^;]*\};",
                      "const uint32_t top[4] = {p01, p01, p23, p23}, bot[4] = {p23, p23, p01, p01};")
@@ -116,6 +125,19 @@ _DECODE_CONTIGUOUS = (
     "const int8_t* src = packed + ((static_cast<long long>(blockIdx.y) * ((kw + 15) / 16) + "
     "k / 16) * (16 * kBN) + (k % 16) * kBN + 16 * chunk) % (static_cast<long long>(kw) * N);")
 _LOADS_ONLY = [_DECODE_NO_MMA, _DECODE_NO_UNPACK]
+# the probes' modes (#13 kArith, #14 kInt8): no products; and no byte
+# conversion either (the raw words stand in for the bf16 pairs), nor #13's
+# split
+_ARITH_NO_MMA = _decode_no_mma(12)
+_INT8_NO_MMA = (DECODE, r"for \(int h = 0; h < MT; \+\+h\) wsm::mma_bf16\(acc\[h\]\[j\], a, "
+                        r"xt\[h\]\.x, xt\[h\]\.y\);",
+                "for (int h = 0; h < MT; ++h) acc[h][j][0] += __uint_as_float((a[0] ^ a[3] ^ "
+                "xt[h].x) & 0x3fffffffu);")
+_NO_CONVERT = (DECODE, r"const float fa = [^;]*;\s*const float fb = [^;]*;\s*"
+                       r"return wsm::bits_of\(__floats2bfloat162_rn\(fa, fb\)\);",
+               "return __byte_perm(wa, wb, 0x5140u | I);")
+_NO_SPLIT = (DECODE, r"for \(int q = 0; q < 4; \+\+q\) arith_split\(a\[q\], top\[q\], bot\[q\]\);",
+             "for (int q = 0; q < 4; ++q) top[q] = bot[q] = a[q];")
 
 # #8: the GEMM's tile widths (one k-block; more than one), the ring's depth,
 # the wgmma wait, persistence, and a diagnostic without the products
@@ -201,6 +223,26 @@ VARIANTS = {
          _decode(slices=4, kgroups=1) + _LOADS_ONLY),
         ("diagnostic: loads only, tile-contiguous reads",
          _decode() + _LOADS_ONLY + [_DECODE_CONTIGUOUS]),
+    ],
+    "w4v3_matmul/decode": [
+        ("shipped", _decode()),
+        ("clusters to 8", _decode(clusters=8)),
+        ("1024 CTAs a call", _decode(target=1024)),
+        ("diagnostic: no products", _decode() + [_ARITH_NO_MMA]),
+        ("diagnostic: loads only (no products, no conversion, no split)",
+         _decode() + [_ARITH_NO_MMA, _NO_CONVERT, _NO_SPLIT]),
+    ],
+    "w8p_matmul/decode": [
+        ("shipped", _decode()),
+        ("1 K group", _decode(kgroups=1)),
+        ("4 K groups", _decode(kgroups=4)),
+        ("6 stages", _decode(stages=6)),
+        ("clusters to 8", _decode(clusters=8)),
+        ("256 CTAs a call", _decode(target=256)),
+        ("1024 CTAs a call", _decode(target=1024)),
+        ("diagnostic: no products", _decode() + [_INT8_NO_MMA]),
+        ("diagnostic: loads only (no products, no conversion)",
+         _decode() + [_INT8_NO_MMA, _NO_CONVERT]),
     ],
 }
 
@@ -305,6 +347,39 @@ def time_w4_decode(gen, checked: bool) -> dict:
     return out
 
 
+def time_probe_decode(gen, checked: bool, name: str) -> dict:
+    """#13 (name w4v3_matmul) or #14 (w8p_matmul) at the decode-budget
+    probe's seven shapes at M = 1 on the decode form, the tile loop beside
+    it, cycling w4_copies input copies, and the seven shapes x 32 layers."""
+    import torch
+
+    import chip_smoke as cs
+    from stllm_tpu_torch.ops import kernels
+
+    forced = kernels._w4v3_matmul if name == "w4v3_matmul" else kernels._w8p_matmul
+    plain = kernels.w4v3_matmul_plain if name == "w4v3_matmul" else kernels.w8p_matmul_plain
+    out = {}
+    for label, k, n in cs.PROBE_SHAPES:
+        rows = k // 2 if name == "w4v3_matmul" else k
+        bufs = [(torch.randn(1, k, generator=gen, device="cuda").bfloat16(),
+                 torch.randint(-128, 128, (rows, n), generator=gen, device="cuda",
+                               dtype=torch.int8),
+                 0.001 * (0.5 + torch.rand(n, generator=gen, device="cuda")))
+                for _ in range(cs.w4_copies(rows * n))]
+
+        def timed(fn):
+            it = iter(range(1 << 30))
+            return cs.graph_ms(lambda: fn(*bufs[next(it) % len(bufs)]), 40)
+
+        decode = lambda *a: forced(*a, "decode")  # noqa: E731
+        if checked:
+            cs._ws_err(decode(*bufs[0]), plain(*bufs[0]))
+        out[label] = {"decode": timed(decode), "tile loop": timed(lambda *a: forced(*a, "stream"))}
+        del bufs
+    out["32 layers"] = {f: 32 * sum(r[f] for r in out.values()) for f in ("decode", "tile loop")}
+    return out
+
+
 def time_blockwise(gen, checked: bool) -> dict:
     """#8 at its fc1, fc2 and proj shapes, bf16, four input copies cycled
     (the width rule picks 256 columns at fc1, 128 at proj and fc2)."""
@@ -386,6 +461,9 @@ def main() -> int:
                 res = time_w4(gen)
             elif name == "quant_matmul_blockwise":
                 res = time_blockwise(gen, not label.startswith("diagnostic"))
+            elif name in ("w4v3_matmul/decode", "w8p_matmul/decode"):
+                res = time_probe_decode(gen, not label.startswith("diagnostic"),
+                                        name.split("/")[0])
             else:
                 res = time_w4_decode(gen, not label.startswith("diagnostic"))
             lines.append(json.dumps({"kernel": name, "variant": label, "registers": regs, **res}))

@@ -1,6 +1,9 @@
-// The decode form of the W4A16 matmul (#12) for Hopper (sm_90a): M <= 16
-// rows of x against the int4-packed weight, the function of
-// w4a16_matmul.cu's note, in one launch.
+// The decode form of the weight-streaming matmuls for Hopper (sm_90a): M <=
+// 16 rows of x against a weight of int8 bytes, in one launch. MODE (the
+// wsm::Mode of weight_stream_matmul.cuh) says what a byte means: kNibble,
+// the int4 nibbles of the W4A16 matmul (#12, w4a16_matmul.cu's note);
+// kArith, the probe #13's arithmetic packing p = 16 * bottom + top
+// (w4v3_matmul.cu); kInt8, the probe #14's int8 codes (w8p_matmul.cu).
 //
 // Bound on the H100: at decode (M = 4) a call moves the packed weight and
 // little else, 8.4 MB (o) to 45.1 MB (gate|up), 2.5 to 13.5 us at 3.35 TB/s
@@ -74,11 +77,13 @@ constexpr int kMaxCluster = 16;           // CTAs along K (past 8: a non-portabl
 constexpr int kTargetCTAs = 512;          // CTAs a call aims at
 constexpr int kMaxRows = 16;
 
-// MT n8 tiles of x rows (M <= 8 * MT)
-template <int MT>
+// MT n8 tiles of x rows (M <= 8 * MT); kH halves of x (2 for the int4
+// modes, 1 for kInt8)
+template <int MODE, int MT>
 struct Layout {
-  static constexpr int kWBytes = kStep * kBN;                // [row][kBN] packed bytes
-  static constexpr int kXBytes = 2 * MT * 8 * kStep * 2;     // [half][row][16] bf16
+  static constexpr int kH = wsm::ModeTraits<MODE>::kHalves;
+  static constexpr int kWBytes = kStep * kBN;                // [row][kBN] weight bytes
+  static constexpr int kXBytes = kH * MT * 8 * kStep * 2;    // [half][row][16] bf16
   static constexpr int kStageBytes = kWBytes + kXBytes;
   static constexpr int kAcc = MT * 8 * 4;                    // accumulators a lane
   static constexpr int kRing = kKGroups * kStages * kStageBytes;
@@ -116,12 +121,36 @@ __device__ __forceinline__ int chunk_at(int r, int c) {
   return r * kBN + ((c ^ (2 * ((r >> 2) & 3))) << 4);
 }
 
-template <int MT>
+__device__ __forceinline__ __nv_bfloat162 bf16x2_of(uint32_t bits) {
+  return *reinterpret_cast<const __nv_bfloat162*>(&bits);
+}
+
+// byte I of wa and byte I of wb, each u = p + 128, to the bf16 pair (p_a,
+// p_b), exactly: the fp32 2^23 + u, minus 2^23 + 128, packed by cvt.rn
+template <int I>
+__device__ __forceinline__ uint32_t bytes_to_bf16x2(uint32_t wa, uint32_t wb) {
+  const float fa = __uint_as_float(__byte_perm(wa, 0x4B000000u, 0x7440u | I)) - 8388736.0f;
+  const float fb = __uint_as_float(__byte_perm(wb, 0x4B000000u, 0x7440u | I)) - 8388736.0f;
+  return wsm::bits_of(__floats2bfloat162_rn(fa, fb));
+}
+
+// a bf16 pair of arithmetic-packed bytes p to its bottom = rint(p / 16)
+// (half to even) and top = p - 16 * bottom, exactly
+__device__ __forceinline__ void arith_split(uint32_t p, uint32_t& top, uint32_t& bot) {
+  const __nv_bfloat162 pf = bf16x2_of(p);
+  const __nv_bfloat162 q = __hfma2(pf, bf16x2_of(0x3D803D80u), bf16x2_of(0x43404340u));  // 1/16, 192
+  const __nv_bfloat162 b = __hsub2(q, bf16x2_of(0x43404340u));
+  bot = wsm::bits_of(b);
+  top = wsm::bits_of(__hfma2(b, bf16x2_of(0xC180C180u), pf));                          // -16
+}
+
+template <int MODE, int MT>
 __global__ void __launch_bounds__(kThreads, 16 / kWarps)
 w4_decode_kernel(const __nv_bfloat16* __restrict__ x, const int8_t* __restrict__ packed,
                  const float* __restrict__ scale, void* __restrict__ out, int M, int N, int kw,
                  int out_f32) {
-  using L = Layout<MT>;
+  using L = Layout<MODE, MT>;
+  constexpr int kH = L::kH;
   extern __shared__ __align__(16) unsigned char smem[];
   const int warp = threadIdx.x >> 5;
   const int slice = warp % kSlices;
@@ -133,7 +162,7 @@ w4_decode_kernel(const __nv_bfloat16* __restrict__ x, const int8_t* __restrict__
   const int n0 = blockIdx.y * kBN;
   const int C = gridDim.x;                          // the cluster: CTAs along K
   const uint32_t rank = cluster_rank();
-  const int ldx = 2 * kw;
+  const int ldx = kH * kw;
 
   // this CTA's 16-row steps [s0, s1); K group j takes every kKGroups-th
   const int steps = (kw + kStep - 1) / kStep;
@@ -169,12 +198,12 @@ w4_decode_kernel(const __nv_bfloat16* __restrict__ x, const int8_t* __restrict__
         cp_async8(dst + 8, ok1 ? src + 8 : packed, ok1 ? 8 : 0);
       }
     }
-    // x: [half][row][16 columns]; piece i: row i / 4, half (i / 2) % 2, 8
-    // columns (i % 2)
+    // x: [half][row][16 columns]; piece i: row i / (2 kH), half (i / 2) %
+    // kH, 8 columns (i % 2)
 #pragma unroll
-    for (int i = gtid; i < 32 * MT; i += kGroupThreads) {
-      const int m = i >> 2;
-      const int half = (i >> 1) & 1;
+    for (int i = gtid; i < 16 * kH * MT; i += kGroupThreads) {
+      const int m = kH == 2 ? i >> 2 : i >> 1;
+      const int half = kH == 2 ? (i >> 1) & 1 : 0;
       const int piece = i & 1;
       const bool ok = m < M && k0 + 8 * piece < kw;   // kw % 8 == 0: whole pieces
       const __nv_bfloat16* src = x + static_cast<long long>(m) * ldx + half * kw + k0 + 8 * piece;
@@ -213,25 +242,67 @@ w4_decode_kernel(const __nv_bfloat16* __restrict__ x, const int8_t* __restrict__
 #pragma unroll
     for (int h = 0; h < MT; ++h) {
       xt[h] = lds64(sw + L::kWBytes + (h * 8 + g) * 32 + 8 * t);
-      xb[h] = lds64(sw + L::kWBytes + ((MT * 8) + h * 8 + g) * 32 + 8 * t);
+      if constexpr (kH == 2) xb[h] = lds64(sw + L::kWBytes + ((MT * 8) + h * 8 + g) * 32 + 8 * t);
     }
     const uint32_t r0[4] = {w0.x, w0.y, w0.z, w0.w}, r1[4] = {w1.x, w1.y, w1.z, w1.w};
     const uint32_t r2[4] = {w2.x, w2.y, w2.z, w2.w}, r3[4] = {w3.x, w3.y, w3.z, w3.w};
+    if constexpr (MODE == wsm::kNibble) {
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      // bytes 2j, 2j + 1 of rows 4t, 4t + 1 (and 4t + 2, 4t + 3) as the two
-      // 16-bit halves of a word: row 4t (4t + 2) low
-      const uint32_t sel = (j & 1) ? 0x7632u : 0x5410u;
-      const uint32_t p01 = __byte_perm(r0[j >> 1], r1[j >> 1], sel);
-      const uint32_t p23 = __byte_perm(r2[j >> 1], r3[j >> 1], sel);
-      const uint32_t top[4] = {wsm::nibbles_to_bf16x2(p01), wsm::nibbles_to_bf16x2(p01 >> 8),
-                               wsm::nibbles_to_bf16x2(p23), wsm::nibbles_to_bf16x2(p23 >> 8)};
-      const uint32_t bot[4] = {wsm::nibbles_to_bf16x2(p01 >> 4), wsm::nibbles_to_bf16x2(p01 >> 12),
-                               wsm::nibbles_to_bf16x2(p23 >> 4), wsm::nibbles_to_bf16x2(p23 >> 12)};
+      for (int j = 0; j < 8; ++j) {
+        // bytes 2j, 2j + 1 of rows 4t, 4t + 1 (and 4t + 2, 4t + 3) as the two
+        // 16-bit halves of a word: row 4t (4t + 2) low
+        const uint32_t sel = (j & 1) ? 0x7632u : 0x5410u;
+        const uint32_t p01 = __byte_perm(r0[j >> 1], r1[j >> 1], sel);
+        const uint32_t p23 = __byte_perm(r2[j >> 1], r3[j >> 1], sel);
+        const uint32_t top[4] = {wsm::nibbles_to_bf16x2(p01), wsm::nibbles_to_bf16x2(p01 >> 8),
+                                 wsm::nibbles_to_bf16x2(p23), wsm::nibbles_to_bf16x2(p23 >> 8)};
+        const uint32_t bot[4] = {wsm::nibbles_to_bf16x2(p01 >> 4), wsm::nibbles_to_bf16x2(p01 >> 12),
+                                 wsm::nibbles_to_bf16x2(p23 >> 4), wsm::nibbles_to_bf16x2(p23 >> 12)};
 #pragma unroll
-      for (int h = 0; h < MT; ++h) {
-        wsm::mma_bf16(acc[h][j], top, xt[h].x, xt[h].y);
-        wsm::mma_bf16(acc[h][j], bot, xb[h].x, xb[h].y);
+        for (int h = 0; h < MT; ++h) {
+          wsm::mma_bf16(acc[h][j], top, xt[h].x, xt[h].y);
+          wsm::mma_bf16(acc[h][j], bot, xb[h].x, xb[h].y);
+        }
+      }
+    } else {
+      uint32_t u0[4], u1[4], u2[4], u3[4];        // u = p + 128 in every byte
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        u0[q] = r0[q] ^ 0x80808080u;
+        u1[q] = r1[q] ^ 0x80808080u;
+        u2[q] = r2[q] ^ 0x80808080u;
+        u3[q] = r3[q] ^ 0x80808080u;
+      }
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        // fragment q of weight tile j: byte 2j (A row g) or 2j + 1 (A row
+        // g + 8) of rows 4t, 4t + 1 (q 0, 1) or 4t + 2, 4t + 3 (q 2, 3)
+        const int w = j >> 1;
+        uint32_t a[4];
+        if (j & 1) {
+          a[0] = bytes_to_bf16x2<2>(u0[w], u1[w]);
+          a[1] = bytes_to_bf16x2<3>(u0[w], u1[w]);
+          a[2] = bytes_to_bf16x2<2>(u2[w], u3[w]);
+          a[3] = bytes_to_bf16x2<3>(u2[w], u3[w]);
+        } else {
+          a[0] = bytes_to_bf16x2<0>(u0[w], u1[w]);
+          a[1] = bytes_to_bf16x2<1>(u0[w], u1[w]);
+          a[2] = bytes_to_bf16x2<0>(u2[w], u3[w]);
+          a[3] = bytes_to_bf16x2<1>(u2[w], u3[w]);
+        }
+        if constexpr (MODE == wsm::kInt8) {
+#pragma unroll
+          for (int h = 0; h < MT; ++h) wsm::mma_bf16(acc[h][j], a, xt[h].x, xt[h].y);
+        } else {
+          uint32_t top[4], bot[4];
+#pragma unroll
+          for (int q = 0; q < 4; ++q) arith_split(a[q], top[q], bot[q]);
+#pragma unroll
+          for (int h = 0; h < MT; ++h) {
+            wsm::mma_bf16(acc[h][j], top, xt[h].x, xt[h].y);
+            wsm::mma_bf16(acc[h][j], bot, xb[h].x, xb[h].y);
+          }
+        }
       }
     }
   }
@@ -291,19 +362,21 @@ w4_decode_kernel(const __nv_bfloat16* __restrict__ x, const int8_t* __restrict__
   cluster_sync();                   // no CTA leaves while another reads its red
 }
 
-template <int MT>
+template <int MODE, int MT>
 cudaError_t prepare() {
-  cudaError_t err = cudaFuncSetAttribute(w4_decode_kernel<MT>,
+  cudaError_t err = cudaFuncSetAttribute(w4_decode_kernel<MODE, MT>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         Layout<MT>::kSmem);
+                                         Layout<MODE, MT>::kSmem);
   if (err == cudaSuccess && kMaxCluster > 8) {
-    err = cudaFuncSetAttribute(w4_decode_kernel<MT>,
+    err = cudaFuncSetAttribute(w4_decode_kernel<MODE, MT>,
                                cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
   }
   return err;
 }
 
-// the kernels' shared-memory and cluster attributes, set once per device
+// the mode's kernels' shared-memory and cluster attributes, set once per
+// device
+template <int MODE>
 cudaError_t device_ready() {
   static bool ready[64] = {};
   int dev = 0;
@@ -311,8 +384,8 @@ cudaError_t device_ready() {
   if (err != cudaSuccess) return err;
   if (dev >= 64) return cudaErrorInvalidDevice;
   if (!ready[dev]) {
-    err = prepare<1>();
-    if (err == cudaSuccess) err = prepare<2>();
+    err = prepare<MODE, 1>();
+    if (err == cudaSuccess) err = prepare<MODE, 2>();
     if (err != cudaSuccess) return err;
     ready[dev] = true;
   }
@@ -327,14 +400,14 @@ int cluster_size(int col_tiles, int steps) {
   return c < steps ? c : steps;
 }
 
-template <int MT>
+template <int MODE, int MT>
 cudaError_t launch(const void* x, const void* packed, const void* scale, void* out, int M, int N,
                    int kw, int out_f32, cudaStream_t stream) {
   const int cluster = cluster_size((N + kBN - 1) / kBN, (kw + kStep - 1) / kStep);
   cudaLaunchConfig_t cfg{};
   cfg.gridDim = dim3(cluster, (N + kBN - 1) / kBN);
   cfg.blockDim = dim3(kThreads);
-  cfg.dynamicSmemBytes = Layout<MT>::kSmem;
+  cfg.dynamicSmemBytes = Layout<MODE, MT>::kSmem;
   cfg.stream = stream;
   cudaLaunchAttribute attr;
   attr.id = cudaLaunchAttributeClusterDimension;
@@ -343,7 +416,7 @@ cudaError_t launch(const void* x, const void* packed, const void* scale, void* o
   attr.val.clusterDim.z = 1;
   cfg.attrs = &attr;
   cfg.numAttrs = 1;
-  cudaError_t err = cudaLaunchKernelEx(&cfg, w4_decode_kernel<MT>,
+  cudaError_t err = cudaLaunchKernelEx(&cfg, w4_decode_kernel<MODE, MT>,
                                        static_cast<const __nv_bfloat16*>(x),
                                        static_cast<const int8_t*>(packed),
                                        static_cast<const float*>(scale), out, M, N, kw, out_f32);
@@ -351,34 +424,45 @@ cudaError_t launch(const void* x, const void* packed, const void* scale, void* o
   return cudaGetLastError();
 }
 
-// Shape checks, then the launch. x: contiguous (M, 2 kw) bf16, 16-byte
-// aligned, M <= 16; packed (>= kw, N) int8, 8-byte aligned; scale (N,) fp32;
-// out (M, N) bf16, or fp32 when out_f32. N and kw multiples of 8.
-int run(const void* x, const void* packed, const void* scale, void* out, int M, int N, int kw,
+// Shape checks, then the launch. x: contiguous (M, kH kw) bf16, 16-byte
+// aligned, M <= 16; w (>= kw, N) int8, 8-byte aligned; scale (N,) fp32; out
+// (M, N) bf16, or fp32 when out_f32. N and kw (the weight rows in use:
+// K / 2 for the int4 modes, K for kInt8) multiples of 8.
+template <int MODE>
+int run(const void* x, const void* w, const void* scale, void* out, int M, int N, int kw,
         int out_f32, void* stream) {
   if (M <= 0 || M > kMaxRows || N <= 0 || N % 8 || kw <= 0 || kw % 8 || scale == nullptr ||
       (N + kBN - 1) / kBN > 65535 || reinterpret_cast<uintptr_t>(x) % 16 ||
-      reinterpret_cast<uintptr_t>(packed) % 8) {
+      reinterpret_cast<uintptr_t>(w) % 8) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  cudaError_t err = device_ready();
+  cudaError_t err = device_ready<MODE>();
   if (err != cudaSuccess) return static_cast<int>(err);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  err = M > 8 ? launch<2>(x, packed, scale, out, M, N, kw, out_f32, st)
-              : launch<1>(x, packed, scale, out, M, N, kw, out_f32, st);
+  err = M > 8 ? launch<MODE, 2>(x, w, scale, out, M, N, kw, out_f32, st)
+              : launch<MODE, 1>(x, w, scale, out, M, N, kw, out_f32, st);
   return static_cast<int>(err);
 }
 
-// Blocks one SM holds at once (M <= 8: mt 1; M <= 16: mt 2); -1 on an error.
-int occupancy(int mt) {
-  int n = -1;
-  if (device_ready() != cudaSuccess || (mt != 1 && mt != 2)) return -1;
-  const cudaError_t err =
-      mt == 1 ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, w4_decode_kernel<1>, kThreads,
-                                                              Layout<1>::kSmem)
-              : cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, w4_decode_kernel<2>, kThreads,
-                                                              Layout<2>::kSmem);
-  return err == cudaSuccess ? n : -1;
+// Of the mode's kernel at mt n8 tiles of rows (M <= 8: 1; M <= 16: 2):
+// the blocks one SM holds at once (what 0) or its registers a thread (what
+// 1); -1 on an error.
+template <int MODE>
+int occupancy(int mt, int what) {
+  if (device_ready<MODE>() != cudaSuccess || (mt != 1 && mt != 2) || what < 0 || what > 1) {
+    return -1;
+  }
+  auto query = [&](auto kernel, int smem) {
+    int n = -1;
+    cudaFuncAttributes attr{};
+    const cudaError_t err =
+        what == 0 ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, kernel, kThreads, smem)
+                  : cudaFuncGetAttributes(&attr, kernel);
+    if (err != cudaSuccess) return -1;
+    return what == 0 ? n : attr.numRegs;
+  };
+  return mt == 1 ? query(w4_decode_kernel<MODE, 1>, Layout<MODE, 1>::kSmem)
+                 : query(w4_decode_kernel<MODE, 2>, Layout<MODE, 2>::kSmem);
 }
 
 }  // namespace

@@ -32,7 +32,9 @@
 // The same library keeps the tile loop (weight_stream_matmul.cuh:
 // stllm_w4a16_matmul, the 16-row instance with split-K and a reduce launch
 // at M <= 16, the 64-row one above), the design both forms replaced, so it
-// can be timed beside them; the probes #13-#15 run on it.
+// can be timed beside them. The probes #13 and #14 run the decode form at
+// M <= 16 too (its kArith and kInt8 modes) and the tile loop above; #15
+// runs on the tile loop.
 
 #include "w4a16_decode.cuh"
 #include "w4a16_prefill.cuh"
@@ -67,16 +69,17 @@ extern "C" int stllm_w4a16_matmul_prefill(const void* x, const void* packed, con
 extern "C" int stllm_w4a16_matmul_decode(const void* x, const void* packed, const void* scale,
                                          void* out, int M, int N, int k2t, int out_f32,
                                          void* stream) {
-  return stllm::w4d::run(x, packed, scale, out, M, N, k2t, out_f32, stream);
+  return stllm::w4d::run<stllm::wsm::kNibble>(x, packed, scale, out, M, N, k2t, out_f32, stream);
 }
 
 // Blocks one SM holds of the tile loop's bm instance (form 0; bm 16 or 64),
 // the prefill form (form 1) or the decode form (form 2; bm the rows, up to
-// 8 or up to 16); -1 on an error.
+// 8 or up to 16), or the decode form's registers a thread (form 3); -1 on
+// an error.
 extern "C" int stllm_w4a16_matmul_occupancy(int form, int bm) {
   using namespace stllm::wsm;
   if (form == 1) return stllm::w4p::occupancy();
-  if (form == 2) return stllm::w4d::occupancy(bm > 8 ? 2 : 1);
+  if (form == 2 || form == 3) return stllm::w4d::occupancy<kNibble>(bm > 8 ? 2 : 1, form - 2);
   int n = -1;
   auto occ = [&](auto kernel, size_t smem) {
     if (cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,

@@ -1,7 +1,10 @@
 // The weight-streaming matmul tile loop, shared by the W4A16 kernel
 // (w4a16_matmul.cu) and the three weight-streaming probe kernels
-// (w4v3_matmul.cu, w8p_matmul.cu, w4_unpack_matmul.cu). They differ only in
-// how a stored weight byte becomes bf16 weights (the MODE template argument):
+// (w4v3_matmul.cu, w8p_matmul.cu, w4_unpack_matmul.cu): the form #13 and #14
+// run above 16 rows, the only one of #15, and the design #12's two forms
+// replaced. They differ only in how a stored weight byte becomes bf16
+// weights (the MODE template argument; w4a16_decode.cuh takes the first
+// three modes in registers):
 //
 //   out[m, n] = sum_k bf16(x[m, k]) * W[k, n]          fp32 accumulation
 //
@@ -158,8 +161,8 @@ __device__ __forceinline__ uint32_t nibbles_to_bf16x2(uint32_t pair) {
 template <int MODE>
 __device__ __forceinline__ void unpack_byte(int p, __nv_bfloat16& top, __nv_bfloat16& bot) {
   if constexpr (MODE == kArith) {
-    const float pf = static_cast<float>(p);     // |p| <= 119
-    const float b = rintf(pf * 0.0625f);        // |top| / 16 < 0.5: never a tie
+    const float pf = static_cast<float>(p);
+    const float b = rintf(pf * 0.0625f);        // half to even, as the reference on any byte
     top = __float2bfloat16_rn(pf - 16.0f * b);
     bot = __float2bfloat16_rn(b);
   } else if constexpr (MODE == kInt8) {

@@ -39,11 +39,15 @@ width.
 The four weight-streaming kernels share one tile loop
 (``csrc/weight_stream_matmul.cuh``); only the model path launches
 ``w4a16_matmul``, the probes are launched by their checks and timings.
+They take every N and every weight row count the reference takes
+(``weight_stream_operands`` pads the rest to multiples of 8).
 ``w4a16_matmul`` runs two other forms (``w4a16_form``): for M <= 16 rows
 one launch with the weight unpacked in registers and K split across a
 thread-block cluster (``csrc/w4a16_decode.cuh``), above that a ``wgmma``
 mixed-input GEMM with TMA (``csrc/w4a16_prefill.cuh``); the tile loop
-stays in the library as the design both replaced.
+stays in the library as the design both replaced. The probes #13 and #14
+run that decode form too, on their own bytes, at M <= 16 (``probe_form``)
+and the tile loop above; #15 runs on the tile loop.
 ``qmm_res_ln`` has a cluster form for the widths ``qmm_res_ln_form``
 admits (thread-block clusters of 8, ``wgmma`` s8, row statistics exchanged
 through distributed shared memory); both build on ``csrc/hopper.cuh``. The
@@ -145,6 +149,12 @@ _FORM_ENTRY = {
         "stllm_w4a16_matmul_prefill", [_P, _P, _P, _P, _I, _I, _I, _I, _P]),
     ("w4a16_matmul", "decode"): (
         "stllm_w4a16_matmul_decode", [_P, _P, _P, _P, _I, _I, _I, _I, _P]),
+    # the probes #13, #14 on #12's decode form: x, weights, scale, out, M, N,
+    # weight rows in use, out_f32
+    ("w4v3_matmul", "decode"): (
+        "stllm_w4v3_matmul_decode", [_P, _P, _P, _P, _I, _I, _I, _I, _P]),
+    ("w8p_matmul", "decode"): (
+        "stllm_w8p_matmul_decode", [_P, _P, _P, _P, _I, _I, _I, _I, _P]),
     # the packed kernels' "any" form: the tile loop's arguments, then io_f32
     # (#1, #2); #3's are its tile loop's
     ("packed_qkv_attention", "any"): (
@@ -181,6 +191,8 @@ _OCCUPANCY = {
     "flash_attention_bwd_dq": ("stllm_flash_attention_bwd_dq_occupancy", [_I]),
     "flash_attention_bwd_dkv": ("stllm_flash_attention_bwd_dkv_occupancy", [_I]),
     "w4a16_matmul": ("stllm_w4a16_matmul_occupancy", [_I, _I]),
+    "w4v3_matmul": ("stllm_w4v3_matmul_occupancy", [_I, _I]),
+    "w8p_matmul": ("stllm_w8p_matmul_occupancy", [_I, _I]),
     "qmm_res_ln": ("stllm_qmm_res_ln_occupancy", [_I, _I, _I, _I]),
     "layer_norm_quant": ("stllm_layer_norm_quant_occupancy", [_I, _I, _I]),
     "gelu_quant": ("stllm_gelu_quant_occupancy", [_I, _I, _I]),
@@ -192,6 +204,7 @@ LAUNCHES: Dict[str, int] = {name: 0 for name in SOURCES}
 # without a form runs; FORM_LAUNCHES splits their LAUNCHES by form
 # ("w4a16_matmul/decode")
 FORMS = {"w4a16_matmul": ("stream", "wgmma", "decode"), "qmm_res_ln": ("rows", "cluster"),
+         "w4v3_matmul": ("stream", "decode"), "w8p_matmul": ("stream", "decode"),
          "layer_norm_quant": ("registers", "any"), "gelu_quant": ("registers", "any"),
          **{name: ("tiles", "any") for name in (
              "packed_qkv_attention", "packed_qkv_attention_quant", "packed_qkv_attention_s8")}}
@@ -324,8 +337,11 @@ def occupancy(name: str, *shape: int) -> int:
     at ``shape`` (packed_qkv_attention, packed_qkv_attention_s8: S, D
     (the tile loop); flash_attention_fwd,
     flash_attention_bwd_dq, flash_attention_bwd_dkv: D;
-    w4a16_matmul: the form (0 the tile loop, 1 wgmma, 2 decode), the tile
-    loop's row tile (16 or 64) or the decode form's rows (up to 8 or 16);
+    w4a16_matmul: the form (0 the tile loop, 1 wgmma, 2 decode, 3 the
+    decode form's registers a thread), the tile loop's row tile (16 or 64)
+    or the decode form's rows (up to 8 or 16); w4v3_matmul, w8p_matmul:
+    the decode form's rows (up to 8 or 16), and 0 for its blocks an SM or 1
+    for its registers a thread;
     qmm_res_ln: cluster form or not, blocks an SM (0)
     or clusters the card holds (1), M, N; layer_norm_quant, gelu_quant: K,
     fp32 rows or not, and 1 for the register form's registers a thread
@@ -700,14 +716,48 @@ def w4a16_form(m: int) -> str:
     return "decode" if m <= W4_DECODE_ROWS else "wgmma"
 
 
+def probe_form(m: int) -> str:
+    """Which form of the probes #13 and #14 runs M rows: "decode" (#12's
+    decode form on their bytes) for M <= 16, else "stream", the tile loop."""
+    return "decode" if m <= W4_DECODE_ROWS else "stream"
+
+
+def weight_stream_operands(x: torch.Tensor, w: torch.Tensor, scale: Optional[torch.Tensor],
+                           kw: int, halves: int):
+    """The operands of a weight-streaming product at widths the kernels
+    take (N and the weight rows in use multiples of 8): x (M, halves * kw),
+    w (>= kw, N) int8, scale (N,) or None. N goes up to a multiple of 8 with
+    zero weight columns and unit scales; kw goes up to one with zero x
+    columns at the end of each half (``[x_top, 0, x_bot, 0]``, as
+    ``stllm_tpu/ops/quant.py:w4_matmul_pallas`` pads its half-K) and weight
+    rows: w's stored rows past kw where it has them (a zero x column makes
+    every code's product 0), else zero rows of a padded copy. Returns (x,
+    w, scale, kw), the tensors given where both widths are multiples of 8;
+    the product's first N columns are the unpadded one's."""
+    n = w.shape[1]
+    kp, npad = -(-kw // 8) * 8, -(-n // 8) * 8
+    if kp != kw:
+        x = F.pad(x.reshape(x.shape[0], halves, kw), (0, kp - kw)).reshape(
+            x.shape[0], halves * kp)
+    if npad != n or w.shape[0] < kp:
+        wp = w.new_zeros((kp, npad))
+        wp[:kw, :n] = w[:kw]
+        w = wp
+    if scale is not None and npad != n:
+        scale = torch.cat([scale, scale.new_ones(npad - n)])
+    return x, w, scale, kp
+
+
 def _weight_stream(name: str, x: torch.Tensor, w: torch.Tensor,
-                   scale: Optional[torch.Tensor], kw: int, flag: int,
+                   scale: Optional[torch.Tensor], halves: int, flag: int,
                    out_dtype: torch.dtype, form: str = "stream") -> torch.Tensor:
     """Check and launch one weight-streaming kernel: x (..., K) cast to a
-    contiguous bf16 (M, K), w (>= kw, N) int8, scale (N,) fp32 or None, kw
-    the weight rows in use. Allocates the output (and, for the tile loop,
-    the split-K scratch). ``form`` "wgmma" or "decode" launches that form of
-    #12 instead of the tile loop."""
+    contiguous bf16 (M, K), w (>= K / halves, N) int8, scale (N,) fp32 or
+    None; the weight rows in use are K / halves. Pads the operands where N
+    or K / halves is no multiple of 8 (``weight_stream_operands``),
+    allocates the output (and, for the tile loop, the split-K scratch) and
+    returns its first N columns. ``form`` "wgmma" or "decode" launches that
+    form instead of the tile loop."""
     if x.device.type != "cuda":
         raise ValueError(f"{name}: no kernel for {x.device}")
     if x.dtype not in (torch.bfloat16, torch.float32):
@@ -720,28 +770,32 @@ def _weight_stream(name: str, x: torch.Tensor, w: torch.Tensor,
         _check_cuda(name, scale, torch.float32)
         if tuple(scale.shape) != (n,) or scale.device != x.device:
             raise ValueError(f"{name}: scale {tuple(scale.shape)} != ({n},) on {x.device}")
-    if kw <= 0 or kw % 8 or n <= 0 or n % 8:
-        raise ValueError(f"{name} kernel: weight rows in use ({kw}) and N ({n}) must be "
-                         "positive multiples of 8")
+    lead, k = x.shape[:-1], x.shape[-1]
+    kw = k // halves
+    if kw <= 0 or n <= 0:
+        raise ValueError(f"{name} kernel: weight rows in use ({kw}) and N ({n}) must be positive")
     if w.shape[0] < kw:
         raise ValueError(f"{name}: the weight has {w.shape[0]} rows, x needs {kw}")
-    lead, k = x.shape[:-1], x.shape[-1]
     x2 = x.reshape(-1, k).to(torch.bfloat16).contiguous()
     _check_cuda(name, x2, torch.bfloat16)
     m = x2.shape[0]
     if form == "decode" and m > W4_DECODE_ROWS:
         raise ValueError(f"{name}: the decode form takes at most {W4_DECODE_ROWS} rows, got {m}")
-    out = torch.empty((m, n), dtype=out_dtype, device=x.device)
+    x2, w, scale, kw = weight_stream_operands(x2, w, scale, kw, halves)
+    npad = w.shape[1]
+    out = torch.empty((m, npad), dtype=out_dtype, device=x.device)
     if m and form in ("wgmma", "decode"):
         _launch(name, x.device, x2.data_ptr(), w.data_ptr(), scale.data_ptr(), out.data_ptr(),
-                m, n, kw, flag, form=form)
+                m, npad, kw, flag, form=form)
     elif m:
-        splits = weight_stream_splits(m, n, kw)
-        partial = (torch.empty((splits, m, n), dtype=torch.float32, device=x.device)
+        splits = weight_stream_splits(m, npad, kw)
+        partial = (torch.empty((splits, m, npad), dtype=torch.float32, device=x.device)
                    if splits > 1 else None)
         _launch(name, x.device, x2.data_ptr(), w.data_ptr(),
                 None if scale is None else scale.data_ptr(), out.data_ptr(),
-                None if partial is None else partial.data_ptr(), m, n, kw, splits, flag)
+                None if partial is None else partial.data_ptr(), m, npad, kw, splits, flag)
+    if npad != n:
+        out = out[:, :n]
     return out.reshape(*lead, n)
 
 
@@ -763,10 +817,10 @@ def w4a16_matmul_plain(x: torch.Tensor, packed: torch.Tensor, scale: torch.Tenso
 
 def w4a16_matmul(x: torch.Tensor, packed: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
     """W4A16: x (..., K) @ int4-packed (>= K/2, N) with per-channel scales
-    -> (..., N) in x.dtype. CUDA: x bf16 or fp32 (multiplied as bf16); K/2
-    and N multiples of 8; packed rows at K/2 and beyond are never read. One
-    form by M (``w4a16_form``): the decode form up to 16 rows, wgmma
-    above."""
+    -> (..., N) in x.dtype. CUDA: x bf16 or fp32 (multiplied as bf16), any
+    even K and any N (``weight_stream_operands``); packed rows at K/2 and
+    beyond are read only as padding against zero x columns. One form by M
+    (``w4a16_form``): the decode form up to 16 rows, wgmma above."""
     if x.device.type == "cpu":
         return w4a16_matmul_plain(x, packed, scale)
     return _w4a16_matmul(x, packed, scale, w4a16_form(x.numel() // max(x.shape[-1], 1)))
@@ -781,8 +835,8 @@ def _w4a16_matmul(x: torch.Tensor, packed: torch.Tensor, scale: torch.Tensor,
         raise ValueError(f"w4a16_matmul: K ({x.shape[-1]}) must be even")
     if form not in FORMS["w4a16_matmul"]:
         raise ValueError(f"w4a16_matmul: form {form!r} not in {FORMS['w4a16_matmul']}")
-    return _weight_stream("w4a16_matmul", x, packed, scale, x.shape[-1] // 2,
-                          int(x.dtype == torch.float32), x.dtype, form)
+    return _weight_stream("w4a16_matmul", x, packed, scale, 2, int(x.dtype == torch.float32),
+                          x.dtype, form)
 
 
 def pack_int4_arith(top: torch.Tensor, bottom: torch.Tensor) -> torch.Tensor:
@@ -812,13 +866,24 @@ def w4v3_matmul_plain(x: torch.Tensor, packed: torch.Tensor, scale: torch.Tensor
 
 def w4v3_matmul(x: torch.Tensor, packed: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
     """Probe #13: W4A16 on arithmetic-packed (>= K/2, N) bytes, per-channel
-    scales -> (..., N) in x.dtype. CUDA: as w4a16_matmul."""
+    scales -> (..., N) in x.dtype. CUDA: as w4a16_matmul, in the form
+    ``probe_form`` picks by M (#12's decode form up to 16 rows, the tile
+    loop above)."""
     if x.device.type == "cpu":
         return w4v3_matmul_plain(x, packed, scale)
+    return _w4v3_matmul(x, packed, scale, probe_form(x.numel() // max(x.shape[-1], 1)))
+
+
+def _w4v3_matmul(x: torch.Tensor, packed: torch.Tensor, scale: torch.Tensor,
+                 form: str) -> torch.Tensor:
+    """#13 on the card in ``form`` ("stream" or, up to 16 rows, "decode"),
+    whatever M is; chip_smoke.py times the tile loop through it."""
     if x.shape[-1] % 2:
         raise ValueError(f"w4v3_matmul: K ({x.shape[-1]}) must be even")
-    return _weight_stream("w4v3_matmul", x, packed, scale, x.shape[-1] // 2,
-                          int(x.dtype == torch.float32), x.dtype)
+    if form not in FORMS["w4v3_matmul"]:
+        raise ValueError(f"w4v3_matmul: form {form!r} not in {FORMS['w4v3_matmul']}")
+    return _weight_stream("w4v3_matmul", x, packed, scale, 2, int(x.dtype == torch.float32),
+                          x.dtype, form)
 
 
 def w8p_matmul_plain(x: torch.Tensor, w_q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
@@ -830,12 +895,21 @@ def w8p_matmul_plain(x: torch.Tensor, w_q: torch.Tensor, scale: torch.Tensor) ->
 
 def w8p_matmul(x: torch.Tensor, w_q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
     """Probe #14: x (..., K) @ int8 (>= K, N) codes, convert only, times
-    the per-channel scale -> (..., N) in x.dtype. CUDA: K and N multiples
-    of 8."""
+    the per-channel scale -> (..., N) in x.dtype. CUDA: any K and N, in the
+    form ``probe_form`` picks by M."""
     if x.device.type == "cpu":
         return w8p_matmul_plain(x, w_q, scale)
-    return _weight_stream("w8p_matmul", x, w_q, scale, x.shape[-1],
-                          int(x.dtype == torch.float32), x.dtype)
+    return _w8p_matmul(x, w_q, scale, probe_form(x.numel() // max(x.shape[-1], 1)))
+
+
+def _w8p_matmul(x: torch.Tensor, w_q: torch.Tensor, scale: torch.Tensor,
+                form: str) -> torch.Tensor:
+    """#14 on the card in ``form`` ("stream" or, up to 16 rows, "decode"),
+    whatever M is; chip_smoke.py times the tile loop through it."""
+    if form not in FORMS["w8p_matmul"]:
+        raise ValueError(f"w8p_matmul: form {form!r} not in {FORMS['w8p_matmul']}")
+    return _weight_stream("w8p_matmul", x, w_q, scale, 1, int(x.dtype == torch.float32),
+                          x.dtype, form)
 
 
 def w4_unpack_matmul_plain(x: torch.Tensor, packed: torch.Tensor, variant: str) -> torch.Tensor:
@@ -856,15 +930,15 @@ def w4_unpack_matmul_plain(x: torch.Tensor, packed: torch.Tensor, variant: str) 
 
 def w4_unpack_matmul(x: torch.Tensor, packed: torch.Tensor, variant: str) -> torch.Tensor:
     """Probe #15: x (..., K) @ unpack(packed (>= K/2, N)) by ``variant``
-    (one of W4_UNPACK_VARIANTS) -> fp32 (..., N), no scale. CUDA: as
-    w4a16_matmul."""
+    (one of W4_UNPACK_VARIANTS) -> fp32 (..., N), no scale. CUDA: any even
+    K and any N, on the tile loop."""
     if x.device.type == "cpu":
         return w4_unpack_matmul_plain(x, packed, variant)
     if variant not in W4_UNPACK_VARIANTS:
         raise ValueError(f"unpack variant {variant!r} not in {W4_UNPACK_VARIANTS}")
     if x.shape[-1] % 2:
         raise ValueError(f"w4_unpack_matmul: K ({x.shape[-1]}) must be even")
-    return _weight_stream("w4_unpack_matmul", x, packed, None, x.shape[-1] // 2,
+    return _weight_stream("w4_unpack_matmul", x, packed, None, 2,
                           W4_UNPACK_VARIANTS.index(variant), torch.float32)
 
 

@@ -5,6 +5,8 @@ int8 weights.
 - #12 (W4A16 matmul): the one-launch decode form at M <= 16 rows, the
   wgmma mixed-input GEMM above (prefill); the weight-streaming tile loop
   both replaced runs only where a caller asks for it.
+- #13, #14 (the decode-budget probes): #12's decode form on their bytes at
+  M <= 16 rows, the tile loop above.
 - #11 (s8 matmul + residual + LayerNorm + int8): the cluster form where
   N / 8 is a slice width it is built for (128, 176, 256), else the 16-row
   kernels.
@@ -40,7 +42,8 @@ def test_w4a16_form_by_rows(m, form):
 
 def test_w4a16_form_names():
     """#12's forms: the tile loop first (what an entry point without a form
-    runs; the probes #13-#15 run on it and the rule no longer picks it),
+    runs; the probes run on it, #13 and #14 above 16 rows, and the rule no
+    longer picks it for #12),
     then the prefill and decode forms, each with a launch counter; an
     unknown form is refused before anything is checked or launched."""
     assert kernels.FORMS["w4a16_matmul"] == ("stream", "wgmma", "decode")
@@ -51,6 +54,27 @@ def test_w4a16_form_names():
     x, packed, scale = torch.zeros(4, 64), torch.zeros(32, 64, dtype=torch.int8), torch.ones(64)
     with pytest.raises(ValueError, match="form"):
         kernels._w4a16_matmul(x, packed, scale, "split-k")
+
+
+@pytest.mark.parametrize("m,form", [(1, "decode"), (3, "decode"), (16, "decode"),
+                                    (17, "stream"), (576, "stream")])
+def test_probe_form_by_rows(m, form):
+    assert kernels.probe_form(m) == form
+
+
+@pytest.mark.parametrize("name", ["w4v3_matmul", "w8p_matmul"])
+def test_probe_form_names(name):
+    """#13's and #14's forms: the tile loop first (what their entry point
+    without a form runs), then #12's decode form on their bytes, each with
+    a launch counter; the rule picks both and no other, and an unknown form
+    is refused before anything is checked or launched."""
+    assert kernels.FORMS[name] == ("stream", "decode")
+    assert {f"{name}/{f}" for f in kernels.FORMS[name]} <= set(kernels.FORM_LAUNCHES)
+    assert {kernels.probe_form(m) for m in range(1, 2000)} == {"decode", "stream"}
+    x, w, scale = torch.zeros(4, 64), torch.zeros(64, 64, dtype=torch.int8), torch.ones(64)
+    forced = kernels._w4v3_matmul if name == "w4v3_matmul" else kernels._w8p_matmul
+    with pytest.raises(ValueError, match="form"):
+        forced(x, w, scale, "wgmma")
 
 
 @pytest.mark.parametrize("m,n,dtype,form", [

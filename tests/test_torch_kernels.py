@@ -644,6 +644,127 @@ def test_w4_unpack_kernel_matches_plain(card, variant):
                                                          "int32"))
 
 
+# the widths the reference takes that no multiple of 8 is: (K, N) of the
+# probes (N 20, 100, 500, 12) and of #12 (K/2 100 and 4 as well)
+ODD_WIDTHS = [(512, 20), (512, 100), (512, 500), (1024, 12), (200, 20), (8, 12)]
+PROBE_KERNELS = {"w4v3_matmul": (kernels.w4v3_matmul, kernels.w4v3_matmul_plain),
+                 "w8p_matmul": (kernels.w8p_matmul, kernels.w8p_matmul_plain)}
+
+
+def _probe_inputs(card, name, m, k, n, seed, dtype=torch.bfloat16):
+    """x (m, k); #13's packed bytes (k/2, n) or #14's codes (k, n), each
+    drawn from all of -128..127 (both kernels take any byte); scales of a
+    0.02-std weight's codes."""
+    gen = torch.Generator(device=card).manual_seed(seed)
+    x = torch.randn(m, k, generator=gen, device=card).to(dtype)
+    rows = k // 2 if name == "w4v3_matmul" else k
+    w = torch.randint(-128, 128, (rows, n), generator=gen, device=card, dtype=torch.int8)
+    scale = (0.02 * 3 / 127) * (0.5 + torch.rand(n, generator=gen, device=card))
+    return x, w, scale
+
+
+@pytest.mark.parametrize("m", [1, 3, 8, 16, 17])
+@pytest.mark.parametrize("kn", [(k, n) for _, k, n in PROBE_SHAPES] + ODD_WIDTHS,
+                         ids=lambda kn: f"k{kn[0]}-n{kn[1]}")
+@pytest.mark.parametrize("name", sorted(PROBE_KERNELS))
+def test_probe_kernels_on_their_forms_match_plain(card, name, kn, m):
+    """#13 and #14 run #12's decode form at M <= 16 and the tile loop at 17,
+    one launch of that form each, at the probe's decoder shapes and at N
+    and K no multiple of 8 or of 128, and give their plain products."""
+    kernel, plain = PROBE_KERNELS[name]
+    x, w, scale = _probe_inputs(card, name, m, *kn, 23)
+    form = kernels.probe_form(m)
+    assert form == ("decode" if m <= 16 else "stream")
+    before = dict(kernels.FORM_LAUNCHES)
+    got = _counted(name, lambda: kernel(x, w, scale))
+    assert {f: kernels.FORM_LAUNCHES[f] - before[f] for f in before} == {
+        f: int(f == f"{name}/{form}") for f in before}
+    _assert_ws_close(got, plain(x, w, scale))
+
+
+@pytest.mark.parametrize("m", [3, 16])
+@pytest.mark.parametrize("name", sorted(PROBE_KERNELS))
+def test_probe_decode_form_takes_fp32(card, name, m):
+    """An fp32 x (multiplied as bf16) gives an fp32 output on the decode
+    form, as the plain version."""
+    kernel, plain = PROBE_KERNELS[name]
+    x, w, scale = _probe_inputs(card, name, m, 4096, 4096, 24, torch.float32)
+    got = kernel(x, w, scale)
+    assert got.dtype == torch.float32
+    _assert_ws_close(got, plain(x, w, scale))
+
+
+def test_w4v3_decode_form_is_exact_on_every_byte(card):
+    """Every byte value of the arithmetic layout, picked out by one-hot rows
+    of x at unit scale, on both forms: the top and bottom codes exactly as
+    the plain version (and the reference) round them, half to even."""
+    k2, n = 256, 16
+    p = ((torch.arange(k2 * n, device=card) % 256) - 128).to(torch.int8).reshape(k2, n)
+    eye = torch.eye(2 * k2, device=card)
+    one = torch.ones(n, device=card)
+    want = kernels.w4v3_matmul_plain(eye, p, one)
+    assert set(p.unique().tolist()) == set(range(-128, 128))
+    for rows in range(0, 2 * k2, 16):
+        for form in ("decode", "stream"):
+            got = kernels._w4v3_matmul(eye[rows:rows + 16], p, one, form)
+            assert torch.equal(got, want[rows:rows + 16]), (rows, form)
+
+
+def test_w8p_decode_form_is_exact_on_the_full_int8_range(card):
+    """Every int8 code, picked out by one-hot rows of x at unit scale, on
+    both forms: each code converted exactly."""
+    k, n = 256, 16
+    w = ((torch.arange(k * n, device=card) % 256) - 128).to(torch.int8).reshape(k, n)
+    eye = torch.eye(k, device=card)
+    one = torch.ones(n, device=card)
+    for rows in range(0, k, 16):
+        for form in ("decode", "stream"):
+            got = kernels._w8p_matmul(eye[rows:rows + 16], w, one, form)
+            assert torch.equal(got, w[rows:rows + 16].float()), (rows, form)
+
+
+@pytest.mark.parametrize("name", sorted(PROBE_KERNELS) + ["w4a16_matmul"])
+def test_decode_form_gives_the_same_output_on_two_runs(card, name):
+    """The cluster's sums run in rank order: two runs of the decode form on
+    the same inputs give the same bits, at down's 16 CTAs along K."""
+    k, n = 11264, 4096
+    if name == "w4a16_matmul":
+        x, packed, scale = _ws_inputs(card, 4, k, n, 25)
+        first = kernels.w4a16_matmul(x, packed, scale)
+        assert torch.equal(kernels.w4a16_matmul(x, packed, scale), first)
+        return
+    kernel, _ = PROBE_KERNELS[name]
+    x, w, scale = _probe_inputs(card, name, 4, k, n, 25)
+    first = kernel(x, w, scale)
+    assert torch.equal(kernel(x, w, scale), first)
+
+
+# #12 at the odd widths: (M, K, N, stored padded rows) on each form, the
+# stored K-padding rows the reference's storage rule gives (512 rows at K/2 =
+# 100 and 4) and none
+W4_ODD = [(200, 20, 0), (200, 20, 412), (8, 12, 0), (8, 12, 508), (512, 100, 0),
+          (512, 500, 0), (1024, 12, 0)]
+
+
+@pytest.mark.parametrize("form,m", [("decode", 1), ("decode", 16), ("wgmma", 17),
+                                    ("wgmma", 200), ("stream", 3), ("stream", 70)])
+@pytest.mark.parametrize("case", W4_ODD, ids=lambda c: f"k{c[0]}-n{c[1]}-pad{c[2]}")
+def test_w4a16_at_odd_widths_on_every_form(card, case, form, m):
+    """#12 at N = 20, 100, 500, 12 and K/2 = 100, 4 (padded to multiples of
+    8 by the wrapper, with the stored padding rows where they exist) on
+    each form gives the plain product; the rule picks the form it is given
+    here at these M."""
+    k, n, pad = case
+    x, packed, scale = _ws_inputs(card, m, k, n, 26, pad=pad)
+    if form != "stream":
+        assert kernels.w4a16_form(m) == form
+    before = kernels.FORM_LAUNCHES[f"w4a16_matmul/{form}"]
+    got = kernels._w4a16_matmul(x, packed, scale, form)
+    torch.cuda.synchronize()
+    assert kernels.FORM_LAUNCHES[f"w4a16_matmul/{form}"] == before + 1
+    _assert_ws_close(got, kernels.w4a16_matmul_plain(x, packed, scale))
+
+
 def test_weight_stream_kernels_refuse_what_they_cannot_take(card):
     x, packed, scale = _ws_inputs(card, 4, 64, 64, 13)
     with pytest.raises(TypeError):
@@ -651,9 +772,7 @@ def test_weight_stream_kernels_refuse_what_they_cannot_take(card):
     with pytest.raises(TypeError):
         kernels.w4a16_matmul(x, packed.int(), scale)                      # int32 weight
     with pytest.raises(ValueError):
-        kernels.w4a16_matmul(x, packed[:, :60].contiguous(), scale[:60])  # N % 8
-    with pytest.raises(ValueError):
-        kernels.w4a16_matmul(x[:, :60], packed, scale)                    # K/2 % 8
+        kernels.w4a16_matmul(x[:, :63], packed, scale)                    # odd K
     with pytest.raises(ValueError):
         kernels.w4a16_matmul(x, packed[:16].contiguous(), scale)          # rows < K/2
     with pytest.raises(ValueError):
@@ -662,6 +781,17 @@ def test_weight_stream_kernels_refuse_what_they_cannot_take(card):
         kernels.w4a16_matmul(x, packed, scale[:32].contiguous())          # scale shape
     with pytest.raises(ValueError):
         kernels.w4_unpack_matmul(x, packed, "int4")                       # no such variant
+    x17, w, s = _probe_inputs(card, "w8p_matmul", 17, 64, 64, 13)
+    with pytest.raises(ValueError):
+        kernels._w8p_matmul(x17, w, s, "decode")                          # 17 rows
+    with pytest.raises(ValueError):
+        kernels.w8p_matmul(x17, w[:32].contiguous(), s)                   # rows < K
+    # N and K/2 no multiple of 8 are padded, not refused (the reference
+    # takes them): the plain product
+    _assert_ws_close(kernels.w4a16_matmul(x, packed[:, :60].contiguous(), scale[:60]),
+                     kernels.w4a16_matmul_plain(x, packed[:, :60], scale[:60]))
+    _assert_ws_close(kernels.w4a16_matmul(x[:, :60], packed, scale),
+                     kernels.w4a16_matmul_plain(x[:, :60], packed, scale))
 
 
 # ---------------------------------------------------------------------------
