@@ -46,6 +46,14 @@ toolkit. Phases, each fatal on failure:
    of 64, whole masked tiles, more or fewer keys than queries), prints its
    blocks per SM, and stands beside SDPA's whole backward timed on the
    device alone (queued behind a device-side sleep) and with the host;
+   #4-#7 are also held at head_dim 20 (zero-padded to 24 on the tile
+   loops) and 176 and 256 (their "any" form), in bf16 and at 176 in fp32,
+   the form asserted from the form counters, their times printed as
+   context; the probe #15's five variants run #12's decode form at its 16
+   rows, timed on w4_copies copies beside the tile loop they ran before
+   (parent, new, new, parent), beside #12's decode form on the same codes
+   and a dense bf16 matmul, and are held at 1, 4 and 16 rows, at widths
+   that are no multiple of 8, and at 17 rows on the tile loop;
 3. slice  - the QA config (config/instructblipbase_stllm_qa.yaml: EVA-ViT-g +
    BTAdapter, InstructBLIP Q-Former, Vicuna-7B, bf16, 16 frames, video_input
    all) at full width with random weights from a seed, served by
@@ -245,6 +253,16 @@ UNPACK_SHAPE = (16, 4096, 11008)      # script/probe_w4_unpack.py
 # the 412 stored padding rows the reference's storage rule gives) and 4, on
 # each of its forms
 ODD_WS = [(512, 20), (512, 100), (512, 500), (1024, 12)]
+# #15 held at these (K, N): the probe's, N no multiple of 8, K/2 odd; at
+# these rows: its route's decode form up to 8 and tile loop above, and the
+# decode form also at 9 and 16
+ODD_UNPACK = [(4096, 11008), (512, 20), (202, 20), (2050, 500)]
+UNPACK_HELD = (1, 4, 8, 9, 16, 17)
+# #4-#7 at head_dims the tile loops do not take as they are, (B, S, H, D)
+# and dtype: 20 zero-padded to 24 on the tile loops, 176 and 256 on the
+# "any" form; #7 at S = 768 keys, #4-#6 at 1024, causal, a padded kv_mask
+ANY_ATTN = [((1, 1024, 4, 20), torch.bfloat16), ((1, 1024, 4, 176), torch.bfloat16),
+            ((1, 1024, 4, 256), torch.bfloat16), ((1, 1024, 2, 176), torch.float32)]
 ODD_W4 = [(200, 20, 412), (8, 12, 0), (512, 100, 0), (512, 500, 0), (1024, 12, 0)]
 # the pipeline-serving stack (script/bench_pipeline_serving.py): prefix,
 # suffix and question ids per request, answer tokens
@@ -641,12 +659,13 @@ def _check_kernel(name: str, cases, kernel, plain, err_fn, library=None) -> list
     return rows
 
 
-def _vs_parent(row: dict, kernel, parent, bufs, err_fn, plain, iters: int = 40) -> None:
+def _vs_parent(row: dict, kernel, parent, bufs, err_fn, plain, iters: int = 40,
+               label: str = "parent") -> None:
     """Time the design a redesigned kernel replaced (``parent``, its form
-    kept in the same library) beside the kernel on the same input
-    copies, in the order parent, kernel, kernel, parent: ``parent_ms`` and
-    ``ms_again`` are the means of each pair. The parent is held to the
-    plain version too."""
+    kept in the same library; or another form, named by ``label``) beside
+    the kernel on the same input copies, in the order parent, kernel,
+    kernel, parent: ``<label>_ms`` and ``ms_again`` are the means of each
+    pair. The parent is held to the plain version too."""
     err_fn(parent(*bufs[0]), plain(*bufs[0]))
     it = iter(range(1 << 30))
 
@@ -654,10 +673,11 @@ def _vs_parent(row: dict, kernel, parent, bufs, err_fn, plain, iters: int = 40) 
         return graph_ms(lambda: fn(*bufs[next(it) % len(bufs)]), iters)
 
     p1, n1, n2, p2 = timed(parent), timed(kernel), timed(kernel), timed(parent)
-    row["parent_ms"] = (p1 + p2) / 2
+    row[f"{label}_ms"] = (p1 + p2) / 2
     row["ms_again"] = (n1 + n2) / 2
-    print(f"[kernels]   {row['shape']}: parent design {row['parent_ms']:.4f} ms, this one "
-          f"{row['ms_again']:.4f} ms (parent, new, new, parent)")
+    what = "parent design" if label == "parent" else f"the {label} form"
+    print(f"[kernels]   {row['shape']}: {what} {row[f'{label}_ms']:.4f} ms, this one "
+          f"{row['ms_again']:.4f} ms ({label}, this, this, {label})")
 
 
 def _entry(name, source, replaces, rows, atol, rtol) -> dict:
@@ -1230,26 +1250,120 @@ def _weight_stream_kernels(kernels, gen) -> dict:
     out.update(_probe_kernels(kernels, gen, codes, scale))
     out["w4a16_matmul"]["odd_widths_held"] = _held_w4_odd(kernels, gen)
 
-    # #15: the five unpack variants at the probe's shape, each on its layout
+    out["w4_unpack_matmul"] = _unpack_kernels(kernels, gen, codes)
+    return out
+
+
+def _unpack_kernels(kernels, gen, codes) -> dict:
+    """#15's five variants, each on its layout, cycling w4_copies input
+    copies. At the probe's shape (16 rows) on the form ``unpack_form``
+    routes them to (the tile loop; asserted from FORM_LAUNCHES), the decode
+    form timed beside it (``decode_ms``, by _vs_parent); at 8 rows (one n8
+    tile of x rows) on the decode form, the tile loop it replaced there
+    beside it (``parent_ms``). #12's decode form on the same codes in the
+    nibble layout at unit scale, at 16 rows, timed before and after them,
+    and torch.matmul on a dense bf16 weight of the same shape (context;
+    library_ms stays null). Every variant gives the same product. Then each
+    held at ODD_UNPACK's widths at UNPACK_HELD rows on the routed form, and
+    on the decode form up to 16 rows."""
     m, k, n = UNPACK_SHAPE
-    tops = [codes((k // 2, n)) for _ in range(4)]
-    bots = [codes((k // 2, n)) for _ in range(4)]
-    xs = [(torch.randn(m, k, generator=gen, device="cuda") * 0.1).bfloat16() for _ in range(4)]
-    cases15, products = [], []
+    few = kernels.UNPACK_DECODE_ROWS
+    copies = w4_copies(k // 2 * n)
+    x_of = [(torch.randn(m, k, generator=gen, device="cuda") * 0.1).bfloat16()
+            for _ in range(copies)]
+    tops = [codes((k // 2, n)) for _ in range(copies)]
+    bots = [codes((k // 2, n)) for _ in range(copies)]
+
+    def form(f):
+        return lambda x, p, v: kernels._w4_unpack_matmul(x, p, v, f)
+
+    it = iter(range(1 << 30))
+
+    def timed(fn, bufs):
+        return graph_ms(lambda: fn(*bufs[next(it) % len(bufs)]), 40)
+
+    dense = [(torch.randn(m, k, generator=gen, device="cuda").bfloat16(),
+              (torch.randn(k, n, generator=gen, device="cuda") * 0.02).bfloat16())
+             for _ in range(w4_copies(2 * k * n))]
+    dense_ms = timed(torch.matmul, dense)
+    del dense
+    one = torch.ones(n, device="cuda")
+    b12 = [(x, kernels.pack_int4_nibbles(t, b), one) for x, t, b in zip(x_of, tops, bots)]
+    w4 = lambda *a: kernels._w4a16_matmul(*a, "decode")  # noqa: E731
+    w4_first = timed(w4, b12)
+    rows, rows_few, products = [], [], []
     for variant in kernels.W4_UNPACK_VARIANTS:
-        pack = (kernels.pack_int4_biased if variant in kernels.BIASED_VARIANTS
-                else kernels.pack_int4_nibbles)
-        cases15.append(([variant, m, k, n], [(x, pack(t, b), variant)
-                                             for x, t, b in zip(xs, tops, bots)],
-                        *_ws_bound(m, k, n, k // 2 * n, 4, scaled=False)))
-        products.append(kernels.w4_unpack_matmul(*cases15[-1][1][0]))
-    rows = _check_kernel("w4_unpack_matmul", cases15, kernels.w4_unpack_matmul,
-                         kernels.w4_unpack_matmul_plain, _ws_err)
+        bufs = [(x, kernels.pack_int4_variant(variant, t, b), variant)
+                for x, t, b in zip(x_of, tops, bots)]
+        code = kernels.W4_UNPACK_VARIANTS.index(variant)
+        for mm, out in ((m, rows), (few, rows_few)):
+            rb = [(x[:mm], p, v) for x, p, v in bufs]
+            routed = kernels.unpack_form(mm)
+            other = "stream" if routed == "decode" else "decode"
+            got = _ws_form_ran(kernels, "w4_unpack_matmul", routed,
+                               lambda: kernels.w4_unpack_matmul(*rb[0]))
+            if mm == m:
+                products.append(got)
+            row = _check_kernel("w4_unpack_matmul",
+                                [([variant, mm, k, n], rb,
+                                  *_ws_bound(mm, k, n, k // 2 * n, 4, scaled=False))],
+                                form(routed), kernels.w4_unpack_matmul_plain, _ws_err)[0]
+            row.update(form=routed, copies=copies, dense_bf16_matmul_ms=dense_ms,
+                       decode_blocks_per_sm=kernels.occupancy("w4_unpack_matmul", code, mm, 0),
+                       decode_registers=kernels.occupancy("w4_unpack_matmul", code, mm, 1))
+            _vs_parent(row, form(routed), form(other), rb, _ws_err,
+                       kernels.w4_unpack_matmul_plain,
+                       label="parent" if routed == "decode" else "decode")
+            out.append(row)
+        del bufs
+    w4_last = timed(w4, b12)
+    del b12
     for prod in products[1:]:
         _ws_err(prod, products[0])       # every variant gives the same product
-    out["w4_unpack_matmul"] = _entry("w4_unpack_matmul", "w4_unpack_matmul.cu",
-                                     "script/probe_w4_unpack.py:93", rows, WS_ATOL, WS_RTOL)
-    return out
+    same_codes = (w4_first + w4_last) / 2
+    for row in rows:
+        row["w4a16_decode_same_codes_ms"] = same_codes
+    times = {r["shape"][0]: {f"{m} rows": {"tile loop (routed)": r["ms"],
+                                           "decode": r["decode_ms"]},
+                             f"{few} rows": {"decode (routed)": f["ms"],
+                                             "tile loop": f["parent_ms"]}}
+             for r, f in zip(rows, rows_few)}
+    print(f"[kernels] w4_unpack_matmul at {list(UNPACK_SHAPE)} and at {few} rows on {copies} "
+          f"copies, ms: {json.dumps(times)}"
+          f"; #12's decode form on the same codes at {m} rows {same_codes:.4f} ({w4_first:.4f} "
+          f"before, {w4_last:.4f} after); dense bf16 matmul {dense_ms:.4f}; decode form "
+          f"registers and blocks per SM at {m} / {few} rows "
+          f"{json.dumps({r['shape'][0]: [r['decode_registers'], r['decode_blocks_per_sm'], f['decode_registers'], f['decode_blocks_per_sm']] for r, f in zip(rows, rows_few)})}")
+    held = {}
+    for kk, nn in ODD_UNPACK:
+        for mm in UNPACK_HELD:
+            x = (torch.randn(mm, kk, generator=gen, device="cuda") * 0.1).bfloat16()
+            top, bot = codes((kk // 2, nn)), codes((kk // 2, nn))
+            first = None
+            for variant in kernels.W4_UNPACK_VARIANTS:
+                packed = kernels.pack_int4_variant(variant, top, bot)
+                routed = kernels.unpack_form(mm)
+                got = _ws_form_ran(kernels, "w4_unpack_matmul", routed,
+                                   lambda: kernels.w4_unpack_matmul(x, packed, variant))
+                plain = kernels.w4_unpack_matmul_plain(x, packed, variant)
+                held[f"{variant} M={mm} K={kk} N={nn} {routed}"] = _ws_err(got, plain)
+                if routed != "decode" and mm <= kernels.W4_DECODE_ROWS:
+                    dec = form("decode")(x, packed, variant)
+                    held[f"{variant} M={mm} K={kk} N={nn} decode"] = _ws_err(dec, plain)
+                    _ws_err(dec, got)
+                if first is None:
+                    first = got
+                else:
+                    _ws_err(got, first)
+    print(f"[kernels] w4_unpack_matmul held at {ODD_UNPACK} x M {list(UNPACK_HELD)} (routed: "
+          f"decode up to {few}, the tile loop above; the decode form also up to "
+          f"{kernels.W4_DECODE_ROWS}), every variant alike: max abs err {max(held.values()):.4g}")
+    entry = _entry("w4_unpack_matmul", "w4_unpack_matmul.cu", "script/probe_w4_unpack.py:93",
+                   rows + rows_few, WS_ATOL, WS_RTOL)
+    entry.update(form=rows[0]["form"], decode_ms=rows[0]["decode_ms"], held=held,
+                 forms={"decode": "stllm_tpu_torch/csrc/w4a16_decode.cuh",
+                        "stream": "stllm_tpu_torch/csrc/weight_stream_matmul.cuh"})
+    return entry
 
 
 def _res_ln_err(got, want) -> float:
@@ -1647,6 +1761,16 @@ def _train_attention_kernels(kernels, gen, packed_entry) -> dict:
           f"{sdpa_rows[0]['sdpa_whole_backward_ms']:.4f} ms device only "
           f"({sdpa_rows[0]['sdpa_whole_backward_host_ms']:.4f} ms with the host)")
 
+    held = _held_attn_head_dims(kernels, gen)
+    for name in ATTN_KERNELS:
+        out[name]["head_dims_held"] = {label: {"form": r["form"], "max_abs_err": r["err"][name],
+                                               "ms": r["ms"][name]}
+                                       for label, r in held.items()}
+        out[name]["max_abs_err"] = max(out[name]["max_abs_err"],
+                                       *(r["err"][name] for r in held.values()))
+        out[name]["forms"] = {"tiles": "stllm_tpu_torch/csrc/flash_attention.cuh",
+                              "any": "stllm_tpu_torch/csrc/flash_attention_any.cuh"}
+
     # the packed kernel's backward: the vjp of the plain-softmax reference
     b, s, h, d = TRUNK
     qkv = _qkv_bufs(gen, b, s, h, d)[0].requires_grad_()
@@ -1661,6 +1785,58 @@ def _train_attention_kernels(kernels, gen, packed_entry) -> dict:
           f"max abs err {packed_entry['backward_max_abs_err']:.4f}, forward + backward "
           f"{packed_entry['backward_ms']:.3f} ms")
     return out
+
+
+ATTN_KERNELS = ("fused_short_attention", "flash_attention_fwd", "flash_attention_bwd_dq",
+                "flash_attention_bwd_dkv")
+
+
+def _held_attn_head_dims(kernels, gen) -> dict:
+    """#4-#7 at ANY_ATTN's head_dims, each held to its plain version (the
+    forward's lse too), its form asserted from FORM_LAUNCHES (the tile
+    loops, zero-padded, up to 128; the "any" form above), and timed by CUDA
+    events as context: no path runs these head_dims."""
+    held = {}
+    for (b, s, h, d), dtype in ANY_ATTN:
+        form, scale = kernels.attn_form(d), d ** -0.5
+
+        def mk(rows):
+            return torch.randn(b, rows, h, d, generator=gen, device="cuda").to(dtype)
+
+        def mask(keys):
+            m = torch.ones(b, keys, dtype=torch.int32, device="cuda")
+            m[-1, keys - keys // 5:] = 0
+            return m
+
+        short = (mk(768), mk(768), mk(768), mask(768), True, scale)
+        q, k, v, kv_mask, g = mk(s), mk(s), mk(s), mask(s), mk(s)
+        fwd = (q, k, v, kv_mask, True, scale)
+        want_out, lse = kernels.flash_attention_fwd_plain(*fwd)
+        delta = (g.float() * want_out.float()).sum(-1).transpose(1, 2).contiguous()
+        bwd = (q, k, v, kv_mask, g, lse, delta, True, scale)
+        calls = {"fused_short_attention": (kernels.fused_short_attention, short,
+                                           kernels.fused_short_attention_plain(*short)),
+                 "flash_attention_fwd": (kernels.flash_attention_fwd, fwd, (want_out, lse)),
+                 "flash_attention_bwd_dq": (kernels.flash_attention_bwd_dq, bwd,
+                                            kernels.flash_attention_bwd_plain(*bwd)[0]),
+                 "flash_attention_bwd_dkv": (kernels.flash_attention_bwd_dkv, bwd,
+                                             kernels.flash_attention_bwd_plain(*bwd)[1:])}
+        row = {"form": form, "err": {}, "ms": {}}
+        for name, (fn, args, want) in calls.items():
+            got = _ws_form_ran(kernels, name, form, lambda: fn(*args))
+            if name == "flash_attention_fwd":
+                lse_err = float((got[1] - want[1]).abs().max())
+                if lse_err > LSE_ATOL:
+                    raise AssertionError(f"[kernels] {name} D={d}: lse max abs err {lse_err}")
+                got, want = got[0], want[0]
+            pairs = zip(got, want) if name == "flash_attention_bwd_dkv" else [(got, want)]
+            row["err"][name] = max(_attn_err(a, w) for a, w in pairs)
+            row["ms"][name] = cuda_ms(lambda: fn(*args), 5)
+        label = f"{[b, s, h, d]} {str(dtype).split('.')[-1]}"
+        held[label] = row
+        print(f"[kernels] training attention at head_dim {d} ({label}, the {form} form; "
+              f"#7 at 768 keys): {json.dumps(row)}")
+    return held
 
 
 # ---------------------------------------------------------------------------
@@ -2554,6 +2730,7 @@ def phase_train(kernels) -> dict:
         torch.cuda.synchronize()
         wall = time.perf_counter() - t1
         launches = dict(kernels.LAUNCHES)
+        form_launches = dict(kernels.FORM_LAUNCHES)
         done += steps
         tiers[label] = {
             "mode": label, "steps": steps, "seq_len": sorted(seq), "micro_batch": 1,
@@ -2562,7 +2739,7 @@ def phase_train(kernels) -> dict:
             "ms_per_step": float(np.mean(step_ms[1:])) if steps > 1 else step_ms[0],
             "samples_per_s": (steps - 1) / (sum(step_ms[1:]) / 1e3) if steps > 1 else None,
             "max_memory_allocated_gib": torch.cuda.max_memory_allocated() / 2**30,
-            "launches": launches,
+            "launches": launches, "form_launches": form_launches,
             "launches_per_step": {k: v / steps for k, v in launches.items() if v}}
         print(f"[{label}] {json.dumps(tiers[label])}")
         want_len = TRAIN_SHORT[1] if label == "train-short" else TRAIN_LONG[1]
@@ -2572,6 +2749,9 @@ def phase_train(kernels) -> dict:
         others = {k: v for k, v in launches.items() if k not in TRAIN_LAUNCHES[label] and v}
         if others:
             raise AssertionError(f"[{label}] unexpected kernel launches {others}")
+        off_tiles = {k: v for k, v in form_launches.items() if k.endswith("/any") and v}
+        if off_tiles:      # head_dim 128: the tile loops, no padding
+            raise AssertionError(f"[{label}] launches on an any form: {off_tiles}")
 
     log = [json.loads(line) for line in (Path(out_dir) / "log.txt").read_text().splitlines()]
     shutil.rmtree(out_dir, ignore_errors=True)

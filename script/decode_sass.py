@@ -1,15 +1,16 @@
 #!/usr/bin/env python3
 """Instructions a packed byte of the weight-streaming decode form
 (csrc/w4a16_decode.cuh), by the byte's meaning: kNibble (#12's int4
-nibbles), kArith (#13's arithmetic packing) and kInt8 (#14's int8 codes),
+nibbles), kArith (#13's arithmetic packing), kInt8 (#14's int8 codes) and
+the five unpack variants of the probe #15 (kProbeInt32 ... kProbeAnd8),
 counted in the SASS of the built libraries.
 
     python3 script/decode_sass.py [--rows 8|16]
 
 Run from the repository root on a machine with the CUDA toolkit (nvcc,
 cuobjdump) and a card (for its name and power limit). It builds
-``w4a16_matmul``, ``w4v3_matmul`` and ``w8p_matmul`` as ``ops/kernels.py``
-builds them, disassembles each library with ``cuobjdump -sass`` and, in
+``w4a16_matmul``, ``w4v3_matmul``, ``w8p_matmul`` and ``w4_unpack_matmul``
+as ``ops/kernels.py`` builds them, disassembles each library with ``cuobjdump -sass`` and, in
 the decode kernel of each mode at one n8 tile of x rows (M <= 8) or two
 (``--rows 16``), finds the main loop: the backward branch whose span holds
 the most tensor-core products (HMMA), the shortest such. A warp runs that
@@ -42,7 +43,9 @@ sys.path.insert(0, str(ROOT / "script"))
 from row_quant_sass import functions  # noqa: E402
 
 MODES = [("kNibble", "w4a16_matmul", 0, 2), ("kArith", "w4v3_matmul", 1, 2),
-         ("kInt8", "w8p_matmul", 2, 1)]          # (mode, library, wsm::Mode, halves of x)
+         ("kInt8", "w8p_matmul", 2, 1)] + [      # (mode, library, wsm::Mode, halves of x)
+    (f"kProbe{v.capitalize()}", "w4_unpack_matmul", 3 + i, 2)
+    for i, v in enumerate(("int32", "int16", "f32", "bf16", "and8"))]
 BYTES_A_LANE_A_STEP = 4 * 16
 _LINE = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P[T0-9]+\s+)?([A-Z][A-Z0-9_.]*)([^;]*);")
 CLASSES = {"products": {"HMMA"}, "shared reads": {"LDS", "LDSM"},
@@ -93,7 +96,7 @@ def main() -> int:
     cuobjdump = shutil.which("cuobjdump") or str(bindir / "cuobjdump")
     demangler = shutil.which("cu++filt") or (str(bindir / "cu++filt") if (
         bindir / "cu++filt").exists() else "c++filt")
-    kernels.build([lib for _, lib, _, _ in MODES])
+    kernels.build(sorted({lib for _, lib, _, _ in MODES}))
     out = {}
     for mode, lib, code, halves in MODES:
         sass = functions(subprocess.run([cuobjdump, "-sass", str(kernels._lib_path(lib))],

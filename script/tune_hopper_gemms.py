@@ -4,7 +4,7 @@ form of the fused-LayerNorm int8 GEMM (#11, csrc/qmm_res_ln.cu), the wgmma
 prefill form and the decode form of the W4A16 matmul (#12,
 csrc/w4a16_prefill.cuh, csrc/w4a16_decode.cuh) and the blockwise dynamic
 W8A8 matmul (#8, csrc/quant_matmul.cu), and the decode form's modes of the
-probes #13 and #14, each held to its plain version first.
+probes #13-#15, each held to its plain version first.
 
     python3 script/tune_hopper_gemms.py [--only KEY ...] [--baseline OTHER/stllm_tpu_torch/csrc]
                                         [--out FILE]
@@ -21,7 +21,9 @@ rule gives (variants change the rule's kMaxCluster and kTargetCTAs) and the
 tile loop beside it (the same in every variant's library); the probes #13
 and #14 on the decode form's kArith and kInt8 modes (keys
 w4v3_matmul/decode, w8p_matmul/decode) at the decode-budget probe's seven
-shapes at M = 1, the tile loop beside them; #8 (key
+shapes at M = 1, the tile loop beside them; #15's five unpack variants
+(key w4_unpack_matmul/decode) at the unpack probe's (16, 4096, 11008), the
+tile loop and #12's decode form on the same codes beside them; #8 (key
 quant_matmul_blockwise) at its fc1 and fc2 shapes ((16 x 257) x 1408 ->
 6144, one k-block; 6144 -> 1408, three; 1408 -> 1408, one), bf16, the
 whole call (quant pass and GEMM), variants of the GEMM's tile widths, ring
@@ -139,6 +141,19 @@ _NO_CONVERT = (DECODE, r"const float fa = [^;]*;\s*const float fb = [^;]*;\s*"
 _NO_SPLIT = (DECODE, r"for \(int q = 0; q < 4; \+\+q\) arith_split\(a\[q\], top\[q\], bot\[q\]\);",
              "for (int q = 0; q < 4; ++q) top[q] = bot[q] = a[q];")
 
+# #15's modes: no products; no unpack (each pair word stands in for its
+# bf16 pairs); the kernel's register cap from 6 or 4 CTAs an SM (8 shipped)
+_PROBE_NO_MMA = (DECODE, r"(probe_pair<MODE>\(p23 >> 8, top\[3\], bot\[3\]\);\s*"
+                         r"#pragma unroll\s*for \(int h = 0; h < MT; \+\+h\) \{\s*)"
+                         r"wsm::mma_bf16\(acc\[h\]\[j\], top, xt\[h\]\.x, xt\[h\]\.y\);\s*"
+                         r"wsm::mma_bf16\(acc\[h\]\[j\], bot, xb\[h\]\.x, xb\[h\]\.y\);",
+                 r"\1acc[h][j][0] += __uint_as_float((top[0] ^ top[3] ^ bot[0] ^ bot[3] ^ "
+                 r"xt[h].x ^ xb[h].y) & 0x3fffffffu);")
+_PROBE_NO_UNPACK = (DECODE, r"__nv_bfloat16 ta, ba, tb, bb;[^}]*bot = wsm::pack2\(ba, bb\);",
+                    "top = w;\n  bot = w >> 4;")
+_PROBE_BLOCKS = lambda n: (DECODE, r"__launch_bounds__\(kThreads, 16 / kWarps\)",  # noqa: E731
+                           f"__launch_bounds__(kThreads, {n})")
+
 # #8: the GEMM's tile widths (one k-block; more than one), the ring's depth,
 # the wgmma wait, persistence, and a diagnostic without the products
 QM8 = "quant_matmul.cu"
@@ -245,6 +260,25 @@ VARIANTS = {
          _decode() + [_INT8_NO_MMA, _NO_CONVERT]),
     ],
 }
+
+
+VARIANTS["w4_unpack_matmul/decode"] = [
+    ("shipped", _decode()),
+    ("1 K group", _decode(kgroups=1)),
+    ("3 K groups", _decode(kgroups=3)),
+    ("4 K groups", _decode(kgroups=4)),
+    ("256 columns", _decode(slices=2)),
+    ("6 stages", _decode(stages=6)),
+    ("clusters to 8", _decode(clusters=8)),
+    ("256 CTAs a call", _decode(target=256)),
+    ("1024 CTAs a call", _decode(target=1024)),
+    ("registers for 6 CTAs an SM", _decode() + [_PROBE_BLOCKS(6)]),
+    ("registers for 4 CTAs an SM", _decode() + [_PROBE_BLOCKS(4)]),
+    ("diagnostic: no products", _decode() + [_PROBE_NO_MMA]),
+    ("diagnostic: no unpack", _decode() + [_PROBE_NO_UNPACK]),
+    ("diagnostic: loads only (no products, no unpack)",
+     _decode() + [_PROBE_NO_MMA, _PROBE_NO_UNPACK]),
+]
 
 
 def time_qmm(gen) -> dict:
@@ -380,6 +414,80 @@ def time_probe_decode(gen, checked: bool, name: str) -> dict:
     return out
 
 
+REPEATS = 20                        # bitwise repeats of each decode-form check (#15)
+
+
+def time_unpack_decode(gen, checked: bool) -> dict:
+    """#15's five variants at the unpack probe's (16, 4096, 11008) on the
+    decode form, the tile loop beside each, cycling w4_copies input copies
+    (each variant its layout of the same codes), and #12's decode form on
+    the same codes in the nibble layout at unit scale (a yardstick the
+    variant's library does not change); then the int32 and f32 variants and
+    #12 at 8 and 4 rows (one n8 tile of x rows). Checked (not a
+    diagnostic): each variant's decode form is held to its plain version on
+    every copy at 16 and at 8 rows, and run REPEATS more times on each,
+    each output compared bit for bit with the first (the form sums in a
+    fixed order, so a difference is a race); failures are counted in the
+    result, not raised, so that one variant does not hide the others."""
+    import torch
+
+    import chip_smoke as cs
+    from stllm_tpu_torch.ops import kernels
+
+    m, k, n = cs.UNPACK_SHAPE
+    copies = cs.w4_copies(k // 2 * n)
+    codes = lambda: torch.randint(-7, 8, (k // 2, n), generator=gen,  # noqa: E731
+                                  device="cuda", dtype=torch.int8)
+    src = [((torch.randn(m, k, generator=gen, device="cuda") * 0.1).bfloat16(), codes(), codes())
+           for _ in range(copies)]
+
+    def timed(fn, bufs):
+        it = iter(range(1 << 30))
+        return cs.graph_ms(lambda: fn(*bufs[next(it) % len(bufs)]), 40)
+
+    def held(variant, rows) -> dict:
+        bufs = [(x[:rows], kernels.pack_int4_variant(variant, t, b), variant) for x, t, b in src]
+        errors, mismatches, worst = [], 0, 0.0
+        for buf in bufs:
+            first = kernels._w4_unpack_matmul(*buf, "decode")
+            try:
+                worst = max(worst, cs._ws_err(first, kernels.w4_unpack_matmul_plain(*buf)))
+            except AssertionError as e:
+                errors.append(str(e))
+            for _ in range(REPEATS):
+                mismatches += not torch.equal(kernels._w4_unpack_matmul(*buf, "decode"), first)
+        return {"max_abs_err": worst, "errors": errors, "runs": len(bufs) * (REPEATS + 1),
+                "repeat_mismatches": mismatches}
+
+    one = torch.ones(n, device="cuda")
+    out = {"w4a16 decode, same codes": timed(
+        lambda *a: kernels._w4a16_matmul(*a, "decode"),
+        [(x, kernels.pack_int4_nibbles(t, b), one) for x, t, b in src])}
+    for variant in kernels.W4_UNPACK_VARIANTS:
+        bufs = [(x, kernels.pack_int4_variant(variant, t, b), variant) for x, t, b in src]
+        decode = lambda *a: kernels._w4_unpack_matmul(*a, "decode")  # noqa: E731
+        code = kernels.W4_UNPACK_VARIANTS.index(variant)
+        out[variant] = {"held": {rows: held(variant, rows) for rows in (16, 8)}} if checked else {}
+        out[variant] |= {"decode": timed(decode, bufs),
+                         "tile loop": timed(lambda *a: kernels._w4_unpack_matmul(*a, "stream"),
+                                            bufs),
+                         "registers": kernels.occupancy("w4_unpack_matmul", code, m, 1),
+                         "blocks_per_sm": kernels.occupancy("w4_unpack_matmul", code, m, 0)}
+        del bufs
+    for rows in (8, 4):
+        out[f"w4a16 decode, same codes, M={rows}"] = timed(
+            lambda *a: kernels._w4a16_matmul(*a, "decode"),
+            [(x[:rows], kernels.pack_int4_nibbles(t, b), one) for x, t, b in src])
+        for variant in ("int32", "f32"):
+            bufs = [(x[:rows], kernels.pack_int4_variant(variant, t, b), variant)
+                    for x, t, b in src]
+            out[f"{variant} M={rows}"] = {
+                f: timed(lambda *a: kernels._w4_unpack_matmul(*a, f), bufs)
+                for f in ("decode", "stream")}
+            del bufs
+    return out
+
+
 def time_blockwise(gen, checked: bool) -> dict:
     """#8 at its fc1, fc2 and proj shapes, bf16, four input copies cycled
     (the width rule picks 256 columns at fc1, 128 at proj and fc2)."""
@@ -461,6 +569,8 @@ def main() -> int:
                 res = time_w4(gen)
             elif name == "quant_matmul_blockwise":
                 res = time_blockwise(gen, not label.startswith("diagnostic"))
+            elif name == "w4_unpack_matmul/decode":
+                res = time_unpack_decode(gen, not label.startswith("diagnostic"))
             elif name in ("w4v3_matmul/decode", "w8p_matmul/decode"):
                 res = time_probe_decode(gen, not label.startswith("diagnostic"),
                                         name.split("/")[0])

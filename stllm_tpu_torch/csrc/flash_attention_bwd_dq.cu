@@ -19,9 +19,13 @@
 // from shared memory, dS as register A, one or two warpgroups a block) was
 // right and slower on an H100 (0.092 against 0.088 ms at the shape above).
 // An fp32 q, k, v, dO takes the fp32 instantiation of attention_f32.cuh.
+// A head_dim that is no multiple of 8 reaches the tile loops zero-padded by
+// the wrapper; one above 128 takes the "any" form of flash_attention_any.cuh
+// (bf16 or fp32, CUDA-core loops), as the TPU kernel takes every head_dim.
 
 #include "attention_f32.cuh"
 #include "flash_attention.cuh"
+#include "flash_attention_any.cuh"
 
 // strides: 12 long longs (batch, sequence, head for q, k, v, dO); lse and
 // delta fp32 (B, H, Sq); dq bf16 (B, Sq, H, D) contiguous.
@@ -52,6 +56,33 @@ extern "C" int stllm_flash_attention_bwd_dq_f32(const void* q, const void* k, co
   p.delta = static_cast<const float*>(delta);
   p.out = static_cast<float*>(dq);
   return static_cast<int>(stllm::f32attn::launch_dq(p, static_cast<cudaStream_t>(stream)));
+}
+
+// The "any" form (flash_attention_any.cuh), for a head_dim above the tile
+// loops' 128: the arguments of the bf16 entry point, then whether q, k, v,
+// dO and dq are fp32.
+extern "C" int stllm_flash_attention_bwd_dq_any(const void* q, const void* k, const void* v,
+                                                const void* d_out, const long long* strides,
+                                                const void* kv_mask, const void* lse,
+                                                const void* delta, void* dq, int B, int Sq,
+                                                int Sk, int H, int D, int causal, float scale,
+                                                int io_f32, void* stream) {
+  namespace a = stllm::attn_any;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (io_f32) {
+    a::Params<float> p = a::make_params<float>(q, k, v, d_out, strides, kv_mask, B, Sq, Sk, H, D,
+                                               causal, 0, scale);
+    p.lse_in = static_cast<const float*>(lse);
+    p.delta = static_cast<const float*>(delta);
+    p.out = static_cast<float*>(dq);
+    return static_cast<int>(a::launch_dq(p, st));
+  }
+  a::Params<__nv_bfloat16> p = a::make_params<__nv_bfloat16>(q, k, v, d_out, strides, kv_mask,
+                                                             B, Sq, Sk, H, D, causal, 0, scale);
+  p.lse_in = static_cast<const float*>(lse);
+  p.delta = static_cast<const float*>(delta);
+  p.out = static_cast<__nv_bfloat16*>(dq);
+  return static_cast<int>(a::launch_dq(p, st));
 }
 
 // Resident blocks of the bf16 kernel a streaming multiprocessor holds at

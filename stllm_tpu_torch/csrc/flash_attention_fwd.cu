@@ -22,9 +22,13 @@
 // flash_attention.cuh: K, V and the mask words through a two-stage cp.async
 // ring, q in registers, heaviest causal tiles first, three blocks an SM at
 // D = 128. An fp32 q, k, v takes the fp32 instantiation of attention_f32.cuh.
+// A head_dim that is no multiple of 8 reaches the tile loops zero-padded by
+// the wrapper; one above 128 takes the "any" form of flash_attention_any.cuh
+// (bf16 or fp32, CUDA-core loops), as the TPU kernel takes every head_dim.
 
 #include "attention_f32.cuh"
 #include "flash_attention.cuh"
+#include "flash_attention_any.cuh"
 
 // As stllm_fused_short_attention_bf16, plus lse fp32 (B, H, Sq); causal is
 // key <= query with no offset, as in the TPU kernel.
@@ -52,6 +56,30 @@ extern "C" int stllm_flash_attention_fwd_f32(const void* q, const void* k, const
   p.lse_out = static_cast<float*>(lse);
   return static_cast<int>(stllm::f32attn::launch_fwd<stllm::f32attn::kFlash>(
       p, static_cast<cudaStream_t>(stream)));
+}
+
+// The "any" form (flash_attention_any.cuh), for a head_dim above the tile
+// loops' 128: the arguments of the bf16 entry point, then whether q, k, v
+// and out are fp32.
+extern "C" int stllm_flash_attention_fwd_any(const void* q, const void* k, const void* v,
+                                             const long long* strides, const void* kv_mask,
+                                             void* out, void* lse, int B, int Sq, int Sk, int H,
+                                             int D, int causal, float scale, int io_f32,
+                                             void* stream) {
+  namespace a = stllm::attn_any;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (io_f32) {
+    a::Params<float> p = a::make_params<float>(q, k, v, nullptr, strides, kv_mask, B, Sq, Sk, H,
+                                               D, causal, 0, scale);
+    p.out = static_cast<float*>(out);
+    p.lse_out = static_cast<float*>(lse);
+    return static_cast<int>(a::launch_fwd<float, a::kFlash>(p, st));
+  }
+  a::Params<__nv_bfloat16> p = a::make_params<__nv_bfloat16>(q, k, v, nullptr, strides, kv_mask,
+                                                             B, Sq, Sk, H, D, causal, 0, scale);
+  p.out = static_cast<__nv_bfloat16*>(out);
+  p.lse_out = static_cast<float*>(lse);
+  return static_cast<int>(a::launch_fwd<__nv_bfloat16, a::kFlash>(p, st));
 }
 
 // Resident blocks of the bf16 kernel a streaming multiprocessor holds at

@@ -23,9 +23,13 @@
 // through a two-stage cp.async ring, causal query tiles heaviest first, K
 // and V re-read once per 64 query rows); wgmma and TMA are later work. An
 // fp32 q, k, v takes the fp32 instantiation of attention_f32.cuh.
+// A head_dim that is no multiple of 8 reaches the tile loops zero-padded by
+// the wrapper; one above 128 takes the "any" form of flash_attention_any.cuh
+// (bf16 or fp32, CUDA-core loops), as the TPU kernel takes every head_dim.
 
 #include "attention_f32.cuh"
 #include "flash_attention.cuh"
+#include "flash_attention_any.cuh"
 
 // q (B, Sq, H, D), k and v (B, Sk, H, D) bf16 through ``strides`` (12 long
 // longs: batch, sequence, head for q, k, v; the last three unused), kv_mask
@@ -52,4 +56,27 @@ extern "C" int stllm_fused_short_attention_f32(const void* q, const void* k, con
   p.out = static_cast<float*>(out);
   return static_cast<int>(stllm::f32attn::launch_fwd<stllm::f32attn::kUniform>(
       p, static_cast<cudaStream_t>(stream)));
+}
+
+// The "any" form (flash_attention_any.cuh), for a head_dim above the tile
+// loops' 128: the arguments of the bf16 entry point, then whether q, k, v
+// and out are fp32.
+extern "C" int stllm_fused_short_attention_any(const void* q, const void* k, const void* v,
+                                               const long long* strides, const void* kv_mask,
+                                               void* out, int B, int Sq, int Sk, int H, int D,
+                                               int causal, float scale, int io_f32,
+                                               void* stream) {
+  namespace a = stllm::attn_any;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (io_f32) {
+    a::Params<float> p = a::make_params<float>(q, k, v, nullptr, strides, kv_mask, B, Sq, Sk, H,
+                                               D, causal, Sk - Sq, scale);
+    p.out = static_cast<float*>(out);
+    return static_cast<int>(a::launch_fwd<float, a::kUniform>(p, st));
+  }
+  a::Params<__nv_bfloat16> p = a::make_params<__nv_bfloat16>(q, k, v, nullptr, strides, kv_mask,
+                                                             B, Sq, Sk, H, D, causal, Sk - Sq,
+                                                             scale);
+  p.out = static_cast<__nv_bfloat16*>(out);
+  return static_cast<int>(a::launch_fwd<__nv_bfloat16, a::kUniform>(p, st));
 }

@@ -3,7 +3,11 @@
 // wsm::Mode of weight_stream_matmul.cuh) says what a byte means: kNibble,
 // the int4 nibbles of the W4A16 matmul (#12, w4a16_matmul.cu's note);
 // kArith, the probe #13's arithmetic packing p = 16 * bottom + top
-// (w4v3_matmul.cu); kInt8, the probe #14's int8 codes (w8p_matmul.cu).
+// (w4v3_matmul.cu); kInt8, the probe #14's int8 codes (w8p_matmul.cu);
+// kProbeInt32 ... kProbeAnd8, the probe #15's five unpack variants
+// (w4_unpack_matmul.cu), each byte unpacked by its variant's own arithmetic
+// (wsm::unpack_byte, as the tile loop does), fp32 out with no scale, and on
+// the biased layout the row correction -8 * sum(x[:, :K/2]) (below).
 //
 // Bound on the H100: at decode (M = 4) a call moves the packed weight and
 // little else, 8.4 MB (o) to 45.1 MB (gate|up), 2.5 to 13.5 us at 3.35 TB/s
@@ -125,6 +129,19 @@ __device__ __forceinline__ __nv_bfloat162 bf16x2_of(uint32_t bits) {
   return *reinterpret_cast<const __nv_bfloat162*>(&bits);
 }
 
+// the low bytes of the two 16-bit halves of w (rows a and b of one weight
+// column), unpacked by the probe variant MODE's own arithmetic
+// (wsm::unpack_byte on each sign-extended byte) to the bf16 pairs (top_a,
+// top_b) and (bottom_a, bottom_b)
+template <int MODE>
+__device__ __forceinline__ void probe_pair(uint32_t w, uint32_t& top, uint32_t& bot) {
+  __nv_bfloat16 ta, ba, tb, bb;
+  wsm::unpack_byte<MODE>(static_cast<int>(w << 24) >> 24, ta, ba);
+  wsm::unpack_byte<MODE>(static_cast<int>(w << 8) >> 24, tb, bb);
+  top = wsm::pack2(ta, tb);
+  bot = wsm::pack2(ba, bb);
+}
+
 // byte I of wa and byte I of wb, each u = p + 128, to the bf16 pair (p_a,
 // p_b), exactly: the fp32 2^23 + u, minus 2^23 + 128, packed by cvt.rn
 template <int I>
@@ -217,6 +234,11 @@ w4_decode_kernel(const __nv_bfloat16* __restrict__ x, const int8_t* __restrict__
   for (int h = 0; h < MT; ++h)
 #pragma unroll
     for (int j = 0; j < 8; ++j) acc[h][j][0] = acc[h][j][1] = acc[h][j][2] = acc[h][j][3] = 0.0f;
+  // biased modes: this lane's share of sum(x_top) of row 8 h + g over the
+  // group's steps, from the x fragments it already holds
+  float xsum[MT];
+#pragma unroll
+  for (int h = 0; h < MT; ++h) xsum[h] = 0.0f;
 
 #pragma unroll
   for (int i = 0; i < kStages - 1; ++i) {
@@ -246,7 +268,33 @@ w4_decode_kernel(const __nv_bfloat16* __restrict__ x, const int8_t* __restrict__
     }
     const uint32_t r0[4] = {w0.x, w0.y, w0.z, w0.w}, r1[4] = {w1.x, w1.y, w1.z, w1.w};
     const uint32_t r2[4] = {w2.x, w2.y, w2.z, w2.w}, r3[4] = {w3.x, w3.y, w3.z, w3.w};
-    if constexpr (MODE == wsm::kNibble) {
+    if constexpr (wsm::ModeTraits<MODE>::kBiased) {
+#pragma unroll
+      for (int h = 0; h < MT; ++h) {
+        xsum[h] += (__uint_as_float(xt[h].x << 16) + __uint_as_float(xt[h].x & 0xFFFF0000u)) +
+                   (__uint_as_float(xt[h].y << 16) + __uint_as_float(xt[h].y & 0xFFFF0000u));
+      }
+    }
+    if constexpr (MODE >= wsm::kProbeInt32) {
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        // the pair words of kNibble: bytes 2j (low) and 2j + 1 (high) of rows
+        // 4t, 4t + 1 (and 4t + 2, 4t + 3), row 4t (4t + 2) in the low half
+        const uint32_t sel = (j & 1) ? 0x7632u : 0x5410u;
+        const uint32_t p01 = __byte_perm(r0[j >> 1], r1[j >> 1], sel);
+        const uint32_t p23 = __byte_perm(r2[j >> 1], r3[j >> 1], sel);
+        uint32_t top[4], bot[4];
+        probe_pair<MODE>(p01, top[0], bot[0]);
+        probe_pair<MODE>(p01 >> 8, top[1], bot[1]);
+        probe_pair<MODE>(p23, top[2], bot[2]);
+        probe_pair<MODE>(p23 >> 8, top[3], bot[3]);
+#pragma unroll
+        for (int h = 0; h < MT; ++h) {
+          wsm::mma_bf16(acc[h][j], top, xt[h].x, xt[h].y);
+          wsm::mma_bf16(acc[h][j], bot, xb[h].x, xb[h].y);
+        }
+      }
+    } else if constexpr (MODE == wsm::kNibble) {
 #pragma unroll
       for (int j = 0; j < 8; ++j) {
         // bytes 2j, 2j + 1 of rows 4t, 4t + 1 (and 4t + 2, 4t + 3) as the two
@@ -307,6 +355,27 @@ w4_decode_kernel(const __nv_bfloat16* __restrict__ x, const int8_t* __restrict__
     }
   }
   cp_async_wait_all();
+  if constexpr (wsm::ModeTraits<MODE>::kBiased) {
+    // -8 * sum(x_top) of the group's steps off each of its outputs, before
+    // the sums over groups and CTAs: lanes (g, 0..3) hold row 8 h + g's
+    // shares; lane (g, t)'s outputs are of rows 8 h + 2t and 8 h + 2t + 1
+    // (entries 0, 2 and 1, 3), whose sums lanes 8t and 8t + 4 hold
+#pragma unroll
+    for (int h = 0; h < MT; ++h) {
+      float s = xsum[h];
+      s += __shfl_xor_sync(0xffffffffu, s, 1);
+      s += __shfl_xor_sync(0xffffffffu, s, 2);
+      const float s0 = -8.0f * __shfl_sync(0xffffffffu, s, 8 * t);
+      const float s1 = -8.0f * __shfl_sync(0xffffffffu, s, 8 * t + 4);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        acc[h][j][0] += s0;
+        acc[h][j][1] += s1;
+        acc[h][j][2] += s0;
+        acc[h][j][3] += s1;
+      }
+    }
+  }
   __syncthreads();                  // every warp is done with the ring: it becomes red
 
   // each slice's sum over the K groups, in group order, into group 0's slot
@@ -351,7 +420,7 @@ w4_decode_kernel(const __nv_bfloat16* __restrict__ x, const int8_t* __restrict__
     for (int q = 0; q < kMaxCluster; ++q) {
       if (q < C) v += ld_cluster_f32(red + src, static_cast<uint32_t>(q));
     }
-    v *= scale[n];
+    if constexpr (wsm::ModeTraits<MODE>::kScaled) v *= scale[n];
     const long long e = static_cast<long long>(m) * N + n;
     if (out_f32) {
       static_cast<float*>(out)[e] = v;
@@ -425,13 +494,15 @@ cudaError_t launch(const void* x, const void* packed, const void* scale, void* o
 }
 
 // Shape checks, then the launch. x: contiguous (M, kH kw) bf16, 16-byte
-// aligned, M <= 16; w (>= kw, N) int8, 8-byte aligned; scale (N,) fp32; out
-// (M, N) bf16, or fp32 when out_f32. N and kw (the weight rows in use:
-// K / 2 for the int4 modes, K for kInt8) multiples of 8.
+// aligned, M <= 16; w (>= kw, N) int8, 8-byte aligned; scale (N,) fp32
+// (the scaled modes; the probe #15's take none); out (M, N) bf16, or fp32
+// when out_f32. N and kw (the weight rows in use: K / 2 for the int4 modes,
+// K for kInt8) multiples of 8.
 template <int MODE>
 int run(const void* x, const void* w, const void* scale, void* out, int M, int N, int kw,
         int out_f32, void* stream) {
-  if (M <= 0 || M > kMaxRows || N <= 0 || N % 8 || kw <= 0 || kw % 8 || scale == nullptr ||
+  if (M <= 0 || M > kMaxRows || N <= 0 || N % 8 || kw <= 0 || kw % 8 ||
+      (wsm::ModeTraits<MODE>::kScaled && scale == nullptr) ||
       (N + kBN - 1) / kBN > 65535 || reinterpret_cast<uintptr_t>(x) % 16 ||
       reinterpret_cast<uintptr_t>(w) % 8) {
     return static_cast<int>(cudaErrorInvalidValue);

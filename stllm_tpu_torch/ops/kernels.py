@@ -47,12 +47,17 @@ thread-block cluster (``csrc/w4a16_decode.cuh``), above that a ``wgmma``
 mixed-input GEMM with TMA (``csrc/w4a16_prefill.cuh``); the tile loop
 stays in the library as the design both replaced. The probes #13 and #14
 run that decode form too, on their own bytes, at M <= 16 (``probe_form``)
-and the tile loop above; #15 runs on the tile loop.
+and the tile loop above; #15 runs it at M <= 8 (``unpack_form``), where
+it beats the tile loop, and the tile loop above.
 ``qmm_res_ln`` has a cluster form for the widths ``qmm_res_ln_form``
 admits (thread-block clusters of 8, ``wgmma`` s8, row statistics exchanged
 through distributed shared memory); both build on ``csrc/hopper.cuh``. The
 four training attention kernels (``csrc/flash_attention.cuh``) are wired
-into autograd by ``ops/attention.py``. The packed-qkv loop and the flash
+into autograd by ``ops/attention.py``; they take every head_dim in two
+forms (``attn_form``): the tile loops up to 128 (a head_dim that is no
+multiple of 8 zero-padded to one), and a simple form
+(``csrc/flash_attention_any.cuh``) above, as the reference pads any
+head_dim to its lane width. The packed-qkv loop and the flash
 loops share the copy and fragment helpers of ``csrc/mma_tiles.cuh``. #1, #2
 and #4-#7 take bf16 or fp32: an fp32 tensor launches the fp32 entry point of
 the same library (``csrc/attention_f32.cuh``, CUDA-core fp32 products) and
@@ -155,6 +160,9 @@ _FORM_ENTRY = {
         "stllm_w4v3_matmul_decode", [_P, _P, _P, _P, _I, _I, _I, _I, _P]),
     ("w8p_matmul", "decode"): (
         "stllm_w8p_matmul_decode", [_P, _P, _P, _P, _I, _I, _I, _I, _P]),
+    # #15 on it: x, packed, no scale, out, M, N, weight rows in use, variant
+    ("w4_unpack_matmul", "decode"): (
+        "stllm_w4_unpack_matmul_decode", [_P, _P, _P, _P, _I, _I, _I, _I, _P]),
     # the packed kernels' "any" form: the tile loop's arguments, then io_f32
     # (#1, #2); #3's are its tile loop's
     ("packed_qkv_attention", "any"): (
@@ -167,6 +175,11 @@ _FORM_ENTRY = {
     ("layer_norm_quant", "any"): (
         "stllm_layer_norm_quant_any", _ENTRY["layer_norm_quant"][1]),
     ("gelu_quant", "any"): ("stllm_gelu_quant_any", _ENTRY["gelu_quant"][1]),
+    # the training attention's "any" form: the tile loops' arguments, then
+    # io_f32
+    **{(name, "any"): (f"stllm_{name}_any", _ENTRY[name][1][:-1] + [_I, _P]) for name in (
+        "fused_short_attention", "flash_attention_fwd", "flash_attention_bwd_dq",
+        "flash_attention_bwd_dkv")},
     # qmm_res_ln's arguments without the staged scratch row
     ("qmm_res_ln", "cluster"): (
         "stllm_qmm_res_ln_cluster",
@@ -193,6 +206,7 @@ _OCCUPANCY = {
     "w4a16_matmul": ("stllm_w4a16_matmul_occupancy", [_I, _I]),
     "w4v3_matmul": ("stllm_w4v3_matmul_occupancy", [_I, _I]),
     "w8p_matmul": ("stllm_w8p_matmul_occupancy", [_I, _I]),
+    "w4_unpack_matmul": ("stllm_w4_unpack_matmul_occupancy", [_I, _I, _I]),
     "qmm_res_ln": ("stllm_qmm_res_ln_occupancy", [_I, _I, _I, _I]),
     "layer_norm_quant": ("stllm_layer_norm_quant_occupancy", [_I, _I, _I]),
     "gelu_quant": ("stllm_gelu_quant_occupancy", [_I, _I, _I]),
@@ -204,10 +218,13 @@ LAUNCHES: Dict[str, int] = {name: 0 for name in SOURCES}
 # without a form runs; FORM_LAUNCHES splits their LAUNCHES by form
 # ("w4a16_matmul/decode")
 FORMS = {"w4a16_matmul": ("stream", "wgmma", "decode"), "qmm_res_ln": ("rows", "cluster"),
-         "w4v3_matmul": ("stream", "decode"), "w8p_matmul": ("stream", "decode"),
+         **{name: ("stream", "decode") for name in (
+             "w4v3_matmul", "w8p_matmul", "w4_unpack_matmul")},
          "layer_norm_quant": ("registers", "any"), "gelu_quant": ("registers", "any"),
          **{name: ("tiles", "any") for name in (
-             "packed_qkv_attention", "packed_qkv_attention_quant", "packed_qkv_attention_s8")}}
+             "packed_qkv_attention", "packed_qkv_attention_quant", "packed_qkv_attention_s8",
+             "fused_short_attention", "flash_attention_fwd", "flash_attention_bwd_dq",
+             "flash_attention_bwd_dkv")}}
 FORM_LAUNCHES: Dict[str, int] = {f"{n}/{f}": 0 for n, fs in FORMS.items() for f in fs}
 BUILD_LOG: Dict[str, str] = {}   # nvcc output (ptxas register/spill report)
 _LIBS: Dict[str, ctypes.CDLL] = {}
@@ -341,7 +358,8 @@ def occupancy(name: str, *shape: int) -> int:
     decode form's registers a thread), the tile loop's row tile (16 or 64)
     or the decode form's rows (up to 8 or 16); w4v3_matmul, w8p_matmul:
     the decode form's rows (up to 8 or 16), and 0 for its blocks an SM or 1
-    for its registers a thread;
+    for its registers a thread; w4_unpack_matmul: the variant's index in
+    W4_UNPACK_VARIANTS, then as w4v3_matmul;
     qmm_res_ln: cluster form or not, blocks an SM (0)
     or clusters the card holds (1), M, N; layer_norm_quant, gelu_quant: K,
     fp32 rows or not, and 1 for the register form's registers a thread
@@ -722,6 +740,18 @@ def probe_form(m: int) -> str:
     return "decode" if m <= W4_DECODE_ROWS else "stream"
 
 
+UNPACK_DECODE_ROWS = 8              # the most rows #15's route sends to the decode form
+
+
+def unpack_form(m: int) -> str:
+    """Which form of the probe #15 runs M rows: "decode" for M <= 8 (one n8
+    tile of x rows), else "stream", the tile loop. On the H100 the decode
+    form beats the tile loop at 4 and 8 rows and loses to it at the probe's
+    16 (two n8 tiles; PERF.md, section 6), so only the rows where it wins take
+    it; ``_w4_unpack_matmul(..., "decode")`` still runs it up to 16 rows."""
+    return "decode" if m <= UNPACK_DECODE_ROWS else "stream"
+
+
 def weight_stream_operands(x: torch.Tensor, w: torch.Tensor, scale: Optional[torch.Tensor],
                            kw: int, halves: int):
     """The operands of a weight-streaming product at widths the kernels
@@ -785,15 +815,14 @@ def _weight_stream(name: str, x: torch.Tensor, w: torch.Tensor,
     npad = w.shape[1]
     out = torch.empty((m, npad), dtype=out_dtype, device=x.device)
     if m and form in ("wgmma", "decode"):
-        _launch(name, x.device, x2.data_ptr(), w.data_ptr(), scale.data_ptr(), out.data_ptr(),
+        _launch(name, x.device, x2.data_ptr(), w.data_ptr(), _ptr(scale), out.data_ptr(),
                 m, npad, kw, flag, form=form)
     elif m:
         splits = weight_stream_splits(m, npad, kw)
         partial = (torch.empty((splits, m, npad), dtype=torch.float32, device=x.device)
                    if splits > 1 else None)
-        _launch(name, x.device, x2.data_ptr(), w.data_ptr(),
-                None if scale is None else scale.data_ptr(), out.data_ptr(),
-                None if partial is None else partial.data_ptr(), m, npad, kw, splits, flag)
+        _launch(name, x.device, x2.data_ptr(), w.data_ptr(), _ptr(scale), out.data_ptr(),
+                _ptr(partial), m, npad, kw, splits, flag)
     if npad != n:
         out = out[:, :n]
     return out.reshape(*lead, n)
@@ -854,6 +883,13 @@ def pack_int4_biased(top: torch.Tensor, bottom: torch.Tensor) -> torch.Tensor:
     """Codes in [-7, 7] to the biased layout of #15's f32, bf16 and and8
     variants: 16 * bottom + top + 8."""
     return (bottom.to(torch.int16) * 16 + top.to(torch.int16) + 8).to(torch.int8)
+
+
+def pack_int4_variant(variant: str, top: torch.Tensor, bottom: torch.Tensor) -> torch.Tensor:
+    """Codes in [-7, 7] in the layout #15's ``variant`` reads: biased (f32,
+    bf16, and8) or nibbles (int32, int16)."""
+    biased = variant in BIASED_VARIANTS
+    return (pack_int4_biased if biased else pack_int4_nibbles)(top, bottom)
 
 
 def w4v3_matmul_plain(x: torch.Tensor, packed: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
@@ -931,15 +967,25 @@ def w4_unpack_matmul_plain(x: torch.Tensor, packed: torch.Tensor, variant: str) 
 def w4_unpack_matmul(x: torch.Tensor, packed: torch.Tensor, variant: str) -> torch.Tensor:
     """Probe #15: x (..., K) @ unpack(packed (>= K/2, N)) by ``variant``
     (one of W4_UNPACK_VARIANTS) -> fp32 (..., N), no scale. CUDA: any even
-    K and any N, on the tile loop."""
+    K and any N, in the form ``unpack_form`` picks by M."""
     if x.device.type == "cpu":
         return w4_unpack_matmul_plain(x, packed, variant)
+    return _w4_unpack_matmul(x, packed, variant,
+                             unpack_form(x.numel() // max(x.shape[-1], 1)))
+
+
+def _w4_unpack_matmul(x: torch.Tensor, packed: torch.Tensor, variant: str,
+                      form: str) -> torch.Tensor:
+    """#15 on the card in ``form`` ("stream" or, up to 16 rows, "decode"),
+    whatever M is; chip_smoke.py times the tile loop through it."""
     if variant not in W4_UNPACK_VARIANTS:
         raise ValueError(f"unpack variant {variant!r} not in {W4_UNPACK_VARIANTS}")
     if x.shape[-1] % 2:
         raise ValueError(f"w4_unpack_matmul: K ({x.shape[-1]}) must be even")
+    if form not in FORMS["w4_unpack_matmul"]:
+        raise ValueError(f"w4_unpack_matmul: form {form!r} not in {FORMS['w4_unpack_matmul']}")
     return _weight_stream("w4_unpack_matmul", x, packed, None, 2,
-                          W4_UNPACK_VARIANTS.index(variant), torch.float32)
+                          W4_UNPACK_VARIANTS.index(variant), torch.float32, form)
 
 
 # ---------------------------------------------------------------------------
@@ -950,7 +996,31 @@ def w4_unpack_matmul(x: torch.Tensor, packed: torch.Tensor, variant: str) -> tor
 
 NEG_INF = -1e30
 LSE_MASKED = 1e30        # logsumexp of a row with no visible key: exp(s - lse) == 0
-ATTN_MAX_HEAD_DIM = 128
+ATTN_MAX_HEAD_DIM = 128  # widest head of the tile loops (csrc/flash_attention.cuh)
+
+
+def attn_form(head_dim: int) -> str:
+    """The form of #4-#7 that runs at ``head_dim``: "tiles" (the tile loops
+    of csrc/flash_attention.cuh, and their fp32 instantiations) up to 128,
+    a head_dim that is no multiple of 8 zero-padded to one
+    (``attn_padded_width``); "any" (csrc/flash_attention_any.cuh, simple
+    CUDA-core loops) above 128, as the reference pads any head_dim to its
+    lane width."""
+    return "tiles" if head_dim <= ATTN_MAX_HEAD_DIM else "any"
+
+
+def attn_padded_width(head_dim: int) -> int:
+    """The head width a #4-#7 launch runs at: the tile loops take multiples
+    of 8, so a narrower head goes up to the next one (zero columns: they add
+    nothing to q.k^T, and give output, dq, dk and dv columns that are
+    sliced off; the scale comes from the true head_dim); the "any" form
+    takes every width as it is."""
+    return -(-head_dim // 8) * 8 if attn_form(head_dim) == "tiles" else head_dim
+
+
+def pad_head_dim(t: torch.Tensor, width: int) -> torch.Tensor:
+    """(..., D) with zero columns up to ``width`` (t itself at D = width)."""
+    return t if t.shape[-1] == width else F.pad(t, (0, width - t.shape[-1]))
 
 
 def _visible(q: torch.Tensor, k: torch.Tensor, kv_mask: Optional[torch.Tensor],
@@ -1042,22 +1112,21 @@ def _attn_args(name: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                kv_mask: Optional[torch.Tensor], d_out: Optional[torch.Tensor] = None):
     """Check the tensors of one training-attention launch and return
     (tensors the kernel can read in place, strides array, int32 mask or
-    None, (B, Sq, Sk, H, D)). bf16 (the tensor-core kernels) or fp32 (their
-    fp32 instantiations), one dtype for all; a tensor whose head dimension is
-    not contiguous, or whose strides or address break the 16-byte loads, is
-    copied to a contiguous one first."""
+    None, (B, Sq, Sk, H, width), form): bf16 (the tensor-core kernels) or
+    fp32 (their fp32 instantiations), one dtype for all, at any head_dim;
+    ``width`` is ``attn_padded_width(head_dim)``, the tensors zero-padded to
+    it. A tensor whose head dimension is not contiguous, or whose strides or
+    address break the 16-byte loads, is copied to a contiguous one first."""
     b, sq, h, d = q.shape
     sk = k.shape[1]
     if k.shape != v.shape or k.shape[0] != b or tuple(k.shape[2:]) != (h, d):
         raise ValueError(f"{name}: q {tuple(q.shape)}, k {tuple(k.shape)}, v {tuple(v.shape)}")
     if d_out is not None and d_out.shape != q.shape:
         raise ValueError(f"{name}: dO {tuple(d_out.shape)} != q {tuple(q.shape)}")
-    if d % 8 or d > ATTN_MAX_HEAD_DIM:
-        raise ValueError(f"{name} kernel: head_dim {d} must be a multiple of 8 and at most "
-                         f"{ATTN_MAX_HEAD_DIM}")
     if 0 in (b, sq, sk, h, d):
         raise ValueError(f"{name} kernel takes no empty tensor: q {tuple(q.shape)}, "
                          f"k {tuple(k.shape)}")
+    width = attn_padded_width(d)
     ts = []
     for t in (q, k, v) + (() if d_out is None else (d_out,)):
         if t.device != q.device or t.device.type != "cuda":
@@ -1065,6 +1134,7 @@ def _attn_args(name: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         if t.dtype not in (torch.bfloat16, torch.float32) or t.dtype != q.dtype:
             raise TypeError(f"{name} kernel takes torch.bfloat16 or torch.float32, one "
                             f"dtype for q, k, v and dO; got {t.dtype} beside q's {q.dtype}")
+        t = pad_head_dim(t, width)
         if t.stride(-1) != 1 or any(st % 8 for st in t.stride()[:3]) or t.data_ptr() % 16:
             t = t.contiguous()
         ts.append(t)
@@ -1076,28 +1146,44 @@ def _attn_args(name: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             raise ValueError(f"{name}: kv_mask {tuple(kv_mask.shape)} on {kv_mask.device}, "
                              f"want ({b}, {sk}) on {q.device}")
         mask = (kv_mask > 0).to(torch.int32).contiguous()
-    return ts, (ctypes.c_longlong * 12)(*strides), mask, (b, sq, sk, h, d)
+    return (ts, (ctypes.c_longlong * 12)(*strides), mask, (b, sq, sk, h, width),
+            attn_form(d))
 
 
 def _ptr(t: Optional[torch.Tensor]):
     return None if t is None else t.data_ptr()
 
 
+def _attn_launch(name: str, q: torch.Tensor, form: str, *args) -> None:
+    """Launch one of #4-#7 in ``form`` with its arguments (without the
+    stream): the "any" form's entry point takes the io dtype as well."""
+    f32 = q.dtype == torch.float32
+    if form == "any":
+        _launch(name, q.device, *args, int(f32), form="any")
+    else:
+        _launch(name, q.device, *args, f32=f32)
+
+
+def _head_dim(t: torch.Tensor, d: int) -> torch.Tensor:
+    """A kernel's (..., width) output at the caller's head_dim ``d``."""
+    return t if t.shape[-1] == d else t[..., :d].contiguous()
+
+
 def fused_short_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           kv_mask: Optional[torch.Tensor], causal: bool,
                           scale: float) -> torch.Tensor:
     """Single-pass attention for short sequences (#7): (B, Sq, H, D) out.
-    CUDA: bf16 or fp32, head_dim a multiple of 8 up to 128, q, k, v read in
-    place through their strides."""
+    CUDA: bf16 or fp32, any head_dim, in the form ``attn_form`` picks; q, k,
+    v read in place through their strides where no padding is needed."""
     if q.device.type == "cpu":
         return fused_short_attention_plain(q, k, v, kv_mask, causal, scale)
     name = "fused_short_attention"
-    (q, k, v), strides, mask, (b, sq, sk, h, d) = _attn_args(name, q, k, v, kv_mask)
-    out = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
-    _launch(name, q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(), strides,
-            _ptr(mask), out.data_ptr(), b, sq, sk, h, d, int(causal), scale,
-            f32=q.dtype == torch.float32)
-    return out
+    d = q.shape[-1]
+    (q, k, v), strides, mask, (b, sq, sk, h, w), form = _attn_args(name, q, k, v, kv_mask)
+    out = torch.empty((b, sq, h, w), dtype=q.dtype, device=q.device)
+    _attn_launch(name, q, form, q.data_ptr(), k.data_ptr(), v.data_ptr(), strides, _ptr(mask),
+                 out.data_ptr(), b, sq, sk, h, w, int(causal), scale)
+    return _head_dim(out, d)
 
 
 def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -1108,13 +1194,13 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if q.device.type == "cpu":
         return flash_attention_fwd_plain(q, k, v, kv_mask, causal, scale)
     name = "flash_attention_fwd"
-    (q, k, v), strides, mask, (b, sq, sk, h, d) = _attn_args(name, q, k, v, kv_mask)
-    out = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
+    d = q.shape[-1]
+    (q, k, v), strides, mask, (b, sq, sk, h, w), form = _attn_args(name, q, k, v, kv_mask)
+    out = torch.empty((b, sq, h, w), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
-    _launch(name, q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(), strides,
-            _ptr(mask), out.data_ptr(), lse.data_ptr(), b, sq, sk, h, d, int(causal), scale,
-            f32=q.dtype == torch.float32)
-    return out, lse
+    _attn_launch(name, q, form, q.data_ptr(), k.data_ptr(), v.data_ptr(), strides, _ptr(mask),
+                 out.data_ptr(), lse.data_ptr(), b, sq, sk, h, w, int(causal), scale)
+    return _head_dim(out, d), lse
 
 
 def _check_rows_f32(name: str, t: torch.Tensor, shape, device) -> torch.Tensor:
@@ -1133,14 +1219,16 @@ def flash_attention_bwd_dq(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if q.device.type == "cpu":
         return flash_attention_bwd_plain(q, k, v, kv_mask, d_out, lse, delta, causal, scale)[0]
     name = "flash_attention_bwd_dq"
-    (q, k, v, d_out), strides, mask, (b, sq, sk, h, d) = _attn_args(name, q, k, v, kv_mask, d_out)
+    d = q.shape[-1]
+    (q, k, v, d_out), strides, mask, (b, sq, sk, h, w), form = _attn_args(
+        name, q, k, v, kv_mask, d_out)
     lse = _check_rows_f32(name, lse, (b, h, sq), q.device)
     delta = _check_rows_f32(name, delta, (b, h, sq), q.device)
-    dq = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
-    _launch(name, q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(), d_out.data_ptr(),
-            strides, _ptr(mask), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
-            b, sq, sk, h, d, int(causal), scale, f32=q.dtype == torch.float32)
-    return dq
+    dq = torch.empty((b, sq, h, w), dtype=q.dtype, device=q.device)
+    _attn_launch(name, q, form, q.data_ptr(), k.data_ptr(), v.data_ptr(), d_out.data_ptr(),
+                 strides, _ptr(mask), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+                 b, sq, sk, h, w, int(causal), scale)
+    return _head_dim(dq, d)
 
 
 def flash_attention_bwd_dkv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -1152,15 +1240,17 @@ def flash_attention_bwd_dkv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if q.device.type == "cpu":
         return flash_attention_bwd_plain(q, k, v, kv_mask, d_out, lse, delta, causal, scale)[1:]
     name = "flash_attention_bwd_dkv"
-    (q, k, v, d_out), strides, mask, (b, sq, sk, h, d) = _attn_args(name, q, k, v, kv_mask, d_out)
+    d = q.shape[-1]
+    (q, k, v, d_out), strides, mask, (b, sq, sk, h, w), form = _attn_args(
+        name, q, k, v, kv_mask, d_out)
     lse = _check_rows_f32(name, lse, (b, h, sq), q.device)
     delta = _check_rows_f32(name, delta, (b, h, sq), q.device)
-    dk = torch.empty((b, sk, h, d), dtype=k.dtype, device=q.device)
-    dv = torch.empty((b, sk, h, d), dtype=v.dtype, device=q.device)
-    _launch(name, q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(), d_out.data_ptr(),
-            strides, _ptr(mask), lse.data_ptr(), delta.data_ptr(), dk.data_ptr(),
-            dv.data_ptr(), b, sq, sk, h, d, int(causal), scale, f32=q.dtype == torch.float32)
-    return dk, dv
+    dk = torch.empty((b, sk, h, w), dtype=k.dtype, device=q.device)
+    dv = torch.empty((b, sk, h, w), dtype=v.dtype, device=q.device)
+    _attn_launch(name, q, form, q.data_ptr(), k.data_ptr(), v.data_ptr(), d_out.data_ptr(),
+                 strides, _ptr(mask), lse.data_ptr(), delta.data_ptr(), dk.data_ptr(),
+                 dv.data_ptr(), b, sq, sk, h, w, int(causal), scale)
+    return _head_dim(dk, d), _head_dim(dv, d)
 
 
 # ---------------------------------------------------------------------------

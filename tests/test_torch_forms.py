@@ -5,14 +5,17 @@ int8 weights.
 - #12 (W4A16 matmul): the one-launch decode form at M <= 16 rows, the
   wgmma mixed-input GEMM above (prefill); the weight-streaming tile loop
   both replaced runs only where a caller asks for it.
-- #13, #14 (the decode-budget probes): #12's decode form on their bytes at
-  M <= 16 rows, the tile loop above.
+- #13-#15 (the decode-budget and unpack probes): #12's decode form on
+  their bytes at M <= 16 rows, the tile loop above.
 - #11 (s8 matmul + residual + LayerNorm + int8): the cluster form where
   N / 8 is a slice width it is built for (128, 176, 256), else the 16-row
   kernels.
 - #1-#3 (the packed-qkv attention kernels): the tile loops at head_dim a
   multiple of 8 up to 128 (every model of the repository), the "any" form
   at every other head_dim.
+- #4-#7 (the training attention kernels): the tile loops up to head_dim
+  128 (a head_dim that is no multiple of 8 zero-padded to one), the "any"
+  form above.
 - #9, #10 (LayerNorm -> int8, GELU -> int8): the register form for rows of
   whole 16-byte chunks up to 12288 wide (every model), the "any" form for
   every other width.
@@ -25,6 +28,8 @@ int8 weights.
 import jax
 import jax.numpy as jnp
 import numpy as np
+import ctypes
+
 import pytest
 import torch
 
@@ -62,19 +67,32 @@ def test_probe_form_by_rows(m, form):
     assert kernels.probe_form(m) == form
 
 
-@pytest.mark.parametrize("name", ["w4v3_matmul", "w8p_matmul"])
+@pytest.mark.parametrize("m,form", [(1, "decode"), (4, "decode"), (8, "decode"),
+                                    (9, "stream"), (16, "stream"), (17, "stream")])
+def test_unpack_form_by_rows(m, form):
+    """#15 takes the decode form only where it beat the tile loop on the
+    card (one n8 tile of x rows); the decode form itself takes up to 16."""
+    assert kernels.unpack_form(m) == form
+    assert kernels.UNPACK_DECODE_ROWS == 8 <= kernels.W4_DECODE_ROWS
+
+
+@pytest.mark.parametrize("name", ["w4v3_matmul", "w8p_matmul", "w4_unpack_matmul"])
 def test_probe_form_names(name):
-    """#13's and #14's forms: the tile loop first (what their entry point
-    without a form runs), then #12's decode form on their bytes, each with
-    a launch counter; the rule picks both and no other, and an unknown form
-    is refused before anything is checked or launched."""
+    """#13's, #14's and #15's forms: the tile loop first (what their entry
+    point without a form runs), then #12's decode form on their bytes, each
+    with a launch counter and (the decode form) a C entry point; the rule
+    (``probe_form``, #15's ``unpack_form``) picks both and no other, and an
+    unknown form is refused before anything is checked or launched."""
     assert kernels.FORMS[name] == ("stream", "decode")
     assert {f"{name}/{f}" for f in kernels.FORMS[name]} <= set(kernels.FORM_LAUNCHES)
-    assert {kernels.probe_form(m) for m in range(1, 2000)} == {"decode", "stream"}
+    assert (name, "decode") in kernels._FORM_ENTRY
+    rule = kernels.unpack_form if name == "w4_unpack_matmul" else kernels.probe_form
+    assert {rule(m) for m in range(1, 2000)} == {"decode", "stream"}
     x, w, scale = torch.zeros(4, 64), torch.zeros(64, 64, dtype=torch.int8), torch.ones(64)
-    forced = kernels._w4v3_matmul if name == "w4v3_matmul" else kernels._w8p_matmul
+    forced = {"w4v3_matmul": kernels._w4v3_matmul, "w8p_matmul": kernels._w8p_matmul,
+              "w4_unpack_matmul": lambda x, w, _, f: kernels._w4_unpack_matmul(x, w, "and8", f)}
     with pytest.raises(ValueError, match="form"):
-        forced(x, w, scale, "wgmma")
+        forced[name](x, w, scale, "wgmma")
 
 
 @pytest.mark.parametrize("m,n,dtype,form", [
@@ -118,6 +136,43 @@ def test_packed_form_names():
     kernels.packed_qkv_attention_quant(qkv, 2, 13, 0.3)
     kernels.packed_qkv_attention_s8(qkv.clamp(-1, 1).mul(127).round().to(torch.int8),
                                     torch.full((3,), 0.01), 2, 13, 0.3)
+    assert kernels.FORM_LAUNCHES == before
+
+
+@pytest.mark.parametrize("head_dim,form,width", [
+    (64, "tiles", 64), (88, "tiles", 88), (128, "tiles", 128),     # every model's
+    (8, "tiles", 8), (1, "tiles", 8), (13, "tiles", 16), (20, "tiles", 24), (36, "tiles", 40),
+    (127, "tiles", 128), (129, "any", 129), (136, "any", 136), (176, "any", 176),
+    (256, "any", 256), (1000, "any", 1000)])
+def test_attn_form_by_head_dim(head_dim, form, width):
+    """#4-#7 take every head_dim, as the reference does: the tile loops up
+    to 128, zero-padded to a multiple of 8; the "any" form above, as it is."""
+    assert kernels.attn_form(head_dim) == form
+    assert kernels.attn_padded_width(head_dim) == width
+
+
+def test_attn_form_names():
+    """#4-#7's forms, the tile loops first (the entry point without a form),
+    each with a launch counter and the "any" form's C entry point (the tile
+    loop's arguments and io_f32); the CPU runs the plain versions, unpadded,
+    and counts no launch at either form."""
+    names = ("fused_short_attention", "flash_attention_fwd", "flash_attention_bwd_dq",
+             "flash_attention_bwd_dkv")
+    for name in names:
+        assert kernels.FORMS[name] == ("tiles", "any")
+        assert {f"{name}/tiles", f"{name}/any"} <= set(kernels.FORM_LAUNCHES)
+        symbol, argtypes = kernels._FORM_ENTRY[name, "any"]
+        assert symbol == f"stllm_{name}_any"
+        assert argtypes[:-1] == kernels._ENTRY[name][1][:-1] + [ctypes.c_int]
+    before = dict(kernels.FORM_LAUNCHES)
+    for d in (20, 176):
+        q = torch.randn(1, 6, 2, d)
+        out, lse = kernels.flash_attention_fwd(q, q, q, None, True, 0.1)
+        assert out.shape == q.shape and lse.shape == (1, 2, 6)
+        assert kernels.fused_short_attention(q, q, q, None, True, 0.1).shape == q.shape
+        dq = kernels.flash_attention_bwd_dq(q, q, q, None, q, lse, lse, True, 0.1)
+        dk, dv = kernels.flash_attention_bwd_dkv(q, q, q, None, q, lse, lse, True, 0.1)
+        assert dq.shape == dk.shape == dv.shape == q.shape
     assert kernels.FORM_LAUNCHES == before
 
 

@@ -644,6 +644,57 @@ def test_w4_unpack_kernel_matches_plain(card, variant):
                                                          "int32"))
 
 
+# #15's widths on both forms: the probe's, N % 8 != 0, odd K/2
+UNPACK_WIDTHS = [(4096, 11008), (512, 20), (202, 20), (8, 12), (1024, 100), (2050, 500)]
+
+
+def _unpack_inputs(card, m, k, n, seed):
+    """x (m, k) and each variant's packing of the same int4 codes."""
+    gen = torch.Generator(device=card).manual_seed(seed)
+    x = (torch.randn(m, k, generator=gen, device=card) * 0.1).bfloat16()
+    top, bot = (torch.randint(-7, 8, (k // 2, n), generator=gen, device=card, dtype=torch.int8)
+                for _ in range(2))
+    return x, {v: kernels.pack_int4_variant(v, top, bot) for v in kernels.W4_UNPACK_VARIANTS}
+
+
+@pytest.mark.parametrize("m", [1, 4, 8, 9, 16, 17])
+@pytest.mark.parametrize("kn", UNPACK_WIDTHS, ids=lambda kn: f"k{kn[0]}-n{kn[1]}")
+def test_w4_unpack_variants_on_their_forms_match_plain(card, kn, m):
+    """#15's five variants run #12's decode form at M <= 8 and the tile loop
+    above, one launch of that form each, and each gives its plain product;
+    the decode form, asked for, gives it too up to 16 rows; every variant
+    gives the same product (their layouts hold the same codes)."""
+    x, packed = _unpack_inputs(card, m, *kn, 27)
+    form = kernels.unpack_form(m)
+    products = []
+    for variant in kernels.W4_UNPACK_VARIANTS:
+        before = dict(kernels.FORM_LAUNCHES)
+        got = _counted("w4_unpack_matmul",
+                       lambda: kernels.w4_unpack_matmul(x, packed[variant], variant))
+        assert {f: kernels.FORM_LAUNCHES[f] - before[f] for f in before} == {
+            f: int(f == f"w4_unpack_matmul/{form}") for f in before}
+        assert got.dtype == torch.float32 and got.shape == (m, kn[1])
+        want = kernels.w4_unpack_matmul_plain(x, packed[variant], variant)
+        _assert_ws_close(got, want)
+        if form != "decode" and m <= kernels.W4_DECODE_ROWS:
+            _assert_ws_close(kernels._w4_unpack_matmul(x, packed[variant], variant, "decode"),
+                             want)
+        products.append(got)
+    for got in products[1:]:
+        _assert_ws_close(got, products[0])
+
+
+def test_w4_unpack_forms_agree_and_repeat(card):
+    """At the probe's shape each variant's decode form and tile loop give
+    the same product, and the decode form the same bits on two runs (the
+    cluster's sums in rank order, the row correction folded before them)."""
+    x, packed = _unpack_inputs(card, 16, 4096, 11008, 28)
+    for variant in kernels.W4_UNPACK_VARIANTS:
+        dec = kernels._w4_unpack_matmul(x, packed[variant], variant, "decode")
+        _assert_ws_close(dec, kernels._w4_unpack_matmul(x, packed[variant], variant, "stream"))
+        assert torch.equal(kernels._w4_unpack_matmul(x, packed[variant], variant, "decode"), dec)
+
+
 # the widths the reference takes that no multiple of 8 is: (K, N) of the
 # probes (N 20, 100, 500, 12) and of #12 (K/2 100 and 4 as well)
 ODD_WIDTHS = [(512, 20), (512, 100), (512, 500), (1024, 12), (200, 20), (8, 12)]
@@ -782,6 +833,8 @@ def test_weight_stream_kernels_refuse_what_they_cannot_take(card):
     with pytest.raises(ValueError):
         kernels.w4_unpack_matmul(x, packed, "int4")                       # no such variant
     x17, w, s = _probe_inputs(card, "w8p_matmul", 17, 64, 64, 13)
+    with pytest.raises(ValueError):
+        kernels._w4_unpack_matmul(x17, packed, "int32", "decode")         # 17 rows
     with pytest.raises(ValueError):
         kernels._w8p_matmul(x17, w, s, "decode")                          # 17 rows
     with pytest.raises(ValueError):
@@ -958,14 +1011,134 @@ def test_packed_qkv_backward_on_the_card(card):
     _close_bf16(got, want)
 
 
+# head_dims the tile loops take only zero-padded (20, 36) or not at all (136,
+# 176, 256: the "any" form), as the reference takes every head_dim
+ANY_HEAD_DIMS = [20, 36, 136, 176, 256]
+
+
+def _attn_forms_ran(fn):
+    """fn() and the training-attention launches it made, by form."""
+    before = dict(kernels.FORM_LAUNCHES)
+    out = fn()
+    torch.cuda.synchronize()
+    return out, {f: kernels.FORM_LAUNCHES[f] - before[f] for f in before
+                 if kernels.FORM_LAUNCHES[f] != before[f]}
+
+
+def _four_kernels_vs_plain(card, b, sq, sk, h, d, dtype, causal, masked, seed):
+    """#7, #4, #5 and #6 at (Sq, Sk), each against its plain version (bf16
+    3e-2, fp32 1e-5 + 1e-4 relative; lse 1e-3 + 1e-4 relative); returns the
+    forms the four launches ran."""
+    close = _close_f32 if dtype == torch.float32 else _close_bf16
+    q, k, v, kv_mask, g = (t.to(dtype) if t.is_floating_point() else t
+                           for t in _attn_inputs(card, b, sq, sk, h, d, seed))
+    kv_mask = kv_mask if masked else None
+    scale = d ** -0.5
+    forms = {}
+    got, ran = _attn_forms_ran(lambda: kernels.fused_short_attention(q, k, v, kv_mask, causal,
+                                                                     scale))
+    forms.update(ran)
+    close(got, kernels.fused_short_attention_plain(q, k, v, kv_mask, causal, scale))
+    (out, lse), ran = _attn_forms_ran(lambda: kernels.flash_attention_fwd(q, k, v, kv_mask,
+                                                                          causal, scale))
+    forms.update(ran)
+    want_out, want_lse = kernels.flash_attention_fwd_plain(q, k, v, kv_mask, causal, scale)
+    close(out, want_out)
+    torch.testing.assert_close(lse, want_lse, atol=1e-3, rtol=1e-4)
+    delta = (g.float() * want_out.float()).sum(-1).transpose(1, 2).contiguous()
+    a = (q, k, v, kv_mask, g, want_lse, delta, causal, scale)
+    dq, ran = _attn_forms_ran(lambda: kernels.flash_attention_bwd_dq(*a))
+    forms.update(ran)
+    (dk, dv), ran = _attn_forms_ran(lambda: kernels.flash_attention_bwd_dkv(*a))
+    forms.update(ran)
+    for got, want in zip((dq, dk, dv), kernels.flash_attention_bwd_plain(*a)):
+        assert got.shape == want.shape and got.dtype == dtype
+        close(got, want)
+    return forms
+
+
+ATTN_KERNELS = ("fused_short_attention", "flash_attention_fwd", "flash_attention_bwd_dq",
+                "flash_attention_bwd_dkv")
+
+
+@pytest.mark.parametrize("causal,masked", [(True, True), (False, True), (True, False)])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("head_dim", ANY_HEAD_DIMS)
+def test_training_attention_kernels_at_every_head_dim(card, head_dim, dtype, causal, masked):
+    """#4-#7 at head_dims the tile loops do not take as they are: 20 and 36
+    zero-padded to 24 and 40 on the tile loops, 136, 176 and 256 on the
+    "any" form; each launch on that form alone, each result its plain
+    version's, in bf16 and fp32."""
+    forms = _four_kernels_vs_plain(card, 2, 70, 100, 2, head_dim, dtype, causal, masked, 11)
+    form = "tiles" if head_dim <= 128 else "any"
+    assert kernels.attn_form(head_dim) == form
+    assert forms == {f"{name}/{form}": 1 for name in ATTN_KERNELS}
+
+
+@pytest.mark.parametrize("head_dim", [64, 88, 128])
+def test_training_attention_kernels_keep_the_tile_loops_at_model_head_dims(card, head_dim):
+    """Every model's head_dim stays on the tile loops, with no padding."""
+    forms = _four_kernels_vs_plain(card, 2, 100, 100, 2, head_dim, torch.bfloat16, True, True,
+                                   12)
+    assert kernels.attn_padded_width(head_dim) == head_dim
+    assert forms == {f"{name}/tiles": 1 for name in ATTN_KERNELS}
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_any_form_rows_without_a_visible_key(card, dtype):
+    """At head_dim 176: the flash forward gives 0 and lse = 1e30 for a batch
+    row with no visible key and the backward 0 there; the fused short
+    forward averages v over every key; a key range hidden in every row gets
+    dK, dV = 0; Sq != Sk under the causal offsets of both tiers."""
+    b, s, h, d = 2, 96, 2, 176
+    q, k, v, kv_mask, g = (t.to(dtype) if t.is_floating_point() else t
+                           for t in _attn_inputs(card, b, s, s, h, d, seed=13))
+    kv_mask[1] = 0
+    kv_mask[0, 40:60] = 0
+    out, lse = kernels.flash_attention_fwd(q, k, v, kv_mask, True, 0.1)
+    assert bool((out[1] == 0).all()) and bool((lse[1] == kernels.LSE_MASKED).all())
+    delta = (g.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+    dq = kernels.flash_attention_bwd_dq(q, k, v, kv_mask, g, lse, delta, True, 0.1)
+    dk, dv = kernels.flash_attention_bwd_dkv(q, k, v, kv_mask, g, lse, delta, True, 0.1)
+    assert all(bool((t[1] == 0).all()) and bool(torch.isfinite(t).all()) for t in (dq, dk, dv))
+    assert not bool(dk[0, 40:60].any()) and not bool(dv[0, 40:60].any())
+    close = _close_f32 if dtype == torch.float32 else _close_bf16
+    for causal in (False, True):
+        got = kernels.fused_short_attention(q, k, v, kv_mask, causal, 0.1)
+        close(got, kernels.fused_short_attention_plain(q, k, v, kv_mask, causal, 0.1))
+        close(got[1], v[1].float().mean(dim=0, keepdim=True).expand(s, h, d).to(dtype))
+    for sq, sk in ((40, 96), (96, 40)):
+        a = (q[:, :sq], k[:, :sk], v[:, :sk], kv_mask[:, :sk], True, 0.1)
+        close(kernels.fused_short_attention(*a), kernels.fused_short_attention_plain(*a))
+        out_q, lse_q = kernels.flash_attention_fwd_plain(*a)
+        close(kernels.flash_attention_fwd(*a)[0], out_q)
+        dl = (g[:, :sq].float() * out_q.float()).sum(-1).transpose(1, 2).contiguous()
+        bwd = (*a[:4], g[:, :sq], lse_q, dl, True, 0.1)
+        close(kernels.flash_attention_bwd_dq(*bwd), kernels.flash_attention_bwd_plain(*bwd)[0])
+        for got, want in zip(kernels.flash_attention_bwd_dkv(*bwd),
+                             kernels.flash_attention_bwd_plain(*bwd)[1:]):
+            close(got, want)
+
+
 def test_training_attention_kernels_refuse_what_they_cannot_take(card):
+    """Every head_dim is taken (the reference takes it): the refusals left
+    are the dtypes, the shapes, the mask and the rows, and an empty tensor."""
     q, k, v, kv_mask, g = _attn_inputs(card, 1, 64, 64, 2, 32)
     with pytest.raises(TypeError, match="bfloat16"):
         kernels.fused_short_attention(q.float(), k, v, None, True, 0.1)    # mixed dtypes
     with pytest.raises(TypeError, match="bfloat16"):
         kernels.flash_attention_fwd(q.half(), k.half(), v.half(), None, True, 0.1)
+    with pytest.raises(TypeError, match="bfloat16"):
+        kernels.fused_short_attention(q.half(), k.half(), v.half(), None, True, 0.1)
     with pytest.raises(ValueError):
         kernels.flash_attention_fwd(q, k[:, :32], v, None, True, 0.1)         # k != v
+    with pytest.raises(ValueError, match="empty"):
+        kernels.flash_attention_fwd(q[:, :0], k, v, None, True, 0.1)          # no query
+    with pytest.raises(ValueError, match="empty"):
+        kernels.fused_short_attention(q[..., :0], k[..., :0], v[..., :0], None, True, 0.1)
+    for d in (20, 176):     # taken, on the form attn_form picks
+        qd = torch.randn(1, 8, 2, d, device=card).bfloat16()
+        assert kernels.fused_short_attention(qd, qd, qd, None, True, 0.1).shape == qd.shape
     with pytest.raises(ValueError):
         kernels.fused_short_attention(q, k, v, kv_mask[:, :32], True, 0.1)    # mask shape
     with pytest.raises(ValueError):

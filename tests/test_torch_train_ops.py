@@ -90,14 +90,29 @@ def _t(x, grad=False):
 
 CASES = [("none", False), ("none", True), ("pad", True), ("holes", False), ("holes", True),
          ("qmask", True), ("dead", False), ("dead", True)]
+# head_dims the card's tile loops take only zero-padded (20) or not at all
+# (176, the "any" form): two mask cases each
+HEAD_DIM_CASES = [("holes", True), ("dead", False)]
+
+
+def _shape_cases(shapes, wide_shapes):
+    """(shape, mask, causal) cases, ids "mask-causal-shapeN": every CASES
+    entry at ``shapes``, HEAD_DIM_CASES at ``wide_shapes`` (numbered after
+    them)."""
+    out = [pytest.param(shape, m, c, id=f"{m}-{c}-shape{i}")
+           for m, c in CASES for i, shape in enumerate(shapes)]
+    return out + [pytest.param(shape, m, c, id=f"{m}-{c}-shape{i}")
+                  for m, c in HEAD_DIM_CASES
+                  for i, shape in enumerate(wide_shapes, start=len(shapes))]
 
 
 # ---------------------------------------------------------------------------
 # #7 fused short attention
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("shape", [(2, 40, 2, 16, 40), (1, 24, 3, 8, 56), (2, 56, 2, 24, 24)])
-@pytest.mark.parametrize("mask,causal", CASES)
+@pytest.mark.parametrize("shape,mask,causal", _shape_cases(
+    [(2, 40, 2, 16, 40), (1, 24, 3, 8, 56), (2, 56, 2, 24, 24)],
+    [(2, 40, 2, 20, 56), (1, 24, 2, 176, 40)]))
 def test_fused_short_plain_matches_pallas_kernel(shape, mask, causal):
     b, sq, h, d, sk = shape
     q, k, v = _qkv(0, b, sq, h, d, sk)
@@ -144,8 +159,11 @@ def _jax_flash(causal, qm, kvm):
                              block_q=32, block_k=32)
 
 
-@pytest.mark.parametrize("shape", [(2, 64, 2, 32), (1, 80, 2, 24)])
-@pytest.mark.parametrize("mask,causal", CASES)
+FLASH_SHAPES = [(2, 64, 2, 32), (1, 80, 2, 24)]
+FLASH_WIDE_SHAPES = [(2, 64, 2, 20), (1, 48, 2, 176)]
+
+
+@pytest.mark.parametrize("shape,mask,causal", _shape_cases(FLASH_SHAPES, FLASH_WIDE_SHAPES))
 def test_flash_fwd_plain_matches_pallas_kernel(shape, mask, causal):
     """out and the per-row logsumexp. A row with no visible key gives 0 and
     LSE_MASKED here; the Pallas kernel's lse there depends on its block
@@ -170,8 +188,7 @@ def test_flash_fwd_plain_matches_pallas_kernel(shape, mask, causal):
     assert jattn.LSE_MASKED == kernels.LSE_MASKED and jattn.NEG_INF == kernels.NEG_INF
 
 
-@pytest.mark.parametrize("shape", [(2, 64, 2, 32), (1, 80, 2, 24)])
-@pytest.mark.parametrize("mask,causal", CASES)
+@pytest.mark.parametrize("shape,mask,causal", _shape_cases(FLASH_SHAPES, FLASH_WIDE_SHAPES))
 def test_flash_tier_gradients_match_pallas_kernels(shape, mask, causal):
     """flash_attention(use_pallas=True): forward #4's plain version, backward
     the plain dQ and dK/dV formulas from the saved out and lse, against
@@ -219,6 +236,41 @@ def test_flash_bwd_plain_equals_autograd_of_reference(causal):
         _close(a, w)
 
 
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("kernel", ["fused_short", "flash_fwd", "flash_bwd"])
+def test_zero_padded_head_dim_equals_unpadded(kernel, causal):
+    """What the card's wrappers do at head_dim 20 (the tile loops take
+    multiples of 8): q, k, v and dO zero-padded to attn_padded_width(20) =
+    24, the scale of the true head_dim, the outputs sliced back to 20. Zero
+    q and k columns add nothing to q.k^T, zero v and dO columns give zero
+    output columns, so the plain versions on the padded tensors give the
+    unpadded results, lse and dq, dk, dv included."""
+    b, sq, sk, h, d = 2, 24, 40, 2, 20
+    width = kernels.attn_padded_width(d)
+    assert (width, kernels.attn_form(d)) == (24, "tiles")
+    q, k, v = (_t(a) for a in _qkv(20, b, sq, h, d, sk))
+    _, kvm = _masks("holes", b, sk)
+    kvm, g, scale = _t(kvm), _t(_rand(21, b, sq, h, d)), d ** -0.5
+    qp, kp, vp, gp = (kernels.pad_head_dim(t, width) for t in (q, k, v, g))
+    assert qp.shape[-1] == width and not bool(qp[..., d:].any())
+    if kernel == "fused_short":
+        want = kernels.fused_short_attention_plain(q, k, v, kvm, causal, scale)
+        got = kernels.fused_short_attention_plain(qp, kp, vp, kvm, causal, scale)
+        _close(got[..., :d], want)
+        return
+    want_out, want_lse = kernels.flash_attention_fwd_plain(q, k, v, kvm, causal, scale)
+    got_out, got_lse = kernels.flash_attention_fwd_plain(qp, kp, vp, kvm, causal, scale)
+    if kernel == "flash_fwd":
+        _close(got_out[..., :d], want_out)
+        _close(got_lse, want_lse)
+        return
+    delta = (g * want_out).sum(-1).transpose(1, 2).contiguous()
+    want = kernels.flash_attention_bwd_plain(q, k, v, kvm, g, want_lse, delta, causal, scale)
+    got = kernels.flash_attention_bwd_plain(qp, kp, vp, kvm, gp, got_lse, delta, causal, scale)
+    for a, w in zip(got, want):
+        _close(a[..., :d], w)
+
+
 @pytest.mark.parametrize("sq,sk,use_pallas,want", [
     (64, 64, None, "_FusedShortAttention"), (1023, 1023, None, "_FusedShortAttention"),
     (1024, 1024, None, "_FlashAttentionCore"), (8, 1030, None, "_FlashAttentionCore"),
@@ -243,9 +295,8 @@ def test_kernel_wrappers_refuse_other_devices_and_shapes():
         kernels._attn_args("fused_short_attention", q, q, q, None)      # no kernel for cpu
     with pytest.raises(ValueError):
         kernels._attn_args("fused_short_attention", q, q[:, :2], q, None)   # k != v
-    big = torch.zeros(1, 4, 2, 136)
     with pytest.raises(ValueError):
-        kernels._attn_args("flash_attention_fwd", big, big, big, None)  # head_dim > 128
+        kernels._attn_args("flash_attention_bwd_dq", q, q, q, None, q[:, :2])  # dO != q
     with pytest.raises(ValueError):
         kernels._attn_args("flash_attention_fwd", q[:, :0], q[:, :0], q[:, :0], None)  # empty
     assert set(kernels.SOURCES) == set(kernels._ENTRY) == set(kernels.LAUNCHES)
