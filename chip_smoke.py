@@ -61,7 +61,21 @@ toolkit. Phases, each fatal on failure:
    get tokens and the kernel counters must show the kernels ran (45
    packed-qkv launches per video); a tiny bf16 model must encode the same
    video on the card and on the CPU to within the bf16 tolerance;
-4. int8   - the same config with quant_int8 (dynamic W8A8) serves the same
+4. mvbench - the MVBench harness (stllm_tpu_torch/evalharness/mvbench.py)
+   over six synthetic samples in two tasks (one with [start, end] bounds),
+   read from uint8 clips held in memory (the card's machine may have no
+   FFmpeg): a tiny fp32 model (#1's fp32 form) processes the clips on the
+   card and on the CPU (frames within one uint8 step) and answers through
+   the sequential, batched (3) and served (4 slots) routes on both devices
+   with identical predictions; then the slice phase's full-width model with
+   toy tokenizers (STLLM.chat) answers six samples from 480x640 and 360x480
+   clips through the same three routes (max_len 1024 for the server, 100
+   greedy tokens): every sample scored, the result JSON written, no
+   over-long fallback, exactly 45 launches of #1 per video on every route
+   and no call of its plain version; it prints each route's wall time and
+   answered QA/s, the transform's ms per video on the card, peak memory and
+   the share of predictions on which the routes agree;
+5. int8   - the same config with quant_int8 (dynamic W8A8) serves the same
    6 requests (per video: 78 LayerNorm-quant, 39 GELU-quant, 39 quant-epilogue
    attention and 6 bf16 attention launches), calibrate_btadapter_scales runs
    on one 16-frame clip (78, 39, 39 and 39 static-int8 attention launches),
@@ -71,7 +85,7 @@ toolkit. Phases, each fatal on failure:
    model, dynamic and static, must encode one video on the card and on the
    CPU alike, and a tiny fp32 dynamic-int8 model must encode and calibrate
    on the card (#9 and #10 on fp32 rows) as on the CPU;
-5. w4a16  - the W4A16 serving stack: the same config with llama.kv_int8,
+6. w4a16  - the W4A16 serving stack: the same config with llama.kv_int8,
    the ViT converted to int8 and calibrated on one clip (static int8), the
    Q-Former bf16, and Vicuna-7B converted by quantize_llama_params_int4
    (per-channel int4, q|k|v and gate|up fused, int8 lm_head), serves the
@@ -81,7 +95,7 @@ toolkit. Phases, each fatal on failure:
    tiny bf16
    W4A16 + int8-KV LLaMA must give the same prefill logits on the card and
    on the CPU;
-6. pipeline - the stack of script/bench_pipeline_serving.py under
+7. pipeline - the stack of script/bench_pipeline_serving.py under
    STLLM_FUSED_LN="both": a tiny fp32 plain-ViT static model must encode one
    video on the card (5 launches of #11) and on the CPU alike; then the plain
    EVA-ViT-g (no BTAdapter, tanh GELU) converted to int8 and calibrated by
@@ -96,7 +110,7 @@ toolkit. Phases, each fatal on failure:
    launches of #11), each fused trunk no farther from the unfused one than
    1.5 times the unfused trunk moves under a one-bf16-step change of its
    input;
-7. train  - the training step. A tiny bf16 model takes four optimizer steps
+8. train  - the training step. A tiny bf16 model takes four optimizer steps
    on the card and on the CPU from the same weights and batches (losses and
    the first gradient must agree within the stated tolerances, and the loss
    on a fixed batch must fall). Then the QA config at full width and depth,
@@ -2239,7 +2253,7 @@ def _expect(label: str, launches: dict, want: dict, per: int) -> None:
         raise AssertionError(f"[{label}] kernel launches {got}, want {want} x {per}")
 
 
-def phase_slice(kernels) -> dict:
+def phase_slice(kernels):
     from stllm_tpu_torch.models.zoo import STLLM
 
     rel = check_small_reference()
@@ -2262,6 +2276,226 @@ def phase_slice(kernels) -> dict:
             NUM_REQUESTS)
     out["tiny_encode_rel_err"] = rel
     out["tiny_fp32"] = fp32
+    return out, model
+
+
+# ---------------------------------------------------------------------------
+# the MVBench harness through the port
+# ---------------------------------------------------------------------------
+
+MVBENCH_ROUTES = {"sequential": {"batch_size": 1}, "batched": {"batch_size": 3},
+                  "serving": {"serving_slots": 4, "serving_max_len": 1024}}
+MVBENCH_SOURCES = [(480, 640), (360, 480)]   # the full-width clips' frames, H x W
+MVBENCH_TINY_SOURCES = [(96, 128), (40, 48)]  # the tiny model's: down- and upscaled to 56
+
+
+def _mvbench_set(root: Path, sources, seed: int, frames: int = 48, fps: float = 8.0):
+    """Six synthetic MVBench samples in two tasks (one with [start, end]
+    bounds) over uint8 clips held in memory, one clip per sample, the
+    sources' sizes taken in turn. Every answer string is unique, so
+    predictions can be matched across routes by their ground truth.
+    Returns (annotation dir, clips, data_list)."""
+    rng = np.random.default_rng(seed)
+    anno = root / "json"
+    anno.mkdir(parents=True, exist_ok=True)
+    clips, tasks = {}, {"bounded": [], "whole": []}
+    for i in range(6):
+        h, w = sources[i % len(sources)]
+        name = f"clip{i}.mp4"
+        clips[name] = (rng.integers(0, 256, (frames, h, w, 3), dtype=np.uint8), fps)
+        cands = [f"option{i}{c}" for c in "abcd"[: 2 + i % 3]]
+        item = {"video": name, "question": f"what happens in clip {i} ?",
+                "candidates": cands, "answer": cands[i % len(cands)]}
+        if i % 2 == 0:
+            item.update(start=0.5 + 0.25 * i, end=4.0 + 0.25 * i)
+        tasks["bounded" if i % 2 == 0 else "whole"].append(item)
+    for task, items in tasks.items():
+        (anno / f"{task}.json").write_text(json.dumps(items))
+    data_list = {"Bounded Task": ("bounded.json", "", "video", True),
+                 "Whole Task": ("whole.json", "", "video", False)}
+    return str(anno), clips, data_list
+
+
+def _clip_bench(anno: str, clips: dict, data_list: dict, **kw):
+    """The port's MVBenchDataset reading from in-memory clips: read_video
+    gathers frames with the harness's own mvbench_frame_indices call (the
+    card's machine may have no FFmpeg to decode a file with)."""
+    import os
+
+    from stllm_tpu_torch.data.samplers import mvbench_frame_indices
+    from stllm_tpu_torch.evalharness.mvbench import MVBenchDataset
+
+    class ClipBench(MVBenchDataset):
+        def read_video(self, path, bound=None):
+            clip, fps = clips[os.path.basename(path)]
+            idx = mvbench_frame_indices(bound, fps, len(clip) - 1, first_idx=0,
+                                        num_segments=self.num_segments)
+            return clip[idx]
+
+    return ClipBench(anno, "", data_list, **kw)
+
+
+def _preds(result: dict) -> dict:
+    return {r["gt"]: r["pred"] for r in result["res_list"]}
+
+
+def _prime_tokenizer(tokenizer, items) -> None:
+    """Encode every sample's prompt segments as the harness does. The toy
+    tokenizer decodes only the words it has encoded before (others become
+    <unk>), so without this the first route to answer would decode with a
+    smaller vocabulary than the later ones."""
+    from stllm_tpu_torch.evalharness import mvbench
+
+    for item in items:
+        question = mvbench.SYSTEM + item["question"] + mvbench.QUESTION_PROMPT
+        prompt = mvbench.mvbench_prompt(mvbench.SYSTEM, question, mvbench.ANSWER_PROMPT)
+        for i, seg in enumerate(prompt.split("<VideoHere>")):
+            tokenizer.encode(seg, add_special_tokens=(i == 0))
+
+
+def check_small_mvbench(kernels) -> dict:
+    """The tiny fp32 model (#1's fp32 form) through the MVBench harness on
+    the card and on the CPU: the eval transform's frames within one uint8
+    step of each other, then every route on both devices over the same
+    frames, every prediction string identical."""
+    from stllm_tpu_torch.conversation import Chat
+    from stllm_tpu_torch.evalharness.mvbench import run_mvbench
+    from stllm_tpu_torch.models.zoo import STLLM, ensure_tokenizers
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    model = ensure_tokenizers(STLLM.from_config(_fp32_tiny_cfg(), seed=3, device="cpu"),
+                              warn=False)
+    size = model.cfg.vit.image_size
+    with tempfile.TemporaryDirectory() as tmp:
+        anno, clips, data_list = _mvbench_set(Path(tmp), MVBENCH_TINY_SOURCES, seed=7)
+        sets = {dev: _clip_bench(anno, clips, data_list, num_segments=8, resolution=size,
+                                 device=dev) for dev in ("cpu", "cuda")}
+        items = {dev: [ds[i] for i in range(len(ds))] for dev, ds in sets.items()}
+    steps = max(int(np.abs(a["video"].astype(np.int16) - b["video"].astype(np.int16)).max())
+                for a, b in zip(items["cpu"], items["cuda"]))
+    if steps > 1:
+        raise AssertionError(f"[mvbench] tiny: card and CPU frames {steps} uint8 steps apart")
+    _prime_tokenizer(model.llama_tokenizer, items["cuda"])
+    chats = {"cpu": model.chat(image_size=size),
+             "cuda": Chat(_tree_to(model.params, "cuda"), model.cfg, model.llama_tokenizer,
+                          qformer_tokenizer=model.qformer_tokenizer, image_size=size)}
+    preds, launches = {}, {}
+    for route, kw in MVBENCH_ROUTES.items():
+        for dev, chat in chats.items():
+            before = dict(kernels.LAUNCHES)
+            res = run_mvbench(chat, items["cuda"], verbose=False, **kw)
+            preds[(dev, route)] = _preds(res)
+            launches[(dev, route)] = kernels.LAUNCHES["packed_qkv_attention"] - before[
+                "packed_qkv_attention"]
+    want = preds[("cpu", "sequential")]
+    bad = {f"{d}/{r}": p for (d, r), p in preds.items() if p != want}
+    if len(want) != 6 or bad:
+        raise AssertionError(f"[mvbench] tiny: predictions differ from the CPU's sequential "
+                             f"route {want}: {bad}")
+    if any(launches[("cuda", r)] == 0 for r in MVBENCH_ROUTES) or any(
+            launches[("cpu", r)] for r in MVBENCH_ROUTES):
+        raise AssertionError(f"[mvbench] tiny: #1 launches by route {launches}")
+    return {"frame_steps_apart": steps, "predictions": len(want) * len(preds),
+            "card_launches": {r: launches[("cuda", r)] for r in MVBENCH_ROUTES}}
+
+
+def _count_plain_attention(counts: dict):
+    """Count calls of #1's plain versions (the packed reference and the
+    kernel's plain math) from here on; returns an undo function."""
+    from stllm_tpu_torch.ops import attention, kernels
+
+    real = {(attention, "_packed_reference"): attention._packed_reference,
+            (kernels, "packed_qkv_attention_plain"): kernels.packed_qkv_attention_plain}
+
+    def counted(fn, name):
+        def wrap(*args, **kw):
+            counts[name] = counts.get(name, 0) + 1
+            return fn(*args, **kw)
+        return wrap
+
+    for (mod, name), fn in real.items():
+        setattr(mod, name, counted(fn, name))
+    return lambda: [setattr(mod, name, fn) for (mod, name), fn in real.items()]
+
+
+def phase_mvbench(kernels, model) -> dict:
+    """The MVBench harness on the full-width QA model (bf16, random weights
+    from seed 0, toy tokenizers): six samples from raw 480x640 and 360x480
+    clips, processed on the card, through the sequential, batched (3) and
+    served (4 slots, max_len 1024) routes at max_new_tokens 100."""
+    from stllm_tpu_torch.data.processors import ChatVideoEvalProcessor
+    from stllm_tpu_torch.evalharness.mvbench import run_mvbench
+    from stllm_tpu_torch.models.zoo import ensure_tokenizers
+
+    tiny = check_small_mvbench(kernels)
+    print(f"[mvbench] tiny fp32 model, card vs CPU, every route: {json.dumps(tiny)}")
+
+    chat = ensure_tokenizers(model, warn=False).chat(image_size=model.cfg.vit.image_size)
+    out = {"tiny": tiny, "routes": {}}
+    with tempfile.TemporaryDirectory() as tmp:
+        anno, clips, data_list = _mvbench_set(Path(tmp), MVBENCH_SOURCES, seed=11)
+        ds = _clip_bench(anno, clips, data_list, num_segments=FRAMES,
+                         resolution=model.cfg.vit.image_size, device="cuda")
+        _prime_tokenizer(chat.llama_tokenizer, (ds.data_list[i]["data"] for i in range(len(ds))))
+        raw = ds.read_video("clip0.mp4")
+        proc = ChatVideoEvalProcessor(model.cfg.vit.image_size, normalize=False, device="cuda")
+        proc(raw)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(5):
+            proc(raw)      # returns host NumPy: the device work is done on return
+        out["processor_ms_per_video"] = (time.perf_counter() - t0) / 5 * 1e3
+        print(f"[mvbench] eval transform on the card, {raw.shape[0]} frames of "
+              f"{raw.shape[1]}x{raw.shape[2]} -> {model.cfg.vit.image_size}: "
+              f"{out['processor_ms_per_video']:.2f} ms per video")
+        preds = {}
+        for route, kw in MVBENCH_ROUTES.items():
+            stats, plain = {}, {}
+            undo = _count_plain_attention(plain)
+            torch.cuda.reset_peak_memory_stats()
+            torch.cuda.synchronize()
+            kernels.reset_launches()
+            t0 = time.perf_counter()
+            try:
+                res = run_mvbench(chat, ds, output_dir=str(Path(tmp) / route),
+                                  output_name="mvbench", verbose=False, stats=stats, **kw)
+                torch.cuda.synchronize()
+            finally:
+                undo()
+            wall = time.perf_counter() - t0
+            launches = dict(kernels.LAUNCHES)
+            form_launches = dict(kernels.FORM_LAUNCHES)
+            written = json.loads((Path(tmp) / route / "mvbench.json").read_text())
+            preds[route] = _preds(res)
+            scored = sum(v[1] for k, v in res["acc_dict"].items() if k != "Total Acc")
+            if scored != 6 or len(preds[route]) != 6 or "Total Acc" not in written["acc_dict"]:
+                raise AssertionError(f"[mvbench] {route}: {scored} samples scored, result "
+                                     f"{written['acc_dict']}")
+            if stats.get("overlong", 0):
+                raise AssertionError(f"[mvbench] {route}: {stats['overlong']} samples took the "
+                                     "per-sample path for an over-long prompt")
+            _expect(f"mvbench-{route}", launches,
+                    {"packed_qkv_attention": 45, "layer_norm_quant": 0, "gelu_quant": 0,
+                     "packed_qkv_attention_quant": 0, "packed_qkv_attention_s8": 0,
+                     "w4a16_matmul": 0}, 6)
+            if plain or form_launches["packed_qkv_attention/any"]:
+                raise AssertionError(f"[mvbench] {route}: plain #1 calls {plain}, any-form "
+                                     f"launches {form_launches['packed_qkv_attention/any']}")
+            row = {"mode": f"mvbench-{route}", "wall_s": wall, "qa_per_s": 6 / wall,
+                   "total_acc": res["acc_dict"]["Total Acc"],
+                   "max_memory_allocated_gib": torch.cuda.max_memory_allocated() / 2**30,
+                   "launches": launches, "launches_per_video": {
+                       k: v / 6 for k, v in launches.items() if v}}
+            out["routes"][route] = row
+            print(f"[mvbench] {route}: {wall:.2f} s wall, {6 / wall:.3f} answered QA/s")
+            print(f"[mvbench] {route}: peak memory {row['max_memory_allocated_gib']:.2f} GiB, "
+                  f"launches per video {json.dumps(row['launches_per_video'])}")
+    agree = {f"{a}={b}": sum(preds[a][g] == preds[b][g] for g in preds[a]) / 6
+             for a, b in (("sequential", "batched"), ("sequential", "serving"),
+                          ("batched", "serving"))}
+    out["route_agreement"] = agree
+    print(f"[mvbench] share of predictions on which the routes agree (bf16, random weights): "
+          f"{json.dumps(agree)}")
     return out
 
 
@@ -2787,8 +3021,11 @@ def main() -> int:
     gc.collect()
     print(f"[kernels] held after the phase: {torch.cuda.memory_allocated() / 2**30:.3f} GiB")
     count_forwards()
-    bf16 = phase_slice(kernels)
+    bf16, qa_model = phase_slice(kernels)
+    mvbench = phase_mvbench(kernels, qa_model)
+    del qa_model
     gc.collect()
+    torch.cuda.empty_cache()
     int8 = phase_int8(kernels)
     gc.collect()
     torch.cuda.empty_cache()
@@ -2814,6 +3051,8 @@ def main() -> int:
                                      for p in (bf16, int8["dynamic"], int8["static"], w4a16,
                                                pipeline, short, long_)}
         entry["launches_by_path"]["int8-calibration"] = int8["calibration_launches"][name]
+        for route in mvbench["routes"].values():
+            entry["launches_by_path"][route["mode"]] = route["launches"][name]
         entry["launches_by_path"]["pipeline-calibration"] = pipeline["calibration_launches"][name]
         entry["launches_per_train_step"] = {t["mode"]: t["launches"][name] / t["steps"]
                                             for t in (short, long_)}

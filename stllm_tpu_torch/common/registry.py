@@ -1,8 +1,8 @@
 """Registry mapping string names to classes, as in stllm_tpu/common/registry.py.
 
-Models and learning-rate schedulers register here; the namespaces for tasks,
-processors, datasets and runners come with the slices that port those
-components.
+Models, processors and learning-rate schedulers register here; the
+namespaces for tasks, datasets and runners come with the slices that port
+those components.
 """
 
 from __future__ import annotations
@@ -13,7 +13,7 @@ from typing import Any, Callable, Dict
 class Registry:
     """String -> object maps, one namespace per component kind."""
 
-    _maps: Dict[str, Dict[str, Any]] = {"model": {}, "lr_scheduler": {}}
+    _maps: Dict[str, Dict[str, Any]] = {"model": {}, "processor": {}, "lr_scheduler": {}}
 
     @classmethod
     def _register(cls, kind: str, name: str, obj: Any) -> None:
@@ -23,20 +23,24 @@ class Registry:
         table[name] = obj
 
     @classmethod
-    def register_model(cls, name: str) -> Callable:
+    def _decorator(cls, kind: str, name: str) -> Callable:
         def wrap(obj):
-            cls._register("model", name, obj)
+            cls._register(kind, name, obj)
             return obj
 
         return wrap
 
     @classmethod
-    def register_lr_scheduler(cls, name: str) -> Callable:
-        def wrap(obj):
-            cls._register("lr_scheduler", name, obj)
-            return obj
+    def register_model(cls, name: str) -> Callable:
+        return cls._decorator("model", name)
 
-        return wrap
+    @classmethod
+    def register_processor(cls, name: str) -> Callable:
+        return cls._decorator("processor", name)
+
+    @classmethod
+    def register_lr_scheduler(cls, name: str) -> Callable:
+        return cls._decorator("lr_scheduler", name)
 
     @classmethod
     def get_lr_scheduler_class(cls, name: str):
@@ -45,6 +49,14 @@ class Registry:
     @classmethod
     def get_model_class(cls, name: str):
         return cls._maps["model"][name]
+
+    @classmethod
+    def get_processor_class(cls, name: str):
+        return cls._maps["processor"][name]
+
+    @classmethod
+    def list_processors(cls):
+        return sorted(cls._maps["processor"])
 
     @classmethod
     def list_models(cls):

@@ -6,7 +6,8 @@ ViT (+ BTAdapter) -> fp32 ln_vision -> Q-Former -> llama_proj -> LLaMA.
 the shifted cross entropy, and, with dynamic video-token masking, a
 no-gradient teacher pass over the unmasked pack and the masked-video-modeling
 loss (mean over kept video tokens of 2 - 2 * cosine between student and
-teacher hidden states). The encode functions serve generation.
+teacher hidden states). The encode functions serve generation and
+the MVBench harness (``encode_img_mapped``: one video at a time).
 """
 
 from __future__ import annotations
@@ -132,6 +133,27 @@ def encode_img(
                             cfg=cfg.qformer)[:, :cfg.num_query]
     tokens = linear(params["llama_proj"], q_out.to(cfg.llama.dtype))
     return tokens.reshape(b, t, cfg.num_query, -1)
+
+
+def encode_img_mapped(
+    params: Dict,
+    frames: torch.Tensor,                            # (B, T, H, W, C)
+    cfg: STLLMConfig,
+    qformer_text_ids: Optional[torch.Tensor] = None,   # (B, Lq)
+    qformer_text_mask: Optional[torch.Tensor] = None,  # (B, Lq)
+) -> torch.Tensor:
+    """Batched-eval encode that runs the videos one at a time through
+    ``encode_img`` and concatenates the results, instead of widening every
+    matmul to B videos (the JAX package's ``lax.map`` form). Same outputs
+    as ``encode_img`` for any B; ``q_mask`` defaults to ones."""
+    if frames.shape[0] == 1:
+        return encode_img(params, frames, cfg, qformer_text_ids, qformer_text_mask)
+    if qformer_text_ids is None:
+        return torch.cat([encode_img(params, f[None], cfg) for f in frames])
+    if qformer_text_mask is None:
+        qformer_text_mask = torch.ones_like(qformer_text_ids)
+    return torch.cat([encode_img(params, f[None], cfg, i[None], m[None])
+                      for f, i, m in zip(frames, qformer_text_ids, qformer_text_mask)])
 
 
 def apply_video_input(params: Dict, img_embeds: torch.Tensor, cfg: STLLMConfig) -> torch.Tensor:

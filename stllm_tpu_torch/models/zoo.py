@@ -6,14 +6,17 @@ initializes random weights from a seed on the chosen device; ``quant_int8``
 converts the tree to W8A8 (dynamic int8, see ``ops/quant.py``) and
 ``llama: {kv_int8: true}`` gives the LLaMA an int8 KV cache.
 ``STLLM.trainable_fn`` reads the config's freezing keys for the trainer;
-``dtype`` (fp32 or bf16) is the parameters' dtype. Loading checkpoints and
-LoRA come with later slices; a config that names an existing weight file
-raises rather than run on random weights.
+``dtype`` (fp32 or bf16) is the parameters' dtype. Loading checkpoints,
+tokenizers and LoRA come with later slices; a config that names an existing
+weight file raises rather than run on random weights, and
+``ensure_tokenizers`` installs the toy hash tokenizers that ``STLLM.chat``
+then hands to ``Chat``.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import logging
 import os
 import zlib
 from typing import Any, Callable, Dict, Mapping, Optional
@@ -27,6 +30,8 @@ from stllm_tpu_torch.models.qformer import INSTRUCT_BLIP_QFORMER
 from stllm_tpu_torch.models.stllm import STLLMConfig, init_stllm
 from stllm_tpu_torch.models.vit import EVA_VIT_G, quantize_vit_params
 from stllm_tpu_torch.ops.quant import quantize_tree_linears
+
+logger = logging.getLogger(__name__)
 
 _DTYPES = {"bf16": torch.bfloat16, "bfloat16": torch.bfloat16,
            "fp16": torch.bfloat16,  # fp16 checkpoints run as bf16, as in the reference
@@ -85,7 +90,9 @@ _WEIGHT_KEYS = ("vit_model_path", "q_former_model", "llama_model", "ckpt")
 
 @Registry.register_model("st_llm_hf")
 class STLLM:
-    """Bundled (cfg, params, device)."""
+    """Bundled (cfg, params, device). ``llama_tokenizer`` and
+    ``qformer_tokenizer`` stay None (no tokenizer loads) until
+    ``ensure_tokenizers`` installs toy ones."""
 
     PRETRAINED_MODEL_CONFIG_DICT = {
         "instructblip_vicuna0": "configs/models/instructblip_vicuna0.yaml",
@@ -100,6 +107,8 @@ class STLLM:
         self.params = params
         self.device = device
         self.model_cfg = dict(model_cfg or {})
+        self.llama_tokenizer = None
+        self.qformer_tokenizer = None
 
     @classmethod
     def from_config(cls, model_cfg: Mapping, seed: int = 0, device=None) -> "STLLM":
@@ -126,6 +135,13 @@ class STLLM:
             params["qformer"] = quantize_tree_linears(params["qformer"], free_dense=True)
             params["llama"] = quantize_llama_params(params["llama"], free_dense=True)
         return cls(cfg, params, dev, model_cfg=model_cfg)
+
+    def chat(self, image_size: int = 224):
+        """A ``Chat`` over this model, its tokenizers and its device."""
+        from stllm_tpu_torch.conversation import Chat
+
+        return Chat(self.params, self.cfg, self.llama_tokenizer,
+                    qformer_tokenizer=self.qformer_tokenizer, image_size=image_size)
 
     def trainable_fn(self) -> Callable[[str], bool]:
         """The config's freezing policy (freeze_vit, freeze_qformer,
@@ -160,3 +176,16 @@ class ToyHashTokenizer:
     def decode(self, ids):
         return " ".join(self.rev.get(int(t), "<unk>") for t in ids if t > 1)
 
+
+def ensure_tokenizers(model: STLLM, warn: bool = True) -> STLLM:
+    """Install toy tokenizers where no real one is loaded (offline runs):
+    the answers are gibberish, but encode, the stop sequences and decode all
+    run."""
+    if model.llama_tokenizer is None:
+        if warn:
+            logger.warning("no LLaMA tokenizer is loaded; using a toy hash tokenizer, "
+                           "so answers are gibberish but every code path runs")
+        model.llama_tokenizer = ToyHashTokenizer(model.cfg.llama.vocab_size)
+    if model.cfg.qformer_text_input and model.qformer_tokenizer is None:
+        model.qformer_tokenizer = ToyHashTokenizer(model.cfg.qformer.vocab_size, reserve=2)
+    return model

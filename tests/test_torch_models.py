@@ -214,6 +214,12 @@ def test_generate_greedy_matches_jax(stllm_params):
 @pytest.mark.parametrize("kw", [dict(do_sample=True), dict(num_beams=3),
                                 dict(repetition_penalty=1.2), dict(min_length=4)])
 def test_generate_refuses_non_greedy(kw):
+    """The batcher's guard refuses all four; generate itself now serves
+    sampling, the repetition penalty and min_length
+    (tests/test_torch_sampling.py) and still refuses beams."""
     with pytest.raises(tgen.UnsupportedRequest):
-        tgen.generate({}, torch.zeros((1, 2, 4)), llama_cfg=tllama.LlamaConfig(),
-                      gen=tgen.GenerationConfig(**kw))
+        tgen.check_greedy(tgen.GenerationConfig(**kw))
+    if "num_beams" in kw:
+        with pytest.raises(tgen.UnsupportedRequest):
+            tgen.generate({}, torch.zeros((1, 2, 4)), llama_cfg=tllama.LlamaConfig(),
+                          gen=tgen.GenerationConfig(**kw))
