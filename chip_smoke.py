@@ -75,7 +75,28 @@ toolkit. Phases, each fatal on failure:
    and no call of its plain version; it prints each route's wall time and
    answered QA/s, the transform's ms per video on the card, peak memory and
    the share of predictions on which the routes agree;
-5. int8   - the same config with quant_int8 (dynamic W8A8) serves the same
+5. qabench - beam search and the open-ended QA harness: a tiny fp32 model
+   (#1's fp32 form encodes the video) gives identical tokens on the card
+   and on the CPU through beam_search's device form, its penalized form and
+   its host loop (a 3-token stop), beam_search_batched over 3 prompts and
+   three PrefixSession turns, greedy and penalized; then the slice phase's
+   full-width model answers run_videoqa over 4 in-memory 224x224 clips (16
+   frames of 48), beam 5, the simple prompt (repetition_penalty 1.5), 64
+   new tokens (the protocol's 300 cut for time), one video at a time and
+   all four in one beam program (batch_videos=4, 20 decode rows), then
+   run_vcgbench_general over the same clips and gpt_eval.evaluate with an
+   offline fake judge over both prediction files: exactly 45 launches of #1
+   per video and no plain #1 call on every route; it prints each route's
+   wall time, answered QA/s, beam decode steps and peak memory, and the
+   share of predictions on which the two videoqa routes agree;
+6. prefix - the same model in a three-turn Chat over one clip with a
+   PrefixSession (greedy, 32 new tokens a turn), beside solo generate on
+   each turn's prompt: every turn is served by the session (no fallback to
+   solo generate), turn 1 with one fresh prefill, turns 2 and 3 with one
+   delta prefill each, reusing at least the system text and the video
+   block; it prints each turn's prefill and total ms for both, the
+   session's cache width and whether their tokens agree;
+7. int8   - the same config with quant_int8 (dynamic W8A8) serves the same
    6 requests (per video: 78 LayerNorm-quant, 39 GELU-quant, 39 quant-epilogue
    attention and 6 bf16 attention launches), calibrate_btadapter_scales runs
    on one 16-frame clip (78, 39, 39 and 39 static-int8 attention launches),
@@ -85,7 +106,7 @@ toolkit. Phases, each fatal on failure:
    model, dynamic and static, must encode one video on the card and on the
    CPU alike, and a tiny fp32 dynamic-int8 model must encode and calibrate
    on the card (#9 and #10 on fp32 rows) as on the CPU;
-6. w4a16  - the W4A16 serving stack: the same config with llama.kv_int8,
+8. w4a16  - the W4A16 serving stack: the same config with llama.kv_int8,
    the ViT converted to int8 and calibrated on one clip (static int8), the
    Q-Former bf16, and Vicuna-7B converted by quantize_llama_params_int4
    (per-channel int4, q|k|v and gate|up fused, int8 lm_head), serves the
@@ -94,8 +115,13 @@ toolkit. Phases, each fatal on failure:
    the wgmma form, decode on the decode form, none on the tile loop); a
    tiny bf16
    W4A16 + int8-KV LLaMA must give the same prefill logits on the card and
-   on the CPU;
-7. pipeline - the stack of script/bench_pipeline_serving.py under
+   on the CPU; then, on the same stack, one beam-5 answer alone (every
+   decoder matmul #12 at M = 5, its decode form), one answer_batched group
+   of 4 (M = 20, its wgmma form) and a two-turn PrefixSession: exactly 128
+   #12 launches per LLaMA forward (llama_forward or llama_decode_prefix),
+   42 static-int8 attention launches per video, beams over int8 caches with
+   scales, the session's cache int8 with its scale planes;
+9. pipeline - the stack of script/bench_pipeline_serving.py under
    STLLM_FUSED_LN="both": a tiny fp32 plain-ViT static model must encode one
    video on the card (5 launches of #11) and on the CPU alike; then the plain
    EVA-ViT-g (no BTAdapter, tanh GELU) converted to int8 and calibrated by
@@ -110,7 +136,7 @@ toolkit. Phases, each fatal on failure:
    launches of #11), each fused trunk no farther from the unfused one than
    1.5 times the unfused trunk moves under a one-bf16-step change of its
    input;
-8. train  - the training step. A tiny bf16 model takes four optimizer steps
+10. train - the training step. A tiny bf16 model takes four optimizer steps
    on the card and on the CPU from the same weights and batches (losses and
    the first gradient must agree within the stated tolerances, and the loss
    on a fixed batch must fall). Then the QA config at full width and depth,
@@ -129,6 +155,7 @@ prints no result.
 
 from __future__ import annotations
 
+import dataclasses
 import gc
 import json
 import re
@@ -2210,20 +2237,32 @@ def serve(kernels, params, cfg, reqs, label: str, gen=None, **server) -> dict:
 
 
 FORWARD_CALLS = [0]   # llama_forward calls of the serving path, counted by count_forwards
+PREFIX_DECODES = [0]  # llama_decode_prefix calls (one a beam step, for every prompt of it)
+PREFIX_CACHES = set()  # (prefix dtype, generated-cache dtype, scales) of those calls
 
 
 def count_forwards() -> None:
-    """Count the serving path's llama_forward calls (generation's prefill
-    and decode steps call it through the module's own name)."""
+    """Count the serving path's llama_forward calls and beam search's
+    llama_decode_prefix calls (generation's prefill, decode and beam steps
+    call them through the module's own names), and note the dtypes of the
+    caches each beam step reads."""
     from stllm_tpu_torch.models import generation
 
-    real = generation.llama_forward
+    real, real_prefix = generation.llama_forward, generation.llama_decode_prefix
 
     def counted(*args, **kw):
         FORWARD_CALLS[0] += 1
         return real(*args, **kw)
 
+    def counted_prefix(params, embeds, prefix, gen, cfg):
+        PREFIX_DECODES[0] += 1
+        PREFIX_CACHES.add((str(prefix.k[0].dtype).replace("torch.", ""),
+                           str(gen.k[0].dtype).replace("torch.", ""),
+                           prefix.k_scale is not None and gen.k_scale is not None))
+        return real_prefix(params, embeds, prefix, gen, cfg)
+
     generation.llama_forward = counted
+    generation.llama_decode_prefix = counted_prefix
 
 
 def _expect_w4_forms(label: str, out: dict) -> None:
@@ -2496,6 +2535,441 @@ def phase_mvbench(kernels, model) -> dict:
     out["route_agreement"] = agree
     print(f"[mvbench] share of predictions on which the routes agree (bf16, random weights): "
           f"{json.dumps(agree)}")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# beam search, the QA harness and the prefix session through the port
+# ---------------------------------------------------------------------------
+
+QA_CLIPS, QA_BEAMS = 4, 5
+QA_MAX_NEW = 64        # the protocol's 300 new tokens an answer, cut for time
+QA_ROUTES = {"sequential": 1, "batched": QA_CLIPS}   # run_videoqa's batch_videos
+PREFIX_TURNS, PREFIX_MAX_NEW = 3, 32
+W4_BEAM_MAX_NEW = 32
+
+
+def _beam_runs(params, cfg, frames, q_ids, text, stop3) -> dict:
+    """The tiny model's beam and session routes on one device (the one
+    ``params`` and the inputs are on): prompts built around one encoded
+    video, tokens of every route."""
+    from stllm_tpu_torch.models import generation as G
+    from stllm_tpu_torch.models.stllm import encode_video_for_inference
+
+    lp, lc = params["llama"], cfg.llama
+    dev = frames.device
+    video = encode_video_for_inference(params, frames, cfg, q_ids)      # (1, V, D)
+    text = [t.to(dev) for t in text]
+    prompts = [torch.cat([text[0], video, text[1]], dim=1), torch.cat([video, text[2]], dim=1),
+               torch.cat([text[0], video, text[2], text[1]], dim=1)]
+    beam = G.GenerationConfig(max_new_tokens=12, num_beams=3, stop_sequences=(), eos_token_id=2,
+                              pad_to_multiple=8)
+    out = {"device": G.beam_search(lp, prompts[0], None, llama_cfg=lc, gen=beam),
+           "penalized": G.beam_search(lp, prompts[0], None, llama_cfg=lc, gen=dataclasses.replace(
+               beam, repetition_penalty=1.5)),
+           "batched": G.beam_search_batched(lp, prompts, llama_cfg=lc, gen=beam, chunk=5)}
+    if stop3 is not None:
+        out["host_stop3"] = G.beam_search(lp, prompts[0], None, llama_cfg=lc,
+                                          gen=dataclasses.replace(beam, stop_sequences=(stop3,)))
+    for name, kw in (("session_greedy", {}),
+                     ("session_penalized", {"repetition_penalty": 1.5, "min_length": 2})):
+        gen = G.GenerationConfig(max_new_tokens=10, stop_sequences=(), eos_token_id=2,
+                                 pad_to_multiple=8, **kw)
+        sess = G.PrefixSession(lp, lc, max_len=512)
+        embs = prompts[0]
+        items = G.PrefixSession.items_for([[5] * text[0].shape[1], [6] * text[1].shape[1]],
+                                          [video])
+        turns = []
+        for turn in range(3):
+            toks = sess.generate(embs, items, gen)
+            turns.append((toks, sess.last_reused))
+            ans = lp["embed_tokens"][torch.as_tensor(toks, device=dev)][None].float()
+            embs = torch.cat([embs, ans, text[turn % 3]], dim=1)
+            items = items + [("t", t) for t in toks] + [("t", 50 + turn)] * text[turn % 3].shape[1]
+        out[name] = turns
+    return out
+
+
+def check_small_beams(kernels) -> dict:
+    """The tiny fp32 model (#1's fp32 form encodes the video) on the card
+    and on the CPU gives identical tokens through beam_search's device form,
+    its penalized form and its host loop (a 3-token stop), beam_search_batched
+    over 3 prompts, and a three-turn PrefixSession greedy and penalized (with
+    the same reuse counts)."""
+    from stllm_tpu_torch.models.zoo import STLLM
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    model = STLLM.from_config(_fp32_tiny_cfg(), seed=3, device="cpu")
+    frames, q_ids = _tiny_inputs()
+    rng = np.random.default_rng(5)
+    text = [torch.from_numpy(rng.standard_normal((1, n, model.cfg.llama.hidden)) * 0.5).float()
+            for n in (7, 12, 4)]
+    free = _beam_runs(model.params, model.cfg, frames, q_ids, text, None)["device"]
+    stop3 = tuple(free[1:4])
+    want = _beam_runs(model.params, model.cfg, frames, q_ids, text, stop3)
+    before = dict(kernels.LAUNCHES)
+    got = _beam_runs(_tree_to(model.params, "cuda"), model.cfg, frames.cuda(), q_ids.cuda(),
+                     text, stop3)
+    torch.cuda.synchronize()
+    launches = _ran(kernels, before, ["packed_qkv_attention"])
+    bad = {k: (got[k], want[k]) for k in want if got[k] != want[k]}
+    host = want["host_stop3"]
+    if bad or not (host[-3:] == list(stop3) or host[-1] == 2):
+        raise AssertionError(f"[qabench] tiny beams and sessions, card vs CPU: {bad}; host "
+                             f"loop {host} ends in neither the stop {stop3} nor eos")
+    return {"routes": sorted(want), "tokens": {k: want[k] for k in ("device", "penalized",
+                                                                    "host_stop3")},
+            "session_reused": [r for _, r in want["session_greedy"]], "launches": launches}
+
+
+def _qa_set(root: Path, size: int, seed: int, frames: int = 48):
+    """QA_CLIPS uint8 clips held in memory, an empty file of each clip's
+    name (the harness looks for the file; the chat reads the clip), and the
+    VideoQA and VCG-Bench general annotation files."""
+    rng = np.random.default_rng(seed)
+    vdir = root / "videos"
+    vdir.mkdir(parents=True, exist_ok=True)
+    clips = {}
+    for i in range(QA_CLIPS):
+        clips[f"clip{i}.mp4"] = rng.integers(0, 256, (frames, size, size, 3), dtype=np.uint8)
+        (vdir / f"clip{i}.mp4").touch()
+    qa = [{"video_name": f"clip{i}", "question_id": f"q{i}",
+           "question": f"what happens in clip {i} ?", "answer": f"answer{i}"}
+          for i in range(QA_CLIPS)]
+    vcg = [{"video_name": f"clip{i}.mp4", "Q": f"describe clip {i} in detail .", "A": f"a{i}"}
+           for i in range(QA_CLIPS)]
+    (root / "videoqa.json").write_text(json.dumps(qa))
+    (root / "vcg_general.json").write_text(json.dumps(vcg))
+    return vdir, clips
+
+
+def _clip_chat(params, cfg, llama_tokenizer, qformer_tokenizer, clips, max_new_tokens=None):
+    """A Chat whose upload_video reads the in-memory clip of a path's file
+    name, sampling its frames as a file read does (get_seq_frames; the
+    card's machine may have no FFmpeg); with ``max_new_tokens``, every
+    answer is cut to that many new tokens (the QA harnesses take no
+    budget)."""
+    import os
+
+    from stllm_tpu_torch.conversation import Chat
+    from stllm_tpu_torch.data.samplers import get_seq_frames
+
+    class ClipChat(Chat):
+        def upload_video(self, video, conv, img_list, num_frame=64, text=None):
+            clip = clips[os.path.basename(video)]
+            return super().upload_video(clip[get_seq_frames(len(clip), num_frame)], conv,
+                                        img_list, num_frame, text)
+
+        def answer(self, *args, **kw):
+            cap = {} if max_new_tokens is None else {"max_new_tokens": max_new_tokens}
+            return super().answer(*args, **{**kw, **cap})
+
+        def answer_batched(self, *args, **kw):
+            cap = {} if max_new_tokens is None else {"max_new_tokens": max_new_tokens}
+            return super().answer_batched(*args, **{**kw, **cap})
+
+    return ClipChat(params, cfg, llama_tokenizer, qformer_tokenizer=qformer_tokenizer,
+                    image_size=cfg.vit.image_size)
+
+
+def _name_every_token(tokenizer) -> None:
+    """Give every id the toy tokenizer has not encoded a word of its own, so
+    a decoded answer names each of its tokens and answers compare token for
+    token."""
+    tokenizer.rev.update({i: f"w{i}" for i in range(tokenizer.vocab_size)
+                          if i not in tokenizer.rev})
+
+
+def _route_run(kernels, label: str, fn, per_video: dict, videos: int) -> dict:
+    """Run ``fn`` with every launch count at 0 and #1's plain versions
+    counted; check the per-video launches and that no plain #1 ran."""
+    plain = {}
+    undo = _count_plain_attention(plain)
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    FORWARD_CALLS[0] = PREFIX_DECODES[0] = 0
+    t0 = time.perf_counter()
+    try:
+        result = fn()
+        torch.cuda.synchronize()
+    finally:
+        undo()
+    wall = time.perf_counter() - t0
+    launches, form_launches = dict(kernels.LAUNCHES), dict(kernels.FORM_LAUNCHES)
+    _expect(label, launches, per_video, videos)
+    any_form = {k: v for k, v in form_launches.items() if k.endswith("/any") and v}
+    if plain or any_form:
+        raise AssertionError(f"[{label}] plain #1 calls {plain}, any-form launches {any_form}")
+    return {"mode": label, "result": result, "wall_s": wall, "qa_per_s": videos / wall,
+            "max_memory_allocated_gib": torch.cuda.max_memory_allocated() / 2**30,
+            "llama_forwards": FORWARD_CALLS[0], "beam_decode_steps": PREFIX_DECODES[0],
+            "launches": launches, "form_launches": form_launches,
+            "launches_per_video": {k: v / videos for k, v in launches.items() if v}}
+
+
+def _row(run: dict) -> dict:
+    return {k: v for k, v in run.items() if k != "result"}
+
+
+BF16_PER_VIDEO = {"packed_qkv_attention": 45, "layer_norm_quant": 0, "gelu_quant": 0,
+                  "packed_qkv_attention_quant": 0, "packed_qkv_attention_s8": 0,
+                  "w4a16_matmul": 0}
+
+
+def phase_qabench(kernels, model) -> dict:
+    """The open-ended VideoQA harness on the full-width QA model (bf16,
+    random weights from seed 0, toy tokenizers): run_videoqa over
+    QA_CLIPS in-memory 224x224 clips (16 frames of 48), beam 5, the simple
+    prompt (repetition_penalty 1.5), QA_MAX_NEW new tokens, one video at a
+    time and all four in one beam program (P * k = 20 decode rows); then
+    run_vcgbench_general over the same clips and gpt_eval.evaluate with an
+    offline fake judge over both prediction files."""
+    from stllm_tpu_torch.conversation import CONV_instructblip_Vicuna0
+    from stllm_tpu_torch.evalharness import gpt_eval
+    from stllm_tpu_torch.evalharness.qabench import run_vcgbench_general, run_videoqa
+
+    tiny = check_small_beams(kernels)
+    print(f"[qabench] tiny fp32 beams and sessions, card vs CPU, identical tokens: "
+          f"{json.dumps(tiny)}")
+    cfg = model.cfg
+    _name_every_token(model.llama_tokenizer)
+    out = {"tiny": tiny, "routes": {}, "max_new_tokens": QA_MAX_NEW, "protocol_max_new": 300}
+    print(f"[qabench] beam {QA_BEAMS}, repetition_penalty 1.5 (simple prompt), "
+          f"{QA_MAX_NEW} new tokens an answer: the protocol's 300 cut for time")
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp)
+        vdir, clips = _qa_set(root, cfg.vit.image_size, seed=13)
+        chat = _clip_chat(model.params, cfg, model.llama_tokenizer, model.qformer_tokenizer,
+                          clips, max_new_tokens=QA_MAX_NEW)
+        preds = {}
+        for route, batch in QA_ROUTES.items():
+            run = _route_run(kernels, f"qabench-{route}", lambda: run_videoqa(
+                chat, CONV_instructblip_Vicuna0, str(root / "videoqa.json"), str(vdir),
+                str(root / route), "videoqa", num_frames=FRAMES, num_beams=QA_BEAMS,
+                verbose=False, batch_videos=batch),
+                BF16_PER_VIDEO, QA_CLIPS)
+            written = json.loads((root / route / "videoqa.json").read_text())
+            if written != run["result"] or [r["id"] for r in written] != [
+                    f"q{i}" for i in range(QA_CLIPS)]:
+                raise AssertionError(f"[qabench] {route}: written predictions {written}")
+            preds[route] = [r["pred"] for r in written]
+            if not all(p.strip() for p in preds[route]):
+                raise AssertionError(f"[qabench] {route}: an empty answer {preds[route]}")
+            out["routes"][route] = _row(run)
+            print(f"[qabench] {route}: {run['wall_s']:.2f} s wall, {run['qa_per_s']:.3f} answered "
+                  f"QA/s, {run['beam_decode_steps']} beam decode steps, peak memory "
+                  f"{run['max_memory_allocated_gib']:.2f} GiB, launches per video "
+                  f"{json.dumps(run['launches_per_video'])}")
+        agree = sum(a == b for a, b in zip(preds["sequential"], preds["batched"])) / QA_CLIPS
+        out["route_agreement"] = agree
+        print(f"[qabench] share of predictions on which sequential and batched agree "
+              f"(bf16, random weights): {agree}")
+
+        run = _route_run(kernels, "vcgbench-general", lambda: run_vcgbench_general(
+            chat, CONV_instructblip_Vicuna0, str(root / "vcg_general.json"), str(vdir),
+            str(root / "vcg"), "general", num_frames=FRAMES, num_beams=QA_BEAMS,
+            verbose=False), BF16_PER_VIDEO, QA_CLIPS)
+        if [r["video_name"] for r in run["result"]] != list(clips):
+            raise AssertionError(f"[qabench] vcgbench general answered {run['result']}")
+        out["routes"]["vcgbench-general"] = _row(run)
+        print(f"[qabench] vcgbench general: {run['wall_s']:.2f} s wall, "
+              f"{run['qa_per_s']:.3f} answered QA/s, {run['beam_decode_steps']} beam decode "
+              f"steps, peak memory {run['max_memory_allocated_gib']:.2f} GiB")
+
+        def judge(messages):
+            score = len(messages[1]["content"]) % 6
+            return f"{{'pred': '{'yes' if score > 2 else 'no'}', 'score': {score}}}"
+
+        scores = {name: gpt_eval.evaluate(rubric, str(pred), str(root / f"judge-{name}"), judge,
+                                          workers=2)
+                  for name, rubric, pred in (
+                      ("videoqa", "activitynet_qa", root / "sequential" / "videoqa.json"),
+                      ("vcg-general", "correctness", root / "vcg" / "general.json"))}
+        if any(r["count"] != QA_CLIPS for r in scores.values()):
+            raise AssertionError(f"[qabench] fake-judge scores {scores}")
+        out["fake_judge"] = scores
+        print(f"[qabench] gpt_eval with an offline fake judge: {json.dumps(scores)}")
+    return out
+
+
+def _time_prefills(times: dict):
+    """Record the device time of every _prefill and _prefill_delta call
+    (synchronized on both sides) from here on, each under its own name in
+    ``times``; returns an undo function."""
+    from stllm_tpu_torch.models import generation
+
+    real = {n: getattr(generation, n) for n in ("_prefill", "_prefill_delta")}
+
+    def timed(name, fn):
+        def wrap(*args, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            result = fn(*args, **kw)
+            torch.cuda.synchronize()
+            times.setdefault(name, []).append((time.perf_counter() - t0) * 1e3)
+            return result
+        return wrap
+
+    for name, fn in real.items():
+        setattr(generation, name, timed(name, fn))
+    return lambda: [setattr(generation, n, fn) for n, fn in real.items()]
+
+
+def _session_turns(kernels, chat, clip_name: str, label: str, turns: int, max_new: int,
+                   max_len: int = 2048) -> dict:
+    """A chat of ``turns`` turns over one clip (CONV_VIDEO_Vicuna0: the
+    prompt holds the whole history) with kv_session=PrefixSession, greedy,
+    ``max_new`` new tokens a turn; beside each turn, solo generate on the
+    same prompt (a copy of the conversation). Every session turn must be
+    served by the session (it sets ``last_reused`` and keeps a cache: Chat
+    falls back to solo generate on UnsupportedRequest), turn 1 with one
+    fresh _prefill, later turns with one _prefill_delta and no _prefill,
+    reusing at least the system text and the video block."""
+    from stllm_tpu_torch.conversation import CONV_VIDEO_Vicuna0
+    from stllm_tpu_torch.models.generation import PrefixSession
+
+    sess = PrefixSession(chat.params["llama"], chat.cfg.llama, max_len=max_len)
+    conv, imgs = CONV_VIDEO_Vicuna0.copy(), []
+    chat.upload_video(clip_name, conv, imgs, FRAMES, "what is in the video ?")
+    video_end = len(chat._context_segment_ids(conv, imgs)[0]) + imgs[0].shape[1]
+    rows = []
+    for turn in range(turns):
+        chat.ask(f"question {turn} : what happens next ?", conv)
+        solo_conv = conv.copy()
+        probe = conv.copy()
+        probe.append_message(probe.roles[1], None)
+        row = {"turn": turn + 1, "prompt": sum(map(len, chat._context_segment_ids(probe, imgs)))
+               + imgs[0].shape[1]}
+        for route, kw in (("session", {"kv_session": sess}), ("solo", {})):
+            times = {"_prefill": [], "_prefill_delta": []}
+            sess.last_reused = -1
+            undo = _time_prefills(times)
+            torch.cuda.synchronize()
+            kernels.reset_launches()
+            FORWARD_CALLS[0] = 0
+            t0 = time.perf_counter()
+            try:
+                _, tokens = chat.answer(conv if route == "session" else solo_conv, imgs,
+                                        max_new_tokens=max_new, do_sample=False, **kw)
+                torch.cuda.synchronize()
+            finally:
+                undo()
+            row[f"{route}_total_ms"] = (time.perf_counter() - t0) * 1e3
+            calls = {n: len(v) for n, v in times.items()}
+            want = ({"_prefill": 0, "_prefill_delta": 1} if route == "session" and turn
+                    else {"_prefill": 1, "_prefill_delta": 0})
+            if calls != want:
+                raise AssertionError(f"[{label}] turn {turn + 1}, {route}: prefill calls "
+                                     f"{calls}, want {want}")
+            row[f"{route}_prefill_ms"] = sum(times["_prefill"] + times["_prefill_delta"])
+            row[f"{route}_prefill_calls"] = calls
+            row[f"{route}_tokens"] = [int(t) for t in tokens]
+            row[f"{route}_llama_forwards"] = FORWARD_CALLS[0]
+            if route == "session":
+                if sess.last_reused < 0 or sess.cache is None:
+                    raise AssertionError(f"[{label}] turn {turn + 1} fell back to solo generate "
+                                         f"(last_reused {sess.last_reused})")
+                row.update(reused=sess.last_reused, launches=dict(kernels.LAUNCHES),
+                           form_launches=dict(kernels.FORM_LAUNCHES),
+                           session_cache_width=sess.cache.k[0].shape[1])
+        row["tokens_agree"] = row["session_tokens"] == row["solo_tokens"]
+        if turn and row["reused"] < video_end:
+            raise AssertionError(f"[{label}] turn {turn + 1} reused {row['reused']} positions, "
+                                 f"fewer than the {video_end} up to the video block's end")
+        rows.append(row)
+        print(f"[{label}] turn {turn + 1}: prompt {row['prompt']} tokens, reused "
+              f"{row['reused']}; session (cache width {row['session_cache_width']}) prefill "
+              f"{row['session_prefill_ms']:.2f} ms, total "
+              f"{row['session_total_ms']:.2f} ms; solo generate prefill "
+              f"{row['solo_prefill_ms']:.2f} ms, total {row['solo_total_ms']:.2f} ms; tokens "
+              f"agree: {row['tokens_agree']}")
+    cache = sess.cache
+    return {"mode": label, "turns": rows, "video_block_end": video_end,
+            "kv_cache": {"dtype": str(cache.k[0].dtype).replace("torch.", ""),
+                         "scales": cache.k_scale is not None, "width": cache.k[0].shape[1]},
+            "launches": rows[-1]["launches"], "form_launches": rows[-1]["form_launches"]}
+
+
+def phase_prefix(kernels, model) -> dict:
+    """A three-turn chat over one clip on the full-width QA model with a
+    PrefixSession, greedy, PREFIX_MAX_NEW new tokens a turn, beside solo
+    generate on each turn's prompt."""
+    with tempfile.TemporaryDirectory() as tmp:
+        _, clips = _qa_set(Path(tmp), model.cfg.vit.image_size, seed=17)
+    chat = _clip_chat(model.params, model.cfg, model.llama_tokenizer, model.qformer_tokenizer,
+                      clips)
+    out = _session_turns(kernels, chat, "clip0.mp4", "prefix", PREFIX_TURNS, PREFIX_MAX_NEW)
+    if any(t["launches"]["packed_qkv_attention"] for t in out["turns"]):
+        raise AssertionError("[prefix] a turn re-encoded the video")
+    return out
+
+
+def phase_w4_beams(kernels, params, cfg) -> dict:
+    """The W4A16 stack's beam and session routes (phase_w4a16's params: the
+    static-int8 ViT, int4 Vicuna-7B with q|k|v and gate|up fused, the int8
+    KV cache): one beam-5 answer alone (every decoder matmul #12 at M = 5,
+    its decode form), one answer_batched group of 4 (M = 20, its wgmma
+    form), and a two-turn PrefixSession. #12 launches exactly 128 times a
+    LLaMA forward (llama_forward or llama_decode_prefix), the beams read
+    int8 caches with scales, and the session's cache stays int8 with its
+    scale planes as it grows."""
+    from stllm_tpu_torch.conversation import CONV_instructblip_Vicuna0
+    from stllm_tpu_torch.models.zoo import ToyHashTokenizer
+
+    with tempfile.TemporaryDirectory() as tmp:
+        _, clips = _qa_set(Path(tmp), cfg.vit.image_size, seed=19)
+    tok = ToyHashTokenizer(cfg.llama.vocab_size)
+    _name_every_token(tok)
+    chat = _clip_chat(params, cfg, tok, ToyHashTokenizer(cfg.qformer.vocab_size, reserve=2),
+                      clips)
+    per_video = {**STATIC_PER_VIDEO, **{p: 0 for p in PROBES}}
+    out = {}
+
+    def upload(i):
+        conv, imgs = CONV_instructblip_Vicuna0.copy(), []
+        chat.upload_video(f"clip{i}.mp4", conv, imgs, FRAMES, f"what is in clip {i} ?")
+        chat.ask(f"what is in clip {i} ?", conv)
+        return conv, imgs
+
+    PREFIX_CACHES.clear()
+    for label, videos, fn in (
+            ("w4a16-beam", 1, lambda: chat.answer(
+                *upload(0), num_beams=QA_BEAMS, do_sample=False, system=False,
+                max_new_tokens=W4_BEAM_MAX_NEW)[0]),
+            ("w4a16-beam-batched", QA_CLIPS, lambda: chat.answer_batched(
+                *map(list, zip(*(upload(i) for i in range(QA_CLIPS)))), num_beams=QA_BEAMS,
+                max_new_tokens=W4_BEAM_MAX_NEW, system=False))):
+        run = _route_run(kernels, label, fn, per_video, videos)
+        forms, steps, fwd = run["form_launches"], run["beam_decode_steps"], run["llama_forwards"]
+        w4 = run["launches"]["w4a16_matmul"]
+        decode_form = W4A16_LAUNCHES_PER_FORWARD * steps if videos == 1 else 0
+        if not steps or w4 != W4A16_LAUNCHES_PER_FORWARD * (fwd + steps) \
+                or forms["w4a16_matmul/decode"] != decode_form or forms["w4a16_matmul/stream"] \
+                or forms["w4a16_matmul/wgmma"] != w4 - decode_form:
+            raise AssertionError(f"[{label}] {w4} W4A16 launches by form "
+                                 f"{ {k: v for k, v in forms.items() if k.startswith('w4a16')} } "
+                                 f"over {fwd} forwards and {steps} beam steps")
+        out[label] = _row(run)
+        print(f"[{label}] {videos} video(s), beam {QA_BEAMS} x {W4_BEAM_MAX_NEW} new tokens: "
+              f"{run['wall_s']:.2f} s wall, {steps} beam decode steps at M = "
+              f"{QA_BEAMS * videos}, {w4} W4A16 launches ({fwd} + {steps} forwards x "
+              f"{W4A16_LAUNCHES_PER_FORWARD}), peak memory "
+              f"{run['max_memory_allocated_gib']:.2f} GiB")
+    if PREFIX_CACHES != {("int8", "int8", True)}:
+        raise AssertionError(f"[w4a16] beam caches {PREFIX_CACHES}, want int8 with scales")
+
+    sess = _session_turns(kernels, chat, "clip1.mp4", "w4a16-session", 2, W4_BEAM_MAX_NEW)
+    for t in sess["turns"]:
+        fwd, forms = t["session_llama_forwards"], t["form_launches"]
+        w4 = t["launches"]["w4a16_matmul"]
+        if w4 != W4A16_LAUNCHES_PER_FORWARD * fwd or forms["w4a16_matmul/wgmma"] \
+                != W4A16_LAUNCHES_PER_FORWARD or forms["w4a16_matmul/stream"]:
+            raise AssertionError(f"[w4a16-session] turn {t['turn']}: {w4} W4A16 launches over "
+                                 f"{fwd} forwards, by form {forms}")
+    if sess["kv_cache"]["dtype"] != "int8" or not sess["kv_cache"]["scales"]:
+        raise AssertionError(f"[w4a16-session] cache {sess['kv_cache']}, want int8 with scales")
+    out["w4a16-session"] = sess
     return out
 
 
@@ -3023,6 +3497,8 @@ def main() -> int:
     count_forwards()
     bf16, qa_model = phase_slice(kernels)
     mvbench = phase_mvbench(kernels, qa_model)
+    qabench = phase_qabench(kernels, qa_model)
+    prefix = phase_prefix(kernels, qa_model)
     del qa_model
     gc.collect()
     torch.cuda.empty_cache()
@@ -3030,6 +3506,7 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     w4a16, w4_params, w4_cfg = phase_w4a16(kernels)
+    w4_beams = phase_w4_beams(kernels, w4_params, w4_cfg)
     pipeline = phase_pipeline(kernels, w4_params, w4_cfg)
     del w4_params
     gc.collect()
@@ -3051,7 +3528,8 @@ def main() -> int:
                                      for p in (bf16, int8["dynamic"], int8["static"], w4a16,
                                                pipeline, short, long_)}
         entry["launches_by_path"]["int8-calibration"] = int8["calibration_launches"][name]
-        for route in mvbench["routes"].values():
+        for route in (*mvbench["routes"].values(), *qabench["routes"].values(), prefix,
+                      *w4_beams.values()):
             entry["launches_by_path"][route["mode"]] = route["launches"][name]
         entry["launches_by_path"]["pipeline-calibration"] = pipeline["calibration_launches"][name]
         entry["launches_per_train_step"] = {t["mode"]: t["launches"][name] / t["steps"]

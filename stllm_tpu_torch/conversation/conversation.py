@@ -3,7 +3,8 @@ the port of stllm_tpu/conversation/conversation.py
 (reference: stllm/conversation/conversation.py:30-340).
 
 The model is a (params, STLLMConfig) pair on one device and decoding is
-``generation.generate``. Prompt formats, separator rules, the stop sequences
+``generation.generate``, a ``PrefixSession`` across turns, or
+``beam_search_batched`` for a group of conversations. Prompt formats, separator rules, the stop sequences
 ('###' as [835] or [2277, 29937]) and the output post-processing are the
 reference's, so benchmark strings match. Tokenizers are duck-typed: anything
 with ``encode(text, add_special_tokens=)`` and ``decode(ids)``; nothing here
@@ -14,13 +15,15 @@ from __future__ import annotations
 
 import dataclasses
 import enum
+import logging
 from typing import Any, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from stllm_tpu_torch.data.processors import ChatVideoEvalProcessor
-from stllm_tpu_torch.models.generation import GenerationConfig, UnsupportedRequest, generate
+from stllm_tpu_torch.models.generation import (
+    GenerationConfig, PrefixSession, UnsupportedRequest, beam_search_batched, generate)
 from stllm_tpu_torch.models.stllm import encode_video_for_inference
 from stllm_tpu_torch.ops.layers import gather_rows
 
@@ -312,23 +315,27 @@ class Chat:
                do_sample: bool = True, seed: int = 0,
                service=None, kv_session=None) -> Tuple[str, np.ndarray]:
         """Generate the Assistant turn with the reference's defaults (top-p
-        sampling) and its forced repetition_penalty 1.5 in simple mode.
-        ``service`` (an AnswerService) and ``kv_session`` (a PrefixSession)
-        are not ported yet and raise when given; ``num_beams > 1`` raises
-        UnsupportedRequest from generate."""
+        sampling) and its forced repetition_penalty 1.5 in simple mode;
+        ``num_beams > 1`` runs beam search.
+
+        ``kv_session`` (a generation.PrefixSession, one per conversation)
+        keeps the conversation's KV cache across turns, so a turn prefills
+        only what it adds; the tokens are the same. A config the session
+        cannot serve (beams, an over-long prompt) falls back to solo
+        generate. ``service`` (an AnswerService) is not ported yet and
+        raises."""
         if service is not None:
             raise NotImplementedError("Chat.answer(service=...): AnswerService is not ported yet")
-        if kv_session is not None:
-            raise NotImplementedError(
-                "Chat.answer(kv_session=...): PrefixSession is not ported yet")
         conv.append_message(conv.roles[1], None)
         if conv.instruction:
-            embs = self._assemble_context(self._context_segment_ids(conv, img_list), img_list)
+            seg_ids = self._context_segment_ids(conv, img_list)
+            sim_imgs = img_list
         else:
             # sim items: [] text before the video block, then the one segment
-            embs = self._assemble_context([[], self._sim_text_ids(conv, system)],
-                                          img_list[:1])
+            seg_ids = [[], self._sim_text_ids(conv, system)]
+            sim_imgs = img_list[:1]
             repetition_penalty = 1.5  # reference: conversation.py:226
+        embs = self._assemble_context(seg_ids, sim_imgs)
 
         current_max_len = embs.shape[1] + max_new_tokens
         begin_idx = max(0, current_max_len - max_length)
@@ -340,8 +347,17 @@ class Chat:
             temperature=temperature, repetition_penalty=repetition_penalty,
             length_penalty=length_penalty,
         )
-        tokens = generate(self.params["llama"], embs, llama_cfg=self.cfg.llama, gen=gen,
-                          seed=seed)[0]
+        tokens = None
+        if kv_session is not None:
+            items = PrefixSession.items_for(seg_ids, sim_imgs)[begin_idx:]
+            try:
+                tokens = kv_session.generate(embs, items, gen, seed=seed)
+            except UnsupportedRequest as e:
+                # a capability gap only; real faults propagate
+                logging.getLogger(__name__).debug("prefix-session fallback to generate: %s", e)
+        if tokens is None:
+            tokens = generate(self.params["llama"], embs, llama_cfg=self.cfg.llama, gen=gen,
+                              seed=seed)[0]
         text = _strip_answer(self.llama_tokenizer, tokens)
         conv.messages[-1][1] = text
         return text, np.asarray(_strip_leading(tokens))
@@ -350,8 +366,37 @@ class Chat:
                        max_new_tokens: int = 300, num_beams: int = 5,
                        min_length: int = 1, length_penalty: float = 1.0,
                        system: bool = True, max_length: int = 2000) -> List[str]:
-        """Batched-eval beam answers: beam search is not ported yet."""
-        raise UnsupportedRequest("Chat.answer_batched: beam search is not ported yet")
+        """Batched-eval beam answers: P conversations advance k beams each
+        in one device program (generation.beam_search_batched, each prompt's
+        KV stored once). Per conversation the answer equals
+        answer(num_beams=k, do_sample=False) alone. Simple-prompt
+        conversations (the qabench protocol) get the reference's forced
+        repetition_penalty 1.5 (conversation.py:220); a group mixing simple
+        and template conversations is rejected, since one program takes one
+        penalty."""
+        modes = {bool(c.instruction) for c in convs}
+        if len(modes) != 1:
+            raise ValueError("answer_batched: mixed simple and template conversations")
+        simple = not modes.pop()
+        embs_list = []
+        for conv, img_list in zip(convs, img_lists):
+            conv.append_message(conv.roles[1], None)
+            embs = (self.get_context_emb_sim(conv, img_list, system=system)
+                    if simple else self.get_context_emb(conv, img_list))
+            begin_idx = max(0, embs.shape[1] + max_new_tokens - max_length)
+            embs_list.append(embs[:, begin_idx:])
+        gen = GenerationConfig(
+            max_new_tokens=max_new_tokens, min_length=min_length, do_sample=False,
+            num_beams=num_beams, repetition_penalty=1.5 if simple else 1.0,
+            length_penalty=length_penalty)
+        outs = beam_search_batched(self.params["llama"], embs_list, llama_cfg=self.cfg.llama,
+                                   gen=gen)
+        texts = []
+        for conv, tokens in zip(convs, outs):
+            text = _strip_answer(self.llama_tokenizer, tokens)
+            conv.messages[-1][1] = text
+            texts.append(text)
+        return texts
 
 
 def _strip_leading(tokens: Sequence[int]) -> List[int]:

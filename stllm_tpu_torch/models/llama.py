@@ -17,9 +17,14 @@ Quantized decoder trees: ``quantize_llama_params`` (W8A8, or weight-only
 ``a16``) and ``quantize_llama_params_int4`` (W4A16, optionally with q|k|v
 and gate|up fused along N and an int8 ``w_q16`` lm_head).
 
+``llama_decode_prefix`` is beam search's decode step: one token a row
+against P shared prompt caches (row r reads prompt r // k) plus a small
+per-row cache of the generated tokens, so a prompt's KV is stored once, not
+once per beam.
+
 The cache buffers are updated IN PLACE (the reference donates them to XLA for
-the same effect); ``llama_forward`` returns a KVCache over the same buffers
-with the new lengths.
+the same effect); ``llama_forward`` and ``llama_decode_prefix`` return a
+KVCache over the same buffers with the new lengths.
 """
 
 from __future__ import annotations
@@ -30,7 +35,7 @@ from typing import Any, Dict, NamedTuple, Optional, Tuple
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from stllm_tpu_torch.ops.attention import flash_attention, mha_reference
+from stllm_tpu_torch.ops.attention import NEG_INF, flash_attention, mha_reference
 from stllm_tpu_torch.ops.layers import (
     gather_rows, init_linear, init_rms_norm, linear, matmul_f32, normal, rms_norm,
     swiglu_mlp)
@@ -253,6 +258,80 @@ def llama_forward(
     return x, cache._replace(length=cache.length + valid)
 
 
+def llama_decode_prefix(params: Dict, inputs_embeds: torch.Tensor, prefix: KVCache,
+                        gen: KVCache, cfg: LlamaConfig) -> Tuple[torch.Tensor, KVCache]:
+    """Single-token decode against shared prompt caches plus per-row
+    generated caches. ``inputs_embeds`` (B, 1, d) with B = P * k rows;
+    ``prefix`` holds P prompts (P, S, H, D per layer; ``length`` the valid
+    count of each), ``gen`` the B rows' generated tokens (B, G, H, D).
+    Row r attends prefix row r // k and its own generated cache; the two
+    score segments are joined before one softmax, so the result is the
+    attention over a replicated cache. The new k/v are written into ``gen``
+    in place (int8 codes and scales when the caches are int8).
+
+    Rounding follows the reference: the scores form in the model dtype, are
+    scaled, then cast to fp32; masked lanes take -1e30; the softmax weights
+    are cast back to the model dtype for the two value products, which are
+    summed in the model dtype. The beams of a prompt enter its prefix
+    products as k query rows of one matrix product, so the prefix is never
+    copied per beam. Returns (hidden (B, 1, d), gen with length + 1)."""
+    x = inputs_embeds.to(cfg.dtype)
+    b, s, d = x.shape
+    if s != 1:
+        raise ValueError(f"llama_decode_prefix decodes one token a row, got {s}")
+    p = prefix.k[0].shape[0]
+    if b % p:
+        raise ValueError(f"{b} rows do not split into {p} prompts")
+    kr, h, hd = b // p, cfg.heads, cfg.head_dim
+    dev = x.device
+    positions = (prefix.length.long().repeat_interleave(kr) + gen.length.long())[:, None]
+    cos, sin = rope_table(hd, cfg.max_positions, cfg.rope_theta, device=dev)
+    rope = rope_rows(cos, sin, positions)
+    s_p, g_max = prefix.k[0].shape[1], gen.k[0].shape[1]
+    mask_p = (torch.arange(s_p, device=dev)[None, :]
+              < prefix.length[:, None])[:, None, None, :]              # (P, 1, 1, S)
+    mask_g = (torch.arange(g_max, device=dev)[None, :]
+              <= gen.length[:, None])[:, None, None, :]                # (B, 1, 1, G)
+    scale = hd ** -0.5
+    quantized = prefix.k_scale is not None
+    for i, layer in enumerate(params["layers"]):
+        hn = rms_norm(layer["input_norm"], x, cfg.rms_eps)
+        q, k, v = _qkv_proj(layer, hn, b, s, cfg)
+        q = rotate(q, *rope)
+        k = rotate(k, *rope)
+        if quantized:
+            (k, ks), (v, vs) = _quant_kv(k), _quant_kv(v)
+            _write_at(gen.k_scale[i], ks, gen.length)
+            _write_at(gen.v_scale[i], vs, gen.length)
+        _write_at(gen.k[i], k, gen.length)
+        _write_at(gen.v[i], v, gen.length)
+        if quantized:
+            pk, pv = (_dequant_kv(prefix.k[i], prefix.k_scale[i], x.dtype),
+                      _dequant_kv(prefix.v[i], prefix.v_scale[i], x.dtype))
+            gk, gv = (_dequant_kv(gen.k[i], gen.k_scale[i], x.dtype),
+                      _dequant_kv(gen.v[i], gen.v_scale[i], x.dtype))
+        else:
+            pk, pv, gk, gv = prefix.k[i], prefix.v[i], gen.k[i], gen.v[i]
+        pk, pv, gk, gv = (t.transpose(1, 2) for t in (pk, pv, gk, gv))   # (., H, len, D)
+        qt = q.transpose(1, 2)                                            # (B, H, 1, D)
+        # a prompt's k beams as the query rows of one product: (P, H, k, D)
+        qp = qt.reshape(p, kr, h, hd).transpose(1, 2)
+        s_pfx = (torch.matmul(qp, pk.transpose(-1, -2)) * scale).float()  # (P, H, k, S)
+        s_gen = (torch.matmul(qt, gk.transpose(-1, -2)) * scale).float()  # (B, H, 1, G)
+        s_pfx = torch.where(mask_p, s_pfx, NEG_INF)
+        s_gen = torch.where(mask_g, s_gen, NEG_INF)
+        s_pfx = s_pfx.transpose(1, 2).reshape(b, h, 1, s_p)
+        w = torch.softmax(torch.cat([s_pfx, s_gen], dim=-1), dim=-1).to(x.dtype)
+        w_p = w[..., :s_p].reshape(p, kr, h, s_p).transpose(1, 2)        # (P, H, k, S)
+        out = (torch.matmul(w_p, pv).transpose(1, 2).reshape(b, h, 1, hd)
+               + torch.matmul(w[..., s_p:], gv))                          # (B, H, 1, D)
+        x = x + linear(layer["o"], out.transpose(1, 2).reshape(b, s, d))
+        h2 = rms_norm(layer["post_norm"], x, cfg.rms_eps)
+        x = x + swiglu_mlp(layer, h2)
+    x = rms_norm(params["norm"], x, cfg.rms_eps)
+    return x, gen._replace(length=gen.length + 1)
+
+
 def quantize_llama_params(params: Dict, free_dense: bool = False,
                           a16: bool = False) -> Dict:
     """Inference-time W8A8 conversion of every decoder-layer matmul (q, k, v,
@@ -325,3 +404,14 @@ def lm_head(params: Dict, hidden: torch.Tensor) -> torch.Tensor:
         return y * head["w_scale"].float()
     w = head["w"]
     return matmul_f32(hidden.to(w.dtype), w)
+
+
+@torch.no_grad()
+def prefill_with_cache(params: Dict, inputs_embeds: torch.Tensor, attention_mask: torch.Tensor,
+                       max_len: int, cfg: LlamaConfig) -> Tuple[torch.Tensor, KVCache]:
+    """Prefill a fresh cache of ``max_len`` and return (hidden, cache).
+    Prompts are right-padded; cache.length is each row's valid count, so
+    decode writes land right after each row's real prompt."""
+    cache = init_kv_cache(cfg, inputs_embeds.shape[0], max_len, device=inputs_embeds.device)
+    return llama_forward(params, inputs_embeds=inputs_embeds, attention_mask=attention_mask,
+                         cache=cache, cfg=cfg)

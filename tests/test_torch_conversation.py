@@ -3,7 +3,8 @@ the JAX package's on the tiny model of tests/test_conversation.py: JAX
 params converted by load_jax_params, fp32, the same toy word tokenizer.
 Prompts and turn merging are compared exactly, the context embeddings
 within 1e-5, greedy answers (template and simple mode, where the forced
-repetition penalty 1.5 applies) token for token."""
+repetition penalty 1.5 applies), beam answers and PrefixSession turns token
+for token."""
 
 import zlib
 
@@ -21,7 +22,6 @@ from stllm_tpu.models.vit import ViTConfig as JViT
 from stllm_tpu_torch import conversation as tconv
 from stllm_tpu_torch.convert.from_jax import load_jax_params
 from stllm_tpu_torch.models import zoo as tzoo
-from stllm_tpu_torch.models.generation import UnsupportedRequest
 from stllm_tpu_torch.models.llama import LlamaConfig as TLlama
 from stllm_tpu_torch.models.qformer import QFormerConfig as TQF
 from stllm_tpu_torch.models.stllm import STLLMConfig as TST
@@ -204,16 +204,51 @@ def test_sampled_answer_defaults_are_seeded(chats):
 
 
 def test_unported_answer_paths_raise(chats):
-    _, tchat = chats
+    """service= still raises (AnswerService is not ported). Beams, the
+    prefix session and batched beams run: answer(num_beams=2) and two turns
+    through answer(kv_session=...) give the JAX Chat's tokens, and
+    answer_batched gives each conversation's sequential beam answer."""
+    from stllm_tpu.models.generation import PrefixSession as JSession
+    from stllm_tpu_torch.models.generation import PrefixSession as TSession
+
+    jchat, tchat = chats
     conv, imgs = _upload(tchat, "CONV_VIDEO_Vicuna0", _frames(5), None, tconv)
     tchat.ask("why?", conv)
-    for kw in (dict(service=object()), dict(kv_session=object())):
-        with pytest.raises(NotImplementedError):
-            tchat.answer(conv.copy(), imgs, max_new_tokens=4, **kw)
-    with pytest.raises(UnsupportedRequest):
-        tchat.answer(conv.copy(), imgs, max_new_tokens=4, num_beams=2, do_sample=False)
-    with pytest.raises(UnsupportedRequest):
-        tchat.answer_batched([conv.copy()], [imgs], max_new_tokens=4)
+    with pytest.raises(NotImplementedError):
+        tchat.answer(conv.copy(), imgs, max_new_tokens=4, service=object())
+
+    res = {}
+    for chat, pkg, session in ((jchat, jconv, JSession), (tchat, tconv, TSession)):
+        out = []
+        for conv_name in ("CONV_VIDEO_Vicuna0", "CONV_instructblip_Vicuna0"):
+            conv, imgs = _upload(chat, conv_name, _frames(5), "q", pkg)
+            chat.ask("why?", conv)
+            out.append(list(chat.answer(conv, imgs, max_new_tokens=6, num_beams=2,
+                                        do_sample=False)[1]))
+        sess = session(chat.params["llama"], chat.cfg.llama, max_len=256)
+        conv, imgs = _upload(chat, "CONV_VIDEO_Vicuna0", _frames(6), "q", pkg)
+        for q in ("what is happening?", "and then?"):
+            chat.ask(q, conv)
+            out.append(list(chat.answer(conv, imgs, max_new_tokens=6, do_sample=False,
+                                        kv_session=sess)[1]))
+        out.append(sess.last_reused)
+        res[pkg] = out
+    assert res[tconv] == res[jconv]
+    assert res[tconv][-1] > 0
+
+    for conv_name in ("CONV_VIDEO_Vicuna0", "CONV_instructblip_Vicuna0"):
+        convs, lists = zip(*(_upload(tchat, conv_name, _frames(7 + i), "q", tconv)
+                             for i in range(3)))
+        for i, c in enumerate(convs):
+            tchat.ask(f"what is in clip {i}?", c)
+        seq = [tchat.answer(c.copy(), imgs, max_new_tokens=6, num_beams=2, do_sample=False)[0]
+               for c, imgs in zip(convs, lists)]
+        assert tchat.answer_batched(list(convs), list(lists), max_new_tokens=6,
+                                    num_beams=2) == seq
+        assert [c.messages[-1][1] for c in convs] == seq
+    with pytest.raises(ValueError, match="mixed"):
+        tchat.answer_batched([tconv.CONV_VIDEO_Vicuna0.copy(),
+                              tconv.CONV_instructblip_Vicuna0.copy()], [[], []])
 
 
 def test_zoo_chat_and_ensure_tokenizers():

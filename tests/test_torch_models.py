@@ -214,12 +214,17 @@ def test_generate_greedy_matches_jax(stllm_params):
 @pytest.mark.parametrize("kw", [dict(do_sample=True), dict(num_beams=3),
                                 dict(repetition_penalty=1.2), dict(min_length=4)])
 def test_generate_refuses_non_greedy(kw):
-    """The batcher's guard refuses all four; generate itself now serves
+    """The batcher's guard refuses all four; generate itself serves
     sampling, the repetition penalty and min_length
-    (tests/test_torch_sampling.py) and still refuses beams."""
+    (tests/test_torch_sampling.py) and beams (tests/test_torch_beams.py):
+    with num_beams > 1 it returns beam_search's tokens."""
     with pytest.raises(tgen.UnsupportedRequest):
         tgen.check_greedy(tgen.GenerationConfig(**kw))
     if "num_beams" in kw:
-        with pytest.raises(tgen.UnsupportedRequest):
-            tgen.generate({}, torch.zeros((1, 2, 4)), llama_cfg=tllama.LlamaConfig(),
-                          gen=tgen.GenerationConfig(**kw))
+        cfg = tllama.LlamaConfig(vocab_size=32, hidden=16, num_layers=1, heads=2,
+                                 intermediate=32, max_positions=64, dtype=torch.float32)
+        params = tllama.init_llama(torch.Generator().manual_seed(0), cfg)
+        emb = torch.randn((1, 2, 16), generator=torch.Generator().manual_seed(1))
+        gen = tgen.GenerationConfig(max_new_tokens=3, stop_sequences=(), pad_to_multiple=4, **kw)
+        assert tgen.generate(params, emb, llama_cfg=cfg, gen=gen) == [
+            tgen.beam_search(params, emb, None, llama_cfg=cfg, gen=gen)]

@@ -9,7 +9,8 @@ returns the i-th kept position, so every kept token, in order, comes out of
 each ``_topp_next``, in both branches (top-128 prefilter, full sort), with
 ties and the crossing token. Greedy decoding under the repetition penalty
 and min_length is token-identical in fp32; sampled decoding is
-reproducible from its seed within the port."""
+reproducible from its seed within the port. generate(num_beams > 1)
+beam-searches each row alone."""
 
 import jax
 import jax.numpy as jnp
@@ -218,7 +219,16 @@ def test_sampled_rows_draw_from_the_kept_set(llama):
     assert got == want
 
 
-def test_beams_still_raise():
-    with pytest.raises(tgen.UnsupportedRequest, match="beam"):
-        tgen.generate({}, torch.zeros((1, 2, 4)), llama_cfg=tllama.LlamaConfig(),
-                      gen=tgen.GenerationConfig(num_beams=2))
+def test_beams_still_raise(llama):
+    """Beams no longer raise: generate(num_beams > 1) beam-searches each
+    batch row alone, with its own mask, as the JAX package does."""
+    _, tp, _, tc = llama
+    emb = torch.from_numpy((np.random.default_rng(4).standard_normal((2, 7, 64)) * 0.3
+                            ).astype(np.float32))
+    mask = torch.ones((2, 7), dtype=torch.int32)
+    mask[1, 5:] = 0
+    gen = _gen(tgen.GenerationConfig, num_beams=2, max_new_tokens=8)
+    got = tgen.generate(tp, emb, mask, llama_cfg=tc, gen=gen)
+    assert got == [tgen.beam_search(tp, emb[i:i + 1], mask[i:i + 1], llama_cfg=tc, gen=gen)
+                   for i in range(2)]
+    assert all(1 <= len(row) <= 8 for row in got)
