@@ -26,6 +26,8 @@ toolkit. Phases, each fatal on failure:
    the same libraries), in the order parent, new, new, parent; the decode
    form is also held at 1, 3, 8 and 16 rows; #12's timed copies together
    exceed the 50 MB L2 at every shape;
+   #1 is also timed beside SDPA at the merged trunk's shapes (16 x 192,
+   16 x 144, 8 x 320 tokens) and #3 at a folded one (8 x 288);
    #1, #2 and #3 are held (not timed) at head_dim 120 and 128 and at
    H*D = 12288 and 12544, and their "any" form at head_dim 13, 20, 36, 136
    and 200 (#1 in bf16 and fp32); #3 is timed beside its design before the ring loop
@@ -96,7 +98,22 @@ toolkit. Phases, each fatal on failure:
    delta prefill each, reusing at least the system text and the video
    block; it prints each turn's prefill and total ms for both, the
    session's cache width and whether their tokens agree;
-7. int8   - the same config with quant_int8 (dynamic W8A8) serves the same
+7. breadth - serving breadth. The tiny fp32 model on the card and on the CPU:
+   a merged and folded ViT encode (origin maps equal) and a merged
+   BTAdapter encode within FP32_TINY_REL; greedy tokens of the batcher with
+   a shared prefix (the stored prefix unchanged), of the batcher in
+   speculative mode and of H2O with eviction, identical on both devices;
+   on each device every sampled stream served busy equals the same request
+   alone and solo generate (generators differ between devices). Then the
+   full-width model: the "mild" merge level serves the 6 requests (45 #1
+   launches a video, 16 at 257 tokens, 13 at 192, 13 at 144, 3 temporal,
+   no plain #1 call; the merged encode timed beside the unmerged one);
+   VideoQAServer with prefix_key, three clips and eight questions with
+   prefix_cache_size 2 (one encode a key, the repeated question answered
+   alike; a prefix-hit prefill timed beside a full one); and AnswerService,
+   four threads, two greedy and two sampled, each answer equal to the
+   request served alone by a batcher of the same shape;
+8. int8   - the same config with quant_int8 (dynamic W8A8) serves the same
    6 requests (per video: 78 LayerNorm-quant, 39 GELU-quant, 39 quant-epilogue
    attention and 6 bf16 attention launches), calibrate_btadapter_scales runs
    on one 16-frame clip (78, 39, 39 and 39 static-int8 attention launches),
@@ -106,7 +123,7 @@ toolkit. Phases, each fatal on failure:
    model, dynamic and static, must encode one video on the card and on the
    CPU alike, and a tiny fp32 dynamic-int8 model must encode and calibrate
    on the card (#9 and #10 on fp32 rows) as on the CPU;
-8. w4a16  - the W4A16 serving stack: the same config with llama.kv_int8,
+9. w4a16  - the W4A16 serving stack: the same config with llama.kv_int8,
    the ViT converted to int8 and calibrated on one clip (static int8), the
    Q-Former bf16, and Vicuna-7B converted by quantize_llama_params_int4
    (per-channel int4, q|k|v and gate|up fused, int8 lm_head), serves the
@@ -120,8 +137,13 @@ toolkit. Phases, each fatal on failure:
    of 4 (M = 20, its wgmma form) and a two-turn PrefixSession: exactly 128
    #12 launches per LLaMA forward (llama_forward or llama_decode_prefix),
    42 static-int8 attention launches per video, beams over int8 caches with
-   scales, the session's cache int8 with its scale planes;
-9. pipeline - the stack of script/bench_pipeline_serving.py under
+   scales, the session's cache int8 with its scale planes; then speculative
+   serving with a draft of the target's first 4 layers (slots 4, spec_k 4):
+   exactly 128 #12 launches a target forward (verify at M = 20 on its wgmma
+   form) and 16 a draft step (M = 4, its decode form), with the mean
+   accepted tokens a round, ms a round and the share of tokens that agree
+   with plain greedy serving;
+10. pipeline - the stack of script/bench_pipeline_serving.py under
    STLLM_FUSED_LN="both": a tiny fp32 plain-ViT static model must encode one
    video on the card (5 launches of #11) and on the CPU alike; then the plain
    EVA-ViT-g (no BTAdapter, tanh GELU) converted to int8 and calibrated by
@@ -135,8 +157,11 @@ toolkit. Phases, each fatal on failure:
    trunk under STLLM_FUSED_LN off, "proj", "fc2" and "both" (0, 39, 38 and 77
    launches of #11), each fused trunk no farther from the unfused one than
    1.5 times the unfused trunk moves under a one-bf16-step change of its
-   input;
-10. train - the training step. A tiny bf16 model takes four optimizer steps
+   input; and vit.merge_level "auto": a static clip resolves to
+   "t_aggressive" and encodes with no #11 launch and #3 at the folded
+   lengths (8 x 288, 4 x 288, 2 x 320), an iid-noise clip to no merging with
+   77 #11 launches;
+11. train - the training step. A tiny bf16 model takes four optimizer steps
    on the card and on the CPU from the same weights and batches (losses and
    the first gradient must agree within the stated tolerances, and the loss
    on a fixed batch must fall). Then the QA config at full width and depth,
@@ -155,6 +180,7 @@ prints no result.
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 import gc
 import json
@@ -235,6 +261,13 @@ F32_ATOL, F32_RTOL = 1e-5, 1e-4
 # the tiny fp32 model, card (fp32 kernels) vs CPU (plain versions), relative L2
 FP32_TINY_REL = 1e-4
 TEMPORAL = (256, 16, 16, 88)   # the BTAdapter temporal shape: 16 frames, 16 x 16 patches
+# the trunk's shapes under token merging (ops/tome.py MERGE_LEVELS): #1 at the
+# "mild" level's 192 and 144 tokens (breadth-mild), and at the "t_mild" level's
+# first fold on a bf16 plain ViT, 8 rows of 320 (held here only: no phase
+# serves a bf16 plain ViT); #3 at the three folds of the "t_aggressive" level
+# that pipeline-auto encodes (FOLDED_S8): 8 and 4 rows of 288, 2 rows of 320
+MERGED = [(16, 192, 16, 88), (16, 144, 16, 88), (8, 320, 16, 88)]
+MERGED_S8 = [(8, 288, 16, 88), (4, 288, 16, 88), (2, 320, 16, 88)]
 
 # per-video launches of each int8 path (39 trunk blocks, 3 branch layers)
 DYNAMIC_PER_VIDEO = {"layer_norm_quant": 78, "gelu_quant": 39,
@@ -782,6 +815,7 @@ def phase_kernels(kernels, replaced, divide_check) -> dict:
     cases = [_packed_case(gen, shape, torch.bfloat16, 2)
              for shape in (TRUNK, TEMPORAL, (3, 37, 4, 88))]
     cases.append(_packed_case(gen, (2, 257, 16, 88), torch.float32, 4))
+    cases += [_packed_case(gen, shape, torch.bfloat16, 2) for shape in MERGED]
 
     def sdpa(qkv, h, d, scale):
         b, s, _ = qkv.shape
@@ -804,12 +838,13 @@ def phase_kernels(kernels, replaced, divide_check) -> dict:
     # #2 packed attention with the int8 epilogue; #3 on static-int8 qkv.
     # No single PyTorch call computes either function: library_ms is null.
     cases2, cases3 = [], []
-    for b, s, h, d in attn_shapes:
+    for b, s, h, d in attn_shapes + MERGED_S8:
         qkvs = _qkv_bufs(gen, b, s, h, d)
         out_bytes = b * s * h * d + b * s * 4
         flops = 4 * b * h * s * s * d
-        cases2.append(([b, s, 3 * h * d], [(q, h, d, d ** -0.5) for q in qkvs],
-                       b * s * 3 * h * d * 2 + out_bytes, flops / BF16_FLOP_PER_S))
+        if (b, s, h, d) not in MERGED_S8:
+            cases2.append(([b, s, 3 * h * d], [(q, h, d, d ** -0.5) for q in qkvs],
+                           b * s * 3 * h * d * 2 + out_bytes, flops / BF16_FLOP_PER_S))
         cases3.append(([b, s, 3 * h * d], [(*_static_int8(q), h, d, d ** -0.5) for q in qkvs],
                        b * s * 3 * h * d + 12 + out_bytes,
                        flops / 2 / INT8_OP_PER_S + flops / 2 / BF16_FLOP_PER_S))
@@ -2177,12 +2212,14 @@ def serve(kernels, params, cfg, reqs, label: str, gen=None, **server) -> dict:
     torch.cuda.reset_peak_memory_stats()
     torch.cuda.synchronize()
     kernels.reset_launches()
+    PACKED_CALLS.clear()
     FORWARD_CALLS[0] = 0
     t0 = time.perf_counter()
     answers = srv.run()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = dict(kernels.LAUNCHES)
+    packed_lengths = {n: _lengths(n) for n in ("packed_qkv_attention", "packed_qkv_attention_s8")}
     form_launches = dict(kernels.FORM_LAUNCHES)
     forwards = FORWARD_CALLS[0]
     any_form = {k: v for k, v in form_launches.items() if k.endswith("/any") and v}
@@ -2227,6 +2264,7 @@ def serve(kernels, params, cfg, reqs, label: str, gen=None, **server) -> dict:
            "decode_slots": b.slots,
            "max_memory_allocated_gib": torch.cuda.max_memory_allocated() / 2**30,
            "launches": launches, "form_launches": form_launches, "llama_forwards": forwards,
+           "packed_lengths": packed_lengths,
            "launches_per_video": {k: v / NUM_REQUESTS for k, v in launches.items()},
            "kv_cache": {"dtype": str(b.cache.k[0].dtype).replace("torch.", ""),
                         "scales": b.cache.k_scale is not None},
@@ -2905,6 +2943,600 @@ def phase_prefix(kernels, model) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# serving breadth: merged encodes, sampled streams, shared prefixes,
+# AnswerService, speculative serving and H2O
+# ---------------------------------------------------------------------------
+
+PACKED_CALLS = collections.Counter()   # (kernel, rows, sequence length) of #1 and #3 calls
+# #1 launches per video by sequence length under the "mild" level: 13 trunk
+# blocks at each of 257, 192 and 144 tokens, the branch's 3 spatial layers at
+# 257 and its 3 temporal ones over the 16 frames
+MILD_LENGTHS = {16: 3, 144: 13, 192: 13, 257: 16}
+PREFIX_KEY_PLAN = [("A0", "A", 0), ("A1", "A", 1), ("A2", "A", 2), ("B0", "B", 0),
+                   ("B1", "B", 1), ("B2", "B", 2), ("A0-again", "A", 0), ("C0", "C", 0)]
+SERVICE_PROMPTS = (300, 280, 320, 260)   # AnswerService prompts; the odd ones sampled
+SPEC_K, SPEC_ROUNDS, SPEC_DRAFT_LAYERS = 4, 4, 4
+# the t_aggressive level on the plain ViT-g (16 frames): #3 launches by
+# (rows, sequence length), blocks 0-5, 6-15, 16-27 and 28-38
+FOLDED_S8 = {(16, 257): 6, (8, 288): 10, (4, 288): 12, (2, 320): 11}
+
+
+def record_packed_shapes(kernels) -> None:
+    """Count every call of #1's and #3's wrappers (the attention dispatch
+    calls them through the kernels module's names) by (kernel, rows,
+    sequence length) in PACKED_CALLS from here on. The launch counters
+    stay the wrappers' own; this only sorts the calls by shape."""
+    for name in ("packed_qkv_attention", "packed_qkv_attention_s8"):
+        def wrap(qkv, *args, _real=getattr(kernels, name), _name=name):
+            PACKED_CALLS[(_name, qkv.shape[0], qkv.shape[1])] += 1
+            return _real(qkv, *args)
+        setattr(kernels, name, wrap)
+
+
+def _lengths(name: str) -> dict:
+    """{sequence length: calls} of kernel ``name`` in PACKED_CALLS."""
+    out = collections.Counter()
+    for (n, _, s), c in PACKED_CALLS.items():
+        if n == name:
+            out[s] += c
+    return dict(sorted(out.items()))
+
+
+def _encode_calls(counts: dict):
+    """Count pipeline_serving's encode_img calls from here on; returns an
+    undo function."""
+    from stllm_tpu_torch import pipeline_serving
+
+    real = pipeline_serving.encode_img
+
+    def wrap(*args, **kw):
+        counts["encode_img"] = counts.get("encode_img", 0) + 1
+        return real(*args, **kw)
+
+    pipeline_serving.encode_img = wrap
+    return lambda: setattr(pipeline_serving, "encode_img", real)
+
+
+def _gen_cfg(n: int, **kw):
+    """``n`` new tokens, no stop, prompts padded to 8 (greedy unless ``kw``
+    asks for sampling)."""
+    from stllm_tpu_torch.models.generation import GenerationConfig
+
+    return GenerationConfig(max_new_tokens=n, stop_sequences=(), eos_token_id=-1,
+                            pad_to_multiple=8, **kw)
+
+
+def _tiny_decoding(llama, lcfg, draft, dcfg, device) -> dict:
+    """The tiny fp32 LLaMA's breadth routes on one device: greedy tokens of
+    the batcher with a shared prefix, of the batcher in speculative mode
+    (a random draft, then the target as its own draft) and of H2O with
+    eviction; and each sampled stream served busy (beside
+    greedy and sampled co-tenants), alone, and by solo generate."""
+    from stllm_tpu_torch.models.generation import _pad_prompt, _prefill, generate
+    from stllm_tpu_torch import serving
+    from stllm_tpu_torch.models.h2o import h2o_decode_chunk_greedy, h2o_prefill
+    from stllm_tpu_torch.serving import ContinuousBatcher
+
+    llama, draft = _tree_to(llama, device), _tree_to(draft, device)
+    rng = np.random.default_rng(8)
+
+    def emb(s):
+        return torch.from_numpy(rng.standard_normal((1, s, lcfg.hidden)) * 0.3).float().to(device)
+
+    out = {}
+    # the stored prefix as wide as the admit pads it (13 + pad(3) = 21): the
+    # pad is no wider than the buffers, and the admit must still copy them
+    pre, sufs = emb(13), [emb(3), emb(6)]
+    pemb, pmask = _pad_prompt(pre, torch.ones((1, 13), dtype=torch.int32, device=device), 8)
+    _, pkv = _prefill(llama, pemb, pmask, lcfg, 21)
+    kept = [t.clone() for t in pkv.k + pkv.v]
+    cb = ContinuousBatcher(llama, lcfg, slots=2, max_len=64, chunk=4)
+    for i, suf in enumerate(sufs):
+        cb.submit(i, suf, _gen_cfg(9), prefix=pkv, prefix_len=13)
+    got = cb.run()
+    if not all(torch.equal(a, b) for a, b in zip(kept, pkv.k + pkv.v)):
+        raise AssertionError(f"[breadth] tiny {device}: an admit wrote the stored prefix")
+    out["prefix"] = [got[i] for i in range(len(sufs))]
+    solo = [generate(llama, torch.cat([pre, suf], dim=1), llama_cfg=lcfg, gen=_gen_cfg(9))[0]
+            for suf in sufs]
+    if out["prefix"] != solo:
+        raise AssertionError(f"[breadth] tiny {device}: prefix-shared tokens differ from "
+                             "generate on the whole prompt")
+
+    prompts = [emb(s) for s in (5, 11, 7)]
+    cb = ContinuousBatcher(llama, lcfg, slots=2, max_len=64, chunk=4, draft_params=draft,
+                           draft_cfg=dcfg, spec_k=3, spec_rounds=2)
+    for i, p in enumerate(prompts):
+        cb.submit(i, p, _gen_cfg(12))
+    got = cb.run()
+    out["speculative"] = [got[i] for i in range(len(prompts))]
+    solo = [generate(llama, p, llama_cfg=lcfg, gen=_gen_cfg(12))[0] for p in prompts]
+    if out["speculative"] != solo:
+        raise AssertionError(f"[breadth] tiny {device}: speculative serving differs from greedy")
+    # the draft equal to the target accepts every proposal (count k + 1 a
+    # round): the commit of whole rounds and the stale draft tail the next
+    # round covers, which the random draft above hardly reaches
+    counts, real_rounds = [], serving._spec_rounds
+    cb = ContinuousBatcher(llama, lcfg, slots=2, max_len=64, chunk=4, draft_params=llama,
+                           draft_cfg=lcfg, spec_k=3, spec_rounds=2)
+
+    def spec_rounds(*args, **kw):
+        active = [r is not None for r in cb.active]
+        result = real_rounds(*args, **kw)
+        counts.append(result[4][:, active].flatten().cpu())
+        return result
+
+    for i, p in enumerate(prompts):
+        cb.submit(i, p, _gen_cfg(12))
+    serving._spec_rounds = spec_rounds
+    try:
+        got = cb.run()
+    finally:
+        serving._spec_rounds = real_rounds
+    out["speculative_self"] = [got[i] for i in range(len(prompts))]
+    accepted = float(torch.cat(counts).double().mean()) - 1
+    if out["speculative_self"] != solo or accepted != 3:
+        raise AssertionError(f"[breadth] tiny {device}: with the draft equal to the target, "
+                             f"tokens {out['speculative_self']} (greedy {solo}), mean accepted "
+                             f"{accepted} a round, want 3")
+
+    x = torch.cat([emb(11), emb(11)])
+    mask = torch.ones((2, 11), dtype=torch.int32, device=device)
+    mask[1, 7:] = 0
+    hidden, cache = h2o_prefill(llama, x, mask, lcfg, budget=8, recent=3)
+    from stllm_tpu_torch.models.llama import lm_head
+
+    last = hidden[torch.arange(2, device=device), (mask.sum(-1) - 1).long()][:, None]
+    first = torch.argmax(lm_head(llama, last)[:, 0], dim=-1).to(torch.int32)
+    toks, _ = h2o_decode_chunk_greedy(llama, first, cache, lcfg, 10)
+    out["h2o"] = toks.cpu().tolist()
+
+    sampled = _gen_cfg(10, do_sample=True, top_p=0.85, temperature=0.9)
+    busy = ContinuousBatcher(llama, lcfg, slots=3, max_len=64, chunk=4)
+    plan = [(0, prompts[0], sampled, 5), (1, prompts[1], _gen_cfg(8), 0),
+            (2, prompts[2], sampled, 9)]
+    for rid, p, g, seed in plan:
+        busy.submit(rid, p, g, seed=seed)
+    busy_out = busy.run()
+    for rid, p, g, seed in plan[::2]:
+        idle = ContinuousBatcher(llama, lcfg, slots=3, max_len=64, chunk=4)
+        idle.submit(rid, p, g, seed=seed)
+        alone = idle.run()[rid]
+        solo = generate(llama, p, llama_cfg=lcfg, gen=g, seed=seed)[0]
+        if not busy_out[rid] == alone == solo:
+            raise AssertionError(f"[breadth] tiny {device}: sampled stream {rid}: busy "
+                                 f"{busy_out[rid]}, alone {alone}, solo generate {solo}")
+    out["sampled"] = [busy_out[0], busy_out[2]]
+    return out
+
+
+def check_small_breadth(kernels) -> dict:
+    """The tiny fp32 model (#1's fp32 form), card against CPU: a merged and
+    folded ViT encode (values within FP32_TINY_REL, origin maps equal), a
+    merged BTAdapter encode, and greedy tokens through the batcher with a
+    shared prefix, in speculative mode (a random 1-layer draft, and the
+    target as its own draft, which accepts every proposal) and through H2O
+    with eviction, identical on both devices. Sampled streams differ
+    between devices (their generators do): on each device every sampled
+    stream served busy equals the same request alone and solo generate."""
+    from stllm_tpu_torch.models.btadapter import btadapter_forward
+    from stllm_tpu_torch.models.llama import init_llama
+    from stllm_tpu_torch.models.vit import normalize_uint8, vit_forward
+    from stllm_tpu_torch.models.zoo import STLLM
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    model = STLLM.from_config(_fp32_tiny_cfg(num_layers=2), seed=3, device="cpu")
+    cfg, params = model.cfg, model.params
+    card = _tree_to(params, "cuda")
+    frames, _ = _tiny_inputs()
+    images = normalize_uint8(frames[0], cfg.vit.dtype)
+    out = {}
+    before = dict(kernels.LAUNCHES)
+    vit_cfg = dataclasses.replace(cfg.vit, temporal_schedule=((1, 2, 24),),
+                                  merge_schedule=((2, 16), (3, 10)))
+    want, w_origin = vit_forward(params["vit"], images, vit_cfg, return_merge_origin=True,
+                                 num_frames=frames.shape[1])
+    got, g_origin = vit_forward(card["vit"], images.cuda(), vit_cfg, return_merge_origin=True,
+                                num_frames=frames.shape[1])
+    if not torch.equal(g_origin.cpu(), w_origin):
+        raise AssertionError("[breadth] tiny merged ViT: the card's origin map differs")
+    out["vit_merged_rel_l2"] = _rel(got, want, "merged and folded ViT encode")
+    bt_cfg = dataclasses.replace(cfg.vit, merge_schedule=((1, 12), (2, 8)))
+    out["btadapter_merged_rel_l2"] = _rel(
+        btadapter_forward(card["vit"], images.cuda(), bt_cfg, frames.shape[1]),
+        btadapter_forward(params["vit"], images, bt_cfg, frames.shape[1]),
+        "merged BTAdapter encode")
+    torch.cuda.synchronize()
+    out["launches"] = _ran(kernels, before, ["packed_qkv_attention"])
+
+    lcfg = cfg.llama
+    dcfg = dataclasses.replace(lcfg, num_layers=1)
+    draft = init_llama(torch.Generator().manual_seed(7), dcfg)
+    routes = {dev: _tiny_decoding(params["llama"], lcfg, draft, dcfg, dev)
+              for dev in ("cpu", "cuda")}
+    greedy = ("prefix", "speculative", "speculative_self", "h2o")
+    for route in greedy:
+        if routes["cuda"][route] != routes["cpu"][route]:
+            raise AssertionError(f"[breadth] tiny {route} tokens: card {routes['cuda'][route]}, "
+                                 f"CPU {routes['cpu'][route]}")
+    out["greedy_tokens"] = {r: routes["cuda"][r] for r in greedy}
+    out["sampled_tokens"] = {dev: r["sampled"] for dev, r in routes.items()}
+    return out
+
+
+def _breadth_mild(kernels, model) -> dict:
+    """The full-width QA model under the "mild" level serves the 6
+    requests: 45 #1 launches a video, by sequence length MILD_LENGTHS, no
+    plain #1 call; the merged and the unmerged encode timed in this call
+    (unmerged, merged, merged, unmerged)."""
+    from stllm_tpu_torch.ops.tome import level_kwargs
+    from stllm_tpu_torch.pipeline_serving import _encode_assemble
+
+    cfg = model.cfg
+    mild = dataclasses.replace(cfg, vit=dataclasses.replace(cfg.vit, **level_kwargs("mild")))
+    reqs = make_requests(cfg)
+    plain = {}
+    undo = _count_plain_attention(plain)
+    try:
+        out = serve(kernels, model.params, mild, reqs, "breadth-mild")
+    finally:
+        undo()
+    _expect("breadth-mild", out["launches"], {"packed_qkv_attention": 45,
+                                              "packed_qkv_attention_s8": 0}, NUM_REQUESTS)
+    want = {s: n * NUM_REQUESTS for s, n in MILD_LENGTHS.items()}
+    if out["packed_lengths"]["packed_qkv_attention"] != want or plain:
+        raise AssertionError(f"[breadth-mild] #1 launches by length "
+                             f"{out['packed_lengths']['packed_qkv_attention']}, want {want}; "
+                             f"plain calls {plain}")
+    _, frames, pre, suf, q = reqs[0]
+    args = [torch.as_tensor(a, device="cuda") for a in (frames, pre, suf, q)]
+    args[1:] = [a.int() for a in args[1:]]
+    args.append(torch.ones_like(args[3]))
+    with torch.no_grad():
+        t = [cuda_ms(lambda c=c: _encode_assemble(model.params, *args, c), 3, warmup=1)
+             for c in (cfg, mild, mild, cfg)]
+    out["encode_ms_unmerged"], out["encode_ms_mild"] = (t[0] + t[3]) / 2, (t[1] + t[2]) / 2
+    print(f"[breadth-mild] encode a video: unmerged {out['encode_ms_unmerged']:.2f} ms, mild "
+          f"{out['encode_ms_mild']:.2f} ms (unmerged, mild, mild, unmerged); #1 launches by "
+          f"length {out['packed_lengths']['packed_qkv_attention']}")
+    return out
+
+
+def _breadth_prefix_key(kernels, model) -> dict:
+    """VideoQAServer with prefix_key on the full-width model: three clips,
+    PREFIX_KEY_PLAN's questions, prefix_cache_size=2 (the third key evicts
+    one): one encode a key (45 #1 launches each), the repeated question of
+    a key answers with the first one's tokens; then a prefix-hit prefill
+    (the suffix delta-prefilled on a copy of the stored prefix) timed
+    beside a full prefill of the same prompt."""
+    from stllm_tpu_torch.models.generation import (
+        GenerationConfig, _pad_kv_time, _pad_prompt, _prefill, _prefill_delta)
+    from stllm_tpu_torch.pipeline_serving import VideoQAServer, _encode_assemble
+
+    cfg, params = model.cfg, model.params
+    rng = np.random.default_rng(23)
+    size, vocab = cfg.vit.image_size, cfg.llama.vocab_size
+    clips = {k: rng.integers(0, 256, (1, FRAMES, size, size, 3), dtype=np.uint8) for k in "ABC"}
+    pre = rng.integers(3, vocab, (1, PREFIX_LEN))
+    q = rng.integers(0, cfg.qformer.vocab_size, (1, Q_LEN))
+    sufs = [rng.integers(3, vocab, (1, SUFFIX_LEN)) for _ in range(3)]
+    gen = GenerationConfig(max_new_tokens=MAX_NEW)
+    srv = VideoQAServer(params, cfg, slots=4, max_len=1024, prefix_cache_size=2)
+    for rid, key, i in PREFIX_KEY_PLAN:
+        srv.submit(rid, clips[key], pre, sufs[i], gen, qformer_text_ids=q, prefix_key=key)
+    counts = {}
+    undo = _encode_calls(counts)
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    try:
+        answers = srv.run()
+        torch.cuda.synchronize()
+    finally:
+        undo()
+    wall = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    keys = sorted({k for _, k, _ in PREFIX_KEY_PLAN})
+    if counts.get("encode_img") != len(keys) \
+            or launches["packed_qkv_attention"] != 45 * len(keys):
+        raise AssertionError(f"[breadth-prefix-key] {counts} encodes and "
+                             f"{launches['packed_qkv_attention']} #1 launches for {len(keys)} "
+                             "keys, want one encode (45 launches) a key")
+    if set(answers) != {r for r, _, _ in PREFIX_KEY_PLAN} or answers["A0"] != answers["A0-again"] \
+            or not all(answers.values()) or len(srv._prefix_lru) != 2:
+        raise AssertionError(f"[breadth-prefix-key] answers {answers}, prefix store "
+                             f"{list(srv._prefix_lru)}")
+
+    dev = lambda a: torch.as_tensor(a, device="cuda").int()  # noqa: E731
+    with torch.no_grad():
+        embeds = _encode_assemble(params, torch.as_tensor(clips["A"], device="cuda"), dev(pre),
+                                  dev(sufs[0]), dev(q), torch.ones_like(dev(q)), cfg)
+        plen = embeds.shape[1] - SUFFIX_LEN
+        llama, lcfg = params["llama"], cfg.llama
+        ones = lambda n: torch.ones((1, n), dtype=torch.int32, device="cuda")  # noqa: E731
+        pemb, pmask = _pad_prompt(embeds[:, :plen], ones(plen), gen.pad_to_multiple)
+        _, pkv = _prefill(llama, pemb, pmask, lcfg, pemb.shape[1])
+        semb, smask = _pad_prompt(embeds[:, plen:], ones(SUFFIX_LEN), gen.pad_to_multiple)
+        femb, fmask = _pad_prompt(embeds, ones(embeds.shape[1]), gen.pad_to_multiple)
+        w = max(pkv.k[0].shape[1], plen + semb.shape[1])
+        hit_ms = cuda_ms(lambda: _prefill_delta(llama, semb, smask, _pad_kv_time(pkv, w), lcfg),
+                         5, warmup=1)
+        full_ms = cuda_ms(lambda: _prefill(llama, femb, fmask, lcfg, femb.shape[1]), 5, warmup=1)
+    out = {"mode": "breadth-prefix-key", "requests": len(PREFIX_KEY_PLAN), "keys": len(keys),
+           "prefix_cache_size": 2, "encodes": counts["encode_img"], "wall_s": wall,
+           "launches": launches, "prompt_tokens": embeds.shape[1], "prefix_tokens": plen,
+           "prefix_hit_prefill_ms": hit_ms, "full_prefill_ms": full_ms,
+           "tokens_per_request": {k: len(v) for k, v in answers.items()}}
+    print(f"[breadth-prefix-key] {len(PREFIX_KEY_PLAN)} requests on {len(keys)} keys in "
+          f"{wall:.2f} s, {counts['encode_img']} encodes; prefill of a {embeds.shape[1]}-token "
+          f"prompt: prefix hit ({plen} shared) {hit_ms:.2f} ms, full {full_ms:.2f} ms")
+    return out
+
+
+def _breadth_service(kernels, model) -> dict:
+    """AnswerService over the full-width batcher (slots 4, max_len 1024,
+    chunk 16): four threads, two greedy and two sampled requests of
+    SERVICE_PROMPTS token embeddings; each answer equals the same request
+    served alone by a batcher of the same shape."""
+    import threading
+
+    from stllm_tpu_torch.models.generation import GenerationConfig
+    from stllm_tpu_torch.ops.layers import gather_rows
+    from stllm_tpu_torch.serving import AnswerService, ContinuousBatcher
+
+    llama, lcfg = model.params["llama"], model.cfg.llama
+    rng = np.random.default_rng(31)
+    reqs = []
+    for i, s in enumerate(SERVICE_PROMPTS):
+        ids = torch.as_tensor(rng.integers(3, lcfg.vocab_size, (1, s)), device="cuda")
+        gen = GenerationConfig(max_new_tokens=MAX_NEW, do_sample=bool(i % 2), top_p=0.9)
+        reqs.append((gather_rows(llama["embed_tokens"], ids).to(lcfg.dtype), gen, 100 + i))
+
+    def batcher():
+        return ContinuousBatcher(llama, lcfg, slots=4, max_len=1024, chunk=16)
+
+    alone = []
+    for emb, gen, seed in reqs:
+        cb = batcher()
+        cb.submit(0, emb, gen, seed=seed)
+        alone.append(cb.run()[0])
+        del cb
+    svc = AnswerService(batcher())
+    got, errs = [None] * len(reqs), []
+
+    def call(i):
+        try:
+            got[i] = svc.answer(reqs[i][0], reqs[i][1], seed=reqs[i][2])
+        except Exception as e:  # reported below
+            errs.append((i, repr(e)))
+
+    threads = [threading.Thread(target=call, args=(i,)) for i in range(len(reqs))]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=300)
+    wall = time.perf_counter() - t0
+    svc.close()
+    if errs or got != alone:
+        raise AssertionError(f"[breadth-service] errors {errs}; answers equal alone: "
+                             f"{[g == a for g, a in zip(got, alone)]}")
+    out = {"mode": "breadth-service", "threads": len(reqs), "wall_s": wall,
+           "tokens": sum(map(len, got)), "sampled": [bool(i % 2) for i in range(len(reqs))]}
+    print(f"[breadth-service] {len(reqs)} threads (2 greedy, 2 sampled) answered in "
+          f"{wall:.2f} s, {out['tokens']} tokens, each equal to the request served alone")
+    return out
+
+
+def phase_breadth(kernels, model) -> dict:
+    """The slice's serving breadth on the tiny model (card against CPU) and
+    on the full-width QA model: the "mild" merge level, prefix_key
+    sharing and AnswerService."""
+    t0 = time.perf_counter()
+    tiny = check_small_breadth(kernels)
+    print(f"[breadth] tiny fp32 model, card vs CPU: {json.dumps(tiny)}")
+    out = {"tiny": tiny, "mild": _breadth_mild(kernels, model),
+           "prefix_key": _breadth_prefix_key(kernels, model),
+           "service": _breadth_service(kernels, model), "phase_s": time.perf_counter() - t0}
+    print(f"[breadth] phase took {out['phase_s']:.1f} s")
+    return out
+
+
+def phase_w4_spec(kernels, params, cfg) -> dict:
+    """Speculative serving on the W4A16 stack (phase_w4a16's params): the
+    draft is a same-width tower of the target's first SPEC_DRAFT_LAYERS
+    layers with its embedding, norm and head; slots 4, spec_k SPEC_K,
+    SPEC_ROUNDS rounds a step, four requests of 32 new tokens. #12 launches
+    exactly 128 times a target forward (a verify forward at M = slots x
+    (spec_k + 1) = 20 on its wgmma form) and 16 times a draft forward (a
+    proposal step at M = 4 on its decode form). Prints the mean accepted
+    tokens a round, ms a round and the share of tokens that agree with plain
+    greedy serving (bf16 is not held across program shapes)."""
+    from stllm_tpu_torch import serving
+    from stllm_tpu_torch.models import generation, speculative
+    from stllm_tpu_torch.ops.layers import gather_rows
+
+    llama, lcfg = params["llama"], cfg.llama
+    draft = {k: llama[k] for k in ("embed_tokens", "norm", "lm_head")}
+    draft["layers"] = llama["layers"][:SPEC_DRAFT_LAYERS]
+    dcfg = dataclasses.replace(lcfg, num_layers=SPEC_DRAFT_LAYERS)
+    per_draft = 4 * SPEC_DRAFT_LAYERS
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(37)
+    prompts = [gather_rows(llama["embed_tokens"], torch.as_tensor(
+        rng.integers(3, lcfg.vocab_size, (1, s)), device="cuda")).to(lcfg.dtype)
+        for s in SERVICE_PROMPTS]
+    gen = _gen_cfg(W4_BEAM_MAX_NEW)
+    forwards, rounds = collections.Counter(), []
+    real = {(speculative, "llama_forward"): speculative.llama_forward,
+            (generation, "llama_forward"): generation.llama_forward,
+            (serving, "_spec_rounds"): serving._spec_rounds}
+
+    def forward(mod):
+        def wrap(p, **kw):
+            ids = kw.get("input_ids")
+            x = ids if ids is not None else kw["inputs_embeds"]
+            role = "target" if p is llama else "draft"
+            forwards[(mod.__name__.rsplit(".", 1)[-1], role, x.shape[0] * x.shape[1])] += 1
+            return real[(mod, "llama_forward")](p, **kw)
+        return wrap
+
+    cb = serving.ContinuousBatcher(llama, lcfg, slots=4, max_len=1024, chunk=16,
+                                   draft_params=draft, draft_cfg=dcfg, spec_k=SPEC_K,
+                                   spec_rounds=SPEC_ROUNDS)
+
+    def spec_rounds(*args, **kw):
+        active = [r is not None for r in cb.active]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        result = real[(serving, "_spec_rounds")](*args, **kw)
+        torch.cuda.synchronize()
+        rounds.append(((time.perf_counter() - t0) * 1e3, result[4].cpu(), active))
+        return result
+
+    for i, p in enumerate(prompts):
+        cb.submit(i, p, gen)
+    speculative.llama_forward = forward(speculative)
+    generation.llama_forward = forward(generation)
+    serving._spec_rounds = spec_rounds
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    try:
+        got = cb.run()
+        torch.cuda.synchronize()
+    finally:
+        for (mod, name), fn in real.items():
+            setattr(mod, name, fn)
+    wall = time.perf_counter() - t0
+    launches, forms = dict(kernels.LAUNCHES), dict(kernels.FORM_LAUNCHES)
+    verify = forwards[("speculative", "target", 4 * (SPEC_K + 1))]
+    steps = forwards[("speculative", "draft", 4)]
+    prefills = {role: sum(n for (mod, r, _), n in forwards.items()
+                          if mod == "generation" and r == role) for role in ("target", "draft")}
+    want_wgmma = W4A16_LAUNCHES_PER_FORWARD * (verify + prefills["target"]) \
+        + per_draft * prefills["draft"]
+    if sum(n for (mod, _, _), n in forwards.items() if mod == "speculative") != verify + steps \
+            or verify != len(rounds) * SPEC_ROUNDS or steps != verify * (SPEC_K + 1) \
+            or prefills != {"target": len(prompts), "draft": len(prompts)} \
+            or launches["w4a16_matmul"] != want_wgmma + per_draft * steps \
+            or forms["w4a16_matmul/wgmma"] != want_wgmma \
+            or forms["w4a16_matmul/decode"] != per_draft * steps \
+            or forms["w4a16_matmul/stream"]:
+        raise AssertionError(f"[w4a16-spec] forwards {dict(forwards)}, W4A16 launches "
+                             f"{launches['w4a16_matmul']} by form "
+                             f"{ {k: v for k, v in forms.items() if k.startswith('w4a16')} }")
+    counts = [c[:, a] for _, c, a in rounds]
+    accepted = torch.cat([c.flatten() for c in counts]).float() - 1
+    plain = serving.ContinuousBatcher(llama, lcfg, slots=4, max_len=1024, chunk=16)
+    for i, p in enumerate(prompts):
+        plain.submit(i, p, gen)
+    greedy = plain.run()
+    same = sum(a == b for i in got for a, b in zip(got[i], greedy[i]))
+    total = sum(len(v) for v in greedy.values())
+    out = {"mode": "w4a16-spec", "requests": len(prompts), "spec_k": SPEC_K,
+           "spec_rounds": SPEC_ROUNDS, "draft_layers": SPEC_DRAFT_LAYERS, "wall_s": wall,
+           "target_verify_forwards": verify, "draft_steps": steps, "prefills": prefills,
+           "launches": launches, "form_launches": forms,
+           "mean_accepted_per_round": float(accepted.mean()),
+           "ms_per_round": sum(r[0] for r in rounds) / (len(rounds) * SPEC_ROUNDS),
+           "tokens_agree_with_greedy": same / total,
+           "answers_equal_greedy": sum(got[i] == greedy[i] for i in got),
+           "phase_s": time.perf_counter() - t_phase}
+    print(f"[w4a16-spec] {len(prompts)} requests x {W4_BEAM_MAX_NEW} tokens in {wall:.2f} s: "
+          f"{verify} verify forwards (M = {4 * (SPEC_K + 1)}), {steps} draft steps (M = 4), "
+          f"{launches['w4a16_matmul']} W4A16 launches; mean accepted "
+          f"{out['mean_accepted_per_round']:.3f} a round, {out['ms_per_round']:.2f} ms a round; "
+          f"{out['tokens_agree_with_greedy']:.3f} of the tokens agree with plain greedy; phase "
+          f"{out['phase_s']:.1f} s")
+    return out
+
+
+def _pipeline_auto(kernels, params, cfg) -> dict:
+    """vit.merge_level "auto" on the pipeline stack under FUSED_LN="both":
+    a static clip (one frame repeated) resolves to "t_aggressive" and
+    encodes with no #11 launch and #3 at the folded lengths FOLDED_S8; an
+    iid-noise clip resolves to no merging and encodes with the fused trunk's
+    77 #11 launches, #3 at 257 tokens."""
+    from stllm_tpu_torch.models.stllm import encode_img, resolve_auto_merge
+    from stllm_tpu_torch.ops.tome import MERGE_LEVELS
+
+    auto = dataclasses.replace(cfg, vit=dataclasses.replace(cfg.vit, merge_level="auto"))
+    rng = np.random.default_rng(29)
+    size = cfg.vit.image_size
+    clips = {"static": np.repeat(rng.integers(0, 256, (1, 1, size, size, 3), dtype=np.uint8),
+                                 FRAMES, axis=1),
+             "noise": rng.integers(0, 256, (1, FRAMES, size, size, 3), dtype=np.uint8)}
+    want = {"static": ("t_aggressive", 0, FOLDED_S8),
+            "noise": ("off", FUSED_SITES["both"], {(FRAMES, 257): 39})}
+    out = {}
+    for name, clip in clips.items():
+        level, n11, s8 = want[name]
+        resolved = resolve_auto_merge(auto, clip)
+        sched = {k: getattr(resolved.vit, k) for k in ("merge_schedule", "temporal_schedule")}
+        if sched != {"merge_schedule": (), "temporal_schedule": (), **MERGE_LEVELS[level]}:
+            raise AssertionError(f"[pipeline-auto] {name} clip resolved to {sched}, want {level}")
+        frames = torch.from_numpy(clip).cuda()
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        PACKED_CALLS.clear()
+        with torch.no_grad():
+            enc = encode_img(params, frames, resolved)
+        torch.cuda.synchronize()
+        launches = dict(kernels.LAUNCHES)
+        by_shape = {(r, s): c for (k, r, s), c in PACKED_CALLS.items()
+                    if k == "packed_qkv_attention_s8"}
+        if launches["qmm_res_ln"] != n11 or by_shape != s8 \
+                or launches["packed_qkv_attention_s8"] != 39 \
+                or not bool(torch.isfinite(enc).all()):
+            raise AssertionError(f"[pipeline-auto] {name} clip: {launches['qmm_res_ln']} #11 "
+                                 f"launches (want {n11}), #3 by (rows, length) {by_shape} "
+                                 f"(want {s8}), finite {bool(torch.isfinite(enc).all())}")
+        with torch.no_grad():
+            ms = cuda_ms(lambda: encode_img(params, frames, resolved), 3, warmup=1)
+        out[name] = {"mode": f"pipeline-auto-{name}", "level": level, "launches": launches,
+                     "s8_by_shape": {f"{r}x{s}": c for (r, s), c in by_shape.items()},
+                     "encode_ms": ms}
+        print(f"[pipeline-auto] {name} clip: level {level}, {launches['qmm_res_ln']} #11 "
+              f"launches, #3 by (rows, length) {by_shape}, encode {ms:.2f} ms")
+        if name == "static":
+            out[name]["vs_plain_s8"] = _folded_vs_plain_s8(kernels, params, frames, resolved)
+    return out
+
+
+def _folded_vs_plain_s8(kernels, params, frames, cfg) -> dict:
+    """The folded static-clip encode with #3 against the same encode with
+    #3's plain version in its place (on the card), as a mean relative gap,
+    held to FUSED_GAP_FACTOR times the plain encode's own gap under an input
+    moved by one bf16 step (FUSED_GAP_FACTOR's rule for the fused trunk)."""
+    from stllm_tpu_torch.models.stllm import encode_img
+    from stllm_tpu_torch.models.vit import normalize_uint8
+
+    images = normalize_uint8(frames, cfg.vit.dtype)
+    nudged = (images.float() * (1 + 2.0 ** -8)).to(images.dtype)
+    real = kernels.packed_qkv_attention_s8
+    with torch.no_grad():
+        got = encode_img(params, images, cfg).float()
+        kernels.packed_qkv_attention_s8 = kernels.packed_qkv_attention_s8_plain
+        try:
+            want = encode_img(params, images, cfg).float()
+            moved = encode_img(params, nudged, cfg).float()
+        finally:
+            kernels.packed_qkv_attention_s8 = real
+    scale = want.abs().mean()
+    gap = float((got - want).abs().mean() / scale)
+    floor = float((moved - want).abs().mean() / scale)
+    rel_l2 = float((got - want).norm() / want.norm())
+    print(f"[pipeline-auto] folded static encode, #3 against its plain version: mean gap "
+          f"{gap:.4e}, relative L2 {rel_l2:.4e}; the plain encode under a one-bf16-step "
+          f"input: {floor:.4e}")
+    if not bool(torch.isfinite(got).all()) or gap > FUSED_GAP_FACTOR * floor:
+        raise AssertionError(f"[pipeline-auto] the folded encode with #3 is {gap} from the one "
+                             f"with #3's plain version, more than {FUSED_GAP_FACTOR} x {floor}")
+    return {"mean_rel_gap": gap, "rel_l2": rel_l2, "one_step_floor": floor}
+
+
 def phase_w4_beams(kernels, params, cfg) -> dict:
     """The W4A16 stack's beam and session routes (phase_w4a16's params: the
     static-int8 ViT, int4 Vicuna-7B with q|k|v and gate|up fused, the int8
@@ -3221,6 +3853,7 @@ def phase_pipeline(kernels, w4_params, w4_cfg) -> dict:
         if set(out["tokens_per_request"].values()) != {PIPE_ANSWER}:
             raise AssertionError(f"[pipeline] tokens per request {out['tokens_per_request']}, "
                                  f"want {PIPE_ANSWER} each")
+        auto = _pipeline_auto(kernels, params, cfg)
 
         # one clip's trunk under each setting: the #11 launches, the time, and
         # the gap to the unfused trunk, against the unfused trunk's own gap
@@ -3266,7 +3899,7 @@ def phase_pipeline(kernels, w4_params, w4_cfg) -> dict:
           f"peak {out['max_memory_allocated_gib']:.2f} GiB")
     out.update({"qa_per_s": NUM_REQUESTS / out["wall_s"], "calibration_launches": calib,
                 "calibration_s": calib_s, "build_s": build_s, "tiny_encode_rel_err": rel,
-                "trunk_by_fused_ln": trunk, "trunk_one_bf16_step_gap": floor})
+                "trunk_by_fused_ln": trunk, "trunk_one_bf16_step_gap": floor, "auto": auto})
     return out
 
 
@@ -3495,10 +4128,12 @@ def main() -> int:
     gc.collect()
     print(f"[kernels] held after the phase: {torch.cuda.memory_allocated() / 2**30:.3f} GiB")
     count_forwards()
+    record_packed_shapes(kernels)
     bf16, qa_model = phase_slice(kernels)
     mvbench = phase_mvbench(kernels, qa_model)
     qabench = phase_qabench(kernels, qa_model)
     prefix = phase_prefix(kernels, qa_model)
+    breadth = phase_breadth(kernels, qa_model)
     del qa_model
     gc.collect()
     torch.cuda.empty_cache()
@@ -3507,6 +4142,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     w4a16, w4_params, w4_cfg = phase_w4a16(kernels)
     w4_beams = phase_w4_beams(kernels, w4_params, w4_cfg)
+    w4_spec = phase_w4_spec(kernels, w4_params, w4_cfg)
     pipeline = phase_pipeline(kernels, w4_params, w4_cfg)
     del w4_params
     gc.collect()
@@ -3529,7 +4165,8 @@ def main() -> int:
                                                pipeline, short, long_)}
         entry["launches_by_path"]["int8-calibration"] = int8["calibration_launches"][name]
         for route in (*mvbench["routes"].values(), *qabench["routes"].values(), prefix,
-                      *w4_beams.values()):
+                      breadth["mild"], breadth["prefix_key"], *w4_beams.values(), w4_spec,
+                      *pipeline["auto"].values()):
             entry["launches_by_path"][route["mode"]] = route["launches"][name]
         entry["launches_by_path"]["pipeline-calibration"] = pipeline["calibration_launches"][name]
         entry["launches_per_train_step"] = {t["mode"]: t["launches"][name] / t["steps"]

@@ -322,10 +322,14 @@ class Chat:
         keeps the conversation's KV cache across turns, so a turn prefills
         only what it adds; the tokens are the same. A config the session
         cannot serve (beams, an over-long prompt) falls back to solo
-        generate. ``service`` (an AnswerService) is not ported yet and
-        raises."""
-        if service is not None:
-            raise NotImplementedError("Chat.answer(service=...): AnswerService is not ported yet")
+        generate.
+
+        ``service`` (a serving.AnswerService) routes greedy and top-p
+        requests through the shared continuous batcher, so concurrent chat
+        sessions decode together; a config the batcher refuses (beams, the
+        simple-prompt repetition penalty, an over-long prompt) falls back
+        to solo generate with the same tokens. ``kv_session`` is used only
+        without a ``service`` (the batcher owns its cache)."""
         conv.append_message(conv.roles[1], None)
         if conv.instruction:
             seg_ids = self._context_segment_ids(conv, img_list)
@@ -348,7 +352,13 @@ class Chat:
             length_penalty=length_penalty,
         )
         tokens = None
-        if kv_session is not None:
+        if service is not None:
+            try:
+                tokens = service.answer(embs, gen, seed=seed)
+            except UnsupportedRequest as e:
+                # a capability gap only; real faults propagate
+                logging.getLogger(__name__).debug("service fallback to solo generate: %s", e)
+        elif kv_session is not None:
             items = PrefixSession.items_for(seg_ids, sim_imgs)[begin_idx:]
             try:
                 tokens = kv_session.generate(embs, items, gen, seed=seed)

@@ -17,6 +17,9 @@ dynamic int8 through ``linear`` around the bf16 attention kernel (#1).
 branch: the static temporal layer keeps its short (T-long) attention in
 plain torch, and the static spatial layer, of trunk geometry, takes the
 static-int8 attention kernel (#3).
+
+Under a token-merge schedule (ops/tome.py) the trunk runs merged and the
+branch taps unmerge through the origin map (``btadapter_forward``).
 """
 
 from __future__ import annotations
@@ -28,7 +31,7 @@ import torch
 import torch.nn.functional as F
 
 from stllm_tpu_torch.models.vit import (
-    ViTConfig, _act_scale, _attention, _attn_quant_static, _check_supported,
+    ViTConfig, _act_scale, _attention, _attn_quant_static,
     _qkv_with_bias, calibrate_vit_scales, embed_patches, init_vit, normalize_uint8,
     trunk_block, vit_block)
 from stllm_tpu_torch.ops.attention import fused_qkv_attention_quant, mha_reference
@@ -37,6 +40,7 @@ from stllm_tpu_torch.ops.layers import (
 from stllm_tpu_torch.ops.quant import (
     layer_norm_quant_static, quant_linear, quant_matmul_pre, quant_mlp_static,
     quantize_static)
+from stllm_tpu_torch.ops.tome import bipartite_merge, fold_frames, init_merge_state, unmerge
 
 MAX_BTADAPTER_FRAMES = 64  # learned temporal embedding size
 
@@ -273,8 +277,14 @@ def _branch_accumulate(branch: torch.Tensor, xr: torch.Tensor) -> torch.Tensor:
 def btadapter_forward(params: Dict, images: torch.Tensor, cfg: ViTConfig,
                       num_frames: int) -> torch.Tensor:
     """Trunk + branch. images: (B*T, H, W, C) normalized. Returns
-    (B*T, L, D) per-frame tokens with the branch averaged in."""
-    _check_supported(cfg)
+    (B*T, L, D) per-frame tokens with the branch averaged in.
+
+    Under a merge or fold schedule the trunk runs merged, each branch tap
+    gathers back to full resolution through the origin map (temporal
+    attention matches patch i of frame t with patch i of frame t+1), and the
+    output is unmerged at the end. A post-trunk merge entry (block ==
+    depth) is refused: the BTAdapter's output is full resolution by
+    construction."""
     t = num_frames
     bt = images.shape[0]
     b = bt // t
@@ -286,13 +296,38 @@ def btadapter_forward(params: Dict, images: torch.Tensor, cfg: ViTConfig,
     n0 = x.shape[1]
     layers = params["btadapter"]
     start = cfg.depth - len(layers["temp"])
+    schedule = dict(cfg.merge_schedule)
+    folds = {blk: (g, m) for blk, g, m in cfg.temporal_schedule}
+    origin = None
+    if schedule or folds:
+        if not all(k < cfg.depth for k in schedule):
+            raise ValueError(
+                "post-trunk merge entries are a plain-ViT lever (they feed the Q-Former "
+                "fewer tokens); the BTAdapter's output is full resolution by construction; "
+                f"got schedule keys {sorted(schedule)}")
+        sizes, origin = init_merge_state(bt, n0, device=x.device)
+    if folds:
+        total_g = 1
+        for g, _ in folds.values():
+            total_g *= g
+        if t % total_g:
+            raise ValueError(f"temporal_schedule groups multiply to {total_g}; num_frames "
+                             f"{t} must divide so folds never span videos")
     branch: Optional[torch.Tensor] = None
     for idx, block in enumerate(params["blocks"]):
+        if idx in folds:
+            g, m = folds[idx]
+            n_pre = x.shape[1]
+            x, sizes, origin = fold_frames(x, sizes, origin, g)
+            x, sizes, origin = bipartite_merge(x, sizes, origin, m, nb=n_pre)
+        if idx in schedule:
+            x, sizes, origin = bipartite_merge(x, sizes, origin, schedule[idx])
         x = trunk_block(block, x, cfg)
         if idx >= start:
             i = idx - start
             temp_l, spat_l = layers["temp"][i], layers["spatial"][i]
-            xr = x.reshape(b, t, n0, x.shape[-1])
+            x_full = unmerge(x, origin) if origin is not None else x
+            xr = x_full.reshape(b, t, n0, x.shape[-1])
             branch = (_branch_init(params, xr, cfg) if branch is None
                       else _branch_accumulate(branch, xr))
             temporal = (_temporal_layer_quant_static if "act_scales" in temp_l
@@ -300,6 +335,8 @@ def btadapter_forward(params: Dict, images: torch.Tensor, cfg: ViTConfig,
             spatial = (_spatial_layer_quant_static if "act_scales" in spat_l
                        else _spatial_layer)
             branch = spatial(spat_l, temporal(temp_l, branch, b, t, cfg), b, t, cfg)
+    if origin is not None:
+        x = unmerge(x, origin).reshape(bt, n0, x.shape[-1])
     p = n0 - 1
     d = x.shape[-1]
     br_cls = torch.repeat_interleave(branch[:, :1], t, dim=0)            # (B*T, 1, D)

@@ -57,16 +57,6 @@ class GenerationConfig:
     pad_to_multiple: int = 64
 
 
-def check_greedy(gen: GenerationConfig, what: str = "request") -> None:
-    """Raise UnsupportedRequest unless ``gen`` is plain greedy decoding (the
-    continuous batcher's and the QA server's only mode)."""
-    if (gen.do_sample or gen.num_beams > 1 or gen.repetition_penalty != 1.0
-            or gen.min_length > 1):
-        raise UnsupportedRequest(
-            f"{what}: the batcher serves greedy decoding only; sampled, penalized, "
-            "min_length and beam requests run through generate")
-
-
 def _pad_prompt(embeds: torch.Tensor, mask: torch.Tensor, multiple: int):
     pad = (-embeds.shape[1]) % multiple
     if pad:
@@ -90,9 +80,11 @@ def _prefill(params, embeds: torch.Tensor, mask: torch.Tensor, cfg: LlamaConfig,
 
 def _pad_kv_time(cache: KVCache, w: int) -> KVCache:
     """Zero-pad every buffer of ``cache`` (the int8 scale planes too) along
-    the time axis to width ``w``, into new buffers."""
+    the time axis to width ``w`` >= its own, into new buffers whatever ``w``
+    is (``torch.cat`` always copies): callers write the result in place and
+    keep the input (the batcher's stored shared prefix)."""
     def pad_to(c):
-        return F.pad(c, (0, 0) * (c.ndim - 2) + (0, w - c.shape[1]))
+        return torch.cat([c, c.new_zeros((c.shape[0], w - c.shape[1]) + c.shape[2:])], dim=1)
 
     scales = {}
     if cache.k_scale is not None:

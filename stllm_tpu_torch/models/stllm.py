@@ -18,7 +18,6 @@ from typing import Dict, Optional
 import torch
 
 from stllm_tpu_torch.models.btadapter import btadapter_forward, init_btadapter
-from stllm_tpu_torch.models.generation import UnsupportedRequest
 from stllm_tpu_torch.models.llama import (
     VICUNA_7B, LlamaConfig, init_llama, llama_forward, lm_head)
 from stllm_tpu_torch.models.qformer import (
@@ -26,6 +25,7 @@ from stllm_tpu_torch.models.qformer import (
 from stllm_tpu_torch.models.vit import (
     EVA_VIT_G, ViTConfig, init_vit, normalize_uint8, vit_forward)
 from stllm_tpu_torch.ops.layers import gather_rows, init_layer_norm, init_linear, layer_norm, linear
+from stllm_tpu_torch.ops.tome import MERGE_LEVELS, scale_level_to_depth, select_merge_level
 
 
 @dataclasses.dataclass(frozen=True)
@@ -119,7 +119,7 @@ def encode_img(
     if cfg.vit_model == "eva_btadapter_g":
         image_embeds = btadapter_forward(params["vit"], flat, cfg.vit, num_frames=t)
     else:
-        image_embeds = vit_forward(params["vit"], flat, cfg.vit)
+        image_embeds = vit_forward(params["vit"], flat, cfg.vit, num_frames=t)
     image_embeds = layer_norm(params["ln_vision"], image_embeds, 1e-6)
 
     ids = mask = None
@@ -270,11 +270,22 @@ def stllm_forward(params: Dict, batch: Dict[str, torch.Tensor],
 
 
 def resolve_auto_merge(cfg: STLLMConfig, frames) -> STLLMConfig:
-    """Token merging is not ported yet: only ``merge_level == ""`` runs."""
-    if cfg.vit.merge_level != "":
-        raise UnsupportedRequest(
-            f"vit.merge_level={cfg.vit.merge_level!r}: token merging is not ported yet")
-    return cfg
+    """Resolve ``vit.merge_level == "auto"`` against this video's measured
+    redundancy (ops/tome.py select_merge_level, host-side); any other level
+    passes through unchanged. ``frames`` (B, T, H, W, C), array or tensor.
+    A trunk of another geometry than 257 tokens a frame (a debug size) runs
+    unmerged: the levels' token counts are EVA-ViT-g's."""
+    if cfg.vit.merge_level != "auto":
+        return cfg
+    off = dataclasses.replace(cfg.vit, merge_level="")
+    if cfg.vit.seq_len != 257:
+        return dataclasses.replace(cfg, vit=off)
+    level = select_merge_level(frames)
+    if level == "off":
+        return dataclasses.replace(cfg, vit=off)
+    sched = (MERGE_LEVELS[level] if cfg.vit.depth == 39
+             else scale_level_to_depth(level, cfg.vit.depth))
+    return dataclasses.replace(cfg, vit=dataclasses.replace(off, **sched))
 
 
 def encode_video_for_inference(

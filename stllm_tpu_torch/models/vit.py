@@ -24,8 +24,14 @@ environment at import and kept as module attributes of the same names:
   - ``INT8_QKT`` (``STLLM_INT8_QKT``: "1", the default, static-int8 qkv into
     #3; "bf16", the same with the reference's bf16 q.k^T, which here is the
     same kernel; "0", the bf16 qkv into #2).
-Token merging and frame folding come with later slices; their config fields
-are kept so configs compare field by field with the reference.
+
+Token merging (ops/tome.py): ``merge_schedule`` merges tokens before the
+given blocks, ``temporal_schedule`` folds adjacent frame rows and merges
+across them; the trunk then runs at the merged lengths through the same
+attention dispatch. A fold's output is unmerged back to per-frame rows at
+the trunk's end, and a ``merge_schedule`` entry at block == depth re-merges
+for the Q-Former. A merge or fold schedule turns the fused-LN trunk off, as
+in the reference.
 """
 
 from __future__ import annotations
@@ -47,6 +53,8 @@ from stllm_tpu_torch.ops.quant import (
     gelu_quant, layer_norm_quant, layer_norm_quant_static, quant_fc1_gelu_static,
     quant_matmul_pre, quant_matmul_res_ln_static, quant_mlp_static, quantize_activations,
     quantize_linear_params, quantize_static)
+from stllm_tpu_torch.ops.tome import (
+    bipartite_merge, fold_frames, init_merge_state, merge_to, unmerge)
 
 # epilogue-carried LayerNorm in the static-int8 trunk (_vit_blocks_fused_static):
 # "1" fuses both sites, "proj" or "fc2" one of them; off by default, as in the
@@ -80,8 +88,13 @@ class ViTConfig:
     # False plain mha_reference
     use_flash: Optional[bool] = None
     gelu_approx: bool = False
+    # ((block, tokens_after), ...): merge before each block; block == depth
+    # is the post-trunk re-merge (ops/tome.py)
     merge_schedule: tuple = ()
+    # ((block, fold_group, tokens_after), ...): cross-frame folds
     temporal_schedule: tuple = ()
+    # "" or "auto" (resolved per video by stllm.resolve_auto_merge); a named
+    # level expands into the two schedules when the config is built (zoo)
     merge_level: str = ""
 
     @property
@@ -98,11 +111,6 @@ class ViTConfig:
 
 
 EVA_VIT_G = ViTConfig()
-
-
-def _check_supported(cfg: ViTConfig) -> None:
-    if cfg.merge_schedule or cfg.temporal_schedule:
-        raise NotImplementedError("token merging and frame folding are not ported yet")
 
 
 def init_vit(gen: torch.Generator, cfg: ViTConfig) -> Dict:
@@ -369,18 +377,64 @@ def trunk_block(block: Dict, x: torch.Tensor, cfg: ViTConfig) -> torch.Tensor:
     return vit_block(block, x, cfg)
 
 
-def vit_forward(params: Dict, images: torch.Tensor, cfg: ViTConfig) -> torch.Tensor:
-    """images: (B, H, W, C) normalized. Returns (B, 257, width) tokens.
-    Under FUSED_LN a calibrated trunk without remat runs the fused pipeline
-    (_vit_blocks_fused_static), as in the reference."""
-    _check_supported(cfg)
+def vit_forward(params: Dict, images: torch.Tensor, cfg: ViTConfig, *,
+                return_merge_origin: bool = False, num_frames: int = 0):
+    """images: (B, H, W, C) normalized. Returns (B, 257, width) tokens, or
+    (B, m, width) under ``cfg.merge_schedule``; ``return_merge_origin``
+    also returns the (B, 257) origin map (None without merging).
+
+    Under ``cfg.temporal_schedule`` the trunk runs on folded rows and the
+    output is unfolded to per-frame rows (B, 257, width), or (B, m, width)
+    when a post-trunk merge_schedule entry re-merges. ``num_frames`` (frames
+    a video) lets the fold check that no group spans two videos.
+    Under FUSED_LN a calibrated trunk without remat or merging runs the
+    fused pipeline (_vit_blocks_fused_static), as in the reference."""
     x = embed_patches(params, images, cfg)
+    schedule = dict(cfg.merge_schedule)
+    folds = {blk: (g, m) for blk, g, m in cfg.temporal_schedule}
     blocks = params["blocks"]
-    if (FUSED_LN and not cfg.remat and blocks
+    depth = len(blocks)
+    if not all(0 <= k <= depth for k in schedule):
+        raise ValueError(f"merge_schedule block indices must be in [0, {depth}] "
+                         f"(== {depth} means post-trunk); got {sorted(schedule)}")
+    if not all(0 <= k < depth for k in folds):
+        raise ValueError(f"temporal_schedule block indices must be in [0, {depth}); "
+                         f"got {sorted(folds)}")
+    origin = None
+    if schedule or folds:
+        sizes, origin = init_merge_state(x.shape[0], x.shape[1], device=x.device)
+    if folds:
+        total_g = 1
+        for g, _ in folds.values():
+            total_g *= g
+        t = num_frames or x.shape[0]
+        if t % total_g or x.shape[0] % total_g:
+            raise ValueError(f"temporal_schedule groups multiply to {total_g}; num_frames "
+                             f"{t} must divide so folds never span videos")
+        n0 = x.shape[1]
+    if (FUSED_LN and not cfg.remat and not schedule and not folds and blocks
             and all("act_scales" in bl for bl in blocks)):
         fused = _vit_blocks_fused_static(blocks, x, cfg)
         if fused is not None:
-            return fused
-    for block in blocks:
+            return (fused, None) if return_merge_origin else fused
+    for i, block in enumerate(blocks):
+        if i in folds:
+            g, m = folds[i]
+            n_pre = x.shape[1]
+            x, sizes, origin = fold_frames(x, sizes, origin, g)
+            # B = CLS + the group's first frame, A = the later frames, so
+            # cross-frame duplicates are matchable
+            x, sizes, origin = bipartite_merge(x, sizes, origin, m, nb=n_pre)
+        if i in schedule:
+            x, sizes, origin = bipartite_merge(x, sizes, origin, schedule[i])
         x = trunk_block(block, x, cfg)
-    return x
+    if folds:
+        # unfold to per-frame full resolution (the Q-Former takes frame rows)
+        x = unmerge(x, origin).reshape(x.shape[0] * total_g, n0, x.shape[-1])
+        origin = None
+        if depth in schedule:           # re-merge spatially for the Q-Former
+            sizes, origin = init_merge_state(x.shape[0], n0, device=x.device)
+            x, sizes, origin = merge_to(x, sizes, origin, schedule[depth])
+    elif depth in schedule:             # post-trunk merge: fewer tokens to the Q-Former
+        x, sizes, origin = merge_to(x, sizes, origin, schedule[depth])
+    return (x, origin) if return_merge_origin else x

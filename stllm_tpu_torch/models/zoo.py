@@ -30,6 +30,7 @@ from stllm_tpu_torch.models.qformer import INSTRUCT_BLIP_QFORMER
 from stllm_tpu_torch.models.stllm import STLLMConfig, init_stllm
 from stllm_tpu_torch.models.vit import EVA_VIT_G, quantize_vit_params
 from stllm_tpu_torch.ops.quant import quantize_tree_linears
+from stllm_tpu_torch.ops.tome import level_kwargs
 
 logger = logging.getLogger(__name__)
 
@@ -64,8 +65,13 @@ def build_stllm_config(cfg: Mapping) -> STLLMConfig:
     qformer_text_input = cfg.get("qformer_text_input", "instructblip" in str(model_type))
     vit_over = dict(cfg.get("vit") or {})
     llama_over = dict(cfg.get("llama") or {})
-    if vit_over.get("merge_level", "") not in ("", "auto"):
-        raise NotImplementedError("named token-merge levels are not ported yet")
+    level = vit_over.get("merge_level", "")
+    if level and level != "auto":
+        # a named level expands to its schedules (ops/tome.py MERGE_LEVELS);
+        # "auto" stays and resolves per video at the inference entry points
+        for k, v in level_kwargs(level).items():
+            vit_over.setdefault(k, v)
+        vit_over["merge_level"] = ""
     if cfg.get("use_grad_checkpoint", False):
         vit_over.setdefault("remat", True)
         llama_over.setdefault("remat", True)

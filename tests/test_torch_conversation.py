@@ -204,18 +204,44 @@ def test_sampled_answer_defaults_are_seeded(chats):
 
 
 def test_unported_answer_paths_raise(chats):
-    """service= still raises (AnswerService is not ported). Beams, the
-    prefix session and batched beams run: answer(num_beams=2) and two turns
-    through answer(kv_session=...) give the JAX Chat's tokens, and
-    answer_batched gives each conversation's sequential beam answer."""
+    """Every answer path runs. answer(service=...) through an AnswerService
+    gives the JAX Chat's tokens through its own service (greedy, template
+    mode), and a request the batcher refuses (beams; the simple prompt's
+    forced repetition penalty) falls back to solo generate with the
+    tokens answer gives without a service. Beams, the prefix session and
+    batched beams: answer(num_beams=2) and two turns through
+    answer(kv_session=...) give the JAX Chat's tokens, and answer_batched
+    gives each conversation's sequential beam answer."""
     from stllm_tpu.models.generation import PrefixSession as JSession
+    from stllm_tpu.serving import AnswerService as JService, ContinuousBatcher as JBatcher
     from stllm_tpu_torch.models.generation import PrefixSession as TSession
+    from stllm_tpu_torch.serving import AnswerService as TService, ContinuousBatcher as TBatcher
 
     jchat, tchat = chats
-    conv, imgs = _upload(tchat, "CONV_VIDEO_Vicuna0", _frames(5), None, tconv)
-    tchat.ask("why?", conv)
-    with pytest.raises(NotImplementedError):
-        tchat.answer(conv.copy(), imgs, max_new_tokens=4, service=object())
+    served = {}
+    for chat, pkg, service, batcher in ((jchat, jconv, JService, JBatcher),
+                                        (tchat, tconv, TService, TBatcher)):
+        svc = service(batcher(chat.params["llama"], chat.cfg.llama, slots=2, max_len=512,
+                              chunk=4))
+        try:
+            conv, imgs = _upload(chat, "CONV_VIDEO_Vicuna0", _frames(5), None, pkg)
+            chat.ask("why?", conv)
+            served[pkg] = list(chat.answer(conv, imgs, max_new_tokens=6, do_sample=False,
+                                           service=svc)[1])
+            if pkg is tconv:
+                for kw, name in ((dict(num_beams=2), "CONV_VIDEO_Vicuna0"),
+                                 ({}, "CONV_instructblip_Vicuna0")):
+                    conv, imgs = _upload(chat, name, _frames(6), "q", pkg)
+                    chat.ask("why?", conv)
+                    solo_conv = conv.copy()
+                    got = chat.answer(conv, imgs, max_new_tokens=5, do_sample=False,
+                                      service=svc, **kw)[1]
+                    want = chat.answer(solo_conv, imgs, max_new_tokens=5, do_sample=False,
+                                       **kw)[1]
+                    assert list(got) == list(want)
+        finally:
+            svc.close()
+    assert served[tconv] == served[jconv]
 
     res = {}
     for chat, pkg, session in ((jchat, jconv, JSession), (tchat, tconv, TSession)):

@@ -211,19 +211,28 @@ def test_generate_greedy_matches_jax(stllm_params):
         assert got == want
 
 
-@pytest.mark.parametrize("kw", [dict(do_sample=True), dict(num_beams=3),
+@pytest.mark.parametrize("kw", [dict(do_sample=True, top_p=0.0), dict(num_beams=3),
                                 dict(repetition_penalty=1.2), dict(min_length=4)])
 def test_generate_refuses_non_greedy(kw):
-    """The batcher's guard refuses all four; generate itself serves
-    sampling, the repetition penalty and min_length
-    (tests/test_torch_sampling.py) and beams (tests/test_torch_beams.py):
-    with num_beams > 1 it returns beam_search's tokens."""
-    with pytest.raises(tgen.UnsupportedRequest):
-        tgen.check_greedy(tgen.GenerationConfig(**kw))
+    """The batcher refuses beams, the repetition penalty and min_length
+    (UnsupportedRequest) and a sampled request's top_p outside (0, 1] (a
+    plain ValueError: a config bug, not a capability gap); it serves other
+    sampled requests. generate itself serves sampling, the repetition
+    penalty and min_length (tests/test_torch_sampling.py) and beams
+    (tests/test_torch_beams.py): with num_beams > 1 it returns
+    beam_search's tokens."""
+    from stllm_tpu_torch.serving import ContinuousBatcher
+
+    cfg = tllama.LlamaConfig(vocab_size=32, hidden=16, num_layers=1, heads=2,
+                             intermediate=32, max_positions=64, dtype=torch.float32)
+    params = tllama.init_llama(torch.Generator().manual_seed(0), cfg)
+    cb = ContinuousBatcher(params, cfg, slots=1, max_len=32)
+    bad = tgen.GenerationConfig(max_new_tokens=4, **kw)
+    with pytest.raises(ValueError) as err:
+        cb.refuse("r", bad)
+    assert isinstance(err.value, tgen.UnsupportedRequest) == ("do_sample" not in kw)
+    cb.refuse("r", tgen.GenerationConfig(do_sample=True, top_p=1.0))
     if "num_beams" in kw:
-        cfg = tllama.LlamaConfig(vocab_size=32, hidden=16, num_layers=1, heads=2,
-                                 intermediate=32, max_positions=64, dtype=torch.float32)
-        params = tllama.init_llama(torch.Generator().manual_seed(0), cfg)
         emb = torch.randn((1, 2, 16), generator=torch.Generator().manual_seed(1))
         gen = tgen.GenerationConfig(max_new_tokens=3, stop_sequences=(), pad_to_multiple=4, **kw)
         assert tgen.generate(params, emb, llama_cfg=cfg, gen=gen) == [

@@ -144,7 +144,8 @@ def test_port_imports_neither_jax_nor_stllm_tpu():
     assert len(files) > 15
     names = {str(f.relative_to(REPO / "stllm_tpu_torch")) for f in files[:-2]}
     assert {"train/step.py", "train/trainer.py", "data/packing.py", "data/collate.py",
-            "common/optim.py", "common/logging.py"} <= names
+            "common/optim.py", "common/logging.py", "ops/tome.py", "models/speculative.py",
+            "models/h2o.py", "serving.py", "pipeline_serving.py"} <= names
     bad = [(str(f.relative_to(REPO)), m) for f in files for m in _imports(f)
            if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "stllm_tpu")]
     assert not bad, bad
@@ -233,9 +234,15 @@ def test_calibration_runs_without_a_graph_on_flagged_params():
     assert scales and not any(v.requires_grad for v in scales)
 
 
-@pytest.mark.parametrize("case", ["sample", "beams", "prefix_key", "merge_auto",
-                                  "draft", "overlong", "weights", "quant"])
+@pytest.mark.parametrize("case", ["penalty", "min_length", "beams", "top_p", "spec_sample",
+                                  "spec_prefix", "t_mild", "overlong", "weights", "quant"])
 def test_unported_requests_raise(case, tmp_path):
+    """What the port refuses is what the reference refuses: beams, the
+    repetition penalty and min_length in the batcher (UnsupportedRequest),
+    a top_p outside (0, 1] (a plain ValueError), a sampled or prefix request
+    in speculative mode, a post-trunk merge on the BTAdapter (the temporal
+    levels carry one), an over-long prompt; and, not ported yet, loading
+    weights and LoRA on quantized trees."""
     if case in ("weights", "quant"):
         # quant_int8 with the int8 KV cache runs; LoRA on it is not ported yet
         extra = ({"ckpt": str(tmp_path / "x.pth")} if case == "weights"
@@ -245,20 +252,41 @@ def test_unported_requests_raise(case, tmp_path):
         with pytest.raises(NotImplementedError):
             tzoo.STLLM.from_config(_tiny_model_cfg(**extra), device="cpu")
         return
-    model = tzoo.STLLM.from_config(_tiny_model_cfg(), seed=0, device="cpu")
+    extra = {"vit": {**_tiny_model_cfg()["vit"], "merge_level": "t_mild"}} if case == "t_mild" \
+        else {}
+    model = tzoo.STLLM.from_config(_tiny_model_cfg(**extra), seed=0, device="cpu")
     cfg = model.cfg
-    if case == "merge_auto":
-        cfg = dataclasses.replace(cfg, vit=dataclasses.replace(cfg.vit, merge_level="auto"))
     frames = np.zeros((1, 2, 28, 28, 3), np.uint8)
-    gen = {"sample": _gen(TGen, 4, do_sample=True), "beams": _gen(TGen, 4, num_beams=2),
-           "overlong": _gen(TGen, 60)}.get(case, _gen(TGen, 4))
-    if case == "draft":
+    gen = {"penalty": _gen(TGen, 4, repetition_penalty=1.5),
+           "min_length": _gen(TGen, 4, min_length=3), "beams": _gen(TGen, 4, num_beams=2),
+           "top_p": _gen(TGen, 4, do_sample=True, top_p=1.5),
+           "spec_sample": _gen(TGen, 4, do_sample=True), "overlong": _gen(TGen, 60)
+           }.get(case, _gen(TGen, 4))
+    if case.startswith("spec"):
         cb = TBatcher(model.params["llama"], cfg.llama, slots=1, max_len=32,
-                      draft_params=model.params["llama"])
+                      draft_params=model.params["llama"], draft_cfg=cfg.llama)
+        prefix = None
+        if case == "spec_prefix":
+            prefix = _tiny_prefix(model.params["llama"], cfg.llama)
         with pytest.raises(UnsupportedRequest):
-            cb.submit("a", torch.zeros((1, 3, 32)), gen)
+            cb.submit("a", torch.zeros((1, 3, 32)), gen, prefix=prefix,
+                      prefix_len=0 if prefix is None else 3)
         return
     srv = TServer(model.params, cfg, slots=1, max_len=32)
-    with pytest.raises(UnsupportedRequest):
-        srv.submit("a", frames, [[1]], [[2]], gen,
-                   prefix_key="k" if case == "prefix_key" else None)
+    if case == "t_mild":
+        assert cfg.vit.merge_schedule == ((39, 128),) and cfg.vit.merge_level == ""
+        srv.submit("a", frames, [[1]], [[2]], gen)
+        with pytest.raises(ValueError, match="post-trunk"):
+            srv.run()
+        return
+    with pytest.raises(ValueError) as err:
+        srv.submit("a", frames, [[1]], [[2]], gen)
+    assert isinstance(err.value, UnsupportedRequest) == (case != "top_p")
+
+
+def _tiny_prefix(params, cfg):
+    """A (1, 3) prefix KV cache of zero embeddings."""
+    from stllm_tpu_torch.models.generation import _prefill
+
+    return _prefill(params, torch.zeros((1, 3, cfg.hidden)), torch.ones((1, 3), dtype=torch.int32),
+                    cfg, 3)[1]
