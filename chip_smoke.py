@@ -171,7 +171,47 @@ toolkit. Phases, each fatal on failure:
    TrainCollator, micro-batch 1: three steps at a packed length of 768 (the
    fused short attention) and two at 1024 (the flash forward and its two
    backward kernels), with exact launch counts per step, finite losses, and
-   frozen leaves untouched while trainable ones move.
+   frozen leaves untouched while trainable ones move; the trainer's saves
+   (one at each train() call's last step) are counted, not written: a full
+   fine-tune's checkpoint is about 40 GB;
+12. distill - (run right after w4a16's speculative serving, on its target)
+   tiny fp32 distill_draft, two steps on the card and on the CPU within
+   FP32_TINY_REL; then a dense bf16 4-layer draft at Vicuna-7B width
+   distilled for 10 steps against the W4A16 target on 2 fixed batches of 2
+   rows (992 prompt positions and the target's own 32-token greedy
+   continuation: the flash tier), with exactly 128 #12 launches (wgmma
+   form) and 40 / 4 / 4 flash forward / dQ / dK-dV launches a step (the
+   draft keeps the QA config's per-layer recompute) and the
+   last batch's loss below its first value; the distilled draft then serves
+   the speculative requests, its accepted tokens a round beside the cut
+   draft's;
+13. demo - the demos' default model, the conversation config
+   (config/instructblipbase_stllm_conversation.yaml: EVA-ViT-g without the
+   BTAdapter, video_input residual, residual_size 16, Vicuna-7B, bf16) at
+   full width, built by demo_core.build_chat, reading in-memory 240x320
+   clips: one question at 64 frames through gradio_ask with 5 beams (the
+   demo's 300 new tokens cut to 8), exactly 39 #1 launches at (64, 257) and
+   nothing else, 512 video tokens as STLLMConfig reckons, the answer equal
+   to the Chat's own, the encode, prefill and decode ms and the peak; then
+   the web demo's handler on 127.0.0.1 (port 0), plain, with an
+   AnswerService (4 slots) and with 2 PrefixSessions: two sessions, two
+   greedy turns each, every answer equal to the Chat's own through the same
+   route, 39 #1 launches an upload; the demos' simple-prompt template forces
+   the repetition penalty 1.5, so every AnswerService ask falls back to solo
+   generate (counted, as the reference does) and the sessions serve theirs;
+14. train-lora - the train CLI's run() on the QA config with
+   model.freeze_LLM=True model.lora_r=8 and micro-batch 1 over in-memory
+   16-frame clips that pack to 1024 (a tiny fp32 LoRA step over a dense and
+   a w_q16 base, and greedy generate through adapters over int4 trees,
+   split and fused, on the card against the CPU first): two steps, then a
+   second run into the same output_dir resumes at step 2 and takes one;
+   per step the launches of a full fine-tune step at 1024, every frozen
+   leaf bit for bit at its init, the checkpoint restored into a fresh
+   model bit for bit, the A factors moved by the resumed step, no dataset
+   retry; it prints the checkpoint's bytes and save and restore times.
+
+``python3 chip_smoke.py --phases demo train_breadth distill`` builds the
+kernels and runs only the phases named (a partial run: no result line).
 
 Then it prints a ``{"kernels": [...]}`` line, the nvidia-smi line and, last,
 ``{"ok": true, "device": {...}}``. Without a CUDA card it exits non-zero and
@@ -183,6 +223,7 @@ from __future__ import annotations
 import collections
 import dataclasses
 import gc
+import itertools
 import json
 import re
 import shutil
@@ -3343,25 +3384,31 @@ def phase_breadth(kernels, model) -> dict:
     return out
 
 
-def phase_w4_spec(kernels, params, cfg) -> dict:
+def phase_w4_spec(kernels, params, cfg, draft=None, label: str = "w4a16-spec") -> dict:
     """Speculative serving on the W4A16 stack (phase_w4a16's params): the
     draft is a same-width tower of the target's first SPEC_DRAFT_LAYERS
-    layers with its embedding, norm and head; slots 4, spec_k SPEC_K,
-    SPEC_ROUNDS rounds a step, four requests of 32 new tokens. #12 launches
-    exactly 128 times a target forward (a verify forward at M = slots x
-    (spec_k + 1) = 20 on its wgmma form) and 16 times a draft forward (a
-    proposal step at M = 4 on its decode form). Prints the mean accepted
-    tokens a round, ms a round and the share of tokens that agree with plain
-    greedy serving (bf16 is not held across program shapes)."""
+    layers with its embedding, norm and head, or ``draft`` (params, cfg);
+    slots 4, spec_k SPEC_K, SPEC_ROUNDS rounds a step, four requests of 32
+    new tokens. #12 launches exactly 128 times a target forward (a verify
+    forward at M = slots x (spec_k + 1) = 20 on its wgmma form) and once a
+    draft forward for each int4 linear of the draft (16 for the cut draft,
+    none for a dense one: a proposal step at M = 4 on its decode form).
+    Prints the mean accepted tokens a round, ms a round and the share of
+    tokens that agree with plain greedy serving (bf16 is not held across
+    program shapes)."""
     from stllm_tpu_torch import serving
     from stllm_tpu_torch.models import generation, speculative
     from stllm_tpu_torch.ops.layers import gather_rows
 
     llama, lcfg = params["llama"], cfg.llama
-    draft = {k: llama[k] for k in ("embed_tokens", "norm", "lm_head")}
-    draft["layers"] = llama["layers"][:SPEC_DRAFT_LAYERS]
-    dcfg = dataclasses.replace(lcfg, num_layers=SPEC_DRAFT_LAYERS)
-    per_draft = 4 * SPEC_DRAFT_LAYERS
+    if draft is None:
+        draft = {k: llama[k] for k in ("embed_tokens", "norm", "lm_head")}
+        draft["layers"] = llama["layers"][:SPEC_DRAFT_LAYERS]
+        dcfg = dataclasses.replace(lcfg, num_layers=SPEC_DRAFT_LAYERS)
+    else:
+        draft, dcfg = draft
+    per_draft = sum(isinstance(p, dict) and "w4" in p for layer in draft["layers"]
+                    for p in layer.values())
     t_phase = time.perf_counter()
     rng = np.random.default_rng(37)
     prompts = [gather_rows(llama["embed_tokens"], torch.as_tensor(
@@ -3424,7 +3471,7 @@ def phase_w4_spec(kernels, params, cfg) -> dict:
             or forms["w4a16_matmul/wgmma"] != want_wgmma \
             or forms["w4a16_matmul/decode"] != per_draft * steps \
             or forms["w4a16_matmul/stream"]:
-        raise AssertionError(f"[w4a16-spec] forwards {dict(forwards)}, W4A16 launches "
+        raise AssertionError(f"[{label}] forwards {dict(forwards)}, W4A16 launches "
                              f"{launches['w4a16_matmul']} by form "
                              f"{ {k: v for k, v in forms.items() if k.startswith('w4a16')} }")
     counts = [c[:, a] for _, c, a in rounds]
@@ -3435,8 +3482,9 @@ def phase_w4_spec(kernels, params, cfg) -> dict:
     greedy = plain.run()
     same = sum(a == b for i in got for a, b in zip(got[i], greedy[i]))
     total = sum(len(v) for v in greedy.values())
-    out = {"mode": "w4a16-spec", "requests": len(prompts), "spec_k": SPEC_K,
-           "spec_rounds": SPEC_ROUNDS, "draft_layers": SPEC_DRAFT_LAYERS, "wall_s": wall,
+    out = {"mode": label, "requests": len(prompts), "spec_k": SPEC_K,
+           "spec_rounds": SPEC_ROUNDS, "draft_layers": dcfg.num_layers,
+           "draft_w4_launches_per_forward": per_draft, "wall_s": wall,
            "target_verify_forwards": verify, "draft_steps": steps, "prefills": prefills,
            "launches": launches, "form_launches": forms,
            "mean_accepted_per_round": float(accepted.mean()),
@@ -3444,7 +3492,7 @@ def phase_w4_spec(kernels, params, cfg) -> dict:
            "tokens_agree_with_greedy": same / total,
            "answers_equal_greedy": sum(got[i] == greedy[i] for i in got),
            "phase_s": time.perf_counter() - t_phase}
-    print(f"[w4a16-spec] {len(prompts)} requests x {W4_BEAM_MAX_NEW} tokens in {wall:.2f} s: "
+    print(f"[{label}] {len(prompts)} requests x {W4_BEAM_MAX_NEW} tokens in {wall:.2f} s: "
           f"{verify} verify forwards (M = {4 * (SPEC_K + 1)}), {steps} draft steps (M = 4), "
           f"{launches['w4a16_matmul']} W4A16 launches; mean accepted "
           f"{out['mean_accepted_per_round']:.3f} a round, {out['ms_per_round']:.2f} ms a round; "
@@ -4050,6 +4098,20 @@ def phase_train(kernels) -> dict:
         return res
 
     trainer._step_fn = timed_step
+
+    class NoWrite:
+        """A full fine-tune's checkpoint is the 6.9 B trainable bf16 leaves
+        and both moments, about 40 GB: more than a call may write. The
+        train-lora phase saves and restores; here the saves are only
+        counted."""
+
+        def __init__(self):
+            self.steps = []
+
+        def save(self, state, extra=None):
+            self.steps.append(state.step)
+
+    trainer.ckpt = NoWrite()
     rng = np.random.default_rng(7)
     col = _collator(cfg, seed=8)
     size = cfg.vit.image_size
@@ -4096,6 +4158,9 @@ def phase_train(kernels) -> dict:
 
     log = [json.loads(line) for line in (Path(out_dir) / "log.txt").read_text().splitlines()]
     shutil.rmtree(out_dir, ignore_errors=True)
+    if trainer.ckpt.steps != list(itertools.accumulate(TRAIN_STEPS.values())):
+        raise AssertionError(f"[train] saves at steps {trainer.ckpt.steps}: each train() call "
+                             "saves at its last step")
     keys = ("loss", "loss_ce", "loss_mvm", "grad_norm")
     if [r["step"] for r in log] != list(range(1, total_steps + 1)) or not all(
             np.isfinite(r[k]) and r[k] > 0 for r in log for k in keys):
@@ -4117,13 +4182,763 @@ def phase_train(kernels) -> dict:
     return {"tiny": tiny, "tiny_fp32": fp32, "build": build, "log": log, **tiers}
 
 
-def main() -> int:
+# ---------------------------------------------------------------------------
+# the demo entry points on the conversation config
+# ---------------------------------------------------------------------------
+
+CONV_YAML = ROOT / "config" / "instructblipbase_stllm_conversation.yaml"
+# the reference demo's 64 frames and 5 beams; its 300 new tokens are cut to
+# DEMO_MAX_NEW for time, and a web ask (greedy) to DEMO_WEB_MAX_NEW
+DEMO_FRAMES, DEMO_BEAMS, DEMO_MAX_NEW, DEMO_WEB_MAX_NEW = 64, 5, 8, 16
+DEMO_SOURCE = (96, 240, 320)   # the in-memory clips: frames, height, width
+# per encode of the conversation config (EVA-ViT-g without the BTAdapter):
+# #1 once a trunk block, all 64 frames in one call at 257 tokens
+DEMO_PER_ENCODE = {"packed_qkv_attention": 39}
+DEMO_SHAPES = {("packed_qkv_attention", DEMO_FRAMES, 257): 39}
+DEMO_WEB_QUESTIONS = ("What happens in this video?", "Why is it funny?")
+
+
+def _timed(fn, sink: list):
+    """``fn`` with the device synchronised around each call, its ms
+    appended to ``sink``."""
+    def wrap(*args, **kw):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fn(*args, **kw)
+        torch.cuda.synchronize()
+        sink.append((time.perf_counter() - t) * 1e3)
+        return out
+    return wrap
+
+
+def _demo_chat(chat, clips):
+    """A Chat over ``chat``'s model whose upload_video reads the in-memory
+    clip named in the file it is handed (the gradio state's path, the web
+    upload's temporary file; the card's machine may have no FFmpeg to
+    decode a real one), sampling its frames as a file read does."""
+    from stllm_tpu_torch.conversation import Chat
+    from stllm_tpu_torch.data.samplers import get_seq_frames
+
+    class NamedClipChat(Chat):
+        def upload_video(self, video, conv, img_list, num_frame=64, text=None):
+            clip = clips[Path(video).read_text()]
+            return super().upload_video(clip[get_seq_frames(len(clip), num_frame)], conv,
+                                        img_list, num_frame, text)
+
+    return NamedClipChat(chat.params, chat.cfg, chat.llama_tokenizer,
+                         qformer_tokenizer=chat.qformer_tokenizer,
+                         image_size=chat.transform.image_size)
+
+
+def _only(label: str, launches: dict, want: dict, per: int) -> None:
+    """The launches ``want`` x ``per`` and nothing else."""
+    _expect(label, launches, want, per)
+    others = {k: v for k, v in launches.items() if k not in want and v}
+    if others:
+        raise AssertionError(f"[{label}] unexpected kernel launches {others}")
+
+
+def _post(port: int, path: str, data: bytes, headers: dict) -> dict:
+    import urllib.request
+
+    req = urllib.request.Request(f"http://127.0.0.1:{port}{path}", data=data, headers=headers)
+    return json.loads(urllib.request.urlopen(req, timeout=600).read())
+
+
+def _demo_web_route(kernels, chat, files, label: str, solo_asks: int, **handler) -> dict:
+    """The web demo's handler served on 127.0.0.1 (port 0) in this process:
+    two sessions upload their clip and ask DEMO_WEB_QUESTIONS in turn,
+    greedy; then the Chat answers the same turns itself through the same
+    route (solo generate, the same AnswerService, a PrefixSession a
+    conversation). Every answer must equal the Chat's own; #1 launches 39
+    times an upload and no other kernel runs; exactly ``solo_asks`` asks
+    run solo generate."""
+    import threading
+    from http.server import ThreadingHTTPServer
+
+    from stllm_tpu_torch import demo_web
+    from stllm_tpu_torch.conversation import CONV_instructblip_Vicuna0
+    from stllm_tpu_torch.conversation import conversation as conv_mod
+    from stllm_tpu_torch.models.generation import PrefixSession
+
+    solo = collections.Counter()
+    real_generate = conv_mod.generate
+
+    def counted(*args, **kw):
+        solo["generate"] += 1
+        return real_generate(*args, **kw)
+
+    ask_ms = []
+    httpd = ThreadingHTTPServer(("127.0.0.1", 0), demo_web.make_handler(chat, **handler))
+    thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+    thread.start()
+    port = httpd.server_address[1]
+    conv_mod.generate = counted
+    PACKED_CALLS.clear()
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    try:
+        sids = {n: _post(port, f"/api/upload?segments={DEMO_FRAMES}", n.encode(),
+                         {"X-Filename": f"{n}.mp4"})["session"] for n in files}
+        got = {n: [] for n in files}
+        for q in DEMO_WEB_QUESTIONS:
+            for n in files:
+                body = {"session": sids[n], "question": q, "num_beams": 1, "temperature": 0.0,
+                        "max_new_tokens": DEMO_WEB_MAX_NEW}
+                t = time.perf_counter()
+                got[n].append(_post(port, "/api/ask", json.dumps(body).encode(),
+                                    {"Content-Type": "application/json"})["answer"])
+                ask_ms.append((time.perf_counter() - t) * 1e3)
+        torch.cuda.synchronize()
+    finally:
+        conv_mod.generate = real_generate
+        httpd.shutdown()
+        httpd.server_close()
+        thread.join()
+    wall = time.perf_counter() - t0
+    launches, shapes = dict(kernels.LAUNCHES), dict(PACKED_CALLS)
+    _only(label, launches, DEMO_PER_ENCODE, len(files))
+    if shapes != {k: v * len(files) for k, v in DEMO_SHAPES.items()}:
+        raise AssertionError(f"[{label}] #1 calls by (rows, length) {shapes}")
+    if solo["generate"] != solo_asks:
+        raise AssertionError(f"[{label}] {solo['generate']} asks ran solo generate, want "
+                             f"{solo_asks}")
+    want = {}
+    for n, path in files.items():
+        conv, imgs = CONV_instructblip_Vicuna0.copy(), []
+        chat.upload_video(path, conv, imgs, num_frame=DEMO_FRAMES)
+        kv = (PrefixSession(chat.params["llama"], chat.cfg.llama, max_len=2048)
+              if handler.get("prefix_kv") else None)
+        want[n] = []
+        for q in DEMO_WEB_QUESTIONS:
+            chat.ask(q, conv)
+            want[n].append(chat.answer(conv=conv, img_list=imgs, num_beams=1, temperature=0.0,
+                                       do_sample=False, max_new_tokens=DEMO_WEB_MAX_NEW,
+                                       max_length=2000, service=handler.get("service"),
+                                       kv_session=kv)[0])
+        if kv is not None:
+            kv.release()
+    if got != want:
+        raise AssertionError(f"[{label}] web answers {got} != the Chat's own {want}")
+    return {"mode": label, "wall_s": wall, "ask_ms": ask_ms, "answers": got,
+            "solo_generate_calls": solo["generate"], "launches": launches,
+            "packed_calls": {f"{r}x{s}": c for (_, r, s), c in shapes.items()}}
+
+
+def phase_demo(kernels) -> dict:
+    """The demos' default model, the conversation config
+    (config/instructblipbase_stllm_conversation.yaml: EVA-ViT-g without the
+    BTAdapter, video_input residual with 16 local frames, Vicuna-7B, bf16)
+    at full width with random weights from seed 0, built by
+    demo_core.build_chat. One question at 64 frames through gradio_ask with
+    5 beams, timed by stage (encode, prefill, decode); then the web demo's
+    handler, plain, with an AnswerService and with PrefixSessions."""
+    from stllm_tpu_torch import demo_core
+    from stllm_tpu_torch.conversation import CONV_instructblip_Vicuna0
+    from stllm_tpu_torch.models import generation
+    from stllm_tpu_torch.serving import AnswerService, ContinuousBatcher
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t_phase = time.perf_counter()
+    built = demo_core.build_chat(str(CONV_YAML), device="cuda")
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t_phase
+    cfg = built.cfg
+    if (cfg.vit_model, cfg.video_input, cfg.residual_size, cfg.vit.depth, cfg.llama.num_layers,
+            cfg.llama.dtype) != ("eva_clip_g", "residual", 16, 39, 32, torch.bfloat16):
+        raise AssertionError(f"[demo] the conversation config built {cfg}")
+    _name_every_token(built.llama_tokenizer)
+    rng = np.random.default_rng(41)
+    clips = {n: rng.integers(0, 256, DEMO_SOURCE + (3,), dtype=np.uint8)
+             for n in ("clip_a", "clip_b")}
+    tmp = Path(tempfile.mkdtemp(prefix="stllm_demo_smoke_"))
+    files = {}
+    for n in clips:
+        (tmp / f"{n}.mp4").write_text(n)
+        files[n] = str(tmp / f"{n}.mp4")
+    chat = _demo_chat(built, clips)
+
+    question = "Tell me why this video looks so funny?"
+    # one untimed encode first: the 64-frame shapes are new to this process
+    chat.upload_video(files["clip_b"], CONV_instructblip_Vicuna0.copy(), [], DEMO_FRAMES,
+                      text=question)
+    state, _ = demo_core.gradio_upload(files["clip_a"], DEMO_FRAMES)
+    enc, pre = [], []
+    real_prefill = generation._prefill
+    chat.upload_video = _timed(chat.upload_video, enc)
+    generation._prefill = _timed(real_prefill, pre)
+    PACKED_CALLS.clear()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    try:
+        chatbot, state = demo_core.gradio_ask(chat, question, DEMO_BEAMS, 1.0, [], state,
+                                              max_new_tokens=DEMO_MAX_NEW)
+        torch.cuda.synchronize()
+    finally:
+        generation._prefill = real_prefill
+        del chat.upload_video
+    ask_ms = (time.perf_counter() - t0) * 1e3
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    launches, shapes = dict(kernels.LAUNCHES), dict(PACKED_CALLS)
+    _only("demo-gradio", launches, DEMO_PER_ENCODE, 1)
+    if shapes != DEMO_SHAPES:
+        raise AssertionError(f"[demo-gradio] #1 calls by (rows, length) {shapes}")
+    tokens = int(state["img_list"][0].shape[1])
+    if tokens != cfg.num_video_tokens(DEMO_FRAMES) or tokens != 16 * cfg.num_query:
+        raise AssertionError(f"[demo-gradio] {tokens} video tokens, STLLMConfig reckons "
+                             f"{cfg.num_video_tokens(DEMO_FRAMES)}")
+    conv, imgs = CONV_instructblip_Vicuna0.copy(), []
+    chat.upload_video(files["clip_a"], conv, imgs, DEMO_FRAMES, text=question)
+    chat.ask(question, conv)
+    own, _ = chat.answer(conv=conv, img_list=imgs, num_beams=DEMO_BEAMS, do_sample=False,
+                         temperature=1.0, max_new_tokens=DEMO_MAX_NEW, max_length=2000)
+    if chatbot != [[question, own]]:
+        raise AssertionError(f"[demo-gradio] {chatbot} != the Chat's own answer {own!r}")
+    gradio = {"mode": "demo-gradio", "frames": DEMO_FRAMES, "beams": DEMO_BEAMS,
+              "max_new_tokens": DEMO_MAX_NEW, "video_tokens": tokens, "answer": own,
+              "encode_ms": enc[0], "prefill_ms": sum(pre), "prefill_calls": len(pre),
+              "decode_ms": ask_ms - enc[0] - sum(pre), "ask_ms": ask_ms,
+              "max_memory_allocated_gib": peak, "launches": launches,
+              "packed_calls": {f"{r}x{s}": c for (_, r, s), c in shapes.items()}}
+    print(f"[demo-gradio] {json.dumps(gradio)}")
+
+    # the demos' template (CONV_instructblip_Vicuna0) is a simple prompt, so
+    # Chat.answer forces the reference's repetition penalty 1.5, which the
+    # batcher refuses: every ask through --serve-slots falls back to solo
+    # generate, as in the reference; a PrefixSession serves penalized turns
+    asks = len(files) * len(DEMO_WEB_QUESTIONS)
+    if CONV_instructblip_Vicuna0.instruction:
+        raise AssertionError("[demo] the demos' template is no longer a simple prompt")
+    service = AnswerService(ContinuousBatcher(chat.params["llama"], cfg.llama, slots=4,
+                                              max_len=1024))
+    try:
+        web = [_demo_web_route(kernels, chat, files, "demo-web-plain", asks),
+               _demo_web_route(kernels, chat, files, "demo-web-service", asks, service=service),
+               _demo_web_route(kernels, chat, files, "demo-web-prefix_kv", 0, prefix_kv=2)]
+    finally:
+        service.close()
+    shutil.rmtree(tmp, ignore_errors=True)
+    plain = web[0]["answers"]
+    for route in web:
+        route["turns_equal_plain"] = sum(a == b for n in plain for a, b in
+                                         zip(route["answers"][n], plain[n]))
+        print(f"[{route['mode']}] {json.dumps(route)}")
+    out = {"build_s": build_s, "gradio": gradio, "web": {r["mode"]: r for r in web},
+           "phase_s": time.perf_counter() - t_phase}
+    print(f"[demo] conversation config at full width, 64 frames: encode {gradio['encode_ms']:.1f} "
+          f"ms, prefill {gradio['prefill_ms']:.1f} ms ({len(pre)} calls), beam-5 decode of "
+          f"{DEMO_MAX_NEW} tokens {gradio['decode_ms']:.1f} ms, peak {peak:.2f} GiB; web asks "
+          + ", ".join(f"{r['mode']} {np.mean(r['ask_ms']):.1f} ms" for r in web)
+          + f"; phase {out['phase_s']:.1f} s ({smi_line()})")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# training breadth: the train CLI with LoRA, checkpoints and resume
+# ---------------------------------------------------------------------------
+
+LORA_R, LORA_STEPS = 8, 2
+# per LoRA step under the frozen LLM, at the 1024 tier: what a full
+# fine-tune step launches there. The adapters sit in every layer, so every
+# layer's backward runs (#5, #6 once a layer), the per-layer recompute
+# (remat) and the MVM teacher pass run #4 besides the forward, and the
+# frozen trunk and the trainable branch launch #1 as before
+LORA_LAUNCHES = TRAIN_LAUNCHES["train-long"]
+LORA_WORDS = (200, 250)        # prompt and answer words that pack to 1024 slots
+LORA_CLIPS = 4
+
+
+def _lora_datasets(cfg, tmp: Path, rng):
+    """One ITVidTrainDataset over LORA_CLIPS in-memory 16-frame clips: the
+    annotation file is real, the video reader returns the clip named by the
+    path with the frame indices the sampler draws (the card's machine may
+    have no FFmpeg to write or decode an mp4)."""
+    from stllm_tpu_torch.data.datasets import ITVidTrainDataset
+    from stllm_tpu_torch.data.samplers import get_frame_indices
+
+    size = cfg.vit.image_size
+    clips = {f"c{i}.mp4": rng.integers(0, 256, (48, size, size, 3), dtype=np.uint8)
+             for i in range(LORA_CLIPS)}
+    anno = [{"video": n, "QA": [{"q": _words(rng, LORA_WORDS[0]), "a": _words(rng, LORA_WORDS[1])}]}
+            for n in clips]
+    (tmp / "anno.json").write_text(json.dumps(anno))
+
+    def reader(path, num_frames, sample, max_num_frames=-1, clip=None, rng=None, **_):
+        frames = clips[Path(path).name]
+        idx = get_frame_indices(num_frames, len(frames), sample=sample, rng=rng)
+        return frames[idx], list(idx), len(frames) / 8.0
+
+    ds = ITVidTrainDataset([str(tmp / "anno.json"), str(tmp), "video"], num_frames=FRAMES, seed=42)
+    ds.video_reader = reader
+    return [ds]
+
+
+def _lora_run(kernels, argv, datasets, label: str) -> dict:
+    """train.run with ``argv`` over ``datasets``, every count at 0 before;
+    each step timed with the packed length of its batch, each save timed."""
+    from stllm_tpu_torch.common.config import Config
+    from stllm_tpu_torch.train import checkpoint, train, trainer as trainer_mod
+
+    args = train.parse_args(argv)
+    cfg = Config(args.cfg_path, options=args.options)
+    steps, saves = [], []
+    real_make, real_save = trainer_mod.make_train_step, checkpoint.CheckpointManager.save
+
+    def make(*a, **kw):
+        fn = real_make(*a, **kw)
+
+        def step(state, batch):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = fn(state, batch)
+            torch.cuda.synchronize()
+            steps.append({"ms": (time.perf_counter() - t) * 1e3,
+                          "seq_len": int(batch["token_ids"].shape[1])})
+            return out
+        return step
+
+    trainer_mod.make_train_step = make
+    checkpoint.CheckpointManager.save = _timed(real_save, saves)
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    try:
+        model, trainer, stats = train.run(cfg, args, datasets=datasets)
+        torch.cuda.synchronize()
+    finally:
+        trainer_mod.make_train_step = real_make
+        checkpoint.CheckpointManager.save = real_save
+    launches, forms = dict(kernels.LAUNCHES), dict(kernels.FORM_LAUNCHES)
+    n = len(steps)
+    _only(label, launches, LORA_LAUNCHES, n)
+    any_form = {k: v for k, v in forms.items() if k.endswith("/any") and v}
+    if any_form or {s["seq_len"] for s in steps} != {TRAIN_LONG[1]}:
+        raise AssertionError(f"[{label}] steps {steps}, any-form launches {any_form}")
+    return {"mode": label, "model": model, "trainer": trainer, "cfg": cfg, "stats": stats,
+            "steps": n, "step_ms": [s["ms"] for s in steps],
+            "seq_len": sorted({s["seq_len"] for s in steps}), "save_ms": saves,
+            "wall_s": time.perf_counter() - t0,
+            "max_memory_allocated_gib": torch.cuda.max_memory_allocated() / 2**30,
+            "launches": launches, "form_launches": forms}
+
+
+def _row_of(run: dict) -> dict:
+    return {k: v for k, v in run.items() if k not in ("model", "trainer", "cfg")}
+
+
+def phase_train_breadth(kernels) -> dict:
+    """The train CLI's run() on the QA config at full width with LoRA
+    (freeze_LLM, lora_r 8, micro-batch 1) over in-memory clips whose
+    prompts pack to 1024: two steps, then a second run into the same
+    output_dir to three steps, which must resume at step 2 and take one.
+    Exact launches a step, frozen leaves bit for bit at their init, the
+    checkpoint restored bit for bit into a fresh model, the schedule
+    continued (the resumed step moves the A factors, which only a nonzero B
+    and a nonzero learning rate can), no dataset retry."""
+    from stllm_tpu_torch.common.config import Config
+    from stllm_tpu_torch.models.zoo import STLLM
+    from stllm_tpu_torch.train.checkpoint import CheckpointManager
+    from stllm_tpu_torch.train.step import tree_paths
+    from stllm_tpu_torch.train.trainer import Trainer
+
+    tiny = check_small_lora(kernels)
+    print(f"[train-lora] tiny fp32 LoRA, card vs CPU: {json.dumps(tiny)}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    out_dir = Path(tempfile.mkdtemp(prefix="stllm_lora_smoke_"))
+    rng = np.random.default_rng(17)
+    yaml = str(ROOT / "config" / "instructblipbase_stllm_qa.yaml")
+    options = ["model.freeze_LLM=True", f"model.lora_r={LORA_R}",
+               "run.per_device_train_batch_size=1", f"run.output_dir={out_dir}",
+               "run.logging_steps=1"]
+    argv = ["--cfg-path", yaml, "--options", *options]
+    try:
+        model_cfg = Config(yaml, options=options).model_cfg
+        ref = STLLM.from_config(model_cfg, seed=0, device="cuda")   # what run() builds
+        init = dict(tree_paths(ref.params))
+        policy = ref.trainable_fn()
+        init_train = {p: t.clone() for p, t in init.items()
+                      if policy(p) and t.is_floating_point()}
+        datasets = _lora_datasets(ref.cfg, out_dir, rng)
+        first = _lora_run(kernels, argv + ["--max-steps", str(LORA_STEPS)], datasets, "train-lora")
+        state = first["trainer"].state
+        params = state.params
+        lora = {p for p in params if "_lora/" in p}
+        if len(lora) != 2 * 2 * ref.cfg.llama.num_layers or any(
+                p.startswith("llama/") and "_lora/" not in p for p in params) or any(
+                p.endswith("alpha") for p in params):
+            raise AssertionError(f"[train-lora] trainable leaves {sorted(params)[:8]} ...")
+        if set(params) != set(init_train):
+            raise AssertionError("[train-lora] the trainer's leaves are not the policy's")
+        changed = [p for p, t in tree_paths(state.tree) if p in state.frozen
+                   and not torch.equal(t, init[p])]
+        # step 0's learning rate is 0 (the warmup starts there), so one step
+        # moves leaves: B (A's gradient is 0 while B is 0, so A first moves in
+        # the resumed step), llama_proj, the MVM decoder and the branch leaves
+        # not behind a zero-init layer
+        direct = [p for p in params if p.endswith("_lora/b")
+                  or p.startswith(("llama_proj/", "mvm_decoder/")) and not p.endswith("scale")]
+        stuck = [p for p in direct if torch.equal(params[p], init_train[p])]
+        if changed or stuck:
+            raise AssertionError(f"[train-lora] frozen leaves changed {changed[:5]}, trainable "
+                                 f"leaves stuck {stuck[:5]}")
+        if datasets[0].retries:
+            raise AssertionError(f"[train-lora] {datasets[0].retries} dataset retries")
+        ckpt_file = out_dir / f"checkpoint_{LORA_STEPS}" / "state.pt"
+        ckpt_bytes = ckpt_file.stat().st_size
+        saved = {k: v.detach().clone() for k, v in params.items()}
+        saved_mu = {k: v.clone() for k, v in state.opt_state["mu"].items()}
+        first_model, first_trainer = first.pop("model"), first.pop("trainer")
+        del state, params, first_model, first_trainer
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        restored = Trainer(ref.cfg, ref.params, output_dir=str(out_dir / "restore"),
+                           trainable_fn=ref.trainable_fn())
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        CheckpointManager(str(out_dir)).restore(restored.state)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t
+        if restored.state.step != LORA_STEPS or restored.state.opt_state["count"] != LORA_STEPS \
+                or any(not torch.equal(restored.state.params[k], v) for k, v in saved.items()) \
+                or any(not torch.equal(restored.state.opt_state["mu"][k], v)
+                       for k, v in saved_mu.items()):
+            raise AssertionError("[train-lora] the restored checkpoint differs from the saved "
+                                 "state")
+
+        second = _lora_run(kernels, argv + ["--max-steps", str(LORA_STEPS + 1)], datasets,
+                           "train-lora-resume")
+        state2 = second["trainer"].state
+        log = [json.loads(x) for x in (out_dir / "log.txt").read_text().splitlines()]
+        a_moved = [p for p in lora if p.endswith("/a")
+                   and not torch.equal(state2.params[p], saved[p])]
+        changed2 = [p for p, t in tree_paths(state2.tree) if p in state2.frozen
+                    and not torch.equal(t, init[p])]
+        # after the resumed step: every leaf moved but bf16 norm scales of 1.0
+        # (a 1e-5 step rounds away) and branch leaves behind two zero-init layers
+        moved = {p for p in state2.params if not torch.equal(state2.params[p], init_train[p])}
+        branch = [p for p in state2.params if p.startswith("vit/")]
+        stuck2 = [p for p in state2.params if p not in moved and not p.endswith("scale")
+                  and not p.startswith("vit/")]
+        if second["steps"] != 1 or state2.step != LORA_STEPS + 1 \
+                or state2.opt_state["count"] != LORA_STEPS + 1 \
+                or [r["step"] for r in log] != list(range(1, LORA_STEPS + 2)) \
+                or len(a_moved) != len(lora) // 2 or changed2 or stuck2 \
+                or not moved & set(branch) or datasets[0].retries \
+                or not all(np.isfinite(r["loss"]) for r in log):
+            raise AssertionError(f"[train-lora-resume] steps {second['steps']}, state step "
+                                 f"{state2.step}, log {log}, A factors moved {len(a_moved)}, "
+                                 f"frozen changed {changed2[:5]}, stuck {stuck2[:5]}")
+        branch_moved = (len(moved & set(branch)), len(branch))
+        second.pop("model"), second.pop("trainer")
+        del state2
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+    n_train = sum(t.numel() for t in saved.values())
+    out = {"tiny": tiny, "lora_r": LORA_R, "trainable_params": n_train,
+           "trainable_leaves": len(saved), "lora_leaves": len(lora),
+           "branch_leaves_moved": branch_moved,
+           "checkpoint_bytes": ckpt_bytes, "save_ms": first["save_ms"] + second["save_ms"],
+           "restore_s": restore_s, "log": log, "first": _row_of(first),
+           "resume": _row_of(second), "phase_s": time.perf_counter() - t_phase}
+    first_ms = first["step_ms"]
+    print(f"[train-lora] {json.dumps(out)}")
+    print(f"[train-lora] QA config, LoRA r={LORA_R} under the frozen LLM: {n_train} trainable "
+          f"parameters in {len(saved)} leaves; steps at S = {TRAIN_LONG[1]}: {first_ms} ms "
+          f"(resumed step {second['step_ms']} ms), peak "
+          f"{first['max_memory_allocated_gib']:.2f} GiB; checkpoint {ckpt_bytes} bytes, saves "
+          f"{out['save_ms']} ms, restore {restore_s:.3f} s; phase {out['phase_s']:.1f} s "
+          f"({smi_line()})")
+    return out
+
+
+def _copy_to(tree, device):
+    """A copy of ``tree`` on ``device`` whose leaves share nothing with it
+    and take no gradient (a CPU step would otherwise train the tree the
+    card's copy is taken from)."""
+    if isinstance(tree, dict):
+        return {k: _copy_to(v, device) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_copy_to(v, device) for v in tree]
+    return None if tree is None else tree.detach().to(device, copy=True)
+
+
+def _lora_tree(llama, gen, r: int = 4):
+    """add_lora over ``llama`` (a LLaMA tree) with every B drawn nonzero."""
+    from stllm_tpu_torch.models.lora import add_lora
+
+    out = add_lora({"llama": llama}, gen, r)["llama"]
+    for layer in out["layers"]:
+        for key in [k for k in layer if k.endswith("_lora")]:
+            b = layer[key]["b"]
+            layer[key]["b"] = (torch.randn(b.shape, generator=gen, device=b.device) * 0.05
+                               ).to(b.dtype)
+    return out
+
+
+def check_small_lora(kernels) -> dict:
+    """Tiny fp32 LoRA on the card against the CPU: one train step under the
+    frozen LLM (the step's loss and its gradient) over the dense base
+    within FP32_TINY_REL and over the weight-only int8 base (w_q16, whose
+    activations are bf16) within the bf16 training tolerances; then prefill
+    logits and greedy tokens through adapters over an int4 tree, split and
+    fused (#12 multiplies as bf16: W4_TINY_REL)."""
+    from stllm_tpu_torch.models.generation import _prefill, generate
+    from stllm_tpu_torch.models.llama import (
+        LlamaConfig, init_llama, quantize_llama_params, quantize_llama_params_int4)
+    from stllm_tpu_torch.models.stllm import stllm_forward
+    from stllm_tpu_torch.models.zoo import STLLM
+    from stllm_tpu_torch.train.step import create_train_state, make_optimizer, make_train_step
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    out = {}
+    for base, (loss_tol, grad_tol) in (("dense", (FP32_TINY_REL, FP32_TINY_REL)),
+                                       ("w_q16", (TRAIN_TINY_LOSS_REL, TRAIN_TINY_GRAD_REL))):
+        model_cfg = {**_fp32_tiny_cfg(num_layers=2, use_flash=True), "use_mask": True,
+                     "mvm_decode": True, "max_txt_len": 16, "use_grad_checkpoint": True,
+                     "freeze_LLM": True}
+        model = STLLM.from_config(model_cfg, seed=3, device="cpu")
+        model.params["llama"] = _lora_tree(model.params["llama"], torch.Generator().manual_seed(5))
+        if base == "w_q16":
+            model.params["llama"] = quantize_llama_params(model.params["llama"], a16=True)
+        cfg = model.cfg
+        col = _collator(cfg, seed=6, seq_multiple=32)
+        batch = col(_train_samples(np.random.default_rng(5), 4, 56, 6, 8, 2))
+        res, before = {}, dict(kernels.LAUNCHES)
+        for dev in ("cpu", "cuda"):
+            opt = make_optimizer(1e-3, weight_decay=0.0)
+            state = create_train_state(_copy_to(model.params, dev), opt, model.trainable_fn())
+            put = {k: torch.as_tensor(v).to(dev) for k, v in batch.items()}
+            loss = stllm_forward(state.tree, put, cfg)["loss"]
+            g = torch.autograd.grad(loss, list(state.params.values()), allow_unused=True)
+            _, metrics = make_train_step(cfg, opt)(state, put)
+            res[dev] = (metrics["loss"].reshape(1), torch.cat(
+                [(torch.zeros_like(p) if x is None else x).float().flatten().cpu()
+                 for p, x in zip(state.params.values(), g)]), sorted(state.params))
+        torch.cuda.synchronize()
+        if res["cpu"][2] != res["cuda"][2] or not any("_lora/" in p for p in res["cpu"][2]):
+            raise AssertionError(f"tiny LoRA {base}: trainable leaves {res['cpu'][2]}")
+        loss_rel = float((res["cuda"][0].cpu() - res["cpu"][0]).abs() / res["cpu"][0].abs())
+        grad_rel = float((res["cuda"][1] - res["cpu"][1]).norm() / res["cpu"][1].norm())
+        if loss_rel > loss_tol or grad_rel > grad_tol:
+            raise AssertionError(f"tiny LoRA {base}: loss rel {loss_rel} (limit {loss_tol}), "
+                                 f"gradient rel L2 {grad_rel} (limit {grad_tol})")
+        out[base] = {"loss_rel": loss_rel, "grad_rel_l2": grad_rel,
+                     "launches": _ran(kernels, before, ["packed_qkv_attention",
+                                                        "flash_attention_fwd",
+                                                        "flash_attention_bwd_dq",
+                                                        "flash_attention_bwd_dkv"])}
+    lcfg = LlamaConfig(vocab_size=100, hidden=64, num_layers=2, heads=2, intermediate=128,
+                       max_positions=64, dtype=torch.float32)
+    dense = init_llama(torch.Generator().manual_seed(7), lcfg)
+    emb = torch.from_numpy(np.random.default_rng(8).standard_normal((2, 16, 64)) * 0.5).float()
+    mask = torch.ones((2, 16), dtype=torch.int32)
+    for fuse in (False, True):
+        tree = _lora_tree(quantize_llama_params_int4(dense, group=None, fuse=fuse),
+                          torch.Generator().manual_seed(9))
+        want, _ = _prefill(tree, emb, mask, lcfg, 24)
+        card = _tree_to(tree, "cuda")
+        before = kernels.LAUNCHES["w4a16_matmul"]
+        got, _ = _prefill(card, emb.cuda(), mask.cuda(), lcfg, 24)
+        torch.cuda.synchronize()
+        w4 = kernels.LAUNCHES["w4a16_matmul"] - before
+        rel = float((got.float().cpu() - want).norm() / want.norm())
+        if w4 != (4 if fuse else 7) * lcfg.num_layers or rel > W4_TINY_REL:
+            raise AssertionError(f"tiny int4 LoRA fuse={fuse}: {w4} #12 launches, logits rel "
+                                 f"L2 {rel} (limit {W4_TINY_REL})")
+        gen = _gen_cfg(8)
+        t_cpu = generate(tree, emb, llama_cfg=lcfg, gen=gen)
+        t_card = generate(card, emb.cuda(), llama_cfg=lcfg, gen=gen)
+        out["int4_fused" if fuse else "int4_split"] = {
+            "prefill_rel_l2": rel, "w4a16_launches_per_prefill": w4,
+            "tokens_agree": sum(a == b for r, s in zip(t_cpu, t_card) for a, b in zip(r, s)),
+            "tokens": sum(len(r) for r in t_cpu)}
+    return out
+
+
+# ---------------------------------------------------------------------------
+# draft distillation against the W4A16 target
+# ---------------------------------------------------------------------------
+
+DISTILL_STEPS, DISTILL_BATCHES, DISTILL_ROWS = 10, 2, 2
+DISTILL_PROMPT, DISTILL_CONT = 992, 32    # 1024 positions a row: the flash tier
+DISTILL_LR = 3e-4                         # the reference's default
+
+
+def check_small_distill(kernels) -> dict:
+    """Two distill_draft steps of a tiny fp32 draft against a tiny fp32
+    target on the card (the flash kernels' fp32 forms, use_flash) and on the
+    CPU from the same weights and batches: both losses and every draft leaf
+    after them within FP32_TINY_REL."""
+    from stllm_tpu_torch.models.distill import distill_draft
+    from stllm_tpu_torch.models.llama import LlamaConfig, init_llama
+    from stllm_tpu_torch.train.step import tree_paths
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    tcfg = LlamaConfig(vocab_size=100, hidden=64, num_layers=2, heads=2, intermediate=128,
+                       max_positions=64, dtype=torch.float32, use_flash=True)
+    dcfg = dataclasses.replace(tcfg, num_layers=1)
+    target = init_llama(torch.Generator().manual_seed(11), tcfg)
+    draft = init_llama(torch.Generator().manual_seed(12), dcfg)
+    rng = np.random.default_rng(13)
+    batches = [(torch.from_numpy(rng.standard_normal((2, 12, 64)) * 0.3).float(),
+                torch.from_numpy(rng.integers(0, 100, (2, 8)))) for _ in range(2)]
+    res, before = {}, dict(kernels.LAUNCHES)
+    for dev in ("cpu", "cuda"):
+        d, log = _copy_to(draft, dev), []
+        distill_draft(_copy_to(target, dev), d, lambda i: tuple(t.to(dev) for t in batches[i]),
+                      tgt_cfg=tcfg, dft_cfg=dcfg, steps=2, learning_rate=1e-3, metrics=log)
+        res[dev] = (torch.tensor([m["loss"] for m in log]),
+                    torch.cat([t.detach().float().flatten().cpu() for _, t in tree_paths(d)]))
+    torch.cuda.synchronize()
+    out = {"loss_rel": _rel(res["cuda"][0], res["cpu"][0], "distill losses"),
+           "draft_rel_l2": _rel(res["cuda"][1], res["cpu"][1], "distilled draft"),
+           "launches": _ran(kernels, before, ["flash_attention_fwd", "flash_attention_bwd_dq",
+                                              "flash_attention_bwd_dkv"])}
+    return out
+
+
+def _w4_target():
+    """The W4A16 Vicuna-7B of phase_w4a16 alone (random weights from a seed,
+    per-channel int4 with q|k|v and gate|up fused, the int8 head, the int8
+    KV cache), for a run without that phase."""
+    from types import SimpleNamespace
+
+    from stllm_tpu_torch.models.llama import VICUNA_7B, init_llama, quantize_llama_params_int4
+
+    lcfg = dataclasses.replace(VICUNA_7B, kv_int8=True)
+    llama = quantize_llama_params_int4(init_llama(torch.Generator(device="cuda").manual_seed(0),
+                                                  lcfg),
+                                       group=None, free_dense=True, quant_head=True, fuse=True)
+    return {"llama": llama}, SimpleNamespace(llama=lcfg)
+
+
+def phase_distill(kernels, params=None, cfg=None, cut=None) -> dict:
+    """distill_draft of a dense bf16 4-layer draft at Vicuna-7B width
+    (init_llama, seed 43) against the W4A16 target that phase_w4_spec
+    serves: DISTILL_BATCHES fixed batches of DISTILL_ROWS rows, each a
+    DISTILL_PROMPT-token prompt (embedded by the target's table) and the
+    target's own DISTILL_CONT-token greedy continuation, DISTILL_STEPS steps
+    in turn. Per step exactly 128 #12 launches (the teacher's forward, wgmma
+    form) and 36 / 4 / 4 flash forward / dQ / dK-dV launches (the teacher's
+    32 layers forward, the draft's 4 forward and backward; 40 forward
+    launches where the config recomputes each layer in the backward, as the
+    QA config's stack does); the loss on the
+    last step's batch must fall below its first value there. Then
+    phase_w4_spec's requests are served with the distilled draft, its
+    accepted tokens a round beside the cut draft's (``cut``, phase_w4_spec's
+    result); no threshold: the weights are random."""
+    from stllm_tpu_torch.models.distill import distill_draft
+    from stllm_tpu_torch.models.generation import generate
+    from stllm_tpu_torch.models.llama import init_llama
+    from stllm_tpu_torch.ops.layers import gather_rows
+
+    tiny = check_small_distill(kernels)
+    print(f"[distill] tiny fp32 distillation, card vs CPU: {json.dumps(tiny)}")
+    t_phase = time.perf_counter()
+    if params is None:
+        params, cfg = _w4_target()
+    llama, lcfg = params["llama"], cfg.llama
+    dcfg = dataclasses.replace(lcfg, num_layers=SPEC_DRAFT_LAYERS)
+    rng = np.random.default_rng(43)
+    batches = []
+    t0 = time.perf_counter()
+    for _ in range(DISTILL_BATCHES):
+        ids = torch.as_tensor(rng.integers(3, lcfg.vocab_size, (DISTILL_ROWS, DISTILL_PROMPT)),
+                              device="cuda")
+        emb = gather_rows(llama["embed_tokens"], ids).to(lcfg.dtype)
+        cont = generate(llama, emb, llama_cfg=lcfg, gen=_gen_cfg(DISTILL_CONT))
+        batches.append((emb, torch.as_tensor(cont, device="cuda")))
+    torch.cuda.synchronize()
+    cont_s = time.perf_counter() - t0
+    draft = init_llama(torch.Generator(device="cuda").manual_seed(43), dcfg)
+    log, marks = [], []
+
+    def timed_batch(i):
+        torch.cuda.synchronize()
+        marks.append(time.perf_counter())
+        return batches[i % DISTILL_BATCHES]
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    distill_draft(llama, draft, timed_batch, tgt_cfg=lcfg, dft_cfg=dcfg, steps=DISTILL_STEPS,
+                  learning_rate=DISTILL_LR, metrics=log)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    step_ms = [(b - a) * 1e3 for a, b in zip(marks, marks[1:] + [t0 + wall])]
+    launches, forms = dict(kernels.LAUNCHES), dict(kernels.FORM_LAUNCHES)
+    # the teacher's no-gradient forward runs each layer once; the draft's
+    # forward runs again in its backward where the config recomputes (the QA
+    # config's use_grad_checkpoint sets llama.remat)
+    per_step = {"w4a16_matmul": W4A16_LAUNCHES_PER_FORWARD,
+                "flash_attention_fwd": lcfg.num_layers + dcfg.num_layers * (1 + dcfg.remat),
+                "flash_attention_bwd_dq": dcfg.num_layers,
+                "flash_attention_bwd_dkv": dcfg.num_layers}
+    _only("distill", launches, per_step, DISTILL_STEPS)
+    if forms["w4a16_matmul/wgmma"] != launches["w4a16_matmul"]:
+        raise AssertionError(f"[distill] #12 by form {forms}")
+    last = DISTILL_STEPS - 1
+    first_same = last % DISTILL_BATCHES
+    if not log[last]["loss"] < log[first_same]["loss"] or not all(
+            np.isfinite(m["loss"]) for m in log):
+        raise AssertionError(f"[distill] losses {log}: the last batch's loss did not fall")
+    distill = {"mode": "distill", "steps": DISTILL_STEPS, "rows": DISTILL_ROWS,
+               "positions": DISTILL_PROMPT + DISTILL_CONT, "log": log, "step_ms": step_ms,
+               "continuations_s": cont_s, "wall_s": wall,
+               "max_memory_allocated_gib": torch.cuda.max_memory_allocated() / 2**30,
+               "launches": launches, "form_launches": forms}
+    print(f"[distill] {json.dumps(distill)}")
+    spec = phase_w4_spec(kernels, params, cfg, draft=(draft, dcfg), label="w4a16-spec-distilled")
+    cut_acc = None if cut is None else cut["mean_accepted_per_round"]
+    print(f"[distill] {DISTILL_STEPS} steps of {DISTILL_ROWS} x {DISTILL_PROMPT + DISTILL_CONT} "
+          f"positions: {np.mean(step_ms[1:]):.1f} ms a step after the first ({step_ms[0]:.1f} ms), "
+          f"loss {log[first_same]['loss']:.4f} -> {log[last]['loss']:.4f} on the last batch, "
+          f"peak {distill['max_memory_allocated_gib']:.2f} GiB; accepted tokens a round "
+          f"{spec['mean_accepted_per_round']:.3f} with the distilled draft, {cut_acc} with the "
+          f"cut one; phase {time.perf_counter() - t_phase:.1f} s ({smi_line()})")
+    return {"tiny": tiny, "distill": distill, "spec": spec, "cut_accepted_per_round": cut_acc}
+
+
+PARTIAL = ("demo", "train_breadth", "distill")   # phases --phases can run alone
+
+
+def main(argv=None) -> int:
+    import argparse
+
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("--phases", nargs="+", choices=PARTIAL,
+                        help="build the kernels, then run only these phases (distill on a "
+                             "W4A16 target of its own); a partial run prints no result line")
+    args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     from stllm_tpu_torch.ops import kernels
 
     replaced, divide_check = phase_build(kernels)
+    if args.phases:
+        count_forwards()
+        record_packed_shapes(kernels)
+        for name in args.phases:
+            {"demo": phase_demo, "train_breadth": phase_train_breadth,
+             "distill": phase_distill}[name](kernels)
+            gc.collect()
+            torch.cuda.empty_cache()
+        print(f"chip_smoke: phases {args.phases} passed (a partial run: no result line)")
+        return 0
     entries = phase_kernels(kernels, replaced, divide_check)
     gc.collect()
     print(f"[kernels] held after the phase: {torch.cuda.memory_allocated() / 2**30:.3f} GiB")
@@ -4143,12 +4958,23 @@ def main() -> int:
     w4a16, w4_params, w4_cfg = phase_w4a16(kernels)
     w4_beams = phase_w4_beams(kernels, w4_params, w4_cfg)
     w4_spec = phase_w4_spec(kernels, w4_params, w4_cfg)
+    # the distillation's target is the stack phase_w4_spec serves
+    distill = phase_distill(kernels, w4_params, w4_cfg, cut=w4_spec)
+    gc.collect()
+    torch.cuda.empty_cache()
     pipeline = phase_pipeline(kernels, w4_params, w4_cfg)
     del w4_params
     gc.collect()
     torch.cuda.empty_cache()
     train = phase_train(kernels)
     short, long_ = train["train-short"], train["train-long"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    demo = phase_demo(kernels)
+    gc.collect()
+    torch.cuda.empty_cache()
+    breadth_train = phase_train_breadth(kernels)
+    lora, resume = breadth_train["first"], breadth_train["resume"]
     # each kernel's launches from the path that runs it; the probes run on no
     # path (0 launches on every one)
     path_of = {"packed_qkv_attention": bf16, "layer_norm_quant": int8["dynamic"],
@@ -4166,11 +4992,13 @@ def main() -> int:
         entry["launches_by_path"]["int8-calibration"] = int8["calibration_launches"][name]
         for route in (*mvbench["routes"].values(), *qabench["routes"].values(), prefix,
                       breadth["mild"], breadth["prefix_key"], *w4_beams.values(), w4_spec,
-                      *pipeline["auto"].values()):
+                      *pipeline["auto"].values(), demo["gradio"], *demo["web"].values(),
+                      lora, resume, distill["distill"], distill["spec"]):
             entry["launches_by_path"][route["mode"]] = route["launches"][name]
         entry["launches_by_path"]["pipeline-calibration"] = pipeline["calibration_launches"][name]
         entry["launches_per_train_step"] = {t["mode"]: t["launches"][name] / t["steps"]
-                                            for t in (short, long_)}
+                                            for t in (short, long_, lora, resume,
+                                                      distill["distill"])}
         if name in kernels.FORMS:
             entry["form_launches"] = {k: v for k, v in path_of[name]["form_launches"].items()
                                       if k.startswith(name + "/")}

@@ -2,15 +2,15 @@
 
 An experiment YAML (``model:`` / ``datasets:`` / ``run:``) is deep-merged over
 the per-model-type default YAML named by the model class'
-``PRETRAINED_MODEL_CONFIG_DICT``. Dotlist overrides and the runner-flag
-validator come with the corpus-driven training CLI (``train/train.py``).
+``PRETRAINED_MODEL_CONFIG_DICT``, then ``--options a.b=c`` dotlist
+overrides apply last. The runner-flag validator comes with ``runners/``.
 """
 
 from __future__ import annotations
 
 import copy
 from pathlib import Path
-from typing import Any, Dict, Mapping
+from typing import Any, Dict, Iterable, List, Mapping, Optional
 
 import yaml
 
@@ -66,6 +66,47 @@ def deep_merge(base: Dict, override: Mapping) -> Dict:
     return base
 
 
+def _parse_scalar(text: str) -> Any:
+    """A CLI override value: YAML scalar rules, plus the float forms YAML
+    1.1 leaves as strings ('1e-4')."""
+    try:
+        value = yaml.safe_load(text)
+    except yaml.YAMLError:
+        return text
+    if isinstance(value, str):
+        for cast in (int, float):
+            try:
+                return cast(value)
+            except ValueError:
+                pass
+    return value
+
+
+def apply_dotlist(cfg: Dict, overrides: Iterable[str]) -> Dict:
+    """Apply ``a.b.c=value`` overrides in place; ``k=v`` strings and
+    alternating ``[k, v, k, v]`` lists are both accepted."""
+    items: List[str] = []
+    buf = list(overrides or [])
+    i = 0
+    while i < len(buf):
+        if "=" in buf[i]:
+            items.append(buf[i])
+            i += 1
+        else:
+            if i + 1 >= len(buf):
+                raise ValueError(f"dangling override key {buf[i]!r}")
+            items.append(f"{buf[i]}={buf[i + 1]}")
+            i += 2
+    for item in items:
+        key, _, raw = item.partition("=")
+        node = cfg
+        parts = key.strip().split(".")
+        for part in parts[:-1]:
+            node = node.setdefault(part, {})
+        node[parts[-1]] = _parse_scalar(raw)
+    return cfg
+
+
 def load_yaml(path: str | Path) -> Dict:
     with open(path, "r") as f:
         return yaml.safe_load(f) or {}
@@ -75,8 +116,10 @@ class Config:
     """Experiment config: model + datasets + run sections, fully merged
     (model-type defaults, then the experiment YAML)."""
 
-    def __init__(self, cfg_path: str | Path):
+    def __init__(self, cfg_path: str | Path, options: Optional[Iterable[str]] = None):
         user = load_yaml(cfg_path)
+        if options:
+            apply_dotlist(user, options)
         merged: Dict = {}
         deep_merge(merged, {"model": self._model_defaults(user.get("model", {}))})
         deep_merge(merged, user)

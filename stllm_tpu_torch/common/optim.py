@@ -1,6 +1,7 @@
 """Learning-rate schedules as plain functions of the step
 (stllm_tpu/common/optim.py): linear warmup into cosine or per-epoch step
-decay, and the HF Trainer ``cosine`` schedule of the QA config. Each
+decay, the HF Trainer ``cosine`` schedule of the QA config, and optax's
+``warmup_cosine_decay_schedule`` that the train CLI builds. Each
 ``schedule(step)`` returns the rate of optimizer step ``step`` (0-based) as a
 Python float; ``train.step.make_optimizer`` takes a schedule or a constant.
 """
@@ -57,6 +58,30 @@ def linear_warmup_cosine_hf(learning_rate: float, warmup_ratio: float,
             return learning_rate * min(step, warm_len) / warm_len
         frac = min(step - warmup_steps, decay_len) / decay_len
         return learning_rate * 0.5 * (1.0 + math.cos(math.pi * frac))
+
+    return schedule
+
+
+def warmup_cosine_decay(init_value: float, peak_value: float, warmup_steps: int,
+                        decay_steps: int, end_value: float = 0.0) -> Schedule:
+    """optax.warmup_cosine_decay_schedule: linear from ``init_value`` to
+    ``peak_value`` over ``warmup_steps``, then cosine decay to ``end_value``
+    until ``decay_steps``, which counts the warmup (the cosine spans
+    ``decay_steps - warmup_steps``). Like optax it refuses a cosine span
+    that is not positive. Computed in float64; optax computes in float32."""
+    span = decay_steps - warmup_steps
+    if not span > 0:
+        raise ValueError(f"warmup_cosine_decay needs decay_steps > warmup_steps, got "
+                         f"{decay_steps} and {warmup_steps}")
+    alpha = 0.0 if peak_value == 0.0 else end_value / peak_value
+
+    def schedule(step: int) -> float:
+        if step < warmup_steps:
+            frac = 1.0 - min(max(step, 0), warmup_steps) / warmup_steps
+            return (init_value - peak_value) * frac + peak_value
+        count = min(step - warmup_steps, span)
+        cosine = 0.5 * (1.0 + math.cos(math.pi * count / span))
+        return peak_value * ((1.0 - alpha) * cosine + alpha)
 
     return schedule
 

@@ -35,6 +35,7 @@ from typing import Any, Dict, NamedTuple, Optional, Tuple
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from stllm_tpu_torch.models.lora import apply_lora
 from stllm_tpu_torch.ops.attention import NEG_INF, flash_attention, mha_reference
 from stllm_tpu_torch.ops.layers import (
     gather_rows, init_linear, init_rms_norm, linear, matmul_f32, normal, rms_norm,
@@ -155,12 +156,14 @@ def _write_at(c: torch.Tensor, new: torch.Tensor, off: torch.Tensor) -> None:
 
 def _qkv_proj(layer: Dict, h: torch.Tensor, b: int, s: int, cfg: LlamaConfig):
     """q/k/v projections; a ``qkv`` key holds the three weights fused along
-    N (one weight-streaming call instead of three)."""
+    N (one weight-streaming call instead of three). LoRA deltas
+    (``models/lora.py``) apply to the split outputs either way."""
     if "qkv" in layer:
         q, k, v = linear(layer["qkv"], h).chunk(3, dim=-1)
     else:
         q, k, v = linear(layer["q"], h), linear(layer["k"], h), linear(layer["v"], h)
-    return tuple(t.reshape(b, s, cfg.heads, cfg.head_dim) for t in (q, k, v))
+    return tuple(apply_lora(layer, n, h, t).reshape(b, s, cfg.heads, cfg.head_dim)
+                 for n, t in (("q", q), ("k", k), ("v", v)))
 
 
 def _layer(
@@ -340,7 +343,8 @@ def quantize_llama_params(params: Dict, free_dense: bool = False,
     layer by layer, so peak memory stays near the dense tree plus one
     layer; the input tree is unusable afterwards. ``a16=True`` stores each
     as the weight-only form (the ``w_q16`` key, ops/quant.py:w8a16_matmul):
-    int8 weight bytes, bf16 activations."""
+    int8 weight bytes, bf16 activations. LoRA adapters (``*_lora``) stay
+    dense."""
     def convert(p: Dict) -> Dict:
         q = quantize_linear_params(p, free_dense)
         if a16:

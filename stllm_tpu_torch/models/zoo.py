@@ -6,9 +6,11 @@ initializes random weights from a seed on the chosen device; ``quant_int8``
 converts the tree to W8A8 (dynamic int8, see ``ops/quant.py``) and
 ``llama: {kv_int8: true}`` gives the LLaMA an int8 KV cache.
 ``STLLM.trainable_fn`` reads the config's freezing keys for the trainer;
-``dtype`` (fp32 or bf16) is the parameters' dtype. Loading checkpoints,
-tokenizers and LoRA come with later slices; a config that names an existing
-weight file raises rather than run on random weights, and
+``dtype`` (fp32 or bf16) is the parameters' dtype; ``lora_r > 0`` attaches
+LoRA adapters (``models/lora.py``) before any quantization, as the
+reference does. Loading checkpoints and tokenizers come with later slices;
+a config that names an existing weight file raises rather than run on
+random weights, and
 ``ensure_tokenizers`` installs the toy hash tokenizers that ``STLLM.chat``
 then hands to ``Chat``.
 """
@@ -119,7 +121,9 @@ class STLLM:
     @classmethod
     def from_config(cls, model_cfg: Mapping, seed: int = 0, device=None) -> "STLLM":
         """Random init from ``seed`` on ``device`` (default: the CUDA card;
-        raises without one). ``quant_int8: true`` converts the ViT with its
+        raises without one). ``lora_r > 0`` adds adapters of that rank
+        (``lora_alpha``, default 32) from a generator seeded ``seed + 1``.
+        ``quant_int8: true`` converts the ViT with its
         BTAdapter branch, the Q-Former and the LLaMA decoder layers to W8A8,
         dropping each dense weight as it goes; ``llama_proj``, the patch
         embedding, the embeddings, ``lm_head`` and the norms stay dense.
@@ -131,11 +135,15 @@ class STLLM:
             if path and os.path.exists(str(path)):
                 raise NotImplementedError(
                     f"model.{key}={path!r} exists: loading checkpoints is not ported yet")
-        if int(model_cfg.get("lora_r", 0) or 0) > 0:
-            raise NotImplementedError("LoRA is not ported yet")
         cfg = build_stllm_config(model_cfg)
         gen = torch.Generator(device=dev).manual_seed(seed)
         params = init_stllm(gen, cfg)
+        lora_r = int(model_cfg.get("lora_r", 0) or 0)
+        if lora_r > 0:
+            from stllm_tpu_torch.models.lora import add_lora
+
+            params = add_lora(params, torch.Generator(device=dev).manual_seed(seed + 1), lora_r,
+                              float(model_cfg.get("lora_alpha", 32)))
         if model_cfg.get("quant_int8", False):
             params["vit"] = quantize_vit_params(params["vit"], free_dense=True)
             params["qformer"] = quantize_tree_linears(params["qformer"], free_dense=True)

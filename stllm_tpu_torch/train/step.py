@@ -125,8 +125,9 @@ class AdamW:
       nu   <- b2 * nu + (1 - b2) * g^2
       p    <- p - lr(step) * ((mu / (1 - b1^t)) / (sqrt(nu / (1 - b2^t)) + eps) + wd * p)
 
-    with t = step + 1, wd only where ``weight_decay_mask`` says, and ``lr`` a
-    constant or a function of the 0-based step. Leaves whose path starts
+    with t = step + 1, wd only where ``weight_decay_mask`` says (on every
+    leaf with ``decay_all``, optax.adamw's default), and ``lr`` a constant
+    or a function of the 0-based step. Leaves whose path starts
     with ``projector_prefix`` take ``projector_lr`` when it is given. The
     moments have the parameters' dtypes."""
 
@@ -138,6 +139,7 @@ class AdamW:
     max_grad_norm: Optional[float] = 1.0
     projector_lr: Optional[LearningRate] = None
     projector_prefix: str = "llama_proj"
+    decay_all: bool = False
 
     def init(self, params: Dict[str, torch.Tensor]) -> Dict[str, Any]:
         return {"count": 0,
@@ -166,7 +168,8 @@ class AdamW:
         count = opt_state["count"]
         t = count + 1
         bc1, root_bc2 = 1.0 - self.beta1 ** t, math.sqrt(1.0 - self.beta2 ** t)
-        decay = weight_decay_mask(params)
+        decay = ({path: True for path in params} if self.decay_all
+                 else weight_decay_mask(params))
         # the update with both bias corrections folded into two scalars,
         #   (mu / bc1) / (sqrt(nu / bc2) + eps)
         #     = (sqrt(bc2) / bc1) * mu / (sqrt(nu) + eps * sqrt(bc2)),

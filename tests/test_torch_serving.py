@@ -145,7 +145,10 @@ def test_port_imports_neither_jax_nor_stllm_tpu():
     names = {str(f.relative_to(REPO / "stllm_tpu_torch")) for f in files[:-2]}
     assert {"train/step.py", "train/trainer.py", "data/packing.py", "data/collate.py",
             "common/optim.py", "common/logging.py", "ops/tome.py", "models/speculative.py",
-            "models/h2o.py", "serving.py", "pipeline_serving.py"} <= names
+            "models/h2o.py", "serving.py", "pipeline_serving.py", "demo_core.py", "demo.py",
+            "demo_web.py", "demo_gradio.py", "train/checkpoint.py", "train/train.py",
+            "models/lora.py", "models/distill.py", "data/datasets.py", "data/loaders.py",
+            "data/instruction_data.py"} <= names
     bad = [(str(f.relative_to(REPO)), m) for f in files for m in _imports(f)
            if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "stllm_tpu")]
     assert not bad, bad
@@ -242,15 +245,23 @@ def test_unported_requests_raise(case, tmp_path):
     a top_p outside (0, 1] (a plain ValueError), a sampled or prefix request
     in speculative mode, a post-trunk merge on the BTAdapter (the temporal
     levels carry one), an over-long prompt; and, not ported yet, loading
-    weights and LoRA on quantized trees."""
-    if case in ("weights", "quant"):
-        # quant_int8 with the int8 KV cache runs; LoRA on it is not ported yet
-        extra = ({"ckpt": str(tmp_path / "x.pth")} if case == "weights"
-                 else {"quant_int8": True, "lora_r": 4,
-                       "llama": {**_tiny_model_cfg()["llama"], "kv_int8": True}})
+    weights. LoRA over quantized trees is ported: case ``quant`` builds
+    and serves it (held to JAX in tests/test_torch_lora.py)."""
+    if case == "weights":
         (tmp_path / "x.pth").write_bytes(b"")
         with pytest.raises(NotImplementedError):
-            tzoo.STLLM.from_config(_tiny_model_cfg(**extra), device="cpu")
+            tzoo.STLLM.from_config(_tiny_model_cfg(ckpt=str(tmp_path / "x.pth")), device="cpu")
+        return
+    if case == "quant":
+        model = tzoo.STLLM.from_config(_tiny_model_cfg(
+            quant_int8=True, lora_r=4, llama={**_tiny_model_cfg()["llama"], "kv_int8": True}),
+            seed=0, device="cpu")
+        layer = model.params["llama"]["layers"][0]
+        assert "w_q" in layer["q"] and layer["q_lora"]["a"].dtype == torch.float32
+        emb = torch.randn((1, 5, model.cfg.llama.hidden), generator=torch.Generator().manual_seed(0))
+        srv = TBatcher(model.params["llama"], model.cfg.llama, slots=2, max_len=32, chunk=4)
+        srv.submit("r", emb, _gen(TGen, 4))
+        assert len(srv.run()["r"]) == 4
         return
     extra = {"vit": {**_tiny_model_cfg()["vit"], "merge_level": "t_mild"}} if case == "t_mild" \
         else {}

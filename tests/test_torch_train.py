@@ -352,8 +352,10 @@ def test_trainer_trains_and_writes_log(tmp_path, jparams):
     assert json.loads((tmp_path / "best.json").read_text()) == {"step": 4, "metric": 2.0}
     assert set(avg) >= {"loss", "loss_ce", "loss_mvm", "grad_norm", "data_time"}
     assert trainer.state.step == 4
-    with pytest.raises(NotImplementedError):
-        trainer.resume_if_available()
+    # the last step was saved: a new trainer over the same directory resumes there
+    resumed = Trainer(model.cfg, model.params, output_dir=str(tmp_path), device="cpu",
+                      trainable_fn=model.trainable_fn(), learning_rate=2e-3)
+    assert resumed.resume_if_available() == 4 and resumed.state.opt_state["count"] == 4
     with pytest.raises(ValueError):
         Trainer(model.cfg, model.params, output_dir=str(tmp_path), device="meta")
 
