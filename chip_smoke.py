@@ -113,7 +113,19 @@ toolkit. Phases, each fatal on failure:
    alike; a prefix-hit prefill timed beside a full one); and AnswerService,
    four threads, two greedy and two sampled, each answer equal to the
    request served alone by a batcher of the same shape;
-8. int8   - the same config with quant_int8 (dynamic W8A8) serves the same
+8. load   - the QA config at full width and depth (EVA-ViT-g with BTAdapter
+   depth 3, the InstructBLIP Q-Former, Vicuna-7B, bf16) written from seeded
+   weights into the reference's fp16 files in a temporary directory
+   (eva_vit_g.pth in LAVIS names with the BTAdapter_* keys, an
+   instruct_blip_vicuna7b_trimmed.pth-style file under "model" that is also
+   the ckpt, and vicuna-7b-v1.1's two pytorch_model-0000k-of-00002.bin
+   shards), loaded by STLLM.from_config on the card from another random
+   init: every leaf a file holds bit for bit the written tensor in the dtype
+   the loader gives it, then one 16-frame question answered greedily
+   through STLLM.chat (exactly 45 #1 launches), its tokens equal to those
+   of the same weights built in memory; it prints the bytes, write and load
+   seconds and GB/s per family, host RSS and the device peak;
+9. int8   - the same config with quant_int8 (dynamic W8A8) serves the same
    6 requests (per video: 78 LayerNorm-quant, 39 GELU-quant, 39 quant-epilogue
    attention and 6 bf16 attention launches), calibrate_btadapter_scales runs
    on one 16-frame clip (78, 39, 39 and 39 static-int8 attention launches),
@@ -123,7 +135,7 @@ toolkit. Phases, each fatal on failure:
    model, dynamic and static, must encode one video on the card and on the
    CPU alike, and a tiny fp32 dynamic-int8 model must encode and calibrate
    on the card (#9 and #10 on fp32 rows) as on the CPU;
-9. w4a16  - the W4A16 serving stack: the same config with llama.kv_int8,
+10. w4a16  - the W4A16 serving stack: the same config with llama.kv_int8,
    the ViT converted to int8 and calibrated on one clip (static int8), the
    Q-Former bf16, and Vicuna-7B converted by quantize_llama_params_int4
    (per-channel int4, q|k|v and gate|up fused, int8 lm_head), serves the
@@ -143,7 +155,7 @@ toolkit. Phases, each fatal on failure:
    form) and 16 a draft step (M = 4, its decode form), with the mean
    accepted tokens a round, ms a round and the share of tokens that agree
    with plain greedy serving;
-10. pipeline - the stack of script/bench_pipeline_serving.py under
+11. pipeline - the stack of script/bench_pipeline_serving.py under
    STLLM_FUSED_LN="both": a tiny fp32 plain-ViT static model must encode one
    video on the card (5 launches of #11) and on the CPU alike; then the plain
    EVA-ViT-g (no BTAdapter, tanh GELU) converted to int8 and calibrated by
@@ -161,7 +173,7 @@ toolkit. Phases, each fatal on failure:
    "t_aggressive" and encodes with no #11 launch and #3 at the folded
    lengths (8 x 288, 4 x 288, 2 x 320), an iid-noise clip to no merging with
    77 #11 launches;
-11. train - the training step. A tiny bf16 model takes four optimizer steps
+12. train - the training step. A tiny bf16 model takes four optimizer steps
    on the card and on the CPU from the same weights and batches (losses and
    the first gradient must agree within the stated tolerances, and the loss
    on a fixed batch must fall). Then the QA config at full width and depth,
@@ -174,7 +186,7 @@ toolkit. Phases, each fatal on failure:
    frozen leaves untouched while trainable ones move; the trainer's saves
    (one at each train() call's last step) are counted, not written: a full
    fine-tune's checkpoint is about 40 GB;
-12. distill - (run right after w4a16's speculative serving, on its target)
+13. distill - (run right after w4a16's speculative serving, on its target)
    tiny fp32 distill_draft, two steps on the card and on the CPU within
    FP32_TINY_REL; then a dense bf16 4-layer draft at Vicuna-7B width
    distilled for 10 steps against the W4A16 target on 2 fixed batches of 2
@@ -185,7 +197,7 @@ toolkit. Phases, each fatal on failure:
    last batch's loss below its first value; the distilled draft then serves
    the speculative requests, its accepted tokens a round beside the cut
    draft's;
-13. demo - the demos' default model, the conversation config
+14. demo - the demos' default model, the conversation config
    (config/instructblipbase_stllm_conversation.yaml: EVA-ViT-g without the
    BTAdapter, video_input residual, residual_size 16, Vicuna-7B, bf16) at
    full width, built by demo_core.build_chat, reading in-memory 240x320
@@ -199,7 +211,7 @@ toolkit. Phases, each fatal on failure:
    route, 39 #1 launches an upload; the demos' simple-prompt template forces
    the repetition penalty 1.5, so every AnswerService ask falls back to solo
    generate (counted, as the reference does) and the sessions serve theirs;
-14. train-lora - the train CLI's run() on the QA config with
+15. train-lora - the train CLI's run() on the QA config with
    model.freeze_LLM=True model.lora_r=8 and micro-batch 1 over in-memory
    16-frame clips that pack to 1024 (a tiny fp32 LoRA step over a dense and
    a w_q16 base, and greedy generate through adapters over int4 trees,
@@ -210,8 +222,8 @@ toolkit. Phases, each fatal on failure:
    model bit for bit, the A factors moved by the resumed step, no dataset
    retry; it prints the checkpoint's bytes and save and restore times.
 
-``python3 chip_smoke.py --phases demo train_breadth distill`` builds the
-kernels and runs only the phases named (a partial run: no result line).
+``python3 chip_smoke.py --phases load demo train_breadth distill`` builds
+the kernels and runs only the phases named (a partial run: no result line).
 
 Then it prints a ``{"kernels": [...]}`` line, the nvidia-smi line and, last,
 ``{"ok": true, "device": {...}}``. Without a CUDA card it exits non-zero and
@@ -3384,6 +3396,243 @@ def phase_breadth(kernels, model) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# weights in the reference's formats, loaded through STLLM.from_config
+# ---------------------------------------------------------------------------
+
+LOAD_SEED, LOAD_INIT_SEED = 7, 8   # the written weights; the loaded model's own random init
+LOAD_SHARDS = 2                    # vicuna-7b-v1.1's pytorch_model-0000k-of-00002.bin layout
+LOAD_NEW_TOKENS = 32
+LOAD_WIDTHS = (1408, 4096, 32)     # ViT-g width, Vicuna-7B width and depth: nothing cut
+LOAD_FAMILIES = ("vit", "qformer", "llama", "ckpt")
+# the top-level from_torch calls of STLLM._load_weights, in order, per family
+LOAD_CALLS = [("load_torch_file", "vit"), ("convert_btadapter", "vit"),
+              ("load_torch_file", "qformer"), ("convert_qformer", "qformer"),
+              ("load_sharded_hf", "llama"), ("convert_hf_llama", "llama"),
+              ("load_torch_file", "ckpt"), ("overlay_stllm_checkpoint", "ckpt")]
+FILE_DTYPE_LEAVES = ("ln_vision/", "llama_proj/")   # overlay_stllm_checkpoint keeps the file's dtype
+
+
+def _rss_gib() -> float:
+    """This process's resident set now (/proc/self/statm), GiB."""
+    import os
+
+    with open("/proc/self/statm") as f:
+        return int(f.read().split()[1]) * os.sysconf("SC_PAGE_SIZE") / 2 ** 30
+
+
+def _peak_rss_gib() -> float:
+    import resource
+
+    return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2 ** 20
+
+
+def _timed_calls(owner, names, log: list):
+    """Wrap the functions ``names`` of a module or class so each top-level
+    call (not the wrapped functions it calls in turn) appends (name,
+    seconds, card synchronized); returns the undo."""
+    real = {n: vars(owner)[n] for n in names}
+    depth = [0]
+
+    def wrap(name):
+        fn = getattr(owner, name)
+
+        def timed(*args, **kw):
+            depth[0] += 1
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kw)
+            finally:
+                depth[0] -= 1
+                if not depth[0]:
+                    torch.cuda.synchronize()
+                    log.append((name, time.perf_counter() - t0))
+        return staticmethod(timed) if isinstance(real[name], staticmethod) else timed
+
+    for n in names:
+        setattr(owner, n, wrap(n))
+    return lambda: [setattr(owner, n, f) for n, f in real.items()]
+
+
+def _write_reference_files(params, root: Path) -> tuple:
+    """``params`` in the reference's formats, fp16 as the released files
+    are: eva_vit_g.pth (LAVIS names with the BTAdapter_* keys), an
+    instruct_blip_vicuna7b_trimmed.pth-style file under "model" (Q-Former,
+    query_tokens, ln_vision, llm_proj) and a vicuna-7b-v1.1-style directory
+    of LOAD_SHARDS .bin shards. Returns the config's paths, and per family
+    the bytes written and the seconds (export to the host and write)."""
+    from stllm_tpu_torch.convert import to_reference as ref
+
+    fp16 = torch.float16
+    paths = {"vit_model_path": root / "eva_vit_g.pth",
+             "q_former_model": root / "instruct_blip_vicuna7b_trimmed.pth",
+             "llama_model": root / "vicuna-7b-v1.1"}
+    write_s, nbytes = {}, {}
+    t0 = time.perf_counter()
+    torch.save(ref.eva_vit_state(params["vit"], fp16), str(paths["vit_model_path"]))
+    write_s["vit"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    blip = ref.stllm_state({k: params[k] for k in ("ln_vision", "qformer", "llama_proj")}, fp16)
+    torch.save({"model": blip}, str(paths["q_former_model"]))
+    write_s["qformer"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    shards = ref.save_hf_shards(ref.hf_llama_state(params["llama"], fp16),
+                                str(paths["llama_model"]), LOAD_SHARDS)
+    write_s["llama"] = time.perf_counter() - t0
+    nbytes["vit"] = paths["vit_model_path"].stat().st_size
+    nbytes["qformer"] = paths["q_former_model"].stat().st_size
+    nbytes["llama"] = sum(Path(p).stat().st_size for p in shards)
+    paths = {k: str(v) for k, v in paths.items()}
+    paths["ckpt"] = paths["q_former_model"]   # as the QA config names it
+    return paths, nbytes, write_s
+
+
+def _round_trip_fp16(params, written) -> None:
+    """The in-memory model: each leaf the files hold replaced, in place, by
+    its fp16 value in the leaf's own dtype."""
+    def walk(node, path=""):
+        items = node.items() if isinstance(node, dict) else enumerate(node)
+        for k, v in items:
+            p = f"{path}/{k}" if path else str(k)
+            if isinstance(v, (dict, list)):
+                walk(v, p)
+            elif v is not None and written(p):
+                node[k] = v.to(torch.float16).to(v.dtype)
+
+    walk(params)
+
+
+def _bit_equal(a: torch.Tensor, b: torch.Tensor) -> bool:
+    return (a.dtype == b.dtype and a.shape == b.shape
+            and torch.equal(a.reshape(-1).view(torch.uint8), b.reshape(-1).view(torch.uint8)))
+
+
+def phase_load(kernels) -> dict:
+    """The QA config at full width (EVA-ViT-g with BTAdapter depth 3, the
+    InstructBLIP Q-Former, Vicuna-7B at full depth, bf16) written from
+    seeded weights into the reference's files in a temporary directory,
+    loaded by STLLM.from_config on the card from a different random init
+    (so every leaf the files hold must be replaced), every such leaf bit
+    for bit the written fp16 tensor in the dtype the loader gives it (the
+    config's; the file's for ln_vision and llama_proj), then one 16-frame
+    question answered greedily through STLLM.chat: exactly 45 #1 launches,
+    the tokens equal to those of the same weights built in memory. Prints
+    the bytes written, write and load seconds and GB/s per family, host
+    RSS and the device peak."""
+    from stllm_tpu_torch.conversation import CONV_instructblip_Vicuna0
+    from stllm_tpu_torch.convert import from_torch as cvt
+    from stllm_tpu_torch.models import zoo
+    from stllm_tpu_torch.models.zoo import STLLM, ensure_tokenizers
+    from stllm_tpu_torch.train.step import tree_paths
+
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    rss0, peak0 = _rss_gib(), _peak_rss_gib()
+    base = qa_model_cfg()
+    mem = STLLM.from_config(base, seed=LOAD_SEED)
+    cfg = mem.cfg
+    if (cfg.vit.width, cfg.llama.hidden, cfg.llama.num_layers) != LOAD_WIDTHS:
+        raise AssertionError(f"[load] not the full-width QA config: {cfg}")
+    root = Path(tempfile.mkdtemp(prefix="stllm_load_"))
+    try:
+        need = sum(t.numel() * 2 for _, t in tree_paths(mem.params))
+        free = shutil.disk_usage(root).free
+        if free < 1.1 * need:
+            raise AssertionError(f"[load] {free / 1e9:.1f} GB free under {root}, the files "
+                                 f"need {need / 1e9:.1f} GB")
+        paths, nbytes, write_s = _write_reference_files(mem.params, root)
+        rss_written, peak_written = _rss_gib(), _peak_rss_gib()
+        print(f"[load] wrote {sum(nbytes.values()) / 1e9:.2f} GB under {root} ({free / 1e9:.0f} "
+              f"GB free): {json.dumps({'bytes': nbytes, 'write_s': write_s})}")
+
+        written = lambda p: not p.startswith("mvm_decoder/")  # noqa: E731  (no file holds it)
+        _round_trip_fp16(mem.params, written)
+        log, steps = [], []
+        undo = [_timed_calls(cvt, sorted({n for n, _ in LOAD_CALLS} | {"convert_eva_vit"}), log),
+                _timed_calls(zoo, ["init_stllm"], steps),
+                _timed_calls(STLLM, ["_load_llama_tokenizer", "_load_bert_tokenizer"], steps)]
+        t0 = time.perf_counter()
+        try:
+            model = STLLM.from_config({**base, **paths}, seed=LOAD_INIT_SEED)
+            torch.cuda.synchronize()
+        finally:
+            for u in undo:
+                u()
+        from_config_s = time.perf_counter() - t0
+        load_peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+        rss_loaded, peak_loaded = _rss_gib(), _peak_rss_gib()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    if [n for n, _ in log] != [n for n, _ in LOAD_CALLS]:
+        raise AssertionError(f"[load] from_torch calls {[n for n, _ in log]}, "
+                             f"want {[n for n, _ in LOAD_CALLS]}")
+    load_s = dict.fromkeys(LOAD_FAMILIES, 0.0)
+    for (_, family), (_, s) in zip(LOAD_CALLS, log):
+        load_s[family] += s
+    nbytes["ckpt"] = nbytes["qformer"]
+
+    got, want = dict(tree_paths(model.params)), dict(tree_paths(mem.params))
+    if got.keys() != want.keys():
+        raise AssertionError(f"[load] tree paths differ: {sorted(set(got) ^ set(want))[:10]}")
+    unwritten = sorted(p for p in got if not written(p))
+    if unwritten != ["mvm_decoder/head/b", "mvm_decoder/head/w", "mvm_decoder/norm/bias",
+                     "mvm_decoder/norm/scale"]:
+        raise AssertionError(f"[load] leaves no file holds: {unwritten}")
+    bad = []
+    for p, leaf in got.items():
+        if not written(p):
+            continue
+        dtype = torch.float16 if p.startswith(FILE_DTYPE_LEAVES) else cfg.llama.dtype
+        if not _bit_equal(leaf, want[p].to(torch.float16).to(dtype)):
+            bad.append((p, str(leaf.dtype), tuple(leaf.shape)))
+    if bad:
+        raise AssertionError(f"[load] {len(bad)} loaded leaves differ from the files: {bad[:10]}")
+    n_leaves = len(got) - len(unwritten)
+    print(f"[load] {n_leaves} loaded leaves bit for bit the written tensors "
+          f"(fp16 files, {cfg.llama.dtype} tree; ln_vision and llama_proj fp16)")
+
+    clip = np.random.default_rng(LOAD_SEED).integers(0, 256, (FRAMES, cfg.vit.image_size,
+                                                              cfg.vit.image_size, 3), np.uint8)
+    question = "What is happening in this video?"
+
+    def answer(m):
+        ensure_tokenizers(m, warn=False)
+        chat, conv, img_list = m.chat(cfg.vit.image_size), CONV_instructblip_Vicuna0.copy(), []
+        chat.upload_video(clip, conv, img_list, num_frame=FRAMES, text=question)
+        chat.ask(question, conv)
+        return chat.answer(conv, img_list, max_new_tokens=LOAD_NEW_TOKENS, do_sample=False)[1]
+
+    run = _route_run(kernels, "load", lambda: answer(model), BF16_PER_VIDEO, 1)
+    tokens = run["result"]
+    want_tokens = answer(mem)
+    if len(tokens) == 0 or not np.array_equal(tokens, want_tokens):
+        raise AssertionError(f"[load] loaded model's tokens {tokens.tolist()} != in-memory "
+                             f"{want_tokens.tolist()}")
+    del model, mem
+    gb_s = {f: nbytes[f] / load_s[f] / 1e9 for f in LOAD_FAMILIES}
+    out = {"mode": "load", "launches": run["launches"], "form_launches": run["form_launches"],
+           "vicuna_layers": cfg.llama.num_layers, "vicuna_depth_cut": None,
+           "bytes": nbytes, "write_s": write_s, "load_s": load_s, "load_gb_per_s": gb_s,
+           "from_config_s": from_config_s, "calls": log, "other_calls": steps,
+           "leaves_bit_equal": n_leaves,
+           "tokens": len(tokens), "answer_s": run["wall_s"],
+           "host_rss_gib": {"start": rss0, "written": rss_written, "loaded": rss_loaded},
+           "host_peak_rss_gib": {"start": peak0, "written": peak_written,
+                                 "loaded": peak_loaded},
+           "max_memory_allocated_gib": {"load": load_peak_gib,
+                                        "answer": torch.cuda.max_memory_allocated() / 2 ** 30},
+           "phase_s": time.perf_counter() - t_phase}
+    print(f"[load] {json.dumps(out)}")
+    print(f"[load] {sum(nbytes[f] for f in ('vit', 'qformer', 'llama')) / 1e9:.2f} GB in the "
+          f"reference's fp16 files, full depth (no cut): from_config {from_config_s:.1f} s, "
+          + ", ".join(f"{f} {load_s[f]:.2f} s ({gb_s[f]:.2f} GB/s)" for f in LOAD_FAMILIES)
+          + f"; {len(tokens)} greedy tokens equal to the in-memory model's, 45 #1 launches; "
+          f"host RSS {rss_loaded:.1f} GiB (peak {peak_loaded:.1f}), device peak "
+          f"{load_peak_gib:.1f} GiB through the load; phase {out['phase_s']:.1f} s "
+          f"({smi_line()})")
+    return out
+
+
 def phase_w4_spec(kernels, params, cfg, draft=None, label: str = "w4a16-spec") -> dict:
     """Speculative serving on the W4A16 stack (phase_w4a16's params): the
     draft is a same-width tower of the target's first SPEC_DRAFT_LAYERS
@@ -4912,7 +5161,7 @@ def phase_distill(kernels, params=None, cfg=None, cut=None) -> dict:
     return {"tiny": tiny, "distill": distill, "spec": spec, "cut_accepted_per_round": cut_acc}
 
 
-PARTIAL = ("demo", "train_breadth", "distill")   # phases --phases can run alone
+PARTIAL = ("load", "demo", "train_breadth", "distill")   # phases --phases can run alone
 
 
 def main(argv=None) -> int:
@@ -4933,7 +5182,7 @@ def main(argv=None) -> int:
         count_forwards()
         record_packed_shapes(kernels)
         for name in args.phases:
-            {"demo": phase_demo, "train_breadth": phase_train_breadth,
+            {"load": phase_load, "demo": phase_demo, "train_breadth": phase_train_breadth,
              "distill": phase_distill}[name](kernels)
             gc.collect()
             torch.cuda.empty_cache()
@@ -4950,6 +5199,9 @@ def main(argv=None) -> int:
     prefix = phase_prefix(kernels, qa_model)
     breadth = phase_breadth(kernels, qa_model)
     del qa_model
+    gc.collect()
+    torch.cuda.empty_cache()
+    load = phase_load(kernels)
     gc.collect()
     torch.cuda.empty_cache()
     int8 = phase_int8(kernels)
@@ -4991,7 +5243,7 @@ def main(argv=None) -> int:
                                                pipeline, short, long_)}
         entry["launches_by_path"]["int8-calibration"] = int8["calibration_launches"][name]
         for route in (*mvbench["routes"].values(), *qabench["routes"].values(), prefix,
-                      breadth["mild"], breadth["prefix_key"], *w4_beams.values(), w4_spec,
+                      breadth["mild"], breadth["prefix_key"], load, *w4_beams.values(), w4_spec,
                       *pipeline["auto"].values(), demo["gradio"], *demo["web"].values(),
                       lora, resume, distill["distill"], distill["spec"]):
             entry["launches_by_path"][route["mode"]] = route["launches"][name]

@@ -17,9 +17,9 @@ from typing import Dict, List, Optional, Tuple
 def build_chat(cfg_path: str, ckpt_path: Optional[str] = None, options=None, device=None):
     """YAML config -> model -> Chat, tokenizers ensured: the one
     construction path of every demo. ``device``: the CUDA card unless the
-    caller names another ("cpu"). A ``ckpt_path`` that exists raises, as
-    ``STLLM.from_config`` does for every weight path: loading weights is
-    not ported yet."""
+    caller names another ("cpu"). ``ckpt_path`` overrides the config's
+    ``ckpt``; ``STLLM.from_config`` loads every weight path that exists and
+    the tokenizers of ``llama_model`` and ``bert_model``."""
     import stllm_tpu_torch.data  # noqa: F401  (registers processors)
     from stllm_tpu_torch.common.config import Config
     from stllm_tpu_torch.common.device import resolve_device

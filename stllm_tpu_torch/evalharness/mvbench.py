@@ -580,9 +580,7 @@ def main():
     from stllm_tpu_torch.common.registry import registry
     from stllm_tpu_torch.models.zoo import ensure_tokenizers
 
-    if args.options:
-        parser.error("--options: dotlist overrides are not ported yet")
-    cfg = Config(args.cfg_path)
+    cfg = Config(args.cfg_path, options=args.options)
     model_cfg = cfg.model_cfg
     if args.ckpt_path:
         model_cfg["ckpt"] = args.ckpt_path

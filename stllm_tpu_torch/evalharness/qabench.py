@@ -198,9 +198,7 @@ def main():
     from stllm_tpu_torch.conversation import CONV_instructblip_Vicuna0, CONV_VIDEO_Vicuna0
     from stllm_tpu_torch.models.zoo import ensure_tokenizers
 
-    if args.options:
-        parser.error("--options: dotlist overrides are not ported yet")
-    model_cfg = Config(args.cfg_path).model_cfg
+    model_cfg = Config(args.cfg_path, options=args.options).model_cfg
     if args.ckpt_path:
         model_cfg["ckpt"] = args.ckpt_path
     model = registry.get_model_class(model_cfg["arch"]).from_config(

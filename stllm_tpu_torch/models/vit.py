@@ -438,3 +438,37 @@ def vit_forward(params: Dict, images: torch.Tensor, cfg: ViTConfig, *,
     elif depth in schedule:             # post-trunk merge: fewer tokens to the Q-Former
         x, sizes, origin = merge_to(x, sizes, origin, schedule[depth])
     return (x, origin) if return_merge_origin else x
+
+
+def _bicubic_weights(old: int, new: int, dtype, device) -> torch.Tensor:
+    """(new, old) weights of jax.image.resize's "bicubic" along one axis:
+    Keys' cubic (a = -0.5), widened by old / new when it shrinks
+    (antialiased), each output's weights normalized to sum to 1; computed in
+    fp32 and cast to ``dtype``, as jax.image.resize does."""
+    inv = old / new
+    sample = (torch.arange(new, dtype=torch.float32, device=device) + 0.5) * inv - 0.5
+    x = (sample[None, :] - torch.arange(old, dtype=torch.float32, device=device)[:, None]).abs()
+    x = x / max(inv, 1.0)
+    w = torch.where(x >= 1.0, ((-0.5 * x + 2.5) * x - 4.0) * x + 2.0,
+                    ((1.5 * x - 2.5) * x) * x + 1.0)
+    w = torch.where(x >= 2.0, 0.0, w)
+    total = w.sum(0, keepdim=True)
+    w = torch.where(total.abs() > 1000.0 * torch.finfo(torch.float32).eps,
+                    w / torch.where(total != 0, total, 1.0), 0.0)
+    inside = (sample >= -0.5) & (sample <= old - 0.5)
+    return torch.where(inside[None, :], w, 0.0).T.to(dtype)
+
+
+def interpolate_pos_embed(pos_embed: torch.Tensor, new_num_patches: int) -> torch.Tensor:
+    """Bicubic-resample the patch grid of an absolute position embedding
+    (1, 1 + old * old, D) to ``new_num_patches`` (stllm_tpu/models/vit.py
+    interpolate_pos_embed, jax.image.resize "bicubic": antialiased when it
+    shrinks), in the embedding's dtype; unchanged when the grid fits."""
+    _, n, d = pos_embed.shape
+    old, new = int((n - 1) ** 0.5), int(new_num_patches ** 0.5)
+    if old == new:
+        return pos_embed
+    w = _bicubic_weights(old, new, pos_embed.dtype, pos_embed.device)
+    grid = pos_embed[0, 1:].reshape(old, old, d)
+    grid = torch.einsum("ij,jkd,lk->ild", w, grid, w)
+    return torch.cat([pos_embed[:, :1], grid.reshape(1, new * new, d)], dim=1)

@@ -1,18 +1,20 @@
 """Model zoo: config-driven construction of the full ST-LLM stack
 (stllm_tpu/models/zoo.py).
 
-``STLLM.from_config`` builds the config from a YAML model section and
-initializes random weights from a seed on the chosen device; ``quant_int8``
-converts the tree to W8A8 (dynamic int8, see ``ops/quant.py``) and
-``llama: {kv_int8: true}`` gives the LLaMA an int8 KV cache.
-``STLLM.trainable_fn`` reads the config's freezing keys for the trainer;
-``dtype`` (fp32 or bf16) is the parameters' dtype; ``lora_r > 0`` attaches
-LoRA adapters (``models/lora.py``) before any quantization, as the
-reference does. Loading checkpoints and tokenizers come with later slices;
-a config that names an existing weight file raises rather than run on
-random weights, and
-``ensure_tokenizers`` installs the toy hash tokenizers that ``STLLM.chat``
-then hands to ``Chat``.
+``STLLM.from_config`` builds the config from a YAML model section,
+initializes random weights from a seed on the chosen device, then loads
+every weight source the config names whose path exists
+(``vit_model_path``, ``q_former_model``, ``llama_model``, an ST-LLM
+``ckpt`` overlaid strict=False; ``convert/from_torch.py``), so debug
+configs run offline on random weights. ``lora_r > 0`` then attaches LoRA
+adapters (``models/lora.py``) and ``quant_int8`` converts the tree to W8A8
+(dynamic int8, see ``ops/quant.py``), in the reference's order;
+``llama: {kv_int8: true}`` gives the LLaMA an int8 KV cache. The LLaMA and
+BERT tokenizers load from local directories (``llama_model``,
+``bert_model``) through ``transformers``; ``ensure_tokenizers`` installs
+toy hash tokenizers where none loaded. ``STLLM.trainable_fn`` reads the
+config's freezing keys for the trainer; ``dtype`` (fp32 or bf16) is the
+parameters' dtype.
 """
 
 from __future__ import annotations
@@ -93,14 +95,11 @@ def build_stllm_config(cfg: Mapping) -> STLLMConfig:
     )
 
 
-_WEIGHT_KEYS = ("vit_model_path", "q_former_model", "llama_model", "ckpt")
-
-
 @Registry.register_model("st_llm_hf")
 class STLLM:
-    """Bundled (cfg, params, device). ``llama_tokenizer`` and
-    ``qformer_tokenizer`` stay None (no tokenizer loads) until
-    ``ensure_tokenizers`` installs toy ones."""
+    """Bundled (cfg, params, device, tokenizers) with the reference's
+    construction. A tokenizer that did not load is None until
+    ``ensure_tokenizers`` installs a toy one."""
 
     PRETRAINED_MODEL_CONFIG_DICT = {
         "instructblip_vicuna0": "configs/models/instructblip_vicuna0.yaml",
@@ -110,34 +109,32 @@ class STLLM:
     }
 
     def __init__(self, cfg: STLLMConfig, params: Dict, device: torch.device,
-                 model_cfg: Optional[Mapping] = None):
+                 model_cfg: Optional[Mapping] = None, llama_tokenizer=None,
+                 qformer_tokenizer=None):
         self.cfg = cfg
         self.params = params
         self.device = device
         self.model_cfg = dict(model_cfg or {})
-        self.llama_tokenizer = None
-        self.qformer_tokenizer = None
+        self.llama_tokenizer = llama_tokenizer
+        self.qformer_tokenizer = qformer_tokenizer
 
     @classmethod
     def from_config(cls, model_cfg: Mapping, seed: int = 0, device=None) -> "STLLM":
         """Random init from ``seed`` on ``device`` (default: the CUDA card;
-        raises without one). ``lora_r > 0`` adds adapters of that rank
-        (``lora_alpha``, default 32) from a generator seeded ``seed + 1``.
-        ``quant_int8: true`` converts the ViT with its
-        BTAdapter branch, the Q-Former and the LLaMA decoder layers to W8A8,
+        raises without one), then the weights of every path the config names
+        that exists (``_load_weights``; a read error raises), then the
+        tokenizers. ``lora_r > 0`` adds adapters of that rank (``lora_alpha``,
+        default 32) from a generator seeded ``seed + 1``. ``quant_int8:
+        true`` converts the ViT with its BTAdapter branch, the Q-Former and the LLaMA decoder layers to W8A8,
         dropping each dense weight as it goes; ``llama_proj``, the patch
         embedding, the embeddings, ``lm_head`` and the norms stay dense.
         Static int8 follows from ``btadapter.calibrate_btadapter_scales`` on
         ``params["vit"]``."""
         dev = resolve_device(device)
-        for key in _WEIGHT_KEYS:
-            path = model_cfg.get(key)
-            if path and os.path.exists(str(path)):
-                raise NotImplementedError(
-                    f"model.{key}={path!r} exists: loading checkpoints is not ported yet")
         cfg = build_stllm_config(model_cfg)
         gen = torch.Generator(device=dev).manual_seed(seed)
         params = init_stllm(gen, cfg)
+        params = cls._load_weights(params, cfg, model_cfg, dev)
         lora_r = int(model_cfg.get("lora_r", 0) or 0)
         if lora_r > 0:
             from stllm_tpu_torch.models.lora import add_lora
@@ -148,7 +145,82 @@ class STLLM:
             params["vit"] = quantize_vit_params(params["vit"], free_dense=True)
             params["qformer"] = quantize_tree_linears(params["qformer"], free_dense=True)
             params["llama"] = quantize_llama_params(params["llama"], free_dense=True)
-        return cls(cfg, params, dev, model_cfg=model_cfg)
+        llama_tok = cls._load_llama_tokenizer(model_cfg.get("llama_model"))
+        qformer_tok = (cls._load_bert_tokenizer(model_cfg.get("bert_model"))
+                       if cfg.qformer_text_input else None)
+        return cls(cfg, params, dev, model_cfg, llama_tokenizer=llama_tok,
+                   qformer_tokenizer=qformer_tok)
+
+    @staticmethod
+    def _load_weights(params: Dict, cfg: STLLMConfig, model_cfg: Mapping,
+                      device: torch.device) -> Dict:
+        """Each weight source whose path exists replaces its part of
+        ``params``; a path that does not exist is skipped (the shipped
+        configs carry ``/path/to/...`` placeholders), and so is a ``ckpt``
+        that is a directory."""
+        from stllm_tpu_torch.convert import from_torch as cvt
+
+        vit_path = model_cfg.get("vit_model_path")
+        if vit_path and os.path.exists(str(vit_path)):
+            logger.info("Loading ViT weights from %s", vit_path)
+            state = cvt.load_torch_file(str(vit_path))
+            if cfg.vit_model == "eva_btadapter_g":
+                params["vit"] = cvt.convert_btadapter(state, cfg.vit, cfg.btadapter_depth,
+                                                      device=device)
+            else:
+                params["vit"] = cvt.convert_eva_vit(state, cfg.vit, device=device)
+
+        q_path = model_cfg.get("q_former_model")
+        if q_path and os.path.exists(str(q_path)):
+            logger.info("Loading Q-Former weights from %s", q_path)
+            state = cvt.load_torch_file(str(q_path))
+            params["qformer"] = cvt.convert_qformer(state, cfg.qformer, device=device)
+
+        llama_dir = model_cfg.get("llama_model")
+        if llama_dir and os.path.isdir(str(llama_dir)):
+            logger.info("Loading LLaMA weights from %s", llama_dir)
+            params["llama"] = cvt.convert_hf_llama(cvt.load_sharded_hf(str(llama_dir)),
+                                                   cfg.llama, device=device)
+
+        ckpt = model_cfg.get("ckpt")
+        if ckpt and os.path.exists(str(ckpt)) and not os.path.isdir(str(ckpt)):
+            logger.info("Load BLIP2-LLM Checkpoint: %s", ckpt)
+            params = cvt.overlay_stllm_checkpoint(params, cvt.load_torch_file(str(ckpt)), cfg,
+                                                  cfg.btadapter_depth, device=device)
+        return params
+
+    @staticmethod
+    def _load_llama_tokenizer(llama_dir):
+        """The slow LLaMA tokenizer of a local directory, its pad token the
+        eos token where it has none; None (with a warning) if it does not
+        load."""
+        if not llama_dir or not os.path.isdir(str(llama_dir)):
+            return None
+        try:
+            from transformers import AutoTokenizer
+
+            tok = AutoTokenizer.from_pretrained(str(llama_dir), use_fast=False)
+            tok.pad_token = tok.eos_token if tok.pad_token is None else tok.pad_token
+            return tok
+        except Exception as e:  # noqa: BLE001
+            logger.warning("LLaMA tokenizer load failed: %s", e)
+            return None
+
+    @staticmethod
+    def _load_bert_tokenizer(bert_dir):
+        """The BERT tokenizer of a local directory with the reference's
+        ``[DEC]`` bos token; None (with a warning) if it does not load."""
+        if not bert_dir or not os.path.isdir(str(bert_dir)):
+            return None
+        try:
+            from transformers import BertTokenizer
+
+            tok = BertTokenizer.from_pretrained(str(bert_dir))
+            tok.add_special_tokens({"bos_token": "[DEC]"})
+            return tok
+        except Exception as e:  # noqa: BLE001
+            logger.warning("BERT tokenizer load failed: %s", e)
+            return None
 
     def chat(self, image_size: int = 224):
         """A ``Chat`` over this model, its tokenizers and its device."""
@@ -171,8 +243,8 @@ class STLLM:
 
 class ToyHashTokenizer:
     """Deterministic word-hash tokenizer with exact decode via a reverse map,
-    for offline runs without real tokenizers (none load yet). crc32, not
-    hash(): hash() is salted per process."""
+    for offline runs where no real tokenizer loads. crc32, not hash():
+    hash() is salted per process."""
 
     def __init__(self, vocab_size: int, reserve: int = 10):
         self.vocab_size = vocab_size
@@ -203,3 +275,31 @@ def ensure_tokenizers(model: STLLM, warn: bool = True) -> STLLM:
     if model.cfg.qformer_text_input and model.qformer_tokenizer is None:
         model.qformer_tokenizer = ToyHashTokenizer(model.cfg.qformer.vocab_size, reserve=2)
     return model
+
+
+def load_model_and_preprocess(arch: str, model_type: str, overrides: Optional[Mapping] = None,
+                              device=None):
+    """The reference's loader (stllm_tpu/models/zoo.py): the model type's
+    defaults (``configs/models/*.yaml``) with ``overrides``, built by
+    ``from_config`` on ``device`` (the CUDA card unless named), and its
+    train and eval image processors on the same device; returns (model,
+    {"train": ..., "eval": ...})."""
+    import pathlib
+
+    from stllm_tpu_torch.common.config import load_yaml
+    from stllm_tpu_torch.data.processors import (
+        Blip2ImageEvalProcessor, Blip2ImageTrainProcessor)
+
+    model_cls = Registry.get_model_class(arch)
+    default = model_cls.PRETRAINED_MODEL_CONFIG_DICT[model_type]
+    cfg = load_yaml(pathlib.Path(__file__).resolve().parent.parent / default)
+    model_cfg = dict(cfg.get("model", {}))
+    model_cfg["model_type"] = model_type
+    model_cfg.update(overrides or {})
+    model = model_cls.from_config(model_cfg, device=device)
+    pre = cfg.get("preprocess", {}).get("vis_processor", {})
+    vis = {"train": Blip2ImageTrainProcessor.from_config(pre.get("train")),
+           "eval": Blip2ImageEvalProcessor.from_config(pre.get("eval"))}
+    for proc in vis.values():
+        proc.device = model.device
+    return model, vis

@@ -178,9 +178,16 @@ def test_demo_main_and_entry_points(videos, tmp_path, monkeypatch, capsys):
                                                          options=None, cpu=True)).params, dict)
     with pytest.raises(SystemExit, match="gradio"):
         tgradio.main(["--cfg-path", CFG, "--cpu"])
+    # a ckpt_path overlays the reference-named checkpoint (llm_proj ->
+    # llama_proj); a file that cannot be read fails the build
+    w = tcore.build_chat(CFG, device="cpu").params["llama_proj"]["w"]
     ckpt = tmp_path / "weights.pth"
+    torch.save({"model": {"llm_proj.weight": (2 * w).T.contiguous(),
+                          "llm_proj.bias": torch.ones(w.shape[1])}}, str(ckpt))
+    loaded = tcore.build_chat(CFG, ckpt_path=str(ckpt), device="cpu").params["llama_proj"]
+    assert torch.equal(loaded["w"], 2 * w) and torch.equal(loaded["b"], torch.ones(w.shape[1]))
     ckpt.write_bytes(b"")
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(EOFError):
         tcore.build_chat(CFG, ckpt_path=str(ckpt), device="cpu")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):

@@ -275,3 +275,38 @@ def test_cli_runs_on_the_cpu(bench_dir, tmp_path):
     assert proc.returncode == 0, proc.stderr[-2000:]
     result = json.loads((out / "r.json").read_text())
     assert "Total Acc" in result["acc_dict"] and len(result["res_list"]) == 2
+
+
+class _Built(Exception):
+    """Raised in place of building the model: the CLI got as far as that."""
+
+
+def _cli_model_cfg(monkeypatch, zoo_cls, main, argv) -> dict:
+    """The model section ``main`` hands to ``from_config`` for ``argv``."""
+    seen = {}
+
+    def capture(model_cfg, *args, **kw):
+        seen.update(model_cfg)
+        raise _Built
+
+    monkeypatch.setattr(zoo_cls, "from_config", capture)
+    monkeypatch.setattr(sys, "argv", ["mvbench", *argv])
+    with pytest.raises(_Built):
+        main()
+    return seen
+
+
+def test_cli_options_reach_model_cfg(tmp_path, monkeypatch):
+    """``--options`` dotlist overrides reach the model section in the
+    port's CLI as in the JAX CLI (the tiny YAML sets use_flash False and
+    max_txt_len 32)."""
+    from stllm_tpu.models import zoo as jzoo
+    from stllm_tpu_torch.models import zoo as tzoo
+
+    argv = ["--cfg-path", str(REPO / "config" / "tiny_debug.yaml"), "--anno-path",
+            str(tmp_path), "--output_dir", str(tmp_path / "out"), "--output_name", "r", "--cpu",
+            "--options", "model.vit.use_flash=True", "model.max_txt_len=64"]
+    got = _cli_model_cfg(monkeypatch, tzoo.STLLM, tmv.main, argv)
+    want = _cli_model_cfg(monkeypatch, jzoo.STLLM, jmv.main, argv)
+    assert got["vit"]["use_flash"] is True and got["max_txt_len"] == 64
+    assert got == want

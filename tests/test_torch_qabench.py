@@ -240,8 +240,9 @@ def test_judge_retries_a_failed_sample_on_threads(tmp_path):
 def test_cli_runs_on_the_cpu(bench, tmp_path):
     """``python -m stllm_tpu_torch.evalharness.qabench --cpu`` on a tiny
     YAML (random weights, toy tokenizers) answers every present video with
-    --batch-videos 2; a --ckpt-path that names a file raises, as
-    STLLM.from_config does."""
+    --batch-videos 2; a --ckpt-path that names a file which is no
+    checkpoint fails the run (torch.load refuses it), as in the
+    reference."""
     cfg = tmp_path / "tiny.yaml"
     cfg.write_text(json.dumps({"model": {
         "arch": "st_llm_hf", "model_type": "instructblip_vicuna0_btadapter", "dtype": "fp32",
@@ -262,4 +263,40 @@ def test_cli_runs_on_the_cpu(bench, tmp_path):
     assert all(isinstance(r["pred"], str) for r in result)
     proc = subprocess.run(base + ["--ckpt-path", str(cfg)], cwd=REPO, capture_output=True,
                           text=True, timeout=240)
-    assert proc.returncode != 0 and "not ported yet" in proc.stderr
+    assert proc.returncode != 0 and "Weights only load failed" in proc.stderr
+
+
+class _Built(Exception):
+    """Raised in place of building the model: the CLI got as far as that."""
+
+
+def _cli_model_cfg(monkeypatch, zoo_cls, main, argv) -> dict:
+    """The model section ``main`` hands to ``from_config`` for ``argv``."""
+    seen = {}
+
+    def capture(model_cfg, *args, **kw):
+        seen.update(model_cfg)
+        raise _Built
+
+    monkeypatch.setattr(zoo_cls, "from_config", capture)
+    monkeypatch.setattr(sys, "argv", ["qabench", *argv])
+    with pytest.raises(_Built):
+        main()
+    return seen
+
+
+def test_cli_options_reach_model_cfg(tmp_path, monkeypatch):
+    """``--options`` dotlist overrides reach the model section in the
+    port's CLI as in the JAX CLI (the tiny YAML sets use_flash False and
+    max_txt_len 32)."""
+    from stllm_tpu.models import zoo as jzoo
+    from stllm_tpu_torch.models import zoo as tzoo
+
+    argv = ["--cfg-path", str(REPO / "config" / "tiny_debug.yaml"), "--gt_file",
+            str(tmp_path / "gt.json"), "--video_dir", str(tmp_path), "--output_dir",
+            str(tmp_path / "out"), "--output_name", "r", "--cpu",
+            "--options", "model.vit.use_flash=True", "model.max_txt_len=64"]
+    got = _cli_model_cfg(monkeypatch, tzoo.STLLM, tqa.main, argv)
+    want = _cli_model_cfg(monkeypatch, jzoo.STLLM, jqa.main, argv)
+    assert got["vit"]["use_flash"] is True and got["max_txt_len"] == 64
+    assert got == want
