@@ -222,8 +222,22 @@ toolkit. Phases, each fatal on failure:
    model bit for bit, the A factors moved by the resumed step, no dataset
    retry; it prints the checkpoint's bytes and save and restore times.
 
-``python3 chip_smoke.py --phases load demo train_breadth distill`` builds
-the kernels and runs only the phases named (a partial run: no result line).
+16. runner - the reference's config-driven path,
+   Config(cfg_dict=..., options=...) -> setup_task -> build_model (on the
+   card) -> build_datasets (one registered corpus entry over in-memory
+   clips) -> the registry's runner_base -> Trainer, on the QA config with
+   LoRA r 8 under the frozen LLM, packed to 1024 (the runner on a tiny fp32
+   config and the tiny Q-Former LM on the card against the CPU first): one
+   epoch of two steps, then a runner with max_epoch 2 over the same
+   output_dir resumes at step 2 and stops at 4; per step a LoRA step's
+   launches, each step's checkpoint written once, every frozen leaf bit for
+   bit at its init, the A factors moved by the resumed steps; then the
+   Q-Former LM at its published width (fp32) generates 8 tokens on two
+   sequences, its first logits held to the CPU's.
+
+``python3 chip_smoke.py --phases load demo train_breadth distill runner``
+builds the kernels and runs only the phases named (a partial run: no
+result line).
 
 Then it prints a ``{"kernels": [...]}`` line, the nvidia-smi line and, last,
 ``{"ok": true, "device": {...}}``. Without a CUDA card it exits non-zero and
@@ -4702,15 +4716,14 @@ LORA_WORDS = (200, 250)        # prompt and answer words that pack to 1024 slots
 LORA_CLIPS = 4
 
 
-def _lora_datasets(cfg, tmp: Path, rng):
-    """One ITVidTrainDataset over LORA_CLIPS in-memory 16-frame clips: the
-    annotation file is real, the video reader returns the clip named by the
+def _clip_corpus(size: int, tmp: Path, rng):
+    """LORA_CLIPS in-memory 48-frame clips and an annotation file for them
+    in ``tmp`` (prompts and answers that pack to 1024 slots); returns the
+    annotation's path and a video reader that gives the clip named by the
     path with the frame indices the sampler draws (the card's machine may
     have no FFmpeg to write or decode an mp4)."""
-    from stllm_tpu_torch.data.datasets import ITVidTrainDataset
     from stllm_tpu_torch.data.samplers import get_frame_indices
 
-    size = cfg.vit.image_size
     clips = {f"c{i}.mp4": rng.integers(0, 256, (48, size, size, 3), dtype=np.uint8)
              for i in range(LORA_CLIPS)}
     anno = [{"video": n, "QA": [{"q": _words(rng, LORA_WORDS[0]), "a": _words(rng, LORA_WORDS[1])}]}
@@ -4722,7 +4735,15 @@ def _lora_datasets(cfg, tmp: Path, rng):
         idx = get_frame_indices(num_frames, len(frames), sample=sample, rng=rng)
         return frames[idx], list(idx), len(frames) / 8.0
 
-    ds = ITVidTrainDataset([str(tmp / "anno.json"), str(tmp), "video"], num_frames=FRAMES, seed=42)
+    return tmp / "anno.json", reader
+
+
+def _lora_datasets(cfg, tmp: Path, rng):
+    """One ITVidTrainDataset over the clips of ``_clip_corpus``."""
+    from stllm_tpu_torch.data.datasets import ITVidTrainDataset
+
+    anno, reader = _clip_corpus(cfg.vit.image_size, tmp, rng)
+    ds = ITVidTrainDataset([str(anno), str(tmp), "video"], num_frames=FRAMES, seed=42)
     ds.video_reader = reader
     return [ds]
 
@@ -5161,7 +5182,327 @@ def phase_distill(kernels, params=None, cfg=None, cut=None) -> dict:
     return {"tiny": tiny, "distill": distill, "spec": spec, "cut_accepted_per_round": cut_acc}
 
 
-PARTIAL = ("load", "demo", "train_breadth", "distill")   # phases --phases can run alone
+
+# ---------------------------------------------------------------------------
+# the config-driven runner path: Config -> setup_task -> build_model ->
+# build_datasets -> RunnerBase.train -> Trainer
+# ---------------------------------------------------------------------------
+
+RUNNER_CORPUS = "smoke_runner_clips"
+RUNNER_ITERS = 2                     # steps an epoch; the resumed runner takes epoch 2
+RUNNER_ENC = (2, 257)                # the Q-Former LM's encoder states: two sequences of 257
+
+
+class _Indices:
+    """A dataset whose item i is i: the collate function picks the batch."""
+
+    def __init__(self, n: int):
+        self.n = n
+
+    def __len__(self):
+        return self.n
+
+    def __getitem__(self, i):
+        return i
+
+
+def _scaled(tree, factor: float):
+    """``tree`` with every linear weight, embedding and query token scaled:
+    at the init's 0.02 every row of a tiny Q-Former LM decodes one token."""
+    if isinstance(tree, dict):
+        return {k: (v * factor if k in ("w", "word", "position", "query_tokens")
+                    else _scaled(v, factor)) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_scaled(v, factor) for v in tree]
+    return tree
+
+
+def check_small_runner(kernels) -> dict:
+    """The runner path on a tiny fp32 LoRA config, card against CPU: two
+    steps of RunnerBase.train from the same weights over the same batches
+    (the learning rate nonzero from step 0), each step's loss within
+    FP32_TINY_REL; then the tiny Q-Former LM's loss and logits within
+    FP32_TINY_REL and its greedy tokens identical."""
+    from stllm_tpu_torch.common.config import Config
+    from stllm_tpu_torch.models.qformer import (
+        QFormerConfig, init_qformer_lm, qformer_lm_forward, qformer_lm_generate)
+    from stllm_tpu_torch.runners import RunnerBase
+    from stllm_tpu_torch.tasks import setup_task
+
+    model_cfg = {**_fp32_tiny_cfg(num_layers=2, use_flash=True), "use_mask": True,
+                 "mvm_decode": True, "max_txt_len": 16, "use_grad_checkpoint": True,
+                 "freeze_LLM": True, "lora_r": 4}
+    losses, before = {}, dict(kernels.LAUNCHES)
+    for dev in ("cpu", "cuda"):
+        out = tempfile.mkdtemp(prefix="stllm_runner_tiny_")
+        try:
+            cfg = Config(cfg_dict={"model": model_cfg, "run": {
+                "task": "video_text_it", "max_epoch": 1, "iters_per_epoch": RUNNER_ITERS,
+                "batch_size_train": 1, "init_lr": 1e-3, "warmup_lr": 1e-3, "log_freq": 1,
+                "num_workers": 1, "output_dir": out}})
+            task = setup_task(cfg)
+            model = task.build_model(cfg, device="cpu")
+            col = _collator(model.cfg, seed=6, seq_multiple=32)
+            batches = [col(_train_samples(np.random.default_rng(5 + i), 4, 56, 6, 8, 2))
+                       for i in range(RUNNER_ITERS)]
+            if dev == "cuda":
+                model.params, model.device = _copy_to(model.params, dev), torch.device(dev)
+            runner = RunnerBase(cfg, task, model, {"clips": {"train": _Indices(RUNNER_ITERS)}})
+            runner.train(collate_fn=lambda s: batches[s[0]])
+            log = [json.loads(x) for x in (Path(out) / "log.txt").read_text().splitlines()]
+            losses[dev] = [r["loss"] for r in log]
+        finally:
+            shutil.rmtree(out, ignore_errors=True)
+    torch.cuda.synchronize()
+    rel = [abs(a - b) / abs(b) for a, b in zip(losses["cuda"], losses["cpu"])]
+    if len(rel) != RUNNER_ITERS or max(rel) > FP32_TINY_REL or losses["cpu"][0] == losses["cpu"][1]:
+        raise AssertionError(f"tiny runner: losses card {losses['cuda']}, CPU {losses['cpu']}")
+    out = {"runner_losses": losses, "runner_loss_rel": rel,
+           "runner_launches": _ran(kernels, before, ["packed_qkv_attention",
+                                                     "flash_attention_fwd",
+                                                     "flash_attention_bwd_dq",
+                                                     "flash_attention_bwd_dkv"])}
+
+    qcfg = QFormerConfig(hidden=64, num_layers=2, heads=2, intermediate=128, encoder_width=176,
+                         num_query=8, vocab_size=100, max_positions=32, dtype=torch.float32)
+    params = _scaled(init_qformer_lm(torch.Generator().manual_seed(11), qcfg), 15.0)
+    params["cls"]["bias"] = torch.randn(qcfg.vocab_size, generator=torch.Generator().manual_seed(12))
+    card = _copy_to(params, "cuda")
+    rng = np.random.default_rng(13)
+    enc = torch.from_numpy(rng.standard_normal((3, 20, qcfg.encoder_width))).float()
+    ids = torch.from_numpy(rng.integers(0, qcfg.vocab_size, (3, 7)))
+    labels = ids.clone()
+    labels[0, :2] = -100
+    loss, logits = qformer_lm_forward(params, input_ids=ids, encoder_hidden_states=enc,
+                                      labels=labels, cfg=qcfg)
+    c_loss, c_logits = qformer_lm_forward(card, input_ids=ids.cuda(), encoder_hidden_states=enc.cuda(),
+                                          labels=labels.cuda(), cfg=qcfg)
+    out["qformer_lm_logits_rel"] = _rel(c_logits, logits, "Q-Former LM logits")
+    out["qformer_lm_loss_rel"] = _rel(c_loss.reshape(1), loss.reshape(1), "Q-Former LM loss")
+    kw = dict(bos_token_id=1, eos_token_id=None, max_new_tokens=8, cfg=qcfg)
+    want = qformer_lm_generate(params, enc, **kw)
+    got = qformer_lm_generate(card, enc.cuda(), **kw)
+    if got != want or len({tuple(r) for r in want}) < 2:
+        raise AssertionError(f"tiny Q-Former LM greedy tokens: card {got}, CPU {want}")
+    out["qformer_lm_tokens"] = got
+    return out
+
+
+def _runner_config(out_dir: Path, max_epoch: int):
+    """The QA config through Config(cfg_dict=..., options=...): LoRA under
+    the frozen LLM, the runner's epoch keys, micro-batch 1, and one corpus
+    entry in place of the config's seven."""
+    from stllm_tpu_torch.common.config import Config, load_yaml
+
+    d = load_yaml(ROOT / "config" / "instructblipbase_stllm_qa.yaml")
+    d["datasets"] = {RUNNER_CORPUS: {"num_frames": FRAMES}}
+    return Config(cfg_dict=d, options=[
+        "model.freeze_LLM=True", f"model.lora_r={LORA_R}", "run.runner=runner_base",
+        f"run.max_epoch={max_epoch}", f"run.iters_per_epoch={RUNNER_ITERS}",
+        "run.batch_size_train=1", f"run.output_dir={out_dir}", "run.log_freq=1",
+        "run.num_workers=2"])
+
+
+def _runner_run(kernels, cfg, reader, label: str, built=None) -> dict:
+    """setup_task -> build_model (on the card; ``built(model)`` is called
+    then) -> build_datasets (the clips' reader put in) -> the registry's
+    runner; every count at 0 just before RunnerBase.train, each step timed
+    with its packed length, each save timed."""
+    from stllm_tpu_torch.common.registry import registry
+    from stllm_tpu_torch.data.collate import TrainCollator
+    from stllm_tpu_torch.models.zoo import ensure_tokenizers
+    from stllm_tpu_torch.tasks import setup_task
+    from stllm_tpu_torch.train import checkpoint, trainer as trainer_mod
+
+    t0 = time.perf_counter()
+    task = setup_task(cfg)
+    model = task.build_model(cfg)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    if built is not None:
+        built(model)
+    datasets = task.build_datasets(cfg)
+    for d in datasets.values():
+        d["train"].video_reader = reader
+    ensure_tokenizers(model)
+    collate = TrainCollator(model.cfg, model.llama_tokenizer,
+                            qformer_tokenizer=model.qformer_tokenizer, seed=42)
+    runner = registry.get_runner_class(cfg.run_cfg.runner)(cfg, task, model, datasets)
+    steps, saves = [], []
+    real_make, real_save = trainer_mod.make_train_step, checkpoint.CheckpointManager.save
+
+    def make(*a, **kw):
+        fn = real_make(*a, **kw)
+
+        def step(state, batch):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = fn(state, batch)
+            torch.cuda.synchronize()
+            steps.append({"ms": (time.perf_counter() - t) * 1e3,
+                          "seq_len": int(batch["token_ids"].shape[1])})
+            return out
+        return step
+
+    trainer_mod.make_train_step = make
+    checkpoint.CheckpointManager.save = _timed(real_save, saves)
+    try:
+        runner.trainer
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        t1 = time.perf_counter()
+        stats = runner.train(collate_fn=collate)
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t1
+    finally:
+        trainer_mod.make_train_step = real_make
+        checkpoint.CheckpointManager.save = real_save
+    launches, forms = dict(kernels.LAUNCHES), dict(kernels.FORM_LAUNCHES)
+    n = len(steps)
+    _only(label, launches, LORA_LAUNCHES, n)
+    any_form = {k: v for k, v in forms.items() if k.endswith("/any") and v}
+    if any_form or {s["seq_len"] for s in steps} != {TRAIN_LONG[1]} \
+            or any(d["train"].retries for d in datasets.values()):
+        raise AssertionError(f"[{label}] steps {steps}, any-form launches {any_form}")
+    return {"mode": label, "model": model, "runner": runner, "stats": stats, "steps": n,
+            "step_ms": [s["ms"] for s in steps], "save_ms": saves, "build_s": build_s,
+            "train_s": train_s, "max_memory_allocated_gib": torch.cuda.max_memory_allocated() / 2**30,
+            "launches": launches, "form_launches": forms}
+
+
+def _qformer_lm_full(kernels) -> dict:
+    """The InstructBLIP Q-Former with its LM head at the published width in
+    fp32: greedy generate of 8 tokens on two sequences of encoder states on
+    the card, its first step's logits within FP32_TINY_REL relative L2 of
+    the CPU's; no attention kernel runs (the Q-Former is plain torch)."""
+    import dataclasses as dc
+
+    from stllm_tpu_torch.models.qformer import (
+        INSTRUCT_BLIP_QFORMER, init_qformer_lm, qformer_lm_forward, qformer_lm_generate)
+
+    qcfg = dc.replace(INSTRUCT_BLIP_QFORMER, dtype=torch.float32)
+    params = init_qformer_lm(torch.Generator().manual_seed(21), qcfg)
+    card = _copy_to(params, "cuda")
+    enc = torch.from_numpy(np.random.default_rng(22).standard_normal(
+        (*RUNNER_ENC, qcfg.encoder_width))).float()
+    bos = torch.ones((RUNNER_ENC[0], 1), dtype=torch.int32)
+    want = qformer_lm_forward(params, input_ids=bos, encoder_hidden_states=enc, cfg=qcfg)
+    got = qformer_lm_forward(card, input_ids=bos.cuda(), encoder_hidden_states=enc.cuda(), cfg=qcfg)
+    rel = _rel(got, want, "full-width Q-Former LM first-step logits")
+    kernels.reset_launches()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    tokens = qformer_lm_generate(card, enc.cuda(), bos_token_id=1, max_new_tokens=8, cfg=qcfg)
+    torch.cuda.synchronize()
+    gen_ms = (time.perf_counter() - t) * 1e3
+    cpu_tokens = qformer_lm_generate(params, enc, bos_token_id=1, max_new_tokens=8, cfg=qcfg)
+    if any(kernels.LAUNCHES.values()) or [len(r) for r in tokens] != [8] * RUNNER_ENC[0]:
+        raise AssertionError(f"[qformer-lm] tokens {tokens}, launches {dict(kernels.LAUNCHES)}")
+    return {"first_logits_rel_l2": rel, "tokens": tokens,
+            "tokens_agree_cpu": sum(a == b for r, s in zip(tokens, cpu_tokens)
+                                    for a, b in zip(r, s)),
+            "generate_ms": gen_ms}
+
+
+def _same_init(params, init: dict) -> None:
+    from stllm_tpu_torch.train.step import tree_paths
+
+    differ = [p for p, t in tree_paths(params) if not torch.equal(t, init[p])]
+    if differ:
+        raise AssertionError(f"[runner-resume] a second build from the seed differs: {differ[:5]}")
+
+
+def phase_runner(kernels) -> dict:
+    """The reference's LAVIS-style path on the full-width QA config, LoRA r 8
+    under the frozen LLM, micro-batch 1 over in-memory 16-frame clips that
+    pack to 1024: Config(cfg_dict=..., options=...), setup_task,
+    build_model on the card, build_datasets from one registered corpus
+    entry, the registry's runner_base for one epoch of two steps; then a
+    second runner with max_epoch 2 over the same output_dir resumes at step
+    2 and stops at 4. Per step exactly a LoRA step's launches, finite
+    losses, each step's checkpoint written once, every frozen leaf bit for
+    bit at its init, the A factors moved by the resumed steps. Then the
+    Q-Former LM at its published width."""
+    from stllm_tpu_torch.data import instruction_data
+    from stllm_tpu_torch.models.zoo import build_stllm_config
+    from stllm_tpu_torch.train.step import tree_paths
+
+    tiny = check_small_runner(kernels)
+    print(f"[runner] tiny fp32, card vs CPU: {json.dumps(tiny)}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    out_dir = Path(tempfile.mkdtemp(prefix="stllm_runner_smoke_"))
+    try:
+        cfg = _runner_config(out_dir, max_epoch=1)
+        _, reader = _clip_corpus(build_stllm_config(cfg.model_cfg).vit.image_size, out_dir,
+                                 np.random.default_rng(19))
+        instruction_data.available_corpus[RUNNER_CORPUS] = [str(out_dir / "anno.json"),
+                                                            str(out_dir), "video"]
+        init = {}
+        first = _runner_run(kernels, cfg, reader, "runner", built=lambda m: init.update(
+            (p, t.clone()) for p, t in tree_paths(m.params)))
+        model, trainer = first.pop("model"), first.pop("runner").trainer
+        log = [json.loads(x) for x in (out_dir / "log.txt").read_text().splitlines()]
+        changed = [p for p, t in tree_paths(trainer.state.tree) if p in trainer.state.frozen
+                   and not torch.equal(t, init[p])]
+        if first["steps"] != RUNNER_ITERS or trainer.ckpt.latest_step() != RUNNER_ITERS \
+                or len(first["save_ms"]) != 1 or [r["step"] for r in log] != [1, 2] or changed:
+            raise AssertionError(f"[runner] steps {first['steps']}, newest checkpoint "
+                                 f"{trainer.ckpt.latest_step()}, saves {first['save_ms']}, "
+                                 f"log {log}, frozen changed {changed[:5]}")
+        lora = {p for p in trainer.state.params if "_lora/" in p}
+        saved_a = {p: trainer.state.params[p].clone() for p in lora if p.endswith("/a")}
+        ckpt_bytes = (out_dir / f"checkpoint_{RUNNER_ITERS}" / "state.pt").stat().st_size
+        frozen = set(trainer.state.frozen)
+        del model, trainer
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # a fresh model from the same seed: its init is the first model's
+        second = _runner_run(kernels, _runner_config(out_dir, max_epoch=2), reader,
+                             "runner-resume", built=lambda m: _same_init(m.params, init))
+        model2, runner2 = second.pop("model"), second.pop("runner")
+        state = runner2.trainer.state
+        log = [json.loads(x) for x in (out_dir / "log.txt").read_text().splitlines()]
+        changed = [p for p, t in tree_paths(state.tree) if p in frozen
+                   and not torch.equal(t, init[p])]
+        a_moved = [p for p, t in saved_a.items() if not torch.equal(state.params[p], t)]
+        dirs = sorted(p.name for p in out_dir.iterdir() if p.name.startswith((".", "checkpoint")))
+        if second["steps"] != RUNNER_ITERS or state.step != 2 * RUNNER_ITERS \
+                or runner2.trainer.ckpt.latest_step() != 2 * RUNNER_ITERS \
+                or len(second["save_ms"]) != 1 or [r["step"] for r in log] != [1, 2, 3, 4] \
+                or not all(np.isfinite(r["loss"]) for r in log) or changed \
+                or len(a_moved) != len(saved_a) or not saved_a \
+                or dirs != [f"checkpoint_{RUNNER_ITERS}", f"checkpoint_{2 * RUNNER_ITERS}"]:
+            raise AssertionError(f"[runner-resume] steps {second['steps']}, state step "
+                                 f"{state.step}, saves {second['save_ms']}, log {log}, frozen "
+                                 f"changed {changed[:5]}, A moved {len(a_moved)} of "
+                                 f"{len(saved_a)}, checkpoint dirs {dirs}")
+        del model2, runner2, state, init
+        gc.collect()
+        torch.cuda.empty_cache()
+    finally:
+        instruction_data.available_corpus.pop(RUNNER_CORPUS, None)
+        shutil.rmtree(out_dir, ignore_errors=True)
+    qlm = _qformer_lm_full(kernels)
+    out = {"tiny": tiny, "lora_r": LORA_R, "lora_leaves": len(lora),
+           "checkpoint_bytes": ckpt_bytes, "log": log, "first": first, "resume": second,
+           "qformer_lm": qlm, "phase_s": time.perf_counter() - t_phase}
+    print(f"[runner] {json.dumps({k: v for k, v in out.items() if k not in ('first', 'resume')})}")
+    print(f"[runner] QA config through setup_task / build_model / build_datasets / runner_base, "
+          f"LoRA r={LORA_R}: steps at S = {TRAIN_LONG[1]}: {first['step_ms']} ms, resumed "
+          f"{second['step_ms']} ms; peak {first['max_memory_allocated_gib']:.2f} / "
+          f"{second['max_memory_allocated_gib']:.2f} GiB; build_model {first['build_s']:.2f} / "
+          f"{second['build_s']:.2f} s; checkpoint {ckpt_bytes} bytes, saves "
+          f"{first['save_ms'] + second['save_ms']} ms; Q-Former LM (published width, fp32) "
+          f"8 tokens x {RUNNER_ENC[0]} in {qlm['generate_ms']:.1f} ms, first logits rel L2 "
+          f"{qlm['first_logits_rel_l2']:.2e}; phase {out['phase_s']:.1f} s ({smi_line()})")
+    return out
+
+
+PARTIAL = ("load", "demo", "train_breadth", "distill", "runner")   # phases --phases can run alone
 
 
 def main(argv=None) -> int:
@@ -5183,7 +5524,7 @@ def main(argv=None) -> int:
         record_packed_shapes(kernels)
         for name in args.phases:
             {"load": phase_load, "demo": phase_demo, "train_breadth": phase_train_breadth,
-             "distill": phase_distill}[name](kernels)
+             "distill": phase_distill, "runner": phase_runner}[name](kernels)
             gc.collect()
             torch.cuda.empty_cache()
         print(f"chip_smoke: phases {args.phases} passed (a partial run: no result line)")
@@ -5227,6 +5568,10 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     breadth_train = phase_train_breadth(kernels)
     lora, resume = breadth_train["first"], breadth_train["resume"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    runner = phase_runner(kernels)
+    run_first, run_resume = runner["first"], runner["resume"]
     # each kernel's launches from the path that runs it; the probes run on no
     # path (0 launches on every one)
     path_of = {"packed_qkv_attention": bf16, "layer_norm_quant": int8["dynamic"],
@@ -5245,12 +5590,13 @@ def main(argv=None) -> int:
         for route in (*mvbench["routes"].values(), *qabench["routes"].values(), prefix,
                       breadth["mild"], breadth["prefix_key"], load, *w4_beams.values(), w4_spec,
                       *pipeline["auto"].values(), demo["gradio"], *demo["web"].values(),
-                      lora, resume, distill["distill"], distill["spec"]):
+                      lora, resume, run_first, run_resume, distill["distill"],
+                      distill["spec"]):
             entry["launches_by_path"][route["mode"]] = route["launches"][name]
         entry["launches_by_path"]["pipeline-calibration"] = pipeline["calibration_launches"][name]
         entry["launches_per_train_step"] = {t["mode"]: t["launches"][name] / t["steps"]
-                                            for t in (short, long_, lora, resume,
-                                                      distill["distill"])}
+                                            for t in (short, long_, lora, resume, run_first,
+                                                      run_resume, distill["distill"])}
         if name in kernels.FORMS:
             entry["form_launches"] = {k: v for k, v in path_of[name]["form_launches"].items()
                                       if k.startswith(name + "/")}

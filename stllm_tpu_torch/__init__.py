@@ -16,3 +16,15 @@ import torch as _torch
 _torch.backends.cuda.matmul.allow_tf32 = False
 _torch.backends.cudnn.allow_tf32 = False
 _torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+
+import os as _os
+
+from stllm_tpu_torch.common.registry import registry
+
+_root = _os.path.dirname(_os.path.abspath(__file__))
+registry.register_path("library_root", _root)
+registry.register_path("repo_root", _os.path.dirname(_root))
+registry.register_path("cache_root", _os.environ.get("STLLM_CACHE",
+                                                     _os.path.join(_os.path.dirname(_root), ".cache")))
+registry.register("MAX_INT", 2**31 - 1)
+registry.register("SPLIT_NAMES", ["train", "val", "test"])

@@ -3,12 +3,13 @@
 An experiment YAML (``model:`` / ``datasets:`` / ``run:``) is deep-merged over
 the per-model-type default YAML named by the model class'
 ``PRETRAINED_MODEL_CONFIG_DICT``, then ``--options a.b=c`` dotlist
-overrides apply last. The runner-flag validator comes with ``runners/``.
+overrides apply last. ``ConfigValidator`` holds the runner flag schema.
 """
 
 from __future__ import annotations
 
 import copy
+import json
 from pathlib import Path
 from typing import Any, Dict, Iterable, List, Mapping, Optional
 
@@ -38,6 +39,9 @@ class ConfigDict(dict):
         if key in self:
             return self[key]
         return default
+
+    def copy(self) -> "ConfigDict":
+        return wrap(copy.deepcopy(unwrap(self)))
 
 
 def wrap(obj: Any) -> Any:
@@ -113,11 +117,19 @@ def load_yaml(path: str | Path) -> Dict:
 
 
 class Config:
-    """Experiment config: model + datasets + run sections, fully merged
-    (model-type defaults, then the experiment YAML)."""
+    """Experiment config: model + datasets + run sections, fully merged.
+    Lowest priority first: the model type's default YAML, the experiment
+    YAML at ``cfg_path``, ``cfg_dict`` merged over it, then the ``options``
+    dotlist."""
 
-    def __init__(self, cfg_path: str | Path, options: Optional[Iterable[str]] = None):
-        user = load_yaml(cfg_path)
+    def __init__(self, cfg_path: str | Path | None = None,
+                 options: Optional[Iterable[str]] = None,
+                 cfg_dict: Optional[Mapping] = None):
+        user: Dict = {}
+        if cfg_path is not None:
+            user = load_yaml(cfg_path)
+        if cfg_dict is not None:
+            deep_merge(user, cfg_dict)
         if options:
             apply_dotlist(user, options)
         merged: Dict = {}
@@ -155,3 +167,107 @@ class Config:
     @property
     def run_cfg(self) -> ConfigDict:
         return self._cfg.get("run", ConfigDict())
+
+    @property
+    def config(self) -> ConfigDict:
+        return self._cfg
+
+    def get(self, key, default=None):
+        return self._cfg.get(key, default)
+
+    def pretty_print(self) -> str:
+        return json.dumps(unwrap(self._cfg), indent=2, default=str)
+
+    def to_dict(self) -> Dict:
+        return unwrap(self._cfg)
+
+
+class ConfigValidator:
+    """Validates a ``run:`` section against a declared flag schema: an
+    unknown key, a value its type cannot take, or a value outside its
+    choices raises ValueError."""
+
+    def __init__(self, description: str, schema: Mapping[str, tuple]):
+        # schema: name -> (type | None, choices | None, help)
+        self.description = description
+        self.schema = dict(schema)
+
+    def validate(self, config: Mapping) -> Mapping:
+        for k, v in config.items():
+            if k not in self.schema:
+                raise ValueError(f"{k} is not a valid argument. Supported arguments are "
+                                 f"{sorted(self.schema)}")
+            typ, choices, _ = self.schema[k]
+            if typ is not None and not isinstance(v, typ):
+                try:
+                    typ(v)
+                except (TypeError, ValueError):
+                    raise ValueError(f"{k} is not a valid {typ}.")
+            if choices is not None and v not in choices:
+                raise ValueError(f"{k} must be one of {choices}.")
+        return config
+
+    def format_help(self) -> str:
+        lines = [self.description]
+        for k in sorted(self.schema):
+            typ, choices, help_ = self.schema[k]
+            s = f"  {k}"
+            if typ is not None:
+                s += f" ({getattr(typ, '__name__', typ)})"
+            if choices is not None:
+                s += f" choices={list(choices)}"
+            if help_:
+                s += f" — {help_}"
+            lines.append(s)
+        return "\n".join(lines)
+
+    def __str__(self) -> str:
+        return self.format_help()
+
+
+def create_runner_config_validator() -> ConfigValidator:
+    """The reference's runner flag schema; the ``lr_sched`` and ``task``
+    choices are the names registered when it is called."""
+    from stllm_tpu_torch import tasks  # noqa: F401  (registers the tasks)
+    from stllm_tpu_torch.common import optim  # noqa: F401  (registers the schedulers)
+    from stllm_tpu_torch.common.registry import registry
+
+    t = lambda typ, choices=None, help_="": (typ, choices, help_)  # noqa: E731
+    schema = {
+        "runner": t(str, ["runner_base", "runner_iter"], "runner flavor"),
+        "train_dataset_ratios": t(dict, None, "iter-runner dataset ratios"),
+        "max_iters": t(float, None, "max iterations"),
+        "max_epoch": t(int, None, "max epochs"),
+        "iters_per_inner_epoch": t(float, None, "iters per inner epoch"),
+        "lr_sched": t(str, registry.list_lr_schedulers(), "LR scheduler"),
+        "task": t(str, registry.list_tasks(), "task name"),
+        "init_lr": t(float, None, "post-warmup initial LR"),
+        "min_lr": t(float, None, "LR after decay"),
+        "warmup_lr": t(float, None, "warmup starting LR"),
+        "lr_decay_rate": t(float, None, "decay rate"),
+        "weight_decay": t(float, None, "weight decay"),
+        "batch_size_train": t(int, None, "train batch size"),
+        "batch_size_eval": t(int, None, "eval batch size"),
+        "num_workers": t(None, None, "data-loading workers"),
+        "warmup_steps": t(int, None, "warmup steps"),
+        "seed": t(int, None, "random seed"),
+        "output_dir": t(str, None, "checkpoint/log dir"),
+        "evaluate": t(None, None, "eval-only mode"),
+        "train_splits": t(list, None, "training splits"),
+        "valid_splits": t(list, None, "validation splits"),
+        "test_splits": t(list, None, "test splits"),
+        "accum_grad_iters": t(int, None, "gradient accumulation"),
+        "device": t(str, ["cpu", "cuda", "tpu"], "compute device"),
+        "world_size": t(int, None, "process count"),
+        "dist_url": t(str, None, ""),
+        "distributed": t(bool, None, ""),
+        "use_dist_eval_sampler": t(bool, None, "distributed eval sampler"),
+        "max_len": t(int, None, "max text output length"),
+        "min_len": t(int, None, "min text output length"),
+        "num_beams": t(int, None, "beam count"),
+        "num_ans_candidates": t(int, None, "answer-ranking candidates"),
+        "inference_method": t(str, ["genearte", "rank"],
+                              "QA inference method (typo as in reference)"),
+        "k_test": t(int, None, "ITC/VTC top-k to test"),
+    }
+    return ConfigValidator("Runner configurations", schema)

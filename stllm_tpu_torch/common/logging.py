@@ -1,6 +1,8 @@
 """Metric logging: windowed meters and a step logger with timing and ETA
-(stllm_tpu/common/logging.py), single process. The memory column reports the
-card's allocated bytes from ``torch.cuda.memory_allocated``.
+(stllm_tpu/common/logging.py). The memory column reports the card's
+allocated bytes from ``torch.cuda.memory_allocated``. Rank and world size
+come from ``torch.distributed`` when its process group is initialized;
+otherwise the process is rank 0 of 1 and the synchronizations do nothing.
 """
 
 from __future__ import annotations
@@ -13,6 +15,22 @@ from typing import Dict, Iterable, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
+
+
+def dist_initialized() -> bool:
+    return dist.is_available() and dist.is_initialized()
+
+
+def is_main_process() -> bool:
+    return not dist_initialized() or dist.get_rank() == 0
+
+
+def setup_logger(level: int = logging.INFO) -> None:
+    logging.basicConfig(
+        level=level if is_main_process() else logging.WARNING,
+        format="%(asctime)s [%(levelname)s] %(name)s: %(message)s",
+    )
 
 
 class SmoothedValue:
@@ -28,6 +46,17 @@ class SmoothedValue:
         self.deque.append(value)
         self.count += n
         self.total += value * n
+
+    def synchronize_between_processes(self) -> None:
+        """Sum (count, total) over the process group; nothing to do in a
+        single process."""
+        if not dist_initialized() or dist.get_world_size() == 1:
+            return
+        t = torch.tensor([self.count, self.total], dtype=torch.float64,
+                         device="cuda" if dist.get_backend() == "nccl" else "cpu")
+        dist.all_reduce(t)
+        self.count = int(t[0].item())
+        self.total = float(t[1].item())
 
     @property
     def median(self) -> float:
@@ -76,6 +105,10 @@ class MetricLogger:
 
     def add_meter(self, name: str, meter: SmoothedValue) -> None:
         self.meters[name] = meter
+
+    def synchronize_between_processes(self) -> None:
+        for meter in self.meters.values():
+            meter.synchronize_between_processes()
 
     def global_avg(self) -> str:
         return self.delimiter.join(

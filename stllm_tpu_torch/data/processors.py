@@ -224,6 +224,7 @@ class Blip2ImageTrainProcessor(BaseProcessor):
             image_size=cfg.get("image_size", 224),
             min_scale=cfg.get("min_scale", 0.5),
             max_scale=cfg.get("max_scale", 1.0),
+            device=cfg.get("device"),
         )
 
 
@@ -244,7 +245,7 @@ class Blip2ImageEvalProcessor(BaseProcessor):
     @classmethod
     def from_config(cls, cfg=None):
         cfg = cfg or {}
-        return cls(image_size=cfg.get("image_size", 224))
+        return cls(image_size=cfg.get("image_size", 224), device=cfg.get("device"))
 
 
 @Registry.register_processor("blip2_video_train")
@@ -294,4 +295,4 @@ class ChatVideoEvalProcessor(BaseProcessor):
     @classmethod
     def from_config(cls, cfg=None):
         cfg = cfg or {}
-        return cls(image_size=cfg.get("image_size", 224))
+        return cls(image_size=cfg.get("image_size", 224), device=cfg.get("device"))

@@ -5,13 +5,20 @@ Query tokens (32) precede the text embeddings and the embedding LayerNorm
 covers both; layers with ``layer % cross_attention_freq == 0`` cross-attend
 the ViT sequence from the query positions only; query and text positions have
 separate FFNs; post-norm residuals, LN eps 1e-12, exact GELU. Attention is
-``mha_reference`` in plain torch. The UniLM decoder path comes later.
+``mha_reference`` in plain torch.
+
+The UniLM decoder path of the reference's ``BertLMHeadModel``:
+``unilm_attention_mask`` (queries attend queries, text attends every query
+and the text before it), ``qformer_lm_logits`` (transform, GELU, LN, the
+decoder tied to the word embeddings, fp32 logits), ``qformer_lm_forward``
+(shifted CE with label smoothing 0.1) and greedy ``qformer_lm_generate``.
+No path of ST-LLM decodes through the Q-Former; answers come from LLaMA.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Optional
+from typing import Any, Dict, List, Optional
 
 import torch
 
@@ -89,13 +96,13 @@ def init_qformer(gen: torch.Generator, cfg: QFormerConfig, text_input: bool = Tr
 
 
 def _mha(attn_params: Dict, x: torch.Tensor, kv: torch.Tensor, cfg: QFormerConfig,
-         kv_mask: Optional[torch.Tensor]) -> torch.Tensor:
+         kv_mask: Optional[torch.Tensor], mask: Optional[torch.Tensor] = None) -> torch.Tensor:
     b, n, _ = x.shape
     m = kv.shape[1]
     q = linear(attn_params["q"], x).reshape(b, n, cfg.heads, cfg.head_dim)
     k = linear(attn_params["k"], kv).reshape(b, m, cfg.heads, cfg.head_dim)
     v = linear(attn_params["v"], kv).reshape(b, m, cfg.heads, cfg.head_dim)
-    out = mha_reference(q, k, v, kv_mask=kv_mask)
+    out = mha_reference(q, k, v, kv_mask=kv_mask, mask=mask)
     return linear(attn_params["out"], out.reshape(b, n, cfg.hidden))
 
 
@@ -113,8 +120,13 @@ def qformer_forward(
     encoder_mask: Optional[torch.Tensor] = None,  # (B, S_img)
     query_embeds: Optional[torch.Tensor] = None,  # default: params["query_tokens"]
     cfg: QFormerConfig = INSTRUCT_BLIP_QFORMER,
+    self_attn_mask: Optional[torch.Tensor] = None,  # (B, Q+T, Q+T) bool, True = attend
 ) -> torch.Tensor:
-    """Returns (B, num_query + T, hidden); callers slice [:, :num_query]."""
+    """Returns (B, num_query + T, hidden); callers slice [:, :num_query].
+
+    ``self_attn_mask`` replaces the bidirectional padding mask of the
+    self-attention with a full (from, to) mask: the UniLM decoder path's
+    ``unilm_attention_mask``."""
     b = encoder_hidden_states.shape[0]
     dev = encoder_hidden_states.device
     emb = params["embeddings"]
@@ -138,9 +150,12 @@ def qformer_forward(
         self_mask = torch.ones((b, q_len), dtype=torch.int32, device=dev)
 
     x = layer_norm(emb["norm"], x, cfg.ln_eps)
+    self_mask3 = None
+    if self_attn_mask is not None:
+        self_mask3, self_mask = self_attn_mask.bool(), None
 
     for layer in params["layers"]:
-        att = _mha(layer["attention"], x, x, cfg, kv_mask=self_mask)
+        att = _mha(layer["attention"], x, x, cfg, kv_mask=self_mask, mask=self_mask3)
         x = _post_norm_residual(att, x, layer["attention"]["out_norm"], cfg.ln_eps)
 
         q_part, t_part = x[:, :q_len], x[:, q_len:]
@@ -161,3 +176,124 @@ def qformer_forward(
         else:
             x = q_part
     return x
+
+
+# ---------------------------------------------------------------------------
+# UniLM decoder path
+# ---------------------------------------------------------------------------
+
+def unilm_attention_mask(attention_mask: torch.Tensor, query_len: int) -> torch.Tensor:
+    """The seq2seq self-attention mask of the reference's
+    ``get_extended_attention_mask(is_decoder=True, has_query=True)``: a
+    causal triangle over the text positions, query rows banned from the
+    text, every row attending all queries, and the padding mask on the
+    to-axis. ``attention_mask``: (B, query_len + T), 1 = real. Returns
+    (B, query_len + T, query_len + T) bool, True = attend."""
+    b, total = attention_mask.shape
+    t = total - query_len
+    dev = attention_mask.device
+    causal = torch.tril(torch.ones((t, t), dtype=torch.bool, device=dev))
+    rows_q = torch.zeros((query_len, t), dtype=torch.bool, device=dev)
+    right = torch.cat([rows_q, causal], dim=0)                               # (Q+T, T)
+    left = torch.ones((total, query_len), dtype=torch.bool, device=dev)      # (Q+T, Q)
+    full = torch.cat([left, right], dim=1)
+    return full[None] & attention_mask.bool()[:, None, :]
+
+
+def init_qformer_lm(gen: torch.Generator, cfg: QFormerConfig) -> Dict:
+    """init_qformer with text input, plus the MLM head ``cls``: transform
+    dense, its LayerNorm and a free fp32 bias; the decoder weight is the
+    word embedding table."""
+    params = init_qformer(gen, cfg, text_input=True)
+    params["cls"] = {
+        "transform": init_linear(gen, cfg.hidden, cfg.hidden, cfg.dtype),
+        "transform_norm": init_layer_norm(cfg.hidden, cfg.dtype, gen.device),
+        "bias": torch.zeros((cfg.vocab_size,), dtype=torch.float32, device=gen.device),
+    }
+    return params
+
+
+def qformer_lm_logits(params: Dict, hidden: torch.Tensor, cfg: QFormerConfig) -> torch.Tensor:
+    """MLM head over hidden states: transform -> GELU -> LN -> tied decoder.
+    Returns fp32 logits (B, T, vocab), the product accumulated in fp32."""
+    cls = params["cls"]
+    h = gelu(linear(cls["transform"], hidden))
+    h = layer_norm(cls["transform_norm"], h, cfg.ln_eps)
+    w = params["embeddings"]["word"]                       # (vocab, d), tied
+    logits = torch.matmul(h.to(w.dtype).float(), w.float().t())
+    return logits + cls["bias"]
+
+
+def qformer_lm_forward(
+    params: Dict,
+    *,
+    input_ids: torch.Tensor,                      # (B, T)
+    encoder_hidden_states: torch.Tensor,          # (B, S_img, encoder_width)
+    attention_mask: Optional[torch.Tensor] = None,   # (B, T) 1 = real
+    encoder_mask: Optional[torch.Tensor] = None,
+    labels: Optional[torch.Tensor] = None,        # (B, T), -100 = ignore
+    label_smoothing: float = 0.1,                 # the reference's
+    cfg: QFormerConfig = INSTRUCT_BLIP_QFORMER,
+):
+    """BertLMHeadModel's forward: the UniLM-masked pass with the query
+    prefix, logits over the TEXT positions, and with ``labels`` the
+    next-token CE (logits shifted by one) with label smoothing, the mean
+    over the positions whose label is not -100. Returns logits (B, T,
+    vocab) or (loss, logits)."""
+    b, t = input_ids.shape
+    dev = input_ids.device
+    if attention_mask is None:
+        attention_mask = torch.ones((b, t), dtype=torch.int32, device=dev)
+    full_mask = torch.cat([torch.ones((b, cfg.num_query), dtype=attention_mask.dtype,
+                                      device=dev), attention_mask], dim=1)
+    hidden = qformer_forward(
+        params, encoder_hidden_states=encoder_hidden_states, input_ids=input_ids,
+        attention_mask=attention_mask, encoder_mask=encoder_mask, cfg=cfg,
+        self_attn_mask=unilm_attention_mask(full_mask, cfg.num_query))
+    logits = qformer_lm_logits(params, hidden[:, cfg.num_query:], cfg)
+    if labels is None:
+        return logits
+    lg = logits[:, :-1].float()
+    lb = labels[:, 1:]
+    valid = lb != -100
+    logp = torch.log_softmax(lg, dim=-1)
+    nll = -logp.gather(-1, torch.where(valid, lb, 0)[..., None].long())[..., 0]
+    smooth = -logp.mean(dim=-1)
+    per_tok = (1.0 - label_smoothing) * nll + label_smoothing * smooth
+    loss = torch.where(valid, per_tok, 0.0).sum() / valid.sum().clamp(min=1)
+    return loss, logits
+
+
+@torch.no_grad()
+def qformer_lm_generate(
+    params: Dict,
+    encoder_hidden_states: torch.Tensor,
+    *,
+    bos_token_id: int,
+    eos_token_id: Optional[int] = None,
+    max_new_tokens: int = 20,
+    encoder_mask: Optional[torch.Tensor] = None,
+    cfg: QFormerConfig = INSTRUCT_BLIP_QFORMER,
+) -> List[List[int]]:
+    """Greedy decode through the UniLM path, one full forward a step (the
+    reference's generation through this head). A finished row is padded
+    with ``eos_token_id`` (0 without one); decoding stops when every row
+    has emitted eos. Returns each row's tokens after bos."""
+    b = encoder_hidden_states.shape[0]
+    dev = encoder_hidden_states.device
+    ids = [[bos_token_id] for _ in range(b)]
+    done = [False] * b
+    for _ in range(max_new_tokens):
+        input_ids = torch.tensor(ids, dtype=torch.int32, device=dev)
+        logits = qformer_lm_forward(params, input_ids=input_ids,
+                                    encoder_hidden_states=encoder_hidden_states,
+                                    encoder_mask=encoder_mask, cfg=cfg)
+        nxt = logits[:, -1].argmax(dim=-1).tolist()
+        for i in range(b):
+            tok = int(nxt[i]) if not done[i] else (eos_token_id or 0)
+            ids[i].append(tok)
+            if eos_token_id is not None and tok == eos_token_id:
+                done[i] = True
+        if eos_token_id is not None and all(done):
+            break
+    return [row[1:] for row in ids]
