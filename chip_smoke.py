@@ -235,7 +235,18 @@ toolkit. Phases, each fatal on failure:
    Q-Former LM at its published width (fp32) generates 8 tokens on two
    sequences, its first logits held to the CPU's.
 
-``python3 chip_smoke.py --phases load demo train_breadth distill runner``
+17. mesh - the multi-device layer at world size 1 (one card): an
+   in-process NCCL group of one rank and a (1, 1) mesh; the QA config's
+   full-width train step (the train phase's trainable set, packed to 1024)
+   through Trainer(mesh=) for two steps against Trainer without a mesh
+   from the same init and batches (losses within MESH_LOSS_REL, every
+   updated trainable leaf's sum and norm equal bit for bit), exactly the
+   train-long launches a step and nothing else, ms a step and the peak;
+   then bf16 greedy generate on the (1, 1) mesh against no mesh (first
+   logits' relative L2, tokens equal). Two ranks sharing the card over gloo
+   are not run: gloo aborts on CUDA tensors (script/gloo_cuda_check.py).
+
+``python3 chip_smoke.py --phases load demo train_breadth distill runner mesh``
 builds the kernels and runs only the phases named (a partial run: no
 result line).
 
@@ -5502,7 +5513,180 @@ def phase_runner(kernels) -> dict:
     return out
 
 
-PARTIAL = ("load", "demo", "train_breadth", "distill", "runner")   # phases --phases can run alone
+# ---------------------------------------------------------------------------
+# the multi-device layer at world size 1
+# ---------------------------------------------------------------------------
+
+MESH_STEPS = 2
+# the (1, 1)-mesh losses and greedy first logits against the meshless ones,
+# relative: the same ops run in the same order, so they are equal (the updated
+# weights are held bit for bit apart from this); the limit is fp32 rounding
+MESH_LOSS_REL = 1e-6
+MESH_PROMPT, MESH_NEW = 96, 16     # the greedy decode's prompt embeddings and new tokens
+
+
+class _CountSaves:
+    """A full fine-tune's checkpoint is about 40 GB: the saves are counted."""
+
+    def __init__(self):
+        self.steps = []
+
+    def save(self, state, extra=None):
+        self.steps.append(state.step)
+
+
+def _digest(params) -> torch.Tensor:
+    """(leaves, 2) fp64: each trainable leaf's sum and L2 norm, in path order."""
+    return torch.stack([torch.stack([p.detach().sum(dtype=torch.float64),
+                                     torch.linalg.vector_norm(p.detach(), dtype=torch.float64)])
+                        for p in params.values()]).cpu()
+
+
+def _mesh_train(kernels, batches, mesh, label: str):
+    """MESH_STEPS full-width steps of the QA config from seed 0 through
+    Trainer (on ``mesh``, or without one); returns the run's record, the
+    trained model and the trainable leaves' paths and ``_digest``."""
+    from stllm_tpu_torch.common.optim import linear_warmup_cosine_hf
+    from stllm_tpu_torch.models.zoo import STLLM
+    from stllm_tpu_torch.train.trainer import Trainer
+
+    model = STLLM.from_config(qa_model_cfg(), seed=0)
+    out_dir = tempfile.mkdtemp(prefix="stllm_mesh_smoke_")
+    trainer = Trainer(model.cfg, model.params, output_dir=out_dir, mesh=mesh,
+                      trainable_fn=model.trainable_fn(),
+                      learning_rate=linear_warmup_cosine_hf(2e-5, 0.03, MESH_STEPS),
+                      weight_decay=0.0, max_grad_norm=1.0, log_freq=1)
+    trainer.ckpt = _CountSaves()
+    step_ms, real_step = [], trainer._step_fn
+
+    def timed_step(st, batch):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        res = real_step(st, batch)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t) * 1e3)
+        return res
+
+    trainer._step_fn = timed_step
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    trainer.train(iter(batches), MESH_STEPS)
+    torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+    digest = (list(trainer.state.params), _digest(trainer.state.params))
+    log = [json.loads(line) for line in (Path(out_dir) / "log.txt").read_text().splitlines()]
+    shutil.rmtree(out_dir, ignore_errors=True)
+    run = {"mode": label, "steps": MESH_STEPS, "mesh": None if mesh is None else mesh.shape,
+           "seq_len": sorted({int(b["token_ids"].shape[1]) for b in batches}),
+           "losses": [r["loss"] for r in log], "step_ms": step_ms,
+           "max_memory_allocated_gib": torch.cuda.max_memory_allocated() / 2**30,
+           "launches": launches, "launches_per_step": {k: v / MESH_STEPS
+                                                       for k, v in launches.items() if v}}
+    print(f"[{label}] {json.dumps(run)}")
+    if run["seq_len"] != [TRAIN_LONG[1]] or trainer.ckpt.steps != [MESH_STEPS]:
+        raise AssertionError(f"[{label}] packed lengths {run['seq_len']}, saves at "
+                             f"{trainer.ckpt.steps}")
+    _expect(label, launches, TRAIN_LAUNCHES["train-long"], MESH_STEPS)
+    others = {k: v for k, v in launches.items() if k not in TRAIN_LAUNCHES["train-long"] and v}
+    if others:
+        raise AssertionError(f"[{label}] unexpected kernel launches {others}")
+    del trainer
+    return run, model, digest
+
+
+def phase_mesh(kernels) -> dict:
+    """The (1, 1) mesh over an in-process NCCL group of one rank: the sharded
+    Trainer and greedy generate against their meshless runs."""
+    import datetime
+
+    import torch.distributed as dist
+
+    from stllm_tpu_torch.models import generation
+    from stllm_tpu_torch.models.zoo import build_stllm_config
+    from stllm_tpu_torch.parallel.mesh import make_mesh
+    from stllm_tpu_torch.parallel.sharding import stllm_param_shardings
+
+    t0 = time.perf_counter()
+    store = tempfile.mkdtemp(prefix="stllm_mesh_store_")
+    dist.init_process_group("nccl", store=dist.FileStore(str(Path(store) / "store"), 1),
+                            rank=0, world_size=1, timeout=datetime.timedelta(seconds=120))
+    try:
+        mesh = make_mesh(data=1, model=1)
+        cfg = build_stllm_config(qa_model_cfg())
+        rng = np.random.default_rng(11)
+        col = _collator(cfg, seed=12)
+        # prompt and answer lengths that pack to 1024 slots, as the train phase's long tier
+        batches = [col(_train_samples(rng, FRAMES, cfg.vit.image_size, 200, 250, 1))
+                   for _ in range(MESH_STEPS)]
+        plain, model, plain_digest = _mesh_train(kernels, batches, None, "mesh-none")
+        del model
+        gc.collect()
+        torch.cuda.empty_cache()
+        sharded, model, sharded_digest = _mesh_train(kernels, batches, mesh, "mesh-1x1")
+        rel = max(abs(a - b) / abs(b) for a, b in zip(sharded["losses"], plain["losses"]))
+        # the updated weights: every trainable leaf's sum and norm, bit for bit
+        same_paths = plain_digest[0] == sharded_digest[0]
+        differ = ([] if not same_paths else
+                  [p for p, a, b in zip(plain_digest[0], plain_digest[1], sharded_digest[1])
+                   if not torch.equal(a, b)])
+
+        # bf16 greedy decode, the (1, 1) mesh against none, on the trained weights
+        llama, lcfg = model.params["llama"], model.cfg.llama
+        emb = (torch.randn((1, MESH_PROMPT, lcfg.hidden), device="cuda",
+                           generator=torch.Generator(device="cuda").manual_seed(13))
+               * 0.02).to(lcfg.dtype)
+        gen_cfg = generation.GenerationConfig(max_new_tokens=MESH_NEW, eos_token_id=-1,
+                                              stop_sequences=())
+        first, real_prefill = [], generation._prefill
+
+        def prefill(*args, **kw):
+            logits, cache = real_prefill(*args, **kw)
+            first.append(logits.float())
+            return logits, cache
+
+        generation._prefill = prefill
+        try:
+            toks = generation.generate(llama, emb, llama_cfg=lcfg, gen=gen_cfg)
+            specs = stllm_param_shardings(mesh, {"llama": llama})["llama"]
+            toks_mesh = generation.generate(llama, emb, llama_cfg=lcfg, gen=gen_cfg, mesh=mesh,
+                                            specs=specs)
+        finally:
+            generation._prefill = real_prefill
+        gen_rel = float((first[1] - first[0]).norm() / first[0].norm())
+        del model, llama
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(store, ignore_errors=True)
+    out = {"mode": "mesh", "backend": "nccl", "world": 1, "mesh": mesh.shape,
+           "loss_rel_max": rel, "plain": plain, "sharded": sharded,
+           "trainable_leaves": len(plain_digest[0]), "leaves_differing": len(differ),
+           "launches": sharded["launches"],
+           "ms_per_step": {r["mode"]: r["step_ms"] for r in (plain, sharded)},
+           "peak_gib": {r["mode"]: r["max_memory_allocated_gib"] for r in (plain, sharded)},
+           "generate": {"first_logits_rel_l2": gen_rel, "tokens_equal": toks == toks_mesh,
+                        "new_tokens": len(toks[0])},
+           "phase_s": time.perf_counter() - t0}
+    print(f"[mesh] (1, 1) mesh vs none: losses {sharded['losses']} vs {plain['losses']} "
+          f"(max rel {rel:.2e}), {len(differ)} of {len(plain_digest[0])} trained leaves "
+          f"differ, ms a step {sharded['step_ms']} vs {plain['step_ms']}, peak "
+          f"{sharded['max_memory_allocated_gib']:.2f} vs {plain['max_memory_allocated_gib']:.2f}"
+          f" GiB; greedy first logits rel L2 {gen_rel:.2e}, tokens equal "
+          f"{toks == toks_mesh}; phase {out['phase_s']:.1f} s ({smi_line()})")
+    if not same_paths or differ:
+        raise AssertionError(f"[mesh] the updated weights differ from the meshless run's: "
+                             f"same paths {same_paths}, leaves {differ[:5]} of {len(differ)}")
+    if not rel <= MESH_LOSS_REL or not all(np.isfinite(sharded["losses"])):
+        raise AssertionError(f"[mesh] losses {sharded['losses']} against {plain['losses']}: "
+                             f"relative gap {rel} (limit {MESH_LOSS_REL})")
+    if toks != toks_mesh or not gen_rel <= MESH_LOSS_REL:
+        raise AssertionError(f"[mesh] greedy tokens {toks_mesh} against {toks}, first logits "
+                             f"relative L2 {gen_rel}")
+    return out
+
+
+# phases --phases can run alone
+PARTIAL = ("load", "demo", "train_breadth", "distill", "runner", "mesh")
 
 
 def main(argv=None) -> int:
@@ -5524,7 +5708,7 @@ def main(argv=None) -> int:
         record_packed_shapes(kernels)
         for name in args.phases:
             {"load": phase_load, "demo": phase_demo, "train_breadth": phase_train_breadth,
-             "distill": phase_distill, "runner": phase_runner}[name](kernels)
+             "distill": phase_distill, "runner": phase_runner, "mesh": phase_mesh}[name](kernels)
             gc.collect()
             torch.cuda.empty_cache()
         print(f"chip_smoke: phases {args.phases} passed (a partial run: no result line)")
@@ -5572,6 +5756,10 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     runner = phase_runner(kernels)
     run_first, run_resume = runner["first"], runner["resume"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    mesh = phase_mesh(kernels)
+    mesh_none, mesh_1x1 = mesh["plain"], mesh["sharded"]
     # each kernel's launches from the path that runs it; the probes run on no
     # path (0 launches on every one)
     path_of = {"packed_qkv_attention": bf16, "layer_norm_quant": int8["dynamic"],
@@ -5591,12 +5779,13 @@ def main(argv=None) -> int:
                       breadth["mild"], breadth["prefix_key"], load, *w4_beams.values(), w4_spec,
                       *pipeline["auto"].values(), demo["gradio"], *demo["web"].values(),
                       lora, resume, run_first, run_resume, distill["distill"],
-                      distill["spec"]):
+                      distill["spec"], mesh_none, mesh_1x1):
             entry["launches_by_path"][route["mode"]] = route["launches"][name]
         entry["launches_by_path"]["pipeline-calibration"] = pipeline["calibration_launches"][name]
         entry["launches_per_train_step"] = {t["mode"]: t["launches"][name] / t["steps"]
                                             for t in (short, long_, lora, resume, run_first,
-                                                      run_resume, distill["distill"])}
+                                                      run_resume, distill["distill"], mesh_none,
+                                                      mesh_1x1)}
         if name in kernels.FORMS:
             entry["form_launches"] = {k: v for k, v in path_of[name]["form_launches"].items()
                                       if k.startswith(name + "/")}

@@ -34,6 +34,9 @@ import torch.nn.functional as F
 from stllm_tpu_torch.models.llama import (
     KVCache, LlamaConfig, init_kv_cache, llama_decode_prefix, llama_forward, lm_head)
 from stllm_tpu_torch.ops.layers import gather_rows
+from stllm_tpu_torch.ops.spmd import model_parallel
+from stllm_tpu_torch.parallel.mesh import MODEL_AXIS
+from stllm_tpu_torch.parallel.sharding import compute_tree, llama_tp_plan
 
 
 class UnsupportedRequest(ValueError):
@@ -318,11 +321,26 @@ def generate(
     llama_cfg: LlamaConfig,
     gen: GenerationConfig = GenerationConfig(),
     seed: int = 0,
+    mesh=None,
+    specs=None,
 ) -> List[List[int]]:
     """Token ids per batch row (stop sequence included when hit): greedy,
     sampled (``gen.do_sample``, row r seeded ``seed + r``), penalized
     (repetition_penalty != 1 or min_length > 1, greedy or sampled), or beam
-    search (``gen.num_beams > 1``, each row on its own)."""
+    search (``gen.num_beams > 1``, each row on its own).
+
+    On a ``mesh`` (``parallel/mesh.py``) ``params`` is this rank's slice of
+    the LLaMA tree by ``specs`` (``stllm_param_shardings``): the leaves are
+    gathered over 'data' and, where the rules split them, the layers and the
+    head run tensor-parallel over 'model' with a cache of this rank's heads.
+    Every rank runs the same loop on the same prompts and returns the same
+    tokens."""
+    if mesh is not None:
+        plan = llama_tp_plan(mesh, params, specs, llama_cfg.heads)
+        tree = compute_tree(mesh, params, specs, plan)
+        with model_parallel(mesh.groups[MODEL_AXIS], plan):
+            return generate(tree, inputs_embeds, attention_mask, llama_cfg=llama_cfg, gen=gen,
+                            seed=seed)
     if gen.num_beams > 1:
         return [beam_search(params, inputs_embeds[i:i + 1],
                             None if attention_mask is None else attention_mask[i:i + 1],

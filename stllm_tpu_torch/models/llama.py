@@ -25,6 +25,12 @@ once per beam.
 The cache buffers are updated IN PLACE (the reference donates them to XLA for
 the same effect); ``llama_forward`` and ``llama_decode_prefix`` return a
 KVCache over the same buffers with the new lengths.
+
+Tensor parallel (under ``ops.spmd.model_parallel``): a layer holds this
+rank's heads of q, k, v (columns) and o (rows) and its columns of gate and
+up and rows of down; each block's input enters through ``copy_to`` and its
+output leaves through one ``reduce_from`` (a sum over the group), and the
+cache holds this rank's heads. A vocab-parallel lm_head gathers its logits.
 """
 
 from __future__ import annotations
@@ -42,6 +48,8 @@ from stllm_tpu_torch.ops.layers import (
     swiglu_mlp)
 from stllm_tpu_torch.ops.quant import quantize_linear_params, quantize_linear_params_int4
 from stllm_tpu_torch.ops.rope import rope_rows, rope_table, rotate
+from stllm_tpu_torch.ops.spmd import head_group, layer_group, layer_shards
+from stllm_tpu_torch.parallel.collectives import copy_to, gather_from, reduce_from
 
 
 @dataclasses.dataclass(frozen=True)
@@ -85,7 +93,8 @@ class KVCache(NamedTuple):
 
 def init_kv_cache(cfg: LlamaConfig, batch: int, max_len: int, dtype=None,
                   device=None) -> KVCache:
-    shape = (batch, max_len, cfg.heads, cfg.head_dim)
+    """A zero cache; under tensor parallelism, of this rank's heads."""
+    shape = (batch, max_len, cfg.heads // layer_shards(), cfg.head_dim)
     n = cfg.num_layers
     if cfg.kv_int8:
         return KVCache(
@@ -157,12 +166,14 @@ def _write_at(c: torch.Tensor, new: torch.Tensor, off: torch.Tensor) -> None:
 def _qkv_proj(layer: Dict, h: torch.Tensor, b: int, s: int, cfg: LlamaConfig):
     """q/k/v projections; a ``qkv`` key holds the three weights fused along
     N (one weight-streaming call instead of three). LoRA deltas
-    (``models/lora.py``) apply to the split outputs either way."""
+    (``models/lora.py``) apply to the split outputs either way. Under
+    tensor parallelism the weights hold this rank's heads."""
+    h = copy_to(h, layer_group())
     if "qkv" in layer:
         q, k, v = linear(layer["qkv"], h).chunk(3, dim=-1)
     else:
         q, k, v = linear(layer["q"], h), linear(layer["k"], h), linear(layer["v"], h)
-    return tuple(apply_lora(layer, n, h, t).reshape(b, s, cfg.heads, cfg.head_dim)
+    return tuple(apply_lora(layer, n, h, t).reshape(b, s, -1, cfg.head_dim)
                  for n, t in (("q", q), ("k", k), ("v", v)))
 
 
@@ -183,7 +194,7 @@ def _layer(
     On the cache path it updates the buffers ``cache_kv`` ((k, v), or
     (k, v, k_scale, v_scale) for the int8 cache) in place; ``mask``:
     (B, S, max_len), True where kv_pos <= cache_len + i."""
-    b, s, d = x.shape
+    b, s, _ = x.shape
     h = rms_norm(layer["input_norm"], x, cfg.rms_eps)
     q, k, v = _qkv_proj(layer, h, b, s, cfg)
     q = rotate(q, *rope)
@@ -206,9 +217,17 @@ def _layer(
         _write_at(av, v, cache_len)
         out = mha_reference(q, ak, av, mask=mask)
 
-    x = x + linear(layer["o"], out.reshape(b, s, d))
+    return _residual_blocks(layer, x, out.reshape(b, s, -1), cfg)
+
+
+def _residual_blocks(layer: Dict, x: torch.Tensor, attn: torch.Tensor,
+                     cfg: LlamaConfig) -> torch.Tensor:
+    """x + o(attn), then x + mlp(post_norm(x)); under tensor parallelism
+    each block's partial sums are summed over the group."""
+    g = layer_group()
+    x = x + reduce_from(linear(layer["o"], attn), g)
     h2 = rms_norm(layer["post_norm"], x, cfg.rms_eps)
-    return x + swiglu_mlp(layer, h2)
+    return x + reduce_from(swiglu_mlp(layer, copy_to(h2, g)), g)
 
 
 def llama_forward(
@@ -279,13 +298,13 @@ def llama_decode_prefix(params: Dict, inputs_embeds: torch.Tensor, prefix: KVCac
     products as k query rows of one matrix product, so the prefix is never
     copied per beam. Returns (hidden (B, 1, d), gen with length + 1)."""
     x = inputs_embeds.to(cfg.dtype)
-    b, s, d = x.shape
+    b, s, _ = x.shape
     if s != 1:
         raise ValueError(f"llama_decode_prefix decodes one token a row, got {s}")
     p = prefix.k[0].shape[0]
     if b % p:
         raise ValueError(f"{b} rows do not split into {p} prompts")
-    kr, h, hd = b // p, cfg.heads, cfg.head_dim
+    kr, h, hd = b // p, cfg.heads // layer_shards(), cfg.head_dim
     dev = x.device
     positions = (prefix.length.long().repeat_interleave(kr) + gen.length.long())[:, None]
     cos, sin = rope_table(hd, cfg.max_positions, cfg.rope_theta, device=dev)
@@ -328,9 +347,7 @@ def llama_decode_prefix(params: Dict, inputs_embeds: torch.Tensor, prefix: KVCac
         w_p = w[..., :s_p].reshape(p, kr, h, s_p).transpose(1, 2)        # (P, H, k, S)
         out = (torch.matmul(w_p, pv).transpose(1, 2).reshape(b, h, 1, hd)
                + torch.matmul(w[..., s_p:], gv))                          # (B, H, 1, D)
-        x = x + linear(layer["o"], out.transpose(1, 2).reshape(b, s, d))
-        h2 = rms_norm(layer["post_norm"], x, cfg.rms_eps)
-        x = x + swiglu_mlp(layer, h2)
+        x = _residual_blocks(layer, x, out.transpose(1, 2).reshape(b, s, -1), cfg)
     x = rms_norm(params["norm"], x, cfg.rms_eps)
     return x, gen._replace(length=gen.length + 1)
 
@@ -401,13 +418,14 @@ def lm_head(params: Dict, hidden: torch.Tensor) -> torch.Tensor:
     """Logits in fp32: the matmul runs in the param dtype with fp32
     accumulation and an fp32 result. The weight-only int8 head (``w_q16``)
     takes bf16 hidden states times the codes upcast to bf16, fp32
-    accumulation, times the fp32 scale."""
+    accumulation, times the fp32 scale. A vocab-parallel head computes
+    this rank's columns and gathers the rest."""
     head = params["lm_head"]
     if "w_q16" in head:
         y = matmul_f32(hidden.to(torch.bfloat16), head["w_q16"].to(torch.bfloat16))
         return y * head["w_scale"].float()
-    w = head["w"]
-    return matmul_f32(hidden.to(w.dtype), w)
+    w, g = head["w"], head_group()
+    return gather_from(matmul_f32(copy_to(hidden, g).to(w.dtype), w), g, -1)
 
 
 @torch.no_grad()

@@ -25,6 +25,7 @@ import torch
 from stllm_tpu_torch.ops.attention import mha_reference
 from stllm_tpu_torch.ops.layers import (
     gather_rows, gelu, init_layer_norm, init_linear, layer_norm, linear, normal)
+from stllm_tpu_torch.ops.spmd import constrain_batched
 
 
 @dataclasses.dataclass(frozen=True)
@@ -137,7 +138,8 @@ def qformer_forward(
 
     if input_ids is not None:
         t = input_ids.shape[1]
-        tok = gather_rows(emb["word"], input_ids).to(cfg.dtype)
+        # the reference pins this gather's output to batch-over-'data' here
+        tok = constrain_batched(gather_rows(emb["word"], input_ids).to(cfg.dtype))
         pos = gather_rows(emb["position"], torch.arange(t, device=dev))[None].to(cfg.dtype)
         x = torch.cat([query_embeds, tok + pos], dim=1)
         if attention_mask is None:

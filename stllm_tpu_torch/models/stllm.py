@@ -25,7 +25,11 @@ from stllm_tpu_torch.models.qformer import (
 from stllm_tpu_torch.models.vit import (
     EVA_VIT_G, ViTConfig, init_vit, normalize_uint8, vit_forward)
 from stllm_tpu_torch.ops.layers import gather_rows, init_layer_norm, init_linear, layer_norm, linear
+from stllm_tpu_torch.ops.spmd import batch_group, kernel_sharding
 from stllm_tpu_torch.ops.tome import MERGE_LEVELS, scale_level_to_depth, select_merge_level
+from stllm_tpu_torch.parallel.collectives import concat_all_gather, psum_scalar
+from stllm_tpu_torch.parallel.mesh import DATA_AXIS
+from stllm_tpu_torch.parallel.sharding import compute_tree, local_batch
 
 
 @dataclasses.dataclass(frozen=True)
@@ -108,10 +112,22 @@ def encode_img(
     cfg: STLLMConfig,
     qformer_text_ids: Optional[torch.Tensor] = None,   # (B, Lq)
     qformer_text_mask: Optional[torch.Tensor] = None,  # (B, Lq)
+    *,
+    mesh=None,
+    specs=None,
 ) -> torch.Tensor:
     """ViT over B*T frames -> fp32 ln_vision -> Q-Former (the question
     repeated per frame) -> llama_proj. Returns (B, T, num_query, d_llm).
-    uint8 frames are CLIP-normalized on the device."""
+    uint8 frames are CLIP-normalized on the device.
+
+    On a ``mesh`` (``parallel/mesh.py``) ``params`` is this rank's slice of
+    the tree by ``specs`` (``stllm_param_shardings``) and the inputs are the
+    whole batch on every rank: each rank encodes its rows
+    (``parallel.sharding.local_batch``) with the encoder's leaves gathered,
+    and the rows are gathered back, so every rank returns the whole result."""
+    if mesh is not None:
+        return _encode_img_sharded(params, frames, cfg, qformer_text_ids, qformer_text_mask,
+                                   mesh, specs)
     if frames.dtype == torch.uint8:
         frames = normalize_uint8(frames, cfg.vit.dtype)
     b, t = frames.shape[:2]
@@ -133,6 +149,19 @@ def encode_img(
                             cfg=cfg.qformer)[:, :cfg.num_query]
     tokens = linear(params["llama_proj"], q_out.to(cfg.llama.dtype))
     return tokens.reshape(b, t, cfg.num_query, -1)
+
+
+_ENCODER = ("vit", "ln_vision", "qformer", "llama_proj")
+
+
+def _encode_img_sharded(params, frames, cfg, ids, mask, mesh, specs) -> torch.Tensor:
+    tree = compute_tree(mesh, {k: params[k] for k in _ENCODER}, {k: specs[k] for k in _ENCODER})
+    batch = {k: v for k, v in (("frames", frames), ("ids", ids), ("mask", mask))
+             if v is not None}
+    local, split = local_batch(mesh, batch)
+    with kernel_sharding(mesh if split else None):
+        out = encode_img(tree, local["frames"], cfg, local.get("ids"), local.get("mask"))
+    return concat_all_gather(out, mesh.groups[DATA_AXIS]) if split else out
 
 
 def encode_img_mapped(
@@ -196,9 +225,16 @@ def _mvm_project(params: Dict, x: torch.Tensor, cfg: STLLMConfig) -> torch.Tenso
     return x
 
 
+def _global_count(x: torch.Tensor) -> torch.Tensor:
+    """A loss's denominator over the whole batch: summed over the ranks
+    that split the batch under a mesh (``ops.spmd.batch_group``), so each
+    rank's loss is its share of the global mean."""
+    return psum_scalar(x, batch_group())
+
+
 def cross_entropy_shifted(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     """Shifted cross entropy with -100 ignored, mean over the real targets
-    (1 where there is none), in fp32."""
+    of the whole batch (1 where there is none), in fp32."""
     shift_logits = logits[:, :-1].float()
     shift_labels = labels[:, 1:].long()
     valid = shift_labels != -100
@@ -206,7 +242,7 @@ def cross_entropy_shifted(logits: torch.Tensor, labels: torch.Tensor) -> torch.T
     logz = torch.logsumexp(shift_logits, dim=-1)
     tok = torch.gather(shift_logits, -1, safe[..., None])[..., 0]
     nll = (logz - tok) * valid
-    return nll.sum() / valid.sum().clamp(min=1)
+    return nll.sum() / _global_count(valid.sum()).clamp(min=1)
 
 
 def _gather_slots(hidden: torch.Tensor, slots: torch.Tensor) -> torch.Tensor:
@@ -263,7 +299,7 @@ def stllm_forward(params: Dict, batch: Dict[str, torch.Tensor],
         sf = sf / torch.linalg.vector_norm(sf, dim=-1, keepdim=True).clamp(min=1e-6)
         per_tok = 2.0 - 2.0 * (sf * tf).sum(dim=-1)                   # (B, V)
         w = batch["mvm_weight"].float()
-        loss_mvm = (per_tok * w).sum() / w.sum().clamp(min=1.0)
+        loss_mvm = (per_tok * w).sum() / _global_count(w.sum()).clamp(min=1.0)
         out["loss_mvm"] = loss_mvm
         out["loss"] = loss_ce + loss_mvm
     return out

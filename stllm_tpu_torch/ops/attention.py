@@ -270,6 +270,9 @@ def flash_attention(
     also sends a fused-tier shape to ``mha_reference`` when no head chunk of
     it fits the TPU's on-chip memory; that is a storage rule of the TPU
     kernel, and ``mha_reference`` is the same function, so it is dropped.
+    So are its mesh clauses (the global batch, or the folded B * H, divides
+    over the shards), which its shard_map wrapper needs: under a mesh each
+    rank runs the tier's kernel on its own rows (``ops/spmd.py``).
     On a CUDA tensor each tier launches its kernel (bf16 or fp32; other
     dtypes raise); on a CPU tensor it runs the plain version of that same
     kernel.

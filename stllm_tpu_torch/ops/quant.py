@@ -175,9 +175,11 @@ ROW_TILE_BYTES = 8 * 1024 * 1024   # the reference's fp32 working tile of a (S, 
 def row_quant_fused(shape) -> bool:
     """The reference's tile rule for the producer-fused quantizers
     (``_rowwise_pallas``): a (B, S, K) x runs the fused kernel where its
-    fp32 (S, K) block fits 8 MiB, and the unfused composition beyond (the
-    batch clause, a multi-device shard, never holds on one device). An x of
-    another rank reads its second-to-last axis as S (1 for a single row)."""
+    fp32 (S, K) block fits 8 MiB, and the unfused composition beyond. The
+    reference's other clause, that under a mesh the global batch divide over
+    the shards, is a need of its shard_map wrapper and is not kept: a rank
+    runs the kernel on its own rows (``ops/spmd.py``). An x of another rank
+    reads its second-to-last axis as S (1 for a single row)."""
     s = shape[-2] if len(shape) >= 2 else 1
     return s * shape[-1] * 4 <= ROW_TILE_BYTES
 
@@ -286,9 +288,11 @@ def quant_matmul_res_ln_static(hq: torch.Tensor, hs, params_q: Dict, x_prev: tor
     'b'?}; x_prev: (B, S, N). Returns (x_new in x_prev's dtype, yq int8), or
     None where the reference's kernel declines the shape (no k-tile of K,
     N % 128, or S * N * 4 above 4 MiB). That is the reference's dispatch
-    rule, kept so that a shape goes the same way in both packages; its other
-    clause, a multi-device shard, never holds on one device. The scales stay
-    device tensors: nothing here waits for the card."""
+    rule, kept so that a shape goes the same way in both packages. Its other
+    clause, that no kernel mesh of more than one shard be active, is a need
+    of its shard_map wrapper and is not kept: under a mesh each rank runs the
+    kernel on its own rows (``ops/spmd.py``). The scales stay device tensors:
+    nothing here waits for the card."""
     b, s, k = hq.shape
     n = params_q["w_q"].shape[1]
     if _pick_tile(k, 2048) == 0 or n % 128 or s * n * 4 > 4 * 1024 * 1024:

@@ -13,7 +13,13 @@ port, so it writes its own format, which the two packages do not share: one
     could not read;
   - ``restore`` copies into the state's existing tensors: a ``TrainState``'s
     ``tree``, ``params`` and ``frozen`` share them, so the model sees the
-    restored values.
+    restored values;
+  - on a mesh (``CheckpointManager(mesh=)``) every rank takes part in a
+    save, which gathers one leaf at a time, keeps it in host memory on rank
+    0 only and writes the single-device format from there, so a card holds
+    at most one whole leaf beside its slices; a restore maps the file
+    (``mmap``) and cuts each rank's slice of the saved leaves, so a run saved
+    on one mesh resumes on another or on one device.
 """
 
 from __future__ import annotations
@@ -24,7 +30,10 @@ import shutil
 from typing import Any, Dict, List, Optional
 
 import torch
+import torch.distributed as dist
 
+from stllm_tpu_torch.parallel.mesh import Mesh, by_path, local_slice
+from stllm_tpu_torch.parallel.sharding import gather_leaves
 from stllm_tpu_torch.train.step import TrainState, tree_paths
 
 _STEP_DIR = re.compile(r"^checkpoint_(\d+)$")
@@ -125,12 +134,37 @@ def _copy_into(dst: Dict[str, torch.Tensor], flat: Dict[str, torch.Tensor], what
 
 class CheckpointManager:
     """Step-indexed checkpoints under output_dir/checkpoint_<step>/, the
-    newest ``max_to_keep`` kept."""
+    newest ``max_to_keep`` kept. With a ``mesh``, every rank calls ``save``
+    and ``restore`` (collectives); the directory must be one that every
+    rank sees."""
 
-    def __init__(self, output_dir: str, max_to_keep: int = 3):
+    def __init__(self, output_dir: str, max_to_keep: int = 3, mesh: Optional[Mesh] = None):
         self.directory = os.path.abspath(output_dir)
         self.max_to_keep = max_to_keep
+        self.mesh = mesh
         os.makedirs(self.directory, exist_ok=True)
+
+    def _whole(self, state: TrainState, leaves: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        """Each leaf of ``leaves`` (trainable paths) whole: on a mesh gathered
+        one at a time, in host memory on rank 0 (the other ranks keep none)."""
+        if self.mesh is None:
+            return leaves
+        specs = by_path(state.tree, state.specs)
+        out = {}
+        for k, v in leaves.items():
+            whole = gather_leaves(self.mesh, {k: v.detach()}, {k: specs[k]})[k]
+            if self.mesh.rank == 0:
+                out[k] = whole.cpu()
+            del whole
+        return out
+
+    def _slices(self, state: TrainState, flat: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        """This rank's slice of each saved leaf."""
+        if self.mesh is None or state.specs is None:
+            return flat
+        specs = by_path(state.tree, state.specs)
+        return {k: local_slice(self.mesh, v, specs[k]) if k in specs else v
+                for k, v in flat.items()}
 
     def _path(self, step: int) -> str:
         return os.path.join(self.directory, f"checkpoint_{step}")
@@ -148,15 +182,19 @@ class CheckpointManager:
         step = int(state.step)
         opt = state.opt_state
         payload = {
-            "params": {k: v.detach() for k, v in state.params.items()},
+            "params": self._whole(state, {k: v.detach() for k, v in state.params.items()}),
             "opt_state": {"count": torch.tensor(int(opt["count"]), dtype=torch.int64),
-                          "mu": dict(opt["mu"]), "nu": dict(opt["nu"])},
+                          "mu": self._whole(state, opt["mu"]),
+                          "nu": self._whole(state, opt["nu"])},
             "meta": {"step": step, **(extra or {})},
         }
-        _atomic_save(payload, self._path(step))
-        if self.max_to_keep:
-            for old in self.all_steps()[:-self.max_to_keep]:
-                shutil.rmtree(self._path(old), ignore_errors=True)
+        if self.mesh is None or self.mesh.rank == 0:
+            _atomic_save(payload, self._path(step))
+            if self.max_to_keep:
+                for old in self.all_steps()[:-self.max_to_keep]:
+                    shutil.rmtree(self._path(old), ignore_errors=True)
+        if self.mesh is not None and self.mesh.world is not None:
+            dist.barrier(self.mesh.world)      # the step is on disk for every rank
 
     def latest_step(self) -> Optional[int]:
         steps = self.all_steps()
@@ -170,11 +208,11 @@ class CheckpointManager:
         if step is None:
             return state
         payload = torch.load(os.path.join(self._path(step), _FILE), map_location="cpu",
-                             weights_only=True)
-        _copy_into(state.params, payload["params"], "params")
+                             weights_only=True, mmap=True)
+        _copy_into(state.params, self._slices(state, payload["params"]), "params")
         opt = payload["opt_state"]
-        _copy_into(state.opt_state["mu"], opt["mu"], "mu")
-        _copy_into(state.opt_state["nu"], opt["nu"], "nu")
+        _copy_into(state.opt_state["mu"], self._slices(state, opt["mu"]), "mu")
+        _copy_into(state.opt_state["nu"], self._slices(state, opt["nu"]), "nu")
         state.opt_state["count"] = int(opt["count"])
         state.step = int(payload["meta"]["step"])
         return state

@@ -11,6 +11,18 @@ moments with bias correction, decoupled weight decay on leaves of two or more
 dimensions, times minus the learning rate of the step. It updates the
 parameters and its moments IN PLACE (the reference returns new trees), so a
 ``TrainState`` is advanced, not replaced.
+
+On a mesh (``parallel/mesh.py``) the state holds this rank's slice of every
+leaf by ``stllm_param_shardings`` (AdamW's moments too), and a step:
+  - gathers every leaf over 'data' at its start, and over 'model' but for
+    the LLaMA projections and head that run tensor-parallel
+    (``parallel.sharding.compute_tree``);
+  - takes the rank's rows of the global batch (``parallel.sharding.local_batch``)
+    and runs the micro-batches on them, under the kernel mesh context where
+    the rows were split, with CE and MVM normalized by the global counts;
+  - reduce-scatters the gradients back to the slices, clips by the global
+    norm of the whole tree and updates the slices.
+The peak is the gathered tree and its gradients beside the slices.
 """
 
 from __future__ import annotations
@@ -22,6 +34,12 @@ from typing import Any, Callable, Dict, Iterator, List, Optional, Tuple, Union
 import torch
 
 from stllm_tpu_torch.models.stllm import STLLMConfig, stllm_forward
+from stllm_tpu_torch.ops.spmd import kernel_sharding, model_parallel
+from stllm_tpu_torch.parallel.collectives import all_reduce
+from stllm_tpu_torch.parallel.mesh import DATA_AXIS, MODEL_AXIS, Mesh, by_path, map_tree
+from stllm_tpu_torch.parallel.sharding import (
+    compute_tree, grads_to_slices, llama_tp_plan, local_batch, replication, shard_tree,
+    stllm_param_shardings)
 
 LearningRate = Union[float, Callable[[int], float]]
 
@@ -209,12 +227,20 @@ class TrainState:
     params: Dict[str, torch.Tensor]      # its trainable leaves by path
     frozen: Dict[str, torch.Tensor]      # its frozen leaves by path
     opt_state: Dict[str, Any]
+    specs: Any = None                    # on a mesh: the spec tree; the leaves are slices
 
 
 def create_train_state(params: Any, optimizer: AdamW,
-                       trainable_fn: Optional[Callable[[str], bool]] = None) -> TrainState:
+                       trainable_fn: Optional[Callable[[str], bool]] = None,
+                       mesh: Optional[Mesh] = None, min_size: int = 2 ** 14) -> TrainState:
+    """On a ``mesh`` the state keeps this rank's slice of each leaf of
+    ``params`` by ``stllm_param_shardings(mesh, params, min_size)``."""
+    specs = None
+    if mesh is not None:
+        specs = stllm_param_shardings(mesh, params, min_size)
+        params = shard_tree(mesh, params, specs)
     train, frozen = partition_params(params, trainable_fn or default_trainable())
-    return TrainState(0, params, train, frozen, optimizer.init(train))
+    return TrainState(0, params, train, frozen, optimizer.init(train), specs)
 
 
 def make_train_step(
@@ -222,6 +248,7 @@ def make_train_step(
     optimizer: AdamW,
     accum_steps: int = 1,
     loss_fn: Optional[Callable[[Any, Dict, STLLMConfig], Dict]] = None,
+    mesh: Optional[Mesh] = None,
 ):
     """Returns train_step(state, batch) -> (state, metrics): the same state,
     advanced in place, and the ``loss*`` values plus ``grad_norm`` (the norm
@@ -229,17 +256,22 @@ def make_train_step(
 
     With accum_steps > 1 every batch leaf has leading dimension accum_steps *
     micro and is run in micro-batch slices, one after the other; gradients
-    and metrics are the means over the slices."""
+    and metrics are the means over the slices.
+
+    On a ``mesh`` the state comes from ``create_train_state(..., mesh=)``,
+    ``batch`` is the global batch, the same on every rank (on any device: the
+    step moves its rows to the state's), and the metrics are the global
+    batch's."""
     fwd = loss_fn or stllm_forward
+    if mesh is not None:
+        return _sharded_train_step(cfg, optimizer, accum_steps, fwd, mesh)
 
     def train_step(state: TrainState, batch: Dict[str, torch.Tensor]):
         metrics: Dict[str, torch.Tensor] = {}
         for p in state.params.values():
             p.grad = None
         for i in range(accum_steps):
-            micro = batch if accum_steps == 1 else {
-                k: v.reshape((accum_steps, -1) + tuple(v.shape[1:]))[i] for k, v in batch.items()}
-            out = fwd(state.tree, micro, cfg)
+            out = fwd(state.tree, _micro(batch, accum_steps, i), cfg)
             out["loss"].backward()       # accumulates into .grad, in place
             for k, v in out.items():
                 if k.startswith("loss"):
@@ -255,6 +287,68 @@ def make_train_step(
                 g.div_(accum_steps)
             metrics = {k: v / accum_steps for k, v in metrics.items()}
         metrics["grad_norm"] = global_norm(list(grads.values()))
+        optimizer.update(grads, state.opt_state, state.params, grad_norm=metrics["grad_norm"])
+        state.step += 1
+        return state, metrics
+
+    return train_step
+
+
+def _micro(batch: Dict[str, torch.Tensor], accum_steps: int, i: int) -> Dict[str, torch.Tensor]:
+    if accum_steps == 1:
+        return batch
+    return {k: v.reshape((accum_steps, -1) + tuple(v.shape[1:]))[i] for k, v in batch.items()}
+
+
+def _sharded_train_step(cfg: STLLMConfig, optimizer: AdamW, accum_steps: int, fwd, mesh: Mesh):
+    data_group = mesh.groups[DATA_AXIS]
+
+    def train_step(state: TrainState, batch: Dict[str, torch.Tensor]):
+        batch, split = local_batch(mesh, batch, accum_steps)
+        device = next(tree_paths(state.tree))[1].device
+        batch = {k: v.to(device) for k, v in batch.items()}
+        specs = by_path(state.tree, state.specs)
+        llama = state.tree.get("llama")
+        plan = llama_tp_plan(mesh, llama, state.specs.get("llama"), cfg.llama.heads)
+        tree = compute_tree(mesh, state.tree, state.specs, plan)
+        compute = by_path(state.tree, tree)   # {path: the leaf this rank computes with}
+        for path, p in state.params.items():
+            c = compute[path]
+            if c is p:
+                p.grad = None
+            else:
+                compute[path] = c.detach().requires_grad_(True)
+        tree = map_tree(lambda path, _: compute[path], state.tree)
+        # a replicated batch runs whole on every rank of 'data': its gradient
+        # is summed over them below, so each rank's loss counts 1 / d of it
+        scale = 1.0 if split else 1.0 / mesh.shape[DATA_AXIS]
+        metrics: Dict[str, torch.Tensor] = {}
+        with kernel_sharding(mesh if split else None), \
+                model_parallel(mesh.groups[MODEL_AXIS], plan):
+            for i in range(accum_steps):
+                out = fwd(tree, _micro(batch, accum_steps, i), cfg)
+                (out["loss"] * scale).backward()
+                for k, v in out.items():
+                    if k.startswith("loss"):
+                        metrics[k] = metrics.get(k, 0.0) + v.detach()
+                del out
+        del tree
+        grads = {}
+        for path in state.params:
+            c = compute.pop(path)
+            grads[path] = torch.zeros_like(c) if c.grad is None else c.grad
+            c.grad = None
+        del compute
+        grads = grads_to_slices(mesh, grads, specs, plan.keeps)
+        sq = []
+        for path, g in grads.items():
+            if accum_steps > 1:
+                g.div_(accum_steps)
+            sq.append(torch.linalg.vector_norm(g, 2, dtype=torch.float32).square()
+                      / replication(mesh, specs[path]))
+        metrics = {k: (all_reduce(v, data_group) if split else v) / accum_steps
+                   for k, v in metrics.items()}
+        metrics["grad_norm"] = all_reduce(torch.stack(sq).sum(), mesh.world).sqrt()
         optimizer.update(grads, state.opt_state, state.params, grad_norm=metrics["grad_norm"])
         state.step += 1
         return state, metrics

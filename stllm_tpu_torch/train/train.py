@@ -4,13 +4,19 @@ Usage:
   python -m stllm_tpu_torch.train.train --cfg-path config/instructblipbase_stllm_qa.yaml
   python -m stllm_tpu_torch.train.train --cfg-path config/tiny_debug.yaml \\
       --synthetic-data 8 --cpu   # offline smoke run with synthetic media
+  torchrun --nproc-per-node 8 -m stllm_tpu_torch.train.train --cfg-path CFG \\
+      --data-parallel 4 --model-parallel 2   # FSDP x TP over 8 cards
 
 It runs on the CUDA card unless given ``--cpu``. Running it again into the
 same ``run.output_dir`` resumes from the newest checkpoint there. The
 ``run:`` section keeps the reference's HF-style keys (learning_rate,
 num_train_epochs, per_device_train_batch_size, gradient_accumulation_steps,
-warmup_ratio, logging_steps, save_steps, output_dir...). One device only:
-``--data-parallel`` / ``--model-parallel`` above 1 raise.
+warmup_ratio, logging_steps, save_steps, output_dir...). Under ``torchrun``
+(a world of more than one rank) each rank joins the process group
+(``parallel.mesh.init_distributed``: NCCL on its card, gloo with ``--cpu``)
+and trains on a (``--data-parallel``, ``--model-parallel``) mesh; the global
+batch is ``per_device_train_batch_size`` times the data axis. A mesh larger
+than the world raises.
 
 ``run(cfg, args, datasets=None)`` is the CLI without its argument parsing,
 so a caller can hand in its own datasets.
@@ -26,6 +32,7 @@ import os
 from typing import List, Optional
 
 import numpy as np
+import torch.distributed as dist
 
 
 def parse_args(argv: Optional[List[str]] = None):
@@ -100,27 +107,34 @@ def run(cfg, args, datasets=None):
     common.config.Config) and train to the step count; resumes from
     ``run.output_dir`` when it holds a checkpoint. Returns (model, trainer,
     final averages)."""
-    from stllm_tpu_torch.common.device import resolve_device
     from stllm_tpu_torch.common.optim import warmup_cosine_decay
     from stllm_tpu_torch.common.registry import registry
     from stllm_tpu_torch.data.collate import TrainCollator
     from stllm_tpu_torch.data.loaders import DataLoader, IterLoader, MetaLoader
     from stllm_tpu_torch.models.zoo import ensure_tokenizers
+    from stllm_tpu_torch.parallel.mesh import DATA_AXIS, init_distributed, make_mesh
     from stllm_tpu_torch.train.step import make_optimizer
     from stllm_tpu_torch.train.trainer import Trainer
 
-    if (args.data_parallel or 1) > 1 or (args.model_parallel or 1) > 1:
-        raise NotImplementedError("data and model parallel training are not ported yet: "
-                                  "the port trains on one device")
-    device = resolve_device("cpu" if args.cpu else None)
+    device = init_distributed("cpu" if args.cpu else None)
+    mesh = None
+    if dist.is_initialized() or (args.data_parallel or 1) * args.model_parallel > 1:
+        mesh = make_mesh(data=args.data_parallel, model=args.model_parallel)
     run_cfg = cfg.run_cfg
     model_cfg = cfg.model_cfg
     model = registry.get_model_class(model_cfg["arch"]).from_config(model_cfg, device=device)
     output_dir = str(run_cfg.get("output_dir", "output"))
     if datasets is None:
+        # rank 0 writes the synthetic media; the others read them after it
+        world = None if mesh is None else mesh.world
+        if world is not None and mesh.rank != 0:
+            dist.barrier(world)
         datasets = build_datasets(cfg, run_cfg, args.synthetic_data,
                                   os.path.join(output_dir, "synthetic_data"), device=device)
-    batch_size = int(run_cfg.get("per_device_train_batch_size", 2))
+        if world is not None and mesh.rank == 0:
+            dist.barrier(world)
+    batch_size = int(run_cfg.get("per_device_train_batch_size", 2)) * (
+        mesh.shape[DATA_AXIS] if mesh is not None else 1)
     accum = int(run_cfg.get("gradient_accumulation_steps", 1))
 
     ensure_tokenizers(model)
@@ -140,7 +154,7 @@ def run(cfg, args, datasets=None):
                              max_steps)
     optimizer = make_optimizer(lr, weight_decay=float(run_cfg.get("weight_decay", 0.0)))
     trainer = Trainer(
-        model.cfg, model.params, optimizer, output_dir=output_dir, device=device,
+        model.cfg, model.params, optimizer, output_dir=output_dir, device=device, mesh=mesh,
         accum_steps=accum, trainable_fn=model.trainable_fn(),
         log_freq=int(run_cfg.get("logging_steps", 10)),
         save_freq=int(run_cfg.get("save_steps", 1000)))
@@ -156,9 +170,12 @@ def main(argv: Optional[List[str]] = None):
 
     cfg = Config(args.cfg_path, options=args.options)
     _, _, stats = run(cfg, args)
-    print("final:", stats)
+    if not dist.is_initialized() or dist.get_rank() == 0:
+        print("final:", stats)
     return stats
 
 
 if __name__ == "__main__":
     main()
+    if dist.is_initialized():       # under torchrun: each rank leaves its group
+        dist.destroy_process_group()

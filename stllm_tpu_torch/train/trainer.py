@@ -1,5 +1,5 @@
 """The training loop: the train step inside a thin Python loop
-(stllm_tpu/train/trainer.py), on one device.
+(stllm_tpu/train/trainer.py), on one device or on a mesh.
 
   - optimizer with the learning-rate schedule baked in (``train.step.AdamW``,
     ``common.optim``);
@@ -13,6 +13,12 @@
 
 The optimizer's ``count`` drives the learning-rate schedule and is saved
 with the moments, so a resumed run continues the schedule.
+
+On a mesh (``Trainer(mesh=)``, ``parallel/mesh.py``) every rank runs the
+loop on the same global batches: the state holds the rank's slices
+(``create_train_state(mesh=)``), the step takes the rank's rows of each
+batch (``parallel.sharding.local_batch``), checkpoints gather and write from
+rank 0, and the logs and the profiler window run on rank 0 only.
 """
 
 from __future__ import annotations
@@ -43,6 +49,7 @@ class Trainer:
         *,
         output_dir: str = "output",
         device=None,
+        mesh=None,
         accum_steps: int = 1,
         trainable_fn: Optional[Callable[[str], bool]] = None,
         learning_rate=1e-4,
@@ -57,9 +64,13 @@ class Trainer:
         """``params``: the parameter tree on ``device`` (default: the CUDA
         card; pass "cpu" to train there). Batches from the loader are moved
         to ``device``. Checkpoints go to ``output_dir``, the newest
-        ``max_keep`` kept."""
+        ``max_keep`` kept. ``mesh``: train on this rank's slices of
+        ``params`` (the whole tree, the same on every rank)."""
         self.cfg = cfg
         self.device = resolve_device(device)
+        self.mesh = mesh
+        self.accum_steps = accum_steps
+        self.is_main = mesh is None or mesh.rank == 0
         self.output_dir = output_dir
         self.log_freq = log_freq
         self.save_freq = save_freq
@@ -67,13 +78,14 @@ class Trainer:
         optimizer = optimizer or make_optimizer(
             learning_rate, weight_decay=weight_decay, max_grad_norm=max_grad_norm)
         self.optimizer = optimizer
-        self.state = create_train_state(params, optimizer, trainable_fn or default_trainable())
+        self.state = create_train_state(params, optimizer, trainable_fn or default_trainable(),
+                                        mesh=mesh)
         for path, leaf in {**self.state.params, **self.state.frozen}.items():
             if leaf.device.type != self.device.type:
                 raise ValueError(f"parameter {path} is on {leaf.device}, the trainer on "
                                  f"{self.device}")
-        self._step_fn = make_train_step(cfg, optimizer, accum_steps)
-        self.ckpt = CheckpointManager(output_dir, max_to_keep=max_keep)
+        self._step_fn = make_train_step(cfg, optimizer, accum_steps, mesh=mesh)
+        self.ckpt = CheckpointManager(output_dir, max_to_keep=max_keep, mesh=mesh)
         self.profile_dir = profile_dir
         self.profile_steps = profile_steps
 
@@ -103,9 +115,14 @@ class Trainer:
             os.path.join(self.profile_dir, f"trace_steps_{first}_{last}.json"))
 
     def _put(self, batch: Dict) -> Dict[str, torch.Tensor]:
-        return {k: torch.as_tensor(v).to(self.device) for k, v in batch.items()}
+        batch = {k: torch.as_tensor(v) for k, v in batch.items()}
+        if self.mesh is not None:     # the sharded step moves its own rows of the batch
+            return batch
+        return {k: v.to(self.device) for k, v in batch.items()}
 
     def log_stats(self, stats: Dict) -> None:
+        if not self.is_main:
+            return
         with open(os.path.join(self.output_dir, "log.txt"), "a") as f:
             f.write(json.dumps(stats) + "\n")
 
@@ -133,19 +150,21 @@ class Trainer:
             metric = float(eval_fn())
             improved = (best is None
                         or (metric > best if best_mode == "max" else metric < best))
-            logger.info("eval @%d: %.5f%s", step, metric, " (best)" if improved else "")
+            if self.is_main:
+                logger.info("eval @%d: %.5f%s", step, metric, " (best)" if improved else "")
             self.log_stats({"step": step, "eval_metric": metric, "best": improved})
             if improved:
                 best = metric
                 self.ckpt.save(self.state)
-                with open(os.path.join(self.output_dir, "best.json"), "w") as f:
-                    json.dump({"step": step, "metric": metric}, f)
+                if self.is_main:
+                    with open(os.path.join(self.output_dir, "best.json"), "w") as f:
+                        json.dump({"step": step, "metric": metric}, f)
 
         it = iter(loader)
         prof = None
         data_t0 = time.perf_counter()
         for step in range(start, max_steps):
-            if self.profile_dir and step == self.profile_steps[0]:
+            if self.profile_dir and self.is_main and step == self.profile_steps[0]:
                 prof = self._start_profile()
             batch = self._put(next(it))
             data_time = time.perf_counter() - data_t0
@@ -157,7 +176,8 @@ class Trainer:
             if (step + 1) % self.log_freq == 0 or step + 1 == max_steps:
                 host = {k: float(v) for k, v in metrics.items()}
                 metric_logger.update(data_time=data_time, **host)
-                logger.info("step %d/%d  %s", step + 1, max_steps, metric_logger)
+                if self.is_main:
+                    logger.info("step %d/%d  %s", step + 1, max_steps, metric_logger)
                 self.log_stats({"step": step + 1, **host})
             if (step + 1) % self.save_freq == 0 or step + 1 == max_steps:
                 self.ckpt.save(self.state)

@@ -27,6 +27,17 @@ from stllm_tpu_torch.models.qformer import QFormerConfig as TQF
 from stllm_tpu_torch.models.stllm import STLLMConfig as TST
 from stllm_tpu_torch.models.vit import ViTConfig as TViT
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """Tiny eager models: one intra-op thread, so parallel test processes
+    do not oversubscribe the cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 VIT = dict(image_size=28, patch_size=14, width=32, depth=2, heads=2, mlp_hidden=64,
            use_flash=False)
 QF = dict(hidden=16, num_layers=2, heads=2, intermediate=32, encoder_width=32, num_query=4,

@@ -41,6 +41,17 @@ from stllm_tpu_torch.models import qformer as tqf
 from stllm_tpu_torch.models import stllm as tst
 from stllm_tpu_torch.models import vit as tvit
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """Tiny eager models: one intra-op thread, so parallel test processes
+    do not oversubscribe the cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 ATOL = 1e-4
 MEAN_REL = 1e-3
 

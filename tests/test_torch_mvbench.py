@@ -33,6 +33,17 @@ from stllm_tpu_torch.models.llama import LlamaConfig as TLlama
 from stllm_tpu_torch.models.qformer import QFormerConfig as TQF
 from stllm_tpu_torch.models.vit import ViTConfig as TViT
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """Tiny eager models: one intra-op thread, so parallel test processes
+    do not oversubscribe the cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 REPO = Path(__file__).resolve().parent.parent
 
 VIT = dict(image_size=28, patch_size=14, width=32, depth=2, heads=2, mlp_hidden=64,

@@ -24,6 +24,17 @@ from stllm_tpu_torch.convert.from_jax import load_jax_params
 from stllm_tpu_torch.models import generation as tgen
 from stllm_tpu_torch.models import llama as tllama
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """Tiny eager models: one intra-op thread, so parallel test processes
+    do not oversubscribe the cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 LL = dict(vocab_size=97, hidden=64, num_layers=2, heads=4, intermediate=128,
           max_positions=256)
 

@@ -35,6 +35,17 @@ from stllm_tpu_torch.models import zoo as tzoo
 from stllm_tpu_torch.train import step as tstep
 from stllm_tpu_torch.train.trainer import Trainer
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """Tiny eager models: one intra-op thread, so parallel test processes
+    do not oversubscribe the cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 ATOL, RTOL = 1e-4, 1e-3
 
 VIT = dict(image_size=28, patch_size=14, width=64, depth=3, heads=4, mlp_hidden=128,

@@ -38,6 +38,17 @@ from stllm_tpu_torch.ops import attention as tattn
 from stllm_tpu_torch.ops import kernels
 from stllm_tpu_torch.train import step as tstep
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """Tiny eager models: one intra-op thread, so parallel test processes
+    do not oversubscribe the cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 ATOL = RTOL = 1e-5
 
 
