@@ -235,6 +235,16 @@ toolkit. Phases, each fatal on failure:
    Q-Former LM at its published width (fp32) generates 8 tokens on two
    sequences, its first logits held to the CPU's.
 
+8b. replicate - (run on the load phase's files) the MVBench replication
+   gate, stllm_tpu_torch.replicate_mvbench, at the QA config's full width:
+   convert (from_config on the seeded reference-format files), parity
+   (goldens recorded and verified on the card: top-1 1.000, max |diff| 0;
+   the golden suite needs JAX and is skipped), then a one-task MVBench
+   layout of three 48-frame clips (noise, a still frame, a pan) through the
+   plain, --tome auto and --serving-slots 2 arms, every sample scored, 45
+   #1 launches a video on the plain and served arms. The clips are mp4s
+   where cv2 imports, else read from memory (printed).
+
 17. mesh - the multi-device layer at world size 1 (one card): an
    in-process NCCL group of one rank and a (1, 1) mesh; the QA config's
    full-width train step (the train phase's trainable set, packed to 1024)
@@ -246,9 +256,20 @@ toolkit. Phases, each fatal on failure:
    logits' relative L2, tokens equal). Two ranks sharing the card over gloo
    are not run: gloo aborts on CUDA tensors (script/gloo_cuda_check.py).
 
-``python3 chip_smoke.py --phases load demo train_breadth distill runner mesh``
-builds the kernels and runs only the phases named (a partial run: no
-result line).
+18. probe - make_probe_optimizer at full width (4096 / 11008 / 32 heads /
+   vocab 32000) in script/w4a16_depth.py's protocol (random 24-token prompt
+   embeddings, 16-token answers, batch 4, CE, lr 2e-4), on one fixed batch:
+   4 layers (about 1.07e9 parameters) must take AdamW and 16 (about 3.5e9)
+   Adafactor; per run PROBE_STEPS steps at 40 positions (exactly one #7
+   launch a layer a step, the loss falling, every leaf and state leaf
+   finite), then one step at 1024 positions (one #4, #5 and #6 launch a
+   layer); ms a step, the peak, the optimizer state's bytes against
+   AdamW's. Before them one tiny fp32 Adafactor step on the card against
+   the CPU, and an Adafactor state through CheckpointManager bit for bit.
+
+``python3 chip_smoke.py --phases load demo train_breadth distill runner mesh probe
+replicate`` builds the kernels and runs only the phases named (a partial run:
+no result line).
 
 Then it prints a ``{"kernels": [...]}`` line, the nvidia-smi line and, last,
 ``{"ok": true, "device": {...}}``. Without a CUDA card it exits non-zero and
@@ -3532,7 +3553,7 @@ def _bit_equal(a: torch.Tensor, b: torch.Tensor) -> bool:
             and torch.equal(a.reshape(-1).view(torch.uint8), b.reshape(-1).view(torch.uint8)))
 
 
-def phase_load(kernels) -> dict:
+def phase_load(kernels, keep_files: bool = False) -> dict:
     """The QA config at full width (EVA-ViT-g with BTAdapter depth 3, the
     InstructBLIP Q-Former, Vicuna-7B at full depth, bf16) written from
     seeded weights into the reference's files in a temporary directory,
@@ -3543,7 +3564,9 @@ def phase_load(kernels) -> dict:
     question answered greedily through STLLM.chat: exactly 45 #1 launches,
     the tokens equal to those of the same weights built in memory. Prints
     the bytes written, write and load seconds and GB/s per family, host
-    RSS and the device peak."""
+    RSS and the device peak. ``keep_files``: the files stay for the
+    replicate phase, their paths under "files" and their directory under
+    "files_root" (the caller removes it)."""
     from stllm_tpu_torch.conversation import CONV_instructblip_Vicuna0
     from stllm_tpu_torch.convert import from_torch as cvt
     from stllm_tpu_torch.models import zoo
@@ -3587,7 +3610,8 @@ def phase_load(kernels) -> dict:
         load_peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
         rss_loaded, peak_loaded = _rss_gib(), _peak_rss_gib()
     finally:
-        shutil.rmtree(root, ignore_errors=True)
+        if not keep_files:
+            shutil.rmtree(root, ignore_errors=True)
     if [n for n, _ in log] != [n for n, _ in LOAD_CALLS]:
         raise AssertionError(f"[load] from_torch calls {[n for n, _ in log]}, "
                              f"want {[n for n, _ in LOAD_CALLS]}")
@@ -3655,6 +3679,8 @@ def phase_load(kernels) -> dict:
           f"host RSS {rss_loaded:.1f} GiB (peak {peak_loaded:.1f}), device peak "
           f"{load_peak_gib:.1f} GiB through the load; phase {out['phase_s']:.1f} s "
           f"({smi_line()})")
+    if keep_files:
+        out["files"], out["files_root"] = paths, str(root)
     return out
 
 
@@ -5685,8 +5711,340 @@ def phase_mesh(kernels) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# make_probe_optimizer and the MVBench replication gate (slice 24)
+# ---------------------------------------------------------------------------
+
+# script/w4a16_depth.py's protocol: random 24-token prompt embeddings, fixed
+# 16-token answers, batch 4, CE over the answers, lr 2e-4; a full-width
+# (4096 / 11008 / 32 heads / vocab 32000) LLaMA cut in depth
+PROBE_PROMPT, PROBE_ANSWER, PROBE_BATCH, PROBE_LR = 24, 16, 4, 2e-4
+PROBE_DEPTHS = {4: "AdamW", 16: "Adafactor"}   # about 1.07e9 and 3.5e9 parameters
+PROBE_STEPS = 5
+PROBE_LONG = 1024            # keys of the one step on the flash tier
+PROBE_TINY_REL = 1e-5        # tiny fp32 Adafactor step, card against CPU, of each leaf's max
+PROBE_TINY_LEAVES = {"wide": (256, 384), "stack": (2, 128, 256), "narrow": (64, 300),
+                     "norm": (64,), "gate": ()}
+
+
+def _probe_cfg(depth: int):
+    from stllm_tpu_torch.models.llama import LlamaConfig
+
+    return LlamaConfig(vocab_size=32000, hidden=4096, num_layers=depth, heads=32,
+                       intermediate=11008, max_positions=PROBE_LONG)
+
+
+def _probe_batch(rng, prompt_len: int, cfg) -> dict:
+    return {"prompt": torch.from_numpy(
+                (rng.normal(size=(PROBE_BATCH, prompt_len, cfg.hidden)) * 0.02
+                 ).astype(np.float32)).cuda(),
+            "answer": torch.from_numpy(rng.integers(10, cfg.vocab_size - 10,
+                                                    (PROBE_BATCH, PROBE_ANSWER))).cuda()}
+
+
+def _probe_loss(tree, batch, cfg) -> dict:
+    """script/w4a16_depth.py's loss: the answers' embeddings after the
+    prompt's, mean CE of each answer token from the position before it."""
+    from stllm_tpu_torch.models.llama import llama_forward, lm_head
+
+    prompt, ans = batch["prompt"], batch["answer"]
+    p = prompt.shape[1]
+    x = torch.cat([prompt.to(cfg.dtype), tree["embed_tokens"][ans].to(cfg.dtype)], dim=1)
+    hidden, _ = llama_forward(tree, inputs_embeds=x, cfg=cfg)
+    logits = lm_head(tree, hidden[:, p - 1:p + ans.shape[1] - 1])
+    return {"loss": -torch.log_softmax(logits.float(), -1).gather(-1, ans[..., None]).mean()}
+
+
+def _state_bytes(opt_state: dict) -> int:
+    return sum(t.numel() * t.element_size() for name, leaves in opt_state.items()
+               if name != "count" for t in leaves.values())
+
+
+def _probe_steps(kernels, state, step, batch, steps: int, label: str) -> dict:
+    losses, ms = [], []
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    for _ in range(steps):
+        t = time.perf_counter()
+        state, metrics = step(state, batch)
+        losses.append(float(metrics["loss"]))
+        ms.append((time.perf_counter() - t) * 1e3)
+    launches, form_launches = dict(kernels.LAUNCHES), dict(kernels.FORM_LAUNCHES)
+    any_form = {k: v for k, v in form_launches.items() if k.endswith("/any") and v}
+    if any_form or not all(np.isfinite(losses)):
+        raise AssertionError(f"[{label}] losses {losses}, any-form launches {any_form}")
+    return {"mode": label, "steps": steps, "losses": losses, "step_ms": ms,
+            "launches": launches, "form_launches": form_launches}
+
+
+def _probe_run(kernels, depth: int, rng) -> dict:
+    """make_probe_optimizer's choice at ``depth`` and PROBE_STEPS steps on one
+    fixed batch (fused-short tier, 40 positions), then one step at
+    PROBE_LONG positions (flash tier)."""
+    from stllm_tpu_torch.models.llama import init_llama
+    from stllm_tpu_torch.train import step as tstep
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = _probe_cfg(depth)
+    params = init_llama(torch.Generator(device="cuda").manual_seed(depth), cfg)
+    n_params = sum(p.numel() for _, p in tstep.tree_paths(params))
+    opt = tstep.make_probe_optimizer(params, PROBE_LR)
+    if type(opt).__name__ != PROBE_DEPTHS[depth]:
+        raise AssertionError(f"[probe] depth {depth}, {n_params} parameters: "
+                             f"{type(opt).__name__}, want {PROBE_DEPTHS[depth]}")
+    state = tstep.create_train_state(params, opt, trainable_fn=lambda path: True)
+    step = tstep.make_train_step(cfg, opt, loss_fn=_probe_loss)
+    label = f"probe-{PROBE_DEPTHS[depth].lower()}-d{depth}"
+    short = _probe_steps(kernels, state, step, _probe_batch(rng, PROBE_PROMPT, cfg),
+                         PROBE_STEPS, label)
+    _expect(label, short["launches"], {"fused_short_attention": depth, "flash_attention_fwd": 0,
+                                       "flash_attention_bwd_dq": 0,
+                                       "flash_attention_bwd_dkv": 0}, PROBE_STEPS)
+    if not short["losses"][-1] < short["losses"][0]:
+        raise AssertionError(f"[{label}] the loss did not fall: {short['losses']}")
+    bad = [p for p, t in state.params.items() if not bool(torch.isfinite(t).all())]
+    bad += [f"{name}:{p}" for name, leaves in state.opt_state.items() if name != "count"
+            for p, t in leaves.items() if not bool(torch.isfinite(t).all())]
+    if bad:
+        raise AssertionError(f"[{label}] non-finite leaves {bad[:5]} of {len(bad)}")
+    peak_short = torch.cuda.max_memory_allocated() / 2**30
+    torch.cuda.reset_peak_memory_stats()
+    long_ = _probe_steps(kernels, state, step,
+                         _probe_batch(rng, PROBE_LONG - PROBE_ANSWER, cfg), 1, label + "-1024")
+    _expect(label + "-1024", long_["launches"],
+            {"fused_short_attention": 0, "flash_attention_fwd": depth,
+             "flash_attention_bwd_dq": depth, "flash_attention_bwd_dkv": depth}, 1)
+    param_bytes = sum(p.numel() * p.element_size() for p in state.params.values())
+    out = {"depth": depth, "params": n_params, "optimizer": type(opt).__name__,
+           "short": short, "long": long_,
+           "ms_per_step": float(np.mean(short["step_ms"][1:])),
+           "ms_step_1024": long_["step_ms"][0],
+           "peak_gib": {"40": peak_short, "1024": torch.cuda.max_memory_allocated() / 2**30},
+           "state_bytes": _state_bytes(state.opt_state),
+           "adamw_state_bytes": 2 * param_bytes}
+    print(f"[{label}] {n_params / 1e9:.3f}B parameters, {out['optimizer']}: losses "
+          f"{short['losses']}, {out['ms_per_step']:.1f} ms a step after the first (40 "
+          f"positions), {out['ms_step_1024']:.1f} ms at 1024; peak {peak_short:.2f} / "
+          f"{out['peak_gib']['1024']:.2f} GiB; optimizer state {out['state_bytes'] / 1e9:.4f} "
+          f"GB against AdamW's {out['adamw_state_bytes'] / 1e9:.3f} GB; launches a step "
+          f"#7 {short['launches']['fused_short_attention'] / PROBE_STEPS:.0f}, at 1024 "
+          f"#4/#5/#6 {long_['launches']['flash_attention_fwd']}/"
+          f"{long_['launches']['flash_attention_bwd_dq']}/"
+          f"{long_['launches']['flash_attention_bwd_dkv']} ({smi_line()})")
+    del state, params, step, opt
+    return out
+
+
+def _probe_tiny(tmp: Path) -> dict:
+    """One fp32 Adafactor step (clipped at 1.0, factored and unfactored,
+    1-d and 0-d leaves) on the card against the same step on the CPU, then
+    two steps' state saved by CheckpointManager and restored into another
+    state bit for bit."""
+    from stllm_tpu_torch.train import step as tstep
+    from stllm_tpu_torch.train.checkpoint import CheckpointManager
+
+    rng = np.random.default_rng(5)
+    params = {k: {"w": rng.standard_normal(s).astype(np.float32)}
+              for k, s in PROBE_TINY_LEAVES.items()}
+    grads = {f"{k}/w": rng.standard_normal(s).astype(np.float32)
+             for k, s in PROBE_TINY_LEAVES.items()}
+
+    def stepped(device, steps=1):
+        tree = {k: {"w": torch.from_numpy(v["w"].copy()).to(device)} for k, v in params.items()}
+        opt = tstep.Adafactor(PROBE_LR * 10, min_dim_size_to_factor=128, max_grad_norm=1.0)
+        state = tstep.create_train_state(tree, opt, trainable_fn=lambda path: True)
+        for _ in range(steps):
+            opt.update({k: torch.from_numpy(g.copy()).to(device) for k, g in grads.items()},
+                       state.opt_state, state.params)
+            state.step += 1
+        return state, opt
+
+    card, cpu = stepped("cuda")[0], stepped("cpu")[0]
+    rel = max(float((card.params[k].detach().cpu() - cpu.params[k].detach()).abs().max()
+                    / cpu.params[k].detach().abs().max()) for k in cpu.params)
+    if not rel <= PROBE_TINY_REL:
+        raise AssertionError(f"[probe] tiny Adafactor step, card against CPU: {rel} of the "
+                             f"leaves' largest values (limit {PROBE_TINY_REL})")
+    saved, _ = stepped("cuda", 2)
+    mgr = CheckpointManager(str(tmp / "adafactor_ckpt"))
+    mgr.save(saved)
+    other, _ = stepped("cuda", 1)
+    mgr.restore(other)
+    same = other.step == saved.step == 2 and other.opt_state["count"] == 2
+    for name, leaves in saved.opt_state.items():
+        if name != "count":
+            same &= all(_bit_equal(other.opt_state[name][k], t) for k, t in leaves.items())
+    same &= all(_bit_equal(other.params[k], t) for k, t in saved.params.items())
+    if not same:
+        raise AssertionError("[probe] the Adafactor checkpoint did not round-trip bit for bit")
+    return {"card_vs_cpu_rel": rel, "checkpoint_round_trip": "bit for bit",
+            "state": sorted(k for k in saved.opt_state if k != "count")}
+
+
+def phase_probe(kernels) -> dict:
+    """make_probe_optimizer on the card at full width in the protocol of
+    script/w4a16_depth.py: 4 and 16 layers, AdamW and Adafactor."""
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        tiny = _probe_tiny(Path(tmp))
+    print(f"[probe] tiny fp32 Adafactor: {json.dumps(tiny)}")
+    rng = np.random.default_rng(11)
+    runs = {depth: _probe_run(kernels, depth, rng) for depth in PROBE_DEPTHS}
+    gc.collect()
+    torch.cuda.empty_cache()
+    out = {"tiny": tiny, "runs": runs, "phase_s": time.perf_counter() - t0}
+    print(f"[probe] phase {out['phase_s']:.1f} s")
+    return out
+
+
+REPLICATE_ARMS = {"plain": {}, "tome-auto": {"tome": "auto"}, "serving": {"serving_slots": 2}}
+REPLICATE_FIXED_LAUNCHES = ("plain", "serving")   # the arms whose #1 launches a video are fixed
+REPLICATE_TASK = ("Scene Transition", "scene_transition.json", "scene_qa/video")
+
+
+def _replicate_set(root: Path, seed: int = 13):
+    """A one-task MVBench layout ('Scene Transition') of three 48-frame
+    240x320 clips: noise, one still frame, a slow pan. The mp4s are written
+    with cv2 where it imports (and read back by the port's readers); without
+    it the clips are returned for the harness to read from memory."""
+    from stllm_tpu_torch import replicate_mvbench as rep
+
+    rng = np.random.default_rng(seed)
+    still = rng.integers(0, 256, (240, 320, 3), dtype=np.uint8)
+    wide = rng.integers(0, 256, (240, 400, 3), dtype=np.uint8)
+    clips = {"noise.mp4": rng.integers(0, 256, (48, 240, 320, 3), dtype=np.uint8),
+             "still.mp4": np.repeat(still[None], 48, axis=0),
+             "pan.mp4": np.stack([wide[:, i:i + 320] for i in range(48)])}
+    anno, media = root / "json", root / "video"
+    anno.mkdir(parents=True)
+    video_dir = media / REPLICATE_TASK[2]
+    video_dir.mkdir(parents=True)
+    items = [{"video": name, "question": f"what happens in the {name[:-4]} clip ?",
+              "candidates": [f"{name[:-4]} {c}" for c in ("cut", "fade", "wipe")],
+              "answer": f"{name[:-4]} {'cut fade wipe'.split()[i]}"}
+             for i, name in enumerate(clips)]
+    (anno / REPLICATE_TASK[1]).write_text(json.dumps(items))
+    if rep.cv2_available():
+        import cv2
+
+        for name, clip in clips.items():
+            vw = cv2.VideoWriter(str(video_dir / name), cv2.VideoWriter_fourcc(*"mp4v"), 8,
+                                 (clip.shape[2], clip.shape[1]))
+            for frame in clip:
+                vw.write(frame)
+            vw.release()
+        return str(anno), str(media), None
+    print("[replicate] cv2 does not import on this machine: no mp4 is written, the harness "
+          "reads the three clips from memory")
+    return str(anno), str(media), {name: (clip, 8.0) for name, clip in clips.items()}
+
+
+def phase_replicate(kernels, files: dict = None) -> dict:
+    """The MVBench replication gate (stllm_tpu_torch.replicate_mvbench) at
+    the QA config's full width on the load phase's seeded files (or the
+    same written here): convert; parity (the golden suite skipped: it
+    needs JAX), goldens recorded and verified on the same device (top-1
+    1.000, max |diff| 0); the one-task MVBench layout through the plain,
+    --tome auto and --serving-slots 2 arms, every sample scored, 45 #1
+    launches a video on the plain and served arms, and under --tome auto
+    #1 calls at merged or folded shapes (the still clip and the pan)."""
+    from stllm_tpu_torch import replicate_mvbench as rep
+    from stllm_tpu_torch.models.zoo import STLLM
+
+    t_phase = time.perf_counter()
+    root = Path(tempfile.mkdtemp(prefix="stllm_replicate_"))
+    try:
+        if files is None:
+            mem = STLLM.from_config(qa_model_cfg(), seed=LOAD_SEED)
+            files = _write_reference_files(mem.params, root)[0]
+            del mem
+            gc.collect()
+            torch.cuda.empty_cache()
+        anno, media, clips = _replicate_set(root)
+        golden = str(root / "goldens.npz")
+        args = rep.parse_args([
+            "--cfg", str(ROOT / "config" / "instructblipbase_stllm_qa.yaml"),
+            "--llama", files["llama_model"], "--qformer", files["q_former_model"],
+            "--vit", files["vit_model_path"], "--ckpt", files["ckpt"],
+            "--anno", anno, "--data-root", media, "--num-frames", str(FRAMES),
+            "--specified_item", REPLICATE_TASK[0], "--out-dir", str(root / "out"),
+            "--skip-golden-suite", "--record-golden", golden])
+        t0 = time.perf_counter()
+        cfg, model = rep.stage_convert(args)
+        torch.cuda.synchronize()
+        convert_s = time.perf_counter() - t0
+        if (model.cfg.vit.width, model.cfg.llama.hidden, model.cfg.llama.num_layers) \
+                != LOAD_WIDTHS:
+            raise AssertionError(f"[replicate] not the full-width QA config: {model.cfg}")
+        if not rep.stage_parity(args, model):
+            raise AssertionError("[replicate] recording the goldens failed")
+        args.record_golden, args.golden = None, golden
+        if not rep.stage_parity(args, model):
+            raise AssertionError("[replicate] the goldens did not verify")
+        rec = np.load(golden)
+        got = rep.golden_logits(model, rec["input_ids"])
+        parity = {"top1": float((got.argmax(-1) == rec["logits"].argmax(-1)).mean()),
+                  "max_abs_diff": float(np.abs(got - rec["logits"]).max()),
+                  "shape": list(rec["logits"].shape)}
+        if parity["top1"] != 1.0 or parity["max_abs_diff"] != 0.0:
+            raise AssertionError(f"[replicate] goldens on the same device: {parity}")
+        arms = {}
+        for arm, kw in REPLICATE_ARMS.items():
+            args.tome, args.serving_slots = kw.get("tome"), kw.get("serving_slots", 0)
+            args.output_name = f"mvbench_{arm}"
+            plain = {}
+            undo = _count_plain_attention(plain)
+            torch.cuda.synchronize()
+            kernels.reset_launches()
+            PACKED_CALLS.clear()
+            t0 = time.perf_counter()
+            try:
+                if not rep.stage_mvbench(args, cfg, model, clips):
+                    raise AssertionError(f"[replicate] the {arm} arm failed")
+                torch.cuda.synchronize()
+            finally:
+                undo()
+            wall = time.perf_counter() - t0
+            launches = dict(kernels.LAUNCHES)
+            written = json.loads((root / "out" / f"{args.output_name}.json").read_text())
+            scored = sum(v[1] for k, v in written["acc_dict"].items() if k != "Total Acc")
+            videos = len(json.loads((Path(anno) / REPLICATE_TASK[1]).read_text()))
+            if scored != videos or "Total Acc" not in written["acc_dict"]:
+                raise AssertionError(f"[replicate] {arm}: {scored} of {videos} samples scored")
+            if arm in REPLICATE_FIXED_LAUNCHES:
+                _expect(f"replicate-{arm}", launches, BF16_PER_VIDEO, videos)
+            elif not launches["packed_qkv_attention"] >= videos:
+                raise AssertionError(f"[replicate] {arm}: #1 launches {launches}")
+            if plain:
+                raise AssertionError(f"[replicate] {arm}: plain #1 calls {plain}")
+            shapes = {f"{r}x{n}": c for (k, r, n), c in sorted(PACKED_CALLS.items())
+                      if k == "packed_qkv_attention"}
+            arms[arm] = {"mode": f"replicate-{arm}", "wall_s": wall, "videos": videos,
+                         "total_acc": written["acc_dict"]["Total Acc"], "launches": launches,
+                         "launches_per_video": {k: v / videos for k, v in launches.items() if v},
+                         "packed_calls_by_rows_x_tokens": shapes}
+            print(f"[replicate] {arm}: {videos} samples scored in {wall:.2f} s, launches a "
+                  f"video {json.dumps(arms[arm]['launches_per_video'])}, #1 calls by rows x "
+                  f"tokens {json.dumps(shapes)}")
+        if set(arms["tome-auto"]["packed_calls_by_rows_x_tokens"]) \
+                <= set(arms["plain"]["packed_calls_by_rows_x_tokens"]):
+            raise AssertionError("[replicate] --tome auto merged no encode: "
+                                 f"{arms['tome-auto']['packed_calls_by_rows_x_tokens']}")
+        del model
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    out = {"convert_s": convert_s, "parity": parity, "arms": arms,
+           "clips": "memory" if clips else "mp4", "phase_s": time.perf_counter() - t_phase}
+    print(f"[replicate] convert {convert_s:.1f} s, goldens {json.dumps(parity)}, clips from "
+          f"{out['clips']}; phase {out['phase_s']:.1f} s ({smi_line()})")
+    return out
+
+
 # phases --phases can run alone
-PARTIAL = ("load", "demo", "train_breadth", "distill", "runner", "mesh")
+PARTIAL = ("load", "demo", "train_breadth", "distill", "runner", "mesh", "probe",
+           "replicate")
 
 
 def main(argv=None) -> int:
@@ -5708,7 +6066,8 @@ def main(argv=None) -> int:
         record_packed_shapes(kernels)
         for name in args.phases:
             {"load": phase_load, "demo": phase_demo, "train_breadth": phase_train_breadth,
-             "distill": phase_distill, "runner": phase_runner, "mesh": phase_mesh}[name](kernels)
+             "distill": phase_distill, "runner": phase_runner, "mesh": phase_mesh,
+             "probe": phase_probe, "replicate": phase_replicate}[name](kernels)
             gc.collect()
             torch.cuda.empty_cache()
         print(f"chip_smoke: phases {args.phases} passed (a partial run: no result line)")
@@ -5726,7 +6085,13 @@ def main(argv=None) -> int:
     del qa_model
     gc.collect()
     torch.cuda.empty_cache()
-    load = phase_load(kernels)
+    load = phase_load(kernels, keep_files=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    try:
+        replicate = phase_replicate(kernels, load.pop("files"))
+    finally:
+        shutil.rmtree(load.pop("files_root"), ignore_errors=True)
     gc.collect()
     torch.cuda.empty_cache()
     int8 = phase_int8(kernels)
@@ -5760,6 +6125,11 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     mesh = phase_mesh(kernels)
     mesh_none, mesh_1x1 = mesh["plain"], mesh["sharded"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    probe = phase_probe(kernels)
+    probe_short = [r["short"] for r in probe["runs"].values()]
+    probe_long = [r["long"] for r in probe["runs"].values()]
     # each kernel's launches from the path that runs it; the probes run on no
     # path (0 launches on every one)
     path_of = {"packed_qkv_attention": bf16, "layer_norm_quant": int8["dynamic"],
@@ -5779,13 +6149,14 @@ def main(argv=None) -> int:
                       breadth["mild"], breadth["prefix_key"], load, *w4_beams.values(), w4_spec,
                       *pipeline["auto"].values(), demo["gradio"], *demo["web"].values(),
                       lora, resume, run_first, run_resume, distill["distill"],
-                      distill["spec"], mesh_none, mesh_1x1):
+                      distill["spec"], mesh_none, mesh_1x1, *replicate["arms"].values(),
+                      *probe_short, *probe_long):
             entry["launches_by_path"][route["mode"]] = route["launches"][name]
         entry["launches_by_path"]["pipeline-calibration"] = pipeline["calibration_launches"][name]
         entry["launches_per_train_step"] = {t["mode"]: t["launches"][name] / t["steps"]
                                             for t in (short, long_, lora, resume, run_first,
                                                       run_resume, distill["distill"], mesh_none,
-                                                      mesh_1x1)}
+                                                      mesh_1x1, *probe_short, *probe_long)}
         if name in kernels.FORMS:
             entry["form_launches"] = {k: v for k, v in path_of[name]["form_launches"].items()
                                       if k.startswith(name + "/")}

@@ -1,19 +1,28 @@
-"""Learning-rate schedules as plain functions of the step
+"""Learning-rate schedules and the AdamW of the library surface
 (stllm_tpu/common/optim.py): linear warmup into cosine or per-epoch step
 decay, the HF Trainer ``cosine`` schedule of the QA config, and optax's
 ``warmup_cosine_decay_schedule`` that the train CLI builds. Each
 ``schedule(step)`` returns the rate of optimizer step ``step`` (0-based) as a
 Python float; ``train.step.make_optimizer`` takes a schedule or a constant.
+
+``make_optimizer`` here is the reference's other AdamW: its weight-decay
+exemption goes by name (``weight_decay_mask``) as well as by rank, and a
+``trainable_mask`` freezes leaves. It returns ``train.step.AdamW``.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Callable
+from typing import Any, Callable, Dict, Optional, Union
+
+import torch
 
 from stllm_tpu_torch.common.registry import registry
 
 Schedule = Callable[[int], float]
+
+# a leaf whose lowercased path holds one of these takes no weight decay
+_NO_DECAY_TOKENS = ("norm", "ln_", "_ln", "layernorm", "embed")
 
 
 def cosine_lr_schedule(init_lr: float, min_lr: float, warmup_steps: int,
@@ -109,3 +118,41 @@ class LinearWarmupStepLRScheduler:
 
     def __call__(self, step: int) -> float:
         return self.schedule(step)
+
+
+def weight_decay_mask(params: Any) -> Dict[str, bool]:
+    """{path: True where weight decay applies} for a tree or a {path: tensor}
+    dict: leaves of two or more dimensions whose lowercased path names no
+    norm or embedding (the reference's optimizer grouping, runner_base.py:
+    biases, norm scales and other leaves under two dimensions get none)."""
+    from stllm_tpu_torch.train.step import tree_paths
+
+    def keep(path: str, leaf: torch.Tensor) -> bool:
+        name = path.lower()
+        return leaf.dim() >= 2 and not any(tok in name for tok in _NO_DECAY_TOKENS)
+
+    return {path: keep(path, leaf) for path, leaf in tree_paths(params)}
+
+
+def make_optimizer(
+    learning_rate: Union[float, Schedule],
+    weight_decay: float = 0.05,
+    beta1: float = 0.9,
+    beta2: float = 0.999,
+    eps: float = 1e-8,
+    max_grad_norm: Optional[float] = None,
+    trainable_mask: Any = None,
+):
+    """AdamW with the name-based weight-decay exemption, optional
+    global-norm clipping and freezing.
+    ``trainable_mask``: a tree of bools like the parameters, or a
+    {path: bool} dict; False leaves get no update, and their gradients count
+    neither in the clipping norm nor in the moments (optax.multi_transform
+    with set_to_zero)."""
+    from stllm_tpu_torch.train.step import AdamW, tree_paths
+
+    mask = None if trainable_mask is None else {
+        path: bool(v) for path, v in tree_paths(trainable_mask)}
+    return AdamW(learning_rate, weight_decay=weight_decay, beta1=beta1, beta2=beta2,
+                 eps=eps, max_grad_norm=max_grad_norm, decay_mask=weight_decay_mask,
+                 trainable_mask=mask)

@@ -19,6 +19,7 @@ have no name in the reference's files.
 
 from __future__ import annotations
 
+import json
 import os
 from typing import Dict
 
@@ -167,8 +168,9 @@ def stllm_state(params: Dict, dtype=None, prefix: str = "") -> Dict[str, torch.T
 
 def save_hf_shards(state: Dict[str, torch.Tensor], model_dir: str, shards: int = 2) -> list:
     """``state`` as ``pytorch_model-0000k-of-0000n.bin`` files in
-    ``model_dir`` (keys in order, split near equal bytes); returns the
-    shard paths."""
+    ``model_dir`` (keys in order, split near equal bytes) with the
+    ``pytorch_model.bin.index.json`` that HF's ``from_pretrained`` reads
+    them by; returns the shard paths."""
     os.makedirs(model_dir, exist_ok=True)
     total = sum(t.numel() * t.element_size() for t in state.values())
     groups, size = [[]], 0
@@ -181,4 +183,9 @@ def save_hf_shards(state: Dict[str, torch.Tensor], model_dir: str, shards: int =
     for i, keys in enumerate(groups):
         paths.append(os.path.join(model_dir, f"pytorch_model-{i + 1:05d}-of-{len(groups):05d}.bin"))
         torch.save({k: state[k] for k in keys}, paths[-1])
+    index = {"metadata": {"total_size": total},
+             "weight_map": {k: os.path.basename(path) for path, keys in zip(paths, groups)
+                            for k in keys}}
+    with open(os.path.join(model_dir, "pytorch_model.bin.index.json"), "w") as f:
+        json.dump(index, f, indent=2)
     return paths

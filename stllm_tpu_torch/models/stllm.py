@@ -310,7 +310,11 @@ def resolve_auto_merge(cfg: STLLMConfig, frames) -> STLLMConfig:
     redundancy (ops/tome.py select_merge_level, host-side); any other level
     passes through unchanged. ``frames`` (B, T, H, W, C), array or tensor.
     A trunk of another geometry than 257 tokens a frame (a debug size) runs
-    unmerged: the levels' token counts are EVA-ViT-g's."""
+    unmerged: the levels' token counts are EVA-ViT-g's. On a BTAdapter
+    model a temporal level's post-trunk re-merge is dropped, as
+    ``level_kwargs(post_trunk=False)`` drops it: the branch's output is full
+    resolution by construction, and ``btadapter_forward`` refuses the entry
+    (the reference resolves it and then raises there)."""
     if cfg.vit.merge_level != "auto":
         return cfg
     off = dataclasses.replace(cfg.vit, merge_level="")
@@ -319,8 +323,11 @@ def resolve_auto_merge(cfg: STLLMConfig, frames) -> STLLMConfig:
     level = select_merge_level(frames)
     if level == "off":
         return dataclasses.replace(cfg, vit=off)
-    sched = (MERGE_LEVELS[level] if cfg.vit.depth == 39
-             else scale_level_to_depth(level, cfg.vit.depth))
+    sched = dict(MERGE_LEVELS[level] if cfg.vit.depth == 39
+                 else scale_level_to_depth(level, cfg.vit.depth))
+    if cfg.vit_model == "eva_btadapter_g" and "merge_schedule" in sched:
+        sched["merge_schedule"] = tuple(e for e in sched["merge_schedule"]
+                                        if e[0] < cfg.vit.depth)
     return dataclasses.replace(cfg, vit=dataclasses.replace(off, **sched))
 
 

@@ -5,8 +5,9 @@ port, so it writes its own format, which the two packages do not share: one
 ``torch.save`` file a step of flat ``{path: tensor}`` dicts.
 
   - like the reference, ONLY the trainable leaves, the optimizer state
-    (``count``, ``mu``, ``nu``) and ``meta.step`` are saved: the frozen
-    backbone comes from the pretrained weights;
+    (``count`` and every {path: tensor} dict of it: AdamW's ``mu``, ``nu``,
+    Adafactor's ``v_row``, ``v_col``, ``v``) and ``meta.step`` are saved: the
+    frozen backbone comes from the pretrained weights;
   - a save is atomic: the step is written under a temporary name and moved
     into place with ``os.replace``, so a run killed mid-save leaves no
     ``checkpoint_<step>`` that ``latest_step`` would pick and ``restore``
@@ -144,12 +145,21 @@ class CheckpointManager:
         self.mesh = mesh
         os.makedirs(self.directory, exist_ok=True)
 
-    def _whole(self, state: TrainState, leaves: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
-        """Each leaf of ``leaves`` (trainable paths) whole: on a mesh gathered
-        one at a time, in host memory on rank 0 (the other ranks keep none)."""
+    @staticmethod
+    def _specs(state: TrainState, name: Optional[str] = None) -> Dict[str, Any]:
+        """{path: spec} of the trainable leaves, or of optimizer state ``name``."""
+        if name is not None and state.opt_specs is not None:
+            return state.opt_specs[name]
+        return by_path(state.tree, state.specs)
+
+    def _whole(self, state: TrainState, leaves: Dict[str, torch.Tensor],
+               name: Optional[str] = None) -> Dict[str, torch.Tensor]:
+        """Each leaf of ``leaves`` (trainable paths; of optimizer state
+        ``name``) whole: on a mesh gathered one at a time, in host memory on
+        rank 0 (the other ranks keep none)."""
         if self.mesh is None:
             return leaves
-        specs = by_path(state.tree, state.specs)
+        specs = self._specs(state, name)
         out = {}
         for k, v in leaves.items():
             whole = gather_leaves(self.mesh, {k: v.detach()}, {k: specs[k]})[k]
@@ -158,11 +168,12 @@ class CheckpointManager:
             del whole
         return out
 
-    def _slices(self, state: TrainState, flat: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
-        """This rank's slice of each saved leaf."""
+    def _slices(self, state: TrainState, flat: Dict[str, torch.Tensor],
+                name: Optional[str] = None) -> Dict[str, torch.Tensor]:
+        """This rank's slice of each saved leaf (of optimizer state ``name``)."""
         if self.mesh is None or state.specs is None:
             return flat
-        specs = by_path(state.tree, state.specs)
+        specs = self._specs(state, name)
         return {k: local_slice(self.mesh, v, specs[k]) if k in specs else v
                 for k, v in flat.items()}
 
@@ -180,12 +191,12 @@ class CheckpointManager:
 
     def save(self, state: TrainState, extra: Optional[Dict] = None) -> None:
         step = int(state.step)
-        opt = state.opt_state
+        opt = {name: self._whole(state, leaves, name)
+               for name, leaves in state.opt_state.items() if name != "count"}
+        opt["count"] = torch.tensor(int(state.opt_state["count"]), dtype=torch.int64)
         payload = {
             "params": self._whole(state, {k: v.detach() for k, v in state.params.items()}),
-            "opt_state": {"count": torch.tensor(int(opt["count"]), dtype=torch.int64),
-                          "mu": self._whole(state, opt["mu"]),
-                          "nu": self._whole(state, opt["nu"])},
+            "opt_state": opt,
             "meta": {"step": step, **(extra or {})},
         }
         if self.mesh is None or self.mesh.rank == 0:
@@ -211,8 +222,12 @@ class CheckpointManager:
                              weights_only=True, mmap=True)
         _copy_into(state.params, self._slices(state, payload["params"]), "params")
         opt = payload["opt_state"]
-        _copy_into(state.opt_state["mu"], self._slices(state, opt["mu"]), "mu")
-        _copy_into(state.opt_state["nu"], self._slices(state, opt["nu"]), "nu")
+        if set(opt) != set(state.opt_state):
+            raise KeyError(f"checkpoint optimizer state {sorted(opt)}, the state holds "
+                           f"{sorted(state.opt_state)}: another optimizer")
+        for name, leaves in state.opt_state.items():
+            if name != "count":
+                _copy_into(leaves, self._slices(state, opt[name], name), name)
         state.opt_state["count"] = int(opt["count"])
         state.step = int(payload["meta"]["step"])
         return state

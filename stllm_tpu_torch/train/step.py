@@ -10,7 +10,8 @@ is the reference's optax chain written out: clip by global norm, Adam
 moments with bias correction, decoupled weight decay on leaves of two or more
 dimensions, times minus the learning rate of the step. It updates the
 parameters and its moments IN PLACE (the reference returns new trees), so a
-``TrainState`` is advanced, not replaced.
+``TrainState`` is advanced, not replaced. ``Adafactor`` (optax.adafactor, for
+``make_probe_optimizer`` above 1.5e9 parameters) takes the same interface.
 
 On a mesh (``parallel/mesh.py``) the state holds this rank's slice of every
 leaf by ``stllm_param_shardings`` (AdamW's moments too), and a step:
@@ -31,12 +32,14 @@ import dataclasses
 import math
 from typing import Any, Callable, Dict, Iterator, List, Optional, Tuple, Union
 
+import numpy as np
 import torch
 
 from stllm_tpu_torch.models.stllm import STLLMConfig, stllm_forward
 from stllm_tpu_torch.ops.spmd import kernel_sharding, model_parallel
 from stllm_tpu_torch.parallel.collectives import all_reduce
-from stllm_tpu_torch.parallel.mesh import DATA_AXIS, MODEL_AXIS, Mesh, by_path, map_tree
+from stllm_tpu_torch.parallel.mesh import (
+    DATA_AXIS, MODEL_AXIS, Mesh, Spec, by_path, map_tree)
 from stllm_tpu_torch.parallel.sharding import (
     compute_tree, grads_to_slices, llama_tp_plan, local_batch, replication, shard_tree,
     stllm_param_shardings)
@@ -134,6 +137,19 @@ def global_norm(grads: List[torch.Tensor]) -> torch.Tensor:
     return torch.stack(sq).sum().sqrt()
 
 
+def clip_by_global_norm(grads: Dict[str, torch.Tensor], max_norm: Optional[float],
+                        norm: Optional[torch.Tensor] = None) -> None:
+    """optax.clip_by_global_norm in place: every gradient times
+    max_norm / ||g|| where the global norm reaches ``max_norm`` (``norm``,
+    when the caller has it already). No clipping without ``max_norm``."""
+    if not max_norm:
+        return
+    norm = global_norm(list(grads.values())) if norm is None else norm
+    coef = torch.where(norm < max_norm, torch.ones_like(norm), max_norm / norm)
+    for g in grads.values():
+        g.mul_(coef.to(g.dtype))
+
+
 @dataclasses.dataclass
 class AdamW:
     """The reference's optimizer chain, applied in place by ``update``:
@@ -143,11 +159,16 @@ class AdamW:
       nu   <- b2 * nu + (1 - b2) * g^2
       p    <- p - lr(step) * ((mu / (1 - b1^t)) / (sqrt(nu / (1 - b2^t)) + eps) + wd * p)
 
-    with t = step + 1, wd only where ``weight_decay_mask`` says (on every
+    with t = step + 1, wd only where ``weight_decay_mask`` says (or
+    ``decay_mask(params)``, a {path: bool} dict, when it is given; on every
     leaf with ``decay_all``, optax.adamw's default), and ``lr`` a constant
     or a function of the 0-based step. Leaves whose path starts
     with ``projector_prefix`` take ``projector_lr`` when it is given. The
-    moments have the parameters' dtypes."""
+    moments have the parameters' dtypes.
+
+    ``trainable_mask`` ({path: bool}) is optax.multi_transform with
+    set_to_zero on the False leaves: those get no update, no moments, and
+    their gradients count neither in the clipping norm nor anywhere else."""
 
     learning_rate: LearningRate
     weight_decay: float = 0.05
@@ -158,11 +179,27 @@ class AdamW:
     projector_lr: Optional[LearningRate] = None
     projector_prefix: str = "llama_proj"
     decay_all: bool = False
+    decay_mask: Optional[Callable[[Dict[str, torch.Tensor]], Dict[str, bool]]] = None
+    trainable_mask: Optional[Dict[str, bool]] = None
 
-    def init(self, params: Dict[str, torch.Tensor]) -> Dict[str, Any]:
+    def _trained(self, tree: Dict[str, Any]) -> Dict[str, Any]:
+        if self.trainable_mask is None:
+            return tree
+        return {k: v for k, v in tree.items() if self.trainable_mask[k]}
+
+    def init(self, params: Dict[str, torch.Tensor], mesh: Optional[Mesh] = None,
+             specs: Optional[Dict[str, Spec]] = None) -> Dict[str, Any]:
+        """The moments, zero; on a mesh sliced as the leaves are."""
+        params = self._trained(params)
         return {"count": 0,
                 "mu": {k: torch.zeros_like(p) for k, p in params.items()},
                 "nu": {k: torch.zeros_like(p) for k, p in params.items()}}
+
+    def state_specs(self, params: Dict[str, torch.Tensor], mesh: Mesh,
+                    specs: Dict[str, Spec]) -> Dict[str, Dict[str, Spec]]:
+        """{state name: {path: spec}}: each moment as its leaf."""
+        trained = {k: specs[k] for k in self._trained(params)}
+        return {"mu": trained, "nu": dict(trained)}
 
     def _lr(self, path: str, count: int) -> float:
         lr = self.learning_rate
@@ -172,22 +209,23 @@ class AdamW:
 
     @torch.no_grad()
     def update(self, grads: Dict[str, torch.Tensor], opt_state: Dict[str, Any],
-               params: Dict[str, torch.Tensor], grad_norm: Optional[torch.Tensor] = None
-               ) -> None:
+               params: Dict[str, torch.Tensor], grad_norm: Optional[torch.Tensor] = None,
+               mesh: Optional[Mesh] = None, specs: Optional[Dict[str, Spec]] = None) -> None:
         """One step on ``params`` from ``grads`` (which it may scale in
         place). ``grad_norm``: the gradients' global norm if the caller has
-        it already."""
-        if self.max_grad_norm:
-            norm = global_norm(list(grads.values())) if grad_norm is None else grad_norm
-            coef = torch.where(norm < self.max_grad_norm, torch.ones_like(norm),
-                               self.max_grad_norm / norm)
-            for g in grads.values():
-                g.mul_(coef.to(g.dtype))
+        it already (under a ``trainable_mask`` that freezes a leaf it is
+        taken over the trained leaves instead). Elementwise, so a mesh's
+        slices need no more (``mesh`` and ``specs`` are Adafactor's)."""
+        if self.trainable_mask is not None and len(self._trained(params)) < len(params):
+            grads, params, grad_norm = self._trained(grads), self._trained(params), None
+        clip_by_global_norm(grads, self.max_grad_norm, grad_norm)
         count = opt_state["count"]
         t = count + 1
         bc1, root_bc2 = 1.0 - self.beta1 ** t, math.sqrt(1.0 - self.beta2 ** t)
-        decay = ({path: True for path in params} if self.decay_all
-                 else weight_decay_mask(params))
+        if self.decay_all:
+            decay = {path: True for path in params}
+        else:
+            decay = (self.decay_mask or weight_decay_mask)(params)
         # the update with both bias corrections folded into two scalars,
         #   (mu / bc1) / (sqrt(nu / bc2) + eps)
         #     = (sqrt(bc2) / bc1) * mu / (sqrt(nu) + eps * sqrt(bc2)),
@@ -220,6 +258,167 @@ def make_optimizer(
                  projector_prefix=projector_prefix)
 
 
+def _factored_dims(shape: Tuple[int, ...], min_dim_size_to_factor: int
+                   ) -> Optional[Tuple[int, int]]:
+    """optax's rule: the second largest and the largest axis (numpy's
+    argsort order) when the second largest has at least
+    ``min_dim_size_to_factor`` elements, else None (not factored)."""
+    if len(shape) < 2:
+        return None
+    order = np.argsort(shape)
+    if shape[order[-2]] < min_dim_size_to_factor:
+        return None
+    return int(order[-2]), int(order[-1])
+
+
+def _full_spec(spec: Optional[Spec], ndim: int) -> Spec:
+    spec = tuple(spec or ())
+    return spec + (None,) * (ndim - len(spec))
+
+
+def _whole_shape(p: torch.Tensor, mesh: Optional[Mesh], spec: Spec) -> Tuple[int, ...]:
+    """The whole leaf's shape of the slice ``p`` under ``spec``."""
+    if mesh is None:
+        return tuple(p.shape)
+    return tuple(n * (mesh.shape[axis] if axis else 1) for n, axis in zip(p.shape, spec))
+
+
+def _sum(x: torch.Tensor, dims: Tuple[int, ...], mesh: Optional[Mesh], spec: Spec
+         ) -> torch.Tensor:
+    """x summed over ``dims`` of the whole leaf: this rank's sum, then over
+    the ranks that hold the leaf's other slices along those dims."""
+    out = x.sum(dim=dims) if dims else x.sum()
+    if mesh is not None:
+        split = {spec[d] for d in (dims or range(x.dim()))}
+        for axis in (DATA_AXIS, MODEL_AXIS):      # one order on every rank
+            if axis in split:
+                out = all_reduce(out, mesh.groups[axis])
+    return out
+
+
+@dataclasses.dataclass
+class Adafactor:
+    """optax.adafactor (Shazeer and Stern, 2018), applied in place by
+    ``update``, after optax.clip_by_global_norm(``max_grad_norm``) as the
+    reference's probe chain has it. With d = 1 - (count + 1)^-decay_rate
+    and g2 = g^2 + eps, per leaf:
+
+      factored (two axes of at least ``min_dim_size_to_factor``; d0 the
+      largest, d1 the second largest):
+        v_row <- d * v_row + (1 - d) * mean(g2, d0)
+        v_col <- d * v_col + (1 - d) * mean(g2, d1)
+        u = g * (v_row / mean(v_row, d1))^-1/2 * v_col^-1/2
+      else:
+        v <- d * v + (1 - d) * g2,  u = g * v^-1/2
+      u <- u / max(1, rms(u))
+      p <- p - lr(step) * u * max(rms(p), 1e-3)
+
+    with optax's defaults as the reference takes them: decay_rate 0.8,
+    decay_offset 0, clipping_threshold 1.0, multiply_by_parameter_scale.
+    The statistics have the parameters' dtypes; there is no first moment.
+    The same ``init`` / ``update`` interface as AdamW. On a mesh
+    (``mesh`` and ``specs``, {path: spec}, given to both) the leaves are
+    this rank's slices: each leaf factors by its whole shape, its
+    statistics are sliced as the leaf is (``state_specs``), and every mean
+    and rms is over the whole leaf, summed across the ranks that hold it."""
+
+    learning_rate: LearningRate
+    min_dim_size_to_factor: int = 128
+    eps: float = 1e-30
+    max_grad_norm: Optional[float] = None
+
+    def _dims(self, p: torch.Tensor, mesh: Optional[Mesh], spec: Spec):
+        return _factored_dims(_whole_shape(p, mesh, spec), self.min_dim_size_to_factor)
+
+    def state_specs(self, params: Dict[str, torch.Tensor], mesh: Mesh,
+                    specs: Dict[str, Spec]) -> Dict[str, Dict[str, Spec]]:
+        """{state name: {path: spec}}: v as its leaf, v_row and v_col as
+        their leaf without the averaged axis."""
+        out: Dict[str, Dict[str, Spec]] = {"v_row": {}, "v_col": {}, "v": {}}
+        for path, p in params.items():
+            spec = _full_spec(specs[path], p.dim())
+            dims = self._dims(p, mesh, spec)
+            if dims is None:
+                out["v"][path] = spec
+            else:
+                d1, d0 = dims
+                out["v_row"][path] = spec[:d0] + spec[d0 + 1:]
+                out["v_col"][path] = spec[:d1] + spec[d1 + 1:]
+        return out
+
+    def init(self, params: Dict[str, torch.Tensor], mesh: Optional[Mesh] = None,
+             specs: Optional[Dict[str, Spec]] = None) -> Dict[str, Any]:
+        state: Dict[str, Any] = {"count": 0, "v_row": {}, "v_col": {}, "v": {}}
+        for path, p in params.items():
+            dims = self._dims(p, mesh, _full_spec(specs and specs[path], p.dim()))
+            if dims is None:
+                state["v"][path] = torch.zeros_like(p)
+            else:
+                d1, d0 = dims
+                shape = list(p.shape)
+                state["v_row"][path] = p.new_zeros(shape[:d0] + shape[d0 + 1:])
+                state["v_col"][path] = p.new_zeros(shape[:d1] + shape[d1 + 1:])
+        return state
+
+    @torch.no_grad()
+    def update(self, grads: Dict[str, torch.Tensor], opt_state: Dict[str, Any],
+               params: Dict[str, torch.Tensor], grad_norm: Optional[torch.Tensor] = None,
+               mesh: Optional[Mesh] = None, specs: Optional[Dict[str, Spec]] = None) -> None:
+        """One step on ``params`` from ``grads`` (which it may scale in
+        place); ``grad_norm`` as AdamW's (on a mesh, the whole tree's)."""
+        clip_by_global_norm(grads, self.max_grad_norm, grad_norm)
+        count = opt_state["count"]
+        decay = 1.0 - float(np.float32(count + 1) ** np.float32(-0.8))
+        lr = self.learning_rate
+        lr = float(lr(count)) if callable(lr) else float(lr)
+        for path, p in params.items():
+            g = grads[path]
+            spec = _full_spec(specs and specs[path], p.dim())
+            whole = _whole_shape(p, mesh, spec)
+            g2 = g.square().add_(self.eps)
+            if path in opt_state["v"]:
+                v = opt_state["v"][path]
+                v.mul_(decay).add_(g2, alpha=1.0 - decay)
+                u = g * v.rsqrt()
+            else:
+                d1, d0 = self._dims(p, mesh, spec)
+                v_row, v_col = opt_state["v_row"][path], opt_state["v_col"][path]
+                v_row.mul_(decay).add_(_sum(g2, (d0,), mesh, spec) / whole[d0],
+                                       alpha=1.0 - decay)
+                v_col.mul_(decay).add_(_sum(g2, (d1,), mesh, spec) / whole[d1],
+                                       alpha=1.0 - decay)
+                r1 = d1 - 1 if d1 > d0 else d1
+                row_spec = spec[:d0] + spec[d0 + 1:]
+                row_mean = _sum(v_row, (r1,), mesh, row_spec).unsqueeze(r1) / whole[d1]
+                u = g * (v_row / row_mean).rsqrt().unsqueeze(d0) * v_col.rsqrt().unsqueeze(d1)
+            del g2
+            numel = math.prod(whole)
+            rms_u = (_sum(u.square(), (), mesh, spec) / numel).sqrt()
+            u.div_(torch.clamp(rms_u, min=1.0))
+            rms_p = (_sum(p.square(), (), mesh, spec) / numel).sqrt()
+            u.mul_(torch.clamp(rms_p, min=1e-3) * lr)
+            p.sub_(u)
+        opt_state["count"] = count + 1
+
+
+Optimizer = Union[AdamW, Adafactor]
+PROBE_ADAFACTOR_PARAMS = 1_500_000_000
+
+
+def make_probe_optimizer(params: Any, lr: float) -> Optimizer:
+    """The optimizer of the on-chip proxy trainings: AdamW (``make_optimizer``,
+    clipping at 1.0) while its two moment trees fit beside the parameters
+    and gradients, Adafactor (factored second moment, no first, at ten
+    times the rate, after clipping at 1.0) above 1.5e9 parameters. Counts
+    every leaf of ``params`` (a tree or a {path: tensor} dict; meta tensors
+    count too)."""
+    n_params = sum(p.numel() for _, p in tree_paths(params))
+    if n_params > PROBE_ADAFACTOR_PARAMS:
+        print(f"{n_params / 1e9:.2f}B params: adafactor", flush=True)
+        return Adafactor(lr * 10, min_dim_size_to_factor=128, max_grad_norm=1.0)
+    return make_optimizer(lr, max_grad_norm=1.0)
+
+
 @dataclasses.dataclass
 class TrainState:
     step: int
@@ -228,24 +427,28 @@ class TrainState:
     frozen: Dict[str, torch.Tensor]      # its frozen leaves by path
     opt_state: Dict[str, Any]
     specs: Any = None                    # on a mesh: the spec tree; the leaves are slices
+    opt_specs: Any = None                # on a mesh: {state name: {path: spec}}
 
 
-def create_train_state(params: Any, optimizer: AdamW,
+def create_train_state(params: Any, optimizer: Optimizer,
                        trainable_fn: Optional[Callable[[str], bool]] = None,
                        mesh: Optional[Mesh] = None, min_size: int = 2 ** 14) -> TrainState:
     """On a ``mesh`` the state keeps this rank's slice of each leaf of
     ``params`` by ``stllm_param_shardings(mesh, params, min_size)``."""
-    specs = None
-    if mesh is not None:
-        specs = stllm_param_shardings(mesh, params, min_size)
-        params = shard_tree(mesh, params, specs)
+    if mesh is None:
+        train, frozen = partition_params(params, trainable_fn or default_trainable())
+        return TrainState(0, params, train, frozen, optimizer.init(train))
+    specs = stllm_param_shardings(mesh, params, min_size)
+    params = shard_tree(mesh, params, specs)
     train, frozen = partition_params(params, trainable_fn or default_trainable())
-    return TrainState(0, params, train, frozen, optimizer.init(train), specs)
+    flat = by_path(params, specs)
+    return TrainState(0, params, train, frozen, optimizer.init(train, mesh=mesh, specs=flat),
+                      specs, optimizer.state_specs(train, mesh, flat))
 
 
 def make_train_step(
     cfg: STLLMConfig,
-    optimizer: AdamW,
+    optimizer: Optimizer,
     accum_steps: int = 1,
     loss_fn: Optional[Callable[[Any, Dict, STLLMConfig], Dict]] = None,
     mesh: Optional[Mesh] = None,
@@ -300,7 +503,7 @@ def _micro(batch: Dict[str, torch.Tensor], accum_steps: int, i: int) -> Dict[str
     return {k: v.reshape((accum_steps, -1) + tuple(v.shape[1:]))[i] for k, v in batch.items()}
 
 
-def _sharded_train_step(cfg: STLLMConfig, optimizer: AdamW, accum_steps: int, fwd, mesh: Mesh):
+def _sharded_train_step(cfg: STLLMConfig, optimizer: Optimizer, accum_steps: int, fwd, mesh: Mesh):
     data_group = mesh.groups[DATA_AXIS]
 
     def train_step(state: TrainState, batch: Dict[str, torch.Tensor]):
@@ -349,7 +552,8 @@ def _sharded_train_step(cfg: STLLMConfig, optimizer: AdamW, accum_steps: int, fw
         metrics = {k: (all_reduce(v, data_group) if split else v) / accum_steps
                    for k, v in metrics.items()}
         metrics["grad_norm"] = all_reduce(torch.stack(sq).sum(), mesh.world).sqrt()
-        optimizer.update(grads, state.opt_state, state.params, grad_norm=metrics["grad_norm"])
+        optimizer.update(grads, state.opt_state, state.params, grad_norm=metrics["grad_norm"],
+                         mesh=mesh, specs=specs)
         state.step += 1
         return state, metrics
 

@@ -28,6 +28,7 @@ import pytest
 import torch
 
 from stllm_tpu import pipeline_serving as jps
+from stllm_tpu.data.processors import normalize_frames
 from stllm_tpu.models import btadapter as jbt
 from stllm_tpu.models import generation as jgen
 from stllm_tpu.models import llama as jllama
@@ -46,6 +47,7 @@ from stllm_tpu_torch.models import qformer as tqf
 from stllm_tpu_torch.models import stllm as tst
 from stllm_tpu_torch.models import vit as tvit
 from stllm_tpu_torch.models import zoo as tzoo
+from stllm_tpu_torch.ops import quant as tquant
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -243,10 +245,19 @@ def _gen(cls, n):
 
 
 @pytest.mark.parametrize("mode", ["dynamic", "static"])
-def test_int8_video_qa_server_matches_jax(stllm_params, vit_q, mode):
-    """The tiny int8 QA server in both modes: encode outputs and prefill
-    logits within 1e-3 mean relative error, and the same first token for
-    every request."""
+def test_int8_video_qa_server_matches_jax(stllm_params, vit_q, mode, monkeypatch):
+    """The tiny int8 QA server in both modes: encode outputs within 1e-3 mean
+    relative error, prefill logits within 1e-3, and the same first token for
+    every request.
+
+    The checks after the encode start from shared inputs: both prefills take
+    JAX's embeddings, and the port's server encodes each video itself, holds
+    its embeddings to JAX's, and hands JAX's to its batcher. A code of the
+    static encode that lands on the other side of a rounding boundary moves
+    the embeddings by about 1e-4 relative, which the LLaMA's dynamic W8A8
+    amplifies about 40x (test_static_encode_codes_match_jax holds the static
+    encode code for code); chained, the prefill check would test on which
+    side each package's rounding fell."""
     jp = _quantized_stllm(stllm_params, vit_q, mode)
     tp = _t(jp)
     rng = np.random.default_rng(6)
@@ -256,18 +267,33 @@ def test_int8_video_qa_server_matches_jax(stllm_params, vit_q, mode):
     q = rng.integers(0, 50, (1, 6)).astype(np.int32)
     qm = np.ones_like(q)
 
+    jembs = {}
+    for rid, fr, pre, suf, _ in reqs:
+        jembs[pre.tobytes()] = jps._encode_assemble(
+            jp, jnp.asarray(fr), jnp.asarray(pre), jnp.asarray(suf), jnp.asarray(q),
+            jnp.asarray(qm), JCFG)
     rid, fr, pre, suf, _ = reqs[0]
-    jemb = jps._encode_assemble(jp, jnp.asarray(fr), jnp.asarray(pre), jnp.asarray(suf),
-                                jnp.asarray(q), jnp.asarray(qm), JCFG)
+    jemb = jembs[pre.tobytes()]
     temb = tps._encode_assemble(tp, torch.from_numpy(fr), torch.from_numpy(pre).int(),
                                 torch.from_numpy(suf).int(), torch.from_numpy(q),
                                 torch.from_numpy(qm), TCFG)
     assert _mean_rel(temb.numpy(), jemb) < MEAN_REL
     mask = np.ones(jemb.shape[:2], np.int32)
     jl, _ = jgen._prefill(jp["llama"], jemb, jnp.asarray(mask), JCFG.llama, 64)
-    tl, _ = tgen._prefill(tp["llama"], temb, torch.from_numpy(mask), TCFG.llama, 64)
+    tl, _ = tgen._prefill(tp["llama"], torch.from_numpy(np.array(jemb)), torch.from_numpy(mask),
+                          TCFG.llama, 64)
     assert _mean_rel(tl.numpy(), jl) < MEAN_REL
 
+    port_encode, encoded = tps._encode_assemble, []
+
+    def shared_encode(params, frames, prefix_ids, *args):
+        emb = port_encode(params, frames, prefix_ids, *args)
+        want = np.asarray(jembs[prefix_ids.cpu().numpy().astype(np.int64).tobytes()])
+        assert _mean_rel(emb.numpy(), want) < MEAN_REL
+        encoded.append(emb.shape)
+        return torch.from_numpy(want.copy())
+
+    monkeypatch.setattr(tps, "_encode_assemble", shared_encode)
     js = jps.VideoQAServer(jp, JCFG, slots=2, max_len=128, chunk=4)
     ts = tps.VideoQAServer(tp, TCFG, slots=2, max_len=128, chunk=4)
     for rid, fr, pre, suf, n in reqs:
@@ -275,10 +301,91 @@ def test_int8_video_qa_server_matches_jax(stllm_params, vit_q, mode):
                   qformer_text_ids=q)
         ts.submit(rid, fr, pre, suf, _gen(tgen.GenerationConfig, n), qformer_text_ids=q)
     want, got = js.run(), ts.run()
+    assert len(encoded) == len(reqs)
     assert set(got) == set(want) == {r[0] for r in reqs}
     assert [len(got[r[0]]) for r in reqs] == [r[4] for r in reqs]
     assert {k: v[0] for k, v in got.items()} == {k: v[0] for k, v in want.items()}
 
+def _lockstep_static_encode(jvit_q, tvit_q, images):
+    """The static-int8 BTAdapter encode in both packages, code site by code
+    site: JAX runs eagerly and records the int8 codes of every static
+    quantization (LayerNorm, qkv, proj and temporal_fc inputs, GELU) and of
+    every s8 attention's per-row epilogue; the port then runs on the same
+    images, and at each site its codes are taken, compared and replaced by
+    JAX's, so every site of the port is fed the same inputs as JAX's.
+    Returns [(site, jax codes, port codes)], and the attention row scales."""
+    jrec, sites, scales = [], [], []
+    jq_static, jattn_static = jquant.quantize_static, jvit.fused_qkv_attention_quant_static
+    tq_static, tattn_static = tquant.quantize_static, tvit.fused_qkv_attention_quant_static
+
+    def j_static(x, scale):
+        q = jq_static(x, scale)
+        jrec.append(("static", np.asarray(q)))
+        return q
+
+    def j_attn(*a, **k):
+        res = jattn_static(*a, **k)
+        jrec.append(("attn", (np.asarray(res[0]), np.asarray(res[1]))))
+        return res
+
+    def t_static(x, scale):
+        q = tq_static(x, scale)
+        site, want = jrec[len(sites)]
+        assert site == "static" and want.size == q.numel()
+        sites.append((site, want, q.numpy().reshape(want.shape)))
+        return torch.from_numpy(want.copy()).reshape(q.shape)
+
+    def t_attn(*a, **k):
+        oq, os_ = tattn_static(*a, **k)
+        site, (wq, ws) = jrec[len(sites)]
+        assert site == "attn" and wq.shape == tuple(oq.shape)
+        sites.append((site, wq, oq.numpy()))
+        scales.append((ws, os_.numpy()))
+        return torch.from_numpy(wq.copy()), torch.from_numpy(ws.copy())
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(jquant, "quantize_static", j_static)
+        mp.setattr(jvit, "fused_qkv_attention_quant_static", j_attn)
+        jbt.btadapter_forward(jvit_q, jnp.asarray(images), JVIT, num_frames=FRAMES)
+        for mod in (tquant, tvit, tbt):
+            mp.setattr(mod, "quantize_static", t_static)
+        mp.setattr(tvit, "fused_qkv_attention_quant_static", t_attn)
+        tbt.btadapter_forward(tvit_q, torch.from_numpy(images.copy()), TVIT,
+                              num_frames=FRAMES)
+    assert len(sites) == len(jrec)
+    return sites, scales
+
+
+def test_static_encode_codes_match_jax(vit_q):
+    """The static encode of the server test's first video, code for code.
+
+    Fed the same codes, the two packages still differ in the last bits of
+    fp32 values: the residual stream by summation order (about 1e-6), and
+    the s8 attention's (#3) P = exp2(s - 50), where XLA's CPU exp2 is up to
+    34 ulps from the correctly rounded value (torch's within one), so a P
+    near a bf16 midpoint rounds to the other bf16 neighbour. Either moves a
+    code that lands within a few ulps of a .5 boundary by one step. On this
+    data two codes flip: block 2's norm2 input at (1, 1, 28), 53.499996
+    against 53.500004 (one ulp either side of 53.5), and one attention code
+    of the last spatial layer behind one bf16 P. Allowance: at most one
+    flipped code in 5000 over the encode's 31 sites, each exactly one step;
+    the attention row scales within SCALE_RTOL except on rows a flip
+    touched, and there within one step (1/127)."""
+    images = np.asarray(jax.jit(normalize_frames, static_argnums=1)(
+        jnp.asarray(_frames(10)), "float32"))
+    sites, scales = _lockstep_static_encode(vit_q["static"], _t(vit_q["static"]), images)
+    kinds = [s for s, _, _ in sites]
+    assert kinds.count("attn") == 3 + 2 and kinds.count("static") == 4 * 5 + 3 * 2
+    total = sum(w.size for _, w, _ in sites)
+    steps = np.concatenate([(g.astype(np.int32) - w.astype(np.int32)).ravel()
+                            for _, w, g in sites])
+    flipped = int(np.count_nonzero(steps))
+    assert np.abs(steps).max() <= 1
+    assert flipped <= max(1, total // 5000), (flipped, total)
+    for want, got in scales:
+        rel = np.abs(got - want) / want
+        assert float(rel.max()) < 1 / 127
+        assert int((rel > SCALE_RTOL).sum()) <= flipped
 
 def test_static_encode_runs_the_static_layers(vit_q):
     """After calibration every trunk block and branch layer carries fp32

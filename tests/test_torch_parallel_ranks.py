@@ -30,6 +30,7 @@ QF = dict(hidden=16, num_layers=1, heads=2, intermediate=32, encoder_width=32, n
           vocab_size=64)
 STLLM = dict(video_input="residual", residual_size=2)
 FRAMES, SEQ, MIN_SIZE = 4, 48, 64
+ADAFACTOR_EPS = 1e-6
 TIMEOUT_S = 60.0
 GEN = dict(max_new_tokens=12, eos_token_id=-1, stop_sequences=(), pad_to_multiple=8)
 TRAIN_ARGS = ["--cfg-path", "config/tiny_debug.yaml", "--synthetic-data", "4", "--cpu",
@@ -118,9 +119,11 @@ def _rank_checks(rank: int, device, inp: dict) -> dict:
     from stllm_tpu_torch.parallel.context import context_parallel_forward
     from stllm_tpu_torch.parallel.mesh import by_path, make_mesh
     from stllm_tpu_torch.parallel.sharding import (
-        gather_tree, llama_tp_plan, local_batch, shard_tree, stllm_param_shardings)
+        gather_leaves, gather_tree, llama_tp_plan, local_batch, shard_tree,
+        stllm_param_shardings)
     from stllm_tpu_torch.train.checkpoint import CheckpointManager
-    from stllm_tpu_torch.train.step import create_train_state, make_optimizer, make_train_step
+    from stllm_tpu_torch.train.step import (
+        Adafactor, create_train_state, make_optimizer, make_train_step)
 
     out, ring = {}, {}
     cfg = _port_cfg()
@@ -203,6 +206,36 @@ def _rank_checks(rank: int, device, inp: dict) -> dict:
     out["ckpt"] = {"params_equal": all(torch.equal(back[k].detach(), torch.tensor(
         out["step"]["params"][k])) for k in state.params),
         "count": other.opt_state["count"], "step": other.step, "mu_keys": sorted(mu)}
+
+    # Adafactor on (2, 2): the step of one device on the same global batch;
+    # its state saved on (2, 2) restores onto (4, 1), gathered bit for bit
+    ada = Adafactor(1e-2, min_dim_size_to_factor=16, max_grad_norm=1.0, eps=ADAFACTOR_EPS)
+    ast = create_train_state(_tree(inp["params"]), ada, _trainable(), mesh=grid,
+                             min_size=MIN_SIZE)
+    ast, am = make_train_step(cfg, ada, accum_steps=2, mesh=grid)(ast, glob)
+    aw = gather_tree(grid, ast.tree, ast.specs)
+
+    def stats(mesh, st):
+        return {name: {k: gather_leaves(mesh, {k: v}, {k: st.opt_specs[name][k]})[k].numpy()
+                       for k, v in leaves.items()}
+                for name, leaves in st.opt_state.items() if name != "count"}
+
+    CheckpointManager(inp["ckpt_dir"] + "_adafactor", mesh=grid).save(ast)
+    back = create_train_state(_tree(inp["params"]), ada, _trainable(), mesh=line,
+                              min_size=MIN_SIZE)
+    CheckpointManager(inp["ckpt_dir"] + "_adafactor", mesh=line).restore(back)
+    saved, restored = stats(grid, ast), stats(line, back)
+    out["adafactor"] = {
+        "metrics": {k: float(v) for k, v in am.items()},
+        "params": {k: v.detach().numpy() for k, v in by_path(aw, aw).items()
+                   if k in ast.params},
+        "state": saved,
+        "sliced": sorted(f"{name}:{k}" for name, specs in ast.opt_specs.items()
+                         for k, spec in specs.items() if any(spec)),
+        "restored_equal": all(np.array_equal(restored[n][k], v)
+                              for n, leaves in saved.items() for k, v in leaves.items()),
+        "restored_count": back.opt_state["count"]}
+    del ast, back
 
     # TP greedy decode on (2, 2): this rank's heads in the cache
     specs = stllm_param_shardings(grid, {"llama": llama}, min_size=MIN_SIZE)["llama"]
@@ -455,6 +488,42 @@ def test_checkpoint_from_2x2_restores_on_4x1_and_one_device(setup, ranks):
     assert state.step == 1 and set(saved) == set(state.params)
     for k, p in state.params.items():
         assert np.array_equal(p.detach().numpy(), saved[k]), k
+
+
+def test_adafactor_on_2x2_matches_one_device_and_reshards(setup, ranks):
+    """Adafactor's sliced statistics on (2, 2) (means and rms over whole
+    leaves, summed across the ranks) give the one-device step; the state
+    saved on (2, 2) restores onto (4, 1) and onto one device bit for bit.
+    eps is ADAFACTOR_EPS, not optax's 1e-30: at the first step u = g /
+    sqrt(g^2 + eps), which at 1e-30 is the sign of gradients that are
+    summation noise (the attention key biases' are zero in exact
+    arithmetic), and would differ between any two summation orders."""
+    from stllm_tpu_torch.train.checkpoint import CheckpointManager
+    from stllm_tpu_torch.train.step import Adafactor, create_train_state, make_train_step
+
+    got = ranks[0]["adafactor"]
+    assert got["restored_equal"] and got["restored_count"] == 1
+    assert any(k.startswith("v_row:") for k in got["sliced"])
+    assert any(k.startswith("v_col:") for k in got["sliced"])
+    ada = Adafactor(1e-2, min_dim_size_to_factor=16, max_grad_norm=1.0, eps=ADAFACTOR_EPS)
+    state = create_train_state(_tree(setup[0]["params"]), ada, _trainable())
+    state, metrics = make_train_step(_port_cfg(), ada, accum_steps=2)(
+        state, {k: torch.as_tensor(v) for k, v in setup[0]["batch"].items()})
+    for k, v in metrics.items():
+        _close(got["metrics"][k], float(v), 1e-5, 1e-5)
+    for k, p in state.params.items():
+        _close(got["params"][k], p.detach().numpy(), 1e-4, 1e-3)
+    assert {n: set(v) for n, v in got["state"].items()} == {
+        n: set(v) for n, v in state.opt_state.items() if n != "count"}
+    for name, leaves in got["state"].items():
+        for k, v in leaves.items():
+            _close(v, state.opt_state[name][k].numpy(), 1e-6, 1e-3)
+    one = create_train_state(_tree(setup[0]["params"]), ada, _trainable())
+    CheckpointManager(setup[0]["ckpt_dir"] + "_adafactor").restore(one)
+    assert one.step == 1 and one.opt_state["count"] == 1
+    for name, leaves in got["state"].items():
+        for k, v in leaves.items():
+            assert np.array_equal(one.opt_state[name][k].numpy(), v), (name, k)
 
 
 @pytest.fixture(scope="module")

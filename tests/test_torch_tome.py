@@ -276,6 +276,30 @@ def test_fused_ln_gate(monkeypatch, vit_params):
     assert torch.equal(got, want)
 
 
+def test_resolve_auto_merge_on_a_btadapter_model_drops_the_post_trunk_merge(clips):
+    """On a BTAdapter model "auto" resolves as JAX resolves it but for a
+    temporal level's post-trunk re-merge (block == depth), which the
+    BTAdapter refuses (JAX's btadapter_forward raises on it): the port drops
+    it, as level_kwargs(post_trunk=False) does; every other entry equals
+    JAX's."""
+    seen = set()
+    for depth in (39, 4):
+        geom = dict(width=32, depth=depth, heads=2, mlp_hidden=64)
+        jc = jst.STLLMConfig(vit=jvit.ViTConfig(merge_level="auto", **geom),
+                             vit_model="eva_btadapter_g")
+        tc = tst.STLLMConfig(vit=tvit.ViTConfig(merge_level="auto", **geom),
+                             vit_model="eva_btadapter_g")
+        for clip in clips.values():
+            jr, tr = jst.resolve_auto_merge(jc, clip), tst.resolve_auto_merge(tc, clip)
+            assert tr.vit.temporal_schedule == jr.vit.temporal_schedule
+            assert tr.vit.merge_level == jr.vit.merge_level == ""
+            assert tr.vit.merge_schedule == tuple(e for e in jr.vit.merge_schedule
+                                                  if e[0] < depth)
+            assert all(b < depth for b, _ in tr.vit.merge_schedule)
+            seen.add(len(jr.vit.merge_schedule) != len(tr.vit.merge_schedule))
+    assert seen == {True, False}     # a clip whose level re-merges after the trunk, and not
+
+
 def test_zoo_and_resolve_auto_merge_match_jax(clips):
     """A named level expands through level_kwargs in build_stllm_config;
     "auto" resolves per video at the 257-token geometry (a full-depth and a
