@@ -257,19 +257,40 @@ toolkit. Phases, each fatal on failure:
    are not run: gloo aborts on CUDA tensors (script/gloo_cuda_check.py).
 
 18. probe - make_probe_optimizer at full width (4096 / 11008 / 32 heads /
-   vocab 32000) in script/w4a16_depth.py's protocol (random 24-token prompt
-   embeddings, 16-token answers, batch 4, CE, lr 2e-4), on one fixed batch:
-   4 layers (about 1.07e9 parameters) must take AdamW and 16 (about 3.5e9)
-   Adafactor; per run PROBE_STEPS steps at 40 positions (exactly one #7
-   launch a layer a step, the loss falling, every leaf and state leaf
-   finite), then one step at 1024 positions (one #4, #5 and #6 launch a
-   layer); ms a step, the peak, the optimizer state's bytes against
-   AdamW's. Before them one tiny fp32 Adafactor step on the card against
-   the CPU, and an Adafactor state through CheckpointManager bit for bit.
+   vocab 32000) in the protocol of stllm_tpu_torch/evidence/w4a16_depth.py
+   (random 24-token prompt embeddings, 16-token answers, batch 4, CE, lr
+   2e-4), on one fixed batch: 4 layers (about 1.07e9 parameters) must take
+   AdamW and 16 (about 3.5e9) Adafactor; per run PROBE_STEPS steps at 40
+   positions (exactly one #7 launch a layer a step, the loss falling, every
+   leaf and state leaf finite), then one step at 1024 positions (one #4, #5
+   and #6 launch a layer), then w4a16_depth's quantized variants (int8,
+   W4A16 per-channel, g=128, g=64) graded against the trained answers of
+   the fixed batch, finite, #12 in the per-channel arm alone (both forms);
+   ms a step, the peak, the optimizer state's bytes against AdamW's. Before
+   them one tiny fp32 Adafactor step on the card against the CPU, and an
+   Adafactor state through CheckpointManager bit for bit.
+
+19. evidence - the evidence harnesses (stllm_tpu_torch/evidence/) through
+   their main functions at full width and small sizes: int8_equivalence
+   with n = 4 on the int8 and the w4a16 stack, tome_equivalence with n = 3
+   (every level and auto; the noise arm has 8 videos; its LLaMA cut to 8 of
+   32 layers, EVIDENCE_TOME_LAYERS), probe_spec_divergence at its own sizes
+   (Vicuna-7B W4A16, a 2-layer draft, 512 prompt embeddings, 64 new
+   tokens), int8_equivalence_trained for 3 steps with n = 4, 4 ViT blocks
+   and 1 LLaMA layer, and w4a16_depth at depth 4 for 5
+   steps with n = 4. Every call of their arms is held to its exact launches
+   (#1 or #3 39 times a video, #2, #9 and #10 in calibration, #1 twice a
+   block and #7 twice a layer a train step under remat, #7 once a layer in
+   w4a16_depth's, and #12 once for each per-channel int4 linear of each
+   LLaMA forward on the form its rows pick), no launch falls outside them,
+   #3 runs at merged or folded lengths, every document carries its keys,
+   finite values and the card's line; the probe fails where the speculative
+   token at a divergence ranks below the runner-up by more than the same
+   replay's logits move on the speculative batcher's longer cache.
 
 ``python3 chip_smoke.py --phases load demo train_breadth distill runner mesh probe
-replicate`` builds the kernels and runs only the phases named (a partial run:
-no result line).
+replicate evidence`` builds the kernels and runs only the phases named (a
+partial run: no result line).
 
 Then it prints a ``{"kernels": [...]}`` line, the nvidia-smi line and, last,
 ``{"ok": true, "device": {...}}``. Without a CUDA card it exits non-zero and
@@ -5715,44 +5736,25 @@ def phase_mesh(kernels) -> dict:
 # make_probe_optimizer and the MVBench replication gate (slice 24)
 # ---------------------------------------------------------------------------
 
-# script/w4a16_depth.py's protocol: random 24-token prompt embeddings, fixed
-# 16-token answers, batch 4, CE over the answers, lr 2e-4; a full-width
-# (4096 / 11008 / 32 heads / vocab 32000) LLaMA cut in depth
-PROBE_PROMPT, PROBE_ANSWER, PROBE_BATCH, PROBE_LR = 24, 16, 4, 2e-4
+# the protocol of stllm_tpu_torch/evidence/w4a16_depth.py (that of
+# script/w4a16_depth.py): random 24-token prompt embeddings, fixed 16-token
+# answers, batch 4, CE over the answers, lr 2e-4; a full-width (4096 / 11008 /
+# 32 heads / vocab 32000) LLaMA cut in depth
 PROBE_DEPTHS = {4: "AdamW", 16: "Adafactor"}   # about 1.07e9 and 3.5e9 parameters
 PROBE_STEPS = 5
 PROBE_LONG = 1024            # keys of the one step on the flash tier
 PROBE_TINY_REL = 1e-5        # tiny fp32 Adafactor step, card against CPU, of each leaf's max
 PROBE_TINY_LEAVES = {"wide": (256, 384), "stack": (2, 128, 256), "narrow": (64, 300),
                      "norm": (64,), "gate": ()}
+PROBE_TINY_LR = 2e-3         # Adafactor's rate in make_probe_optimizer: ten times the protocol's
 
 
-def _probe_cfg(depth: int):
-    from stllm_tpu_torch.models.llama import LlamaConfig
+def _probe_batch(rng, prompt_len: int, cfg) -> tuple:
+    """(the w4a16_depth samples, the batch of all of them on the card)."""
+    from stllm_tpu_torch.evidence import w4a16_depth
 
-    return LlamaConfig(vocab_size=32000, hidden=4096, num_layers=depth, heads=32,
-                       intermediate=11008, max_positions=PROBE_LONG)
-
-
-def _probe_batch(rng, prompt_len: int, cfg) -> dict:
-    return {"prompt": torch.from_numpy(
-                (rng.normal(size=(PROBE_BATCH, prompt_len, cfg.hidden)) * 0.02
-                 ).astype(np.float32)).cuda(),
-            "answer": torch.from_numpy(rng.integers(10, cfg.vocab_size - 10,
-                                                    (PROBE_BATCH, PROBE_ANSWER))).cuda()}
-
-
-def _probe_loss(tree, batch, cfg) -> dict:
-    """script/w4a16_depth.py's loss: the answers' embeddings after the
-    prompt's, mean CE of each answer token from the position before it."""
-    from stllm_tpu_torch.models.llama import llama_forward, lm_head
-
-    prompt, ans = batch["prompt"], batch["answer"]
-    p = prompt.shape[1]
-    x = torch.cat([prompt.to(cfg.dtype), tree["embed_tokens"][ans].to(cfg.dtype)], dim=1)
-    hidden, _ = llama_forward(tree, inputs_embeds=x, cfg=cfg)
-    logits = lm_head(tree, hidden[:, p - 1:p + ans.shape[1] - 1])
-    return {"loss": -torch.log_softmax(logits.float(), -1).gather(-1, ans[..., None]).mean()}
+    data = w4a16_depth.build_data(rng, w4a16_depth.BATCH, cfg, prompt=prompt_len)
+    return data, w4a16_depth.stack(data, "cuda")
 
 
 def _state_bytes(opt_state: dict) -> int:
@@ -5778,27 +5780,30 @@ def _probe_steps(kernels, state, step, batch, steps: int, label: str) -> dict:
 
 
 def _probe_run(kernels, depth: int, rng) -> dict:
-    """make_probe_optimizer's choice at ``depth`` and PROBE_STEPS steps on one
-    fixed batch (fused-short tier, 40 positions), then one step at
-    PROBE_LONG positions (flash tier)."""
+    """make_probe_optimizer's choice at ``depth`` and PROBE_STEPS steps of
+    w4a16_depth's step on one fixed batch (fused-short tier, 40 positions),
+    then one step at PROBE_LONG positions (flash tier), then w4a16_depth's
+    quantized variants graded against the trained bf16 answers of the
+    fixed batch (#12 only in the per-channel arm)."""
+    from stllm_tpu_torch.evidence import w4a16_depth
     from stllm_tpu_torch.models.llama import init_llama
     from stllm_tpu_torch.train import step as tstep
 
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    cfg = _probe_cfg(depth)
+    cfg = w4a16_depth.make_cfg(depth, max_positions=PROBE_LONG)
     params = init_llama(torch.Generator(device="cuda").manual_seed(depth), cfg)
     n_params = sum(p.numel() for _, p in tstep.tree_paths(params))
-    opt = tstep.make_probe_optimizer(params, PROBE_LR)
+    opt = tstep.make_probe_optimizer(params, w4a16_depth.LR)
     if type(opt).__name__ != PROBE_DEPTHS[depth]:
         raise AssertionError(f"[probe] depth {depth}, {n_params} parameters: "
                              f"{type(opt).__name__}, want {PROBE_DEPTHS[depth]}")
     state = tstep.create_train_state(params, opt, trainable_fn=lambda path: True)
-    step = tstep.make_train_step(cfg, opt, loss_fn=_probe_loss)
+    step = w4a16_depth.make_step(cfg, opt)
     label = f"probe-{PROBE_DEPTHS[depth].lower()}-d{depth}"
-    short = _probe_steps(kernels, state, step, _probe_batch(rng, PROBE_PROMPT, cfg),
-                         PROBE_STEPS, label)
+    data, batch = _probe_batch(rng, w4a16_depth.PROMPT, cfg)
+    short = _probe_steps(kernels, state, step, batch, PROBE_STEPS, label)
     _expect(label, short["launches"], {"fused_short_attention": depth, "flash_attention_fwd": 0,
                                        "flash_attention_bwd_dq": 0,
                                        "flash_attention_bwd_dkv": 0}, PROBE_STEPS)
@@ -5812,18 +5817,28 @@ def _probe_run(kernels, depth: int, rng) -> dict:
     peak_short = torch.cuda.max_memory_allocated() / 2**30
     torch.cuda.reset_peak_memory_stats()
     long_ = _probe_steps(kernels, state, step,
-                         _probe_batch(rng, PROBE_LONG - PROBE_ANSWER, cfg), 1, label + "-1024")
+                         _probe_batch(rng, PROBE_LONG - w4a16_depth.ANSWER, cfg)[1], 1,
+                         label + "-1024")
     _expect(label + "-1024", long_["launches"],
             {"fused_short_attention": 0, "flash_attention_fwd": depth,
              "flash_attention_bwd_dq": depth, "flash_attention_bwd_dkv": depth}, 1)
     param_bytes = sum(p.numel() * p.element_size() for p in state.params.values())
-    out = {"depth": depth, "params": n_params, "optimizer": type(opt).__name__,
+    state_bytes = _state_bytes(state.opt_state)
+    del state, step, opt
+    gc.collect()
+    for _, p in tstep.tree_paths(params):
+        p.requires_grad_(False)
+    variants = _evidence_run(kernels, label + "-variants", w4a16_depth,
+                             ("greedy", "first_logits"), _llama_arm,
+                             lambda: w4a16_depth.evaluate(params, cfg, data))
+    _check_variants(label, variants)
+    out = {"depth": depth, "params": n_params, "optimizer": PROBE_DEPTHS[depth],
            "short": short, "long": long_,
            "ms_per_step": float(np.mean(short["step_ms"][1:])),
            "ms_step_1024": long_["step_ms"][0],
            "peak_gib": {"40": peak_short, "1024": torch.cuda.max_memory_allocated() / 2**30},
-           "state_bytes": _state_bytes(state.opt_state),
-           "adamw_state_bytes": 2 * param_bytes}
+           "state_bytes": state_bytes, "adamw_state_bytes": 2 * param_bytes,
+           "variants": variants["result"]["variants"], "variant_routes": variants["routes"]}
     print(f"[{label}] {n_params / 1e9:.3f}B parameters, {out['optimizer']}: losses "
           f"{short['losses']}, {out['ms_per_step']:.1f} ms a step after the first (40 "
           f"positions), {out['ms_step_1024']:.1f} ms at 1024; peak {peak_short:.2f} / "
@@ -5832,8 +5847,9 @@ def _probe_run(kernels, depth: int, rng) -> dict:
           f"#7 {short['launches']['fused_short_attention'] / PROBE_STEPS:.0f}, at 1024 "
           f"#4/#5/#6 {long_['launches']['flash_attention_fwd']}/"
           f"{long_['launches']['flash_attention_bwd_dq']}/"
-          f"{long_['launches']['flash_attention_bwd_dkv']} ({smi_line()})")
-    del state, params, step, opt
+          f"{long_['launches']['flash_attention_bwd_dkv']}; quantized variants "
+          f"{json.dumps(out['variants'])} ({smi_line()})")
+    del params
     return out
 
 
@@ -5853,7 +5869,7 @@ def _probe_tiny(tmp: Path) -> dict:
 
     def stepped(device, steps=1):
         tree = {k: {"w": torch.from_numpy(v["w"].copy()).to(device)} for k, v in params.items()}
-        opt = tstep.Adafactor(PROBE_LR * 10, min_dim_size_to_factor=128, max_grad_norm=1.0)
+        opt = tstep.Adafactor(PROBE_TINY_LR, min_dim_size_to_factor=128, max_grad_norm=1.0)
         state = tstep.create_train_state(tree, opt, trainable_fn=lambda path: True)
         for _ in range(steps):
             opt.update({k: torch.from_numpy(g.copy()).to(device) for k, g in grads.items()},
@@ -6042,9 +6058,405 @@ def phase_replicate(kernels, files: dict = None) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# the evidence harnesses (slice 25)
+# ---------------------------------------------------------------------------
+
+EVIDENCE_QA_N = 4                        # int8_equivalence samples a stack
+EVIDENCE_TOME_N = 3                      # tome_equivalence's smooth videos (noise arm: 8)
+# tome_equivalence's 88 answers ride the W8A8 LLaMA, whose host-bound decode
+# took 2.6 s an answer at 32 layers on an H100: its depth is cut to 8 here
+EVIDENCE_TOME_LAYERS = 8
+# steps, n, ViT blocks, LLaMA layers, at full width. 4 blocks is the least
+# depth every level scales to: at 2 "medium" folds into one 257 -> 96 merge
+# and at 3 "aggressive" into one 144 -> 56, each more than a bipartite merge
+# can take (ValueError in ops/tome.bipartite_merge)
+EVIDENCE_TRAINED = (3, 4, 4, 1)
+EVIDENCE_DEPTH = (5, 4, 4)               # steps, n, depth: full width
+VIT_G_BLOCKS = 39
+TRAINED_KEYS = ("n", "first_token_match", "exact_16_match", "max_margin_flipped")
+INT8_EQUIV_KEYS = ("metric", "n", "first_token_match", "exact_16_match", "mean_matched_prefix",
+                   "median_top2_margin_bf16", "max_margin_flipped",
+                   "first_token_match_above_median_margin", "quant_stack")
+TOME_GRADE_KEYS = ("first_token_match", "exact_16_match", "max_margin_flipped",
+                   "first_token_match_above_median_margin")
+
+
+def _w4_linears(tree) -> int:
+    """The per-channel int4 linears of a LLaMA tree: one #12 launch each a
+    forward."""
+    return sum(1 for layer in tree["layers"] for p in layer.values()
+               if isinstance(p, dict) and "w4" in p and p["w4_scale"].dim() == 1)
+
+
+def _llama_tree_arm(tree) -> str:
+    lin = tree["layers"][0].get("q") or tree["layers"][0]["qkv"]
+    if "w_q" in lin:
+        return "int8"
+    if "w4" in lin:
+        scale = lin["w4_scale"]
+        return ("w4a16_per_channel" if scale.dim() == 1 else
+                f"w4a16_g{tree['embed_tokens'].shape[1] // scale.shape[0]}")
+    return "bf16"
+
+
+def _llama_arm(name, args, kw):
+    """A call of w4a16_depth.greedy or first_logits: no kernel but #12."""
+    return _llama_tree_arm(args[0]), {}
+
+
+def _calibration(blocks: int) -> dict:
+    """calibrate_vit_scales: the dynamic block once over the batch."""
+    return {"layer_norm_quant": 2 * blocks, "gelu_quant": blocks,
+            "packed_qkv_attention_quant": blocks}
+
+
+def _qa_arm(name, args, kw):
+    """int8_equivalence and tome_equivalence: a run_samples call encodes
+    each sample once (#1 on the dense ViT-g, #3 on the static one, 39
+    launches a video at every merge level), the LLaMA launches #12 alone."""
+    if name == "calibrate_vit_scales":
+        return "calibration", _calibration(VIT_G_BLOCKS)
+    params, _, samples, label = args
+    static = "act_scales" in params["vit"]["blocks"][0]
+    return label, {("packed_qkv_attention_s8" if static else "packed_qkv_attention"):
+                   VIT_G_BLOCKS * len(samples)}
+
+
+def _trained_arm(blocks: int, layers: int):
+    """int8_equivalence_trained: a train step launches #1 twice a block
+    and #7 twice a layer (forward, and the recompute of remat); a greedy
+    answer encodes once (#1 dense, #3 static) and its LLaMA launches #12
+    alone."""
+    from stllm_tpu_torch.ops.tome import MERGE_LEVELS, scale_level_to_depth
+
+    levels = {}
+    for level in MERGE_LEVELS:
+        if level != "off":
+            sched = scale_level_to_depth(level, blocks)
+            levels[(sched.get("merge_schedule", ()), sched.get("temporal_schedule", ()))] = level
+
+    def classify(name, args, kw):
+        if name == "train":
+            steps = args[3]
+            return "train", {"packed_qkv_attention": 2 * blocks * steps,
+                             "fused_short_attention": 2 * layers * steps}
+        if name == "calibrate_vit_scales":
+            return "calibration", _calibration(blocks)
+        params, _, cfg = args
+        if not cfg.llama.kv_int8:
+            return "bf16", {"packed_qkv_attention": blocks}
+        key = (cfg.vit.merge_schedule, cfg.vit.temporal_schedule)
+        arm = ("tome-" + levels[key]) if any(key) else _llama_tree_arm(params["llama"])
+        return arm, {"packed_qkv_attention_s8": blocks}
+    return classify
+
+
+def _depth_arm(name, args, kw):
+    """w4a16_depth: a train step launches #7 once a layer (no remat)."""
+    if name == "train":
+        return "train", {"fused_short_attention": args[1].num_layers * args[3]}
+    return _llama_arm(name, args, kw)
+
+
+def _spec_arm(name, args, kw):
+    """probe_spec_divergence: every forward launches #12 alone."""
+    return {"drain": "spec" if len(args) > 4 and args[4] is not None else "plain",
+            "replay": "replay"}[name], {}
+
+
+def _evidence_run(kernels, label: str, mod, names, classify, fn) -> dict:
+    """Run ``fn`` with ``mod.<name>`` for each of ``names`` recorded: each
+    call's own launches must be exactly what ``classify(name, args, kw)``
+    says besides #12, and #12's exactly one launch for each per-channel
+    int4 linear of each llama_forward call, on the form kernels.w4a16_form
+    picks for its rows; and no launch may fall outside the recorded calls.
+    Returns fn's result, the records, and their launches by arm."""
+    from stllm_tpu_torch.models import generation, speculative
+
+    forecast = collections.Counter()
+    records = []
+    real_fwd = {m: m.llama_forward for m in (generation, speculative, mod)
+                if hasattr(m, "llama_forward")}
+    real = {name: getattr(mod, name) for name in names}
+
+    def forward(m):
+        def wrap(params, **kw):
+            n = _w4_linears(params)
+            if n:
+                x = kw.get("inputs_embeds")
+                x = kw["input_ids"] if x is None else x
+                forecast[kernels.w4a16_form(x.shape[0] * x.shape[1])] += n
+            return real_fwd[m](params, **kw)
+        return wrap
+
+    def recorded(name):
+        def wrap(*args, **kw):
+            torch.cuda.synchronize()
+            before = (dict(kernels.LAUNCHES), dict(kernels.FORM_LAUNCHES), dict(forecast))
+            t0 = time.perf_counter()
+            result = real[name](*args, **kw)
+            torch.cuda.synchronize()
+            arm, want = classify(name, args, kw)
+            records.append({
+                "fn": name, "arm": arm, "s": time.perf_counter() - t0,
+                "steps": args[3] if name == "train" else 0,
+                "launches": {k: v - before[0][k] for k, v in kernels.LAUNCHES.items()},
+                "form_launches": {k: v - before[1][k] for k, v in kernels.FORM_LAUNCHES.items()},
+                "w4": {f: forecast[f] - before[2].get(f, 0)
+                       for f in kernels.FORMS["w4a16_matmul"]},
+                "want": want})
+            return result
+        return wrap
+
+    for m in real_fwd:
+        m.llama_forward = forward(m)
+    for name in names:
+        setattr(mod, name, recorded(name))
+    torch.cuda.synchronize()
+    total0 = dict(kernels.LAUNCHES)
+    t0 = time.perf_counter()
+    try:
+        result = fn()
+        torch.cuda.synchronize()
+    finally:
+        for m, f in real_fwd.items():
+            m.llama_forward = f
+        for name, f in real.items():
+            setattr(mod, name, f)
+    wall = time.perf_counter() - t0
+    total = {k: v - total0[k] for k, v in kernels.LAUNCHES.items()}
+    for rec in records:
+        want = {k: v for k, v in rec["want"].items() if v}
+        if sum(rec["w4"].values()):
+            want["w4a16_matmul"] = sum(rec["w4"].values())
+        got = {k: v for k, v in rec["launches"].items() if v}
+        forms = {k.split("/")[1]: v for k, v in rec["form_launches"].items()
+                 if k.startswith("w4a16_matmul/") and v}
+        if got != want or forms != {f: v for f, v in rec["w4"].items() if v}:
+            raise AssertionError(f"[{label}] {rec['fn']} ({rec['arm']}): launches {got}, want "
+                                 f"{want}; #12 by form {forms}, forecast {rec['w4']}")
+    outside = {k: v - sum(r["launches"][k] for r in records) for k, v in total.items()}
+    if any(outside.values()):
+        raise AssertionError(f"[{label}] launches outside the recorded calls: "
+                             f"{ {k: v for k, v in outside.items() if v} }")
+    routes = {}
+    for rec in records:
+        r = routes.setdefault(rec["arm"], {
+            "mode": f"{label}-{rec['arm']}", "calls": 0, "steps": 0, "s": 0.0,
+            "launches": dict.fromkeys(kernels.LAUNCHES, 0),
+            "form_launches": dict.fromkeys(kernels.FORM_LAUNCHES, 0)})
+        r["calls"] += 1
+        r["steps"] += rec["steps"]
+        r["s"] += rec["s"]
+        for key in ("launches", "form_launches"):
+            for k, v in rec[key].items():
+                r[key][k] += v
+    summary = {arm: {"calls": r["calls"], "s": round(r["s"], 3),
+                     "launches": {k: v for k, v in r["launches"].items() if v}}
+               for arm, r in routes.items()}
+    print(f"[{label}] {wall:.1f} s; by arm {json.dumps(summary)}")
+    return {"result": result, "arms": [r["arm"] for r in records], "routes": list(routes.values()),
+            "wall_s": wall}
+
+
+def _check_finite(label: str, section: dict, keys) -> None:
+    missing = [k for k in keys if k not in section]
+    bad = [k for k in keys if isinstance(section.get(k), float) and not np.isfinite(section[k])]
+    if missing or bad:
+        raise AssertionError(f"[{label}] keys missing {missing}, not finite {bad}: {section}")
+
+
+def _check_stamp(label: str, section: dict, harness: str) -> None:
+    if section.get("harness") != harness or section.get("device") != smi_line():
+        raise AssertionError(f"[{label}] device {section.get('device')!r} (want {smi_line()!r}),"
+                             f" harness {section.get('harness')!r}")
+
+
+def _check_variants(label: str, run: dict) -> None:
+    """w4a16_depth.evaluate's result: every variant graded with finite
+    numbers; the per-channel arm ran #12 on both forms (prefill at 24 rows,
+    decode at 1), the others no kernel."""
+    from stllm_tpu_torch.evidence import w4a16_depth
+
+    res = run["result"]
+    _check_finite(label, res, ("bf16_targets_matched", "median_margin"))
+    if sorted(res["variants"]) != sorted(w4a16_depth.VARIANTS):
+        raise AssertionError(f"[{label}] variants {sorted(res['variants'])}")
+    for name, v in res["variants"].items():
+        _check_finite(f"{label}-{name}", v, ("first_token_match", "exact_16_match",
+                                             "mean_abs_logit_err_first_pos", "max_margin_flipped"))
+    routes = {r["mode"].rsplit("-", 1)[-1]: r for r in run["routes"]}
+    pc = routes["w4a16_per_channel"]["form_launches"]
+    if not pc["w4a16_matmul/wgmma"] or not pc["w4a16_matmul/decode"]:
+        raise AssertionError(f"[{label}] the per-channel arm's #12 forms {pc}")
+    if sorted(routes) != sorted(["bf16", *w4a16_depth.VARIANTS]):
+        raise AssertionError(f"[{label}] arms {sorted(routes)}")
+
+
+def phase_evidence(kernels) -> dict:
+    """The evidence harnesses (stllm_tpu_torch.evidence) through their
+    main functions at full width and small sizes, each call of their
+    arms held to its exact launches (_evidence_run), every document's keys
+    and finite values checked; the speculative probe fails on a divergence
+    whose token is ranked below the runner-up."""
+    from stllm_tpu_torch.evidence import int8_equivalence as ie
+    from stllm_tpu_torch.evidence import int8_equivalence_trained as it
+    from stllm_tpu_torch.evidence import probe_spec_divergence as ps
+    from stllm_tpu_torch.evidence import tome_equivalence as te
+    from stllm_tpu_torch.evidence import w4a16_depth as wd
+    from stllm_tpu_torch.ops.tome import MERGE_LEVELS
+
+    t_phase = time.perf_counter()
+    runs = {}
+
+    def fresh():
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    with tempfile.TemporaryDirectory() as tmp:
+        equiv, tome_path = Path(tmp) / "EQUIV_INT8.json", Path(tmp) / "TOME_EQUIV.json"
+        for stack in ("int8", "w4a16"):
+            fresh()
+            run = _evidence_run(kernels, f"evidence-{stack}", ie,
+                                ("run_samples", "calibrate_vit_scales"), _qa_arm,
+                                lambda: ie.main([str(EVIDENCE_QA_N), stack, "--out-dir", tmp]))
+            if run["result"] != 0 or run["arms"] != ["bf16", "calibration", stack]:
+                raise AssertionError(f"[evidence-{stack}] main {run['result']}, arms "
+                                     f"{run['arms']}")
+            doc = json.loads(equiv.read_text())
+            section = doc["w4a16_random_weights"] if stack == "w4a16" else doc
+            _check_finite(f"evidence-{stack}", section, INT8_EQUIV_KEYS)
+            _check_stamp(f"evidence-{stack}", section, ie.HARNESS)
+            run["doc"] = {k: section[k] for k in INT8_EQUIV_KEYS}
+            runs[stack] = run
+            print(f"[evidence-{stack}] {json.dumps(run['doc'])}")
+
+        fresh()
+        PACKED_CALLS.clear()
+        make_cfg = te.make_cfg
+        full = make_cfg()
+        te.make_cfg = lambda: dataclasses.replace(full, llama=dataclasses.replace(
+            full.llama, num_layers=EVIDENCE_TOME_LAYERS))
+        try:
+            run = _evidence_run(kernels, "evidence-tome", te,
+                                ("run_samples", "calibrate_vit_scales"), _qa_arm,
+                                lambda: te.main([str(EVIDENCE_TOME_N), "--out-dir", tmp]))
+        finally:
+            te.make_cfg = make_cfg
+        doc = json.loads(tome_path.read_text())
+        levels = [k for k in MERGE_LEVELS if k != "off"]
+        if run["result"] != 0 or sorted(doc["levels"]) != sorted([*levels, "auto"]):
+            raise AssertionError(f"[evidence-tome] main {run['result']}, levels "
+                                 f"{sorted(doc['levels'])}")
+        _check_stamp("evidence-tome", doc, te.HARNESS)
+        for name, entry in doc["levels"].items():
+            _check_finite(f"evidence-tome-{name}", entry, TOME_GRADE_KEYS)
+            _check_finite(f"evidence-tome-{name}-noise", entry["noise_frames"], TOME_GRADE_KEYS)
+        s8 = _lengths("packed_qkv_attention_s8")
+        if set(s8) <= {257}:
+            raise AssertionError(f"[evidence-tome] #3 at no merged or folded length: {s8}")
+        run["doc"] = {k: {m: v[m] for m in ("first_token_match", "max_margin_flipped")}
+                      for k, v in doc["levels"].items()}
+        run["s8_lengths"] = s8
+        runs["tome"] = run
+        print(f"[evidence-tome] #3 calls by sequence length {json.dumps(s8)}; first-token match "
+              f"and largest flipped margin by level {json.dumps(run['doc'])}")
+
+        fresh()
+        probe = {}
+        real_run = ps.run
+
+        def keep_result(*args, **kw):
+            probe.update(real_run(*args, **kw))
+            return probe
+        ps.run = keep_result
+        try:
+            run = _evidence_run(kernels, "evidence-spec", ps, ("drain", "replay"), _spec_arm,
+                                lambda: ps.main([]))
+        finally:
+            ps.run = real_run
+        spec_route = next(r for r in run["routes"] if r["mode"].endswith("-spec"))
+        forms = spec_route["form_launches"]
+        if run["result"] != 0 or not forms["w4a16_matmul/wgmma"] \
+                or not forms["w4a16_matmul/decode"]:
+            raise AssertionError(f"[evidence-spec] main {run['result']}, the speculative "
+                                 f"drain's #12 forms {forms}")
+        # a logic fault: the speculative token ranks below the runner-up by
+        # more than the logits move between the two batchers' cache lengths
+        # (three tokens within 0.07 of each other swapped at rank 2 under a
+        # 0.18 floor on an H100; ROADMAP.md queue 3)
+        div = probe["first_divergence"]
+        if div is not None and probe["spec_rank"] > 1 \
+                and probe["top1_spec_gap"] > probe["cache_floor"]:
+            raise AssertionError(f"[evidence-spec] the speculative token at {div} ranks "
+                                 f"{probe['spec_rank']}, {probe['top1_spec_gap']} below the top "
+                                 f"(the caches' floor {probe['cache_floor']}): a logic fault, "
+                                 "not a tie")
+        run["doc"] = {k: probe.get(k) for k in ("first_divergence", "spec_rank",
+                                                 "top1_top2_margin", "top1_spec_gap",
+                                                 "cache_floor")}
+        run["doc"]["tokens_agree"] = sum(a == b for a, b in zip(probe["plain"], probe["spec"]))
+        runs["spec"] = run
+        print(f"[evidence-spec] {json.dumps(run['doc'])}")
+
+        fresh()
+        steps, n, blocks, layers = EVIDENCE_TRAINED
+        run = _evidence_run(kernels, "evidence-trained", it,
+                            ("train", "greedy_answer", "calibrate_vit_scales"),
+                            _trained_arm(blocks, layers),
+                            lambda: it.main([str(x) for x in EVIDENCE_TRAINED] + ["--out-dir", tmp]))
+        want_arms = ["train", *["bf16"] * n, "calibration",
+                     *[a for a in ("int8", "w4a16_per_channel", "w4a16_g128", "w4a16_g64")
+                       for _ in range(n)],
+                     *[f"tome-{lvl}" for lvl in levels for _ in range(n)]]
+        if run["result"] != 0 or run["arms"] != want_arms:
+            raise AssertionError(f"[evidence-trained] main {run['result']}, arms {run['arms']}")
+        doc = json.loads(equiv.read_text())
+        for key in ("trained_model", "trained_model_w4a16", "trained_model_w4a16_g128",
+                    "trained_model_w4a16_g64"):
+            _check_finite(f"evidence-trained-{key}", doc[key], TRAINED_KEYS)
+            _check_stamp(f"evidence-trained-{key}", doc[key], it.HARNESS)
+        trained = json.loads(tome_path.read_text())["trained_levels"]
+        _check_stamp("evidence-trained-levels", trained, it.HARNESS)
+        if sorted(trained["levels"]) != sorted(levels):
+            raise AssertionError(f"[evidence-trained] levels {sorted(trained['levels'])}")
+        for name, entry in trained["levels"].items():
+            for subset in ("smooth_video", "iid_noise"):
+                _check_finite(f"evidence-trained-{name}", entry[subset], TRAINED_KEYS)
+        run["doc"] = {k: {m: doc[k][m] for m in ("first_token_match", "max_margin_flipped")}
+                      for k in ("trained_model", "trained_model_w4a16")}
+        runs["trained"] = run
+        print(f"[evidence-trained] {json.dumps(run['doc'])}")
+
+        fresh()
+        steps, n, depth = EVIDENCE_DEPTH
+        run = _evidence_run(kernels, "evidence-depth", wd, ("train", "greedy", "first_logits"),
+                            _depth_arm,
+                            lambda: wd.main([str(x) for x in EVIDENCE_DEPTH] + ["--out-dir", tmp]))
+        section = json.loads(equiv.read_text())["w4a16_depth_scaling"]
+        _check_stamp("evidence-depth", section, wd.HARNESS)
+        if run["result"] != 0 or [r["depth"] for r in section["rows"]] != [depth]:
+            raise AssertionError(f"[evidence-depth] main {run['result']}, rows {section['rows']}")
+        row = section["rows"][0]
+        _check_variants("evidence-depth", {"result": row, "routes": [
+            r for r in run["routes"] if not r["mode"].endswith("-train")]})
+        run["doc"] = row["variants"]
+        runs["depth"] = run
+        print(f"[evidence-depth] {json.dumps(row)}")
+    fresh()
+    routes = [r for run in runs.values() for r in run["routes"]]
+    out = {"runs": {k: {"wall_s": r["wall_s"], "doc": r["doc"]} for k, r in runs.items()},
+           "routes": [r for r in routes if not r["steps"]],
+           "train_routes": [r for r in routes if r["steps"]],
+           "phase_s": time.perf_counter() - t_phase}
+    print(f"[evidence] phase {out['phase_s']:.1f} s ({smi_line()})")
+    return out
+
+
 # phases --phases can run alone
 PARTIAL = ("load", "demo", "train_breadth", "distill", "runner", "mesh", "probe",
-           "replicate")
+           "replicate", "evidence")
 
 
 def main(argv=None) -> int:
@@ -6067,7 +6479,8 @@ def main(argv=None) -> int:
         for name in args.phases:
             {"load": phase_load, "demo": phase_demo, "train_breadth": phase_train_breadth,
              "distill": phase_distill, "runner": phase_runner, "mesh": phase_mesh,
-             "probe": phase_probe, "replicate": phase_replicate}[name](kernels)
+             "probe": phase_probe, "replicate": phase_replicate,
+             "evidence": phase_evidence}[name](kernels)
             gc.collect()
             torch.cuda.empty_cache()
         print(f"chip_smoke: phases {args.phases} passed (a partial run: no result line)")
@@ -6130,6 +6543,10 @@ def main(argv=None) -> int:
     probe = phase_probe(kernels)
     probe_short = [r["short"] for r in probe["runs"].values()]
     probe_long = [r["long"] for r in probe["runs"].values()]
+    probe_variants = [v for r in probe["runs"].values() for v in r["variant_routes"]]
+    gc.collect()
+    torch.cuda.empty_cache()
+    evidence = phase_evidence(kernels)
     # each kernel's launches from the path that runs it; the probes run on no
     # path (0 launches on every one)
     path_of = {"packed_qkv_attention": bf16, "layer_norm_quant": int8["dynamic"],
@@ -6150,13 +6567,15 @@ def main(argv=None) -> int:
                       *pipeline["auto"].values(), demo["gradio"], *demo["web"].values(),
                       lora, resume, run_first, run_resume, distill["distill"],
                       distill["spec"], mesh_none, mesh_1x1, *replicate["arms"].values(),
-                      *probe_short, *probe_long):
+                      *probe_short, *probe_long, *probe_variants, *evidence["routes"],
+                      *evidence["train_routes"]):
             entry["launches_by_path"][route["mode"]] = route["launches"][name]
         entry["launches_by_path"]["pipeline-calibration"] = pipeline["calibration_launches"][name]
         entry["launches_per_train_step"] = {t["mode"]: t["launches"][name] / t["steps"]
                                             for t in (short, long_, lora, resume, run_first,
                                                       run_resume, distill["distill"], mesh_none,
-                                                      mesh_1x1, *probe_short, *probe_long)}
+                                                      mesh_1x1, *probe_short, *probe_long,
+                                                      *evidence["train_routes"])}
         if name in kernels.FORMS:
             entry["form_launches"] = {k: v for k, v in path_of[name]["form_launches"].items()
                                       if k.startswith(name + "/")}
