@@ -300,6 +300,7 @@ prints no result.
 from __future__ import annotations
 
 import collections
+import contextlib
 import dataclasses
 import gc
 import itertools
@@ -311,6 +312,7 @@ import sys
 import tempfile
 import time
 from pathlib import Path
+from unittest import mock
 
 import numpy as np
 import torch
@@ -6082,11 +6084,23 @@ TOME_GRADE_KEYS = ("first_token_match", "exact_16_match", "max_margin_flipped",
                    "first_token_match_above_median_margin")
 
 
-def _w4_linears(tree) -> int:
-    """The per-channel int4 linears of a LLaMA tree: one #12 launch each a
-    forward."""
-    return sum(1 for layer in tree["layers"] for p in layer.values()
-               if isinstance(p, dict) and "w4" in p and p["w4_scale"].dim() == 1)
+@contextlib.contextmanager
+def _w4_forecast(kernels):
+    """#12's forecast: every call of a per-channel int4 linear
+    (ops.layers.w4_linear) launches it exactly once, on the form
+    kernels.w4a16_form picks for its rows. Yields the count by form."""
+    from stllm_tpu_torch.ops import layers
+
+    forecast = collections.Counter()
+    real = layers.w4_linear
+
+    def counted(params, x):
+        if params["w4_scale"].dim() == 1:
+            forecast[kernels.w4a16_form(x.numel() // max(x.shape[-1], 1))] += 1
+        return real(params, x)
+
+    with mock.patch.object(layers, "w4_linear", counted):
+        yield forecast
 
 
 def _llama_tree_arm(tree) -> str:
@@ -6169,26 +6183,11 @@ def _evidence_run(kernels, label: str, mod, names, classify, fn) -> dict:
     """Run ``fn`` with ``mod.<name>`` for each of ``names`` recorded: each
     call's own launches must be exactly what ``classify(name, args, kw)``
     says besides #12, and #12's exactly one launch for each per-channel
-    int4 linear of each llama_forward call, on the form kernels.w4a16_form
-    picks for its rows; and no launch may fall outside the recorded calls.
-    Returns fn's result, the records, and their launches by arm."""
-    from stllm_tpu_torch.models import generation, speculative
-
-    forecast = collections.Counter()
+    int4 linear call (_w4_forecast); and no launch may fall outside the
+    recorded calls. Returns fn's result, the records, and their launches by
+    arm."""
     records = []
-    real_fwd = {m: m.llama_forward for m in (generation, speculative, mod)
-                if hasattr(m, "llama_forward")}
     real = {name: getattr(mod, name) for name in names}
-
-    def forward(m):
-        def wrap(params, **kw):
-            n = _w4_linears(params)
-            if n:
-                x = kw.get("inputs_embeds")
-                x = kw["input_ids"] if x is None else x
-                forecast[kernels.w4a16_form(x.shape[0] * x.shape[1])] += n
-            return real_fwd[m](params, **kw)
-        return wrap
 
     def recorded(name):
         def wrap(*args, **kw):
@@ -6209,21 +6208,13 @@ def _evidence_run(kernels, label: str, mod, names, classify, fn) -> dict:
             return result
         return wrap
 
-    for m in real_fwd:
-        m.llama_forward = forward(m)
-    for name in names:
-        setattr(mod, name, recorded(name))
     torch.cuda.synchronize()
     total0 = dict(kernels.LAUNCHES)
     t0 = time.perf_counter()
-    try:
+    with _w4_forecast(kernels) as forecast, \
+            mock.patch.multiple(mod, **{name: recorded(name) for name in names}):
         result = fn()
         torch.cuda.synchronize()
-    finally:
-        for m, f in real_fwd.items():
-            m.llama_forward = f
-        for name, f in real.items():
-            setattr(mod, name, f)
     wall = time.perf_counter() - t0
     total = {k: v - total0[k] for k, v in kernels.LAUNCHES.items()}
     for rec in records:
@@ -6454,9 +6445,434 @@ def phase_evidence(kernels) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# the timing harnesses
+# ---------------------------------------------------------------------------
+
+TIMING_DECODE = ("bf16", "int4f", "int4kv8", "int4")   # bench_decode's variants here
+TIMING_PER_CHANNEL = ("int4f", "int4kv8")              # the variants whose linears run #12
+# each protocol cut for time (repeats, requests, steps), never a width
+TIMING_PROFILE_NEW = 8                      # profile_decode's new tokens (the trace's
+                                            # host-side processing took 50 s at 32)
+TIMING_SERVING = (8, 4)                     # bench_serving: requests, slots
+TIMING_PIPE_REQUESTS = 8                    # bench_pipeline_serving's serving arm
+TIMING_PIPE_AUTO = 2                        # its "auto" arms' requests: a smooth and a noise clip
+TIMING_FROM_VIDEO = 2                       # bench_pipeline --from-video's samples
+TIMING_BEAM_VIDEOS = 2                      # bench_beam batched's videos
+TIMING_PREFIX_ARMS = {                      # bench_prefix's arms at 2 turns (long_*: 16 tokens)
+    "chat_608": (2, 32, 16, 2048, 2048), "long_2k": (2, 16, 32, 2304, 2304),
+    "long_4k": (2, 16, 64, 4352, 4352)}
+TIMING_LONGCTX = ([1280], 24, 8)            # context (H2O above 1152), long and short
+TIMING_SPEC_NEW = 16                        # bench_spec_decode's new tokens
+TIMING_TRAINED = (150, 80, 4, 32)           # train and distill steps, prompts, answer
+TIMING_SPEC_REQUESTS, TIMING_FLOOR_NEW = 8, 32
+TIMING_TRAIN_STEPS = 1                      # bench_train_step's timed steps, after its first
+VIT_G_S8 = 39                               # #3 launches an encode of the plain ViT-g
+BTADAPTER_S8 = STATIC_PER_VIDEO["packed_qkv_attention_s8"]   # trunk + spatial branch
+TIMING_DOCS = {
+    "BENCH_DECODE.json": ("decode_w4a16_ms_per_token", "protocol", "call_s",
+                          "w4a16_scale_granularity_ms_per_token", "long_ctx"),
+    "BENCH_SERVING.json": ("metric", "n_requests", "slots", "tokens_per_s", "wall_s",
+                           "host_pulls_per_drain", "sampled_mix_tokens_per_s", "sampled_mix",
+                           "drain_s", "sampled_mix_drain_s", "speculative"),
+    "BENCH_PIPELINE_SERVING.json": ("base", "auto"),
+    "BENCH_PIPELINE.json": ("bf16", "int8", "int4"),
+    "BENCH_BTADAPTER.json": ("btadapter_static_fps", "config", "encode_s", "tome_fps"),
+    "BENCH_TOME.json": ("metric", "frames", "encode_s", "off"),
+    "BENCH_PREFIX.json": ("stack", "arms"),
+    "BENCH_BEAM.json": ("metric", "videos", "batched_total_ms", "batched_ms_per_token_per_video",
+                        "solo_beam_total_ms", "speedup_vs_solo_sweep", "videos_per_hour_per_chip",
+                        "batched_call_ms", "solo_beam_call_ms"),
+    "BENCH_SPEC.json": ("metric", "k", "worst_case_ms_per_token", "round_cost_ms",
+                        "projected_ms_per_token_at_acceptance",
+                        "full_acceptance_ms_per_token_draft_eq_target",
+                        "plain_greedy_baseline_ms", "call_s", "trained_demo"),
+}
+
+
+def _timing_run(kernels, label: str, fn, want: dict, runs: list):
+    """Run ``fn`` and hold its launches: #12 as _w4_forecast says, every
+    kernel of ``want`` exactly its count, every other kernel none. Appends
+    the route to ``runs``; returns fn's result."""
+    torch.cuda.synchronize()
+    before = dict(kernels.LAUNCHES), dict(kernels.FORM_LAUNCHES)
+    t0 = time.perf_counter()
+    with _w4_forecast(kernels) as forecast:
+        result = fn()
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k: v - before[0][k] for k, v in kernels.LAUNCHES.items()}
+    forms = {k: v - before[1][k] for k, v in kernels.FORM_LAUNCHES.items()}
+    w4 = {k.split("/")[1]: v for k, v in forms.items() if k.startswith("w4a16_matmul/") and v}
+    if w4 != {f: n for f, n in forecast.items() if n} \
+            or launches["w4a16_matmul"] != sum(forecast.values()):
+        raise AssertionError(f"[timing-{label}] #12 launches {launches['w4a16_matmul']} by form "
+                             f"{w4}, per-channel int4 linears {dict(forecast)}")
+    bad = {}
+    for name, n in launches.items():
+        if name == "w4a16_matmul":
+            continue
+        if n != want.get(name, 0):
+            bad[name] = (n, want.get(name, 0))
+    if bad:
+        raise AssertionError(f"[timing-{label}] launches (got, want): {bad}")
+    runs.append({"mode": f"timing-{label}", "launches": launches, "form_launches": forms,
+                 "wall_s": wall})
+    print(f"[timing-{label}] {wall:.1f} s; launches "
+          f"{json.dumps({k: v for k, v in launches.items() if v})}")
+    return result
+
+
+def _timing_doc(tmp: str, name: str, harnesses: dict) -> dict:
+    """A timing document: its keys, and each section's stamp (the card
+    line and its harness)."""
+    doc = json.loads((Path(tmp) / name).read_text())
+    missing = [k for k in TIMING_DOCS[name] if k not in doc]
+    if missing:
+        raise AssertionError(f"[timing] {name} lacks {missing}: {sorted(doc)}")
+    for key, harness in harnesses.items():
+        _check_stamp(f"timing-{name}", doc if key is None else doc[key], harness)
+    return doc
+
+
+def _timing_line(name: str, numbers: dict) -> None:
+    print(f"[timing] {name} {json.dumps(numbers)} ({smi_line()})")
+
+
+def phase_timing(kernels) -> dict:
+    """Every timing harness (stllm_tpu_torch.timing) through its run_* once
+    at full width on cut repeats, requests and steps: the bf16 and the fused
+    W4A16 Vicuna-7B built once each and handed to every harness that runs on
+    them; each harness's launches held (_timing_run), its token counts,
+    and its document's keys and stamps (written to a temporary directory)."""
+    from stllm_tpu_torch.models.llama import VICUNA_7B, init_llama
+    from stllm_tpu_torch.timing import bench_beam as tbm
+    from stllm_tpu_torch.timing import bench_btadapter as tbb
+    from stllm_tpu_torch.timing import bench_decode as tbd
+    from stllm_tpu_torch.timing import bench_decode_longctx as tlc
+    from stllm_tpu_torch.timing import bench_encode_static as tes
+    from stllm_tpu_torch.timing import bench_pipeline as tpl
+    from stllm_tpu_torch.timing import bench_pipeline_serving as tps
+    from stllm_tpu_torch.timing import bench_prefix as tpx
+    from stllm_tpu_torch.timing import bench_serving as tbs
+    from stllm_tpu_torch.timing import bench_spec_decode as tsd
+    from stllm_tpu_torch.timing import bench_spec_serving as tss
+    from stllm_tpu_torch.timing import bench_spec_trained as tst
+    from stllm_tpu_torch.timing import bench_tome as ttm
+    from stllm_tpu_torch.timing import bench_train_step as tts
+    from stllm_tpu_torch.timing import profile_decode as tpd
+
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda")
+    runs, out = [], {}
+
+    def fresh():
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    bf16 = init_llama(torch.Generator(device=dev).manual_seed(0), VICUNA_7B)
+    w4, w4_cfg = tbd.build_decode("int4f", dev, base=bf16, cfg=VICUNA_7B)
+    torch.cuda.synchronize()
+    out["stack_build_s"] = time.perf_counter() - t0
+    print(f"[timing] bf16 and W4A16 Vicuna-7B built in {out['stack_build_s']:.1f} s, "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+    with tempfile.TemporaryDirectory() as tmp:
+        # bench_decode: one warm and one timed generate a variant
+        dec = {}
+        for v in TIMING_DECODE:
+            params, cfg = ((bf16, VICUNA_7B) if v == "bf16" else (w4, w4_cfg) if v == "int4f"
+                           else tbd.build_decode(v, dev, base=bf16, cfg=VICUNA_7B))
+            dec[v] = _timing_run(kernels, f"decode-{v}",
+                                 lambda: tbd.run_decode(params, cfg, tbd.LABEL[v], iters=1), {},
+                                 runs)
+            if (runs[-1]["launches"]["w4a16_matmul"] > 0) != (v in TIMING_PER_CHANNEL) \
+                    or len(dec[v]["tokens"][0]) != tbd.NEW:
+                raise AssertionError(f"[timing-decode-{v}] #12 launches "
+                                     f"{runs[-1]['launches']['w4a16_matmul']}, "
+                                     f"{len(dec[v]['tokens'][0])} tokens")
+            del params
+            fresh()
+        tbd.write(dec, tmp, dev)
+        _timing_line("bench_decode", {v: {"ms_per_step": r["ms_per_step"], "call_s": r["call_s"]}
+                                      for v, r in dec.items()})
+
+        with mock.patch.multiple(tpd, NEW=TIMING_PROFILE_NEW):
+            prof = _timing_run(kernels, "profile-decode",
+                               lambda: tpd.run_profile(w4, w4_cfg, "int4f"), {}, runs)
+        if not (prof["kernel_launches"] > 0 and prof["device_op_ms"] > 0
+                and 0.0 < prof["device_idle_share"] < 1.0
+                and prof["device_busy_ms"] < prof["traced_wall_ms"]
+                and len(prof["tokens"]) == TIMING_PROFILE_NEW):
+            raise AssertionError("[timing-profile] " + json.dumps(
+                {k: v for k, v in prof.items() if k != "top"}))
+        _timing_line("profile_decode", {k: prof[k] for k in (
+            "traced_wall_ms", "device_op_ms", "device_busy_ms", "kernel_launches",
+            "device_idle_share")})
+
+        n, slots = TIMING_SERVING
+        srv = _timing_run(kernels, "serving",
+                          lambda: tbs.run_serving(w4, w4_cfg, n, slots, drains=1), {}, runs)
+        if sorted(srv["tokens"]) != list(range(n)) or \
+                any(len(t) != tbs.NEW for t in srv["tokens"].values()):
+            raise AssertionError(f"[timing-serving] answers {srv['tokens']}")
+        tbs.write(srv, tmp, dev)
+        _timing_line("bench_serving", {k: srv[k] for k in (
+            "tokens_per_s", "drain_s", "sampled_mix_tokens_per_s", "sampled_mix_drain_s",
+            "host_pulls_per_drain")})
+
+        # the plain static-int8 ViT-g (calibrated) with the shared W4A16 LLaMA
+        ps_params, ps_cfg = tps.build_pipeline_serving(dev, llama=w4)
+        with mock.patch.multiple(tps, N_REQUESTS=TIMING_PIPE_REQUESTS):
+            qas = 2 * (tps.N_REQUESTS + tps.SERIAL_REQUESTS)
+            pserve = _timing_run(kernels, "pipeline-serving",
+                                 lambda: tps.run_pipeline_serving(ps_params, ps_cfg, None, 4, 1),
+                                 {"packed_qkv_attention_s8": VIT_G_S8 * qas}, runs)
+            tps.write(pserve, None, tmp, dev)
+        _timing_line("bench_pipeline_serving", {k: pserve[k] for k in (
+            "qa_per_s", "serial_qa_per_s", "speedup_vs_serial", "serve_drain_s",
+            "serial_drain_s")})
+        del ps_params
+        fresh()
+        # --tome auto: smooth and noise clips in turn, each request resolving
+        # its own level (a stack of its own, calibrated as the CLI builds it)
+        ps_params, ps_cfg = tps.build_pipeline_serving(dev, "auto", llama=w4)
+        n = TIMING_PIPE_AUTO
+        with mock.patch.multiple(tps, N_REQUESTS=n, SERIAL_REQUESTS=n):
+            auto = _timing_run(kernels, "pipeline-serving-auto",
+                               lambda: tps.run_pipeline_serving(ps_params, ps_cfg, "auto", 4, 1),
+                               {"packed_qkv_attention_s8": VIT_G_S8 * 2 * 2 * n}, runs)
+            tps.write(auto, "auto", tmp, dev)
+        if sum(auto["auto_selected"].values()) != n or len(auto["auto_selected"]) != 2:
+            raise AssertionError(f"[timing-pipeline-serving-auto] levels {auto['auto_selected']}")
+        _timing_line("bench_pipeline_serving --tome auto", {k: auto[k] for k in (
+            "qa_per_s", "serial_qa_per_s", "auto_selected", "serve_drain_s", "serial_drain_s")})
+        del ps_params
+        fresh()
+
+        # bench_pipeline: the bf16 arm on the shared bf16 LLaMA, then
+        # --from-video on its stack; the int8 arm (W8A8 from the shared bf16
+        # LLaMA) and the int4 arm (the shared W4A16 one), each building a
+        # static-int8 ViT (its calibration runs #2, #9 and #10) and an int8
+        # KV cache
+        w8, _ = tbd.build_decode("int8", dev, base=bf16, cfg=VICUNA_7B)
+        for arm, kw, kernel in (("bf16", {"llama": bf16}, "packed_qkv_attention"),
+                                ("int8", {"int8": True, "llama": w8}, "packed_qkv_attention_s8"),
+                                ("int4", {"int4": True, "llama": w4}, "packed_qkv_attention_s8")):
+            pl_params, pl_cfg, rng = _timing_run(
+                kernels, f"pipeline-{arm}-build", lambda: tpl.build_pipeline(dev, **kw),
+                {} if arm == "bf16" else _calibration(VIT_G_BLOCKS), runs)
+            pl_cfg, inputs, _ = tpl.qa_inputs(pl_cfg, rng, dev)
+            line = _timing_run(kernels, f"pipeline-{arm}",
+                               lambda: tpl.run_pipeline(pl_params, pl_cfg, inputs,
+                                                        int8=arm == "int8", int4=arm == "int4",
+                                                        iters=1),
+                               {kernel: VIT_G_S8 * 3}, runs)
+            if len(line["answer"]) != tpl.ANSWER_TOKENS:
+                raise AssertionError(f"[timing-pipeline-{arm}] answer {line['answer']}")
+            numbers = {k: line[k] for k in ("value", "raw_ms")}
+            if arm == "bf16":
+                one_qa, n = tpl.qa_fn(pl_params, pl_cfg, inputs), TIMING_FROM_VIDEO
+                line["from_video"] = numbers["from_video"] = _timing_run(
+                    kernels, "pipeline-from-video",
+                    lambda: tpl.run_from_video(one_qa, dev, n, pl_cfg.vit.image_size),
+                    {kernel: VIT_G_S8 * (2 + 2 * n)}, runs)
+                del one_qa
+            tpl.write(line, arm, tmp, dev)
+            _timing_line(f"bench_pipeline {arm}", numbers)
+            del pl_params, inputs
+            fresh()
+        del w8
+        fresh()
+
+        es_params, es_cfg, es_inputs = tes.build_encode_static(dev)
+        settings = list(tes.SETTINGS)
+        enc = _timing_run(kernels, "encode-static",
+                          lambda: tes.run_encode_static(es_params, es_cfg, es_inputs, settings, 1),
+                          {"packed_qkv_attention_s8": VIT_G_S8 * 3 * len(settings),
+                           "qmm_res_ln": 3 * sum(FUSED_SITES[tes.SETTINGS[s]] for s in settings)},
+                          runs)
+        if any(not torch.isfinite(r["out"].float()).all() for r in enc.values()):
+            raise AssertionError("[timing-encode-static] a non-finite encode")
+        _timing_line("bench_encode_static", {k: {"frames_per_s": r["frames_per_s"],
+                                                 "encode_s": r["encode_s"]}
+                                             for k, r in enc.items()})
+        levels = [*ttm.LEVELS, *ttm.T_LEVELS]
+        tome = _timing_run(kernels, "tome",
+                           lambda: ttm.run_tome(es_params, es_cfg, es_inputs, iters=1),
+                           {"packed_qkv_attention_s8": VIT_G_S8 * 3 * len(levels)}, runs)
+        ttm.write(tome, tmp, dev)
+        _timing_line("bench_tome", tome["fps"])
+        del es_params, es_inputs, enc
+        fresh()
+
+        bb_params, bb_cfg, bb_frames = tbb.build_btadapter(dev)
+        btad = _timing_run(kernels, "btadapter",
+                           lambda: tbb.run_btadapter(bb_params, bb_cfg, bb_frames, iters=1),
+                           {"packed_qkv_attention_s8": BTADAPTER_S8 * 3 * (1 + len(tbb.levels()))},
+                           runs)
+        tbb.write(btad, tmp, dev)
+        _timing_line("bench_btadapter", {"static": btad["btadapter_static_fps"],
+                                         **btad["tome_fps"]})
+        del bb_params, bb_frames, btad
+        fresh()
+
+        # bench_beam, bench_prefix, bench_decode_longctx on the W4A16 stack
+        beam = _timing_run(kernels, "beam", lambda: tbm.run_beam(w4, w4_cfg, "both", "int4", 1),
+                           {}, runs)
+        if len(beam["tokens"]["greedy"][0]) != tbm.NEW or len(beam["tokens"]["beam"]) != tbm.NEW:
+            raise AssertionError(f"[timing-beam] tokens {beam['tokens']}")
+        _timing_line("bench_beam", {k: beam[k] for k in (
+            "greedy_ms_per_token", "beam5_ms_per_token", "beam_over_greedy", "greedy_call_ms",
+            "beam5_call_ms")})
+        with mock.patch.multiple(tbm, P_VIDEOS=TIMING_BEAM_VIDEOS):
+            batched = _timing_run(kernels, "beam-batched",
+                                  lambda: tbm.run_beam(w4, w4_cfg, "batched", "int4", 1), {}, runs)
+            tbm.write(batched, tmp)
+        got = batched["tokens"]
+        if len(got["batched"]) != TIMING_BEAM_VIDEOS or len(got["beam"]) != tbm.NEW \
+                or any(len(t) != tbm.NEW for t in got["batched"]):
+            raise AssertionError(f"[timing-beam-batched] tokens {got}")
+        _timing_line("bench_beam batched", {k: batched[k] for k in (
+            "batched_total_ms", "solo_beam_total_ms", "speedup_vs_solo_sweep", "batched_call_ms",
+            "solo_beam_call_ms")})
+        with mock.patch.multiple(tpx, ARMS=TIMING_PREFIX_ARMS):
+            for name, (turns, answer, *_) in TIMING_PREFIX_ARMS.items():
+                arm = _timing_run(kernels, f"prefix-{name}",
+                                  lambda: tpx.run_arm(w4, name, w4_cfg), {}, runs)
+                tpx.write_arm(name, arm, tmp, dev)
+                reused = arm["tokens_reused_per_turn"]
+                if reused[0] != 0 or not all(reused[1:]) or len(arm["tokens"]["full"]) != turns \
+                        or any(len(t) != answer for t in arm["tokens"]["session"]):
+                    raise AssertionError(f"[timing-prefix-{name}] reuse {reused}")
+                agree = sum(a == b for a, b in zip(arm["tokens"]["full"], arm["tokens"]["session"]))
+                _timing_line(f"bench_prefix {name}", {**{k: arm[k] for k in (
+                    "turn_ms_full_reprefill", "turn_ms_prefix_session", "tokens_reused_per_turn",
+                    "ttft_ms_full", "ttft_ms_session")}, "turns_equal_to_full": agree})
+        contexts, long_, short = TIMING_LONGCTX
+        with mock.patch.multiple(tlc, LONG=long_, SHORT=short):
+            lc = _timing_run(kernels, "longctx", lambda: tlc.run_longctx(w4, w4_cfg, contexts, 1),
+                             {}, runs)
+        row = lc["section"]["contexts"][str(contexts[0])]
+        if sorted(row) != sorted(["kv_bf16", "kv_int8", f"h2o_budget{tlc.H2O_BUDGET}"]) or \
+                any(len(t) != n for arms in lc["tokens"].values() for a in arms.values()
+                    for n, t in a.items()):
+            raise AssertionError(f"[timing-longctx] {json.dumps(lc['section'])}")
+        tlc.write(lc["section"], tmp, dev)
+        _timing_line("bench_decode_longctx", {"contexts": lc["section"]["contexts"],
+                                              "raw_s": lc["section"]["raw_s"]})
+
+        # the speculative harnesses
+        dcfg = dataclasses.replace(w4_cfg, num_layers=tsd.DRAFT_LAYERS)
+        draft, _ = tbd.build_decode("int4f", dev, 1, None, dcfg)
+        with mock.patch.multiple(tsd, NEW=TIMING_SPEC_NEW):
+            spec = _timing_run(kernels, "spec-decode",
+                               lambda: tsd.run_spec_decode(w4, draft, w4_cfg, dcfg, 6, 1), {},
+                               runs)
+        arms = spec["arms"]
+        if any(len(a["tokens"]) != TIMING_SPEC_NEW for a in arms.values()):
+            raise AssertionError("[timing-spec-decode] tokens " + json.dumps(
+                {k: len(a["tokens"]) for k, a in arms.items()}))
+        tsd.write(spec, tmp, dev)
+        _timing_line("bench_spec_decode", {
+            **{k: spec[k] for k in ("worst_case_ms_per_token", "round_cost_ms",
+                                    "full_acceptance_ms_per_token_draft_eq_target",
+                                    "plain_greedy_baseline_ms", "call_s")},
+            "stats": {k: a.get("stats") for k, a in arms.items()},
+            "draft_eq_target_equals_greedy": arms["draft_eq_target"]["tokens"]
+            == arms["plain_greedy"]["tokens"]})
+        del draft
+        fresh()
+
+        steps, distill, prompts, answer = TIMING_TRAINED
+        # the target's steps launch #7 once a layer (no remat; its backward
+        # recomputes through the plain attention), a distillation step once a
+        # target layer (the teacher) and once a draft layer
+        cfg_t, cfg_d = tst.CFG_T, tst.CFG_D
+        spec_short = (cfg_t.num_layers * (1 + cfg_t.remat) * steps
+                      + (cfg_t.num_layers + cfg_d.num_layers * (1 + cfg_d.remat)) * distill)
+        with mock.patch.multiple(tst, N_PROMPTS=prompts, ANSWER=answer), \
+                mock.patch.multiple(tss, N_PROMPTS=prompts, ANSWER=answer,
+                                    N_REQUESTS=TIMING_SPEC_REQUESTS, NEW=TIMING_FLOOR_NEW):
+            pair = _timing_run(kernels, "spec-train",
+                               lambda: tst.build_trained_pair(dev, steps, distill),
+                               {"fused_short_attention": spec_short}, runs)
+            trained = _timing_run(kernels, "spec-trained",
+                                  lambda: tst.run_spec_trained(pair, iters=1), {}, runs)
+            tst.write(trained, tmp, dev)
+            served = _timing_run(kernels, "spec-serving-trained",
+                                 lambda: tss.run_trained_serving(pair), {}, runs)
+            del pair
+            fresh()
+            draft7, _ = tbd.build_decode("int4f", dev, 9, None, dcfg)
+            floor = _timing_run(kernels, "spec-serving-floor",
+                                lambda: tss.run_floor(w4, w4_cfg, draft7, dcfg, iters=1), {},
+                                runs)
+            tss.write(served, floor, tmp, dev)
+            del draft7
+        if any(len(t) != answer for t in served["answers"].values()) or \
+                any(len(t) != TIMING_FLOOR_NEW for t in floor["answers"].values()):
+            raise AssertionError("[timing-spec-serving] answer lengths")
+        _timing_line("bench_spec_trained", {k: trained[k] for k in (
+            "train_targets_matched", "measured_acceptance", "greedy_ms_per_token",
+            "speculative_ms_per_token", "speedup", "greedy_pass_s", "speculative_pass_s")})
+        _timing_line("bench_spec_serving", {
+            "trained": {k: served[k] for k in ("plain_tokens_per_s", "spec_tokens_per_s",
+                                                "speedup", "plain_drain_tokens_per_s",
+                                                "spec_drain_tokens_per_s")},
+            "floor": {k: floor[k] for k in ("plain_tokens_per_s",
+                                            "spec_zero_acceptance_tokens_per_s",
+                                            "exact_match_streams",
+                                            "mean_first_divergence_token")}})
+        del w4, bf16
+        fresh()
+
+        # the training step last: the int8 weight-only 7B beside the BTAdapter
+        cfg = tts.make_cfg(32)
+        state, step = tts.build_train_step(cfg, tts.build_params(cfg, dev))
+        batch = tts.build_batch(cfg, np.random.default_rng(0), dev)
+        # the train phase's 768 route: its first step and the timed ones
+        tr = _timing_run(kernels, "train-step",
+                         lambda: tts.run_train_step(state, step, batch, steps=TIMING_TRAIN_STEPS),
+                         {k: v * (1 + TIMING_TRAIN_STEPS)
+                          for k, v in TRAIN_LAUNCHES["train-short"].items()}, runs)
+        if not (np.isfinite(tr["first_loss"]) and np.isfinite(tr["loss"])
+                and np.isfinite(tr["grad_norm"])):
+            raise AssertionError(f"[timing-train-step] {json.dumps(tr)}")
+        _timing_line("bench_train_step", {k: tr[k] for k in (
+            "ms_per_step", "step_s", "first_step_s", "first_loss", "loss", "grad_norm")})
+        del state, step, batch
+        fresh()
+
+        harness = {"BENCH_DECODE.json": {None: tbd.HARNESS, "long_ctx": tlc.HARNESS},
+                   "BENCH_SERVING.json": {None: tbs.HARNESS, "speculative": tss.HARNESS},
+                   "BENCH_PIPELINE_SERVING.json": {"base": tps.HARNESS, "auto": tps.HARNESS},
+                   "BENCH_PIPELINE.json": {k: tpl.HARNESS for k in ("bf16", "int8", "int4")},
+                   "BENCH_BEAM.json": {None: tbm.HARNESS},
+                   "BENCH_BTADAPTER.json": {None: tbb.HARNESS},
+                   "BENCH_TOME.json": {None: ttm.HARNESS},
+                   "BENCH_PREFIX.json": {None: tpx.HARNESS},
+                   "BENCH_SPEC.json": {None: tsd.HARNESS, "trained_demo": tst.HARNESS}}
+        for name, by_key in harness.items():
+            _timing_doc(tmp, name, by_key)
+        tome_doc = json.loads((Path(tmp) / "BENCH_TOME.json").read_text())
+        if sorted(tome_doc["encode_s"]) != sorted(levels):
+            raise AssertionError(f"[timing] BENCH_TOME.json levels {sorted(tome_doc['encode_s'])}")
+        prefix_doc = json.loads((Path(tmp) / "BENCH_PREFIX.json").read_text())
+        pipe_doc = json.loads((Path(tmp) / "BENCH_PIPELINE.json").read_text())
+        if sorted(prefix_doc["arms"]) != sorted(TIMING_PREFIX_ARMS) \
+                or "from_video" not in pipe_doc["bf16"]:
+            raise AssertionError(f"[timing] BENCH_PREFIX.json arms {sorted(prefix_doc['arms'])}, "
+                                 f"BENCH_PIPELINE.json bf16 {sorted(pipe_doc['bf16'])}")
+    out["routes"] = runs
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"[timing] phase {out['phase_s']:.1f} s ({smi_line()})")
+    return out
+
+
 # phases --phases can run alone
 PARTIAL = ("load", "demo", "train_breadth", "distill", "runner", "mesh", "probe",
-           "replicate", "evidence")
+           "replicate", "evidence", "timing")
 
 
 def main(argv=None) -> int:
@@ -6480,7 +6896,7 @@ def main(argv=None) -> int:
             {"load": phase_load, "demo": phase_demo, "train_breadth": phase_train_breadth,
              "distill": phase_distill, "runner": phase_runner, "mesh": phase_mesh,
              "probe": phase_probe, "replicate": phase_replicate,
-             "evidence": phase_evidence}[name](kernels)
+             "evidence": phase_evidence, "timing": phase_timing}[name](kernels)
             gc.collect()
             torch.cuda.empty_cache()
         print(f"chip_smoke: phases {args.phases} passed (a partial run: no result line)")
@@ -6547,6 +6963,9 @@ def main(argv=None) -> int:
     gc.collect()
     torch.cuda.empty_cache()
     evidence = phase_evidence(kernels)
+    gc.collect()
+    torch.cuda.empty_cache()
+    timing = phase_timing(kernels)
     # each kernel's launches from the path that runs it; the probes run on no
     # path (0 launches on every one)
     path_of = {"packed_qkv_attention": bf16, "layer_norm_quant": int8["dynamic"],
@@ -6568,7 +6987,7 @@ def main(argv=None) -> int:
                       lora, resume, run_first, run_resume, distill["distill"],
                       distill["spec"], mesh_none, mesh_1x1, *replicate["arms"].values(),
                       *probe_short, *probe_long, *probe_variants, *evidence["routes"],
-                      *evidence["train_routes"]):
+                      *evidence["train_routes"], *timing["routes"]):
             entry["launches_by_path"][route["mode"]] = route["launches"][name]
         entry["launches_by_path"]["pipeline-calibration"] = pipeline["calibration_launches"][name]
         entry["launches_per_train_step"] = {t["mode"]: t["launches"][name] / t["steps"]

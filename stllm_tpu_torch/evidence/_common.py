@@ -32,12 +32,14 @@ EQUIV_INT8 = "EQUIV_INT8.json"
 TOME_EQUIV = "TOME_EQUIV.json"
 
 
-def add_device_args(parser, out_dir: bool = True) -> None:
+def add_device_args(parser, out_dir: Optional[str] = OUT_DIR) -> None:
+    """``--cpu``, and ``--out-dir`` defaulting to ``out_dir`` unless it is
+    None."""
     parser.add_argument("--cpu", action="store_true",
                         help="run on the CPU (the default is the CUDA card)")
-    if out_dir:
-        parser.add_argument("--out-dir", default=OUT_DIR,
-                            help=f"directory of the JSON documents (default {OUT_DIR}/)")
+    if out_dir is not None:
+        parser.add_argument("--out-dir", default=out_dir,
+                            help=f"directory of the JSON documents (default {out_dir}/)")
 
 
 def pick_device(args, prog: str) -> Optional[torch.device]:

@@ -177,7 +177,7 @@ def main(argv=None) -> int:
         prog="python -m " + HARNESS,
         description="find where W4A16 Vicuna-7B speculative serving first leaves plain "
                     "greedy, and the margin and rank there")
-    _common.add_device_args(parser, out_dir=False)
+    _common.add_device_args(parser, out_dir=None)
     args = parser.parse_args(argv)
     device = _common.pick_device(args, parser.prog)
     if device is None:

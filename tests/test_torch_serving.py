@@ -170,7 +170,14 @@ def test_port_imports_neither_jax_nor_stllm_tpu():
             "parallel/context.py", "ops/ring_attention.py", "ops/spmd.py", "dryrun.py",
             "models/generation.py", "models/stllm.py", "models/llama.py",
             "models/qformer.py", "ops/attention.py", "ops/quant.py",
-            "replicate_mvbench.py"} <= names
+            "replicate_mvbench.py", "timing/__init__.py", "timing/_common.py",
+            "timing/bench_decode.py", "timing/profile_decode.py", "timing/bench_serving.py",
+            "timing/bench_pipeline_serving.py", "timing/bench_encode_static.py",
+            "timing/bench_train_step.py", "timing/bench_pipeline.py",
+            "timing/bench_btadapter.py", "timing/bench_tome.py", "timing/bench_beam.py",
+            "timing/bench_prefix.py", "timing/bench_decode_longctx.py",
+            "timing/bench_spec_decode.py", "timing/bench_spec_trained.py",
+            "timing/bench_spec_serving.py"} <= names
     bad = [(str(f.relative_to(REPO)), m) for f in files for m in _imports(f)
            if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "stllm_tpu")]
     assert not bad, bad
