@@ -56,6 +56,17 @@ toolkit. Phases, each fatal on failure:
    (parent, new, new, parent), beside #12's decode form on the same codes
    and a dense bf16 matmul, and are held at 1, 4 and 16 rows, at widths
    that are no multiple of 8, and at 17 rows on the tile loop;
+2b. scale - the 7B scale checks (stllm_tpu_torch/evidence/mem7b.py,
+   tp7b_check.py, tp7b_serve_check.py), each in a process of its own as one
+   rank of a mesh on torch's fake process group, at full width and depth:
+   the QA config's MVM train step under FSDP over 8 ranks (micro-batch 16 at
+   768), the same step's configuration under (data 2, model 4) with the
+   LLaMA tensor-parallel, and the bf16 512-token prefill and 16-step decode
+   chunk under TP 4; each child's exit code, its collectives against their
+   derivation (the recompute's re-run of o's sum a layer included), the
+   train steps' #1 and #7 launches exactly (SCALE_LAUNCHES),
+   and the per-rank peaks against the card's memory.
+
 3. slice  - the QA config (config/instructblipbase_stllm_qa.yaml: EVA-ViT-g +
    BTAdapter, InstructBLIP Q-Former, Vicuna-7B, bf16, 16 frames, video_input
    all) at full width with random weights from a seed, served by
@@ -270,9 +281,11 @@ toolkit. Phases, each fatal on failure:
    them one tiny fp32 Adafactor step on the card against the CPU, and an
    Adafactor state through CheckpointManager bit for bit.
 
-19. evidence - the evidence harnesses (stllm_tpu_torch/evidence/) through
-   their main functions at full width and small sizes: int8_equivalence
-   with n = 4 on the int8 and the w4a16 stack, tome_equivalence with n = 3
+19. evidence - (in a child process, ``--phases evidence --child``, beside the
+   slice ... breadth phases: it times nothing of record) the evidence
+   harnesses (stllm_tpu_torch/evidence/) through their main functions at
+   full width and small sizes: int8_equivalence with n = 3 on the int8 and
+   the w4a16 stack, tome_equivalence with n = 3
    (every level and auto; the noise arm has 8 videos; its LLaMA cut to 8 of
    32 layers, EVIDENCE_TOME_LAYERS), probe_spec_divergence at its own sizes
    (Vicuna-7B W4A16, a 2-layer draft, 512 prompt embeddings, 64 new
@@ -288,9 +301,16 @@ toolkit. Phases, each fatal on failure:
    token at a divergence ranks below the runner-up by more than the same
    replay's logits move on the speculative batcher's longer cache.
 
+20. timing - every timing harness (stllm_tpu_torch/timing/) once at full
+   width on cut repeats; then the probes: probe_decode_budget's six variants
+   of the 32-layer x 7-matmul decode skeleton (eagerly and as one captured
+   16-step graph), probe_w4_unpack's five variants of #15 bit for bit on
+   exact inputs and timed on both forms, probe_w4_call_fusion's four arms,
+   each with #12-#15's launches and forms exact.
+
 ``python3 chip_smoke.py --phases load demo train_breadth distill runner mesh probe
-replicate evidence`` builds the kernels and runs only the phases named (a
-partial run: no result line).
+replicate evidence timing scale`` builds the kernels and runs only the phases
+named (a partial run: no result line).
 
 Then it prints a ``{"kernels": [...]}`` line, the nvidia-smi line and, last,
 ``{"ok": true, "device": {...}}``. Without a CUDA card it exits non-zero and
@@ -305,6 +325,7 @@ import dataclasses
 import gc
 import itertools
 import json
+import os
 import re
 import shutil
 import subprocess
@@ -535,36 +556,55 @@ def cuda_ms(fn, iters: int, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
+QUEUED_TRIES = 4           # queued_ms's attempts, the sleep 4x longer each time
+
+
 def queued_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     """Mean device time of fn() over ``iters`` calls that the host enqueues
     while the device sleeps (``torch.cuda._sleep``), timed by CUDA events
     from the end of the sleep: the calls then run back to back, so the
     host's time per call stays out even where fn cannot be captured in a
-    CUDA graph (an autograd backward). Raises if the host fell behind."""
+    CUDA graph (an autograd backward). The sleep starts at twice the calls'
+    synchronised wall time; where the host still fell behind it (a stall of
+    a shared host, the card's clock above the sleep's calibration) the
+    attempt is discarded and the next sleeps 4x longer, the collector off
+    throughout. Raises if every attempt fell behind."""
     for _ in range(warmup):
         fn()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(iters):
-        fn()
-    torch.cuda.synchronize()
-    wall_ms = (time.perf_counter() - t0) * 1e3
-    start.record()
-    torch.cuda._sleep(10 ** 6)
-    end.record()
-    torch.cuda.synchronize()
-    ms_per_mcycle = start.elapsed_time(end)
-    torch.cuda._sleep(int((2 * wall_ms + 20) / ms_per_mcycle * 10 ** 6))
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    behind = start.query()       # the sleep ended before the last call was enqueued
-    torch.cuda.synchronize()
-    if behind:
-        raise RuntimeError("queued_ms: the host fell behind the device's sleep")
-    return start.elapsed_time(end) / iters
+    gc_was_on = gc.isenabled()
+    gc.disable()
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+        cycles = 10 ** 7         # about 5 ms, at the clock the calls just ran at
+        start.record()
+        torch.cuda._sleep(cycles)
+        end.record()
+        torch.cuda.synchronize()
+        ms_per_cycle = start.elapsed_time(end) / cycles
+        margin = 2.0
+        for _ in range(QUEUED_TRIES):
+            torch.cuda._sleep(int((margin * wall_ms + 20) / ms_per_cycle))
+            start.record()
+            for _ in range(iters):
+                fn()
+            end.record()
+            behind = start.query()       # the sleep ended before the last call was enqueued
+            torch.cuda.synchronize()
+            if not behind:
+                return start.elapsed_time(end) / iters
+            margin *= 4
+    finally:
+        if gc_was_on:
+            gc.enable()
+    raise RuntimeError(f"queued_ms: the host fell behind the device's sleep {QUEUED_TRIES} "
+                       f"times (the last sleep {margin / 4:g}x the calls' wall time "
+                       f"{wall_ms:.1f} ms + 20 ms)")
 
 
 def _start_nvcc(kernels, source: Path, lib_name: str):
@@ -6064,7 +6104,7 @@ def phase_replicate(kernels, files: dict = None) -> dict:
 # the evidence harnesses (slice 25)
 # ---------------------------------------------------------------------------
 
-EVIDENCE_QA_N = 4                        # int8_equivalence samples a stack
+EVIDENCE_QA_N = 3                        # int8_equivalence samples a stack
 EVIDENCE_TOME_N = 3                      # tome_equivalence's smooth videos (noise arm: 8)
 # tome_equivalence's 88 answers ride the W8A8 LLaMA, whose host-bound decode
 # took 2.6 s an answer at 32 layers on an H100: its depth is cut to 8 here
@@ -6454,18 +6494,19 @@ TIMING_PER_CHANNEL = ("int4f", "int4kv8")              # the variants whose line
 # each protocol cut for time (repeats, requests, steps), never a width
 TIMING_PROFILE_NEW = 8                      # profile_decode's new tokens (the trace's
                                             # host-side processing took 50 s at 32)
-TIMING_SERVING = (8, 4)                     # bench_serving: requests, slots
-TIMING_PIPE_REQUESTS = 8                    # bench_pipeline_serving's serving arm
+TIMING_SERVING = (5, 4)                     # bench_serving: requests, slots
+TIMING_PIPE_REQUESTS = 5                    # bench_pipeline_serving's serving arm
 TIMING_PIPE_AUTO = 2                        # its "auto" arms' requests: a smooth and a noise clip
 TIMING_FROM_VIDEO = 2                       # bench_pipeline --from-video's samples
 TIMING_BEAM_VIDEOS = 2                      # bench_beam batched's videos
 TIMING_PREFIX_ARMS = {                      # bench_prefix's arms at 2 turns (long_*: 16 tokens)
     "chat_608": (2, 32, 16, 2048, 2048), "long_2k": (2, 16, 32, 2304, 2304),
     "long_4k": (2, 16, 64, 4352, 4352)}
-TIMING_LONGCTX = ([1280], 24, 8)            # context (H2O above 1152), long and short
-TIMING_SPEC_NEW = 16                        # bench_spec_decode's new tokens
+TIMING_LONGCTX = ([1280], 12, 8)            # context (H2O above 1152), long and short
+TIMING_SPEC_NEW = 8                         # bench_spec_decode's new tokens
 TIMING_TRAINED = (150, 80, 4, 32)           # train and distill steps, prompts, answer
-TIMING_SPEC_REQUESTS, TIMING_FLOOR_NEW = 8, 32
+# the trained pair's serving arm runs 4 slots: one request more refills a slot
+TIMING_SPEC_REQUESTS, TIMING_FLOOR_NEW = 5, 16
 TIMING_TRAIN_STEPS = 1                      # bench_train_step's timed steps, after its first
 VIT_G_S8 = 39                               # #3 launches an encode of the plain ViT-g
 BTADAPTER_S8 = STATIC_PER_VIDEO["packed_qkv_attention_s8"]   # trunk + spatial branch
@@ -6844,6 +6885,9 @@ def phase_timing(kernels) -> dict:
         del state, step, batch
         fresh()
 
+        fresh()
+        out["probes"] = _timing_probes(kernels, tmp, runs)
+
         harness = {"BENCH_DECODE.json": {None: tbd.HARNESS, "long_ctx": tlc.HARNESS},
                    "BENCH_SERVING.json": {None: tbs.HARNESS, "speculative": tss.HARNESS},
                    "BENCH_PIPELINE_SERVING.json": {"base": tps.HARNESS, "auto": tps.HARNESS},
@@ -6870,9 +6914,216 @@ def phase_timing(kernels) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# the 7B scale checks, one rank each on a fake process group
+# ---------------------------------------------------------------------------
+
+SCALE_CHILDREN = ("mem7b", "tp7b_check", "tp7b_serve_check")
+SCALE_TIMEOUT = 600
+# #1 and #7 launches of one train step (accum_steps 1): mem7b's QA config
+# runs the 39-block trunk and the BTAdapter's 3 spatial and 3 temporal
+# layers; tp7b_check's reference configuration has no branch; both run the
+# LLaMA's 32 layers in the student, its recompute and the teacher
+SCALE_LAUNCHES = {"mem7b": {"packed_qkv_attention": 45, "fused_short_attention": 96},
+                  "tp7b_check": {"packed_qkv_attention": 39, "fused_short_attention": 96}}
+
+
+def _scale_route(kernels, name: str, launches: dict) -> dict:
+    return {"mode": f"scale-{name}", "steps": 1,
+            "launches": {k: launches.get(k, 0) for k in kernels.LAUNCHES}}
+
+
+def phase_scale(kernels) -> dict:
+    """The three 7B scale checks, each ``python -m
+    stllm_tpu_torch.evidence.<name>`` in a process of its own (a process
+    holds one process group; the children load the libraries phase_build
+    built): mem7b alone (its peak is most of the card), then tp7b_check and
+    tp7b_serve_check side by side (each process's peak is its own). Each
+    exits 0 with its document stamped and no failed check (its collectives
+    against their derivation), the train steps' launches exactly
+    SCALE_LAUNCHES and nothing else, the serve programs no kernel; prints
+    the per-rank peaks beside the card's line."""
+    import importlib
+
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    out = {"routes": [], "docs": {}}
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    with tempfile.TemporaryDirectory() as tmp:
+        for wave in (SCALE_CHILDREN[:1], SCALE_CHILDREN[1:]):
+            procs = []
+            for name in wave:
+                mod = importlib.import_module(f"stllm_tpu_torch.evidence.{name}")
+                procs.append((name, mod, time.perf_counter(), subprocess.Popen(
+                    [sys.executable, "-m", mod.HARNESS, "--out-dir", tmp], cwd=ROOT, env=env,
+                    stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+            try:
+                for name, mod, t0, proc in procs:
+                    stdout, stderr = proc.communicate(timeout=SCALE_TIMEOUT)
+                    if proc.returncode:
+                        raise AssertionError(f"[scale-{name}] exit {proc.returncode}\n"
+                                             f"{stdout[-4000:]}\n{stderr[-4000:]}")
+                    out["docs"][name] = _scale_doc(kernels, name, mod, tmp,
+                                                   time.perf_counter() - t0, out["routes"])
+            finally:
+                for *_, proc in procs:
+                    if proc.poll() is None:
+                        proc.kill()
+                        proc.wait()
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"[scale] phase {out['phase_s']:.1f} s ({smi_line()})")
+    return out
+
+
+def _scale_doc(kernels, name: str, mod, tmp: str, wall: float, routes: list) -> dict:
+    """One scale child's document, held and printed; a train check's
+    launches appended to ``routes``."""
+    doc = json.loads((Path(tmp) / mod.DOC).read_text())
+    _check_stamp(f"scale-{name}", doc, mod.HARNESS)
+    if doc["failed"]:
+        raise AssertionError(f"[scale-{name}] failed {doc['failed']}: "
+                             f"{json.dumps(doc['collectives'])} against "
+                             f"{json.dumps(doc['collectives_expected'])}")
+    if name in SCALE_LAUNCHES:
+        if doc["launches"] != SCALE_LAUNCHES[name] \
+                or doc["launches_expected"] != SCALE_LAUNCHES[name]:
+            raise AssertionError(f"[scale-{name}] launches {doc['launches']}, derived "
+                                 f"{doc['launches_expected']}, want {SCALE_LAUNCHES[name]}")
+        routes.append(_scale_route(kernels, name, doc["launches"]))
+    else:
+        used = {p: doc["collectives"][p] for p in ("prefill", "decode_chunk")}
+        if not doc["ok"] or any(v["all_reduce"]["calls"] == 0 for v in used.values()) \
+                or any(doc["launches"].values()):
+            raise AssertionError(f"[scale-{name}] {json.dumps(doc)}")
+    doc["wall_s"] = wall
+    peaks = {k: doc[k] for k in ("per_rank", "per_rank_peak_gib") if k in doc}
+    print(f"[scale-{name}] {wall:.1f} s, mesh {doc['mesh']}, {json.dumps(peaks)}, "
+          f"collectives {json.dumps(doc['collectives'])} ({smi_line()})")
+    return doc
+
+
+# the probes' repeats in the timing phase, cut from their defaults (4, 30, 30)
+TIMING_PROBE_CALLS, TIMING_UNPACK_REPS, TIMING_FUSION_ITERS = 1, 8, 2
+
+
+def _probe_arm(kernels, label: str, fn, want: dict, forms: dict, runs: list):
+    """Run ``fn`` (a probe's main, which must return 0) and hold every
+    kernel's launches to ``want`` and the listed forms' to ``forms``
+    exactly; appends the route to ``runs``."""
+    torch.cuda.synchronize()
+    before = dict(kernels.LAUNCHES), dict(kernels.FORM_LAUNCHES)
+    t0 = time.perf_counter()
+    rc = fn()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k: v - before[0][k] for k, v in kernels.LAUNCHES.items()}
+    got_forms = {k: v - before[1][k] for k, v in kernels.FORM_LAUNCHES.items()}
+    bad = {k: (n, want.get(k, 0)) for k, n in launches.items() if n != want.get(k, 0)}
+    bad.update({k: (got_forms[k], n) for k, n in forms.items() if got_forms[k] != n})
+    if rc != 0 or bad:
+        raise AssertionError(f"[timing-{label}] exit {rc}; launches (got, want): {bad}")
+    runs.append({"mode": f"timing-{label}", "launches": launches, "form_launches": got_forms,
+                 "wall_s": wall})
+    print(f"[timing-{label}] {wall:.1f} s; launches "
+          f"{json.dumps({k: v for k, v in launches.items() if v})}")
+
+
+def _timing_probes(kernels, tmp: str, runs: list) -> dict:
+    """The three probe harnesses through their mains at full width: their
+    launches and forms exact, their documents' stamps, every variant of
+    the decode skeleton timed eagerly and as a graph, every unpack variant
+    bit-exact on both forms, the four fusion arms."""
+    from stllm_tpu_torch.timing import probe_decode_budget as tpdb
+    from stllm_tpu_torch.timing import probe_w4_call_fusion as tpf
+    from stllm_tpu_torch.timing import probe_w4_unpack as tpu
+
+    dev = torch.device("cuda")
+    want = tpdb.expected_launches(tpdb.VARIANTS, TIMING_PROBE_CALLS, dev)
+    forms = {f"{k}/decode": n for k, n in want.items()}    # M = 1 and 3: the decode form
+    _probe_arm(kernels, "probe-decode-budget",
+               lambda: tpdb.main([*tpdb.VARIANTS, "--calls", str(TIMING_PROBE_CALLS),
+                                  "--out-dir", tmp]), want, forms, runs)
+    budget = json.loads((Path(tmp) / tpdb.DOC).read_text())
+    _check_stamp("timing-probe-decode-budget", budget, tpdb.HARNESS)
+    for v, r in budget["variants"].items():
+        if not (r["eager_ms_per_token"] > 0 and r["graph_ms_per_token"] > 0
+                and len(r["graph_replay_ms"]) == TIMING_PROBE_CALLS):
+            raise AssertionError(f"[timing-probe-decode-budget] {v}: {json.dumps(r)}")
+    _timing_line("probe_decode_budget", {v: {k: r[k] for k in (
+        "eager_ms_per_token", "graph_ms_per_token", "host_share")}
+        for v, r in budget["variants"].items()})
+
+    n_var = len(kernels.W4_UNPACK_VARIANTS)
+    reps = TIMING_UNPACK_REPS
+    _probe_arm(kernels, "probe-w4-unpack",
+               lambda: tpu.main(["--reps", str(reps), "--out-dir", tmp]),
+               {"w4_unpack_matmul": n_var * tpu.expected_launches(reps, dev)},
+               {"w4_unpack_matmul/stream": n_var * (1 + 2 * reps),
+                "w4_unpack_matmul/decode": n_var * 2 * reps}, runs)
+    unpack = json.loads((Path(tmp) / tpu.DOC).read_text())
+    _check_stamp("timing-probe-w4-unpack", unpack, tpu.HARNESS)
+    if not unpack["all_bit_exact"] or unpack["forms"] != ["stream", "decode"]:
+        raise AssertionError(f"[timing-probe-w4-unpack] {json.dumps(unpack)}")
+    _timing_line("probe_w4_unpack", {v: r["ms_per_rep"] for v, r in unpack["variants"].items()})
+
+    n = tpf.expected_launches(TIMING_FUSION_ITERS, dev)
+    _probe_arm(kernels, "probe-w4-call-fusion",
+               lambda: tpf.main(["--iters", str(TIMING_FUSION_ITERS), "--out-dir", tmp]),
+               {"w4a16_matmul": n}, {"w4a16_matmul/decode": n}, runs)
+    fusion = json.loads((Path(tmp) / tpf.DOC).read_text())
+    _check_stamp("timing-probe-w4-call-fusion", fusion, tpf.HARNESS)
+    if sorted(fusion["arms"]) != sorted(tpf.CALLS):
+        raise AssertionError(f"[timing-probe-w4-call-fusion] {json.dumps(fusion)}")
+    _timing_line("probe_w4_call_fusion", {a: {k: r[k] for k in (
+        "eager_ms_per_step", "graph_ms_per_step")} for a, r in fusion["arms"].items()})
+    return {"decode_budget": budget, "w4_unpack": unpack, "call_fusion": fusion}
+
+
 # phases --phases can run alone
 PARTIAL = ("load", "demo", "train_breadth", "distill", "runner", "mesh", "probe",
-           "replicate", "evidence", "timing")
+           "replicate", "evidence", "timing", "scale")
+
+
+_T0 = time.perf_counter()
+
+
+def _mark(phase: str) -> None:
+    """The smoke's wall time at the end of ``phase``."""
+    print(f"[wall] {phase} done at {time.perf_counter() - _T0:.1f} s", flush=True)
+
+
+CHILD_TIMEOUT = 900
+
+
+def start_child(phases: list, tmp: str):
+    """``chip_smoke.py --phases ... --child`` in a process of its own, its
+    output to a file; returns what finish_child needs."""
+    out, log = Path(tmp) / "child.json", open(Path(tmp) / "child.log", "w+")
+    cmd = [sys.executable, str(ROOT / "chip_smoke.py"), "--phases", *phases,
+           "--child", str(out)]
+    proc = subprocess.Popen(cmd, cwd=ROOT, env=dict(os.environ, PYTHONPATH=str(ROOT)),
+                            stdout=log, stderr=subprocess.STDOUT, text=True)
+    return proc, log, out, time.perf_counter()
+
+
+def finish_child(proc, log, out: Path, t0: float) -> dict:
+    """Wait for start_child's process; prints its lines (its build's aside)
+    and returns its phases' results. Fails where it failed."""
+    try:
+        rc = proc.wait(timeout=CHILD_TIMEOUT)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    log.seek(0)
+    text = log.read()
+    log.close()
+    print("\n".join(line for line in text.splitlines() if not line.startswith("[build]")))
+    if rc:
+        raise AssertionError(f"chip_smoke child {proc.args[3:-2]} exit {rc}")
+    print(f"[child] {proc.args[3:-2]} done after {time.perf_counter() - t0:.1f} s")
+    return json.loads(out.read_text())
 
 
 def main(argv=None) -> int:
@@ -6882,39 +7133,75 @@ def main(argv=None) -> int:
     parser.add_argument("--phases", nargs="+", choices=PARTIAL,
                         help="build the kernels, then run only these phases (distill on a "
                              "W4A16 target of its own); a partial run prints no result line")
+    parser.add_argument("--child", metavar="JSON",
+                        help="with --phases, as a full run's child: load the kernels the "
+                             "parent built (no rebuild of the replaced designs, whose "
+                             "libraries the parent holds) and write the phases' results to "
+                             "JSON")
     args = parser.parse_args(argv)
+    if args.child and not args.phases:
+        parser.error("--child needs --phases")
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     from stllm_tpu_torch.ops import kernels
 
-    replaced, divide_check = phase_build(kernels)
+    if args.child:
+        kernels.build()
+    else:
+        replaced, divide_check = phase_build(kernels)
+        _mark("build")
     if args.phases:
         count_forwards()
         record_packed_shapes(kernels)
+        results = {}
         for name in args.phases:
-            {"load": phase_load, "demo": phase_demo, "train_breadth": phase_train_breadth,
-             "distill": phase_distill, "runner": phase_runner, "mesh": phase_mesh,
-             "probe": phase_probe, "replicate": phase_replicate,
-             "evidence": phase_evidence, "timing": phase_timing}[name](kernels)
+            results[name] = {
+                "load": phase_load, "demo": phase_demo, "train_breadth": phase_train_breadth,
+                "distill": phase_distill, "runner": phase_runner, "mesh": phase_mesh,
+                "probe": phase_probe, "replicate": phase_replicate,
+                "evidence": phase_evidence, "timing": phase_timing,
+                "scale": phase_scale}[name](kernels)
             gc.collect()
             torch.cuda.empty_cache()
+        if args.child:
+            Path(args.child).write_text(json.dumps(results, default=repr))
         print(f"chip_smoke: phases {args.phases} passed (a partial run: no result line)")
         return 0
     entries = phase_kernels(kernels, replaced, divide_check)
+    _mark("kernels")
     gc.collect()
     print(f"[kernels] held after the phase: {torch.cuda.memory_allocated() / 2**30:.3f} GiB")
+    scale = phase_scale(kernels)
+    _mark("scale")
     count_forwards()
     record_packed_shapes(kernels)
-    bf16, qa_model = phase_slice(kernels)
-    mvbench = phase_mvbench(kernels, qa_model)
-    qabench = phase_qabench(kernels, qa_model)
-    prefix = phase_prefix(kernels, qa_model)
-    breadth = phase_breadth(kernels, qa_model)
+    # the evidence harnesses time nothing of record and hold their own
+    # launches: a child runs them beside the slice ... breadth phases
+    with tempfile.TemporaryDirectory() as child_tmp:
+        child = start_child(["evidence"], child_tmp)
+        try:
+            bf16, qa_model = phase_slice(kernels)
+            _mark("slice")
+            mvbench = phase_mvbench(kernels, qa_model)
+            _mark("mvbench")
+            qabench = phase_qabench(kernels, qa_model)
+            _mark("qabench")
+            prefix = phase_prefix(kernels, qa_model)
+            _mark("prefix")
+            breadth = phase_breadth(kernels, qa_model)
+            _mark("breadth")
+        except BaseException:
+            child[0].kill()
+            child[0].wait()
+            raise
+        evidence = finish_child(*child)["evidence"]
+        _mark("evidence")
     del qa_model
     gc.collect()
     torch.cuda.empty_cache()
     load = phase_load(kernels, keep_files=True)
+    _mark("load")
     gc.collect()
     torch.cuda.empty_cache()
     try:
@@ -6924,54 +7211,68 @@ def main(argv=None) -> int:
     gc.collect()
     torch.cuda.empty_cache()
     int8 = phase_int8(kernels)
+    _mark("int8")
     gc.collect()
     torch.cuda.empty_cache()
     w4a16, w4_params, w4_cfg = phase_w4a16(kernels)
+    _mark("w4a16")
     w4_beams = phase_w4_beams(kernels, w4_params, w4_cfg)
+    _mark("w4_beams")
     w4_spec = phase_w4_spec(kernels, w4_params, w4_cfg)
+    _mark("w4_spec")
     # the distillation's target is the stack phase_w4_spec serves
     distill = phase_distill(kernels, w4_params, w4_cfg, cut=w4_spec)
+    _mark("distill")
     gc.collect()
     torch.cuda.empty_cache()
     pipeline = phase_pipeline(kernels, w4_params, w4_cfg)
+    _mark("pipeline")
     del w4_params
     gc.collect()
     torch.cuda.empty_cache()
     train = phase_train(kernels)
+    _mark("train")
     short, long_ = train["train-short"], train["train-long"]
     gc.collect()
     torch.cuda.empty_cache()
     demo = phase_demo(kernels)
+    _mark("demo")
     gc.collect()
     torch.cuda.empty_cache()
     breadth_train = phase_train_breadth(kernels)
+    _mark("train_breadth")
     lora, resume = breadth_train["first"], breadth_train["resume"]
     gc.collect()
     torch.cuda.empty_cache()
     runner = phase_runner(kernels)
+    _mark("runner")
     run_first, run_resume = runner["first"], runner["resume"]
     gc.collect()
     torch.cuda.empty_cache()
     mesh = phase_mesh(kernels)
+    _mark("mesh")
     mesh_none, mesh_1x1 = mesh["plain"], mesh["sharded"]
     gc.collect()
     torch.cuda.empty_cache()
     probe = phase_probe(kernels)
+    _mark("probe")
     probe_short = [r["short"] for r in probe["runs"].values()]
     probe_long = [r["long"] for r in probe["runs"].values()]
     probe_variants = [v for r in probe["runs"].values() for v in r["variant_routes"]]
     gc.collect()
     torch.cuda.empty_cache()
-    evidence = phase_evidence(kernels)
-    gc.collect()
-    torch.cuda.empty_cache()
     timing = phase_timing(kernels)
-    # each kernel's launches from the path that runs it; the probes run on no
-    # path (0 launches on every one)
+    _mark("timing")
+    # each kernel's launches from the path that runs it; the probes from their
+    # harnesses in the timing phase
+    probe_route = {r["mode"]: r for r in timing["routes"]}
     path_of = {"packed_qkv_attention": bf16, "layer_norm_quant": int8["dynamic"],
                "gelu_quant": int8["dynamic"], "packed_qkv_attention_quant": int8["dynamic"],
                "packed_qkv_attention_s8": int8["static"], "w4a16_matmul": w4a16,
-               **{p: w4a16 for p in PROBES}, "fused_short_attention": short,
+               "w4v3_matmul": probe_route["timing-probe-decode-budget"],
+               "w8p_matmul": probe_route["timing-probe-decode-budget"],
+               "w4_unpack_matmul": probe_route["timing-probe-w4-unpack"],
+               "fused_short_attention": short,
                "flash_attention_fwd": long_, "flash_attention_bwd_dq": long_,
                "flash_attention_bwd_dkv": long_, "qmm_res_ln": pipeline,
                "quant_matmul_blockwise": pipeline}
@@ -6987,14 +7288,15 @@ def main(argv=None) -> int:
                       lora, resume, run_first, run_resume, distill["distill"],
                       distill["spec"], mesh_none, mesh_1x1, *replicate["arms"].values(),
                       *probe_short, *probe_long, *probe_variants, *evidence["routes"],
-                      *evidence["train_routes"], *timing["routes"]):
+                      *evidence["train_routes"], *timing["routes"], *scale["routes"]):
             entry["launches_by_path"][route["mode"]] = route["launches"][name]
         entry["launches_by_path"]["pipeline-calibration"] = pipeline["calibration_launches"][name]
         entry["launches_per_train_step"] = {t["mode"]: t["launches"][name] / t["steps"]
                                             for t in (short, long_, lora, resume, run_first,
                                                       run_resume, distill["distill"], mesh_none,
                                                       mesh_1x1, *probe_short, *probe_long,
-                                                      *evidence["train_routes"])}
+                                                      *evidence["train_routes"],
+                                                      *scale["routes"])}
         if name in kernels.FORMS:
             entry["form_launches"] = {k: v for k, v in path_of[name]["form_launches"].items()
                                       if k.startswith(name + "/")}

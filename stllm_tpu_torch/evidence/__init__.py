@@ -16,7 +16,11 @@ CUDA card unless ``--cpu`` is passed, and writes its JSON document into
 - ``int8_equivalence_trained``: the quantized stacks and every merge level
   on a trained full-width, reduced-depth proxy (both documents);
 - ``harvest_trained_levels``: the per-level lines of a trained run's log
-  into ``TOME_EQUIV.json``.
+  into ``TOME_EQUIV.json``;
+- ``mem7b``, ``tp7b_check``, ``tp7b_serve_check``: the 7B train step's and
+  serving's per-rank memory, TP rules and collectives, one rank of a mesh
+  on torch's fake process group (``_fake_group``; ``MEM7B.json``,
+  ``TP7B_CHECK.json``, ``TP7B_SERVE.json``).
 
 Every harness is a set of plain functions on tensors that take a config, so
 the tests run each one whole at a tiny size on the CPU.

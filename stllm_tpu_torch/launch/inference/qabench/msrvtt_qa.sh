@@ -1,0 +1,9 @@
+#!/bin/bash
+# The port's launcher of script/inference/qabench/msrvtt_qa.sh (run from the repository root).
+# (reference: script/inference/qabench/msrvtt_qa.sh — 64 frames, beam 5)
+python -m stllm_tpu_torch.evalharness.qabench --bench videoqa --batch-videos "${BATCH_VIDEOS:-1}" \
+  --cfg-path config/instructblipbase_stllm_qa.yaml \
+  --ckpt-path "${CKPT:?set CKPT}" \
+  --gt_file "${GT_FILE:?set GT_FILE}" --video_dir "${VIDEO_DIR:?set VIDEO_DIR}" \
+  --num-frames 64 --num-beams 5 \
+  --output_dir output/msrvtt --output_name msrvtt_pred "$@"

@@ -48,7 +48,7 @@ from stllm_tpu_torch.ops.layers import (
     swiglu_mlp)
 from stllm_tpu_torch.ops.quant import quantize_linear_params, quantize_linear_params_int4
 from stllm_tpu_torch.ops.rope import rope_rows, rope_table, rotate
-from stllm_tpu_torch.ops.spmd import head_group, layer_group, layer_shards
+from stllm_tpu_torch.ops.spmd import head_group, layer_group, layer_shards, recompute_context
 from stllm_tpu_torch.parallel.collectives import copy_to, gather_from, reduce_from
 
 
@@ -260,7 +260,8 @@ def llama_forward(
         for layer in params["layers"]:
             if cfg.remat and torch.is_grad_enabled():
                 x = checkpoint(_layer, layer, x, rope, attention_mask, cfg, None, None,
-                               use_reentrant=False, preserve_rng_state=False)
+                               use_reentrant=False, preserve_rng_state=False,
+                               context_fn=recompute_context)
             else:
                 x = _layer(layer, x, rope, attention_mask, cfg, None, None)
         return rms_norm(params["norm"], x, cfg.rms_eps), None

@@ -27,7 +27,7 @@ one times the group's size.
 from __future__ import annotations
 
 import threading
-from contextlib import contextmanager
+from contextlib import contextmanager, nullcontext
 from typing import Optional
 
 import torch.distributed as dist
@@ -106,6 +106,30 @@ def layer_group():
 def head_group():
     """The group the lm_head runs vocab-parallel over, or None."""
     return _tp("head")
+
+
+def recompute_context():
+    """``torch.utils.checkpoint``'s ``context_fn``: the context a
+    checkpointed function's recompute runs in. The context here is per
+    thread, and on a CUDA tensor the autograd engine runs the backward, and
+    with it the recompute, on a device thread of its own, where it is empty:
+    the recompute would run a tensor-parallel layer without its group, skip
+    o's sum and hand the backward this rank's partial sums. So the recompute
+    re-enters the context its forward ran under."""
+    forward = dict(vars(_state))
+
+    @contextmanager
+    def recompute():
+        outer = dict(vars(_state))
+        vars(_state).clear()
+        vars(_state).update(forward)
+        try:
+            yield
+        finally:
+            vars(_state).clear()
+            vars(_state).update(outer)
+
+    return nullcontext(), recompute()
 
 
 def layer_shards() -> int:

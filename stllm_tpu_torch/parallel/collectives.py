@@ -17,7 +17,9 @@ conjugate.
 
 from __future__ import annotations
 
-from typing import List, Optional
+import threading
+from contextlib import contextmanager
+from typing import Dict, Iterator, List, Optional
 
 import torch
 import torch.distributed as dist
@@ -26,6 +28,46 @@ import torch.distributed as dist
 # deprecated ones, which take the same arguments
 _gather_into = getattr(dist, "all_gather_single", None) or dist.all_gather_into_tensor
 _reduce_scatter = getattr(dist, "reduce_scatter_single", None) or dist.reduce_scatter_tensor
+
+KINDS = ("all_gather", "reduce_scatter", "all_reduce")
+# a forward collective re-run by a backward (torch.utils.checkpoint's
+# recompute): how far a recompute runs is torch's choice, not the plan's
+RECOMPUTE = "recompute"
+_records: List[Dict[str, Dict[str, int]]] = []
+_forward = threading.local()
+
+
+@contextmanager
+def record_collectives() -> Iterator[Dict[str, Dict[str, int]]]:
+    """Count every collective this module issues inside the block: {kind:
+    {"calls": n, "bytes": b}} for each of KINDS and RECOMPUTE, where b sums
+    each call's whole buffer (an all-gather's output, a reduce-scatter's
+    input, an all-reduce's tensor). The forward of an autograd Function of
+    this module re-run while a backward runs counts under RECOMPUTE. A
+    collective on a None group issues nothing and counts nothing."""
+    rec = {k: {"calls": 0, "bytes": 0} for k in KINDS + (RECOMPUTE,)}
+    _records.append(rec)
+    try:
+        yield rec
+    finally:
+        _records.remove(rec)
+
+
+@contextmanager
+def _function_forward():
+    _forward.depth = getattr(_forward, "depth", 0) + 1
+    try:
+        yield
+    finally:
+        _forward.depth -= 1
+
+
+def _count(kind: str, buf: torch.Tensor) -> None:
+    if getattr(_forward, "depth", 0) and torch._C._current_graph_task_id() != -1:
+        kind = RECOMPUTE
+    for rec in _records:
+        rec[kind]["calls"] += 1
+        rec[kind]["bytes"] += buf.numel() * buf.element_size()
 
 
 def group_size(group) -> int:
@@ -44,6 +86,7 @@ def gather_dim(x: torch.Tensor, group, dim: int = 0) -> torch.Tensor:
         return x
     xs = x.movedim(dim, 0).contiguous()
     out = xs.new_empty((n * xs.shape[0],) + tuple(xs.shape[1:]))
+    _count("all_gather", out)
     _gather_into(out, xs, group=group)
     return out.movedim(0, dim).contiguous()
 
@@ -57,6 +100,7 @@ def reduce_scatter_dim(x: torch.Tensor, group, dim: int = 0) -> torch.Tensor:
         return x
     xs = x.movedim(dim, 0).contiguous()
     out = xs.new_empty((xs.shape[0] // n,) + tuple(xs.shape[1:]))
+    _count("reduce_scatter", xs)
     _reduce_scatter(out, xs, group=group)
     return out.movedim(0, dim).contiguous()
 
@@ -67,6 +111,7 @@ def all_reduce(x: torch.Tensor, group) -> torch.Tensor:
     if group is None:
         return x
     out = x.detach().clone()
+    _count("all_reduce", out)
     dist.all_reduce(out, group=group)
     return out
 
@@ -107,6 +152,7 @@ def gather_many(xs: List[torch.Tensor], dims: List[int], group) -> List[torch.Te
     parts = [x.movedim(d, 0).contiguous().reshape(-1).view(torch.uint8) for x, d in zip(xs, dims)]
     flat = torch.cat(parts)
     out = flat.new_empty(n * flat.numel())
+    _count("all_gather", out)
     _gather_into(out, flat, group=group)
     out = out.view(n, -1)
     got, off = [], 0
@@ -130,6 +176,7 @@ def reduce_scatter_many(xs: List[torch.Tensor], dims: List[int], group
         rows = [_rows(xs[i], dims[i], n) for i in idx]
         flat = torch.cat(rows, dim=1).reshape(-1)
         out = flat.new_empty(flat.numel() // n)
+        _count("reduce_scatter", flat)
         _reduce_scatter(out, flat, group=group)
         off = 0
         for i, r in zip(idx, rows):
@@ -149,6 +196,7 @@ def all_reduce_many(xs: List[torch.Tensor], group) -> List[torch.Tensor]:
     for dtype in {x.dtype for x in xs}:
         idx = [i for i, x in enumerate(xs) if x.dtype == dtype]
         flat = torch.cat([xs[i].reshape(-1) for i in idx])
+        _count("all_reduce", flat)
         dist.all_reduce(flat, group=group)
         off = 0
         for i in idx:
@@ -161,7 +209,8 @@ class _GatherWithGrad(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, group, dim):
         ctx.group, ctx.dim = group, dim
-        return gather_dim(x, group, dim)
+        with _function_forward():
+            return gather_dim(x, group, dim)
 
     @staticmethod
     def backward(ctx, g):
@@ -201,7 +250,8 @@ class _CopyTo(torch.autograd.Function):
 class _ReduceFrom(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, group):
-        return all_reduce(x, group)
+        with _function_forward():
+            return all_reduce(x, group)
 
     @staticmethod
     def backward(ctx, g):
@@ -212,7 +262,8 @@ class _GatherFrom(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, group, dim):
         ctx.group, ctx.dim = group, dim
-        return gather_dim(x, group, dim)
+        with _function_forward():
+            return gather_dim(x, group, dim)
 
     @staticmethod
     def backward(ctx, g):

@@ -31,7 +31,12 @@ beside the statistic:
 - ``bench_spec_decode``, ``bench_spec_trained``: speculative decoding,
   random and trained (``BENCH_SPEC.json``, ``["trained_demo"]``);
 - ``bench_spec_serving``: speculative decoding through the batcher
-  (``BENCH_SERVING.json["speculative"]``).
+  (``BENCH_SERVING.json["speculative"]``);
+- ``bench_serving_ab``: ``bench_serving`` on a parent tree against this
+  one, parent, change, change, parent (``BENCH_SERVING.json["ab"]``);
+- ``probe_decode_budget``, ``probe_w4_unpack``, ``probe_w4_call_fusion``:
+  the weight-streaming kernels #12-#15 in the decode skeleton, the unpack
+  variants and the fused calls (``PROBE_*.json``).
 
 Each module splits ``build_*`` (the stack from a config, a device and a
 seed), ``run_*`` (built params, a config and the protocol -> the result)

@@ -14,8 +14,8 @@ import torch
 from stllm_tpu_torch.evidence._common import (
     add_device_args, device_line, pick_device, read_doc, stamp, write_doc)
 
-__all__ = ["OUT_DIR", "add_device_args", "clock", "device_line", "merge_doc", "pick_device",
-           "repeats", "stamp", "sync"]
+__all__ = ["OUT_DIR", "add_device_args", "capture", "clock", "device_line", "merge_doc",
+           "pick_device", "repeats", "replay_ms", "stamp", "sync"]
 
 OUT_DIR = "timing_out"
 
@@ -44,6 +44,37 @@ def repeats(fn: Callable[[], Any], n: int, device) -> Tuple[Any, List[float]]:
         out, dt = clock(fn, device)
         times.append(dt)
     return out, times
+
+
+def capture(fn: Callable[[], Any]) -> Tuple[Any, Any]:
+    """``fn()`` captured once in a CUDA graph, after one warm run on the
+    same side stream the capture uses: (graph, its static output). The
+    warm run and the capture each launch what ``fn`` launches."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = fn()
+    return graph, out
+
+
+def replay_ms(graph, n: int) -> List[float]:
+    """Milliseconds of each of ``n`` replays of ``graph``, by CUDA events,
+    after one untimed replay."""
+    graph.replay()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    out = []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        start.record()
+        graph.replay()
+        end.record()
+        torch.cuda.synchronize()
+        out.append(start.elapsed_time(end))
+    return out
 
 
 def merge_doc(out_dir: str, name: str, update: Callable[[Dict], None]) -> str:

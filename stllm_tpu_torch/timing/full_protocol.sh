@@ -6,7 +6,9 @@
 #
 # STEP is decode, profile, serving, pipeline_serving, encode_static,
 # train_step, pipeline, btadapter, tome, beam, prefix, longctx, spec_decode,
-# spec_trained or spec_serving (default: all, in that order). The documents
+# spec_trained, spec_serving, decode_budget, w4_unpack or call_fusion
+# (default: all, in that order; bench_serving_ab needs a parent tree and
+# runs by hand). The documents
 # (BENCH_*.json) land in OUT_DIR (default timing_out/), each harness's
 # output in OUT_DIR/<step>.log, and a line "== <step> rc=<code> <seconds> s"
 # after each. A failed harness does not stop the ones after it; the script
@@ -16,7 +18,8 @@ set -u
 out=${1:-timing_out}
 shift || true
 steps=${*:-decode profile serving pipeline_serving encode_static train_step pipeline \
-btadapter tome beam prefix longctx spec_decode spec_trained spec_serving}
+btadapter tome beam prefix longctx spec_decode spec_trained spec_serving decode_budget \
+w4_unpack call_fusion}
 mkdir -p "$out"
 status=0
 t=stllm_tpu_torch.timing
@@ -66,6 +69,9 @@ for step in $steps; do
         spec_decode) run spec_decode $t.bench_spec_decode 6 --out-dir "$out" ;;
         spec_trained) run spec_trained $t.bench_spec_trained 400 300 --out-dir "$out" ;;
         spec_serving) run spec_serving $t.bench_spec_serving 400 300 --out-dir "$out" ;;
+        decode_budget) run decode_budget $t.probe_decode_budget --out-dir "$out" ;;
+        w4_unpack) run w4_unpack $t.probe_w4_unpack --out-dir "$out" ;;
+        call_fusion) run call_fusion $t.probe_w4_call_fusion --out-dir "$out" ;;
         *) echo "unknown step $step"; status=2 ;;
     esac
 done

@@ -131,23 +131,38 @@ def weight_decay_mask(params: Dict[str, torch.Tensor]) -> Dict[str, bool]:
     return {path: p.dim() >= 2 for path, p in params.items()}
 
 
+def square_sum(g: torch.Tensor) -> torch.Tensor:
+    """sum(g^2) as a 0-d fp64 tensor, by a norm reduction, which stores no
+    square, in the type above the leaf's: an fp32 leaf's in fp64 (a cast of
+    the leaf; its squares exact there, the sum's order moves nothing at
+    fp32's scale on any device), a 16-bit leaf's in fp32 (its squares exact
+    there; no copy of the model's largest tensors)."""
+    acc = torch.float64 if g.dtype in (torch.float32, torch.float64) else torch.float32
+    return torch.linalg.vector_norm(g, dtype=acc).double().square()
+
+
 def global_norm(grads: List[torch.Tensor]) -> torch.Tensor:
-    """sqrt(sum of squares) over all tensors, accumulated in fp32."""
-    sq = [torch.linalg.vector_norm(g, 2, dtype=torch.float32).square() for g in grads]
-    return torch.stack(sq).sum().sqrt()
+    """sqrt(sum of squares) over all tensors, as fp32. Over fp32 leaves
+    within one fp32 ulp of the exact norm: the squares and their fp64 sums
+    are exact to about n * 2^-53, each leaf's root and square in fp64 add
+    2^-52, the last rounding half an ulp."""
+    return torch.stack([square_sum(g) for g in grads]).sum().sqrt().float()
 
 
 def clip_by_global_norm(grads: Dict[str, torch.Tensor], max_norm: Optional[float],
                         norm: Optional[torch.Tensor] = None) -> None:
-    """optax.clip_by_global_norm in place: every gradient times
-    max_norm / ||g|| where the global norm reaches ``max_norm`` (``norm``,
+    """optax.clip_by_global_norm in place: every gradient divided by ||g||,
+    then times max_norm, where the global norm reaches ``max_norm`` (``norm``,
     when the caller has it already). No clipping without ``max_norm``."""
     if not max_norm:
         return
     norm = global_norm(list(grads.values())) if norm is None else norm
-    coef = torch.where(norm < max_norm, torch.ones_like(norm), max_norm / norm)
+    clip = norm >= max_norm
+    div = torch.where(clip, norm, torch.ones_like(norm))
     for g in grads.values():
-        g.mul_(coef.to(g.dtype))
+        g.div_(div.to(g.dtype))          # (g / ||g||) * max_norm, optax's order
+        if max_norm != 1.0:
+            g.mul_(torch.where(clip, max_norm, 1.0).to(g.dtype))
 
 
 @dataclasses.dataclass
@@ -221,7 +236,11 @@ class AdamW:
         clip_by_global_norm(grads, self.max_grad_norm, grad_norm)
         count = opt_state["count"]
         t = count + 1
-        bc1, root_bc2 = 1.0 - self.beta1 ** t, math.sqrt(1.0 - self.beta2 ** t)
+        # the bias corrections as optax takes them: 1 - decay^t in fp32 (at
+        # t = 1, 1 - fp32(0.999) is 1.3e-5 below 1e-3)
+        f32 = np.float32
+        bc1 = float(f32(1.0) - f32(self.beta1) ** f32(t))
+        root_bc2 = math.sqrt(float(f32(1.0) - f32(self.beta2) ** f32(t)))
         if self.decay_all:
             decay = {path: True for path in params}
         else:
@@ -547,11 +566,10 @@ def _sharded_train_step(cfg: STLLMConfig, optimizer: Optimizer, accum_steps: int
         for path, g in grads.items():
             if accum_steps > 1:
                 g.div_(accum_steps)
-            sq.append(torch.linalg.vector_norm(g, 2, dtype=torch.float32).square()
-                      / replication(mesh, specs[path]))
+            sq.append(square_sum(g) / replication(mesh, specs[path]))
         metrics = {k: (all_reduce(v, data_group) if split else v) / accum_steps
                    for k, v in metrics.items()}
-        metrics["grad_norm"] = all_reduce(torch.stack(sq).sum(), mesh.world).sqrt()
+        metrics["grad_norm"] = all_reduce(torch.stack(sq).sum(), mesh.world).sqrt().float()
         optimizer.update(grads, state.opt_state, state.params, grad_norm=metrics["grad_norm"],
                          mesh=mesh, specs=specs)
         state.step += 1

@@ -164,9 +164,15 @@ def test_adafactor_matches_optax(case):
     for step in range(3):
         g = _tree(10 + step, ADAFACTOR_LEAVES, gscale)
         g["gate/s"] = np.float32(0.3 * gscale).reshape(())
-        upd, jstate = jopt.update({k: jnp.asarray(v) for k, v in g.items()}, jstate, jp)
+        jg = {k: jnp.asarray(v) for k, v in g.items()}
+        upd, jstate = jopt.update(jg, jstate, jp)
         jp = optax.apply_updates(jp, upd)
-        topt.update({k: torch.from_numpy(np.array(v)) for k, v in g.items()}, tstate, tp)
+        # the clip scale from JAX's own norm: XLA's CPU sum of 98,304 squares
+        # is host-dependent by a few ulps (test_global_norm_within_one_ulp
+        # holds the port's norm)
+        jnorm = torch.tensor(np.asarray(optax.global_norm(jg)))
+        topt.update({k: torch.from_numpy(np.array(v)) for k, v in g.items()}, tstate, tp,
+                    grad_norm=jnorm)
         for k, p in tp.items():
             want = np.asarray(jp[k])
             np.testing.assert_allclose(p.numpy(), want, rtol=ADAFACTOR_RTOL,
@@ -178,6 +184,89 @@ def test_adafactor_matches_optax(case):
                 np.testing.assert_allclose(v.numpy(), np.asarray(getattr(fstate, name)[k]),
                                            rtol=ADAFACTOR_RTOL, err_msg=f"{name} {k}")
     assert tstate["count"] == 3 == int(jstate[1][0].count)
+
+
+U32 = 2.0 ** -24      # fp32's unit roundoff
+
+
+@pytest.mark.parametrize("t", [1, 2, 3, 1000])
+def test_adamw_step_within_ulps(t):
+    """One AdamW step of make_optimizer (weight decay, as the trained proxy
+    runs it) from a shared state at step ``t``: the same parameters,
+    moments and gradients, whose magnitudes span 1e-12 to 1 (a gradient at
+    AdamW's eps moves its update by a share of the rate, so a
+    backward's rounding noise there shows in the trained weights). Both
+    sides take the bias corrections in fp32 and differ in the order of
+    their roundings: the normalized update u = m_hat / (sqrt(v_hat) + eps)
+    by at most 9 roundings on optax's side and 7 on the port's (the second
+    moment's halved by the root), so lr * u by 16 * 2^-24 * lr * |u|; the
+    decay term by 2 * 2^-24 * lr * wd * |p|; and the parameter by two
+    halves of its ulp (the port's decay product and the last add, against
+    optax's add): within 2 ulp(p) + 2^-24 * lr * (16 |u| + 2 wd |p|). Each
+    moment's blend rounds at most 4 times a side."""
+    lr, wd, b1, b2 = 2e-4, 0.05, 0.9, 0.999
+    shapes = {"a/w": (64, 300), "b/w": (256, 128), "a/b": (300,)}
+    jopt = joptim.make_optimizer(lr, weight_decay=wd, max_grad_norm=None)
+    topt = toptim.make_optimizer(lr, weight_decay=wd, max_grad_norm=None)
+    rng = np.random.default_rng(t)
+    params = _tree(t, shapes, 0.05)
+    g = {k: (rng.standard_normal(v) * 10.0 ** rng.uniform(-12, 0, v)).astype(np.float32)
+         for k, v in shapes.items()}
+    mu = {k: (rng.standard_normal(v) * 1e-3).astype(np.float32) for k, v in shapes.items()}
+    nu = {k: (rng.uniform(0, 1, v) * 1e-6).astype(np.float32) for k, v in shapes.items()}
+    jp = jax.tree_util.tree_map(jnp.asarray, _nested(params))
+    (adam, *rest), = jopt.init(jp)          # the chain's state: (adam, decay, lr)
+    adam = adam._replace(count=jnp.int32(t - 1),
+                         mu=jax.tree_util.tree_map(jnp.asarray, _nested(mu)),
+                         nu=jax.tree_util.tree_map(jnp.asarray, _nested(nu)))
+    upd, jstate = jopt.update(jax.tree_util.tree_map(jnp.asarray, _nested(g)), ((adam, *rest),), jp)
+    want = _flat(optax.apply_updates(jp, upd))
+    tp = {k: torch.from_numpy(v.copy()) for k, v in params.items()}
+    tstate = {"count": t - 1, "mu": {k: torch.from_numpy(v.copy()) for k, v in mu.items()},
+              "nu": {k: torch.from_numpy(v.copy()) for k, v in nu.items()}}
+    topt.update({k: torch.from_numpy(v.copy()) for k, v in g.items()}, tstate, tp)
+    decay = toptim.weight_decay_mask(tp)
+    for k, p in tp.items():
+        p0, p1 = params[k].astype(np.float64), want[k].astype(np.float64)
+        u = np.abs(p1 - p0 * (1 - lr * wd * decay[k])) / lr
+        big = np.maximum(np.abs(p0), np.abs(p1)).astype(np.float32)
+        bound = 2 * np.spacing(big) + U32 * lr * (16 * u + 2 * wd * np.abs(p0))
+        gap = np.abs(p.numpy().astype(np.float64) - p1)
+        assert (gap <= bound).all(), (k, float((gap / bound).max()))
+        for name, m, x, b in (("mu", mu, g[k], b1), ("nu", nu, g[k] ** 2, b2)):
+            mag = np.abs((1 - b) * x.astype(np.float64)) + np.abs(b * m[k])
+            jm = _flat(getattr(jstate[0][0], name))[k].astype(np.float64)
+            tm = tstate[name][k].numpy().astype(np.float64)
+            assert (np.abs(tm - jm) <= 8 * U32 * mag + 1e-45).all(), (name, k)
+    assert tstate["count"] == t
+
+
+@pytest.mark.parametrize("scale", [1.0, 1e-4])
+def test_global_norm_within_one_ulp(scale):
+    """train.step.global_norm against the exact norm (fp64 of the same fp32
+    leaves): each fp32 square rounds by at most half an ulp of itself, so
+    the sum by at most 2^-24 of itself and its root by 2^-25 (a quarter
+    ulp); the fp64 sum adds about n * 2^-53 (1e-11) and the last rounding to
+    fp32 half an ulp: within one ulp, on any host and thread count."""
+    g = _tree(10, ADAFACTOR_LEAVES, scale)
+    exact = np.sqrt(sum(np.sum(v.astype(np.float64) ** 2) for v in g.values()))
+    got = tstep.global_norm([torch.from_numpy(np.asarray(v)) for v in g.values()])
+    assert got.dtype == torch.float32 and got.dim() == 0
+    assert abs(float(got) - exact) <= np.spacing(np.float32(exact))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_square_sum_of_16_bit_leaf_accumulates_in_fp32(dtype):
+    """train.step.square_sum of a 16-bit leaf (the full-width trainer's
+    bf16 gradients): its squares are exact in fp32 and summed there, so the
+    sum lies within n * 2^-24 of the exact one (n non-negative terms in any
+    order), and the norm's root and square add two roundings."""
+    rng = np.random.default_rng(3)
+    x = torch.from_numpy(rng.standard_normal((300, 257)).astype(np.float32) * 0.01).to(dtype)
+    exact = float((x.double() ** 2).sum())
+    got = tstep.square_sum(x)
+    assert got.dtype == torch.float64 and got.dim() == 0
+    assert abs(float(got) - exact) <= (x.numel() + 2) * U32 * exact
 
 
 @pytest.mark.parametrize("n_params, adafactor", [(1_500_000_000, False),

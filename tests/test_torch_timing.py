@@ -38,9 +38,13 @@ import torch
 
 from stllm_tpu.models import generation as jgen
 from stllm_tpu.models import llama as jllama
+from stllm_tpu.ops import quant as jquant
 from stllm_tpu_torch.convert.from_jax import load_jax_params
 from stllm_tpu_torch.models import generation as tgen
 from stllm_tpu_torch.models import llama as tllama
+from stllm_tpu_torch.ops import kernels as tkernels
+from stllm_tpu_torch.ops import layers as tlayers
+from stllm_tpu_torch.ops import quant as tquant
 from stllm_tpu_torch.timing import _common
 from stllm_tpu_torch.timing import bench_beam as tbm
 from stllm_tpu_torch.timing import bench_decode as tbd
@@ -200,11 +204,59 @@ def _first_logits(gen, tree, cfg, emb):
     return np.asarray(gen._prefill(tree, emb, mask, cfg, emb.shape[1] + 8)[0])
 
 
+# the quantized linears, whose first step rounds the activations (to bf16 or
+# to int8 codes): an fp32 gap of one ulp upstream can flip one rounding
+SHARED_INPUT_OPS = ("w4_linear", "quant_linear")
+# the port's own input of a quantized linear against JAX's for that call
+SHARED_INPUT_REL = 1e-5
+
+
+def _shared_input_logits(monkeypatch, jtree, ttree, jcfg, tcfg, jemb, temb):
+    """First-position logits of both packages, with every quantized linear
+    of the port's forward fed the input JAX's forward gave that call. The
+    port's own input is held to JAX's first (SHARED_INPUT_REL): only the
+    roundings that the fp32 sums of attention and norms reach in another
+    order on another host are taken out of the chain. Returns (port, JAX,
+    the number of shared calls)."""
+    jcalls = []
+
+    def jrec(fn):
+        def wrap(params, x):
+            jcalls.append(np.array(x.astype(jnp.float32)))
+            return fn(params, x)
+        return wrap
+
+    with monkeypatch.context() as m:
+        for name in SHARED_INPUT_OPS:
+            m.setattr(jquant, name, jrec(getattr(jquant, name)))
+        with jax.disable_jit():       # the calls run eagerly, one by one
+            want = _first_logits(jgen, jtree, jcfg, jemb)
+    seen = []
+
+    def shared(fn):
+        def wrap(params, x):
+            jx = torch.from_numpy(jcalls[len(seen)]).to(x.dtype)
+            assert jx.shape == x.shape
+            assert _mean_rel(x.float().numpy(), jx.float().numpy()) < SHARED_INPUT_REL
+            seen.append(None)
+            return fn(params, jx)
+        return wrap
+
+    with monkeypatch.context() as m:
+        for name in SHARED_INPUT_OPS:
+            m.setattr(tlayers, name, shared(getattr(tlayers, name)))
+        got = _first_logits(tgen, ttree, tcfg, temb)
+    assert len(seen) == len(jcalls)
+    return got, want, len(seen)
+
+
 @pytest.mark.parametrize("variant", list(tbd.CONVERT))
-def test_decode_conversions_match_jax(tmp_path, target, variant):
+def test_decode_conversions_match_jax(tmp_path, monkeypatch, target, variant):
     """Every weight format of the JAX script's CONVERT against the port's,
     by first-position logits on the harness's prompt (the dense arm's to
-    fp32 rounding)."""
+    fp32 rounding), each quantized linear from the input JAX's forward gave
+    it (``_shared_input_logits``; the linears themselves are held by
+    test_w4_matmul_within_summation_bound and tests/test_torch_quant.py)."""
     jmod = _script("bench_decode", tmp_path)
     jtree = jmod.CONVERT[variant](_fresh(target))
     ttree = tbd.CONVERT[variant](_t(target), True)
@@ -214,9 +266,40 @@ def test_decode_conversions_match_jax(tmp_path, target, variant):
     tcfg = tbd.variant_cfg(variant, TCFG)
     temb = tbd.prompt(TCFG, 1, "cpu", 16)
     jemb = jnp.asarray(temb.float().numpy()).astype(jnp.bfloat16)
-    want = _first_logits(jgen, jtree, jcfg, jemb)
-    got = _first_logits(tgen, ttree, tcfg, temb)
+    got, want, shared = _shared_input_logits(monkeypatch, jtree, ttree, jcfg, tcfg, jemb, temb)
+    assert shared == (0 if variant == "bf16" else {"int4f": 8, "int4fg128": 8}.get(variant, 14))
     assert _mean_rel(got, want) < (1e-6 if variant == "bf16" else MEAN_REL)
+
+
+@pytest.mark.parametrize("group", [None, 64, 128])
+@pytest.mark.parametrize("k, n", [(256, 256), (512, 256), (256, 1536)])
+def test_w4_matmul_within_summation_bound(group, k, n):
+    """The port's int4 matmul (per-channel: kernel #12's plain version;
+    per-group: ``quant.w4_matmul``) against the JAX package's, jitted, on
+    one shared input at the decode test's shapes. Both round x and the
+    dequantized weights to bf16 alike (a bf16 product is exact in fp32, one
+    rounding to bf16 on both sides), so they differ only in the order of
+    two fp32 sums of K/2 exact products and their sum: by at most
+    K * 2^-24 * sum_k |x_k w_k| an output, plus one rounding of the
+    per-channel scale product (2^-24 of it). Measured here: below 1e-7
+    relative."""
+    rng = np.random.default_rng(k + n + (group or 0))
+    w = (rng.standard_normal((k, n)) * 0.05).astype(np.float32)
+    x = rng.standard_normal((16, k)).astype(np.float32)
+    packed, scale = jquant.quantize_weights_int4(jnp.asarray(w), group)
+    want = np.asarray(jax.jit(jquant.w4_matmul)(jnp.asarray(x), packed, scale), np.float64)
+    tp, ts = torch.from_numpy(np.array(packed)), torch.from_numpy(np.array(scale))
+    got = tquant.w4_linear({"w4": tp, "w4_scale": ts}, torch.from_numpy(x))
+    if group is None:
+        assert tkernels.w4a16_matmul_plain(torch.from_numpy(x), tp, ts).equal(got)
+    codes = torch.cat(tquant._unpack_int4(tp)).float()
+    wdq = (codes * ts if group is None else
+           (codes * ts.repeat_interleave(group, 0).bfloat16().float()).bfloat16().float())
+    xb = torch.from_numpy(x).bfloat16().double()
+    mag = xb.abs() @ wdq.double().abs()
+    bound = (k + (group is None)) * 2.0 ** -24 * mag.numpy()
+    gap = np.abs(got.double().numpy() - want)
+    assert (gap <= bound).all(), float((gap / np.maximum(bound, 1e-30)).max())
 
 
 def test_decode_main_matches_jax(tmp_path, monkeypatch, capsys, target, root_docs):
